@@ -1,0 +1,46 @@
+"""Carry configs and fitted weights across from the JAX package.
+
+Both take plain Python and numpy values, never objects of ``repro``, so
+this module imports nothing of it: a caller passes
+``dataclasses.asdict(reference_config)`` and ``FitResult.weights``.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .solver import PEMSVM, SVMConfig
+
+_FIELDS = tuple(f.name for f in dataclasses.fields(SVMConfig))
+
+
+def config_from_reference(fields: dict) -> SVMConfig:
+    """The port's SVMConfig with the same field values as the reference
+    config whose ``dataclasses.asdict`` is ``fields``. The reference's
+    kernel backends ('interpret', 'pallas') map to the port's default
+    (the kernels on a CUDA tensor, the plain path on a CPU tensor)."""
+    unknown = sorted(set(fields) - set(_FIELDS))
+    if unknown:
+        raise ValueError(f"fields unknown to SVMConfig: {unknown}")
+    fields = dict(fields)
+    if fields.get("backend") in ("interpret", "pallas"):
+        fields["backend"] = None
+    return SVMConfig(**fields)
+
+
+def svm_from_reference(config: SVMConfig, weights: np.ndarray,
+                       n_features: int, device=None) -> PEMSVM:
+    """A fitted port model from a reference fit's ``FitResult.weights``:
+    its decision_function / predict / score give the reference model's
+    results. ``n_features`` is the raw width D of a request row."""
+    w = np.asarray(weights, np.float32)
+    want = n_features + int(config.add_bias)
+    if w.shape != (want,):
+        raise ValueError(f"weights of shape {w.shape}; a LIN-CLS model of "
+                         f"{n_features} features needs ({want},)")
+    svm = PEMSVM(config, device=device)
+    svm._weights = torch.tensor(w, device=svm.device)
+    svm._n_features = n_features
+    return svm

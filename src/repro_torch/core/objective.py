@@ -1,0 +1,28 @@
+"""Objectives and metrics of LIN-EM-CLS: port of ``repro/core/objective.py``.
+
+The paper's stopping rule (Sec 5.5) monitors the regularized-risk
+objective each iteration and stops when its change falls to tol*N.
+Padding rows carry mask 0 and contribute nothing.
+"""
+from __future__ import annotations
+
+import torch
+
+
+def hinge_obj_terms(margins: torch.Tensor, y: torch.Tensor,
+                    mask: torch.Tensor) -> torch.Tensor:
+    """sum_d 2*max(0, 1 - y_d m_d) over valid rows (paper Eq. 1 loss)."""
+    return torch.sum(mask * 2.0 * torch.clamp_min(1.0 - y * margins, 0.0))
+
+
+def l2_reg(w: torch.Tensor, lam: float) -> torch.Tensor:
+    """0.5 * lam * ||w||_2^2."""
+    return 0.5 * lam * torch.sum(torch.square(w))
+
+
+def accuracy(pred_labels: torch.Tensor, labels: torch.Tensor,
+             mask: torch.Tensor | None = None) -> torch.Tensor:
+    ok = (pred_labels == labels).to(torch.float32)
+    if mask is None:
+        return torch.mean(ok)
+    return torch.sum(ok * mask) / torch.clamp_min(torch.sum(mask), 1.0)

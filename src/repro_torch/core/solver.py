@@ -1,0 +1,385 @@
+"""PEMSVM driver: port of ``repro/core/solver.py`` for LIN-EM-CLS on one
+device, with the ``scan`` (default) and ``loop`` drivers.
+
+The run protocol is the paper's: the objective is evaluated every
+iteration and the fit stops when its change falls to tol*N (Sec 5.5);
+gamma is clamped for support vectors (Sec 5.7.3); the bias is a fixed unit
+feature (Sec 2.1).
+
+``PEMSVM(config)`` runs on ``cuda:0`` and its statistic goes through the
+hand-written kernels (``kernels/ops.py``); ``device="cpu"`` runs the plain
+PyTorch path. ``SVMConfig`` carries every field of the reference, so a
+reference config converts field for field (``core/convert.py``); the
+options this slice does not carry raise ``NotImplementedError`` naming the
+ROADMAP item that brings them.
+"""
+from __future__ import annotations
+
+import dataclasses
+import functools
+import math
+from typing import Any, Callable
+
+import numpy as np
+import torch
+
+from . import distributed, linear
+from .linear import SVMData
+
+FORMULATIONS = ("LIN", "KRN")
+ALGORITHMS = ("EM", "MC")
+TASKS = ("CLS", "MLT", "SVR")
+
+
+def lam_from_C(C: float) -> float:
+    """Paper Eq. 1: min 1/2 lam ||w||^2 + 2 sum xi  <=>  C = 2/lam."""
+    return 2.0 / C
+
+
+@dataclasses.dataclass(frozen=True)
+class SVMConfig:
+    formulation: str = "LIN"
+    algorithm: str = "EM"
+    task: str = "CLS"
+    lam: float = 1.0
+    eps: float = 1e-6            # gamma clamp (paper Sec 5.7.3)
+    eps_ins: float = 1e-3        # SVR precision (paper Sec 3.2 footnote)
+    num_classes: int = 2
+    kernel: str = "rbf"
+    sigma: float = 1.0
+    max_iters: int = 200
+    min_iters: int = 10          # guard against flat-start plateaus
+    patience: int = 1            # consecutive small-change iters required
+    tol: float = 1e-3            # stop at |delta obj| <= tol * N (Sec 5.5)
+    driver: str = "scan"         # scan = chunked on-device driver
+    scan_chunk: int = 16         # device iterations per host sync
+    chunk_rows: int = 4096       # stream driver: rows device-resident at once
+    prefetch: int = 2            # stream driver: host->device lookahead depth
+    burnin: int = 10             # MC burn-in (Sec 5.13)
+    jitter: float | None = None  # None -> 1e-7 (LIN), 1e-4 (KRN fp32 Gram)
+    triangle_reduce: bool = True
+    reduce_dtype: str | None = None  # 'bfloat16' = compressed reduction
+    backend: str | None = None   # kernels backend: None (by device) | ref | cuda
+    add_bias: bool = True
+    seed: int = 0
+    k_shard_axis: str | None = None  # beyond-paper 2-D Sigma statistic
+    pad_features: int | None = None  # zero-pad LIN width to a multiple
+    phi_spec: Any = None         # Nystrom phi-space mode (NystromSVM)
+    fault: Any = None            # checkpoint/retry/straggler policy
+    decay: float = 0.0           # warm-start statistic decay (stream only)
+    window: int = 0              # hard-expiry statistics horizon (stream)
+    rng: str = "host"            # MC noise source: host | fused |
+                                 # fused_predraw
+    n_chains: int = 1            # parallel Gibbs chains over one X stream
+    chain0: int = 0              # first chain id (counter plane offset)
+
+    def __post_init__(self):
+        assert self.formulation in FORMULATIONS, self.formulation
+        assert self.algorithm in ALGORITHMS, self.algorithm
+        assert self.task in TASKS, self.task
+        assert self.driver in ("scan", "loop", "stream"), self.driver
+        assert self.scan_chunk >= 1, self.scan_chunk
+        assert self.rng in ("host", "fused", "fused_predraw"), self.rng
+        assert self.n_chains >= 1, self.n_chains
+        assert self.chain0 >= 0, self.chain0
+        if self.rng != "host":
+            assert self.algorithm == "MC", (
+                f"rng={self.rng!r} selects the MC noise source; "
+                "algorithm='EM' draws no noise")
+        if self.n_chains > 1:
+            assert self.rng == "fused", (
+                "n_chains > 1 requires rng='fused' (the per-chain noise "
+                "is derived in-kernel from the chain counter plane)")
+            assert self.task in ("CLS", "SVR"), (
+                "n_chains > 1 covers CLS/SVR; MLT's class sweep is one "
+                "chain (run separate fits with distinct chain0 instead)")
+            assert self.phi_spec is None, (
+                "n_chains > 1 is the LIN X-space multichain kernel; "
+                "the Nystrom phi route is single-chain")
+            assert self.k_shard_axis is None, (
+                "n_chains > 1 does not compose with the 2-D column-"
+                "windowed statistic; drop k_shard_axis")
+        assert self.pad_features is None or (
+            self.pad_features >= 1 and self.phi_spec is None
+            and self.formulation == "LIN"), self.pad_features
+        assert self.chunk_rows >= 1, self.chunk_rows
+        assert self.prefetch >= 1, self.prefetch
+        assert 0.0 <= self.decay < 1.0, self.decay
+        assert self.decay == 0.0 or self.driver == "stream", (
+            "decay (online warm-start statistics) requires "
+            "driver='stream'")
+        assert self.window >= 0, self.window
+        assert self.window == 0 or self.driver == "stream", (
+            "window (hard-expiry warm-start statistics) requires "
+            "driver='stream'")
+        assert self.window == 0 or self.decay == 0.0, (
+            "window and decay are competing warm-start semantics "
+            "(hard expiry vs geometric); pick one")
+        if self.phi_spec is not None:
+            assert self.formulation == "LIN", (
+                "phi_spec is the LIN-delegate mode NystromSVM builds; "
+                "construct a KRN config and wrap it in NystromSVM")
+            assert not self.add_bias, (
+                "phi_spec carries its own phi-space bias column; "
+                "X-space add_bias must be False")
+        if self.jitter is None:
+            object.__setattr__(
+                self, "jitter",
+                1e-4 if self.formulation == "KRN" else 1e-7)
+
+    @classmethod
+    def from_options(cls, options: str, **kw) -> "SVMConfig":
+        f, a, t = options.upper().split("-")
+        return cls(formulation=f, algorithm=a, task=t, **kw)
+
+    @property
+    def options(self) -> str:
+        return f"{self.formulation}-{self.algorithm}-{self.task}"
+
+
+@dataclasses.dataclass
+class FitResult:
+    weights: np.ndarray             # final weights (EM)
+    last_sample: np.ndarray
+    objective: list
+    aux_history: dict
+    n_iters: int
+    converged: bool
+    n_host_syncs: int = 0           # device->host transfers
+
+
+def _unsupported(cfg: SVMConfig) -> list[str]:
+    """What ``cfg`` sets outside this slice, each with the ROADMAP queue-1
+    item that brings it."""
+    checks = [
+        ("formulation", cfg.formulation != "LIN", "item 9 (Nystrom, KRN)"),
+        ("algorithm", cfg.algorithm != "EM", "item 5 (LIN-MC-CLS)"),
+        ("task", cfg.task == "SVR", "item 6 (SVR)"),
+        ("task", cfg.task == "MLT", "item 7 (MLT)"),
+        ("driver", cfg.driver == "stream", "item 8 (streaming and data)"),
+        ("k_shard_axis", cfg.k_shard_axis is not None, "item 10 (multi-GPU)"),
+        ("pad_features", cfg.pad_features is not None,
+         "item 8 (streaming and data)"),
+        ("phi_spec", cfg.phi_spec is not None, "item 9 (Nystrom, KRN)"),
+        ("fault", cfg.fault is not None, "item 11 (reliability)"),
+        ("decay", cfg.decay != 0.0, "item 8 (streaming and data)"),
+        ("window", cfg.window != 0, "item 8 (streaming and data)"),
+        ("rng", cfg.rng != "host", "item 5 (LIN-MC-CLS)"),
+        ("n_chains", cfg.n_chains > 1, "item 5 (LIN-MC-CLS)"),
+    ]
+    return [f"{name}={getattr(cfg, name)!r} -> ROADMAP queue 1 {item}"
+            for name, bad, item in checks if bad]
+
+
+_FIT_KEYWORDS = {
+    "resume_from": "item 11 (reliability)",
+    "resume_step": "item 11 (reliability)",
+    "warm_start": "item 8 (streaming and data)",
+    "live": "item 10 (multi-GPU)",
+    "fault_hook": "item 11 (reliability)",
+    "epoch": "item 11 (reliability)",
+}
+
+
+def _device(device) -> torch.device:
+    if device is not None:
+        return torch.device(device)
+    if not torch.cuda.is_available():
+        raise RuntimeError(
+            "PEMSVM runs on the GPU by default and no CUDA device is "
+            "visible; pass device='cpu' to run the plain PyTorch path on "
+            "the CPU")
+    return torch.device("cuda", 0)
+
+
+class PEMSVM:
+    """Parallel EM SVM (the paper's PEMSVM), LIN-EM-CLS on one device."""
+
+    def __init__(self, config: SVMConfig, device=None, mesh=None):
+        bad = _unsupported(config)
+        if bad:
+            raise NotImplementedError("not ported yet: " + "; ".join(bad))
+        if mesh is not None:
+            raise NotImplementedError(
+                "a device mesh is not ported yet: ROADMAP queue 1 item 10 "
+                "(multi-GPU)")
+        self.config = config
+        self.device = _device(device)
+        # fp32 statistics must stay fp32: TF32 keeps ~3 decimal digits, and
+        # a reduced-precision Sigma collapsed the posterior (DESIGN.md
+        # §6.2). Both flags are process-wide in PyTorch.
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+        self._weights: torch.Tensor | None = None
+        self._n_features: int | None = None
+
+    # ------------------------------------------------------------- fitting
+    def fit(self, X: np.ndarray, y: np.ndarray, **kw) -> FitResult:
+        """Fit on host arrays X (N, D) and labels y in {+-1}. The elastic
+        keywords of the reference (``resume_from``, ``warm_start``,
+        ``live``, ``fault_hook``, ``epoch``) are not ported yet."""
+        for name, value in kw.items():
+            if name not in _FIT_KEYWORDS:
+                raise TypeError(f"fit() got an unexpected keyword {name!r}")
+            if value is not None:
+                raise NotImplementedError(
+                    f"fit({name}=...) is not ported yet: ROADMAP queue 1 "
+                    f"{_FIT_KEYWORDS[name]}")
+        cfg = self.config
+        X = np.asarray(X, np.float32)
+        y = np.asarray(y)
+        self._n_features = X.shape[1]
+        if cfg.add_bias:
+            X = np.concatenate([X, np.ones((X.shape[0], 1), np.float32)], 1)
+        N = X.shape[0]
+        data, state = self._prepare(X, y)
+        step = functools.partial(linear.cls_step, lam=cfg.lam, eps=cfg.eps,
+                                 jitter=cfg.jitter, backend=cfg.backend)
+        if cfg.driver == "loop":
+            return self._fit_loop(data, state, step, N)
+        return self._fit_scan(data, state, step, N)
+
+    def _fit_scan(self, data: SVMData, state: torch.Tensor,
+                  step: Callable, N: int) -> FitResult:
+        """Chunked on-device driver (reference ``_fit_scan`` and
+        ``_chunk_runner``).
+
+        ``scan_chunk`` iterations run back to back with the state, the
+        Sec 5.5 stopping counters and the converged flag kept as device
+        tensors; once converged, ``torch.where`` freezes every update, so
+        the later iterations of the chunk are exact no-ops. Nothing in a
+        chunk waits for the device: the host sees one transfer per chunk
+        (the stacked trace and the flags) and decides whether to launch
+        the next, so n_host_syncs <= ceil(max_iters / scan_chunk). The
+        trace is truncated at the converged iteration, which makes the
+        result equal to the loop driver's.
+        """
+        cfg = self.config
+        dev = self.device
+        tol_n = torch.tensor(cfg.tol * N, dtype=torch.float32, device=dev)
+        prev_obj = torch.tensor(math.inf, dtype=torch.float32, device=dev)
+        n_small = torch.zeros((), dtype=torch.int32, device=dev)
+        done = torch.zeros((), dtype=torch.bool, device=dev)
+        it_done = torch.zeros((), dtype=torch.int32, device=dev)
+        aux_hist: dict = {k: [] for k in _AUX_KEYS}
+        n_syncs = 0
+        it0 = 0
+        converged = False
+        while it0 < cfg.max_iters:
+            chunk = min(cfg.scan_chunk, cfg.max_iters - it0)
+            trace = []
+            for it in range(it0 + 1, it0 + chunk + 1):
+                new_state, aux = step(data, state)
+                obj = aux["objective"]
+                state = torch.where(done, state, new_state)
+                small = torch.abs(obj - prev_obj) <= tol_n
+                n_small = torch.where(
+                    done, n_small,
+                    torch.where(small, n_small + 1, torch.zeros_like(n_small)))
+                conv_now = ~done & (n_small >= cfg.patience) & (
+                    it >= cfg.min_iters)
+                it_done = torch.where(conv_now, torch.full_like(it_done, it),
+                                      it_done)
+                prev_obj = torch.where(done, prev_obj, obj)
+                done = done | conv_now
+                trace.append(torch.stack([aux[k] for k in _AUX_KEYS]))
+            # The single per-chunk host sync: trace and flags in one copy.
+            flat = torch.cat([torch.stack(trace).to(torch.float64).ravel(),
+                              done.to(torch.float64)[None],
+                              it_done.to(torch.float64)[None]]).cpu().numpy()
+            n_syncs += 1
+            aux_np = flat[:-2].reshape(chunk, len(_AUX_KEYS))
+            converged = bool(flat[-2])
+            valid = (int(flat[-1]) - it0) if converged else chunk
+            for j, k in enumerate(_AUX_KEYS):
+                aux_hist[k].extend(float(v) for v in aux_np[:valid, j])
+            it0 += chunk
+            if converged:
+                break
+        n_iters = int(flat[-1]) if converged else it0
+        return self._result(state, aux_hist, n_iters, converged, n_syncs)
+
+    def _fit_host_loop(self, iterate: Callable, state0: torch.Tensor
+                       ) -> FitResult:
+        """Host-loop tail of the reference's loop driver: trace
+        bookkeeping and the Sec 5.5 stopping rule, one host sync per
+        iteration. ``iterate(state) -> (state, aux, n_valid)``."""
+        cfg = self.config
+        state = state0
+        aux_hist: dict = {k: [] for k in _AUX_KEYS}
+        objs = aux_hist["objective"]
+        converged = False
+        n_small = 0
+        it = 0
+        for it in range(1, cfg.max_iters + 1):
+            state, aux, n_valid = iterate(state)
+            vals = torch.stack([aux[k] for k in _AUX_KEYS]).to(
+                torch.float64).cpu().tolist()
+            for k, v in zip(_AUX_KEYS, vals):
+                aux_hist[k].append(v)
+            if (len(objs) >= 2
+                    and abs(objs[-1] - objs[-2]) <= cfg.tol * n_valid):
+                n_small += 1
+            else:
+                n_small = 0
+            if it >= cfg.min_iters and n_small >= cfg.patience:
+                converged = True
+                break
+        return self._result(state, aux_hist, it, converged, len(objs))
+
+    def _fit_loop(self, data: SVMData, state: torch.Tensor, step: Callable,
+                  N: int) -> FitResult:
+        """Per-iteration driver: the semantic oracle for the scan driver."""
+        def iterate(state):
+            state, aux = step(data, state)
+            return state, aux, N
+
+        return self._fit_host_loop(iterate, state)
+
+    def _result(self, state, aux_hist, n_iters, converged, n_syncs):
+        self._weights = state
+        w = state.cpu().numpy().astype(np.float32)
+        return FitResult(weights=w, last_sample=w.copy(),
+                         objective=list(aux_hist["objective"]),
+                         aux_history=aux_hist, n_iters=n_iters,
+                         converged=converged, n_host_syncs=n_syncs)
+
+    def _prepare(self, X: np.ndarray, y: np.ndarray):
+        target = np.asarray(y, np.float32)
+        uniq = set(np.unique(target).tolist())
+        if not uniq <= {-1.0, 1.0}:
+            raise ValueError(f"CLS labels must be +-1, got {uniq}")
+        Xp, tp, mask = distributed.pad_rows(X, target, 1)
+        dev = self.device
+        data = SVMData(torch.from_numpy(Xp).to(dev),
+                       torch.from_numpy(tp).to(dev),
+                       torch.from_numpy(mask).to(dev))
+        return data, linear.init_weight(X.shape[1], dev)
+
+    # ---------------------------------------------------------- inference
+    def _features(self, X: np.ndarray) -> torch.Tensor:
+        if self._weights is None:
+            raise RuntimeError("fit first")
+        X = np.asarray(X, np.float32)
+        if X.ndim != 2 or X.shape[1] != self._n_features:
+            raise ValueError(f"expected (n, {self._n_features}) features, "
+                             f"got {X.shape}")
+        if self.config.add_bias:
+            X = np.concatenate([X, np.ones((X.shape[0], 1), np.float32)], 1)
+        return torch.from_numpy(X).to(self.device)
+
+    def decision_function(self, X: np.ndarray) -> np.ndarray:
+        """Margins X_with_bias @ w as float32 (a plain matmul, as the
+        reference's LIN serving cell is plain XLA)."""
+        return linear.decision_function(
+            self._weights, self._features(X)).cpu().numpy()
+
+    def predict(self, X: np.ndarray) -> np.ndarray:
+        return np.where(self.decision_function(X) >= 0, 1, -1)
+
+    def score(self, X: np.ndarray, y: np.ndarray) -> float:
+        """Accuracy (higher is better)."""
+        return float(np.mean(self.predict(X) == np.asarray(y)))
+
+
+_AUX_KEYS = ("objective", "gamma_mean", "n_sv")

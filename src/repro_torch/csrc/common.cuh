@@ -1,0 +1,166 @@
+// Device code shared by the Hopper kernels of repro_torch (sm_90a, fp32 on
+// CUDA cores: no TF32, no fast-math, IEEE division).
+//
+// The Sigma statistic X^T diag(w) X is tiled across CTAs. A CTA owns one
+// (BK x BK) lower-triangle tile (i >= j) of Sigma and one contiguous range
+// of rows (a "split"); it keeps the tile in registers while it sweeps its
+// rows and writes the tile as a per-split partial. ``tri_finalize`` then
+// sums the partials of every split in a fixed order and mirrors the upper
+// triangle, so the result is deterministic: no floating-point atomics.
+// syrk.cu and fused_stats.cu both use this tile code.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <stdint.h>
+
+namespace rt {
+
+constexpr int BK = 128;            // Sigma tile edge
+constexpr int BN = 32;             // rows staged in shared memory per step
+constexpr int TILE_THREADS = 256;  // 16 x 16 threads, 8 x 8 outputs each
+
+__device__ __forceinline__ float to_f32(float v) { return v; }
+__device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
+  return __bfloat162float(v);
+}
+
+__device__ __forceinline__ int64_t min64(int64_t a, int64_t b) {
+  return a < b ? a : b;
+}
+
+// Butterfly sum: every lane ends with the same bits (a + b == b + a).
+__device__ __forceinline__ float warp_sum(float v) {
+#pragma unroll
+  for (int o = 16; o > 0; o >>= 1) v += __shfl_xor_sync(0xffffffffu, v, o);
+  return v;
+}
+
+// w . x for one row, read lane-strided (coalesced) by a whole warp. The
+// summation order depends only on K, so every CTA that recomputes the
+// margin of a row gets the same bits.
+template <typename T>
+__device__ __forceinline__ float row_dot(const T* __restrict__ xrow,
+                                         const float* __restrict__ w, int K,
+                                         int lane) {
+  float s = 0.f;
+  for (int c = lane; c < K; c += 32) s = fmaf(to_f32(xrow[c]), __ldg(w + c), s);
+  return warp_sum(s);
+}
+
+// Flattened lower-triangle index t -> tile (i, j), i >= j.
+__device__ __forceinline__ void tri_ij(int t, int& i, int& j) {
+  int ii = (int)((sqrtf(8.f * (float)t + 1.f) - 1.f) * 0.5f);
+  while (ii * (ii + 1) / 2 > t) --ii;
+  while ((ii + 1) * (ii + 2) / 2 <= t) ++ii;
+  i = ii;
+  j = t - ii * (ii + 1) / 2;
+}
+
+// Stage BN rows starting at row0 (rows >= row_end and columns >= K read as
+// zero): As = X[:, c0i:c0i+BK] scaled by the row weight sw[r], and
+// Bs = X[:, c0j:c0j+BK]. ``sw`` may point to global or shared memory.
+template <typename T>
+__device__ __forceinline__ void stage_rows(const T* __restrict__ X,
+                                           int64_t row0, int64_t row_end,
+                                           int K, int c0i, int c0j,
+                                           const float* sw,
+                                           float (*As)[BK], float (*Bs)[BK]) {
+  const int c = threadIdx.x % BK;
+  for (int r = threadIdx.x / BK; r < BN; r += TILE_THREADS / BK) {
+    const int64_t row = row0 + r;
+    float a = 0.f, b = 0.f;
+    if (row < row_end) {
+      const T* xr = X + row * (int64_t)K;
+      if (c0i + c < K) a = to_f32(xr[c0i + c]) * sw[r];
+      if (c0j + c < K) b = to_f32(xr[c0j + c]);
+    }
+    As[r][c] = a;
+    Bs[r][c] = b;
+  }
+}
+
+// acc[p][q] += sum_r As[r][ai(p)] * Bs[r][bj(q)] over the BN staged rows,
+// where thread (tx, ty) owns rows ai = {4ty..4ty+3, 64+4ty..64+4ty+3} and
+// the same pattern of columns in tx.
+__device__ __forceinline__ void accumulate(float acc[8][8],
+                                           float (*As)[BK],
+                                           float (*Bs)[BK]) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll 4
+  for (int r = 0; r < BN; ++r) {
+    const float4 a0 = *reinterpret_cast<const float4*>(&As[r][ty * 4]);
+    const float4 a1 = *reinterpret_cast<const float4*>(&As[r][64 + ty * 4]);
+    const float4 b0 = *reinterpret_cast<const float4*>(&Bs[r][tx * 4]);
+    const float4 b1 = *reinterpret_cast<const float4*>(&Bs[r][64 + tx * 4]);
+    const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
+    const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
+#pragma unroll
+    for (int p = 0; p < 8; ++p)
+#pragma unroll
+      for (int q = 0; q < 8; ++q) acc[p][q] = fmaf(a[p], b[q], acc[p][q]);
+  }
+}
+
+// Write the (BK x BK) tile, row-major, to dst (16-byte aligned).
+__device__ __forceinline__ void store_tile(float* __restrict__ dst,
+                                           float acc[8][8]) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int p = 0; p < 8; ++p) {
+    const int ai = (p < 4 ? 0 : 64) + ty * 4 + (p & 3);
+    float* row = dst + (int64_t)ai * BK;
+    *reinterpret_cast<float4*>(row + tx * 4) =
+        make_float4(acc[p][0], acc[p][1], acc[p][2], acc[p][3]);
+    *reinterpret_cast<float4*>(row + 64 + tx * 4) =
+        make_float4(acc[p][4], acc[p][5], acc[p][6], acc[p][7]);
+  }
+}
+
+// out (K x K) = sum over S splits of the tile partials part[S][T][BK][BK],
+// in split order; elements above the tile diagonal read the transposed
+// lower tile, so out is exactly symmetric outside the diagonal tiles.
+static __global__ void tri_finalize(const float* __restrict__ part,
+                                    float* __restrict__ out, int K, int T,
+                                    int S) {
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (int64_t)K * K) return;
+  const int r = (int)(idx / K), c = (int)(idx % K);
+  const int bi = r / BK, bj = c / BK;
+  int t, off;
+  if (bi >= bj) {
+    t = bi * (bi + 1) / 2 + bj;
+    off = (r % BK) * BK + c % BK;
+  } else {
+    t = bj * (bj + 1) / 2 + bi;
+    off = (c % BK) * BK + r % BK;
+  }
+  float sum = 0.f;
+  for (int s = 0; s < S; ++s) sum += part[((int64_t)s * T + t) * BK * BK + off];
+  out[idx] = sum;
+}
+
+// out[c] = sum over S rows of part[S][ld], in row order (c < K).
+static __global__ void sum_partials(const float* __restrict__ part,
+                                    float* __restrict__ out, int K, int ld,
+                                    int S) {
+  const int c = blockIdx.x * blockDim.x + threadIdx.x;
+  if (c >= K) return;
+  float sum = 0.f;
+  for (int s = 0; s < S; ++s) sum += part[(int64_t)s * ld + c];
+  out[c] = sum;
+}
+
+static inline void launch_tri_finalize(const float* part, float* out, int K,
+                                       int T, int S, cudaStream_t stream) {
+  const int64_t n = (int64_t)K * K;
+  tri_finalize<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(part, out, K,
+                                                                 T, S);
+}
+
+static inline void launch_sum_partials(const float* part, float* out, int K,
+                                       int ld, int S, cudaStream_t stream) {
+  sum_partials<<<(K + 255) / 256, 256, 0, stream>>>(part, out, K, ld, S);
+}
+
+}  // namespace rt

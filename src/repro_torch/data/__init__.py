@@ -1,0 +1,2 @@
+"""Synthetic generators shaped like the paper's datasets."""
+from .synthetic import make_alpha_like, make_blobs  # noqa: F401

@@ -1,0 +1,31 @@
+"""Synthetic binary datasets: numpy copies of ``repro/data/synthetic.py``
+that give arrays bitwise equal to the reference's for the same arguments.
+
+``make_alpha_like`` has the shape of the paper's Table 3 'alpha' set
+(250,000 x 500 at full size); ``make_blobs`` is the quickstart problem.
+"""
+from __future__ import annotations
+
+import numpy as np
+
+
+def _blob_classifier(rng, n, k, margin_noise):
+    w = rng.normal(size=k) / np.sqrt(k)
+    X = rng.normal(size=(n, k)).astype(np.float32)
+    logits = X @ w + margin_noise * rng.normal(size=n)
+    y = np.where(logits > 0, 1.0, -1.0).astype(np.float32)
+    return X, y
+
+
+def make_alpha_like(n: int = 50_000, k: int = 500, seed: int = 0,
+                    margin_noise: float = 0.5):
+    """Dense, moderately hard binary problem (Pascal LSL 'alpha' shape)."""
+    rng = np.random.default_rng(seed)
+    return _blob_classifier(rng, n, k, margin_noise)
+
+
+def make_blobs(n: int = 2000, k: int = 20, seed: int = 0,
+               margin_noise: float = 0.1):
+    """Small generic binary blobs (tests/examples)."""
+    rng = np.random.default_rng(seed)
+    return _blob_classifier(rng, n, k, margin_noise)

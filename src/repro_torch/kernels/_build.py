@@ -1,0 +1,179 @@
+"""Build and bind the CUDA kernels of ``csrc/``.
+
+At first use, each ``csrc/*.cu`` is compiled by its own ``nvcc`` process,
+all started together, and the objects are linked into
+``build/kernels/librepro_torch_kernels_<hash>.so`` at the repository root.
+The hash covers the sources, the headers and the flags, so an edit builds
+a new library and an unchanged tree reuses the old one. The library has a
+plain C interface and is loaded with ``ctypes``: no PyTorch headers, so a
+build takes seconds. A failed build or load raises; nothing falls back to
+the plain PyTorch versions.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import time
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build" / "kernels"
+ARCH = ("-gencode", "arch=compute_90a,code=sm_90a")
+FLAGS = ARCH + ("-std=c++17", "-O3", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
+
+# Tile geometry of csrc/common.cuh.
+BK = 128
+BN = 32
+# Rows one CTA sweeps before writing a partial: bounds the length of each
+# sequential fp32 sum (see PERF.md, accumulation error) and the scratch.
+ROWS_PER_SPLIT = 4096
+
+_c_void_p, _c_int, _c_int64, _c_float = (ctypes.c_void_p, ctypes.c_int,
+                                        ctypes.c_int64, ctypes.c_float)
+_SIGNATURES = {
+    "rt_syrk_tri": [_c_int, _c_void_p, _c_void_p, _c_int, _c_void_p,
+                    _c_void_p, _c_void_p, _c_int64, _c_int, _c_int, _c_int,
+                    _c_int64],
+    "rt_fused_estep": [_c_int, _c_void_p, _c_void_p, _c_int, _c_void_p,
+                       _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+                       _c_void_p, _c_void_p, _c_int64, _c_int, _c_int,
+                       _c_int64, _c_float],
+    "rt_fused_stats": [_c_int, _c_void_p, _c_void_p, _c_int, _c_void_p,
+                       _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+                       _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+                       _c_void_p, _c_int64, _c_int, _c_int, _c_int, _c_int,
+                       _c_int64, _c_float],
+}
+
+_lib: ctypes.CDLL | None = None
+
+
+def _nvcc() -> str:
+    home = os.environ.get("CUDA_HOME", "/usr/local/cuda")
+    cand = Path(home) / "bin" / "nvcc"
+    found = str(cand) if cand.exists() else shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError(
+            "nvcc not found (looked in $CUDA_HOME/bin and on PATH); the "
+            "repro_torch CUDA kernels are built with it at first use")
+    return found
+
+
+def _digest() -> str:
+    h = hashlib.sha256(" ".join(FLAGS).encode())
+    for f in sorted(CSRC.glob("*.cu*")):
+        h.update(f.name.encode())
+        h.update(f.read_bytes())
+    return h.hexdigest()[:16]
+
+
+def library_path() -> Path:
+    return BUILD_DIR / f"librepro_torch_kernels_{_digest()}.so"
+
+
+def build() -> tuple[Path, str, float]:
+    """Compile (or reuse) the kernel library. Returns (path, the compiler's
+    ``-Xptxas -v`` report, build seconds; 0 when reused)."""
+    lib = library_path()
+    log_path = lib.with_suffix(".log")
+    if lib.exists():
+        return lib, log_path.read_text() if log_path.exists() else "", 0.0
+    t0 = time.perf_counter()
+    nvcc = _nvcc()
+    tmp = BUILD_DIR / f"tmp-{lib.stem}-{os.getpid()}"
+    tmp.mkdir(parents=True, exist_ok=True)
+    sources = sorted(CSRC.glob("*.cu"))
+    procs = [(src, subprocess.Popen(
+        [nvcc, *FLAGS, "-c", str(src), "-o", str(tmp / (src.stem + ".o"))],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+        for src in sources]
+    logs = []
+    failed = []
+    for src, p in procs:
+        out, _ = p.communicate()
+        logs.append(f"== {src.name}\n{out}")
+        if p.returncode != 0:
+            failed.append(src.name)
+    log = "\n".join(logs)
+    if failed:
+        raise RuntimeError(f"nvcc failed on {failed}:\n{log}")
+    tmp_lib = tmp / lib.name
+    link = subprocess.run(
+        [nvcc, *ARCH, "-shared", "-o", str(tmp_lib),
+         *(str(tmp / (s.stem + ".o")) for s in sources)],
+        stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True)
+    if link.returncode != 0:
+        raise RuntimeError(f"linking the kernel library failed:\n"
+                           f"{link.stdout}")
+    log_path.write_text(log)
+    os.replace(tmp_lib, lib)  # atomic: concurrent builds both succeed
+    shutil.rmtree(tmp, ignore_errors=True)
+    return lib, log, time.perf_counter() - t0
+
+
+def library() -> ctypes.CDLL:
+    """The loaded kernel library, built on first call."""
+    global _lib
+    if _lib is None:
+        lib = ctypes.CDLL(str(build()[0]))
+        for name, argtypes in _SIGNATURES.items():
+            fn = getattr(lib, name)
+            fn.argtypes = argtypes
+            fn.restype = ctypes.c_int
+        _lib = lib
+    return _lib
+
+
+def launch(name: str, device: torch.device, *args) -> None:
+    """Call the C launcher ``name`` on ``device``'s current stream; raise
+    if it reports a CUDA error (a refused launch never runs, and a later
+    synchronize would not say so)."""
+    stream = torch.cuda.current_stream(device).cuda_stream
+    index = (device.index if device.index is not None
+             else torch.cuda.current_device())
+    err = getattr(library(), name)(index, stream, *args)
+    if err != 0:
+        raise RuntimeError(f"{name}: CUDA error {err} at launch")
+
+
+def check_x(X: torch.Tensor) -> tuple[int, int]:
+    """Validate the (N, K) design matrix a kernel reads; returns (N, K)."""
+    if not X.is_cuda:
+        raise ValueError("the CUDA kernels take CUDA tensors")
+    if X.dim() != 2 or X.shape[0] < 1 or X.shape[1] < 1:
+        raise ValueError(f"X must be a non-empty (N, K) matrix, got "
+                         f"{tuple(X.shape)}")
+    if X.dtype not in (torch.float32, torch.bfloat16):
+        raise TypeError(f"X must be float32 or bfloat16, got {X.dtype}")
+    if not X.is_contiguous():
+        raise ValueError("X must be contiguous (row-major)")
+    return X.shape[0], X.shape[1]
+
+
+def check_vec(name: str, v: torch.Tensor, n: int, X: torch.Tensor) -> None:
+    """Validate a float32 (n,) operand on X's device."""
+    if v.device != X.device:
+        raise ValueError(f"{name} is on {v.device}, X on {X.device}")
+    if v.dtype != torch.float32:
+        raise TypeError(f"{name} must be float32, got {v.dtype}")
+    if tuple(v.shape) != (n,) or not v.is_contiguous():
+        raise ValueError(f"{name} must be a contiguous ({n},) vector, got "
+                         f"{tuple(v.shape)}")
+
+
+def tile_plan(N: int, K: int, device: torch.device) -> tuple[int, int, int]:
+    """(ntiles, nsplits, rows_per_split) of the triangle-tiled Sigma grid:
+    one CTA per (lower-triangle tile, row split). Splits are at most
+    ROWS_PER_SPLIT rows, and numerous enough for two CTAs per SM."""
+    nb = -(-K // BK)
+    ntiles = nb * (nb + 1) // 2
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    want = max(-(-N // ROWS_PER_SPLIT), -(-2 * sms // ntiles))
+    rows = -(-N // want)
+    rows = -(-rows // BN) * BN
+    return ntiles, -(-N // rows), rows

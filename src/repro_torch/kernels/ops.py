@@ -1,0 +1,125 @@
+"""Backend dispatch around the ported kernels: port of
+``repro/kernels/ops.py``.
+
+Two flavours:
+  * ``ref``  — the plain PyTorch versions (``ref.py``), on any device.
+  * ``cuda`` — the hand-written Hopper kernels; CUDA tensors only.
+
+``backend=None`` picks ``cuda`` for a CUDA tensor and ``ref`` for a CPU
+tensor. An explicit ``backend="ref"`` on CUDA tensors is for
+``chip_smoke.py`` and the tests, which hold the kernels against it.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import epilogues
+from . import fused_estep as _fused_estep
+from . import fused_stats as _fused_stats
+from . import ref
+from . import syrk as _syrk
+
+VALID_BACKENDS = ("ref", "cuda")
+
+# The route switch of the reference, kept so that the same input takes the
+# same route in both packages: the TPU fused_stats holds the whole (K, K)
+# Sigma in VMEM and cannot run past this K, so above it the statistic is
+# fused_estep + syrk_tri. On Hopper the cap is a routing choice, not a
+# memory limit: the fused kernel tiles Sigma across CTAs at any K.
+FUSED_STATS_MAX_K = 1536
+
+
+def _resolve(backend: str | None, X: torch.Tensor) -> str:
+    if backend is None:
+        return "cuda" if X.is_cuda else "ref"
+    if backend not in VALID_BACKENDS:
+        raise ValueError(f"backend must be one of {VALID_BACKENDS}, "
+                         f"got {backend!r}")
+    if backend == "cuda" and not X.is_cuda:
+        raise ValueError("backend='cuda' needs CUDA tensors; X is on "
+                         f"{X.device}")
+    return backend
+
+
+def _check_noise(epilogue: str, noise: tuple | None, seed=None) -> None:
+    """Validate the noise configuration HERE, once, so every route fails
+    with the same message (the reference's wording)."""
+    got = 0 if noise is None else len(noise)
+    if seed is not None:
+        if got:
+            raise ValueError(
+                f"rng='fused' derives the {epilogue!r} noise in-kernel "
+                f"from the counter seed, but {got} pre-drawn noise= "
+                "operand(s) (augment.draw_ig_noise) were passed as "
+                "well — drop the noise= operands or set "
+                "SVMConfig.rng='host' to stream pre-drawn noise")
+        return
+    want = epilogues.noise_arity(epilogue)
+    if got != want:
+        raise ValueError(
+            f"epilogue {epilogue!r} needs {want} pre-drawn noise "
+            f"operands (augment.draw_ig_noise), got {got} — or pass "
+            "seed= (SVMConfig.rng='fused') to derive them in-kernel")
+
+
+def _f32(v: torch.Tensor) -> torch.Tensor:
+    return v.to(torch.float32).contiguous()
+
+
+def syrk_tri(X: torch.Tensor, w: torch.Tensor, *,
+             backend: str | None = None) -> torch.Tensor:
+    """S = X^T diag(w) X computing only lower-triangle tiles; the result
+    is the full symmetric (K, K) float32 matrix."""
+    if _resolve(backend, X) == "ref":
+        return ref.syrk_tri(X, w)
+    return _syrk.syrk_tri(X, _f32(w))
+
+
+def fused_estep(X: torch.Tensor, rho: torch.Tensor, beta: torch.Tensor,
+                wvec: torch.Tensor, *, eps: float = 1e-6,
+                backend: str | None = None):
+    """(margin, gamma, b): the EM gamma update fused with the
+    mu-numerator statistic."""
+    if _resolve(backend, X) == "ref":
+        return ref.fused_estep(X, rho, beta, wvec, eps)
+    return _fused_estep.fused_estep(X, _f32(rho), _f32(beta), _f32(wvec),
+                                    eps=eps)
+
+
+def fused_stats(X: torch.Tensor, rho: torch.Tensor, beta: torch.Tensor,
+                wvec: torch.Tensor, wmask: torch.Tensor | None = None,
+                noise: tuple | None = None, *,
+                epilogue: str = "em_hinge", eps: float = 1e-6,
+                eps_ins: float = 0.0, col_window: tuple | None = None,
+                seed: torch.Tensor | None = None,
+                backend: str | None = None):
+    """(margin, gamma, b, S): the whole EM iteration statistic in one X
+    pass. For K > FUSED_STATS_MAX_K the route is fused_estep + syrk_tri,
+    as the reference's kernel route, in both flavours; callers get the
+    same outputs either way."""
+    del eps_ins  # only the SVR epilogues read it
+    _check_noise(epilogue, noise, seed)
+    epilogues.check_ported(epilogue)
+    if col_window is not None:
+        raise NotImplementedError(
+            "the column-windowed statistic (k_shard_axis) is not ported "
+            "yet: ROADMAP queue 1 item 10 (multi-GPU)")
+    if seed is not None:
+        raise NotImplementedError(
+            "the in-kernel counter RNG is not ported yet: ROADMAP queue 1 "
+            "item 5 (LIN-MC-CLS)")
+    if wvec.dim() != 1:
+        raise NotImplementedError(
+            "multichain fused_stats (2-D wvec) is not ported yet: ROADMAP "
+            "queue 1 item 5 (LIN-MC-CLS)")
+    flavour = _resolve(backend, X)
+    if X.shape[1] > FUSED_STATS_MAX_K:
+        margin, gamma, b = fused_estep(X, rho, beta, wvec, eps=eps,
+                                       backend=flavour)
+        w = (1.0 / gamma) if wmask is None else wmask.to(gamma.dtype) / gamma
+        return margin, gamma, b, syrk_tri(X, w, backend=flavour)
+    if flavour == "ref":
+        return ref.fused_stats(X, rho, beta, wvec, wmask, eps, epilogue)
+    return _fused_stats.fused_stats(
+        X, _f32(rho), _f32(beta), _f32(wvec),
+        None if wmask is None else _f32(wmask), eps=eps)

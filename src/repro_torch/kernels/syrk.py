@@ -1,0 +1,52 @@
+"""Triangle-tiled weighted SYRK on Hopper: S = X^T diag(w) X.
+
+Replaces the TPU kernel ``repro/kernels/syrk.py::syrk_tri`` (its
+``pallas_call`` walks the lower-triangle (bk x bk) block pairs from a
+scalar-prefetched table, with the N sweep innermost so the output block
+stays in VMEM).
+
+What bounds it on the H100: fp32 FMAs. Counting only the triangle it
+needs, it does N*K*(K+1) flop on 4*N*K bytes of X, about (K+1)/4 flop per
+byte, far above the fp32 ridge of ~20 flop per byte (67 TFLOP/s over
+3.35 TB/s). It must stay fp32 on the CUDA cores: TF32 cuts the mantissa
+the way the bf16 reduction did that collapsed the posterior (DESIGN.md
+§6.2).
+
+Design (``csrc/syrk.cu``, ``csrc/common.cuh``): a TPU grid runs in order
+and carries the block sum across N steps; Hopper's CTAs run in parallel in
+no order. So the N sweep is split into row ranges of at most 4096 rows,
+and the grid is (row split) x (lower-triangle 128 x 128 tile). Each CTA of
+256 threads keeps its tile in registers (8 x 8 a thread), stages 32 rows
+of its two column blocks in shared memory per step (the i-block scaled by
+w), and writes the tile as a per-split partial. A second launch sums the
+partials in split order and mirrors the upper triangle: deterministic,
+no atomics, and each sequential fp32 sum is at most 4096 rows long.
+Computing only the lower tiles halves the flops of the dense product.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _build, ref
+
+LAUNCHES = 0
+
+
+def syrk_tri(X: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+    """S = X^T diag(w) X, (K, K) float32. X (N, K) float32 or bfloat16,
+    w (N,) float32. A CPU tensor runs the plain version."""
+    global LAUNCHES
+    if X.device.type == "cpu":
+        return ref.syrk_tri(X, w)
+    N, K = _build.check_x(X)
+    _build.check_vec("w", w, N, X)
+    ntiles, nsplits, rows = _build.tile_plan(N, K, X.device)
+    part = torch.empty(nsplits * ntiles * _build.BK * _build.BK,
+                       dtype=torch.float32, device=X.device)
+    out = torch.empty((K, K), dtype=torch.float32, device=X.device)
+    _build.launch("rt_syrk_tri", X.device, X.data_ptr(),
+                  int(X.dtype == torch.bfloat16), w.data_ptr(),
+                  part.data_ptr(), out.data_ptr(), N, K, ntiles, nsplits,
+                  rows)
+    LAUNCHES += 1
+    return out

@@ -75,6 +75,11 @@ def _install_hypothesis_fallback():
 _install_hypothesis_fallback()
 
 
+def pytest_configure(config):
+    config.addinivalue_line(
+        "markers", "gpu: needs a CUDA device; skipped without one")
+
+
 def reduce_cfg(cfg, **extra):
     """Family-aware reduced config for CPU smoke tests."""
     kw = dict(n_layers=cfg.layer_period * 2, d_model=64, vocab=256,

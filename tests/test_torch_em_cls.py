@@ -1,0 +1,212 @@
+"""The port's LIN-EM-CLS fit against the JAX package's on the quickstart
+problem, plus the port's own driver, data, config and conversion checks.
+
+Bands are about 3-5x the drift measured between two correct float32 EM
+implementations that sum in different orders (weights 0.4-1.0 % apart,
+objective traces 0.36 %, iteration counts 48 vs 49 against a float64 EM):
+|d n_iters| <= 3, objective over the common prefix within 2e-2 relative,
+final weights within relative error 5e-2, held-out accuracy within 0.01.
+"""
+import dataclasses
+import math
+
+import numpy as np
+import pytest
+import torch
+
+from repro.core import PEMSVM as JaxSVM
+from repro.core import objective as jobj
+from repro.core import SVMConfig as JaxConfig
+from repro.data import synthetic as jsyn
+from repro_torch.core import PEMSVM, SVMConfig, lam_from_C
+from repro_torch.core import objective as tobj
+from repro_torch.core.convert import config_from_reference, svm_from_reference
+from repro_torch.data import synthetic as tsyn
+
+
+
+@pytest.fixture(autouse=True, scope="module")
+def _two_torch_threads():
+    """Keep torch to two intra-op threads: the suite runs six workers at
+    once, and timing-based tests elsewhere feel the contention."""
+    n = torch.get_num_threads()
+    torch.set_num_threads(2)
+    yield
+    torch.set_num_threads(n)
+
+def _quickstart():
+    X, y = tsyn.make_blobs(20_000, 100, seed=0)
+    return X[:16_000], y[:16_000], X[16_000:], y[16_000:]
+
+
+def _cfg(cls, **kw):
+    return cls.from_options("LIN-EM-CLS",
+                            **{"lam": lam_from_C(1.0), "max_iters": 100, **kw})
+
+
+@pytest.fixture(scope="module")
+def fits():
+    Xtr, ytr, Xte, yte = _quickstart()
+    ref = JaxSVM(_cfg(JaxConfig))
+    r_ref = ref.fit(Xtr, ytr)
+    port = PEMSVM(_cfg(SVMConfig), device="cpu")
+    r_port = port.fit(Xtr, ytr)
+    return dict(ref=ref, r_ref=r_ref, port=port, r_port=r_port, Xte=Xte,
+                yte=yte)
+
+
+def test_both_converge_in_similar_iterations(fits):
+    r, p = fits["r_ref"], fits["r_port"]
+    assert r.converged and p.converged
+    assert abs(r.n_iters - p.n_iters) <= 3, (r.n_iters, p.n_iters)
+
+
+def test_objective_trace_band(fits):
+    r = np.asarray(fits["r_ref"].objective, np.float64)
+    p = np.asarray(fits["r_port"].objective, np.float64)
+    n = min(len(r), len(p))
+    rel = np.abs(p[:n] - r[:n]) / np.abs(r[:n])
+    assert rel.max() <= 2e-2, rel.max()
+
+
+def test_final_weights_band(fits):
+    r = np.asarray(fits["r_ref"].weights, np.float64)
+    p = np.asarray(fits["r_port"].weights, np.float64)
+    assert np.linalg.norm(p - r) / np.linalg.norm(r) <= 5e-2
+
+
+def test_heldout_accuracy_band(fits):
+    a_ref = fits["ref"].score(fits["Xte"], fits["yte"])
+    a_port = fits["port"].score(fits["Xte"], fits["yte"])
+    assert abs(a_ref - a_port) <= 0.01, (a_ref, a_port)
+    assert a_port >= 0.95
+
+
+@pytest.mark.parametrize("max_iters,chunk,tol", [
+    (100, 16, 1e-3),   # quickstart protocol: converges mid-chunk
+    (40, 7, 0.0),      # full budget, ragged last chunk
+    (30, 64, 0.0),     # one chunk larger than the budget
+])
+def test_scan_equals_loop_exactly(max_iters, chunk, tol):
+    """Same step, same ordering: traces and weights are bitwise equal,
+    and the scan driver syncs once per chunk."""
+    Xtr, ytr, _, _ = _quickstart()
+    kw = dict(max_iters=max_iters, scan_chunk=chunk, tol=tol,
+              min_iters=10 if tol else max_iters)
+    scan = PEMSVM(_cfg(SVMConfig, **kw), device="cpu").fit(Xtr, ytr)
+    loop = PEMSVM(_cfg(SVMConfig, driver="loop", **kw),
+                  device="cpu").fit(Xtr, ytr)
+    assert scan.objective == loop.objective
+    assert scan.aux_history == loop.aux_history
+    assert np.array_equal(scan.weights, loop.weights)
+    assert (scan.n_iters, scan.converged) == (loop.n_iters, loop.converged)
+    assert len(scan.objective) == scan.n_iters
+    assert scan.n_host_syncs <= math.ceil(max_iters / chunk)
+    assert loop.n_host_syncs == loop.n_iters
+
+
+@pytest.mark.parametrize("fn,kw", [
+    ("make_blobs", dict(n=301, k=17, seed=3)),
+    ("make_blobs", dict(n=2000, k=20, seed=0, margin_noise=0.3)),
+    ("make_alpha_like", dict(n=500, k=50, seed=0)),
+    ("make_alpha_like", dict(n=257, k=33, seed=7, margin_noise=0.1)),
+])
+def test_synthetic_bitwise(fn, kw):
+    Xt, yt = getattr(tsyn, fn)(**kw)
+    Xj, yj = getattr(jsyn, fn)(**kw)
+    assert Xt.dtype == Xj.dtype and yt.dtype == yj.dtype
+    assert np.array_equal(Xt, Xj) and np.array_equal(yt, yj)
+
+
+def test_config_fields_and_defaults_match_reference():
+    ref = {f.name: f.default for f in dataclasses.fields(JaxConfig)}
+    port = {f.name: f.default for f in dataclasses.fields(SVMConfig)}
+    assert list(port) == list(ref)
+    assert port == ref
+    assert SVMConfig().jitter == JaxConfig().jitter
+
+
+def test_config_from_reference_round_trip():
+    ref = JaxConfig.from_options("LIN-EM-CLS", lam=0.5, max_iters=33,
+                                 scan_chunk=5, tol=2e-3, backend="interpret")
+    port = config_from_reference(dataclasses.asdict(ref))
+    want = dict(dataclasses.asdict(ref), backend=None)
+    assert dataclasses.asdict(port) == want
+    with pytest.raises(ValueError):
+        config_from_reference(dict(dataclasses.asdict(ref), bogus=1))
+
+
+def test_svm_from_reference_scores_like_reference(fits):
+    ref, r_ref = fits["ref"], fits["r_ref"]
+    port = svm_from_reference(config_from_reference(
+        dataclasses.asdict(ref.config)), r_ref.weights, 100, device="cpu")
+    Xte, yte = fits["Xte"], fits["yte"]
+    f_ref = np.asarray(ref.decision_function(Xte), np.float64)
+    f_port = port.decision_function(Xte)
+    assert f_port.dtype == np.float32 and f_port.shape == f_ref.shape
+    # rtol 1e-5 relative to the margin scale: max|d| <= 1e-5 max|ref|
+    assert np.max(np.abs(f_port - f_ref)) <= 1e-5 * np.max(np.abs(f_ref))
+    assert np.array_equal(port.predict(Xte), ref.predict(Xte))
+    assert port.score(Xte, yte) == ref.score(Xte, yte)
+
+
+@pytest.mark.parametrize("masked", [False, True])
+def test_objective_terms_match_reference(masked):
+    g = np.random.default_rng(5)
+    m = g.normal(size=203).astype(np.float32)
+    y = g.choice([-1.0, 1.0], 203).astype(np.float32)
+    mask = (g.random(203) > 0.3).astype(np.float32)
+    w = g.normal(size=29).astype(np.float32)
+    T = torch.from_numpy
+    np.testing.assert_allclose(
+        float(tobj.hinge_obj_terms(T(m), T(y), T(mask))),
+        float(jobj.hinge_obj_terms(m, y, mask)), rtol=1e-6)
+    np.testing.assert_allclose(float(tobj.l2_reg(T(w), 0.7)),
+                               float(jobj.l2_reg(w, 0.7)), rtol=1e-6)
+    pred = np.sign(m).astype(np.float32)
+    mk = mask if masked else None
+    assert float(tobj.accuracy(T(pred), T(y), None if mk is None else T(mk))
+                 ) == pytest.approx(float(jobj.accuracy(pred, y, mk)),
+                                    abs=1e-7)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(algorithm="MC"),
+    dict(task="SVR"),
+    dict(task="MLT", num_classes=3),
+    dict(formulation="KRN"),
+    dict(driver="stream"),
+    dict(k_shard_axis="model"),
+    dict(pad_features=8),
+    dict(phi_spec=object(), add_bias=False),
+    dict(fault=object()),
+    dict(decay=0.5, driver="stream"),
+    dict(window=2, driver="stream"),
+    dict(algorithm="MC", rng="fused"),
+    dict(algorithm="MC", rng="fused", n_chains=2),
+])
+def test_unsupported_config_raises(kw):
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
+        PEMSVM(SVMConfig(**kw), device="cpu")
+
+
+@pytest.mark.parametrize("kw", [
+    dict(resume_from="ckpt"), dict(warm_start=object()), dict(live=[1.0]),
+    dict(fault_hook=print), dict(epoch=3),
+])
+def test_unsupported_fit_keyword_raises(kw):
+    X, y = tsyn.make_blobs(64, 4, seed=1)
+    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
+        PEMSVM(SVMConfig(), device="cpu").fit(X, y, **kw)
+
+
+def test_mesh_raises():
+    with pytest.raises(NotImplementedError, match="item 10"):
+        PEMSVM(SVMConfig(), device="cpu", mesh=object())
+
+
+def test_no_card_raises_instead_of_cpu_fallback():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is visible: the default is cuda:0")
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        PEMSVM(SVMConfig())

@@ -1,0 +1,47 @@
+"""The port stands alone: importing every module of ``repro_torch`` pulls
+in no JAX and nothing of the JAX package, and no port source (nor
+``chip_smoke.py``) names them in an import."""
+import os
+import re
+import subprocess
+import sys
+from pathlib import Path
+
+import pytest
+
+ROOT = Path(__file__).resolve().parents[1]
+PORT = ROOT / "src" / "repro_torch"
+
+_PROBE = r"""
+import importlib, pkgutil, sys
+import repro_torch
+names = [m.name for m in pkgutil.walk_packages(repro_torch.__path__,
+                                                "repro_torch.")]
+for name in names:
+    importlib.import_module(name)
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(len(names), bad)
+"""
+
+
+def test_importing_every_module_pulls_in_no_jax_or_repro():
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _PROBE], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout.split(maxsplit=1)
+    assert int(out[0]) >= 15, out
+    assert out[1].strip() == "[]", out[1]
+
+
+_IMPORT = re.compile(
+    r"^\s*(import\s+(jax|jaxlib|repro)\b|from\s+(jax|jaxlib|repro)[.\s])",
+    re.M)
+
+
+@pytest.mark.parametrize("path", sorted(
+    str(p.relative_to(ROOT)) for p in
+    [*PORT.rglob("*.py"), ROOT / "chip_smoke.py"]))
+def test_source_names_no_jax_or_repro_import(path):
+    text = (ROOT / path).read_text()
+    assert not _IMPORT.search(text), _IMPORT.search(text).group(0)

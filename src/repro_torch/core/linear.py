@@ -1,12 +1,12 @@
-"""LIN-EM-CLS: linear binary SVM via data augmentation (paper Sec 2, 4).
-Port of the EM part of ``repro/core/linear.py``.
+"""LIN-{EM,MC}-CLS: linear binary SVM via data augmentation (paper Sec 2,
+4). Port of the one-device part of ``repro/core/linear.py``.
 
 One iteration over the training set:
 
   E-step   gamma_d from the residual y_d - w^T x_d      O(NK)
   stats    Sigma = X^T diag(1/gamma) X                  O(NK^2)  <- kernel
            mu    = X^T (y (1 + 1/gamma))                O(NK)    <- fused
-  M-step   Cholesky solve                               O(K^3)
+  M-step   Cholesky solve (EM) / Gaussian draw (MC)     O(K^3)
 
 Padding convention: invalid rows have X-row == 0 and target == 0, which
 makes their statistics contributions exactly zero; ``mask`` only enters
@@ -19,7 +19,7 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.kernels import ops
-from . import objective, stats
+from . import augment, objective, prng, stats
 
 
 class SVMData(NamedTuple):
@@ -30,36 +30,98 @@ class SVMData(NamedTuple):
 
 
 def accumulate_stats(X: torch.Tensor, rho: torch.Tensor, beta: torch.Tensor,
-                     w: torch.Tensor, *, mode: str, eps: float,
-                     backend: str | None):
+                     w: torch.Tensor, *, mode: str,
+                     key: torch.Tensor | None, eps: float,
+                     backend: str | None, row0: int = 0, rng: str = "host",
+                     chain0: int = 0):
     """(margin, gamma, Sigma, mu) for the generic hinge over a row block,
-    in one X pass through ``ops.fused_stats`` with the em_hinge epilogue.
-    Shared by CLS (rho = beta = y)."""
-    if mode != "EM":
-        raise NotImplementedError(
-            "MC statistics are not ported yet: ROADMAP queue 1 item 5 "
-            "(LIN-MC-CLS)")
-    margin, gamma, b, S = ops.fused_stats(X, rho, beta, w, None, None,
-                                          epilogue="em_hinge", eps=eps,
-                                          backend=backend)
+    in one X pass through ``ops.fused_stats``. Shared by CLS
+    (rho = beta = y).
+
+    EM runs the em_hinge epilogue. MC runs mc_hinge with its noise from
+    ``rng``: 'host' pre-draws the fold_in-keyed (nu, u)
+    (``augment.draw_ig_noise``); 'fused' passes the (4,) counter seed and
+    the kernel derives the noise in-body; 'fused_predraw' materializes
+    the same counter stream and passes it as operands (the oracle of
+    'fused'). ``row0`` is the block's global row offset and ``chain0``
+    the counter's first chain; a 2-D (K, C) ``w`` under 'fused' runs C
+    chains (margin and gamma (N, C), b (K, C), Sigma (C, K, K))."""
+    if mode == "EM":
+        epilogue, noise, seed = "em_hinge", None, None
+    elif rng == "host":
+        epilogue, seed = "mc_hinge", None
+        noise = augment.draw_ig_noise(key, X.shape[0], row0)
+    elif rng == "fused_predraw":
+        epilogue, seed = "mc_hinge", None
+        noise = augment.draw_fused_noise(key, X.shape[0], row0, chain0, 2)
+    else:
+        assert rng == "fused", rng
+        epilogue, noise = "mc_hinge", None
+        seed = augment.pack_seed(key, row0, chain0)
+    margin, gamma, b, S = ops.fused_stats(X, rho, beta, w, None, noise,
+                                          epilogue=epilogue, eps=eps,
+                                          seed=seed, backend=backend)
     return margin, gamma, S, b
 
 
-def cls_step(data: SVMData, w: torch.Tensor, *, lam: float = 1.0,
-             eps: float = 1e-6, jitter: float = 1e-6,
-             backend: str | None = None):
-    """One LIN-EM-CLS iteration. Returns (w_new, aux dict of 0-d device
-    tensors); nothing in it waits for the device."""
+def chain_keys(key: torch.Tensor, chain0: int, n_chains: int
+               ) -> torch.Tensor:
+    """Per-chain weight-draw keys ``fold_in(key, chain0 + c)``, (C, 2).
+    Under the counter rng modes every weight draw is chain-keyed (even at
+    n_chains = 1), so chain c's draw depends only on (iteration key,
+    absolute chain id)."""
+    ids = chain0 + torch.arange(n_chains, dtype=torch.int64,
+                                device=key.device)
+    return prng.fold_in(key, ids)
+
+
+def multichain_draw(key: torch.Tensor, S: torch.Tensor, b: torch.Tensor,
+                    lam: float, jitter: float, chain0: int) -> torch.Tensor:
+    """Per-chain posterior solves and chain-keyed Gibbs weight draws:
+    ``S`` (C, K, K), ``b`` (K, C) -> (C, K)."""
+    keys = chain_keys(key, chain0, S.shape[0])
+    draws = []
+    for c in range(S.shape[0]):
+        L, mu = stats.posterior_params(S[c], b[:, c], lam, jitter=jitter)
+        draws.append(stats.draw_weight(keys[c], L, mu))
+    return torch.stack(draws)
+
+
+def cls_step(data: SVMData, w: torch.Tensor, key: torch.Tensor | None = None,
+             *, mode: str = "EM", lam: float = 1.0, eps: float = 1e-6,
+             jitter: float = 1e-6, backend: str | None = None,
+             rng: str = "host", n_chains: int = 1, chain0: int = 0):
+    """One LIN-*-CLS iteration. Returns (w_new, aux dict of 0-d device
+    tensors); nothing in it waits for the device. ``n_chains > 1``
+    (rng='fused') carries the state chain-major as (C, K) and reports
+    cross-chain means."""
     X, y, mask = data
-    margin, gamma, S, b = accumulate_stats(X, y, y, w, mode="EM", eps=eps,
-                                           backend=backend)
+    multi = n_chains > 1
+    margin, gamma, S, b = accumulate_stats(
+        X, y, y, w.T if multi else w, mode=mode, key=key, eps=eps,
+        backend=backend, rng=rng, chain0=chain0)
     S, b = stats.reduce_stats(S, b)
-    _, w_new = stats.posterior_params(S, b, lam, jitter=jitter)
-    obj = objective.l2_reg(w_new, lam) + stats.preduce(
-        objective.hinge_obj_terms(margin, y, mask))
-    n_sv = stats.preduce(torch.sum(mask * (gamma <= 2.0 * eps)))
-    return w_new, {"objective": obj,
-                   "gamma_mean": stats.masked_mean(gamma, mask),
+    if multi:
+        w_new = multichain_draw(key, S, b, lam, jitter, chain0)
+        maskc = mask[:, None].expand_as(margin)
+        obj = objective.l2_reg(w_new, lam) / n_chains + stats.preduce(
+            objective.hinge_obj_terms(margin, y[:, None], maskc)) / n_chains
+        n_sv = stats.preduce(torch.sum(maskc * (gamma <= 2.0 * eps))
+                             ) / n_chains
+        gamma_mean = stats.masked_mean(gamma, maskc)
+    else:
+        L, mu = stats.posterior_params(S, b, lam, jitter=jitter)
+        if mode == "EM":
+            w_new = mu
+        elif rng == "host":
+            w_new = stats.draw_weight(key, L, mu)
+        else:
+            w_new = stats.draw_weight(chain_keys(key, chain0, 1)[0], L, mu)
+        obj = objective.l2_reg(w_new, lam) + stats.preduce(
+            objective.hinge_obj_terms(margin, y, mask))
+        n_sv = stats.preduce(torch.sum(mask * (gamma <= 2.0 * eps)))
+        gamma_mean = stats.masked_mean(gamma, mask)
+    return w_new, {"objective": obj, "gamma_mean": gamma_mean,
                    "n_sv": n_sv}
 
 
@@ -67,5 +129,7 @@ def decision_function(w: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     return X.to(torch.float32) @ w.to(torch.float32)
 
 
-def init_weight(K: int, device: torch.device | str = "cpu") -> torch.Tensor:
-    return torch.zeros((K,), dtype=torch.float32, device=device)
+def init_weight(K: int, device: torch.device | str = "cpu",
+                n_chains: int = 1) -> torch.Tensor:
+    shape = (n_chains, K) if n_chains > 1 else (K,)
+    return torch.zeros(shape, dtype=torch.float32, device=device)

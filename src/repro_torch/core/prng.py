@@ -1,0 +1,122 @@
+"""The slice of ``jax.random`` the solver uses, in PyTorch.
+
+Semantics are those of ``jax.random`` with the default ``threefry2x32``
+implementation and ``jax_threefry_partitionable=True`` (the default since
+jax 0.5), so a port fit walks the same key chain as the reference:
+
+  * a key is a (2,) int64 tensor of uint32 words; a batch of keys is
+    (..., 2);
+  * ``PRNGKey(seed)`` = [seed >> 32, seed & 0xFFFFFFFF];
+  * ``split(key, n)[i]`` = threefry2x32(key, (0, i)), both output words;
+  * ``fold_in(key, d)`` = threefry2x32(key, (0, d));
+  * ``random_bits(key, shape)`` at flat index i = x0 ^ x1 of
+    threefry2x32(key, (i >> 32, i & 0xFFFFFFFF));
+  * ``uniform`` sets the top 23 bits as the mantissa of a float in [1, 2)
+    and subtracts 1; ``normal`` = sqrt(2) * erf_inv(uniform(-1 + ulp, 1)).
+
+Key words and uniforms are exact. ``erf_inv`` evaluates XLA's float32
+polynomial (``ErfInv32``: w = -log1p(-x^2), two degree-8 Horner branches
+split at w < 5), not ``torch.erfinv``, which is up to 64 ulp away from
+it; each Horner step is rounded once, as XLA's fused multiply-add does.
+The normals then agree with ``jax.random.normal`` to a few ulp (``log1p``
+differs by an ulp between the two libraries).
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from repro_torch.kernels.rng import MASK, _words, sqrt_rn, threefry2x32
+
+_SQRT2 = float(np.float32(np.sqrt(2)))
+_LO = float(np.nextafter(np.float32(-1.0), np.float32(0.0)))
+# XLA ErfInv32 coefficients, highest degree first.
+_ERFINV_LT5 = (2.81022636e-08, 3.43273939e-07, -3.5233877e-06,
+               -4.39150654e-06, 0.00021858087, -0.00125372503,
+               -0.00417768164, 0.246640727, 1.50140941)
+_ERFINV_GE5 = (-0.000200214257, 0.000100950558, 0.00134934322,
+               -0.00367342844, 0.00573950773, -0.0076224613,
+               0.00943887047, 1.00167406, 2.83297682)
+_ERFINV_LT5 = tuple(float(np.float32(c)) for c in _ERFINV_LT5)
+_ERFINV_GE5 = tuple(float(np.float32(c)) for c in _ERFINV_GE5)
+
+
+def PRNGKey(seed: int, device=None) -> torch.Tensor:
+    """The (2,) key of a non-negative integer seed."""
+    seed = int(seed)
+    if seed < 0:
+        raise ValueError(f"seed must be non-negative, got {seed}")
+    return torch.tensor([(seed >> 32) & MASK, seed & MASK],
+                        dtype=torch.int64, device=device)
+
+
+def key_data(key: torch.Tensor) -> torch.Tensor:
+    """The raw uint32 words of a key (keys are raw words here)."""
+    return key
+
+
+def _hash(key: torch.Tensor, c0, c1) -> torch.Tensor:
+    """threefry2x32(key, (c0, c1)) stacked as (..., 2) keys; the key's
+    batch dimensions lead, the counter's trail."""
+    k0, k1 = key[..., 0], key[..., 1]
+    shape = k0.shape
+    c0 = _words(c0, key.device)
+    c1 = _words(c1, key.device)
+    k0 = k0.reshape(shape + (1,) * c1.dim())
+    k1 = k1.reshape(shape + (1,) * c1.dim())
+    x0, x1 = threefry2x32(k0, k1, c0, c1)
+    return torch.stack([x0, x1], dim=-1)
+
+
+def split(key: torch.Tensor, num: int = 2) -> torch.Tensor:
+    """(..., num, 2) new keys."""
+    i = torch.arange(num, dtype=torch.int64, device=key.device)
+    return _hash(key, torch.zeros_like(i), i)
+
+
+def fold_in(key: torch.Tensor, data) -> torch.Tensor:
+    """Key folded with ``data``: an int, or an int tensor of any shape,
+    which gives a batch of keys of that shape (per-row keys)."""
+    d = _words(data, key.device)
+    return _hash(key, torch.zeros_like(d), d)
+
+
+def random_bits(key: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """(..., *shape) int64 tensor of uint32 words."""
+    n = int(np.prod(shape, dtype=np.int64))
+    i = torch.arange(n, dtype=torch.int64, device=key.device)
+    words = _hash(key, i >> 32, i & MASK)
+    bits = words[..., 0] ^ words[..., 1]
+    return bits.reshape(key.shape[:-1] + tuple(shape))
+
+
+def uniform(key: torch.Tensor, shape: tuple = (), minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """float32 uniforms in [minval, maxval)."""
+    bits = random_bits(key, shape)
+    mant = ((bits >> 9) | 0x3F800000).to(torch.int32)
+    floats = mant.view(torch.float32) - 1.0
+    lo, hi = np.float32(minval), np.float32(maxval)
+    span = float(hi - lo)
+    return torch.clamp_min(floats * span + float(lo), float(lo))
+
+
+def erf_inv(x: torch.Tensor) -> torch.Tensor:
+    """float32 inverse error function, XLA's ``ErfInv32`` polynomial."""
+    w = -torch.log1p(-(x * x))
+    lt = w < 5.0
+    w = torch.where(lt, w - 2.5, sqrt_rn(w) - 3.0).double()
+    lt5 = torch.tensor(_ERFINV_LT5, dtype=torch.float64, device=x.device)
+    ge5 = torch.tensor(_ERFINV_GE5, dtype=torch.float64, device=x.device)
+    coef = torch.where(lt[..., None], lt5, ge5)
+    p = coef[..., 0].float()
+    for i in range(1, len(_ERFINV_LT5)):
+        p = (coef[..., i] + p.double() * w).float()  # one rounding a step
+    out = p * x
+    return torch.where(x.abs() == 1.0, x * float("inf"), out)
+
+
+def normal(key: torch.Tensor, shape: tuple = ()) -> torch.Tensor:
+    """float32 standard normals, (..., *shape) for a (..., 2) key."""
+    u = uniform(key, shape, _LO, 1.0)
+    return _SQRT2 * erf_inv(u)

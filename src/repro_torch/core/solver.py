@@ -1,10 +1,14 @@
-"""PEMSVM driver: port of ``repro/core/solver.py`` for LIN-EM-CLS on one
-device, with the ``scan`` (default) and ``loop`` drivers.
+"""PEMSVM driver: port of ``repro/core/solver.py`` for LIN-EM-CLS and
+LIN-MC-CLS on one device, with the ``scan`` (default) and ``loop``
+drivers.
 
 The run protocol is the paper's: the objective is evaluated every
 iteration and the fit stops when its change falls to tol*N (Sec 5.5);
 gamma is clamped for support vectors (Sec 5.7.3); the bias is a fixed unit
-feature (Sec 2.1).
+feature (Sec 2.1). MC fits walk the reference's key chain
+(``prng.PRNGKey(seed)``, one ``split`` an iteration), average the samples
+after ``burnin`` into the posterior mean, and with ``n_chains > 1`` run C
+chains over one X stream.
 
 ``PEMSVM(config)`` runs on ``cuda:0`` and its statistic goes through the
 hand-written kernels (``kernels/ops.py``); ``device="cpu"`` runs the plain
@@ -23,7 +27,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
-from . import distributed, linear
+from . import distributed, linear, prng
 from .linear import SVMData
 
 FORMULATIONS = ("LIN", "KRN")
@@ -139,13 +143,18 @@ class SVMConfig:
 
 @dataclasses.dataclass
 class FitResult:
-    weights: np.ndarray             # final weights (EM)
-    last_sample: np.ndarray
+    weights: np.ndarray             # final weights (EM) / posterior mean
+    last_sample: np.ndarray         # the last iterate (MC: the last draw)
     objective: list
     aux_history: dict
     n_iters: int
     converged: bool
     n_host_syncs: int = 0           # device->host transfers
+    chain_weights: np.ndarray | None = None  # (C, K) per-chain posterior
+    #                                 means (n_chains > 1); ``weights`` is
+    #                                 their cross-chain mean
+    chain_std: np.ndarray | None = None      # (K,) cross-chain std
+    #                                 (ddof=1) of the per-chain means
 
 
 def _unsupported(cfg: SVMConfig) -> list[str]:
@@ -153,7 +162,6 @@ def _unsupported(cfg: SVMConfig) -> list[str]:
     item that brings it."""
     checks = [
         ("formulation", cfg.formulation != "LIN", "item 9 (Nystrom, KRN)"),
-        ("algorithm", cfg.algorithm != "EM", "item 5 (LIN-MC-CLS)"),
         ("task", cfg.task == "SVR", "item 6 (SVR)"),
         ("task", cfg.task == "MLT", "item 7 (MLT)"),
         ("driver", cfg.driver == "stream", "item 8 (streaming and data)"),
@@ -164,8 +172,6 @@ def _unsupported(cfg: SVMConfig) -> list[str]:
         ("fault", cfg.fault is not None, "item 11 (reliability)"),
         ("decay", cfg.decay != 0.0, "item 8 (streaming and data)"),
         ("window", cfg.window != 0, "item 8 (streaming and data)"),
-        ("rng", cfg.rng != "host", "item 5 (LIN-MC-CLS)"),
-        ("n_chains", cfg.n_chains > 1, "item 5 (LIN-MC-CLS)"),
     ]
     return [f"{name}={getattr(cfg, name)!r} -> ROADMAP queue 1 {item}"
             for name, bad, item in checks if bad]
@@ -193,7 +199,8 @@ def _device(device) -> torch.device:
 
 
 class PEMSVM:
-    """Parallel EM SVM (the paper's PEMSVM), LIN-EM-CLS on one device."""
+    """Parallel EM SVM (the paper's PEMSVM): LIN-EM-CLS and LIN-MC-CLS on
+    one device."""
 
     def __init__(self, config: SVMConfig, device=None, mesh=None):
         bad = _unsupported(config)
@@ -233,116 +240,178 @@ class PEMSVM:
             X = np.concatenate([X, np.ones((X.shape[0], 1), np.float32)], 1)
         N = X.shape[0]
         data, state = self._prepare(X, y)
-        step = functools.partial(linear.cls_step, lam=cfg.lam, eps=cfg.eps,
-                                 jitter=cfg.jitter, backend=cfg.backend)
+        step = functools.partial(linear.cls_step, mode=cfg.algorithm,
+                                 lam=cfg.lam, eps=cfg.eps, jitter=cfg.jitter,
+                                 backend=cfg.backend, rng=cfg.rng,
+                                 n_chains=cfg.n_chains, chain0=cfg.chain0)
+        # The reference's key chain: PRNGKey(seed), one split an
+        # iteration. An EM step draws nothing, so EM fits skip it.
+        key = (prng.PRNGKey(cfg.seed, self.device)
+               if cfg.algorithm == "MC" else None)
         if cfg.driver == "loop":
-            return self._fit_loop(data, state, step, N)
-        return self._fit_scan(data, state, step, N)
+            return self._fit_loop(data, state, key, step, N)
+        return self._fit_scan(data, state, key, step, N)
 
     def _fit_scan(self, data: SVMData, state: torch.Tensor,
-                  step: Callable, N: int) -> FitResult:
+                  key: torch.Tensor | None, step: Callable,
+                  N: int) -> FitResult:
         """Chunked on-device driver (reference ``_fit_scan`` and
         ``_chunk_runner``).
 
         ``scan_chunk`` iterations run back to back with the state, the
-        Sec 5.5 stopping counters and the converged flag kept as device
-        tensors; once converged, ``torch.where`` freezes every update, so
-        the later iterations of the chunk are exact no-ops. Nothing in a
-        chunk waits for the device: the host sees one transfer per chunk
-        (the stacked trace and the flags) and decides whether to launch
-        the next, so n_host_syncs <= ceil(max_iters / scan_chunk). The
-        trace is truncated at the converged iteration, which makes the
-        result equal to the loop driver's.
+        key chain, the MC sample sum, the Sec 5.5 stopping counters and
+        the converged flag kept as device tensors; once converged,
+        ``torch.where`` freezes every update, so the later iterations of
+        the chunk are exact no-ops. Nothing in a chunk waits for the
+        device: the host sees one transfer per chunk (the stacked trace,
+        the chunk's float32 sample sum and the flags) and decides whether
+        to launch the next, so n_host_syncs <= ceil(max_iters /
+        scan_chunk). The chunk sums are combined in float64 on the host.
+        The trace is truncated at the converged iteration, which makes
+        the trace and the last sample equal to the loop driver's.
         """
         cfg = self.config
         dev = self.device
+        is_mc = cfg.algorithm == "MC"
         tol_n = torch.tensor(cfg.tol * N, dtype=torch.float32, device=dev)
         prev_obj = torch.tensor(math.inf, dtype=torch.float32, device=dev)
         n_small = torch.zeros((), dtype=torch.int32, device=dev)
+        n_avg = torch.zeros((), dtype=torch.int32, device=dev)
         done = torch.zeros((), dtype=torch.bool, device=dev)
         it_done = torch.zeros((), dtype=torch.int32, device=dev)
+        samp_total = np.zeros(tuple(state.shape), np.float64)
         aux_hist: dict = {k: [] for k in _AUX_KEYS}
         n_syncs = 0
         it0 = 0
         converged = False
         while it0 < cfg.max_iters:
             chunk = min(cfg.scan_chunk, cfg.max_iters - it0)
+            samp = torch.zeros_like(state)
             trace = []
             for it in range(it0 + 1, it0 + chunk + 1):
-                new_state, aux = step(data, state)
+                key, sub = _next_key(key)
+                new_state, aux = step(data, state, sub)
                 obj = aux["objective"]
                 state = torch.where(done, state, new_state)
+                if is_mc and it > cfg.burnin:
+                    take = ~done
+                    n_avg = n_avg + take.to(torch.int32)
+                    samp = torch.where(take, samp + new_state, samp)
                 small = torch.abs(obj - prev_obj) <= tol_n
                 n_small = torch.where(
                     done, n_small,
                     torch.where(small, n_small + 1, torch.zeros_like(n_small)))
                 conv_now = ~done & (n_small >= cfg.patience) & (
                     it >= cfg.min_iters)
+                if is_mc:
+                    conv_now = conv_now & (n_avg >= 1)
                 it_done = torch.where(conv_now, torch.full_like(it_done, it),
                                       it_done)
                 prev_obj = torch.where(done, prev_obj, obj)
                 done = done | conv_now
                 trace.append(torch.stack([aux[k] for k in _AUX_KEYS]))
-            # The single per-chunk host sync: trace and flags in one copy.
+            # The single per-chunk host sync: trace, sample sum and flags
+            # in one copy.
             flat = torch.cat([torch.stack(trace).to(torch.float64).ravel(),
+                              samp.to(torch.float64).ravel(),
                               done.to(torch.float64)[None],
-                              it_done.to(torch.float64)[None]]).cpu().numpy()
+                              it_done.to(torch.float64)[None],
+                              n_avg.to(torch.float64)[None]]).cpu().numpy()
             n_syncs += 1
-            aux_np = flat[:-2].reshape(chunk, len(_AUX_KEYS))
-            converged = bool(flat[-2])
-            valid = (int(flat[-1]) - it0) if converged else chunk
+            n_aux = chunk * len(_AUX_KEYS)
+            aux_np = flat[:n_aux].reshape(chunk, len(_AUX_KEYS))
+            samp_total += flat[n_aux:-3].reshape(samp_total.shape)
+            converged = bool(flat[-3])
+            valid = (int(flat[-2]) - it0) if converged else chunk
             for j, k in enumerate(_AUX_KEYS):
                 aux_hist[k].extend(float(v) for v in aux_np[:valid, j])
             it0 += chunk
             if converged:
                 break
-        n_iters = int(flat[-1]) if converged else it0
-        return self._result(state, aux_hist, n_iters, converged, n_syncs)
+        n_iters = int(flat[-2]) if converged else it0
+        last = state.cpu().numpy().astype(np.float32)
+        count = int(flat[-1])
+        weights = ((samp_total / count).astype(np.float32) if count > 0
+                   else last)
+        return self._finish(weights, last, aux_hist, n_iters, converged,
+                            n_syncs)
 
-    def _fit_host_loop(self, iterate: Callable, state0: torch.Tensor
-                       ) -> FitResult:
-        """Host-loop tail of the reference's loop driver: trace
-        bookkeeping and the Sec 5.5 stopping rule, one host sync per
-        iteration. ``iterate(state) -> (state, aux, n_valid)``."""
+    def _fit_host_loop(self, iterate: Callable, state0: torch.Tensor,
+                       key: torch.Tensor | None) -> FitResult:
+        """Host-loop tail of the reference's loop driver: key chain, trace
+        bookkeeping, the MC posterior average (a float64 running mean
+        after ``burnin``) and the Sec 5.5 stopping rule, one host sync per
+        iteration. ``iterate(sub_key, state) -> (state, aux, n_valid)``."""
         cfg = self.config
+        is_mc = cfg.algorithm == "MC"
         state = state0
         aux_hist: dict = {k: [] for k in _AUX_KEYS}
         objs = aux_hist["objective"]
         converged = False
         n_small = 0
+        n_avg = 0
+        mean_w = None
         it = 0
         for it in range(1, cfg.max_iters + 1):
-            state, aux, n_valid = iterate(state)
-            vals = torch.stack([aux[k] for k in _AUX_KEYS]).to(
-                torch.float64).cpu().tolist()
-            for k, v in zip(_AUX_KEYS, vals):
-                aux_hist[k].append(v)
+            key, sub = _next_key(key)
+            state, aux, n_valid = iterate(sub, state)
+            average = is_mc and it > cfg.burnin
+            parts = [torch.stack([aux[k] for k in _AUX_KEYS])]
+            if average:
+                parts.append(state.ravel())
+            vals = torch.cat([p.to(torch.float64) for p in parts]
+                             ).cpu().numpy()
+            for k, v in zip(_AUX_KEYS, vals[:len(_AUX_KEYS)]):
+                aux_hist[k].append(float(v))
+            if average:
+                w_np = vals[len(_AUX_KEYS):].reshape(tuple(state.shape))
+                mean_w = w_np if mean_w is None else (
+                    mean_w * n_avg + w_np) / (n_avg + 1)
+                n_avg += 1
             if (len(objs) >= 2
                     and abs(objs[-1] - objs[-2]) <= cfg.tol * n_valid):
                 n_small += 1
             else:
                 n_small = 0
             if it >= cfg.min_iters and n_small >= cfg.patience:
-                converged = True
-                break
-        return self._result(state, aux_hist, it, converged, len(objs))
+                if not is_mc or n_avg >= 1:
+                    converged = True
+                    break
+        last = state.cpu().numpy().astype(np.float32)
+        weights = mean_w.astype(np.float32) if mean_w is not None else last
+        return self._finish(weights, last, aux_hist, it, converged,
+                            len(objs))
 
-    def _fit_loop(self, data: SVMData, state: torch.Tensor, step: Callable,
+    def _fit_loop(self, data: SVMData, state: torch.Tensor,
+                  key: torch.Tensor | None, step: Callable,
                   N: int) -> FitResult:
         """Per-iteration driver: the semantic oracle for the scan driver."""
-        def iterate(state):
-            state, aux = step(data, state)
+        def iterate(sub, state):
+            state, aux = step(data, state, sub)
             return state, aux, N
 
-        return self._fit_host_loop(iterate, state)
+        return self._fit_host_loop(iterate, state, key)
 
-    def _result(self, state, aux_hist, n_iters, converged, n_syncs):
-        self._weights = state
-        w = state.cpu().numpy().astype(np.float32)
-        return FitResult(weights=w, last_sample=w.copy(),
-                         objective=list(aux_hist["objective"]),
-                         aux_history=aux_hist, n_iters=n_iters,
-                         converged=converged, n_host_syncs=n_syncs)
+    def _finish(self, weights, last, aux_hist, n_iters, converged,
+                n_syncs) -> FitResult:
+        """The FitResult, with the reference's multichain post-processing
+        (``_finalize_chains``): a (C, K) fit state is the per-chain
+        posterior means, exposed as ``chain_weights``; ``weights`` is
+        their float64 cross-chain mean and ``chain_std`` their ddof=1
+        std. Single-chain fits pass through."""
+        res = FitResult(weights=weights, last_sample=last,
+                        objective=list(aux_hist["objective"]),
+                        aux_history=aux_hist, n_iters=n_iters,
+                        converged=converged, n_host_syncs=n_syncs)
+        if self.config.n_chains > 1:
+            cw = np.asarray(weights, np.float32)
+            res.chain_weights = cw
+            res.chain_std = np.std(cw.astype(np.float64), axis=0,
+                                   ddof=1).astype(np.float32)
+            res.weights = np.mean(cw.astype(np.float64),
+                                  axis=0).astype(np.float32)
+        self._weights = torch.from_numpy(res.weights).to(self.device)
+        return res
 
     def _prepare(self, X: np.ndarray, y: np.ndarray):
         target = np.asarray(y, np.float32)
@@ -354,7 +423,8 @@ class PEMSVM:
         data = SVMData(torch.from_numpy(Xp).to(dev),
                        torch.from_numpy(tp).to(dev),
                        torch.from_numpy(mask).to(dev))
-        return data, linear.init_weight(X.shape[1], dev)
+        return data, linear.init_weight(X.shape[1], dev,
+                                        self.config.n_chains)
 
     # ---------------------------------------------------------- inference
     def _features(self, X: np.ndarray) -> torch.Tensor:
@@ -383,3 +453,12 @@ class PEMSVM:
 
 
 _AUX_KEYS = ("objective", "gamma_mean", "n_sv")
+
+
+def _next_key(key: torch.Tensor | None):
+    """(key, sub): the reference's ``key, sub = jax.random.split(key)``;
+    no key (EM) stays no key."""
+    if key is None:
+        return None, None
+    k = prng.split(key)
+    return k[0], k[1]

@@ -4,12 +4,15 @@ part of ``repro/core/stats.py``.
 Every worker of the paper's map-reduce (Sec 4.1) computes
 Sigma^p = sum_d (1/gamma_d) x_d x_d^T and mu^p = sum_d (rho_d/gamma_d +
 beta_d) x_d; the global statistics are sums over workers. On one device
-the reductions are identities. The multi-GPU reduction is ROADMAP queue 1
+the reductions are identities. The M-step is the posterior solve (EM) or
+the Gaussian draw ``draw_weight`` (MC). The multi-GPU reduction is ROADMAP queue 1
 item 10.
 """
 from __future__ import annotations
 
 import torch
+
+from . import prng
 
 
 def preduce(x: torch.Tensor, axes=None, live=None) -> torch.Tensor:
@@ -53,3 +56,12 @@ def posterior_params(S: torch.Tensor, b: torch.Tensor, lam: float,
     L = torch.linalg.cholesky_ex(P).L
     mu = torch.cholesky_solve(b[:, None], L)[:, 0]
     return L, mu
+
+
+def draw_weight(key: torch.Tensor, L: torch.Tensor, mu: torch.Tensor
+                ) -> torch.Tensor:
+    """MC draw w ~ N(mu, P^{-1}) via w = mu + L^{-T} z (paper Eq. 4), with
+    z = ``prng.normal(key, (K,))`` as the reference draws it."""
+    z = prng.normal(key, tuple(mu.shape)).to(mu.dtype)
+    return mu + torch.linalg.solve_triangular(L.T, z[:, None],
+                                              upper=True)[:, 0]

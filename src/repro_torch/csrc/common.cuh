@@ -7,7 +7,8 @@
 // rows and writes the tile as a per-split partial. ``tri_finalize`` then
 // sums the partials of every split in a fixed order and mirrors the upper
 // triangle, so the result is deterministic: no floating-point atomics.
-// syrk.cu and fused_stats.cu both use this tile code.
+// syrk.cu and fused_stats.cu both use this tile code; fused_stats runs
+// C chains as C interleaved copies of the grid, finalized per chain.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -117,14 +118,16 @@ __device__ __forceinline__ void store_tile(float* __restrict__ dst,
   }
 }
 
-// out (K x K) = sum over S splits of the tile partials part[S][T][BK][BK],
-// in split order; elements above the tile diagonal read the transposed
-// lower tile, so out is exactly symmetric outside the diagonal tiles.
+// out[c] (K x K) = sum over S splits of the tile partials
+// part[S][T][C][BK][BK] of chain c = blockIdx.y, in split order; elements
+// above the tile diagonal read the transposed lower tile, so out is
+// exactly symmetric outside the diagonal tiles.
 static __global__ void tri_finalize(const float* __restrict__ part,
                                     float* __restrict__ out, int K, int T,
-                                    int S) {
+                                    int S, int C) {
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (int64_t)K * K) return;
+  const int ch = blockIdx.y;
   const int r = (int)(idx / K), c = (int)(idx % K);
   const int bi = r / BK, bj = c / BK;
   int t, off;
@@ -136,31 +139,38 @@ static __global__ void tri_finalize(const float* __restrict__ part,
     off = (c % BK) * BK + r % BK;
   }
   float sum = 0.f;
-  for (int s = 0; s < S; ++s) sum += part[((int64_t)s * T + t) * BK * BK + off];
-  out[idx] = sum;
+  for (int s = 0; s < S; ++s)
+    sum += part[(((int64_t)s * T + t) * C + ch) * BK * BK + off];
+  out[(int64_t)ch * K * K + idx] = sum;
 }
 
-// out[c] = sum over S rows of part[S][ld], in row order (c < K).
+// out[ch][c] = sum over S rows of part[S][C][ld] for chain ch =
+// blockIdx.y, in row order (c < K).
 static __global__ void sum_partials(const float* __restrict__ part,
                                     float* __restrict__ out, int K, int ld,
-                                    int S) {
+                                    int S, int C) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= K) return;
+  const int ch = blockIdx.y;
   float sum = 0.f;
-  for (int s = 0; s < S; ++s) sum += part[(int64_t)s * ld + c];
-  out[c] = sum;
+  for (int s = 0; s < S; ++s)
+    sum += part[((int64_t)s * C + ch) * ld + c];
+  out[(int64_t)ch * K + c] = sum;
 }
 
 static inline void launch_tri_finalize(const float* part, float* out, int K,
-                                       int T, int S, cudaStream_t stream) {
+                                       int T, int S, cudaStream_t stream,
+                                       int C = 1) {
   const int64_t n = (int64_t)K * K;
-  tri_finalize<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(part, out, K,
-                                                                 T, S);
+  const dim3 grid((unsigned)((n + 255) / 256), (unsigned)C);
+  tri_finalize<<<grid, 256, 0, stream>>>(part, out, K, T, S, C);
 }
 
 static inline void launch_sum_partials(const float* part, float* out, int K,
-                                       int ld, int S, cudaStream_t stream) {
-  sum_partials<<<(K + 255) / 256, 256, 0, stream>>>(part, out, K, ld, S);
+                                       int ld, int S, cudaStream_t stream,
+                                       int C = 1) {
+  const dim3 grid((unsigned)((K + 255) / 256), (unsigned)C);
+  sum_partials<<<grid, 256, 0, stream>>>(part, out, K, ld, S, C);
 }
 
 }  // namespace rt

@@ -1,133 +1,206 @@
-// The whole EM iteration statistic in one pass over X (em_hinge):
-// margin = Xw; gamma = max(eps, |rho - margin|); weight = wmask / gamma;
-// b = X^T (rho/gamma + beta); Sigma = X^T diag(weight) X.
+// The whole iteration statistic in one pass over X, for C chains:
+// margin = X w_c; gamma from the epilogue; weight = wmask / gamma;
+// b_c = X^T (rho/gamma + beta); Sigma_c = X^T diag(weight) X.
 //
-// Replaces the TPU kernel repro/kernels/fused_stats.py::fused_stats
-// (em_hinge, full width). Sigma is tiled across CTAs exactly as in syrk.cu
-// (same tile code, common.cuh). Every CTA recomputes the margin, gamma and
-// weight of each row it stages (a warp per row, same summation order in
-// every CTA, so all CTAs agree bitwise); the T CTAs of one row split are
-// launched together so the repeated row reads hit L2. The tile-0 CTAs
-// write margin and gamma; the diagonal-tile CTAs of column block i
-// accumulate b[i-block] from the unweighted staged columns. See
+// Replaces the TPU kernel repro/kernels/fused_stats.py::fused_stats at
+// full width for the hinge epilogues: em_hinge, and mc_hinge with its
+// (nu, u) noise either read from two (N,) operands or derived in-body
+// from the counter seed [k0, k1, row0, chain0] (rng.cuh); a (K, C) wvec
+// with the seed runs C chains (multichain). Sigma is tiled across CTAs
+// exactly as in syrk.cu (same tile code, common.cuh): the grid is
+// (row split) x (lower-triangle tile) x (chain), chain fastest, so the C
+// CTAs of one (split, tile) run together and their X reads hit L2. Every
+// CTA recomputes the margin, gamma and weight of each row it stages for
+// its chain (a warp per row, same summation order in every CTA, so all
+// CTAs agree bitwise); the tile-0 CTAs write margin and gamma; the
+// diagonal-tile CTAs of column block i accumulate b[i-block]. See
 // kernels/fused_stats.py for the design note.
 #include "common.cuh"
+#include "epilogues.cuh"
+#include "rng.cuh"
 
 namespace rt {
 
-template <typename T>
+struct StatsArgs {
+  const float* rho;
+  const float* beta;
+  const float* wmask;    // may be null: all ones
+  const float* wt;       // (C, K): chain c's weights at wt + c * K
+  const float* nu;       // MC_NOISE: (N,) normals
+  const float* u;        // MC_NOISE: (N,) uniforms
+  const int64_t* seed;   // MC_SEED: [k0, k1, row0, chain0] as words
+  float* margin;         // (N, C)
+  float* gamma;          // (N, C)
+  float* part;           // (S, T, C) tiles of BK x BK
+  float* bpart;          // (S, C, Kp)
+  int64_t N;
+  int K, Kp, ntiles, C;
+  int64_t rows_per_split;
+  float eps;
+};
+
+template <typename T, int EPI>
 __global__ void __launch_bounds__(TILE_THREADS, 2)
-    fused_tiles(const T* __restrict__ X, const float* __restrict__ rho,
-                const float* __restrict__ beta,
-                const float* __restrict__ wmask,  // may be null: all ones
-                const float* __restrict__ wvec, float* __restrict__ margin,
-                float* __restrict__ gamma, float* __restrict__ part,
-                float* __restrict__ bpart, int64_t N, int K, int Kp,
-                int ntiles, int64_t rows_per_split, float eps) {
+    fused_tiles(const T* __restrict__ X, StatsArgs a) {
   __shared__ __align__(16) float As[BN][BK];
   __shared__ __align__(16) float Bs[BN][BK];
   __shared__ float sw[BN];
   __shared__ float scoef[BN];
   constexpr int ROWS_PER_WARP = BN / (TILE_THREADS / 32);
-  const int t = (int)(blockIdx.x % ntiles);
-  const int64_t s = blockIdx.x / ntiles;
+  const int c = (int)(blockIdx.x % a.C);
+  const int t = (int)((blockIdx.x / a.C) % a.ntiles);
+  const int64_t s = blockIdx.x / ((int64_t)a.C * a.ntiles);
   int bi, bj;
   tri_ij(t, bi, bj);
   const bool diag = bi == bj;
   const bool writer = t == 0;
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  const int64_t r_begin = s * rows_per_split;
-  const int64_t r_end = min64(N, r_begin + rows_per_split);
+  const int64_t r_begin = s * a.rows_per_split;
+  const int64_t r_end = min64(a.N, r_begin + a.rows_per_split);
+  const float* __restrict__ w = a.wt + (int64_t)c * a.K;
+  uint32_t k0 = 0, k1 = 0, row0 = 0, chain = 0;
+  if (EPI == MC_SEED) {
+    k0 = (uint32_t)a.seed[0];
+    k1 = (uint32_t)a.seed[1];
+    row0 = (uint32_t)a.seed[2];
+    chain = (uint32_t)a.seed[3] + (uint32_t)c;
+  }
   float acc[8][8];
 #pragma unroll
   for (int p = 0; p < 8; ++p)
 #pragma unroll
     for (int q = 0; q < 8; ++q) acc[p][q] = 0.f;
   float bacc = 0.f;
-  for (int64_t row0 = r_begin; row0 < r_end; row0 += BN) {
-    // margin and the em_hinge epilogue of the BN rows about to be staged
+  for (int64_t rb = r_begin; rb < r_end; rb += BN) {
+    // Margins of the warp's rows (all lanes), then lane k runs the
+    // epilogue of the warp's k-th row, so the rows' epilogues overlap.
+    float mk = 0.f;
     for (int k = 0; k < ROWS_PER_WARP; ++k) {
-      const int r = warp * ROWS_PER_WARP + k;
-      const int64_t row = row0 + r;
-      float wgt = 0.f, cf = 0.f;
+      const int64_t row = rb + warp * ROWS_PER_WARP + k;
       if (row < r_end) {  // warp-uniform
-        const float m = row_dot(X + row * (int64_t)K, wvec, K, lane);
-        const float rh = rho[row];
-        const float g = fmaxf(fabsf(rh - m), eps);
-        const float inv = 1.0f / g;
-        wgt = wmask ? wmask[row] * inv : inv;
-        cf = rh / g + beta[row];
-        if (writer && lane == 0) {
-          margin[row] = m;
-          gamma[row] = g;
-        }
-      }
-      if (lane == 0) {
-        sw[r] = wgt;
-        scoef[r] = cf;
+        const float m = row_dot(X + row * (int64_t)a.K, w, a.K, lane);
+        if (lane == k) mk = m;
       }
     }
+    if (lane < ROWS_PER_WARP) {
+      const int r = warp * ROWS_PER_WARP + lane;
+      const int64_t row = rb + r;
+      float wgt = 0.f, cf = 0.f;
+      if (row < r_end) {
+        const float rh = a.rho[row];
+        float g;
+        if (EPI == EM_HINGE) {
+          g = em_gamma(rh, mk, a.eps);
+        } else {
+          float nu, u;
+          if (EPI == MC_NOISE) {
+            nu = a.nu[row];
+            u = a.u[row];
+          } else {
+            counter_noise(k0, k1, row0 + (uint32_t)row, chain, nu, u);
+          }
+          g = mc_gamma(rh, mk, nu, u, a.eps);
+        }
+        const float inv = __fdiv_rn(1.0f, g);
+        wgt = a.wmask ? __fmul_rn(a.wmask[row], inv) : inv;
+        cf = __fadd_rn(__fdiv_rn(rh, g), a.beta[row]);
+        if (writer) {
+          a.margin[row * a.C + c] = mk;
+          a.gamma[row * a.C + c] = g;
+        }
+      }
+      sw[r] = wgt;
+      scoef[r] = cf;
+    }
     __syncthreads();
-    stage_rows(X, row0, r_end, K, bi * BK, bj * BK, sw, As, Bs);
+    stage_rows(X, rb, r_end, a.K, bi * BK, bj * BK, sw, As, Bs);
     __syncthreads();
     if (diag && threadIdx.x < BK) {
 #pragma unroll 8
-      for (int r = 0; r < BN; ++r) bacc = fmaf(scoef[r], Bs[r][threadIdx.x], bacc);
+      for (int r = 0; r < BN; ++r)
+        bacc = fmaf(scoef[r], Bs[r][threadIdx.x], bacc);
     }
     accumulate(acc, As, Bs);
     __syncthreads();
   }
-  store_tile(part + ((int64_t)s * ntiles + t) * BK * BK, acc);
+  store_tile(a.part + ((s * a.ntiles + t) * a.C + c) * BK * BK, acc);
   if (diag && threadIdx.x < BK)
-    bpart[s * Kp + (int64_t)bi * BK + threadIdx.x] = bacc;
+    a.bpart[(s * a.C + c) * a.Kp + (int64_t)bi * BK + threadIdx.x] = bacc;
+}
+
+template <typename T, int EPI>
+static void launch_epi(const void* X, const StatsArgs& a, float* sigma,
+                       float* b, int nsplits, cudaStream_t stream) {
+  const int64_t nctas = (int64_t)nsplits * a.ntiles * a.C;
+  fused_tiles<T, EPI><<<(unsigned)nctas, TILE_THREADS, 0, stream>>>(
+      static_cast<const T*>(X), a);
+  launch_tri_finalize(a.part, sigma, a.K, a.ntiles, nsplits, stream, a.C);
+  launch_sum_partials(a.bpart, b, a.K, a.Kp, nsplits, stream, a.C);
 }
 
 template <typename T>
-static void launch(const void* X, const float* rho, const float* beta,
-                   const float* wmask, const float* w, float* margin,
-                   float* gamma, float* part, float* bpart, float* sigma,
-                   float* b, int64_t N, int K, int Kp, int ntiles,
-                   int nsplits, int64_t rows_per_split, float eps,
-                   cudaStream_t stream) {
-  fused_tiles<T><<<(unsigned)((int64_t)nsplits * ntiles), TILE_THREADS, 0,
-                   stream>>>(static_cast<const T*>(X), rho, beta, wmask, w,
-                             margin, gamma, part, bpart, N, K, Kp, ntiles,
-                             rows_per_split, eps);
-  launch_tri_finalize(part, sigma, K, ntiles, nsplits, stream);
-  launch_sum_partials(bpart, b, K, Kp, nsplits, stream);
+static int launch(const void* X, const StatsArgs& a, float* sigma, float* b,
+                  int nsplits, int epilogue, cudaStream_t stream) {
+  switch (epilogue) {
+    case EM_HINGE:
+      launch_epi<T, EM_HINGE>(X, a, sigma, b, nsplits, stream);
+      return 0;
+    case MC_NOISE:
+      launch_epi<T, MC_NOISE>(X, a, sigma, b, nsplits, stream);
+      return 0;
+    case MC_SEED:
+      launch_epi<T, MC_SEED>(X, a, sigma, b, nsplits, stream);
+      return 0;
+  }
+  return -1;
 }
 
 }  // namespace rt
 
 // X (N, K) row-major f32 or bf16 (x_bf16); rho, beta, wmask (N,) f32 (wmask
-// null = ones); w (K,) f32. Outputs margin, gamma (N,), sigma (K, K), b (K,)
-// f32. Scratch: part nsplits * ntiles * 128 * 128 f32, bpart nsplits * Kp
-// f32 with Kp = 128 * (tiles per side).
+// null = ones); wt (C, K) f32, chain-major. epilogue 0 = em_hinge,
+// 1 = mc_hinge reading nu, u (N,) f32 (C = 1), 2 = mc_hinge deriving them
+// from seed, four int64 words on the device. Outputs margin, gamma (N, C),
+// sigma (C, K, K), b (C, K) f32. Scratch: part nsplits * ntiles * C *
+// 128 * 128 f32, bpart nsplits * C * Kp f32 with Kp = 128 * (tiles per
+// side). Returns -1 for an unknown epilogue, else cudaGetLastError().
 extern "C" int rt_fused_stats(int device, void* stream, const void* X,
                               int x_bf16, const void* rho, const void* beta,
-                              const void* wmask, const void* w, void* margin,
-                              void* gamma, void* part, void* bpart,
-                              void* sigma, void* b, int64_t N, int K, int Kp,
-                              int ntiles, int nsplits,
-                              int64_t rows_per_split, float eps) {
+                              const void* wmask, const void* wt,
+                              const void* nu, const void* u, const void* seed,
+                              void* margin, void* gamma, void* part,
+                              void* bpart, void* sigma, void* b, int64_t N,
+                              int K, int Kp, int ntiles, int nsplits,
+                              int64_t rows_per_split, int C, int epilogue,
+                              float eps) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
+  rt::StatsArgs a;
+  a.rho = static_cast<const float*>(rho);
+  a.beta = static_cast<const float*>(beta);
+  a.wmask = static_cast<const float*>(wmask);
+  a.wt = static_cast<const float*>(wt);
+  a.nu = static_cast<const float*>(nu);
+  a.u = static_cast<const float*>(u);
+  a.seed = static_cast<const int64_t*>(seed);
+  a.margin = static_cast<float*>(margin);
+  a.gamma = static_cast<float*>(gamma);
+  a.part = static_cast<float*>(part);
+  a.bpart = static_cast<float*>(bpart);
+  a.N = N;
+  a.K = K;
+  a.Kp = Kp;
+  a.ntiles = ntiles;
+  a.C = C;
+  a.rows_per_split = rows_per_split;
+  a.eps = eps;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* rf = static_cast<const float*>(rho);
-  const float* bf = static_cast<const float*>(beta);
-  const float* mk = static_cast<const float*>(wmask);
-  const float* wf = static_cast<const float*>(w);
-  float* mf = static_cast<float*>(margin);
-  float* gf = static_cast<float*>(gamma);
-  float* pf = static_cast<float*>(part);
-  float* bp = static_cast<float*>(bpart);
   float* sf = static_cast<float*>(sigma);
   float* of = static_cast<float*>(b);
-  if (x_bf16)
-    rt::launch<__nv_bfloat16>(X, rf, bf, mk, wf, mf, gf, pf, bp, sf, of, N, K,
-                              Kp, ntiles, nsplits, rows_per_split, eps, st);
-  else
-    rt::launch<float>(X, rf, bf, mk, wf, mf, gf, pf, bp, sf, of, N, K, Kp,
-                      ntiles, nsplits, rows_per_split, eps, st);
+  const int bad = x_bf16 ? rt::launch<__nv_bfloat16>(X, a, sf, of, nsplits,
+                                                     epilogue, st)
+                         : rt::launch<float>(X, a, sf, of, nsplits, epilogue,
+                                             st);
+  if (bad) return bad;
   return (int)cudaGetLastError();
 }

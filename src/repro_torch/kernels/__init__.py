@@ -1,12 +1,15 @@
 """Hand-written Hopper kernels for the iteration statistic.
 
-  * fused_stats — margin, gamma, b and Sigma in one pass over X (em_hinge).
+  * fused_stats — margin, gamma, b and Sigma in one pass over X (em_hinge;
+    mc_hinge from noise operands or the counter seed; C chains).
   * fused_estep — margin, gamma and b in one pass (the K > 1536 route).
   * syrk_tri    — Sigma = X^T diag(w) X over lower-triangle tiles only.
 
 Each kernel is CUDA C++ for sm_90a under ``csrc/``, built on first use
 (``_build``). Its wrapper launches it for a CUDA tensor and runs the plain
 PyTorch version (``ref``) for a CPU tensor. ``ops`` is the dispatch layer
-the solver calls. Nothing CUDA-specific happens at import time.
+the solver calls; ``epilogues`` and ``rng`` are the plain versions of the
+device code the kernel runs per row (``csrc/epilogues.cuh``,
+``csrc/rng.cuh``). Nothing CUDA-specific happens at import time.
 """
-from . import epilogues, ops, ref  # noqa: F401
+from . import epilogues, ops, ref, rng  # noqa: F401

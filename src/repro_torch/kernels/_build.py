@@ -46,8 +46,9 @@ _SIGNATURES = {
     "rt_fused_stats": [_c_int, _c_void_p, _c_void_p, _c_int, _c_void_p,
                        _c_void_p, _c_void_p, _c_void_p, _c_void_p,
                        _c_void_p, _c_void_p, _c_void_p, _c_void_p,
-                       _c_void_p, _c_int64, _c_int, _c_int, _c_int, _c_int,
-                       _c_int64, _c_float],
+                       _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+                       _c_int64, _c_int, _c_int, _c_int, _c_int, _c_int64,
+                       _c_int, _c_int, _c_float],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -93,10 +93,20 @@ def fused_stats(X: torch.Tensor, rho: torch.Tensor, beta: torch.Tensor,
                 eps_ins: float = 0.0, col_window: tuple | None = None,
                 seed: torch.Tensor | None = None,
                 backend: str | None = None):
-    """(margin, gamma, b, S): the whole EM iteration statistic in one X
-    pass. For K > FUSED_STATS_MAX_K the route is fused_estep + syrk_tri,
-    as the reference's kernel route, in both flavours; callers get the
-    same outputs either way."""
+    """(margin, gamma, b, S): the whole iteration statistic in one X
+    pass, under the em_hinge or mc_hinge epilogue. mc_hinge takes the
+    pre-drawn (nu, u) ``noise`` or derives it from ``seed`` (the (4,)
+    words of ``rng.pack_seed``); a 2-D (K, C) ``wvec`` with ``seed`` runs
+    C chains: margin and gamma (N, C), b (K, C), S (C, K, K).
+
+    Routes, as the reference's kernel routes: for K > FUSED_STATS_MAX_K
+    a single chain takes fused_estep + syrk_tri (em_hinge) or the
+    generalised split fallback (a plain E-step, then syrk_tri), in both
+    flavours. Multichain differs: the TPU kernel cannot hold C Sigma
+    blocks past the cap and the reference runs plain XLA there, while
+    the Hopper kernel tiles Sigma at any K * C, so the cuda flavour runs
+    the multichain kernel at every width. Callers get the same outputs
+    either way."""
     del eps_ins  # only the SVR epilogues read it
     _check_noise(epilogue, noise, seed)
     epilogues.check_ported(epilogue)
@@ -104,22 +114,33 @@ def fused_stats(X: torch.Tensor, rho: torch.Tensor, beta: torch.Tensor,
         raise NotImplementedError(
             "the column-windowed statistic (k_shard_axis) is not ported "
             "yet: ROADMAP queue 1 item 10 (multi-GPU)")
-    if seed is not None:
-        raise NotImplementedError(
-            "the in-kernel counter RNG is not ported yet: ROADMAP queue 1 "
-            "item 5 (LIN-MC-CLS)")
-    if wvec.dim() != 1:
-        raise NotImplementedError(
-            "multichain fused_stats (2-D wvec) is not ported yet: ROADMAP "
-            "queue 1 item 5 (LIN-MC-CLS)")
+    multi = wvec.dim() == 2
+    if multi and seed is None:
+        raise ValueError("multichain fused_stats (2-D wvec) requires the "
+                         "counter seed (rng='fused')")
     flavour = _resolve(backend, X)
-    if X.shape[1] > FUSED_STATS_MAX_K:
+    if multi or X.shape[1] <= FUSED_STATS_MAX_K:
+        if flavour == "ref":
+            return ref.fused_stats(X, rho, beta, wvec, wmask, eps, epilogue,
+                                   noise=noise, seed=seed)
+        return _fused_stats.fused_stats(
+            X, _f32(rho), _f32(beta), _f32(wvec),
+            None if wmask is None else _f32(wmask),
+            noise=None if noise is None else tuple(_f32(z) for z in noise),
+            seed=seed, epilogue=epilogue, eps=eps)
+    if epilogue == "em_hinge":
         margin, gamma, b = fused_estep(X, rho, beta, wvec, eps=eps,
                                        backend=flavour)
         w = (1.0 / gamma) if wmask is None else wmask.to(gamma.dtype) / gamma
         return margin, gamma, b, syrk_tri(X, w, backend=flavour)
-    if flavour == "ref":
-        return ref.fused_stats(X, rho, beta, wvec, wmask, eps, epilogue)
-    return _fused_stats.fused_stats(
-        X, _f32(rho), _f32(beta), _f32(wvec),
-        None if wmask is None else _f32(wmask), eps=eps)
+    # Generalised split fallback: the O(NK) E-step (margin, gamma, coef,
+    # b) in plain PyTorch, the O(NK^2) Sigma through syrk_tri.
+    if seed is not None:
+        noise = ref.seed_noise(seed, X.shape[0], 1, epilogue)
+    Xf = X.to(torch.float32)
+    margin = Xf @ wvec.to(torch.float32)
+    aug, weight, coef = epilogues.apply_epilogue(
+        epilogue, margin, rho.to(torch.float32), beta.to(torch.float32),
+        noise, eps)
+    w = weight if wmask is None else wmask.to(torch.float32) * weight
+    return (margin, *aug, Xf.T @ coef, syrk_tri(X, w, backend=flavour))

@@ -171,7 +171,7 @@ def test_objective_terms_match_reference(masked):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(algorithm="MC"),
+    dict(algorithm="MC", task="MLT", num_classes=3),
     dict(task="SVR"),
     dict(task="MLT", num_classes=3),
     dict(formulation="KRN"),
@@ -182,8 +182,8 @@ def test_objective_terms_match_reference(masked):
     dict(fault=object()),
     dict(decay=0.5, driver="stream"),
     dict(window=2, driver="stream"),
-    dict(algorithm="MC", rng="fused"),
-    dict(algorithm="MC", rng="fused", n_chains=2),
+    dict(algorithm="MC", rng="fused", task="SVR"),
+    dict(algorithm="MC", rng="fused", n_chains=2, task="SVR"),
 ])
 def test_unsupported_config_raises(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):

@@ -11,14 +11,21 @@ well-conditioned regime of tests/test_torch_kernels_ref.py, held against
 the plain version evaluated in float64 (rho = m64 +- U[0.05, 2], so 1/gamma
 amplifies nothing): |d| <= 1e-5 (1 + |v|) for margin and gamma,
 max|d| <= 1e-5 max|ref| for b and Sigma.
+
+The mc_hinge variants (noise operands, the counter seed, C chains) are
+held as in ``chip_smoke.py`` phase 3: margins as above; gamma against the
+plain epilogue on the kernel's own margin and noise (>= 99 % of rows
+bitwise equal, >= 99.95 % within 1e-3 relative, all finite and >= eps);
+b and Sigma against a float64 recomputation from the kernel's own gamma.
 """
 import numpy as np
 import pytest
 import torch
 
-from repro_torch.core import PEMSVM, SVMConfig, lam_from_C
+from repro_torch.core import PEMSVM, SVMConfig, lam_from_C, prng
 from repro_torch.data import make_blobs
-from repro_torch.kernels import fused_estep, fused_stats, ops, ref, syrk
+from repro_torch.kernels import (epilogues, fused_estep, fused_stats, ops,
+                                 ref, rng, syrk)
 
 pytestmark = pytest.mark.gpu
 REL = 1e-5
@@ -113,9 +120,9 @@ def test_fit_goes_through_the_kernels(cuda):
     X, y = make_blobs(6000, 40, seed=0)
     cfg = SVMConfig.from_options("LIN-EM-CLS", lam=lam_from_C(1.0),
                                  max_iters=100)
-    before = fused_stats.LAUNCHES
+    before = fused_stats.LAUNCHES["em_hinge"]
     res = PEMSVM(cfg).fit(X, y)
-    launched = fused_stats.LAUNCHES - before
+    launched = fused_stats.LAUNCHES["em_hinge"] - before
     chunk = cfg.scan_chunk
     assert res.converged
     assert res.n_iters <= launched <= -(-res.n_iters // chunk) * chunk
@@ -130,10 +137,67 @@ def test_fit_goes_through_the_kernels(cuda):
 def test_wide_route_launches_estep_and_syrk(cuda):
     X, rho, beta, w, wm = _problem(300, ops.FUSED_STATS_MAX_K + 1,
                                    torch.float32, cuda)
-    counts = (fused_stats.LAUNCHES, fused_estep.LAUNCHES, syrk.LAUNCHES)
+    counts = (dict(fused_stats.LAUNCHES), fused_estep.LAUNCHES,
+              syrk.LAUNCHES)
     got = ops.fused_stats(X, rho, beta, w, wm)
     assert (fused_stats.LAUNCHES, fused_estep.LAUNCHES - 1,
             syrk.LAUNCHES - 1) == counts
     want = ref.fused_stats(X.double(), rho.double(), beta.double(),
                            w.double(), wm.double(), 1e-6)
     _close_max(got[3], want[3])
+
+
+MC = [("mc_hinge,noise", 1), ("mc_hinge,seed", 1),
+      ("mc_hinge,seed,multichain", 3)]
+
+
+def _gamma_band(g, g_plain):
+    g, gp = g.reshape(-1).double(), g_plain.reshape(-1).double()
+    assert torch.all(torch.isfinite(g)) and torch.all(g >= 1e-6)
+    assert (g == gp).double().mean() >= 0.99
+    assert ((g - gp).abs() / gp.abs() <= 1e-3).double().mean() >= 0.9995
+
+
+@pytest.mark.parametrize("var,C", MC)
+@pytest.mark.parametrize("n,k,dtype", SHAPES)
+def test_fused_stats_mc_kernel(cuda, n, k, dtype, var, C):
+    X, rho, beta, w, wm = _problem(n, k, dtype, cuda)
+    seed = rng.pack_seed(prng.fold_in(prng.PRNGKey(5), 2), 3, 1).to(cuda)
+    noise = ref.seed_noise(seed, n, C, "mc_hinge")
+    kw = dict(noise=noise) if var == "mc_hinge,noise" else dict(seed=seed)
+    if C > 1:
+        w = torch.stack([w * (1.0 + 0.25 * c) for c in range(C)], 1)
+    before = fused_stats.LAUNCHES[var]
+    got = fused_stats.fused_stats(X, rho, beta, w, wm, epilogue="mc_hinge",
+                                  **kw)
+    again = fused_stats.fused_stats(X, rho, beta, w, wm,
+                                    epilogue="mc_hinge", **kw)
+    torch.cuda.synchronize()
+    assert fused_stats.LAUNCHES[var] == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    m, g, b, S = got
+    _close_rows(m, X.double() @ w.double())
+    r, bt = (rho, beta) if C == 1 else (rho[:, None], beta[:, None])
+    (g_plain,), _, _ = epilogues.apply_epilogue("mc_hinge", m, r, bt, noise,
+                                                1e-6)
+    _gamma_band(g, g_plain)
+    X64 = X.double()
+    for c in range(C):
+        gc = (g if C == 1 else g[:, c]).double()
+        coef = rho.double() / gc + beta.double()
+        _close_max(b if C == 1 else b[:, c], X64.T @ coef)
+        S64 = (X64 * (wm.double() / gc)[:, None]).T @ X64
+        _close_max(S if C == 1 else S[c], S64)
+
+
+def test_mc_fit_goes_through_the_seed_kernel(cuda):
+    X, y = make_blobs(6000, 40, seed=0)
+    cfg = SVMConfig.from_options("LIN-MC-CLS", lam=lam_from_C(1.0),
+                                 max_iters=60, rng="fused")
+    before = fused_stats.LAUNCHES["mc_hinge,seed"]
+    res = PEMSVM(cfg).fit(X, y)
+    launched = fused_stats.LAUNCHES["mc_hinge,seed"] - before
+    chunk = cfg.scan_chunk
+    assert res.converged
+    assert launched == min(cfg.max_iters, -(-res.n_iters // chunk) * chunk)
+    assert np.all(np.isfinite(res.weights))

@@ -37,12 +37,48 @@ Needs one CUDA device (an H100: the kernels are built for sm_90a) and
    spread of two plain fits (seeds 0 and 1); an rng='host' fit through
    the noise-operand variant and an n_chains=4 fit through the multichain
    variant, each launched once per step run; then a torch.profiler
-   breakdown of one rng='fused' fit and its set-up time.
+   breakdown of one rng='fused' fit and its set-up time;
+7. main path, KRN-{EM,MC}-CLS through NystromSVM, fused route: the
+   KRN configuration of examples/nystrom_kernel_svm.py (lam 0.1, sigma
+   0.7, max_iters 60) on make_circles(1,000,000) with m = ceil(sqrt(N)) =
+   1,000 landmarks, held out on make_circles(100,000, seed=1): EM, MC
+   rng='fused' and MC rng='host', each through the kernels and through the
+   plain path on the same landmarks and projection. Every step runs
+   nystrom_fused_stats (once a step), never nystrom_phi; rbf_gram runs once
+   a fit (the landmark Gram), nystrom_score on predict; held-out accuracy
+   >= 0.99 and within 0.01 of the plain fit; the kernel fit's peak device
+   memory below the 4.0 GB that phi (1,000,000 x 1,001 float32) would
+   take; then a torch.profiler breakdown of the EM kernel fit;
+8. main path, featurize-then-accumulate route: NystromSVM with 2,048
+   landmarks (m > 1,024) on the alpha-like 250,000 x 500 training rows of
+   phase 4, sigma = sqrt(500), 5 EM iterations: every step runs
+   nystrom_phi, then fused_estep and syrk_tri at K = 2,049, never
+   nystrom_fused_stats; objective trace within 2e-2 relative and held-out
+   accuracy within 0.01 of the plain fit on the same landmarks and
+   projection. The weights band of 5e-2 is measured and printed, not
+   gated: at this configuration two correct float32 fits sit ~14 % apart
+   (a posterior condition number ~3.5e6), so the script prints both
+   fits' distance to a float64 EM on the same featurizer beside it
+   (ROADMAP section 3).
+
+Phase 3 also holds the four Nystrom kernels against their plain versions
+in float64: rbf_gram at (1,000 x 2)^2 and (2,048 x 500)^2; nystrom_phi at
+250,000 x 500 with m = 2,048; nystrom_score at 100,000 x 2 with m = 1,000
+and C = 1; nystrom_fused_stats (em_hinge, mc_hinge with noise operands and
+with the seed) at 1,000,000 x 2 with m = 1,000; each also at odd masked
+shapes with the bias column, both kinds (rbf, linear), f32 and bf16 X.
+Tolerances: rbf_gram |d| <= 1e-5 |ref| + 1e-7; phi |d| <= 1e-5 (|k| @
+|proj|) elementwise, scores through |W|, margins through |w|; em_hinge
+gamma |dg| <= |dm| + 2^-24 (g + g_ref) + 1e-7; mc_hinge gamma against the
+plain epilogue on the kernel's own margin and noise; b and Sigma within
+1e-5 max of a float64 recomputation from the kernel's own phi (the
+nystrom_phi kernel's bits) and gamma.
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
 """
 import dataclasses
+import functools
 import json
 import math
 import statistics
@@ -161,6 +197,12 @@ def gamma_band(name, g, g_plain):
     check(same >= 0.99 and near >= 0.9995,
           f"{name}: gamma {same:.5f} bitwise equal, {near:.5f} within 1e-3")
     return same
+
+
+def _rel(a, b):
+    """Relative distance |a - b| / |b| of two weight vectors."""
+    a, b = a.astype(np.float64), b.astype(np.float64)
+    return float(np.linalg.norm(a - b) / np.linalg.norm(b))
 
 
 def twice(fn):
@@ -384,19 +426,24 @@ def phase_kernels(dev, main_nk=(250_000, 501), wide_nk=(131_072, 2048),
 
 
 def _counts():
-    from repro_torch.kernels import fused_estep, fused_stats, syrk
+    from repro_torch.kernels import (fused_estep, fused_stats, nystrom_phi,
+                                     rbf_gram, syrk)
     out = {"fused_stats": fused_stats.LAUNCHES["em_hinge"]}
     for name, (key, _, _) in MC_VARIANTS.items():
         out[name] = fused_stats.LAUNCHES[key]
     out["fused_estep"] = fused_estep.LAUNCHES
     out["syrk_tri"] = syrk.LAUNCHES
+    out["rbf_gram"] = rbf_gram.LAUNCHES
+    out.update(nystrom_phi.LAUNCHES)
     return out
 
 
 def _zero_counts():
-    from repro_torch.kernels import fused_estep, fused_stats, syrk
+    from repro_torch.kernels import (fused_estep, fused_stats, nystrom_phi,
+                                     rbf_gram, syrk)
     fused_stats.zero_launches()
-    fused_estep.LAUNCHES = syrk.LAUNCHES = 0
+    nystrom_phi.zero_launches()
+    fused_estep.LAUNCHES = syrk.LAUNCHES = rbf_gram.LAUNCHES = 0
 
 
 def _fit(cfg, dev, X, y):
@@ -410,10 +457,24 @@ def _fit(cfg, dev, X, y):
     return svm, res, time.perf_counter() - t0
 
 
+@functools.lru_cache(maxsize=None)
+def alpha_data(n=300_000, k=500):
+    """The alpha-like set of phases 3, 4, 6 and 8, made once."""
+    from repro_torch.data import make_alpha_like
+    return make_alpha_like(n=n, k=k, seed=0)
+
+
+@functools.lru_cache(maxsize=None)
+def circles_data(n, seed=0):
+    """make_circles of phases 3 and 7, made once."""
+    from repro_torch.data import make_circles
+    return make_circles(n, seed=seed)
+
+
 def phase_main_path(dev, n=300_000, n_train=250_000, k=500):
     from repro_torch.core import SVMConfig, lam_from_C
     from repro_torch.data import make_alpha_like
-    X, y = make_alpha_like(n=n, k=k, seed=0)
+    X, y = alpha_data(n, k)
     Xtr, ytr, Xte, yte = X[:n_train], y[:n_train], X[n_train:], y[n_train:]
     cfg = SVMConfig.from_options("LIN-EM-CLS", lam=lam_from_C(1.0),
                                  max_iters=100)
@@ -535,18 +596,23 @@ def profile_fit(label, cfg, dev, data, top=8):
     with profile(activities=[ProfilerActivity.CPU,
                              ProfilerActivity.CUDA]) as prof:
         _, res, secs = _fit(cfg, dev, Xtr, ytr)
+    steps = min(cfg.max_iters, -(-res.n_iters // cfg.scan_chunk)
+                * cfg.scan_chunk)
+    say_profile(prof, secs, top, f"profile of {label}: {secs * 1e3:.1f} ms "
+                f"wall for {steps} steps (one-step fit, the set-up: "
+                f"{setup * 1e3:.1f} ms)")
+
+
+def say_profile(prof, secs, top, head):
+    """The device's busy share of ``secs`` and its time by kernel name."""
     rows = [(getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0)) / 1e3, e.count,
              e.key) for e in prof.key_averages()]
     rows = sorted((r for r in rows if r[0] > 0), reverse=True)
     busy = sum(r[0] for r in rows)
-    steps = min(cfg.max_iters, -(-res.n_iters // cfg.scan_chunk)
-                * cfg.scan_chunk)
-    say(f"  profile of {label}: {secs * 1e3:.1f} ms wall for {steps} steps "
-        f"(one-step fit, the set-up: {setup * 1e3:.1f} ms), device busy "
-        f"{busy:.1f} ms ({busy / (secs * 1e3):.3f} of the wall time) in "
-        f"{sum(r[1] for r in rows)} device activities; by self device "
-        f"time:")
+    say(f"  {head}, device busy {busy:.1f} ms ({busy / (secs * 1e3):.3f} "
+        f"of the wall time) in {sum(r[1] for r in rows)} device "
+        f"activities; by self device time:")
     for ms, count, name in rows[:top]:
         say(f"    {ms:9.3f} ms {count:6d}x  {name[:90]}")
 
@@ -554,7 +620,7 @@ def profile_fit(label, cfg, dev, data, top=8):
 def phase_mc(dev, n=300_000, n_train=250_000, k=500):
     from repro_torch.core import SVMConfig, lam_from_C
     from repro_torch.data import make_alpha_like
-    X, y = make_alpha_like(n=n, k=k, seed=0)
+    X, y = alpha_data(n, k)
     data = (X[:n_train], y[:n_train], X[n_train:], y[n_train:])
     cfg = SVMConfig.from_options("LIN-MC-CLS", lam=lam_from_C(1.0),
                                  max_iters=100, rng="fused")
@@ -580,13 +646,8 @@ def phase_mc(dev, n=300_000, n_train=250_000, k=500):
         "fused_stats[mc_hinge,seed,C=4]")
 
     profile_fit("the rng='fused' kernels fit", cfg, dev, data)
-
-    def rel(a, b):
-        a, b = a.astype(np.float64), b.astype(np.float64)
-        return float(np.linalg.norm(a - b) / np.linalg.norm(b))
-
-    spread = rel(rp1.weights, rp.weights)
-    wrel = rel(rk.weights, rp.weights)
+    spread = _rel(rp1.weights, rp.weights)
+    wrel = _rel(rk.weights, rp.weights)
     say(f"  bands: kernel vs plain weights rel {wrel:.4e} (<= 3 x the seed "
         f"0 vs 1 spread of the plain path, {spread:.4e}); accuracy "
         f"kernel {acc_k:.4f} plain {acc_p:.4f} host {acc_h:.4f} 4 chains "
@@ -607,6 +668,455 @@ def phase_mc(dev, n=300_000, n_train=250_000, k=500):
             "fused_stats[mc_hinge,seed,C=4]": (c_c, rc.n_iters, st_c)}
 
 
+# ------------------------------------------------------- Nystrom kernels
+NYS_VARIANTS = {  # chip_smoke name: (epilogue, noise source)
+    "nystrom_fused_stats[em_hinge]": ("em_hinge", None),
+    "nystrom_fused_stats[mc_hinge,noise]": ("mc_hinge", "noise"),
+    "nystrom_fused_stats[mc_hinge,seed]": ("mc_hinge", "seed"),
+}
+ROWS_A_CHECK = 65_536   # float64 checks go in row chunks of this size
+
+
+def featurizer(dev, X, m, sigma, seed=0):
+    """Landmarks as NystromSVM draws them and their projection (through
+    the rbf_gram kernel and a float64 eigh), on the card."""
+    from repro_torch.core import nystrom_projection
+    rng = np.random.default_rng(seed)
+    L = X[rng.choice(X.shape[0], size=m, replace=False)]
+    P = nystrom_projection(L, sigma=sigma, device=dev).astype(np.float32)
+    return torch.from_numpy(L).to(dev), torch.from_numpy(P).to(dev)
+
+
+def nys_odd(dev, dtype, kind, n=1037, d=7, m=45, n_pad=13, seed=0):
+    """Odd masked inputs: padded tail rows (X-row 0, mask 0), masked rows,
+    landmarks from the rows, a mixed-sign projection."""
+    g = np.random.default_rng(seed)
+    X = g.normal(size=(n, d)).astype(np.float32)
+    L = X[g.choice(n - n_pad, size=m, replace=False)].copy()
+    X[n - n_pad:] = 0.0
+    P = (0.2 * g.normal(size=(m, m))).astype(np.float32)
+    mask = (g.uniform(size=n) > 0.2).astype(np.float32)
+    mask[n - n_pad:] = 0.0
+    X = torch.from_numpy(X).to(dtype).to(dev)
+    return (X,) + tuple(torch.from_numpy(a).to(dev) for a in (L, P, mask))
+
+
+def kmat64(X, L, sigma, kind):
+    from repro_torch.kernels import ref
+    if kind == "rbf":
+        return ref.rbf_gram(X.double(), L.double(), sigma)
+    return X.double() @ L.double().T
+
+
+def phi64_and_scale(k64, P, mask, add_bias):
+    """phi in float64 and the scale |k| @ |proj| of its rounding error,
+    both masked, bias column last."""
+    P64 = P.double()
+    phi, scale = k64 @ P64, k64.abs() @ P64.abs()
+    if add_bias:
+        one = torch.ones_like(phi[:, :1])
+        phi, scale = torch.cat([phi, one], 1), torch.cat([scale, one], 1)
+    mk = (torch.ones_like(phi[:, 0]) if mask is None else mask.double()
+          )[:, None]
+    return phi * mk, scale * mk
+
+
+def within(name, got, want, scale):
+    err = (got.double() - want).abs()
+    check(bool(torch.all(err <= REL * scale)),
+          f"{name}: |d| exceeds 1e-5 x its scale by "
+          f"{(err - REL * scale).max().item():.3e}")
+    return err.max().item()
+
+
+def check_rbf(dev, X1, X2, sigma, name):
+    from repro_torch.kernels import rbf_gram, ref
+    (K,) = twice(lambda: rbf_gram.rbf_gram(X1, X2, sigma=sigma))
+    want = ref.rbf_gram(X1.double(), X2.double(), sigma)
+    err = (K.double() - want).abs()
+    check(bool(torch.all(err <= 1e-5 * want.abs() + 1e-7)),
+          f"{name}: |d| exceeds 1e-5 |ref| + 1e-7")
+    say(f"  ok {name}: bitwise repeatable, max |d| {err.max().item():.3e}")
+    return err.max().item()
+
+
+def check_phi(X, L, P, mask, sigma, kind, add_bias, name):
+    """nystrom_phi against float64 in row chunks; returns max |d|."""
+    from repro_torch.kernels import nystrom_phi as nys
+    (phi,) = twice(lambda: nys.nystrom_phi(X, L, P, mask, sigma=sigma,
+                                           kind=kind, add_bias=add_bias))
+    err = 0.0
+    for c0 in range(0, X.shape[0], ROWS_A_CHECK):
+        sl = slice(c0, c0 + ROWS_A_CHECK)
+        want, scale = phi64_and_scale(kmat64(X[sl], L, sigma, kind), P,
+                                      None if mask is None else mask[sl],
+                                      add_bias)
+        err = max(err, within(name, phi[sl], want, scale))
+    if mask is not None:
+        check(not bool(torch.any(phi[mask == 0])),
+              f"{name}: a masked row is not zero")
+    say(f"  ok {name}: bitwise repeatable, max |d| {err:.3e}")
+    return err
+
+
+def check_score(X, L, P, W, mask, sigma, kind, name):
+    from repro_torch.kernels import nystrom_phi as nys
+    (s,) = twice(lambda: nys.nystrom_score(X, L, P, W, mask, sigma=sigma,
+                                           kind=kind, add_bias=True))
+    err = 0.0
+    for c0 in range(0, X.shape[0], ROWS_A_CHECK):
+        sl = slice(c0, c0 + ROWS_A_CHECK)
+        phi, scale = phi64_and_scale(kmat64(X[sl], L, sigma, kind), P,
+                                     None if mask is None else mask[sl],
+                                     True)
+        err = max(err, within(name, s[sl], phi @ W.double(),
+                              scale @ W.double().abs()))
+    say(f"  ok {name}: bitwise repeatable, max |d| {err:.3e}")
+    return err
+
+
+def nys_stat_inputs(dev, n, M, source):
+    """y (hinge regime: rho = beta = y), w, and the noise= or seed= of
+    the call with the noise the kernel sees."""
+    from repro_torch.core import prng
+    from repro_torch.kernels import ref, rng
+    g = torch.Generator(device=dev).manual_seed(3)
+    w = torch.randn(M, generator=g, device=dev) / math.sqrt(M)
+    y = torch.where(torch.rand(n, generator=g, device=dev) < 0.5, -1.0, 1.0)
+    seed = rng.pack_seed(prng.fold_in(prng.PRNGKey(7), 3), 11, 0).to(dev)
+    noise = ref.seed_noise(seed, n, 1, "mc_hinge") if source else None
+    kw = (dict(noise=noise) if source == "noise" else
+          dict(seed=seed) if source == "seed" else {})
+    return y, w, kw, noise
+
+
+def check_nys_stats(dev, X, L, P, mask, sigma, kind, name, label):
+    """nystrom_fused_stats against float64: margins and gamma in row
+    chunks, b and Sigma from the kernel's own phi and gamma."""
+    from repro_torch.kernels import epilogues
+    from repro_torch.kernels import nystrom_phi as nys
+    epi, source = NYS_VARIANTS[name]
+    n, M = X.shape[0], L.shape[0] + 1
+    y, w, kw, noise = nys_stat_inputs(dev, n, M, source)
+    if mask is not None:
+        y = y * mask
+    m, g, b, S = twice(lambda: nys.nystrom_fused_stats(
+        X, L, P, y, y, w, mask, sigma=sigma, kind=kind, add_bias=True,
+        epilogue=epi, eps=EPS, **kw))
+    w64 = w.double()
+    b64 = torch.zeros(M, dtype=torch.float64, device=dev)
+    S64 = torch.zeros((M, M), dtype=torch.float64, device=dev)
+    err = 0.0
+    for c0 in range(0, n, ROWS_A_CHECK):
+        sl = slice(c0, c0 + ROWS_A_CHECK)
+        mk = None if mask is None else mask[sl]
+        phi, scale = phi64_and_scale(kmat64(X[sl], L, sigma, kind), P, mk,
+                                     True)
+        m64 = phi @ w64
+        err = max(err, within(f"{label} margin", m[sl], m64,
+                              scale @ w64.abs()))
+        if epi == "em_hinge":
+            gamma_close(label, g[sl], m[sl],
+                        (y[sl].double() - m64).abs().clamp_min(EPS), m64)
+        del phi, scale, m64
+        phik = nys.nystrom_phi(X[sl], L, P, mk, sigma=sigma, kind=kind,
+                               add_bias=True).double()
+        gk = g[sl].double()
+        wt = (1.0 if mk is None else mk.double()) / gk
+        b64 += phik.T @ (y[sl].double() / gk + y[sl].double())
+        S64 += (phik * wt[:, None]).T @ phik
+        del phik
+    same = None
+    if epi == "mc_hinge":
+        (g_plain,), _, _ = epilogues.apply_epilogue("mc_hinge", m, y, y,
+                                                    noise, EPS)
+        same = gamma_band(label, g, g_plain)
+    err = max(err, max_close(label + " b", b, b64),
+              max_close(label + " Sigma", S, S64))
+    say(f"  ok {label}: bitwise repeatable, max |d| {err:.3e}"
+        + ("" if same is None else
+           f", gamma {same:.5f} bitwise equal to the plain epilogue"))
+    return err, (y, w, kw)
+
+
+def phase_nystrom_kernels(dev):
+    """Phase 3 for the four Nystrom kernels; returns their rows."""
+    from repro_torch.kernels import nystrom_phi as nys
+    from repro_torch.kernels import rbf_gram, ref
+    f32, bf16 = torch.float32, torch.bfloat16
+    out = {}
+    for dtype in (f32, bf16):  # odd masked shapes, both kinds, bias
+        for kind in ("rbf", "linear"):
+            X, L, P, mask = nys_odd(dev, dtype, kind)
+            tag = f"1037x7 m=45 {str(dtype)[6:]} {kind} masked"
+            check_rbf(dev, X, X[:45].contiguous(), 1.3,
+                      f"rbf_gram 1037x45x7 {str(dtype)[6:]}")
+            for add_bias in (False, True):
+                check_phi(X, L, P, mask, 1.3, kind, add_bias,
+                          f"nystrom_phi {tag} bias={add_bias}")
+            W = torch.randn(46, 3, device=dev)
+            check_score(X, L, P, W, mask, 1.3, kind,
+                        f"nystrom_score {tag} C=3")
+            for name in NYS_VARIANTS:
+                check_nys_stats(dev, X, L, P, mask, 1.3, kind, name,
+                                f"{name} {tag}")
+
+    # Main-path shapes and inputs: the circles featurizer of phase 7 and
+    # the alpha-like one of phase 8.
+    Xc, _ = circles_data(1_000_000)
+    Lc, Pc = featurizer(dev, Xc, 1000, 0.7)
+    Xa = alpha_data(300_000, 500)[0][:250_000]
+    La, Pa = featurizer(dev, Xa, 2048, math.sqrt(500))
+    check_rbf(dev, Lc, Lc, 0.7, "rbf_gram 1000x1000x2")
+    err = check_rbf(dev, La, La, math.sqrt(500), "rbf_gram 2048x2048x500")
+    t_small = time_ms(lambda: rbf_gram.rbf_gram(Lc, Lc, sigma=0.7))
+    ms = time_ms(lambda: rbf_gram.rbf_gram(La, La, sigma=math.sqrt(500)))
+    plain = time_ms(lambda: ref.rbf_gram(La, La, math.sqrt(500)))
+    n1, d = La.shape
+    b_ms, by = bound(2 * n1 * n1 * d, 4 * (2 * n1 * d + n1 * n1))
+    out["rbf_gram"] = dict(shape=[n1, n1, d], max_abs_err=err, ms=ms,
+                           plain_ms=plain, bound_ms=b_ms, bound_by=by,
+                           library_ms=None)
+    say(f"  time rbf_gram [1000, 1000, 2] (phase 7's landmark Gram): "
+        f"kernel {t_small:.3f} ms")
+
+    X = torch.from_numpy(Xa).to(dev)
+    s = math.sqrt(500)
+    err = check_phi(X, La, Pa, None, s, "rbf", True,
+                    "nystrom_phi 250000x500 m=2048 bias")
+    ms = time_ms(lambda: nys.nystrom_phi(X, La, Pa, sigma=s, add_bias=True))
+    plain = time_ms(lambda: ref.nystrom_phi(X, La, Pa, None, s, "rbf", True))
+    (n, d), (m, P) = X.shape, Pa.shape
+    M = P + 1
+    b_ms, by = bound(2 * n * m * d + 2 * n * m * M,
+                     4 * (n * d + m * d + m * P + n * M))
+    out["nystrom_phi"] = dict(shape=[n, d, m], max_abs_err=err, ms=ms,
+                              plain_ms=plain, bound_ms=b_ms, bound_by=by,
+                              library_ms=None)
+    del X
+
+    Xs = torch.from_numpy(circles_data(100_000, 1)[0]).to(dev)
+    M = Pc.shape[1] + 1
+    W = torch.randn(M, 1, device=dev) / math.sqrt(M)
+    err = check_score(Xs, Lc, Pc, W, None, 0.7, "rbf",
+                      "nystrom_score 100000x2 m=1000 C=1")
+    ms = time_ms(lambda: nys.nystrom_score(Xs, Lc, Pc, W, sigma=0.7,
+                                           add_bias=True))
+    plain = time_ms(lambda: ref.nystrom_score(Xs, Lc, Pc, W, None, 0.7,
+                                              "rbf", True))
+    (n, d), (m, P), C = Xs.shape, Pc.shape, 1
+    M = P + 1
+    b_ms, by = bound(2 * n * m * d + 2 * n * m * M + 2 * n * M * C,
+                     4 * (n * d + m * d + m * P + M * C + n * C))
+    out["nystrom_score"] = dict(shape=[n, d, m, C], max_abs_err=err, ms=ms,
+                                plain_ms=plain, bound_ms=b_ms, bound_by=by,
+                                library_ms=None)
+    del Xs
+
+    X = torch.from_numpy(Xc).to(dev)
+    mask = torch.ones(X.shape[0], device=dev)  # as the fit passes it
+    for name, (epi, source) in NYS_VARIANTS.items():
+        err, (y, w, kw) = check_nys_stats(
+            dev, X, Lc, Pc, mask, 0.7, "rbf", name,
+            f"{name} 1000000x2 m=1000")
+        ms = time_ms(lambda: nys.nystrom_fused_stats(
+            X, Lc, Pc, y, y, w, mask, sigma=0.7, add_bias=True,
+            epilogue=epi, eps=EPS, **kw))
+        plain = time_ms(lambda: ref.nystrom_fused_stats(
+            X, Lc, Pc, y, y, w, mask, 0.7, "rbf", True, EPS, epi, **kw))
+        (n, d), (m, P) = X.shape, Pc.shape
+        M = P + 1
+        n_noise = 2 * n if source == "noise" else 0
+        b_ms, by = bound(2 * n * m * d + 2 * n * m * M + n * M * (M + 1)
+                         + 4 * n * M,
+                         4 * (n * d + m * d + m * P + 5 * n + n_noise
+                              + 2 * M + M * M))
+        out[name] = dict(shape=[n, d, m], max_abs_err=err, ms=ms,
+                         plain_ms=plain, bound_ms=b_ms, bound_by=by,
+                         library_ms=None)
+        torch.cuda.empty_cache()
+    for name, row in out.items():
+        say(f"  time {name} {row['shape']}: kernel {row['ms']:.3f} ms, "
+            f"plain {row['plain_ms']:.3f} ms, library none, bound "
+            f"{row['bound_ms']:.3f} ms ({row['bound_by']})")
+    return out
+
+
+def _nys_fit(label, cfg, dev, X, y, Xte, yte, m, featurizer_of=None):
+    """One NystromSVM fit (own landmarks and projection, or those of
+    ``featurizer_of``), its counts zeroed just before and read just after,
+    then its held-out accuracy (predict) with the counts read again."""
+    from repro_torch.core import NystromSVM
+    _zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    ny = NystromSVM(cfg, n_landmarks=m, device=dev)
+    if featurizer_of is None:
+        res = ny.fit(X, y)
+    else:
+        res = ny.fit_featurized(X, y, featurizer_of._landmarks,
+                                featurizer_of._proj)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    mem = torch.cuda.max_memory_allocated()
+    counts = _counts()
+    acc = ny.score(Xte, yte)
+    pred = _counts()
+    steps = min(cfg.max_iters, -(-res.n_iters // cfg.scan_chunk)
+                * cfg.scan_chunk)
+    launched = {k: v for k, v in counts.items() if v}
+    say(f"  {label}: {secs:.3f} s, {res.n_iters} iterations ({steps} steps "
+        f"run, {secs / steps * 1e3:.2f} ms a step), converged "
+        f"{res.converged}, {res.n_host_syncs} host syncs, held-out accuracy "
+        f"{acc:.4f}, peak device memory {mem / 2**20:.0f} MiB, launches "
+        f"{launched}, on predict nystrom_score {pred['nystrom_score']}")
+    check(bool(np.all(np.isfinite(res.weights))), f"{label}: non-finite "
+          "weights")
+    check(res.n_host_syncs <= math.ceil(cfg.max_iters / cfg.scan_chunk),
+          f"{label}: scan driver synced more than once per chunk")
+    return ny, res, dict(secs=secs, mem=mem, counts=counts, pred=pred,
+                         acc=acc, steps=steps)
+
+
+def phase_krn(dev, n=1_000_000, n_test=100_000):
+    from repro_torch.core import SVMConfig
+    X, y = circles_data(n)
+    Xte, yte = circles_data(n_test, 1)
+    m = math.ceil(math.sqrt(n))
+    phi_bytes = 4 * n * (m + 1)
+    common = dict(lam=0.1, sigma=0.7, max_iters=60)
+    Xw, yw = circles_data(4096, 2)
+    for backend in (None, "ref"):  # warm-up: cuBLAS/cuSOLVER set-up
+        _nys_fit("warm-up", SVMConfig.from_options(
+            "KRN-EM-CLS", backend=backend, max_iters=2, min_iters=2,
+            lam=0.1, sigma=0.7), dev, Xw, yw, Xw, yw, 64)
+    runs = {}
+    for opts, extra, name in (
+            ("KRN-EM-CLS", {}, "nystrom_fused_stats[em_hinge]"),
+            ("KRN-MC-CLS", dict(rng="fused"),
+             "nystrom_fused_stats[mc_hinge,seed]"),
+            ("KRN-MC-CLS", dict(rng="host"),
+             "nystrom_fused_stats[mc_hinge,noise]")):
+        cfg = SVMConfig.from_options(opts, **common, **extra)
+        tag = f"{opts} rng={cfg.rng!r}" if extra else opts
+        ny, res, k = _nys_fit(f"kernels fit {tag}", cfg, dev, X, y, Xte, yte,
+                              m)
+        _, rp, p = _nys_fit(f"plain fit {tag}",
+                            dataclasses.replace(cfg, backend="ref"), dev, X,
+                            y, Xte, yte, m, featurizer_of=ny)
+        c = k["counts"]
+        check(res.converged, f"{tag}: the kernel fit did not converge")
+        check(c[name] == k["steps"], f"{tag}: {name} launched {c[name]} "
+              f"times for {k['steps']} steps run")
+        check(c["nystrom_phi"] == 0 and c["rbf_gram"] == 1,
+              f"{tag}: nystrom_phi {c['nystrom_phi']} (want 0), rbf_gram "
+              f"{c['rbf_gram']} (want 1 a fit)")
+        check(all(v == 0 for key, v in c.items()
+                  if key not in (name, "rbf_gram")),
+              f"{tag}: launched other kernels: {c}")
+        check(k["pred"]["nystrom_score"] == 1, f"{tag}: predict did not "
+              "run nystrom_score once")
+        check(all(v == 0 for v in p["counts"].values()),
+              f"{tag}: the plain fit launched a kernel")
+        check(k["mem"] < phi_bytes, f"{tag}: peak device memory "
+              f"{k['mem']} B is not below phi's {phi_bytes} B")
+        check(k["acc"] >= 0.99 and abs(k["acc"] - p["acc"]) <= 0.01,
+              f"{tag}: held-out accuracy {k['acc']:.4f} (plain "
+              f"{p['acc']:.4f})")
+        say(f"  bands {tag}: iterations {res.n_iters} vs plain "
+            f"{rp.n_iters}, weights rel {_rel(res.weights, rp.weights):.3e}"
+            f", accuracy diff {abs(k['acc'] - p['acc']):.4f} (<= 0.01); "
+            f"peak {k['mem'] / 2**20:.0f} MiB against phi's "
+            f"{phi_bytes / 2**20:.0f} MiB")
+        runs[name] = (c, res.n_iters, k["steps"])
+        if name.endswith("[em_hinge]"):
+            runs["rbf_gram"] = (c, res.n_iters, k["steps"])
+            runs["nystrom_score"] = (k["pred"], res.n_iters, k["steps"])
+            profile_krn(cfg, dev, X, y, m, ny)
+    return runs
+
+
+def profile_krn(cfg, dev, X, y, m, featurizer_of, top=8):
+    """torch.profiler over one EM kernel fit on a given featurizer."""
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import NystromSVM
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        ny = NystromSVM(cfg, n_landmarks=m, device=dev)
+        res = ny.fit_featurized(X, y, featurizer_of._landmarks,
+                                featurizer_of._proj)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    say_profile(prof, secs, top, f"profile of the KRN-EM-CLS kernels fit: "
+                f"{secs * 1e3:.1f} ms wall for {res.n_iters} iterations")
+
+
+def phase_krn_wide(dev, n_train=250_000, k=500, m=2048, iters=5):
+    from repro_torch.core import SVMConfig
+    X, y = alpha_data(n_train + 50_000, k)
+    Xtr, ytr, Xte, yte = X[:n_train], y[:n_train], X[n_train:], y[n_train:]
+    cfg = SVMConfig.from_options("KRN-EM-CLS", lam=0.1, sigma=math.sqrt(k),
+                                 max_iters=iters, min_iters=iters)
+    ny, res, kr = _nys_fit("kernels fit", cfg, dev, Xtr, ytr, Xte, yte, m)
+    _, rp, p = _nys_fit("plain fit", dataclasses.replace(cfg, backend="ref"),
+                        dev, Xtr, ytr, Xte, yte, m, featurizer_of=ny)
+    c = kr["counts"]
+    steps = kr["steps"]
+    check(all(c[key] == steps for key in
+              ("nystrom_phi", "fused_estep", "syrk_tri")),
+          f"nystrom_phi, fused_estep, syrk_tri must each launch once a "
+          f"step ({steps}): {c}")
+    check(c["rbf_gram"] == 1, f"rbf_gram launched {c['rbf_gram']} times")
+    check(all(v == 0 for key, v in c.items() if "fused_stats" in key),
+          f"the m > 1024 route launched a fused statistic: {c}")
+    check(all(v == 0 for v in p["counts"].values()),
+          "the plain fit launched a kernel")
+    o, op = np.asarray(res.objective), np.asarray(rp.objective)
+    check(len(o) == len(op) == iters, "both fits run 5 iterations")
+    orel = float(np.max(np.abs(o - op) / np.abs(op)))
+    wrel = _rel(res.weights, rp.weights)
+    w64 = em64(dev, Xtr, ytr, ny, cfg, iters)
+    say(f"  bands: objective rel {orel:.3e} (<= 2e-2 at every iteration), "
+        f"accuracy kernel {kr['acc']:.4f} plain {p['acc']:.4f} (within "
+        f"0.01), weights rel {wrel:.3e} (band 5e-2: "
+        f"{'met' if wrel <= 5e-2 else 'MISSED, see ROADMAP section 3'}); "
+        f"against a float64 EM on the same featurizer: kernel weights rel "
+        f"{_rel(res.weights, w64):.3e}, plain {_rel(rp.weights, w64):.3e}")
+    check(orel <= 2e-2 and abs(kr["acc"] - p["acc"]) <= 0.01,
+          "kernel fit outside the EM bands of the plain fit")
+    return {"nystrom_phi": (c, res.n_iters, steps)}
+
+
+def em64(dev, X, y, ny, cfg, iters):
+    """``iters`` EM steps from w = 0 in float64 on the fitted model's
+    featurizer (phi from the plain version in float64), with the solver's
+    ridge and relative jitter: the yardstick both float32 fits are
+    measured against in phase 8."""
+    from repro_torch.kernels import ref
+    L = torch.from_numpy(ny._landmarks).to(dev).double()
+    P = torch.from_numpy(ny._proj).to(dev).double()
+    Xd = torch.from_numpy(X).to(dev)
+    y64 = torch.from_numpy(y).to(dev).double()
+    phi = torch.empty((X.shape[0], P.shape[1] + 1), dtype=torch.float64,
+                      device=dev)
+    for c0 in range(0, X.shape[0], ROWS_A_CHECK):
+        sl = slice(c0, c0 + ROWS_A_CHECK)
+        phi[sl] = ref.nystrom_phi(Xd[sl].double(), L, P, None, cfg.sigma,
+                                  cfg.kernel, True)
+    K = phi.shape[1]
+    eye = torch.eye(K, dtype=torch.float64, device=dev)
+    w = torch.zeros(K, dtype=torch.float64, device=dev)
+    for _ in range(iters):
+        g = (y64 - phi @ w).abs().clamp_min(cfg.eps)
+        Pm = (phi / g[:, None]).T @ phi + cfg.lam * eye
+        Pm = 0.5 * (Pm + Pm.T)
+        Pm = Pm + (cfg.jitter * torch.trace(Pm) / K) * eye
+        w = torch.linalg.solve(Pm, phi.T @ (y64 / g + y64))
+    return w.cpu().numpy()
+
+
 SOURCES = {
     "fused_stats": ("src/repro_torch/csrc/fused_stats.cu",
                     "src/repro/kernels/fused_stats.py:155"),
@@ -620,6 +1130,15 @@ SOURCES = {
                     "src/repro/kernels/fused_estep.py:58"),
     "syrk_tri": ("src/repro_torch/csrc/syrk.cu",
                  "src/repro/kernels/syrk.py:79"),
+    "rbf_gram": ("src/repro_torch/csrc/rbf_gram.cu",
+                 "src/repro/kernels/rbf_gram.py:46"),
+    "nystrom_phi": ("src/repro_torch/csrc/nystrom_phi.cu",
+                    "src/repro/kernels/nystrom_phi.py:205"),
+    "nystrom_score": ("src/repro_torch/csrc/nystrom_phi.cu",
+                      "src/repro/kernels/nystrom_phi.py:237"),
+    **{name: ("src/repro_torch/csrc/nystrom_phi.cu",
+              "src/repro/kernels/nystrom_phi.py:283")
+       for name in NYS_VARIANTS},
 }
 
 
@@ -644,6 +1163,7 @@ def main() -> int:
     phase_build()
     say("== 3. kernels vs plain (float64 evaluation of the plain version)")
     rows = phase_kernels(dev)
+    rows.update(phase_nystrom_kernels(dev))
     say("== 4. main path, K <= 1536: LIN-EM-CLS on alpha-like 250,000 x 501")
     it4, st4, c4 = phase_main_path(dev)
     say("== 5. main path, K > 1536: LIN-EM-CLS at K = 2,048")
@@ -653,6 +1173,12 @@ def main() -> int:
     runs["fused_stats"] = (c4, it4, st4)
     for name in ("fused_estep", "syrk_tri"):
         runs[name] = (c5, it5, st5)
+    say("== 7. main path, KRN-{EM,MC}-CLS (NystromSVM) on make_circles"
+        "(1,000,000), m = 1,000: the fused route")
+    runs.update(phase_krn(dev))
+    say("== 8. main path, KRN-EM-CLS with m = 2,048 on alpha-like 250,000 x "
+        "500: the featurize-then-accumulate route")
+    runs.update(phase_krn_wide(dev))
     say(f"== done in {time.perf_counter() - t0:.1f} s")
     kernels = []
     for name, (src, replaces) in SOURCES.items():

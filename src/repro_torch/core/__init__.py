@@ -1,3 +1,6 @@
-"""The solver facade: SVMConfig / PEMSVM / FitResult and lam_from_C."""
-from .linear import SVMData  # noqa: F401
+"""The solver facade: SVMConfig / PEMSVM / FitResult and lam_from_C, and
+the Nystrom kernel SVM (NystromSVM, PhiSpec)."""
+from .linear import PhiSpec, SVMData  # noqa: F401
+from .nystrom import (NystromSVM, nystrom_features,  # noqa: F401
+                      nystrom_projection)
 from .solver import FitResult, PEMSVM, SVMConfig, lam_from_C  # noqa: F401

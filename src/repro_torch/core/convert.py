@@ -11,6 +11,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from .nystrom import NystromSVM
 from .solver import PEMSVM, SVMConfig
 
 _FIELDS = tuple(f.name for f in dataclasses.fields(SVMConfig))
@@ -44,3 +45,25 @@ def svm_from_reference(config: SVMConfig, weights: np.ndarray,
     svm._weights = torch.tensor(w, device=svm.device)
     svm._n_features = n_features
     return svm
+
+
+def nystrom_from_reference(fields: dict, landmarks: np.ndarray,
+                           proj: np.ndarray, weights: np.ndarray,
+                           device=None, **kw) -> NystromSVM:
+    """A fitted port NystromSVM from a reference one: its KRN config's
+    ``dataclasses.asdict`` (``fields``), its featurizer (``_landmarks``
+    (m, D), ``_proj`` (m, P)) and ``FitResult.weights`` (P + 1,), all
+    numpy. ``kw`` goes to NystromSVM (``seed``, ``spectral_floor``)."""
+    landmarks = np.asarray(landmarks, np.float32)
+    proj = np.asarray(proj, np.float32)
+    w = np.asarray(weights, np.float32)
+    if w.shape != (proj.shape[1] + 1,):
+        raise ValueError(f"weights of shape {w.shape}; a Nystrom model with "
+                         f"a ({proj.shape}) projection needs "
+                         f"({proj.shape[1] + 1},)")
+    ny = NystromSVM(config_from_reference(fields),
+                    n_landmarks=landmarks.shape[0], device=device, **kw)
+    ny._install_featurizer(landmarks, proj)
+    ny.svm._weights = torch.tensor(w, device=ny.svm.device)
+    ny.svm._n_features = landmarks.shape[1]
+    return ny

@@ -10,10 +10,13 @@ One iteration over the training set:
 
 Padding convention: invalid rows have X-row == 0 and target == 0, which
 makes their statistics contributions exactly zero; ``mask`` only enters
-the objective.
+the objective. In Nystrom phi-space (``phi_spec``) the statistic
+featurizes raw rows on the device, and there the mask is what zeroes
+padded rows: a zero X row is not a zero phi row.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import NamedTuple
 
 import torch
@@ -29,11 +32,30 @@ class SVMData(NamedTuple):
     mask: torch.Tensor    # (N,) 1.0 valid / 0.0 padding
 
 
+@dataclasses.dataclass(frozen=True)
+class PhiSpec:
+    """Static half of a Nystrom feature map (``core/nystrom.py``).
+
+    The array half, the (m, D) landmark strip and the (m, m) projection
+    K_mm^{-1/2}, travels separately as the ``phi`` operand pair, so that
+    SVMConfig stays hashable. With a PhiSpec the statistic featurizes raw
+    D-wide rows on the device, and the state width is
+    ``proj.shape[1] + add_bias``; ``add_bias`` appends the phi-space bias
+    column (mask-valued, so padding stays a no-op), and the X-space
+    ``SVMConfig.add_bias`` must be False.
+    """
+    sigma: float = 1.0
+    kind: str = "rbf"
+    add_bias: bool = True
+
+
 def accumulate_stats(X: torch.Tensor, rho: torch.Tensor, beta: torch.Tensor,
                      w: torch.Tensor, *, mode: str,
                      key: torch.Tensor | None, eps: float,
                      backend: str | None, row0: int = 0, rng: str = "host",
-                     chain0: int = 0):
+                     chain0: int = 0, phi=None,
+                     phi_spec: PhiSpec | None = None,
+                     mask: torch.Tensor | None = None):
     """(margin, gamma, Sigma, mu) for the generic hinge over a row block,
     in one X pass through ``ops.fused_stats``. Shared by CLS
     (rho = beta = y).
@@ -45,7 +67,12 @@ def accumulate_stats(X: torch.Tensor, rho: torch.Tensor, beta: torch.Tensor,
     the same counter stream and passes it as operands (the oracle of
     'fused'). ``row0`` is the block's global row offset and ``chain0``
     the counter's first chain; a 2-D (K, C) ``w`` under 'fused' runs C
-    chains (margin and gamma (N, C), b (K, C), Sigma (C, K, K))."""
+    chains (margin and gamma (N, C), b (K, C), Sigma (C, K, K)).
+
+    ``phi`` = (landmarks, proj) with ``phi_spec`` switches to Nystrom
+    phi-space: X holds raw rows and ``ops.nystrom_fused_stats``
+    featurizes them inside the statistic. ``mask`` (None: all ones)
+    zeroes padded phi rows there."""
     if mode == "EM":
         epilogue, noise, seed = "em_hinge", None, None
     elif rng == "host":
@@ -58,9 +85,17 @@ def accumulate_stats(X: torch.Tensor, rho: torch.Tensor, beta: torch.Tensor,
         assert rng == "fused", rng
         epilogue, noise = "mc_hinge", None
         seed = augment.pack_seed(key, row0, chain0)
-    margin, gamma, b, S = ops.fused_stats(X, rho, beta, w, None, noise,
-                                          epilogue=epilogue, eps=eps,
-                                          seed=seed, backend=backend)
+    if phi_spec is not None:
+        landmarks, proj = phi
+        margin, gamma, b, S = ops.nystrom_fused_stats(
+            X, landmarks, proj, rho, beta, w, mask, noise,
+            sigma=phi_spec.sigma, kind=phi_spec.kind,
+            add_bias=phi_spec.add_bias, epilogue=epilogue, eps=eps,
+            seed=seed, backend=backend)
+    else:
+        margin, gamma, b, S = ops.fused_stats(X, rho, beta, w, None, noise,
+                                              epilogue=epilogue, eps=eps,
+                                              seed=seed, backend=backend)
     return margin, gamma, S, b
 
 
@@ -90,16 +125,19 @@ def multichain_draw(key: torch.Tensor, S: torch.Tensor, b: torch.Tensor,
 def cls_step(data: SVMData, w: torch.Tensor, key: torch.Tensor | None = None,
              *, mode: str = "EM", lam: float = 1.0, eps: float = 1e-6,
              jitter: float = 1e-6, backend: str | None = None,
-             rng: str = "host", n_chains: int = 1, chain0: int = 0):
+             rng: str = "host", n_chains: int = 1, chain0: int = 0,
+             phi=None, phi_spec: PhiSpec | None = None):
     """One LIN-*-CLS iteration. Returns (w_new, aux dict of 0-d device
     tensors); nothing in it waits for the device. ``n_chains > 1``
     (rng='fused') carries the state chain-major as (C, K) and reports
-    cross-chain means."""
+    cross-chain means. ``phi``/``phi_spec`` run it in Nystrom phi-space
+    (see ``accumulate_stats``)."""
     X, y, mask = data
     multi = n_chains > 1
     margin, gamma, S, b = accumulate_stats(
         X, y, y, w.T if multi else w, mode=mode, key=key, eps=eps,
-        backend=backend, rng=rng, chain0=chain0)
+        backend=backend, rng=rng, chain0=chain0, phi=phi,
+        phi_spec=phi_spec, mask=mask)
     S, b = stats.reduce_stats(S, b)
     if multi:
         w_new = multichain_draw(key, S, b, lam, jitter, chain0)

@@ -1,0 +1,183 @@
+"""Nystrom-approximated kernel SVM: port of ``repro/core/nystrom.py``.
+
+With m landmarks, K_mm their Gram and k_m(x) the cross-Gram row, the
+feature map phi(x) = K_mm^{-1/2} k_m(x) gives phi(x).phi(x') ~ k(x, x'),
+and the kernel SVM (paper Eq. 12) becomes exactly the linear PEMSVM on phi
+with the prior lam^{-1} I (the paper's Sec 4.3 question, answered in the
+reference's docstring). ``NystromSVM`` therefore delegates to a LIN
+``PEMSVM`` with ``config.phi_spec`` set: both drivers work, and the
+statistic featurizes raw rows on the device
+(``ops.nystrom_fused_stats``), so the (N, m) phi never exists on the
+main route. The default is m = ceil(sqrt(N)) landmarks.
+
+Host work is one-time: the landmark choice and the K_mm^{-1/2}
+eigendecomposition (float64, with a spectral floor), cached on the model.
+
+Not ported yet: ``fit_libsvm`` (ROADMAP queue 1 item 8),
+``export_servable``/``scorer`` (item 12), ``resume_from``/``warm_start``
+(item 11), and the SVR / MLT tasks of the delegate (items 6, 7).
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+
+from .kernel import gram_matrix
+from .linear import PhiSpec
+from .solver import FitResult, PEMSVM, SVMConfig, _device
+
+
+def nystrom_projection(landmarks: np.ndarray, *, kind: str = "rbf",
+                       sigma: float = 1.0, spectral_floor: float = 1e-6,
+                       backend: str | None = None,
+                       device=None) -> np.ndarray:
+    """K_mm^{-1/2}, (m, m) float64: the landmark Gram on the device
+    (``gram_matrix``), then one float64 eigendecomposition on the host.
+    Eigenvalues at or below ``spectral_floor * max`` are dropped, which
+    keeps the inverse square root bounded."""
+    dev = _device(device)
+    L = torch.from_numpy(np.asarray(landmarks, np.float32)).to(dev)
+    K_mm = gram_matrix(L, L, kind=kind, sigma=sigma,
+                       backend=backend).cpu().numpy().astype(np.float64)
+    w, V = np.linalg.eigh(0.5 * (K_mm + K_mm.T))
+    floor = spectral_floor * max(w.max(), 1e-30)
+    keep = w > floor
+    return (V[:, keep] / np.sqrt(w[keep])) @ V[:, keep].T
+
+
+def nystrom_features(X: np.ndarray, landmarks: np.ndarray, *,
+                     kind: str = "rbf", sigma: float = 1.0,
+                     spectral_floor: float = 1e-6,
+                     backend: str | None = None,
+                     device=None) -> np.ndarray:
+    """phi = K_nm @ K_mm^{-1/2}, (N, m) float32, projected in float64 on
+    the host: the accuracy oracle; the fit featurizes on the device."""
+    proj = nystrom_projection(landmarks, kind=kind, sigma=sigma,
+                              spectral_floor=spectral_floor,
+                              backend=backend, device=device)
+    return _host_phi(X, landmarks, proj, kind, sigma, backend,
+                     _device(device))
+
+
+def _host_phi(X, landmarks, proj, kind, sigma, backend, device):
+    """k(X, landmarks) on the device, projected in float64 on the host."""
+    K_nm = gram_matrix(
+        torch.from_numpy(np.asarray(X, np.float32)).to(device),
+        torch.from_numpy(np.asarray(landmarks, np.float32)).to(device),
+        kind=kind, sigma=sigma, backend=backend).cpu().numpy()
+    return (K_nm.astype(np.float64)
+            @ np.asarray(proj, np.float64)).astype(np.float32)
+
+
+class NystromSVM:
+    """KRN-{EM,MC}-CLS through Nystrom features and the linear solver, on
+    ``cuda:0`` unless ``device`` says otherwise."""
+
+    def __init__(self, config: SVMConfig, n_landmarks: int | None = None,
+                 mesh=None, data_axes=None, seed: int = 0,
+                 spectral_floor: float = 1e-6, device=None):
+        if config.formulation != "KRN":
+            raise ValueError("NystromSVM approximates KRN; got formulation "
+                             f"{config.formulation!r}")
+        if data_axes is not None:
+            raise NotImplementedError(
+                "data_axes is not ported yet: ROADMAP queue 1 item 10 "
+                "(multi-GPU)")
+        self.config = config
+        self.kernel_kind = config.kernel
+        self.sigma = config.sigma
+        self.n_landmarks = n_landmarks
+        self.seed = seed
+        self.spectral_floor = spectral_floor
+        # The LIN delegate in phi-space: every field carries over; the
+        # bias moves to phi-space (an X-space bias column would perturb
+        # the RBF distances).
+        lin_cfg = dataclasses.replace(
+            config, formulation="LIN", add_bias=False,
+            phi_spec=PhiSpec(sigma=config.sigma, kind=config.kernel,
+                             add_bias=True))
+        self.svm = PEMSVM(lin_cfg, device=device, mesh=mesh)
+        self._landmarks: np.ndarray | None = None
+        self._proj: np.ndarray | None = None
+
+    # ------------------------------------------------------------ fitting
+    def _install_featurizer(self, landmarks: np.ndarray,
+                            proj: np.ndarray | None = None) -> None:
+        """Cache the landmark strip and K_mm^{-1/2} (computed here, once,
+        unless given) and hand both to the delegate."""
+        self._landmarks = np.asarray(landmarks, np.float32)
+        if proj is None:
+            proj = nystrom_projection(
+                self._landmarks, kind=self.kernel_kind, sigma=self.sigma,
+                spectral_floor=self.spectral_floor,
+                backend=self.svm.config.backend, device=self.svm.device)
+        self._proj = np.asarray(proj, np.float32)
+        self.svm._phi_arrays = (self._landmarks, self._proj)
+
+    def fit(self, X: np.ndarray, y: np.ndarray, **fit_kw) -> FitResult:
+        """Fit on host arrays; m landmarks drawn without replacement by
+        ``np.random.default_rng(seed)``, as the reference draws them."""
+        self._check_fit_kw(fit_kw)
+        X = np.asarray(X, np.float32)
+        N = X.shape[0]
+        m = self.n_landmarks or int(np.ceil(np.sqrt(N)))
+        rng = np.random.default_rng(self.seed)
+        self._install_featurizer(
+            X[rng.choice(N, size=min(m, N), replace=False)])
+        return self.svm.fit(X, y, **fit_kw)
+
+    def fit_featurized(self, X: np.ndarray, y: np.ndarray,
+                       landmarks: np.ndarray, proj: np.ndarray,
+                       **fit_kw) -> FitResult:
+        """Fit with a given featurizer (landmarks and K_mm^{-1/2}, e.g.
+        another model's), so two fits can share one feature map."""
+        self._check_fit_kw(fit_kw)
+        self._install_featurizer(landmarks, proj)
+        return self.svm.fit(np.asarray(X, np.float32), y, **fit_kw)
+
+    @staticmethod
+    def _check_fit_kw(fit_kw: dict) -> None:
+        for name in ("resume_from", "warm_start"):
+            if fit_kw.get(name) is not None:
+                raise NotImplementedError(
+                    f"fit({name}=...) is not ported yet: ROADMAP queue 1 "
+                    "item 11 (reliability)")
+
+    def fit_libsvm(self, path: str, n_features: int, **fit_kw):
+        raise NotImplementedError(
+            "fit_libsvm (out-of-core Nystrom fit) is not ported yet: "
+            "ROADMAP queue 1 item 8 (streaming and data)")
+
+    # ---------------------------------------------------------- inference
+    def _phi(self, X: np.ndarray, add_bias: bool = False) -> np.ndarray:
+        """(N, m [+1]) features from the cached projection, projected in
+        float64 on the host; the bias column, when asked for, goes LAST,
+        as on the device path."""
+        if self._proj is None:
+            raise RuntimeError("fit first")
+        phi = _host_phi(X, self._landmarks, self._proj, self.kernel_kind,
+                        self.sigma, self.svm.config.backend, self.svm.device)
+        if add_bias:
+            phi = np.concatenate(
+                [phi, np.ones((phi.shape[0], 1), np.float32)], axis=1)
+        return phi
+
+    def export_servable(self, **kw):
+        raise NotImplementedError(
+            "export_servable is not ported yet: ROADMAP queue 1 item 12 "
+            "(serving)")
+
+    def scorer(self):
+        raise NotImplementedError(
+            "scorer is not ported yet: ROADMAP queue 1 item 12 (serving)")
+
+    def predict(self, X: np.ndarray) -> np.ndarray:
+        return self.svm.predict(np.asarray(X, np.float32))
+
+    def decision_function(self, X: np.ndarray) -> np.ndarray:
+        return self.svm.decision_function(np.asarray(X, np.float32))
+
+    def score(self, X: np.ndarray, y: np.ndarray) -> float:
+        return self.svm.score(np.asarray(X, np.float32), y)

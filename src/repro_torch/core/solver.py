@@ -1,6 +1,7 @@
 """PEMSVM driver: port of ``repro/core/solver.py`` for LIN-EM-CLS and
 LIN-MC-CLS on one device, with the ``scan`` (default) and ``loop``
-drivers.
+drivers, in X-space or (``phi_spec``, the delegate of ``NystromSVM``) in
+Nystrom phi-space.
 
 The run protocol is the paper's: the objective is evaluated every
 iteration and the fit stops when its change falls to tol*N (Sec 5.5);
@@ -27,6 +28,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.kernels import ops
 from . import distributed, linear, prng
 from .linear import SVMData
 
@@ -161,14 +163,15 @@ def _unsupported(cfg: SVMConfig) -> list[str]:
     """What ``cfg`` sets outside this slice, each with the ROADMAP queue-1
     item that brings it."""
     checks = [
-        ("formulation", cfg.formulation != "LIN", "item 9 (Nystrom, KRN)"),
+        ("formulation", cfg.formulation != "LIN",
+         "item 9 (the exact-Gram KRN solver; kernel models fit through "
+         "NystromSVM)"),
         ("task", cfg.task == "SVR", "item 6 (SVR)"),
         ("task", cfg.task == "MLT", "item 7 (MLT)"),
         ("driver", cfg.driver == "stream", "item 8 (streaming and data)"),
         ("k_shard_axis", cfg.k_shard_axis is not None, "item 10 (multi-GPU)"),
         ("pad_features", cfg.pad_features is not None,
          "item 8 (streaming and data)"),
-        ("phi_spec", cfg.phi_spec is not None, "item 9 (Nystrom, KRN)"),
         ("fault", cfg.fault is not None, "item 11 (reliability)"),
         ("decay", cfg.decay != 0.0, "item 8 (streaming and data)"),
         ("window", cfg.window != 0, "item 8 (streaming and data)"),
@@ -200,7 +203,7 @@ def _device(device) -> torch.device:
 
 class PEMSVM:
     """Parallel EM SVM (the paper's PEMSVM): LIN-EM-CLS and LIN-MC-CLS on
-    one device."""
+    one device, in X-space or Nystrom phi-space."""
 
     def __init__(self, config: SVMConfig, device=None, mesh=None):
         bad = _unsupported(config)
@@ -219,6 +222,21 @@ class PEMSVM:
         torch.backends.cudnn.allow_tf32 = False
         self._weights: torch.Tensor | None = None
         self._n_features: int | None = None
+        # Nystrom phi-space featurizer arrays (landmarks, K_mm^{-1/2}) as
+        # float32 numpy; set by NystromSVM before fit when phi_spec is set.
+        self._phi_arrays: tuple | None = None
+
+    def _phi(self):
+        """The featurizer arrays as device tensors (None in X-space)."""
+        if self.config.phi_spec is None:
+            return None
+        if self._phi_arrays is None:
+            raise RuntimeError(
+                "config.phi_spec is set but no featurizer arrays were "
+                "installed; fit through NystromSVM, which selects landmarks "
+                "and computes K_mm^{-1/2} before delegating")
+        return tuple(torch.from_numpy(np.asarray(a, np.float32)).to(
+            self.device) for a in self._phi_arrays)
 
     # ------------------------------------------------------------- fitting
     def fit(self, X: np.ndarray, y: np.ndarray, **kw) -> FitResult:
@@ -239,11 +257,13 @@ class PEMSVM:
         if cfg.add_bias:
             X = np.concatenate([X, np.ones((X.shape[0], 1), np.float32)], 1)
         N = X.shape[0]
-        data, state = self._prepare(X, y)
+        phi = self._phi()
+        data, state = self._prepare(X, y, phi)
         step = functools.partial(linear.cls_step, mode=cfg.algorithm,
                                  lam=cfg.lam, eps=cfg.eps, jitter=cfg.jitter,
                                  backend=cfg.backend, rng=cfg.rng,
-                                 n_chains=cfg.n_chains, chain0=cfg.chain0)
+                                 n_chains=cfg.n_chains, chain0=cfg.chain0,
+                                 phi=phi, phi_spec=cfg.phi_spec)
         # The reference's key chain: PRNGKey(seed), one split an
         # iteration. An EM step draws nothing, so EM fits skip it.
         key = (prng.PRNGKey(cfg.seed, self.device)
@@ -413,7 +433,7 @@ class PEMSVM:
         self._weights = torch.from_numpy(res.weights).to(self.device)
         return res
 
-    def _prepare(self, X: np.ndarray, y: np.ndarray):
+    def _prepare(self, X: np.ndarray, y: np.ndarray, phi=None):
         target = np.asarray(y, np.float32)
         uniq = set(np.unique(target).tolist())
         if not uniq <= {-1.0, 1.0}:
@@ -423,8 +443,10 @@ class PEMSVM:
         data = SVMData(torch.from_numpy(Xp).to(dev),
                        torch.from_numpy(tp).to(dev),
                        torch.from_numpy(mask).to(dev))
-        return data, linear.init_weight(X.shape[1], dev,
-                                        self.config.n_chains)
+        # phi-space width: projection columns plus the phi-space bias
+        K = (X.shape[1] if phi is None
+             else phi[1].shape[1] + int(self.config.phi_spec.add_bias))
+        return data, linear.init_weight(K, dev, self.config.n_chains)
 
     # ---------------------------------------------------------- inference
     def _features(self, X: np.ndarray) -> torch.Tensor:
@@ -439,10 +461,18 @@ class PEMSVM:
         return torch.from_numpy(X).to(self.device)
 
     def decision_function(self, X: np.ndarray) -> np.ndarray:
-        """Margins X_with_bias @ w as float32 (a plain matmul, as the
-        reference's LIN serving cell is plain XLA)."""
-        return linear.decision_function(
-            self._weights, self._features(X)).cpu().numpy()
+        """Margins as float32: X_with_bias @ w (a plain matmul, as the
+        reference's LIN serving cell is plain XLA), or in phi-space the
+        scoring kernel, phi(X) @ w with phi never written out."""
+        spec = self.config.phi_spec
+        if spec is None:
+            return linear.decision_function(
+                self._weights, self._features(X)).cpu().numpy()
+        landmarks, proj = self._phi()
+        return ops.nystrom_score(
+            self._features(X), landmarks, proj, self._weights[:, None],
+            sigma=spec.sigma, kind=spec.kind, add_bias=spec.add_bias,
+            backend=self.config.backend)[:, 0].cpu().numpy()
 
     def predict(self, X: np.ndarray) -> np.ndarray:
         return np.where(self.decision_function(X) >= 0, 1, -1)

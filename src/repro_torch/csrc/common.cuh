@@ -121,10 +121,12 @@ __device__ __forceinline__ void store_tile(float* __restrict__ dst,
 // out[c] (K x K) = sum over S splits of the tile partials
 // part[S][T][C][BK][BK] of chain c = blockIdx.y, in split order; elements
 // above the tile diagonal read the transposed lower tile, so out is
-// exactly symmetric outside the diagonal tiles.
+// exactly symmetric outside the diagonal tiles. With ``acc`` the sum
+// starts from out's values instead of 0: splits finalized in several
+// launches are summed in the one global split order.
 static __global__ void tri_finalize(const float* __restrict__ part,
                                     float* __restrict__ out, int K, int T,
-                                    int S, int C) {
+                                    int S, int C, int acc) {
   const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
   if (idx >= (int64_t)K * K) return;
   const int ch = blockIdx.y;
@@ -138,39 +140,41 @@ static __global__ void tri_finalize(const float* __restrict__ part,
     t = bj * (bj + 1) / 2 + bi;
     off = (c % BK) * BK + r % BK;
   }
-  float sum = 0.f;
+  float* o = out + (int64_t)ch * K * K + idx;
+  float sum = acc ? *o : 0.f;
   for (int s = 0; s < S; ++s)
     sum += part[(((int64_t)s * T + t) * C + ch) * BK * BK + off];
-  out[(int64_t)ch * K * K + idx] = sum;
+  *o = sum;
 }
 
 // out[ch][c] = sum over S rows of part[S][C][ld] for chain ch =
-// blockIdx.y, in row order (c < K).
+// blockIdx.y, in row order (c < K); ``acc`` as in tri_finalize.
 static __global__ void sum_partials(const float* __restrict__ part,
                                     float* __restrict__ out, int K, int ld,
-                                    int S, int C) {
+                                    int S, int C, int acc) {
   const int c = blockIdx.x * blockDim.x + threadIdx.x;
   if (c >= K) return;
   const int ch = blockIdx.y;
-  float sum = 0.f;
+  float* o = out + (int64_t)ch * K + c;
+  float sum = acc ? *o : 0.f;
   for (int s = 0; s < S; ++s)
     sum += part[((int64_t)s * C + ch) * ld + c];
-  out[(int64_t)ch * K + c] = sum;
+  *o = sum;
 }
 
 static inline void launch_tri_finalize(const float* part, float* out, int K,
                                        int T, int S, cudaStream_t stream,
-                                       int C = 1) {
+                                       int C = 1, bool acc = false) {
   const int64_t n = (int64_t)K * K;
   const dim3 grid((unsigned)((n + 255) / 256), (unsigned)C);
-  tri_finalize<<<grid, 256, 0, stream>>>(part, out, K, T, S, C);
+  tri_finalize<<<grid, 256, 0, stream>>>(part, out, K, T, S, C, (int)acc);
 }
 
 static inline void launch_sum_partials(const float* part, float* out, int K,
                                        int ld, int S, cudaStream_t stream,
-                                       int C = 1) {
+                                       int C = 1, bool acc = false) {
   const dim3 grid((unsigned)((K + 255) / 256), (unsigned)C);
-  sum_partials<<<grid, 256, 0, stream>>>(part, out, K, ld, S, C);
+  sum_partials<<<grid, 256, 0, stream>>>(part, out, K, ld, S, C, (int)acc);
 }
 
 }  // namespace rt

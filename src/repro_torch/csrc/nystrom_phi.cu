@@ -1,0 +1,453 @@
+// The Nystrom kernels: the featurizer phi = k(X, L) @ proj (masked, with an
+// optional mask-valued bias column LAST), the scorer phi @ W, and the
+// featurize-and-accumulate statistic (margin, gamma, b, Sigma on phi).
+//
+// Replaces the TPU kernels of repro/kernels/nystrom_phi.py: nystrom_phi,
+// nystrom_score and nystrom_fused_stats (em_hinge; mc_hinge from two noise
+// operands or from the counter seed). The TPU kernels hold the landmark
+// strip, the projection, the cross tile, the phi tile and the (M, M) Sigma
+// in VMEM at once; a Hopper CTA has 227 KB of shared memory, so here the
+// rows go in chunks and every operand streams through shared memory in
+// 32-deep slices. Per chunk of R rows:
+//
+//   A. cross_tiles (rbf.cuh): the (R, m) cross-Gram chunk k(X, L) into an
+//      L2-sized scratch, each entry computed once;
+//   B. phi_tiles: its product with proj, 128 x 128 tiles, masked in
+//      registers, with the bias column; WRITE stores the phi rows, SCORE
+//      multiplies them by W at once and keeps (column block, row, C)
+//      partial scores, summed in column-block order by score_reduce;
+//   and for the statistic, phi rows go to an (R, M) scratch, then
+//   C. phi_rows: a warp a row: margin = phi . w, the epilogue (rng.cuh,
+//      epilogues.cuh), the row's Sigma weight mask/gamma and coef;
+//   D. phi_stat_tiles: Sigma's lower-triangle 128 x 128 tiles over row
+//      splits (the tile code of common.cuh) and b on the diagonal tiles;
+//      the partials are added to Sigma and b in split order, chunk after
+//      chunk (tri_finalize / sum_partials with acc).
+//
+// No (N, m) and no (N, M) buffer is allocated on the statistic's route.
+// Each phi entry is one thread's fmaf chain over the landmarks in order,
+// so phi does not depend on R: the statistic sees the bits nystrom_phi
+// writes. See kernels/nystrom_phi.py for the design note.
+#include "epilogues.cuh"
+#include "rbf.cuh"
+#include "rng.cuh"
+
+namespace rt {
+namespace {
+
+enum PhiMode : int { PHI_WRITE = 0, PHI_SCORE = 1 };
+
+inline int64_t rows_left(int64_t chunk, int64_t rest) {
+  return chunk < rest ? chunk : rest;
+}
+
+struct PhiArgs {
+  const float* kc;    // (nrows, m) cross-Gram chunk
+  const float* proj;  // (m, P)
+  const float* mask;  // (nrows,), null = ones
+  int64_t nrows;
+  int m, P, bias;     // phi width M = P + bias
+  float* out;         // WRITE: (nrows, M)
+  const float* W;     // SCORE: (M, C)
+  int C;
+  float* spart;       // SCORE: (column blocks, nrows, C)
+};
+
+template <int MODE>
+__global__ void __launch_bounds__(TILE_THREADS, 2) phi_tiles(PhiArgs a) {
+  __shared__ __align__(16) float As[GK][GLD];
+  __shared__ __align__(16) float Bs[GK][GLD];
+  const int M = a.P + a.bias;
+  const int ntc = (M + GT - 1) / GT;
+  const int cb = (int)(blockIdx.x % ntc);
+  const int64_t i0 = (int64_t)(blockIdx.x / ntc) * GT;
+  const int j0 = cb * GT;
+  float acc[8][8];
+#pragma unroll
+  for (int p = 0; p < 8; ++p)
+#pragma unroll
+    for (int q = 0; q < 8; ++q) acc[p][q] = 0.f;
+  if (j0 < a.P) {  // a tile holding only the bias column needs no product
+    for (int k0 = 0; k0 < a.m; k0 += GK) {
+      const int kd = min(GK, a.m - k0);
+      stage_rows_t(a.kc, a.m, i0, a.nrows, k0, kd, As);
+      stage_depth_rows(a.proj, a.P, k0, kd, j0, a.P, Bs);
+      __syncthreads();
+      gemm_acc(acc, As, Bs, kd);
+      __syncthreads();
+    }
+  }
+  // phi = [k @ proj, 1] * mask, in place.
+#pragma unroll
+  for (int p = 0; p < 8; ++p) {
+    const int64_t i = i0 + tile_row(p);
+    const float mk = (a.mask != nullptr && i < a.nrows) ? a.mask[i] : 1.0f;
+#pragma unroll
+    for (int q = 0; q < 8; ++q) {
+      const int j = j0 + tile_col(q);
+      acc[p][q] = j < a.P ? __fmul_rn(acc[p][q], mk) : (j < M ? mk : 0.f);
+    }
+  }
+  if (MODE == PHI_WRITE) {
+#pragma unroll
+    for (int p = 0; p < 8; ++p) {
+      const int64_t i = i0 + tile_row(p);
+      if (i >= a.nrows) continue;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int j = j0 + tile_col(q);
+        if (j < M) a.out[i * M + j] = acc[p][q];
+      }
+    }
+    return;
+  }
+  // SCORE: the tile's partial scores, phi never leaving registers. Each
+  // thread sums its 8 columns; the 16 threads of a row group are summed
+  // in tx order through shared memory (As is free after the last sync).
+  float(*red)[GT] = reinterpret_cast<float(*)[GT]>(&As[0][0]);
+  const int tx = threadIdx.x % 16;
+  for (int c = 0; c < a.C; ++c) {
+#pragma unroll
+    for (int p = 0; p < 8; ++p) {
+      float s = 0.f;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int j = j0 + tile_col(q);
+        if (j < M) s = fmaf(acc[p][q], __ldg(a.W + (int64_t)j * a.C + c), s);
+      }
+      red[tx][tile_row(p)] = s;
+    }
+    __syncthreads();
+    if (threadIdx.x < GT) {
+      float s = 0.f;
+      for (int x = 0; x < 16; ++x) s += red[x][threadIdx.x];
+      const int64_t i = i0 + threadIdx.x;
+      if (i < a.nrows) a.spart[((int64_t)cb * a.nrows + i) * a.C + c] = s;
+    }
+    __syncthreads();
+  }
+}
+
+// out[i, c] = sum over column blocks of spart, in block order.
+__global__ void score_reduce(const float* __restrict__ spart,
+                             float* __restrict__ out, int64_t n, int ncb) {
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= n) return;
+  float s = 0.f;
+  for (int cb = 0; cb < ncb; ++cb) s += spart[(int64_t)cb * n + idx];
+  out[idx] = s;
+}
+
+struct RowArgs {
+  const float* phi;    // (nrows, M) chunk
+  const float* w;      // (M,)
+  const float* rho;    // the chunk's rows of (N,) operands and outputs
+  const float* beta;
+  const float* mask;   // null = ones
+  const float* nu;     // MC_NOISE
+  const float* u;      // MC_NOISE
+  const int64_t* seed; // MC_SEED: [k0, k1, row0, chain0]
+  int64_t row_base;    // operand row of the chunk's first row
+  int64_t nrows;
+  int M;
+  float* margin;
+  float* gamma;
+  float* wgt;          // (nrows,) Sigma weight mask / gamma
+  float* coef;         // (nrows,) rho / gamma + beta
+  float eps;
+};
+
+// A warp a row: margin (fixed summation order), then lane 0 runs the
+// epilogue with the same rounding as the plain version.
+template <int EPI>
+__global__ void phi_rows(RowArgs a) {
+  const int lane = threadIdx.x & 31;
+  const int64_t row = (int64_t)blockIdx.x * (TILE_THREADS / 32) +
+                      (threadIdx.x >> 5);
+  if (row >= a.nrows) return;
+  const float m = row_dot(a.phi + row * (int64_t)a.M, a.w, a.M, lane);
+  if (lane != 0) return;
+  const float rh = a.rho[row];
+  float g;
+  if (EPI == EM_HINGE) {
+    g = em_gamma(rh, m, a.eps);
+  } else {
+    float nu, u;
+    if (EPI == MC_NOISE) {
+      nu = a.nu[row];
+      u = a.u[row];
+    } else {
+      counter_noise((uint32_t)a.seed[0], (uint32_t)a.seed[1],
+                    (uint32_t)a.seed[2] + (uint32_t)(a.row_base + row),
+                    (uint32_t)a.seed[3], nu, u);
+    }
+    g = mc_gamma(rh, m, nu, u, a.eps);
+  }
+  const float inv = __fdiv_rn(1.0f, g);
+  a.wgt[row] = a.mask ? __fmul_rn(a.mask[row], inv) : inv;
+  a.coef[row] = __fadd_rn(__fdiv_rn(rh, g), a.beta[row]);
+  a.margin[row] = m;
+  a.gamma[row] = g;
+}
+
+// Sigma's lower-triangle tile t of row split s of the chunk, weighted by
+// wgt, and on diagonal tiles b's block from coef (fused_stats.cu's tile
+// body with the margin phase moved out to phi_rows).
+__global__ void __launch_bounds__(TILE_THREADS, 2)
+    phi_stat_tiles(const float* __restrict__ phi,
+                   const float* __restrict__ wgt,
+                   const float* __restrict__ coef, float* __restrict__ part,
+                   float* __restrict__ bpart, int64_t nrows, int M, int Mp,
+                   int ntiles, int64_t rows_per_split) {
+  __shared__ __align__(16) float As[BN][BK];
+  __shared__ __align__(16) float Bs[BN][BK];
+  const int t = (int)(blockIdx.x % ntiles);
+  const int64_t s = blockIdx.x / ntiles;
+  int bi, bj;
+  tri_ij(t, bi, bj);
+  const bool diag = bi == bj;
+  const int64_t r_begin = s * rows_per_split;
+  const int64_t r_end = min64(nrows, r_begin + rows_per_split);
+  float acc[8][8];
+#pragma unroll
+  for (int p = 0; p < 8; ++p)
+#pragma unroll
+    for (int q = 0; q < 8; ++q) acc[p][q] = 0.f;
+  float bacc = 0.f;
+  for (int64_t rb = r_begin; rb < r_end; rb += BN) {
+    stage_rows(phi, rb, r_end, M, bi * BK, bj * BK, wgt + rb, As, Bs);
+    __syncthreads();
+    if (diag && threadIdx.x < BK) {
+      for (int r = 0; r < BN && rb + r < r_end; ++r)
+        bacc = fmaf(coef[rb + r], Bs[r][threadIdx.x], bacc);
+    }
+    accumulate(acc, As, Bs);
+    __syncthreads();
+  }
+  store_tile(part + ((int64_t)s * ntiles + t) * BK * BK, acc);
+  if (diag && threadIdx.x < BK) bpart[s * Mp + bi * BK + threadIdx.x] = bacc;
+}
+
+struct Featurizer {
+  const void* X;
+  int x_bf16;
+  const float* L;     // (m, D)
+  const float* proj;  // (m, P)
+  const float* mask;  // (N,), null = ones
+  float* sqx;         // (N,) scratch (rbf)
+  float* sql;         // (m,) scratch (rbf)
+  float* kc;          // (chunk_rows, m) scratch
+  int64_t N;
+  int D, m, P, bias, kind;
+  float inv_two_sigma_sq;
+};
+
+// Squared norms of every row and landmark (rbf only).
+static void sqnorms(const Featurizer& f, cudaStream_t st) {
+  if (f.kind != KIND_RBF) return;
+  if (f.x_bf16)
+    launch_row_sqnorm(static_cast<const __nv_bfloat16*>(f.X), f.N, f.D,
+                      f.sqx, st);
+  else
+    launch_row_sqnorm(static_cast<const float*>(f.X), f.N, f.D, f.sqx, st);
+  launch_row_sqnorm(f.L, (int64_t)f.m, f.D, f.sql, st);
+}
+
+// Stage A for rows [c0, c0 + nr): the cross-Gram chunk into kc.
+static void cross_chunk(const Featurizer& f, int64_t c0, int64_t nr,
+                        cudaStream_t st) {
+  const float* sq = f.kind == KIND_RBF ? f.sqx + c0 : nullptr;
+  if (f.x_bf16)
+    launch_cross_tiles(static_cast<const __nv_bfloat16*>(f.X) + c0 * f.D,
+                       f.L, sq, f.sql, f.kc, nr, f.m, f.D, (int64_t)f.m,
+                       f.kind, f.inv_two_sigma_sq, st);
+  else
+    launch_cross_tiles(static_cast<const float*>(f.X) + c0 * f.D, f.L, sq,
+                       f.sql, f.kc, nr, f.m, f.D, (int64_t)f.m, f.kind,
+                       f.inv_two_sigma_sq, st);
+}
+
+// Stage B for rows [c0, c0 + nr).
+template <int MODE>
+static void phi_chunk(const Featurizer& f, int64_t c0, int64_t nr,
+                      float* out, const float* W, int C, float* spart,
+                      cudaStream_t st) {
+  PhiArgs a;
+  a.kc = f.kc;
+  a.proj = f.proj;
+  a.mask = f.mask ? f.mask + c0 : nullptr;
+  a.nrows = nr;
+  a.m = f.m;
+  a.P = f.P;
+  a.bias = f.bias;
+  a.out = out;
+  a.W = W;
+  a.C = C;
+  a.spart = spart;
+  const int ntc = (f.P + f.bias + GT - 1) / GT;
+  const int64_t nctas = ((nr + GT - 1) / GT) * ntc;
+  phi_tiles<MODE><<<(unsigned)nctas, TILE_THREADS, 0, st>>>(a);
+}
+
+template <int EPI>
+static void launch_rows(const RowArgs& a, cudaStream_t st) {
+  phi_rows<EPI><<<(unsigned)((a.nrows + 7) / 8), TILE_THREADS, 0, st>>>(a);
+}
+
+static Featurizer featurizer(const void* X, int x_bf16, const void* L,
+                             const void* proj, const void* mask, void* sqx,
+                             void* sql, void* kc, int64_t N, int D, int m,
+                             int P, int bias, int kind,
+                             float inv_two_sigma_sq) {
+  Featurizer f;
+  f.X = X;
+  f.x_bf16 = x_bf16;
+  f.L = static_cast<const float*>(L);
+  f.proj = static_cast<const float*>(proj);
+  f.mask = static_cast<const float*>(mask);
+  f.sqx = static_cast<float*>(sqx);
+  f.sql = static_cast<float*>(sql);
+  f.kc = static_cast<float*>(kc);
+  f.N = N;
+  f.D = D;
+  f.m = m;
+  f.P = P;
+  f.bias = bias;
+  f.kind = kind;
+  f.inv_two_sigma_sq = inv_two_sigma_sq;
+  return f;
+}
+
+}  // namespace
+}  // namespace rt
+
+// Common arguments: X (N, D) row-major f32 (x_bf16 = 0) or bf16; L (m, D)
+// and proj (m, P) f32 row-major; mask (N,) f32 or null (ones); bias 0/1
+// appends the mask-valued column after the P projected ones (M = P +
+// bias); kind 0 = rbf, 1 = linear; chunk_rows rows a chunk. Scratch: sqx
+// (N,) and sql (m,) f32 (rbf only), kc (chunk_rows, m) f32. Each returns
+// cudaGetLastError() after its launches (-1 for a bad epilogue code).
+
+// out (N, M) f32: the phi rows.
+extern "C" int rt_nystrom_phi(int device, void* stream, const void* X,
+                              int x_bf16, const void* L, const void* proj,
+                              const void* mask, void* sqx, void* sql,
+                              void* kc, void* out, int64_t N, int D, int m,
+                              int P, int bias, int kind,
+                              float inv_two_sigma_sq, int64_t chunk_rows) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const rt::Featurizer f =
+      rt::featurizer(X, x_bf16, L, proj, mask, sqx, sql, kc, N, D, m, P,
+                     bias, kind, inv_two_sigma_sq);
+  float* o = static_cast<float*>(out);
+  const int64_t M = P + bias;
+  rt::sqnorms(f, st);
+  for (int64_t c0 = 0; c0 < N; c0 += chunk_rows) {
+    const int64_t nr = rt::rows_left(chunk_rows, N - c0);
+    rt::cross_chunk(f, c0, nr, st);
+    rt::phi_chunk<rt::PHI_WRITE>(f, c0, nr, o + c0 * M, nullptr, 0, nullptr,
+                                 st);
+  }
+  return (int)cudaGetLastError();
+}
+
+// W (M, C) f32; spart (ceil(M / 128), chunk_rows, C) f32 scratch; out
+// (N, C) f32 scores.
+extern "C" int rt_nystrom_score(int device, void* stream, const void* X,
+                                int x_bf16, const void* L, const void* proj,
+                                const void* mask, const void* W, void* sqx,
+                                void* sql, void* kc, void* spart, void* out,
+                                int64_t N, int D, int m, int P, int bias,
+                                int C, int kind, float inv_two_sigma_sq,
+                                int64_t chunk_rows) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const rt::Featurizer f =
+      rt::featurizer(X, x_bf16, L, proj, mask, sqx, sql, kc, N, D, m, P,
+                     bias, kind, inv_two_sigma_sq);
+  float* sp = static_cast<float*>(spart);
+  float* o = static_cast<float*>(out);
+  const int ncb = (P + bias + rt::GT - 1) / rt::GT;
+  rt::sqnorms(f, st);
+  for (int64_t c0 = 0; c0 < N; c0 += chunk_rows) {
+    const int64_t nr = rt::rows_left(chunk_rows, N - c0);
+    rt::cross_chunk(f, c0, nr, st);
+    rt::phi_chunk<rt::PHI_SCORE>(f, c0, nr, nullptr,
+                                 static_cast<const float*>(W), C, sp, st);
+    const int64_t n = nr * C;
+    rt::score_reduce<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
+        sp, o + c0 * C, n, ncb);
+  }
+  return (int)cudaGetLastError();
+}
+
+// rho, beta (N,) f32; w (M,) f32; epilogue 0 = em_hinge, 1 = mc_hinge
+// reading nu, u (N,) f32, 2 = mc_hinge deriving them from seed (four int64
+// words on the device; the counter row is seed[2] + operand row). Scratch:
+// phi (chunk_rows, M), wgt and coef (chunk_rows,), part (chunk_rows /
+// rows_per_split, ntiles, 128, 128), bpart (chunk_rows / rows_per_split,
+// Mp) f32 with Mp = 128 ceil(M / 128); chunk_rows a multiple of
+// rows_per_split. Outputs margin, gamma (N,), sigma (M, M), b (M,) f32.
+extern "C" int rt_nystrom_fused_stats(
+    int device, void* stream, const void* X, int x_bf16, const void* L,
+    const void* proj, const void* mask, const void* rho, const void* beta,
+    const void* w, const void* nu, const void* u, const void* seed,
+    void* sqx, void* sql, void* kc, void* phi, void* wgt, void* coef,
+    void* part, void* bpart, void* margin, void* gamma, void* sigma,
+    void* b, int64_t N, int D, int m, int P, int bias, int kind,
+    float inv_two_sigma_sq, int64_t chunk_rows, int ntiles,
+    int64_t rows_per_split, int epilogue, float eps) {
+  if (epilogue < rt::EM_HINGE || epilogue > rt::MC_SEED) return -1;
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const rt::Featurizer f =
+      rt::featurizer(X, x_bf16, L, proj, mask, sqx, sql, kc, N, D, m, P,
+                     bias, kind, inv_two_sigma_sq);
+  const int M = P + bias;
+  const int Mp = rt::BK * ((M + rt::BK - 1) / rt::BK);
+  float* ph = static_cast<float*>(phi);
+  float* pt = static_cast<float*>(part);
+  float* bp = static_cast<float*>(bpart);
+  float* sg = static_cast<float*>(sigma);
+  float* bo = static_cast<float*>(b);
+  rt::sqnorms(f, st);
+  for (int64_t c0 = 0; c0 < N; c0 += chunk_rows) {
+    const int64_t nr = rt::rows_left(chunk_rows, N - c0);
+    rt::cross_chunk(f, c0, nr, st);
+    rt::phi_chunk<rt::PHI_WRITE>(f, c0, nr, ph, nullptr, 0, nullptr, st);
+    rt::RowArgs a;
+    a.phi = ph;
+    a.w = static_cast<const float*>(w);
+    a.rho = static_cast<const float*>(rho) + c0;
+    a.beta = static_cast<const float*>(beta) + c0;
+    a.mask = f.mask ? f.mask + c0 : nullptr;
+    a.nu = nu ? static_cast<const float*>(nu) + c0 : nullptr;
+    a.u = u ? static_cast<const float*>(u) + c0 : nullptr;
+    a.seed = static_cast<const int64_t*>(seed);
+    a.row_base = c0;
+    a.nrows = nr;
+    a.M = M;
+    a.margin = static_cast<float*>(margin) + c0;
+    a.gamma = static_cast<float*>(gamma) + c0;
+    a.wgt = static_cast<float*>(wgt);
+    a.coef = static_cast<float*>(coef);
+    a.eps = eps;
+    if (epilogue == rt::EM_HINGE)
+      rt::launch_rows<rt::EM_HINGE>(a, st);
+    else if (epilogue == rt::MC_NOISE)
+      rt::launch_rows<rt::MC_NOISE>(a, st);
+    else
+      rt::launch_rows<rt::MC_SEED>(a, st);
+    const int nsplits = (int)((nr + rows_per_split - 1) / rows_per_split);
+    rt::phi_stat_tiles<<<(unsigned)((int64_t)nsplits * ntiles),
+                         rt::TILE_THREADS, 0, st>>>(
+        ph, a.wgt, a.coef, pt, bp, nr, M, Mp, ntiles, rows_per_split);
+    rt::launch_tri_finalize(pt, sg, M, ntiles, nsplits, st, 1, c0 > 0);
+    rt::launch_sum_partials(bp, bo, M, Mp, nsplits, st, 1, c0 > 0);
+  }
+  return (int)cudaGetLastError();
+}

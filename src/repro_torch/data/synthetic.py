@@ -2,7 +2,8 @@
 that give arrays bitwise equal to the reference's for the same arguments.
 
 ``make_alpha_like`` has the shape of the paper's Table 3 'alpha' set
-(250,000 x 500 at full size); ``make_blobs`` is the quickstart problem.
+(250,000 x 500 at full size); ``make_blobs`` is the quickstart problem;
+``make_circles`` is the kernel (KRN) problem, two rings no line separates.
 """
 from __future__ import annotations
 
@@ -29,3 +30,14 @@ def make_blobs(n: int = 2000, k: int = 20, seed: int = 0,
     """Small generic binary blobs (tests/examples)."""
     rng = np.random.default_rng(seed)
     return _blob_classifier(rng, n, k, margin_noise)
+
+
+def make_circles(n: int = 400, seed: int = 0):
+    """Radially-separated classes, not linearly separable (KRN demo)."""
+    rng = np.random.default_rng(seed)
+    r = np.concatenate([rng.uniform(0, 1, n // 2),
+                        rng.uniform(1.5, 2.5, n - n // 2)])
+    th = rng.uniform(0, 2 * np.pi, n)
+    X = np.stack([r * np.cos(th), r * np.sin(th)], 1).astype(np.float32)
+    y = np.concatenate([np.ones(n // 2), -np.ones(n - n // 2)])
+    return X, y.astype(np.float32)

@@ -4,6 +4,9 @@
     mc_hinge from noise operands or the counter seed; C chains).
   * fused_estep — margin, gamma and b in one pass (the K > 1536 route).
   * syrk_tri    — Sigma = X^T diag(w) X over lower-triangle tiles only.
+  * rbf_gram    — RBF Gram blocks (the landmark Gram of a Nystrom fit).
+  * nystrom_phi — the Nystrom featurizer, scorer and featurize-and-
+    accumulate statistic (phi = k(X, landmarks) @ proj).
 
 Each kernel is CUDA C++ for sm_90a under ``csrc/``, built on first use
 (``_build``). Its wrapper launches it for a CUDA tensor and runs the plain

@@ -49,6 +49,27 @@ _SIGNATURES = {
                        _c_void_p, _c_void_p, _c_void_p, _c_void_p,
                        _c_int64, _c_int, _c_int, _c_int, _c_int, _c_int64,
                        _c_int, _c_int, _c_float],
+    "rt_rbf_gram": [_c_int, _c_void_p, _c_void_p, _c_int, _c_void_p, _c_int,
+                    _c_void_p, _c_void_p, _c_void_p, _c_int64, _c_int,
+                    _c_int, _c_float],
+    "rt_nystrom_phi": [_c_int, _c_void_p, _c_void_p, _c_int, _c_void_p,
+                       _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+                       _c_void_p, _c_void_p, _c_int64, _c_int, _c_int,
+                       _c_int, _c_int, _c_int, _c_float, _c_int64],
+    "rt_nystrom_score": [_c_int, _c_void_p, _c_void_p, _c_int, _c_void_p,
+                         _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+                         _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+                         _c_int64, _c_int, _c_int, _c_int, _c_int, _c_int,
+                         _c_int, _c_float, _c_int64],
+    "rt_nystrom_fused_stats": [_c_int, _c_void_p, _c_void_p, _c_int,
+                               _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+                               _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+                               _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+                               _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+                               _c_void_p, _c_void_p, _c_void_p, _c_void_p,
+                               _c_void_p, _c_int64, _c_int, _c_int, _c_int,
+                               _c_int, _c_int, _c_float, _c_int64, _c_int,
+                               _c_int64, _c_int, _c_float],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -1,0 +1,255 @@
+"""The Nystrom kernels on Hopper: featurize, score, and featurize-and-
+accumulate, with phi = k(X, landmarks) @ proj (rbf or linear kind), rows
+multiplied by ``mask`` and an optional mask-valued bias column LAST.
+
+Replaces the TPU kernels of ``repro/kernels/nystrom_phi.py``:
+
+  * ``nystrom_phi`` (``_make_phi_kernel``): writes phi, (N, M);
+  * ``nystrom_score`` (``_make_score_kernel``): phi @ W, (N, C), phi never
+    written to device memory;
+  * ``nystrom_fused_stats`` (``_make_fused_kernel``): the statistic of
+    ``fused_stats`` on phi, em_hinge and mc_hinge (noise operands or the
+    counter seed); no (N, M) phi buffer exists. The SVR epilogues and the
+    column window are still to port (ROADMAP queue 2).
+
+What bounds them on the H100: fp32 operations. The projection is
+2 N m M flop, Sigma N M (M + 1); at m = 1,000 landmarks that is ~1,000
+flop per byte of X, fifty times the ridge. The cross-Gram is 2 N m D flop
+and, at small D, the bytes of its chunk scratch.
+
+Design (``csrc/nystrom_phi.cu``; the RBF tile body and the 128 x 128
+register tile come from ``csrc/rbf.cuh``, Sigma's tile code from
+``csrc/common.cuh``). The TPU kernels hold the landmark strip, the
+projection, the cross tile, the phi tile and Sigma in VMEM at once, under
+a 14 MB budget; a Hopper CTA has 227 KB of shared memory. So the rows go
+in chunks of R, and per chunk:
+
+  A. the (R, m) cross-Gram chunk, once, into a scratch of at most 128 MB
+     (each entry is computed once; recomputing it per output column block
+     would cost D / 128 times the projection);
+  B. phi tiles of 128 x 128 = cross chunk @ proj, landmarks and proj
+     streaming through shared memory 32 deep; masked in registers, bias
+     column appended. ``nystrom_phi`` stores them; ``nystrom_score``
+     multiplies them by W in registers and writes (column block, row, C)
+     partial scores, summed in block order by a last launch.
+
+``nystrom_fused_stats`` stores the phi rows of a chunk in an (R, M)
+scratch (R = splits x rows per split, 16 MB a split at M = 1,024, so a
+split's rows stay in the 50 MB L2 while its tiles read them), then
+  C. a warp a row: margin = phi . w, the epilogue (``csrc/epilogues.cuh``,
+     ``csrc/rng.cuh`` for the seed at global row seed[2] + row), the
+     row's weight mask / gamma and coef rho / gamma + beta;
+  D. Sigma's lower-triangle 128 x 128 tiles over the chunk's row splits,
+     b on the diagonal tiles, then the partials added to Sigma and b in
+     split order (no atomics: bitwise repeatable).
+This avoids what ``fused_stats`` does for X, where every tile CTA
+recomputes its rows' margin: recomputing phi per tile would cost 2m/128
+times the tile's own Sigma work. Launches a call: 2 (norms) + 6 a chunk;
+at N = 1,000,000 and m = 1,000, R = 32,768, 31 chunks. The scratch is
+the cross and phi chunks plus the split partials, a few hundred MB, where
+phi itself would be 4 GB.
+
+Every phi entry is one thread's fmaf chain over the landmarks in order,
+so the bits do not depend on R: ``nystrom_fused_stats`` accumulates the
+phi that ``nystrom_phi`` writes.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import _build, ref
+from . import fused_stats as _fused_stats
+
+# Launches per kernel and variant, for chip_smoke.py's check that the
+# main path ran through the kernel it names.
+LAUNCHES = {"nystrom_phi": 0, "nystrom_score": 0,
+            "nystrom_fused_stats[em_hinge]": 0,
+            "nystrom_fused_stats[mc_hinge,noise]": 0,
+            "nystrom_fused_stats[mc_hinge,seed]": 0}
+_EPILOGUE_CODE = {"em_hinge": 0, "mc_hinge,noise": 1, "mc_hinge,seed": 2}
+_KINDS = {"rbf": 0, "linear": 1}
+
+GT = 128                        # phi tile edge (csrc/rbf.cuh)
+SCRATCH_WORDS = 1 << 25         # cross-Gram chunk: at most 128 MB
+
+
+def zero_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _check(X, landmarks, proj, mask, kind):
+    """Validate the featurizer operands; returns (N, D, m, P)."""
+    N, D = _build.check_x(X)
+    if kind not in _KINDS:
+        raise ValueError(f"unknown kernel kind {kind!r}")
+    for name, t in (("landmarks", landmarks), ("proj", proj)):
+        if (t.device != X.device or t.dtype != torch.float32
+                or t.dim() != 2 or not t.is_contiguous()):
+            raise ValueError(f"{name} must be a contiguous float32 matrix "
+                             f"on {X.device}")
+    m, P = proj.shape
+    if tuple(landmarks.shape) != (m, D):
+        raise ValueError(f"landmarks must be ({m}, {D}), got "
+                         f"{tuple(landmarks.shape)}")
+    if mask is not None:
+        _build.check_vec("mask", mask, N, X)
+    return N, D, m, P
+
+
+def _phi_chunk_rows(N: int, m: int, M: int) -> int:
+    rows = max(GT, SCRATCH_WORDS // max(m, M) // GT * GT)
+    return min(rows, -(-N // GT) * GT)
+
+
+def _featurizer_args(X, landmarks, proj, mask, N, D, m, P, add_bias, kind,
+                     sigma, chunk):
+    f32 = dict(dtype=torch.float32, device=X.device)
+    rbf = kind == "rbf"
+    scratch = dict(sqx=torch.empty(N if rbf else 0, **f32),
+                   sql=torch.empty(m if rbf else 0, **f32),
+                   kc=torch.empty(chunk * m, **f32))
+    head = (X.data_ptr(), int(X.dtype == torch.bfloat16),
+            landmarks.data_ptr(), proj.data_ptr(),
+            None if mask is None else mask.data_ptr())
+    tail = dict(N=N, D=D, m=m, P=P, bias=int(add_bias), kind=_KINDS[kind],
+                inv=1.0 / (2.0 * float(sigma) ** 2), chunk=chunk)
+    return head, scratch, tail
+
+
+def nystrom_phi(X: torch.Tensor, landmarks: torch.Tensor,
+                proj: torch.Tensor, mask: torch.Tensor | None = None, *,
+                sigma: float = 1.0, kind: str = "rbf",
+                add_bias: bool = False) -> torch.Tensor:
+    """phi (N, M) float32, M = proj cols + add_bias. X (N, D) float32 or
+    bfloat16; landmarks (m, D), proj (m, P), mask (N,) float32 (None:
+    all rows valid). A CPU tensor runs the plain version."""
+    if X.device.type == "cpu":
+        return ref.nystrom_phi(X, landmarks, proj, mask, float(sigma), kind,
+                               add_bias)
+    N, D, m, P = _check(X, landmarks, proj, mask, kind)
+    M = P + int(add_bias)
+    chunk = _phi_chunk_rows(N, m, M)
+    head, s, t = _featurizer_args(X, landmarks, proj, mask, N, D, m, P,
+                                  add_bias, kind, sigma, chunk)
+    out = torch.empty((N, M), dtype=torch.float32, device=X.device)
+    _build.launch("rt_nystrom_phi", X.device, *head, s["sqx"].data_ptr(),
+                  s["sql"].data_ptr(), s["kc"].data_ptr(), out.data_ptr(),
+                  t["N"], t["D"], t["m"], t["P"], t["bias"], t["kind"],
+                  t["inv"], t["chunk"])
+    LAUNCHES["nystrom_phi"] += 1
+    return out
+
+
+def nystrom_score(X: torch.Tensor, landmarks: torch.Tensor,
+                  proj: torch.Tensor, W: torch.Tensor,
+                  mask: torch.Tensor | None = None, *, sigma: float = 1.0,
+                  kind: str = "rbf", add_bias: bool = False
+                  ) -> torch.Tensor:
+    """(N, C) float32 scores = nystrom_phi(X, ...) @ W, W (M, C) float32;
+    masked rows score 0. A CPU tensor runs the plain version."""
+    if X.device.type == "cpu":
+        return ref.nystrom_score(X, landmarks, proj, W, mask, float(sigma),
+                                 kind, add_bias)
+    N, D, m, P = _check(X, landmarks, proj, mask, kind)
+    M = P + int(add_bias)
+    if (W.device != X.device or W.dtype != torch.float32 or W.dim() != 2
+            or W.shape[0] != M or not W.is_contiguous()):
+        raise ValueError(f"W must be a contiguous float32 ({M}, C) matrix "
+                         f"on {X.device} (M = proj cols + add_bias)")
+    C = W.shape[1]
+    chunk = _phi_chunk_rows(N, m, M)
+    head, s, t = _featurizer_args(X, landmarks, proj, mask, N, D, m, P,
+                                  add_bias, kind, sigma, chunk)
+    f32 = dict(dtype=torch.float32, device=X.device)
+    spart = torch.empty(-(-M // GT) * chunk * C, **f32)
+    out = torch.empty((N, C), **f32)
+    _build.launch("rt_nystrom_score", X.device, *head, W.data_ptr(),
+                  s["sqx"].data_ptr(), s["sql"].data_ptr(),
+                  s["kc"].data_ptr(), spart.data_ptr(), out.data_ptr(),
+                  t["N"], t["D"], t["m"], t["P"], t["bias"], C, t["kind"],
+                  t["inv"], t["chunk"])
+    LAUNCHES["nystrom_score"] += 1
+    return out
+
+
+def stats_plan(N: int, m: int, M: int, device: torch.device
+               ) -> tuple[int, int, int]:
+    """(ntiles, rows_per_split, chunk_rows) of the statistic: a chunk is
+    enough row splits for two tile CTAs per SM, split boundaries aligned
+    across chunks, and at most SCRATCH_WORDS words of cross or phi
+    chunk."""
+    nb = -(-M // _build.BK)
+    ntiles = nb * (nb + 1) // 2
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    splits = -(-2 * sms // ntiles)
+    per_split = -(-N // splits)
+    rows = min(_build.ROWS_PER_SPLIT, -(-per_split // _build.BN) * _build.BN)
+    splits = max(1, min(splits, SCRATCH_WORDS // (rows * max(m, M))))
+    return ntiles, rows, rows * splits
+
+
+def nystrom_fused_stats(X: torch.Tensor, landmarks: torch.Tensor,
+                        proj: torch.Tensor, rho: torch.Tensor,
+                        beta: torch.Tensor, wvec: torch.Tensor,
+                        mask: torch.Tensor | None = None,
+                        noise: tuple | None = None,
+                        seed: torch.Tensor | None = None, *,
+                        sigma: float = 1.0, kind: str = "rbf",
+                        add_bias: bool = False, epilogue: str = "em_hinge",
+                        eps: float = 1e-6):
+    """(margin (N,), gamma (N,), b (M,), Sigma (M, M)), float32: the
+    statistic of ``fused_stats`` on phi, Sigma weighted by mask / gamma.
+    rho, beta (N,), wvec (M,) float32; ``noise`` two (N,) float32
+    vectors or ``seed`` (4,) int64 words on X's device (mc_hinge). A CPU
+    tensor runs the plain version."""
+    if X.device.type == "cpu":
+        return ref.nystrom_fused_stats(
+            X, landmarks, proj, rho, beta, wvec, mask, float(sigma), kind,
+            add_bias, eps, epilogue, noise=noise, seed=seed)
+    var = _fused_stats.variant(epilogue, noise, seed, wvec)
+    if var not in _EPILOGUE_CODE:
+        raise ValueError("the Nystrom statistic is single-chain: wvec must "
+                         "be (M,)")
+    N, D, m, P = _check(X, landmarks, proj, mask, kind)
+    M = P + int(add_bias)
+    for name, v, n in (("rho", rho, N), ("beta", beta, N), ("wvec", wvec, M)):
+        _build.check_vec(name, v, n, X)
+    nu = u = None
+    if noise is not None:
+        nu, u = noise
+        _build.check_vec("nu", nu, N, X)
+        _build.check_vec("u", u, N, X)
+    if seed is not None and (seed.device != X.device
+                             or seed.dtype != torch.int64
+                             or tuple(seed.shape) != (4,)
+                             or not seed.is_contiguous()):
+        raise ValueError("seed must be a contiguous (4,) int64 tensor on "
+                         f"{X.device}")
+    ntiles, rows, chunk = stats_plan(N, m, M, X.device)
+    head, s, t = _featurizer_args(X, landmarks, proj, mask, N, D, m, P,
+                                  add_bias, kind, sigma, chunk)
+    f32 = dict(dtype=torch.float32, device=X.device)
+    nsplits = chunk // rows
+    Mp = -(-M // _build.BK) * _build.BK
+    phi = torch.empty(chunk * M, **f32)
+    wgt, coef = torch.empty(chunk, **f32), torch.empty(chunk, **f32)
+    part = torch.empty(nsplits * ntiles * _build.BK * _build.BK, **f32)
+    bpart = torch.empty(nsplits * Mp, **f32)
+    margin, gamma = torch.empty(N, **f32), torch.empty(N, **f32)
+    sigma_out, b = torch.empty((M, M), **f32), torch.empty(M, **f32)
+
+    def ptr(v):
+        return None if v is None else v.data_ptr()
+
+    _build.launch("rt_nystrom_fused_stats", X.device, *head,
+                  rho.data_ptr(), beta.data_ptr(), wvec.data_ptr(), ptr(nu),
+                  ptr(u), ptr(seed), s["sqx"].data_ptr(),
+                  s["sql"].data_ptr(), s["kc"].data_ptr(), phi.data_ptr(),
+                  wgt.data_ptr(), coef.data_ptr(), part.data_ptr(),
+                  bpart.data_ptr(), margin.data_ptr(), gamma.data_ptr(),
+                  sigma_out.data_ptr(), b.data_ptr(), t["N"], t["D"],
+                  t["m"], t["P"], t["bias"], t["kind"], t["inv"], chunk,
+                  ntiles, rows, _EPILOGUE_CODE[var], float(eps))
+    LAUNCHES[f"nystrom_fused_stats[{var}]"] += 1
+    return margin, gamma, b, sigma_out

@@ -8,6 +8,15 @@ Two flavours:
 ``backend=None`` picks ``cuda`` for a CUDA tensor and ``ref`` for a CPU
 tensor. An explicit ``backend="ref"`` on CUDA tensors is for
 ``chip_smoke.py`` and the tests, which hold the kernels against it.
+
+Routes follow the reference's, so one input takes one route in both
+packages: ``fused_stats`` past FUSED_STATS_MAX_K, and
+``nystrom_fused_stats`` past ``nystrom_fused_fits`` (featurize with
+``nystrom_phi``, then ``fused_stats``). One difference, on purpose: the
+reference's ``nystrom_phi`` and ``nystrom_score`` fall back to plain XLA
+past their VMEM budgets, a TPU memory limit; the Hopper kernels stream
+the landmark strip and the projection through shared memory in chunks
+and run at every landmark count. Same function, another route.
 """
 from __future__ import annotations
 
@@ -16,6 +25,8 @@ import torch
 from . import epilogues
 from . import fused_estep as _fused_estep
 from . import fused_stats as _fused_stats
+from . import nystrom_phi as _nystrom_phi
+from . import rbf_gram as _rbf_gram
 from . import ref
 from . import syrk as _syrk
 
@@ -144,3 +155,148 @@ def fused_stats(X: torch.Tensor, rho: torch.Tensor, beta: torch.Tensor,
         noise, eps)
     w = weight if wmask is None else wmask.to(torch.float32) * weight
     return (margin, *aug, Xf.T @ coef, syrk_tri(X, w, backend=flavour))
+
+
+def rbf_gram(X1: torch.Tensor, X2: torch.Tensor, *, sigma: float = 1.0,
+             backend: str | None = None) -> torch.Tensor:
+    """RBF Gram matrix (N1, N2) float32."""
+    if _resolve(backend, X1) == "ref":
+        return ref.rbf_gram(X1, X2, float(sigma))
+    return _rbf_gram.rbf_gram(X1.contiguous(), X2.contiguous(), sigma=sigma)
+
+
+# The reference's route rule for the Nystrom statistic, copied with its
+# byte formula so that one input takes one route in both packages. On the
+# TPU the fused kernel holds the landmark strip, the projection, the phi
+# tile and the (M, M) Sigma accumulator in VMEM at once and must not run
+# past this landmark count or the budget; past them the statistic is
+# featurize (nystrom_phi) then accumulate (fused_stats, itself routed at
+# FUSED_STATS_MAX_K). On Hopper the rule is a routing choice: the kernel
+# streams all of them at any m.
+NYSTROM_FUSED_MAX_M = 1024
+_NYSTROM_VMEM_BUDGET = 14 * 2 ** 20
+
+
+def _ru(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
+
+
+def _nystrom_vmem_words(n_landmarks: int, n_features: int, add_bias: bool,
+                        block_n: int, epilogue: str = "em_hinge",
+                        col_blk: int | None = None,
+                        rng: bool = False) -> int:
+    """fp32 words resident per grid step of the reference's featurize-
+    and-accumulate kernel: the X tile, landmark strip, projection, cross
+    tile and phi tile, the Sigma/b accumulators and the per-row vectors
+    (the noise operands only without the in-kernel RNG). ``col_blk``
+    narrows Sigma to its aligned column window."""
+    Lp = _ru(n_landmarks, 128)
+    Dp = _ru(n_features, 128)
+    Wp = _ru(n_landmarks + int(add_bias), 128)
+    words = (block_n * Dp        # X tile
+             + Lp * Dp           # landmark strip
+             + Lp * Wp           # projection
+             + block_n * Lp      # cross-Gram tile
+             + block_n * Wp)     # phi tile
+    per_row = (4                                   # mask/rho/beta/margin
+               + (0 if rng else epilogues.noise_arity(epilogue))
+               + epilogues.aug_arity(epilogue))
+    Cw = Wp if col_blk is None else min(Wp, _ru(col_blk, 128) + 128)
+    return words + (Wp * Cw      # Sigma accumulator (windowed: narrowed)
+                    + Wp + per_row * block_n)  # w/b + per-row vectors
+
+
+def nystrom_fused_fits(n_landmarks: int, n_features: int,
+                       add_bias: bool = True, block_n: int = 256,
+                       epilogue: str = "em_hinge",
+                       col_blk: int | None = None,
+                       rng: bool = False) -> bool:
+    """Whether the reference's one-pass featurize-and-accumulate kernel
+    runs at these sizes (its VMEM budget). ``rng=True`` (the counter
+    seed) drops the noise vectors from the count, so the seed and noise
+    variants can take different routes at the edge."""
+    if n_landmarks > NYSTROM_FUSED_MAX_M:
+        return False
+    return 4 * _nystrom_vmem_words(n_landmarks, n_features, add_bias,
+                                   block_n, epilogue, col_blk,
+                                   rng) <= _NYSTROM_VMEM_BUDGET
+
+
+def _mask32(mask):
+    return None if mask is None else _f32(mask)
+
+
+def nystrom_phi(X: torch.Tensor, landmarks: torch.Tensor,
+                proj: torch.Tensor, mask: torch.Tensor | None = None, *,
+                sigma: float = 1.0, kind: str = "rbf",
+                add_bias: bool = False,
+                backend: str | None = None) -> torch.Tensor:
+    """Device-side Nystrom featurizer: phi = k(X, landmarks) @ proj with
+    rows multiplied by ``mask`` and an optional mask-valued bias column
+    last, (N, M) float32, M = proj cols + add_bias."""
+    if _resolve(backend, X) == "ref":
+        return ref.nystrom_phi(X, landmarks, proj, mask, float(sigma), kind,
+                               add_bias)
+    return _nystrom_phi.nystrom_phi(
+        X.contiguous(), _f32(landmarks), _f32(proj), _mask32(mask),
+        sigma=sigma, kind=kind, add_bias=add_bias)
+
+
+def nystrom_score(X: torch.Tensor, landmarks: torch.Tensor,
+                  proj: torch.Tensor, W: torch.Tensor,
+                  mask: torch.Tensor | None = None, *, sigma: float = 1.0,
+                  kind: str = "rbf", add_bias: bool = False,
+                  backend: str | None = None) -> torch.Tensor:
+    """(N, C) scores = nystrom_phi(X, ...) @ W in one pass: phi is never
+    written to device memory. Masked rows score 0."""
+    if _resolve(backend, X) == "ref":
+        return ref.nystrom_score(X, landmarks, proj, W, mask, float(sigma),
+                                 kind, add_bias)
+    return _nystrom_phi.nystrom_score(
+        X.contiguous(), _f32(landmarks), _f32(proj), _f32(W),
+        _mask32(mask), sigma=sigma, kind=kind, add_bias=add_bias)
+
+
+def nystrom_fused_stats(X: torch.Tensor, landmarks: torch.Tensor,
+                        proj: torch.Tensor, rho: torch.Tensor,
+                        beta: torch.Tensor, wvec: torch.Tensor,
+                        mask: torch.Tensor | None = None,
+                        noise: tuple | None = None, *,
+                        sigma: float = 1.0, kind: str = "rbf",
+                        add_bias: bool = False, epilogue: str = "em_hinge",
+                        eps: float = 1e-6, eps_ins: float = 0.0,
+                        col_window: tuple | None = None,
+                        seed: torch.Tensor | None = None,
+                        backend: str | None = None):
+    """(margin, gamma, b, S): the phi-space iteration statistic,
+    ``fused_stats`` on nystrom_phi(X) with S weighted by mask / gamma.
+
+    Within ``nystrom_fused_fits`` it is one call of the featurize-and-
+    accumulate kernel, which allocates no (N, M) phi; past it (m > 1024,
+    or wide D) it is nystrom_phi, then fused_stats on phi, as in the
+    reference. Callers get the same outputs either way."""
+    del eps_ins  # only the SVR epilogues read it
+    _check_noise(epilogue, noise, seed)
+    epilogues.check_ported(epilogue)
+    if col_window is not None:
+        raise NotImplementedError(
+            "the column-windowed Nystrom statistic (k_shard_axis) is not "
+            "ported yet: ROADMAP queue 1 item 10 (multi-GPU)")
+    flavour = _resolve(backend, X)
+    if not nystrom_fused_fits(landmarks.shape[0], X.shape[1], add_bias,
+                              256, epilogue, None, seed is not None):
+        phi = nystrom_phi(X, landmarks, proj, mask, sigma=sigma, kind=kind,
+                          add_bias=add_bias, backend=flavour)
+        return fused_stats(phi, rho, beta, wvec, mask, noise,
+                           epilogue=epilogue, eps=eps, seed=seed,
+                           backend=flavour)
+    if flavour == "ref":
+        return ref.nystrom_fused_stats(
+            X, landmarks, proj, rho, beta, wvec, mask, float(sigma), kind,
+            add_bias, eps, epilogue, noise=noise, seed=seed)
+    return _nystrom_phi.nystrom_fused_stats(
+        X.contiguous(), _f32(landmarks), _f32(proj), _f32(rho), _f32(beta),
+        _f32(wvec), _mask32(mask),
+        noise=None if noise is None else tuple(_f32(z) for z in noise),
+        seed=seed, sigma=sigma, kind=kind, add_bias=add_bias,
+        epilogue=epilogue, eps=eps)

@@ -1,6 +1,7 @@
 """Plain PyTorch versions of the ported kernels: port of
 ``repro/kernels/ref.py`` (the hinge epilogues, pre-drawn noise, the
-counter seed and multichain; no column window).
+counter seed and multichain; the RBF Gram and the Nystrom featurizer,
+scorer and statistic; no column window).
 
 They are the CPU path of ``ops`` and the oracles the CUDA kernels are held
 against. Inputs are computed in float32, as in the reference; float64
@@ -12,6 +13,7 @@ from __future__ import annotations
 import torch
 
 from . import epilogues
+from ._build import ROWS_PER_SPLIT
 
 
 def seed_noise(seed: torch.Tensor, n: int, n_chains: int, epilogue: str):
@@ -27,9 +29,19 @@ def _acc(t: torch.Tensor) -> torch.Tensor:
 
 
 def weighted_gram(X: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
-    """S = X^T diag(w) X, (K, K)."""
-    Xf = _acc(X)
-    return (Xf * _acc(w)[:, None]).T @ Xf
+    """S = X^T diag(w) X, (K, K), summed over splits of ROWS_PER_SPLIT
+    rows in order, as the kernels sum theirs. One float32 product over a
+    million rows has several times the error: on the 1e6-row Nystrom
+    statistic (``chip_nystrom_numerics.py``) it was 6.6 from float64 in
+    the 2-norm, pushed an eigenvalue to -1.4 against a ridge of 0.3 and
+    broke the Cholesky, where the split sum stays within 2.0."""
+    Xf, wf = _acc(X), _acc(w)
+    S = None
+    for r0 in range(0, max(X.shape[0], 1), ROWS_PER_SPLIT):
+        Xb = Xf[r0:r0 + ROWS_PER_SPLIT]
+        part = (Xb * wf[r0:r0 + ROWS_PER_SPLIT, None]).T @ Xb
+        S = part if S is None else S + part
+    return S
 
 
 def syrk_tri(X: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
@@ -79,3 +91,66 @@ def fused_stats(X: torch.Tensor, rho: torch.Tensor, beta: torch.Tensor,
         epilogue, margin, _acc(rho), _acc(beta), noise, eps)
     w = weight if wmask is None else _acc(wmask) * weight
     return (margin, *aug, Xf.T @ coef, weighted_gram(X, w))
+
+
+def rbf_gram(X1: torch.Tensor, X2: torch.Tensor, sigma: float
+             ) -> torch.Tensor:
+    """RBF Gram block K_ij = exp(-max(|x1_i|^2 - 2 x1_i.x2_j + |x2_j|^2, 0)
+    / (2 sigma^2)), (N1, N2); float32 unless an input is float64."""
+    dt = torch.promote_types(_acc(X1).dtype, _acc(X2).dtype)
+    X1f, X2f = X1.to(dt), X2.to(dt)
+    sq1 = torch.sum(X1f * X1f, dim=-1, keepdim=True)
+    sq2 = torch.sum(X2f * X2f, dim=-1, keepdim=True)
+    d2 = sq1 - 2.0 * (X1f @ X2f.T) + sq2.T
+    return torch.exp(-d2.clamp_min(0.0) / (2.0 * sigma * sigma))
+
+
+def nystrom_phi(X: torch.Tensor, landmarks: torch.Tensor,
+                proj: torch.Tensor, mask: torch.Tensor | None,
+                sigma: float, kind: str, add_bias: bool) -> torch.Tensor:
+    """phi = k(X, landmarks) @ proj, (N, M) with M = proj cols + add_bias:
+    the bias column (value 1) goes LAST, then every row is multiplied by
+    ``mask`` (None: all ones). A zero X row is not a zero phi row under
+    rbf, so padding must be masked."""
+    Xf = _acc(X)
+    if kind == "rbf":
+        kmat = rbf_gram(Xf, landmarks, sigma)
+    elif kind == "linear":
+        kmat = Xf @ landmarks.to(Xf.dtype).T
+    else:
+        raise ValueError(f"unknown kernel kind {kind!r}")
+    phi = kmat @ proj.to(kmat.dtype)
+    maskv = (torch.ones((X.shape[0], 1), dtype=phi.dtype, device=X.device)
+             if mask is None else mask.to(phi.dtype)[:, None])
+    if add_bias:
+        phi = torch.cat([phi, torch.ones_like(maskv)], dim=1)
+    return phi * maskv
+
+
+def nystrom_score(X: torch.Tensor, landmarks: torch.Tensor,
+                  proj: torch.Tensor, W: torch.Tensor,
+                  mask: torch.Tensor | None, sigma: float, kind: str,
+                  add_bias: bool) -> torch.Tensor:
+    """(N, C) scores = nystrom_phi(X, ...) @ W; masked rows score 0."""
+    phi = nystrom_phi(X, landmarks, proj, mask, sigma, kind, add_bias)
+    return phi @ W.to(phi.dtype)
+
+
+def nystrom_fused_stats(X: torch.Tensor, landmarks: torch.Tensor,
+                        proj: torch.Tensor, rho: torch.Tensor,
+                        beta: torch.Tensor, wvec: torch.Tensor,
+                        mask: torch.Tensor | None, sigma: float, kind: str,
+                        add_bias: bool, eps: float,
+                        epilogue: str = "em_hinge",
+                        noise: tuple | None = None,
+                        col_window: tuple | None = None,
+                        seed: torch.Tensor | None = None):
+    """``fused_stats`` on ``nystrom_phi``: (margin, gamma, b (M,),
+    S (M, M)) with S weighted by mask / gamma."""
+    if col_window is not None:
+        raise NotImplementedError(
+            "the column-windowed Nystrom statistic (k_shard_axis) is not "
+            "ported yet: ROADMAP queue 1 item 10 (multi-GPU)")
+    phi = nystrom_phi(X, landmarks, proj, mask, sigma, kind, add_bias)
+    return fused_stats(phi, rho, beta, wvec, mask, eps, epilogue,
+                       noise=noise, seed=seed)

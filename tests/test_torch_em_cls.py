@@ -18,7 +18,7 @@ from repro.core import PEMSVM as JaxSVM
 from repro.core import objective as jobj
 from repro.core import SVMConfig as JaxConfig
 from repro.data import synthetic as jsyn
-from repro_torch.core import PEMSVM, SVMConfig, lam_from_C
+from repro_torch.core import PEMSVM, PhiSpec, SVMConfig, lam_from_C
 from repro_torch.core import objective as tobj
 from repro_torch.core.convert import config_from_reference, svm_from_reference
 from repro_torch.data import synthetic as tsyn
@@ -178,7 +178,7 @@ def test_objective_terms_match_reference(masked):
     dict(driver="stream"),
     dict(k_shard_axis="model"),
     dict(pad_features=8),
-    dict(phi_spec=object(), add_bias=False),
+    dict(phi_spec=PhiSpec(), add_bias=False, task="SVR"),
     dict(fault=object()),
     dict(decay=0.5, driver="stream"),
     dict(window=2, driver="stream"),

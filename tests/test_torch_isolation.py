@@ -1,6 +1,6 @@
 """The port stands alone: importing every module of ``repro_torch`` pulls
-in no JAX and nothing of the JAX package, and no port source (nor
-``chip_smoke.py``) names them in an import."""
+in no JAX and nothing of the JAX package, and no port source (nor the
+chip scripts at the root) names them in an import."""
 import os
 import re
 import subprocess
@@ -41,7 +41,8 @@ _IMPORT = re.compile(
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in
-    [*PORT.rglob("*.py"), ROOT / "chip_smoke.py"]))
+    [*PORT.rglob("*.py"), ROOT / "chip_smoke.py",
+     ROOT / "chip_nystrom_numerics.py"]))
 def test_source_names_no_jax_or_repro_import(path):
     text = (ROOT / path).read_text()
     assert not _IMPORT.search(text), _IMPORT.search(text).group(0)

@@ -18,6 +18,8 @@ plain epilogue on the kernel's own margin and noise (>= 99 % of rows
 bitwise equal, >= 99.95 % within 1e-3 relative, all finite and >= eps);
 b and Sigma against a float64 recomputation from the kernel's own gamma.
 """
+import math
+
 import numpy as np
 import pytest
 import torch
@@ -201,3 +203,237 @@ def test_mc_fit_goes_through_the_seed_kernel(cuda):
     assert res.converged
     assert launched == min(cfg.max_iters, -(-res.n_iters // chunk) * chunk)
     assert np.all(np.isfinite(res.weights))
+
+
+# ---------------------------------------------------------------- Nystrom
+# The four Nystrom kernels against their plain versions in float64, at
+# small odd masked shapes (padded tail rows, masked rows, the bias column,
+# both kinds, bf16 X), with the tolerances of chip_smoke.py phase 3:
+# rbf_gram |d| <= 1e-5 |ref| + 1e-7; phi |d| <= 1e-5 (|k| @ |proj|)
+# elementwise (mixed-sign dot products), scores through |W|, margins
+# through |w|; em_hinge gamma |dg| <= |dm| + 2^-24 (g + g_ref) + 1e-7;
+# mc_hinge gamma against the plain epilogue on the kernel's own margin
+# and noise; b and Sigma
+# within 1e-5 max of a float64 recomputation from the kernel's own phi
+# (the nystrom_phi kernel's output: the statistic accumulates those bits)
+# and gamma.
+from repro_torch.kernels import nystrom_phi as nys  # noqa: E402
+from repro_torch.kernels import rbf_gram as rbfk  # noqa: E402
+
+NYS_SHAPES = [(203, 7, 45, 13, torch.float32), (1037, 2, 300, 5,
+                                                   torch.bfloat16),
+              (517, 130, 257, 0, torch.float32)]
+
+
+def _nys(n, d, m, n_pad, dtype, dev, kind="rbf", sigma=1.3, seed=0):
+    """Rows scaled to O(1) distances, as the rbf_gram cases: unscaled
+    normal rows at D = 130 would put every k at exp(-77) except exact
+    duplicates, where float32 cancellation in |x|^2 - 2 x.l + |l|^2
+    (the reference's expansion too) is all that is left."""
+    g = np.random.default_rng(seed)
+    X = (g.normal(size=(n, d)) / np.sqrt(d)).astype(np.float32)
+    L = X[g.choice(n - n_pad, size=m, replace=False)].copy()
+    X[n - n_pad:] = 0.0
+    P = (0.2 * g.normal(size=(m, m)) / np.sqrt(m / 45)).astype(np.float32)
+    mask = (g.uniform(size=n) > 0.2).astype(np.float32)
+    mask[n - n_pad:] = 0.0
+    X = torch.from_numpy(X).to(dtype).to(dev)
+    L, P, mask = (torch.from_numpy(a).to(dev) for a in (L, P, mask))
+    X64 = X.double()
+    k64 = ref.rbf_gram(X64, L.double(), sigma) if kind == "rbf" else \
+        X64 @ L.double().T
+    return X, L, P, mask, k64
+
+
+def _phi_scale(k64, P, mask, add_bias):
+    s = k64.abs() @ P.double().abs()
+    if add_bias:
+        s = torch.cat([s, torch.ones_like(s[:, :1])], 1)
+    return s * mask.double()[:, None]
+
+
+def _within(got, want, scale):
+    err = (got.double() - want).abs()
+    assert torch.all(err <= REL * scale), (err - REL * scale).max()
+
+
+def _nys_gamma_band(g, g_plain):
+    """_gamma_band with the clamp compared in float32: padded and masked
+    rows (rho = 0, phi row 0) sit at the clamp, float32(1e-6) < 1e-6."""
+    assert torch.all(torch.isfinite(g)) and torch.all(g >= 1e-6)
+    g, gp = g.reshape(-1).double(), g_plain.reshape(-1).double()
+    assert (g == gp).double().mean() >= 0.99
+    assert ((g - gp).abs() / gp.abs() <= 1e-3).double().mean() >= 0.9995
+
+
+@pytest.mark.parametrize("shape", [((37, 29), (45, 29)), ((1000, 2),) * 2,
+                                   ((300, 500), (257, 500))])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+def test_rbf_gram_kernel(cuda, shape, dtype):
+    g = np.random.default_rng(1)
+    (n1, d), (n2, _) = shape
+    X1 = torch.from_numpy((g.normal(size=(n1, d)) / np.sqrt(d)).astype(
+        np.float32)).to(dtype).to(cuda)
+    X2 = torch.from_numpy((g.normal(size=(n2, d)) / np.sqrt(d)).astype(
+        np.float32)).to(dtype).to(cuda)
+    X2[:5] = X1[:5]
+    before = rbfk.LAUNCHES
+    got = rbfk.rbf_gram(X1, X2, sigma=0.7)
+    again = rbfk.rbf_gram(X1, X2, sigma=0.7)
+    torch.cuda.synchronize()
+    assert rbfk.LAUNCHES == before + 2 and torch.equal(got, again)
+    want = ref.rbf_gram(X1.double(), X2.double(), 0.7)
+    assert torch.all((got.double() - want).abs()
+                     <= 1e-5 * want.abs() + 1e-7)
+
+
+@pytest.mark.parametrize("add_bias", [False, True])
+@pytest.mark.parametrize("kind", ["rbf", "linear"])
+@pytest.mark.parametrize("shape", NYS_SHAPES)
+def test_nystrom_phi_kernel(cuda, shape, kind, add_bias):
+    X, L, P, mask, k64 = _nys(*shape, cuda, kind=kind)
+    before = nys.LAUNCHES["nystrom_phi"]
+    got = nys.nystrom_phi(X, L, P, mask, sigma=1.3, kind=kind,
+                          add_bias=add_bias)
+    again = nys.nystrom_phi(X, L, P, mask, sigma=1.3, kind=kind,
+                            add_bias=add_bias)
+    torch.cuda.synchronize()
+    assert nys.LAUNCHES["nystrom_phi"] == before + 2
+    assert torch.equal(got, again)
+    want = ref.nystrom_phi(X.double(), L.double(), P.double(),
+                           mask.double(), 1.3, kind, add_bias)
+    _within(got, want, _phi_scale(k64, P, mask, add_bias))
+    assert not torch.any(got[mask == 0])
+
+
+@pytest.mark.parametrize("C", [1, 3])
+@pytest.mark.parametrize("shape", NYS_SHAPES)
+def test_nystrom_score_kernel(cuda, shape, C):
+    kind = "linear" if C == 3 else "rbf"
+    X, L, P, mask, k64 = _nys(*shape, cuda, kind=kind)
+    W = torch.randn(L.shape[0] + 1, C, generator=torch.Generator(
+        device=cuda).manual_seed(0), device=cuda)
+    before = nys.LAUNCHES["nystrom_score"]
+    got = nys.nystrom_score(X, L, P, W, mask, sigma=1.3, kind=kind,
+                            add_bias=True)
+    torch.cuda.synchronize()
+    assert nys.LAUNCHES["nystrom_score"] == before + 1
+    want = ref.nystrom_score(X.double(), L.double(), P.double(), W.double(),
+                             mask.double(), 1.3, kind, True)
+    _within(got, want, _phi_scale(k64, P, mask, True) @ W.double().abs())
+
+
+NYS_MC = ["em_hinge", "mc_hinge,noise", "mc_hinge,seed"]
+
+
+@pytest.mark.parametrize("chunked", [False, True])
+@pytest.mark.parametrize("var", NYS_MC)
+@pytest.mark.parametrize("shape", NYS_SHAPES)
+def test_nystrom_fused_stats_kernel(cuda, shape, var, chunked, monkeypatch):
+    kind = "linear" if shape[1] == 130 else "rbf"
+    X, L, P, mask, k64 = _nys(*shape, cuda, kind=kind)
+    n, M = X.shape[0], L.shape[0] + 1
+    g = torch.Generator(device=cuda).manual_seed(3)
+    w = torch.randn(M, generator=g, device=cuda) / math.sqrt(M)
+    y = torch.where(torch.rand(n, generator=g, device=cuda) < 0.5, -1.0,
+                    1.0) * mask
+    epi, _, source = var.partition(",")
+    seed = rng.pack_seed(prng.fold_in(prng.PRNGKey(5), 2), 3, 0).to(cuda)
+    noise = ref.seed_noise(seed, n, 1, "mc_hinge")
+    kw = (dict(noise=noise) if source == "noise" else
+          dict(seed=seed) if source == "seed" else {})
+    args = (X, L, P, y, y, w, mask)
+    opts = dict(sigma=1.3, kind=kind, add_bias=True, epilogue=epi, eps=1e-6)
+    one = nys.nystrom_fused_stats(*args, **kw, **opts)
+    if chunked:  # several row chunks give the same bits as one
+        monkeypatch.setattr(nys, "SCRATCH_WORDS", 32 * M * 2)
+    before = nys.LAUNCHES[f"nystrom_fused_stats[{var}]"]
+    m, gam, b, S = nys.nystrom_fused_stats(*args, **kw, **opts)
+    torch.cuda.synchronize()
+    assert nys.LAUNCHES[f"nystrom_fused_stats[{var}]"] == before + 1
+    assert all(torch.equal(a, c) for a, c in zip(one, (m, gam, b, S)))
+    phi64 = ref.nystrom_phi(X.double(), L.double(), P.double(),
+                            mask.double(), 1.3, kind, True)
+    m64 = phi64 @ w.double()
+    _within(m, m64, _phi_scale(k64, P, mask, True) @ w.double().abs())
+    if epi == "em_hinge":
+        g64 = (y.double() - m64).abs().clamp_min(1e-6)
+        lim = ((m.double() - m64).abs() + 2.0 ** -24 * (gam.double() + g64)
+               + 1e-7)
+        assert torch.all((gam.double() - g64).abs() <= lim)
+    else:
+        (g_plain,), _, _ = epilogues.apply_epilogue("mc_hinge", m, y, y,
+                                                    noise, 1e-6)
+        _nys_gamma_band(gam, g_plain)
+    phi = nys.nystrom_phi(X, L, P, mask, sigma=1.3, kind=kind,
+                          add_bias=True).double()
+    coef = y.double() / gam.double() + y.double()
+    _close_max(b, phi.T @ coef)
+    _close_max(S, (phi * (mask.double() / gam.double())[:, None]).T @ phi)
+
+
+def test_nystrom_wide_route_launches_phi_estep_and_syrk(cuda):
+    """m > NYSTROM_FUSED_MAX_M: nystrom_phi, then fused_estep + syrk_tri
+    (M > FUSED_STATS_MAX_K); the featurize-and-accumulate kernel stays
+    idle."""
+    m = ops.FUSED_STATS_MAX_K + 8
+    X, L, P, mask, _ = _nys(2000, 3, m, 0, torch.float32, cuda)
+    P = P / 10
+    y = torch.ones(2000, device=cuda) * mask
+    w = torch.zeros(m + 1, device=cuda)
+    nys.zero_launches()
+    counts = (fused_estep.LAUNCHES, syrk.LAUNCHES)
+    got = ops.nystrom_fused_stats(X, L, P, y, y, w, mask, sigma=1.3,
+                                  add_bias=True)
+    assert nys.LAUNCHES["nystrom_phi"] == 1
+    assert sum(nys.LAUNCHES.values()) == 1
+    assert (fused_estep.LAUNCHES - 1, syrk.LAUNCHES - 1) == counts
+    want = ref.nystrom_fused_stats(X, L, P, y, y, w, mask, 1.3, "rbf", True,
+                                   1e-6)
+    _close_max(got[3], want[3].double())
+
+
+def test_nystrom_wrappers_reject_bad_operands(cuda):
+    X, L, P, mask, _ = _nys(64, 3, 8, 0, torch.float32, cuda)
+    with pytest.raises(ValueError):
+        nys.nystrom_phi(X, L.double(), P)
+    with pytest.raises(ValueError):
+        nys.nystrom_phi(X, L[:, :2].contiguous(), P)
+    with pytest.raises(ValueError):
+        nys.nystrom_score(X, L, P, torch.zeros(8, 1, device=cuda),
+                          add_bias=True)
+    with pytest.raises(ValueError):
+        nys.nystrom_fused_stats(X, L, P, mask, mask,
+                                torch.zeros(9, 2, device=cuda), mask,
+                                seed=torch.zeros(4, dtype=torch.int64,
+                                                 device=cuda),
+                                epilogue="mc_hinge", add_bias=True)
+    with pytest.raises(TypeError):
+        rbfk.rbf_gram(X, X.bfloat16())
+
+
+def test_nystrom_fit_goes_through_the_kernels(cuda):
+    from repro_torch.core import NystromSVM
+    from repro_torch.data import make_circles
+    X, y = make_circles(6000, seed=0)
+    Xh, yh = make_circles(2000, seed=1)
+    cfg = SVMConfig.from_options("KRN-EM-CLS", lam=0.1, sigma=0.7,
+                                 max_iters=60)
+    nys.zero_launches()
+    before = rbfk.LAUNCHES
+    ny = NystromSVM(cfg, n_landmarks=77)
+    res = ny.fit(X, y)
+    chunk = cfg.scan_chunk
+    steps = min(cfg.max_iters, -(-res.n_iters // chunk) * chunk)
+    assert res.converged and rbfk.LAUNCHES == before + 1
+    assert nys.LAUNCHES["nystrom_fused_stats[em_hinge]"] == steps
+    assert nys.LAUNCHES["nystrom_phi"] == 0
+    acc = ny.score(Xh, yh)
+    assert nys.LAUNCHES["nystrom_score"] == 1
+    plain = NystromSVM(SVMConfig.from_options(
+        "KRN-EM-CLS", lam=0.1, sigma=0.7, max_iters=60, backend="ref"))
+    rp = plain.fit_featurized(X, y, ny._landmarks, ny._proj)
+    assert abs(rp.n_iters - res.n_iters) <= 3
+    assert abs(plain.score(Xh, yh) - acc) <= 0.01 and acc >= 0.99
+    w, wp = res.weights.astype(np.float64), rp.weights.astype(np.float64)
+    assert np.linalg.norm(w - wp) / np.linalg.norm(wp) <= 5e-2

@@ -9,7 +9,8 @@ The MC draw is split in two: ``draw_ig_noise`` pre-draws the per-row
 (one ``fold_in`` a row), so the chain does not depend on how rows are
 batched; the transform (``kernels/epilogues.ig_transform``) runs inside
 the fused statistic on the margin. ``gamma_mc_rowwise`` is the oracle
-that composes the two. Under rng modes 'fused' / 'fused_predraw' the
+that composes the two. SVR's double mixture draws two such pairs
+(``draw_svr_noise``). Under rng modes 'fused' / 'fused_predraw' the
 noise comes from the counter cipher instead (``draw_fused_noise``,
 ``pack_seed``).
 """
@@ -31,6 +32,14 @@ def draw_ig_noise(key: torch.Tensor, n: int, row0=0):
     ids = row0 + torch.arange(n, dtype=torch.int64, device=key.device)
     k = prng.split(prng.fold_in(key, ids))       # (n, 2, 2)
     return prng.normal(k[:, 0]), prng.uniform(k[:, 1])
+
+
+def draw_svr_noise(key: torch.Tensor, n: int, row0=0):
+    """(nu_g, u_g, nu_o, u_o) for SVR's double mixture under rng='host':
+    the key splits into (k_lo, k_hi); gamma's pair is ``draw_ig_noise``
+    on k_lo, omega's on k_hi, as ``repro/core/svr.py`` draws them."""
+    k_lo, k_hi = prng.split(key)
+    return draw_ig_noise(k_lo, n, row0) + draw_ig_noise(k_hi, n, row0)
 
 
 def gamma_mc_rowwise(key: torch.Tensor, residual: torch.Tensor, eps: float,

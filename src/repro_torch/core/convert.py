@@ -33,13 +33,13 @@ def config_from_reference(fields: dict) -> SVMConfig:
 
 def svm_from_reference(config: SVMConfig, weights: np.ndarray,
                        n_features: int, device=None) -> PEMSVM:
-    """A fitted port model from a reference fit's ``FitResult.weights``:
-    its decision_function / predict / score give the reference model's
-    results. ``n_features`` is the raw width D of a request row."""
+    """A fitted port model from a reference fit's ``FitResult.weights``
+    (a LIN CLS or SVR fit): its decision_function / predict / score (and
+    rmse for SVR) give the reference model's results. ``n_features`` is the raw width D of a request row."""
     w = np.asarray(weights, np.float32)
     want = n_features + int(config.add_bias)
     if w.shape != (want,):
-        raise ValueError(f"weights of shape {w.shape}; a LIN-CLS model of "
+        raise ValueError(f"weights of shape {w.shape}; a LIN model of "
                          f"{n_features} features needs ({want},)")
     svm = PEMSVM(config, device=device)
     svm._weights = torch.tensor(w, device=svm.device)

@@ -13,9 +13,12 @@ main route. The default is m = ceil(sqrt(N)) landmarks.
 Host work is one-time: the landmark choice and the K_mm^{-1/2}
 eigendecomposition (float64, with a spectral floor), cached on the model.
 
+The delegate carries the task: KRN-{EM,MC}-CLS and KRN-{EM,MC}-SVR (the
+phi-space SVR statistic under the em_svr / mc_svr epilogues).
+
 Not ported yet: ``fit_libsvm`` (ROADMAP queue 1 item 8),
 ``export_servable``/``scorer`` (item 12), ``resume_from``/``warm_start``
-(item 11), and the SVR / MLT tasks of the delegate (items 6, 7).
+(item 11), and the MLT task of the delegate (item 7).
 """
 from __future__ import annotations
 
@@ -72,8 +75,8 @@ def _host_phi(X, landmarks, proj, kind, sigma, backend, device):
 
 
 class NystromSVM:
-    """KRN-{EM,MC}-CLS through Nystrom features and the linear solver, on
-    ``cuda:0`` unless ``device`` says otherwise."""
+    """KRN-{EM,MC}-{CLS,SVR} through Nystrom features and the linear
+    solver, on ``cuda:0`` unless ``device`` says otherwise."""
 
     def __init__(self, config: SVMConfig, n_landmarks: int | None = None,
                  mesh=None, data_axes=None, seed: int = 0,
@@ -179,5 +182,9 @@ class NystromSVM:
     def decision_function(self, X: np.ndarray) -> np.ndarray:
         return self.svm.decision_function(np.asarray(X, np.float32))
 
+    def rmse(self, X: np.ndarray, y: np.ndarray) -> float:
+        return self.svm.rmse(np.asarray(X, np.float32), y)
+
     def score(self, X: np.ndarray, y: np.ndarray) -> float:
+        """Accuracy (CLS) or the negated RMSE (SVR): higher is better."""
         return self.svm.score(np.asarray(X, np.float32), y)

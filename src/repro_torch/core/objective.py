@@ -1,4 +1,5 @@
-"""Objectives and metrics of LIN-EM-CLS: port of ``repro/core/objective.py``.
+"""Objectives and metrics of the CLS and SVR tasks: port of
+``repro/core/objective.py``.
 
 The paper's stopping rule (Sec 5.5) monitors the regularized-risk
 objective each iteration and stops when its change falls to tol*N.
@@ -15,6 +16,14 @@ def hinge_obj_terms(margins: torch.Tensor, y: torch.Tensor,
     return torch.sum(mask * 2.0 * torch.clamp_min(1.0 - y * margins, 0.0))
 
 
+def svr_obj_terms(pred: torch.Tensor, y: torch.Tensor, eps_ins: float,
+                  mask: torch.Tensor) -> torch.Tensor:
+    """sum_d 2*max(0, |y_d - f_d| - eps) over valid rows (paper Eq. 20
+    loss)."""
+    return torch.sum(mask * 2.0 * torch.clamp_min(
+        torch.abs(y - pred) - eps_ins, 0.0))
+
+
 def l2_reg(w: torch.Tensor, lam: float) -> torch.Tensor:
     """0.5 * lam * ||w||_2^2."""
     return 0.5 * lam * torch.sum(torch.square(w))
@@ -26,3 +35,12 @@ def accuracy(pred_labels: torch.Tensor, labels: torch.Tensor,
     if mask is None:
         return torch.mean(ok)
     return torch.sum(ok * mask) / torch.clamp_min(torch.sum(mask), 1.0)
+
+
+def rmse(pred: torch.Tensor, y: torch.Tensor,
+         mask: torch.Tensor | None = None) -> torch.Tensor:
+    se = torch.square(pred - y)
+    if mask is None:
+        return torch.sqrt(torch.mean(se))
+    return torch.sqrt(torch.sum(se * mask)
+                      / torch.clamp_min(torch.sum(mask), 1.0))

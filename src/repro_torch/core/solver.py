@@ -1,5 +1,5 @@
-"""PEMSVM driver: port of ``repro/core/solver.py`` for LIN-EM-CLS and
-LIN-MC-CLS on one device, with the ``scan`` (default) and ``loop``
+"""PEMSVM driver: port of ``repro/core/solver.py`` for LIN-{EM,MC}-CLS and
+LIN-{EM,MC}-SVR on one device, with the ``scan`` (default) and ``loop``
 drivers, in X-space or (``phi_spec``, the delegate of ``NystromSVM``) in
 Nystrom phi-space.
 
@@ -29,7 +29,7 @@ import numpy as np
 import torch
 
 from repro_torch.kernels import ops
-from . import distributed, linear, prng
+from . import distributed, linear, prng, svr
 from .linear import SVMData
 
 FORMULATIONS = ("LIN", "KRN")
@@ -166,7 +166,6 @@ def _unsupported(cfg: SVMConfig) -> list[str]:
         ("formulation", cfg.formulation != "LIN",
          "item 9 (the exact-Gram KRN solver; kernel models fit through "
          "NystromSVM)"),
-        ("task", cfg.task == "SVR", "item 6 (SVR)"),
         ("task", cfg.task == "MLT", "item 7 (MLT)"),
         ("driver", cfg.driver == "stream", "item 8 (streaming and data)"),
         ("k_shard_axis", cfg.k_shard_axis is not None, "item 10 (multi-GPU)"),
@@ -202,8 +201,8 @@ def _device(device) -> torch.device:
 
 
 class PEMSVM:
-    """Parallel EM SVM (the paper's PEMSVM): LIN-EM-CLS and LIN-MC-CLS on
-    one device, in X-space or Nystrom phi-space."""
+    """Parallel EM SVM (the paper's PEMSVM): LIN-{EM,MC}-{CLS,SVR} on one
+    device, in X-space or Nystrom phi-space."""
 
     def __init__(self, config: SVMConfig, device=None, mesh=None):
         bad = _unsupported(config)
@@ -240,7 +239,8 @@ class PEMSVM:
 
     # ------------------------------------------------------------- fitting
     def fit(self, X: np.ndarray, y: np.ndarray, **kw) -> FitResult:
-        """Fit on host arrays X (N, D) and labels y in {+-1}. The elastic
+        """Fit on host arrays X (N, D) and labels y in {+-1} (CLS) or real
+        targets (SVR). The elastic
         keywords of the reference (``resume_from``, ``warm_start``,
         ``live``, ``fault_hook``, ``epoch``) are not ported yet."""
         for name, value in kw.items():
@@ -259,11 +259,15 @@ class PEMSVM:
         N = X.shape[0]
         phi = self._phi()
         data, state = self._prepare(X, y, phi)
-        step = functools.partial(linear.cls_step, mode=cfg.algorithm,
-                                 lam=cfg.lam, eps=cfg.eps, jitter=cfg.jitter,
-                                 backend=cfg.backend, rng=cfg.rng,
-                                 n_chains=cfg.n_chains, chain0=cfg.chain0,
-                                 phi=phi, phi_spec=cfg.phi_spec)
+        common = dict(mode=cfg.algorithm, lam=cfg.lam, eps=cfg.eps,
+                      jitter=cfg.jitter, backend=cfg.backend, rng=cfg.rng,
+                      n_chains=cfg.n_chains, chain0=cfg.chain0, phi=phi,
+                      phi_spec=cfg.phi_spec)
+        if cfg.task == "SVR":
+            step = functools.partial(svr.svr_step, eps_ins=cfg.eps_ins,
+                                     **common)
+        else:
+            step = functools.partial(linear.cls_step, **common)
         # The reference's key chain: PRNGKey(seed), one split an
         # iteration. An EM step draws nothing, so EM fits skip it.
         key = (prng.PRNGKey(cfg.seed, self.device)
@@ -300,7 +304,8 @@ class PEMSVM:
         done = torch.zeros((), dtype=torch.bool, device=dev)
         it_done = torch.zeros((), dtype=torch.int32, device=dev)
         samp_total = np.zeros(tuple(state.shape), np.float64)
-        aux_hist: dict = {k: [] for k in _AUX_KEYS}
+        keys = self._aux_keys
+        aux_hist: dict = {k: [] for k in keys}
         n_syncs = 0
         it0 = 0
         converged = False
@@ -329,7 +334,7 @@ class PEMSVM:
                                       it_done)
                 prev_obj = torch.where(done, prev_obj, obj)
                 done = done | conv_now
-                trace.append(torch.stack([aux[k] for k in _AUX_KEYS]))
+                trace.append(torch.stack([aux[k] for k in keys]))
             # The single per-chunk host sync: trace, sample sum and flags
             # in one copy.
             flat = torch.cat([torch.stack(trace).to(torch.float64).ravel(),
@@ -338,12 +343,12 @@ class PEMSVM:
                               it_done.to(torch.float64)[None],
                               n_avg.to(torch.float64)[None]]).cpu().numpy()
             n_syncs += 1
-            n_aux = chunk * len(_AUX_KEYS)
-            aux_np = flat[:n_aux].reshape(chunk, len(_AUX_KEYS))
+            n_aux = chunk * len(keys)
+            aux_np = flat[:n_aux].reshape(chunk, len(keys))
             samp_total += flat[n_aux:-3].reshape(samp_total.shape)
             converged = bool(flat[-3])
             valid = (int(flat[-2]) - it0) if converged else chunk
-            for j, k in enumerate(_AUX_KEYS):
+            for j, k in enumerate(keys):
                 aux_hist[k].extend(float(v) for v in aux_np[:valid, j])
             it0 += chunk
             if converged:
@@ -365,7 +370,8 @@ class PEMSVM:
         cfg = self.config
         is_mc = cfg.algorithm == "MC"
         state = state0
-        aux_hist: dict = {k: [] for k in _AUX_KEYS}
+        keys = self._aux_keys
+        aux_hist: dict = {k: [] for k in keys}
         objs = aux_hist["objective"]
         converged = False
         n_small = 0
@@ -376,15 +382,15 @@ class PEMSVM:
             key, sub = _next_key(key)
             state, aux, n_valid = iterate(sub, state)
             average = is_mc and it > cfg.burnin
-            parts = [torch.stack([aux[k] for k in _AUX_KEYS])]
+            parts = [torch.stack([aux[k] for k in keys])]
             if average:
                 parts.append(state.ravel())
             vals = torch.cat([p.to(torch.float64) for p in parts]
                              ).cpu().numpy()
-            for k, v in zip(_AUX_KEYS, vals[:len(_AUX_KEYS)]):
+            for k, v in zip(keys, vals[:len(keys)]):
                 aux_hist[k].append(float(v))
             if average:
-                w_np = vals[len(_AUX_KEYS):].reshape(tuple(state.shape))
+                w_np = vals[len(keys):].reshape(tuple(state.shape))
                 mean_w = w_np if mean_w is None else (
                     mean_w * n_avg + w_np) / (n_avg + 1)
                 n_avg += 1
@@ -433,11 +439,18 @@ class PEMSVM:
         self._weights = torch.from_numpy(res.weights).to(self.device)
         return res
 
+    @property
+    def _aux_keys(self) -> tuple:
+        """The per-iteration diagnostics the task's step reports, in the
+        order the scan driver stacks them."""
+        return _AUX_KEYS[self.config.task]
+
     def _prepare(self, X: np.ndarray, y: np.ndarray, phi=None):
         target = np.asarray(y, np.float32)
-        uniq = set(np.unique(target).tolist())
-        if not uniq <= {-1.0, 1.0}:
-            raise ValueError(f"CLS labels must be +-1, got {uniq}")
+        if self.config.task == "CLS":
+            uniq = set(np.unique(target).tolist())
+            if not uniq <= {-1.0, 1.0}:
+                raise ValueError(f"CLS labels must be +-1, got {uniq}")
         Xp, tp, mask = distributed.pad_rows(X, target, 1)
         dev = self.device
         data = SVMData(torch.from_numpy(Xp).to(dev),
@@ -475,14 +488,30 @@ class PEMSVM:
             backend=self.config.backend)[:, 0].cpu().numpy()
 
     def predict(self, X: np.ndarray) -> np.ndarray:
-        return np.where(self.decision_function(X) >= 0, 1, -1)
+        """Labels in {+-1} (CLS) or the regression values f (SVR)."""
+        f = self.decision_function(X)
+        if self.config.task == "SVR":
+            return f
+        return np.where(f >= 0, 1, -1)
+
+    def rmse(self, X: np.ndarray, y: np.ndarray) -> float:
+        """Root-mean-square prediction error (SVR)."""
+        if self.config.task != "SVR":
+            raise ValueError("rmse is the SVR error metric")
+        pred = self.predict(X)
+        return float(np.sqrt(np.mean(
+            (pred - np.asarray(y, np.float32)) ** 2)))
 
     def score(self, X: np.ndarray, y: np.ndarray) -> float:
-        """Accuracy (higher is better)."""
+        """Higher is better for every task: accuracy for CLS, the negated
+        RMSE for SVR (``rmse`` gives the error itself)."""
+        if self.config.task == "SVR":
+            return -self.rmse(X, y)
         return float(np.mean(self.predict(X) == np.asarray(y)))
 
 
-_AUX_KEYS = ("objective", "gamma_mean", "n_sv")
+_AUX_KEYS = {"CLS": ("objective", "gamma_mean", "n_sv"),
+             "SVR": ("objective", "gamma_mean", "omega_mean")}
 
 
 def _next_key(key: torch.Tensor | None):

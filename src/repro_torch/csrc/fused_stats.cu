@@ -1,34 +1,34 @@
 // The whole iteration statistic in one pass over X, for C chains:
-// margin = X w_c; gamma from the epilogue; weight = wmask / gamma;
-// b_c = X^T (rho/gamma + beta); Sigma_c = X^T diag(weight) X.
+// margin = X w_c; the epilogue's (gamma[, omega], weight, coef);
+// b_c = X^T coef; Sigma_c = X^T diag(wmask * weight) X.
 //
 // Replaces the TPU kernel repro/kernels/fused_stats.py::fused_stats at
-// full width for the hinge epilogues: em_hinge, and mc_hinge with its
-// (nu, u) noise either read from two (N,) operands or derived in-body
-// from the counter seed [k0, k1, row0, chain0] (rng.cuh); a (K, C) wvec
-// with the seed runs C chains (multichain). Sigma is tiled across CTAs
-// exactly as in syrk.cu (same tile code, common.cuh): the grid is
-// (row split) x (lower-triangle tile) x (chain), chain fastest, so the C
-// CTAs of one (split, tile) run together and their X reads hit L2. Every
-// CTA recomputes the margin, gamma and weight of each row it stages for
-// its chain (a warp per row, same summation order in every CTA, so all
-// CTAs agree bitwise); the tile-0 CTAs write margin and gamma; the
-// diagonal-tile CTAs of column block i accumulate b[i-block]. See
-// kernels/fused_stats.py for the design note.
+// full width for all four epilogues: em_hinge and em_svr; mc_hinge and
+// mc_svr with their noise either read from (N,) operands (two, or four for
+// SVR's double mixture) or derived in-body from the counter seed
+// [k0, k1, row0, chain0] (rng.cuh); a (K, C) wvec with the seed runs C
+// chains (multichain). Sigma is tiled across CTAs exactly as in syrk.cu
+// (same tile code, common.cuh): the grid is (row split) x (lower-triangle
+// tile) x (chain), chain fastest, so the C CTAs of one (split, tile) run
+// together and their X reads hit L2. Every CTA recomputes the margin and
+// the epilogue of each row it stages for its chain (a warp per row, same
+// summation order in every CTA, so all CTAs agree bitwise); the tile-0
+// CTAs write margin, gamma and omega; the diagonal-tile CTAs of column
+// block i accumulate b[i-block]. See kernels/fused_stats.py for the design
+// note.
 #include "common.cuh"
 #include "epilogues.cuh"
-#include "rng.cuh"
 
 namespace rt {
 
 struct StatsArgs {
-  const float* rho;
+  const float* rho;      // the target y under SVR
   const float* beta;
   const float* wmask;    // may be null: all ones
   const float* wt;       // (C, K): chain c's weights at wt + c * K
-  const float* nu;       // MC_NOISE: (N,) normals
-  const float* u;        // MC_NOISE: (N,) uniforms
-  const int64_t* seed;   // MC_SEED: [k0, k1, row0, chain0] as words
+  const float* nu;       // noise variants: (N,) normals (gamma's mixture)
+  const float* u;        // noise variants: (N,) uniforms
+  const int64_t* seed;   // seed variants: [k0, k1, row0, chain0] as words
   float* margin;         // (N, C)
   float* gamma;          // (N, C)
   float* part;           // (S, T, C) tiles of BK x BK
@@ -39,9 +39,19 @@ struct StatsArgs {
   float eps;
 };
 
+// SVR's second mixture and tube, a kernel argument of their own: only the
+// SVR instantiations read them. Kept out of StatsArgs, because there they
+// change the hinge instantiations' register allocation and slow them.
+struct SvrArgs {
+  const float* nu_o;     // mc_svr noise: (N,) normals (omega's mixture)
+  const float* u_o;      // mc_svr noise: (N,) uniforms
+  float* omega;          // (N, C)
+  float eps_ins;
+};
+
 template <typename T, int EPI>
 __global__ void __launch_bounds__(TILE_THREADS, 2)
-    fused_tiles(const T* __restrict__ X, StatsArgs a) {
+    fused_tiles(const T* __restrict__ X, StatsArgs a, SvrArgs v) {
   __shared__ __align__(16) float As[BN][BK];
   __shared__ __align__(16) float Bs[BN][BK];
   __shared__ float sw[BN];
@@ -58,12 +68,13 @@ __global__ void __launch_bounds__(TILE_THREADS, 2)
   const int64_t r_begin = s * a.rows_per_split;
   const int64_t r_end = min64(a.N, r_begin + a.rows_per_split);
   const float* __restrict__ w = a.wt + (int64_t)c * a.K;
-  uint32_t k0 = 0, k1 = 0, row0 = 0, chain = 0;
-  if (EPI == MC_SEED) {
-    k0 = (uint32_t)a.seed[0];
-    k1 = (uint32_t)a.seed[1];
+  Noise nz = {{a.nu, a.u, v.nu_o, v.u_o}, 0u, 0u, 0u};
+  uint32_t row0 = 0;
+  if (is_seed(EPI)) {
+    nz.k0 = (uint32_t)a.seed[0];
+    nz.k1 = (uint32_t)a.seed[1];
     row0 = (uint32_t)a.seed[2];
-    chain = (uint32_t)a.seed[3] + (uint32_t)c;
+    nz.chain = (uint32_t)a.seed[3] + (uint32_t)c;
   }
   float acc[8][8];
 #pragma unroll
@@ -88,25 +99,15 @@ __global__ void __launch_bounds__(TILE_THREADS, 2)
       float wgt = 0.f, cf = 0.f;
       if (row < r_end) {
         const float rh = a.rho[row];
-        float g;
-        if (EPI == EM_HINGE) {
-          g = em_gamma(rh, mk, a.eps);
-        } else {
-          float nu, u;
-          if (EPI == MC_NOISE) {
-            nu = a.nu[row];
-            u = a.u[row];
-          } else {
-            counter_noise(k0, k1, row0 + (uint32_t)row, chain, nu, u);
-          }
-          g = mc_gamma(rh, mk, nu, u, a.eps);
-        }
-        const float inv = __fdiv_rn(1.0f, g);
-        wgt = a.wmask ? __fmul_rn(a.wmask[row], inv) : inv;
-        cf = __fadd_rn(__fdiv_rn(rh, g), a.beta[row]);
+        float g, o, weight;
+        row_epilogue<EPI>(rh, mk, nz, row, row0 + (uint32_t)row, a.eps,
+                          v.eps_ins, g, o, weight, cf);
+        wgt = a.wmask ? __fmul_rn(a.wmask[row], weight) : weight;
+        if (!is_svr(EPI)) cf = __fadd_rn(cf, a.beta[row]);
         if (writer) {
           a.margin[row * a.C + c] = mk;
           a.gamma[row * a.C + c] = g;
+          if (is_svr(EPI)) v.omega[row * a.C + c] = o;
         }
       }
       sw[r] = wgt;
@@ -129,27 +130,38 @@ __global__ void __launch_bounds__(TILE_THREADS, 2)
 }
 
 template <typename T, int EPI>
-static void launch_epi(const void* X, const StatsArgs& a, float* sigma,
-                       float* b, int nsplits, cudaStream_t stream) {
+static void launch_epi(const void* X, const StatsArgs& a, const SvrArgs& v,
+                       float* sigma, float* b, int nsplits,
+                       cudaStream_t stream) {
   const int64_t nctas = (int64_t)nsplits * a.ntiles * a.C;
   fused_tiles<T, EPI><<<(unsigned)nctas, TILE_THREADS, 0, stream>>>(
-      static_cast<const T*>(X), a);
+      static_cast<const T*>(X), a, v);
   launch_tri_finalize(a.part, sigma, a.K, a.ntiles, nsplits, stream, a.C);
   launch_sum_partials(a.bpart, b, a.K, a.Kp, nsplits, stream, a.C);
 }
 
 template <typename T>
-static int launch(const void* X, const StatsArgs& a, float* sigma, float* b,
-                  int nsplits, int epilogue, cudaStream_t stream) {
+static int launch(const void* X, const StatsArgs& a, const SvrArgs& v,
+                  float* sigma, float* b, int nsplits, int epilogue,
+                  cudaStream_t stream) {
   switch (epilogue) {
     case EM_HINGE:
-      launch_epi<T, EM_HINGE>(X, a, sigma, b, nsplits, stream);
+      launch_epi<T, EM_HINGE>(X, a, v, sigma, b, nsplits, stream);
       return 0;
     case MC_NOISE:
-      launch_epi<T, MC_NOISE>(X, a, sigma, b, nsplits, stream);
+      launch_epi<T, MC_NOISE>(X, a, v, sigma, b, nsplits, stream);
       return 0;
     case MC_SEED:
-      launch_epi<T, MC_SEED>(X, a, sigma, b, nsplits, stream);
+      launch_epi<T, MC_SEED>(X, a, v, sigma, b, nsplits, stream);
+      return 0;
+    case EM_SVR:
+      launch_epi<T, EM_SVR>(X, a, v, sigma, b, nsplits, stream);
+      return 0;
+    case MC_SVR_NOISE:
+      launch_epi<T, MC_SVR_NOISE>(X, a, v, sigma, b, nsplits, stream);
+      return 0;
+    case MC_SVR_SEED:
+      launch_epi<T, MC_SVR_SEED>(X, a, v, sigma, b, nsplits, stream);
       return 0;
   }
   return -1;
@@ -158,21 +170,25 @@ static int launch(const void* X, const StatsArgs& a, float* sigma, float* b,
 }  // namespace rt
 
 // X (N, K) row-major f32 or bf16 (x_bf16); rho, beta, wmask (N,) f32 (wmask
-// null = ones); wt (C, K) f32, chain-major. epilogue 0 = em_hinge,
-// 1 = mc_hinge reading nu, u (N,) f32 (C = 1), 2 = mc_hinge deriving them
-// from seed, four int64 words on the device. Outputs margin, gamma (N, C),
-// sigma (C, K, K), b (C, K) f32. Scratch: part nsplits * ntiles * C *
-// 128 * 128 f32, bpart nsplits * C * Kp f32 with Kp = 128 * (tiles per
-// side). Returns -1 for an unknown epilogue, else cudaGetLastError().
+// null = ones; beta is read by the hinge only); wt (C, K) f32, chain-major.
+// epilogue 0 = em_hinge, 1 = mc_hinge reading nu, u (N,) f32 (C = 1),
+// 2 = mc_hinge deriving them from seed, four int64 words on the device;
+// 3 = em_svr, 4 = mc_svr reading nu, u, nu_o, u_o (N,) f32 (C = 1),
+// 5 = mc_svr from the seed; eps_ins is the SVR tube. Outputs margin, gamma
+// (N, C), omega (N, C) for SVR (else unused, may be null), sigma (C, K, K),
+// b (C, K) f32. Scratch: part nsplits * ntiles * C * 128 * 128 f32, bpart
+// nsplits * C * Kp f32 with Kp = 128 * (tiles per side). Returns -1 for an
+// unknown epilogue, else cudaGetLastError().
 extern "C" int rt_fused_stats(int device, void* stream, const void* X,
                               int x_bf16, const void* rho, const void* beta,
                               const void* wmask, const void* wt,
-                              const void* nu, const void* u, const void* seed,
-                              void* margin, void* gamma, void* part,
-                              void* bpart, void* sigma, void* b, int64_t N,
-                              int K, int Kp, int ntiles, int nsplits,
-                              int64_t rows_per_split, int C, int epilogue,
-                              float eps) {
+                              const void* nu, const void* u,
+                              const void* nu_o, const void* u_o,
+                              const void* seed, void* margin, void* gamma,
+                              void* omega, void* part, void* bpart,
+                              void* sigma, void* b, int64_t N, int K, int Kp,
+                              int ntiles, int nsplits, int64_t rows_per_split,
+                              int C, int epilogue, float eps, float eps_ins) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   rt::StatsArgs a;
@@ -194,13 +210,18 @@ extern "C" int rt_fused_stats(int device, void* stream, const void* X,
   a.C = C;
   a.rows_per_split = rows_per_split;
   a.eps = eps;
+  rt::SvrArgs v;
+  v.nu_o = static_cast<const float*>(nu_o);
+  v.u_o = static_cast<const float*>(u_o);
+  v.omega = static_cast<float*>(omega);
+  v.eps_ins = eps_ins;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   float* sf = static_cast<float*>(sigma);
   float* of = static_cast<float*>(b);
-  const int bad = x_bf16 ? rt::launch<__nv_bfloat16>(X, a, sf, of, nsplits,
-                                                     epilogue, st)
-                         : rt::launch<float>(X, a, sf, of, nsplits, epilogue,
-                                             st);
+  const int bad = x_bf16 ? rt::launch<__nv_bfloat16>(X, a, v, sf, of,
+                                                     nsplits, epilogue, st)
+                         : rt::launch<float>(X, a, v, sf, of, nsplits,
+                                             epilogue, st);
   if (bad) return bad;
   return (int)cudaGetLastError();
 }

@@ -1,14 +1,15 @@
 // The Nystrom kernels: the featurizer phi = k(X, L) @ proj (masked, with an
 // optional mask-valued bias column LAST), the scorer phi @ W, and the
-// featurize-and-accumulate statistic (margin, gamma, b, Sigma on phi).
+// featurize-and-accumulate statistic (margin, gamma[, omega], b, Sigma on
+// phi).
 //
 // Replaces the TPU kernels of repro/kernels/nystrom_phi.py: nystrom_phi,
-// nystrom_score and nystrom_fused_stats (em_hinge; mc_hinge from two noise
-// operands or from the counter seed). The TPU kernels hold the landmark
-// strip, the projection, the cross tile, the phi tile and the (M, M) Sigma
-// in VMEM at once; a Hopper CTA has 227 KB of shared memory, so here the
-// rows go in chunks and every operand streams through shared memory in
-// 32-deep slices. Per chunk of R rows:
+// nystrom_score and nystrom_fused_stats (em_hinge and em_svr; mc_hinge and
+// mc_svr from noise operands or from the counter seed). The TPU kernels
+// hold the landmark strip, the projection, the cross tile, the phi tile and
+// the (M, M) Sigma in VMEM at once; a Hopper CTA has 227 KB of shared
+// memory, so here the rows go in chunks and every operand streams through
+// shared memory in 32-deep slices. Per chunk of R rows:
 //
 //   A. cross_tiles (rbf.cuh): the (R, m) cross-Gram chunk k(X, L) into an
 //      L2-sized scratch, each entry computed once;
@@ -18,7 +19,8 @@
 //      partial scores, summed in column-block order by score_reduce;
 //   and for the statistic, phi rows go to an (R, M) scratch, then
 //   C. phi_rows: a warp a row: margin = phi . w, the epilogue (rng.cuh,
-//      epilogues.cuh), the row's Sigma weight mask/gamma and coef;
+//      epilogues.cuh), the row's Sigma weight (mask times the epilogue's)
+//      and coef;
 //   D. phi_stat_tiles: Sigma's lower-triangle 128 x 128 tiles over row
 //      splits (the tile code of common.cuh) and b on the diagonal tiles;
 //      the partials are added to Sigma and b in split order, chunk after
@@ -30,7 +32,6 @@
 // writes. See kernels/nystrom_phi.py for the design note.
 #include "epilogues.cuh"
 #include "rbf.cuh"
-#include "rng.cuh"
 
 namespace rt {
 namespace {
@@ -144,17 +145,17 @@ struct RowArgs {
   const float* rho;    // the chunk's rows of (N,) operands and outputs
   const float* beta;
   const float* mask;   // null = ones
-  const float* nu;     // MC_NOISE
-  const float* u;      // MC_NOISE
-  const int64_t* seed; // MC_SEED: [k0, k1, row0, chain0]
+  const float* noise[4];  // noise variants: nu, u[, nu_o, u_o]
+  const int64_t* seed; // seed variants: [k0, k1, row0, chain0]
   int64_t row_base;    // operand row of the chunk's first row
   int64_t nrows;
   int M;
   float* margin;
   float* gamma;
-  float* wgt;          // (nrows,) Sigma weight mask / gamma
-  float* coef;         // (nrows,) rho / gamma + beta
-  float eps;
+  float* omega;        // SVR only
+  float* wgt;          // (nrows,) Sigma weight: mask times the epilogue's
+  float* coef;         // (nrows,) b coefficient
+  float eps, eps_ins;
 };
 
 // A warp a row: margin (fixed summation order), then lane 0 runs the
@@ -167,27 +168,22 @@ __global__ void phi_rows(RowArgs a) {
   if (row >= a.nrows) return;
   const float m = row_dot(a.phi + row * (int64_t)a.M, a.w, a.M, lane);
   if (lane != 0) return;
-  const float rh = a.rho[row];
-  float g;
-  if (EPI == EM_HINGE) {
-    g = em_gamma(rh, m, a.eps);
-  } else {
-    float nu, u;
-    if (EPI == MC_NOISE) {
-      nu = a.nu[row];
-      u = a.u[row];
-    } else {
-      counter_noise((uint32_t)a.seed[0], (uint32_t)a.seed[1],
-                    (uint32_t)a.seed[2] + (uint32_t)(a.row_base + row),
-                    (uint32_t)a.seed[3], nu, u);
-    }
-    g = mc_gamma(rh, m, nu, u, a.eps);
+  Noise nz = {{a.noise[0], a.noise[1], a.noise[2], a.noise[3]}, 0u, 0u, 0u};
+  uint32_t crow = 0;
+  if (is_seed(EPI)) {
+    nz.k0 = (uint32_t)a.seed[0];
+    nz.k1 = (uint32_t)a.seed[1];
+    nz.chain = (uint32_t)a.seed[3];
+    crow = (uint32_t)a.seed[2] + (uint32_t)(a.row_base + row);
   }
-  const float inv = __fdiv_rn(1.0f, g);
-  a.wgt[row] = a.mask ? __fmul_rn(a.mask[row], inv) : inv;
-  a.coef[row] = __fadd_rn(__fdiv_rn(rh, g), a.beta[row]);
+  float g, o, weight, cf;
+  row_epilogue<EPI>(a.rho[row], m, nz, row, crow, a.eps, a.eps_ins, g, o,
+                    weight, cf);
+  a.wgt[row] = a.mask ? __fmul_rn(a.mask[row], weight) : weight;
+  a.coef[row] = is_svr(EPI) ? cf : __fadd_rn(cf, a.beta[row]);
   a.margin[row] = m;
   a.gamma[row] = g;
+  if (is_svr(EPI)) a.omega[row] = o;
 }
 
 // Sigma's lower-triangle tile t of row split s of the chunk, weighted by
@@ -384,23 +380,27 @@ extern "C" int rt_nystrom_score(int device, void* stream, const void* X,
   return (int)cudaGetLastError();
 }
 
-// rho, beta (N,) f32; w (M,) f32; epilogue 0 = em_hinge, 1 = mc_hinge
-// reading nu, u (N,) f32, 2 = mc_hinge deriving them from seed (four int64
-// words on the device; the counter row is seed[2] + operand row). Scratch:
+// rho, beta (N,) f32 (beta read by the hinge only); w (M,) f32; epilogue
+// 0 = em_hinge, 1 = mc_hinge reading nu, u (N,) f32, 2 = mc_hinge deriving
+// them from seed (four int64 words on the device; the counter row is
+// seed[2] + operand row), 3 = em_svr, 4 = mc_svr reading nu, u, nu_o, u_o
+// (N,) f32, 5 = mc_svr from the seed; eps_ins is the SVR tube. Scratch:
 // phi (chunk_rows, M), wgt and coef (chunk_rows,), part (chunk_rows /
 // rows_per_split, ntiles, 128, 128), bpart (chunk_rows / rows_per_split,
 // Mp) f32 with Mp = 128 ceil(M / 128); chunk_rows a multiple of
-// rows_per_split. Outputs margin, gamma (N,), sigma (M, M), b (M,) f32.
+// rows_per_split. Outputs margin, gamma (N,), omega (N,) for SVR (else
+// unused, may be null), sigma (M, M), b (M,) f32.
 extern "C" int rt_nystrom_fused_stats(
     int device, void* stream, const void* X, int x_bf16, const void* L,
     const void* proj, const void* mask, const void* rho, const void* beta,
-    const void* w, const void* nu, const void* u, const void* seed,
-    void* sqx, void* sql, void* kc, void* phi, void* wgt, void* coef,
-    void* part, void* bpart, void* margin, void* gamma, void* sigma,
-    void* b, int64_t N, int D, int m, int P, int bias, int kind,
-    float inv_two_sigma_sq, int64_t chunk_rows, int ntiles,
-    int64_t rows_per_split, int epilogue, float eps) {
-  if (epilogue < rt::EM_HINGE || epilogue > rt::MC_SEED) return -1;
+    const void* w, const void* nu, const void* u, const void* nu_o,
+    const void* u_o, const void* seed, void* sqx, void* sql, void* kc,
+    void* phi, void* wgt, void* coef, void* part, void* bpart, void* margin,
+    void* gamma, void* omega, void* sigma, void* b, int64_t N, int D, int m,
+    int P, int bias, int kind, float inv_two_sigma_sq, int64_t chunk_rows,
+    int ntiles, int64_t rows_per_split, int epilogue, float eps,
+    float eps_ins) {
+  if (epilogue < rt::EM_HINGE || epilogue > rt::MC_SVR_SEED) return -1;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
@@ -414,6 +414,10 @@ extern "C" int rt_nystrom_fused_stats(
   float* bp = static_cast<float*>(bpart);
   float* sg = static_cast<float*>(sigma);
   float* bo = static_cast<float*>(b);
+  const float* ops[4] = {static_cast<const float*>(nu),
+                         static_cast<const float*>(u),
+                         static_cast<const float*>(nu_o),
+                         static_cast<const float*>(u_o)};
   rt::sqnorms(f, st);
   for (int64_t c0 = 0; c0 < N; c0 += chunk_rows) {
     const int64_t nr = rt::rows_left(chunk_rows, N - c0);
@@ -425,23 +429,26 @@ extern "C" int rt_nystrom_fused_stats(
     a.rho = static_cast<const float*>(rho) + c0;
     a.beta = static_cast<const float*>(beta) + c0;
     a.mask = f.mask ? f.mask + c0 : nullptr;
-    a.nu = nu ? static_cast<const float*>(nu) + c0 : nullptr;
-    a.u = u ? static_cast<const float*>(u) + c0 : nullptr;
+    for (int q = 0; q < 4; ++q) a.noise[q] = ops[q] ? ops[q] + c0 : nullptr;
     a.seed = static_cast<const int64_t*>(seed);
     a.row_base = c0;
     a.nrows = nr;
     a.M = M;
     a.margin = static_cast<float*>(margin) + c0;
     a.gamma = static_cast<float*>(gamma) + c0;
+    a.omega = omega ? static_cast<float*>(omega) + c0 : nullptr;
     a.wgt = static_cast<float*>(wgt);
     a.coef = static_cast<float*>(coef);
     a.eps = eps;
-    if (epilogue == rt::EM_HINGE)
-      rt::launch_rows<rt::EM_HINGE>(a, st);
-    else if (epilogue == rt::MC_NOISE)
-      rt::launch_rows<rt::MC_NOISE>(a, st);
-    else
-      rt::launch_rows<rt::MC_SEED>(a, st);
+    a.eps_ins = eps_ins;
+    switch (epilogue) {
+      case rt::EM_HINGE: rt::launch_rows<rt::EM_HINGE>(a, st); break;
+      case rt::MC_NOISE: rt::launch_rows<rt::MC_NOISE>(a, st); break;
+      case rt::MC_SEED: rt::launch_rows<rt::MC_SEED>(a, st); break;
+      case rt::EM_SVR: rt::launch_rows<rt::EM_SVR>(a, st); break;
+      case rt::MC_SVR_NOISE: rt::launch_rows<rt::MC_SVR_NOISE>(a, st); break;
+      default: rt::launch_rows<rt::MC_SVR_SEED>(a, st); break;
+    }
     const int nsplits = (int)((nr + rows_per_split - 1) / rows_per_split);
     rt::phi_stat_tiles<<<(unsigned)((int64_t)nsplits * ntiles),
                          rt::TILE_THREADS, 0, st>>>(

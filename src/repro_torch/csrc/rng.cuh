@@ -46,13 +46,14 @@ __device__ __forceinline__ float normal_from_bits(uint32_t b0, uint32_t b1) {
   return __fmul_rn(r, cosf(__fmul_rn(0x1.921fb6p+2f, uniform_from_bits(b1))));
 }
 
-// The (nu, u) pair of mixture 0 at global row ``row`` and chain ``chain``:
-// counter words c1 = chain*4 (the normal's two words) and chain*4 + 1
-// (word 0 is the accept-reject uniform).
+// The (nu, u) pair of mixture ``mix`` (0: gamma's, 1: SVR's omega) at
+// global row ``row`` and chain ``chain``: counter words c1 = chain*4 + 2 mix
+// (the normal's two words) and chain*4 + 2 mix + 1 (word 0 is the
+// accept-reject uniform).
 __device__ __forceinline__ void counter_noise(uint32_t k0, uint32_t k1,
                                               uint32_t row, uint32_t chain,
-                                              float& nu, float& u) {
-  const uint32_t base = chain << 2;
+                                              int mix, float& nu, float& u) {
+  const uint32_t base = (chain << 2) | (2u * (uint32_t)mix);
   const uint2 n = threefry2x32(k0, k1, row, base);
   const uint2 w = threefry2x32(k0, k1, row, base | 1u);
   nu = normal_from_bits(n.x, n.y);

@@ -2,8 +2,10 @@
 that give arrays bitwise equal to the reference's for the same arguments.
 
 ``make_alpha_like`` has the shape of the paper's Table 3 'alpha' set
-(250,000 x 500 at full size); ``make_blobs`` is the quickstart problem;
-``make_circles`` is the kernel (KRN) problem, two rings no line separates.
+(250,000 x 500 at full size); ``make_year_like`` the shape of its Table 6
+regression set YearPredictionMSD (515,345 x 90); ``make_blobs`` is the
+quickstart problem; ``make_circles`` is the kernel (KRN) problem, two
+rings no line separates.
 """
 from __future__ import annotations
 
@@ -23,6 +25,18 @@ def make_alpha_like(n: int = 50_000, k: int = 500, seed: int = 0,
     """Dense, moderately hard binary problem (Pascal LSL 'alpha' shape)."""
     rng = np.random.default_rng(seed)
     return _blob_classifier(rng, n, k, margin_noise)
+
+
+def make_year_like(n: int = 50_000, k: int = 90, seed: int = 2,
+                   noise: float = 0.3):
+    """'YearPredictionMSD'-shaped regression; targets normalized to zero
+    mean and unit variance, as in the paper's Sec 5.10 protocol."""
+    rng = np.random.default_rng(seed)
+    X = rng.normal(size=(n, k)).astype(np.float32)
+    w = rng.normal(size=k) / np.sqrt(k)
+    ynorm = X @ w + noise * rng.normal(size=n)
+    ynorm = (ynorm - ynorm.mean()) / ynorm.std()
+    return X, ynorm.astype(np.float32)
 
 
 def make_blobs(n: int = 2000, k: int = 20, seed: int = 0,

@@ -43,12 +43,12 @@ _SIGNATURES = {
                        _c_void_p, _c_void_p, _c_void_p, _c_void_p,
                        _c_void_p, _c_void_p, _c_int64, _c_int, _c_int,
                        _c_int64, _c_float],
-    "rt_fused_stats": [_c_int, _c_void_p, _c_void_p, _c_int, _c_void_p,
-                       _c_void_p, _c_void_p, _c_void_p, _c_void_p,
-                       _c_void_p, _c_void_p, _c_void_p, _c_void_p,
-                       _c_void_p, _c_void_p, _c_void_p, _c_void_p,
-                       _c_int64, _c_int, _c_int, _c_int, _c_int, _c_int64,
-                       _c_int, _c_int, _c_float],
+    "rt_fused_stats": [_c_int, _c_void_p, _c_void_p, _c_int,
+                       *[_c_void_p] * 16, _c_int64, _c_int, _c_int, _c_int,
+                       _c_int, _c_int64, _c_int, _c_int, _c_float, _c_float],
+    "rt_weighted_gram": [_c_int, _c_void_p, _c_void_p, _c_int, _c_void_p,
+                         _c_void_p, _c_void_p, _c_int64, _c_int, _c_int,
+                         _c_int64],
     "rt_rbf_gram": [_c_int, _c_void_p, _c_void_p, _c_int, _c_void_p, _c_int,
                     _c_void_p, _c_void_p, _c_void_p, _c_int64, _c_int,
                     _c_int, _c_float],
@@ -62,14 +62,9 @@ _SIGNATURES = {
                          _c_int64, _c_int, _c_int, _c_int, _c_int, _c_int,
                          _c_int, _c_float, _c_int64],
     "rt_nystrom_fused_stats": [_c_int, _c_void_p, _c_void_p, _c_int,
-                               _c_void_p, _c_void_p, _c_void_p, _c_void_p,
-                               _c_void_p, _c_void_p, _c_void_p, _c_void_p,
-                               _c_void_p, _c_void_p, _c_void_p, _c_void_p,
-                               _c_void_p, _c_void_p, _c_void_p, _c_void_p,
-                               _c_void_p, _c_void_p, _c_void_p, _c_void_p,
-                               _c_void_p, _c_int64, _c_int, _c_int, _c_int,
-                               _c_int, _c_int, _c_float, _c_int64, _c_int,
-                               _c_int64, _c_int, _c_float],
+                               *[_c_void_p] * 24, _c_int64, _c_int, _c_int,
+                               _c_int, _c_int, _c_int, _c_float, _c_int64,
+                               _c_int, _c_int64, _c_int, _c_float, _c_float],
 }
 
 _lib: ctypes.CDLL | None = None

@@ -1,11 +1,12 @@
 """Per-row augmentation epilogues: what sits between the margin and the
 (b, Sigma) accumulators of the fused statistic.
 
-Port of ``repro/kernels/epilogues.py``: ``em_hinge`` and ``mc_hinge``
-(the SVR pair is ROADMAP queue 1 item 6). The CUDA kernels carry the same
-arithmetic as ``__device__`` code (``csrc/epilogues.cuh``), rounded op by
-op as PyTorch's eager ops round it (no fused multiply-add), so the kernel
-and this plain version give the same gamma for the same margin and noise.
+Port of ``repro/kernels/epilogues.py``: ``em_hinge`` and ``mc_hinge``,
+and SVR's double mixture ``em_svr`` and ``mc_svr`` (paper Eq. 25-28). The
+CUDA kernels carry the same arithmetic as ``__device__`` code
+(``csrc/epilogues.cuh``), rounded op by op as PyTorch's eager ops round it
+(no fused multiply-add), so the kernel and this plain version give the
+same gamma (and omega) for the same margin and noise.
 
 MC draws are split into draw generation and transform: the per-row
 (nu, u) pairs come either pre-drawn (``core/augment.draw_ig_noise``, or
@@ -14,8 +15,9 @@ counter cipher (``fused_noise``), and ``ig_transform`` maps them to the
 inverse-Gaussian draw.
 
 Epilogue contract: ``apply_epilogue`` maps the margin to
-(aug, sigma_weight, coef) where aug = (gamma,) for the hinge,
-Sigma = X^T diag(wmask * sigma_weight) X and b = X^T coef.
+(aug, sigma_weight, coef) where aug = (gamma,) for the hinge and
+(gamma, omega) for SVR, Sigma = X^T diag(wmask * sigma_weight) X and
+b = X^T coef.
 """
 from __future__ import annotations
 
@@ -33,12 +35,6 @@ EPILOGUES = ("em_hinge", "mc_hinge", "em_svr", "mc_svr")
 _NOISE_ARITY = {"em_hinge": 0, "mc_hinge": 2, "em_svr": 0, "mc_svr": 4}
 # augmentation variables emitted per row: (gamma,) or (gamma, omega).
 _AUG_ARITY = {"em_hinge": 1, "mc_hinge": 1, "em_svr": 2, "mc_svr": 2}
-
-_NOT_PORTED = {
-    "em_svr": "ROADMAP queue 1 item 6 (SVR)",
-    "mc_svr": "ROADMAP queue 1 item 6 (SVR)",
-}
-
 
 def noise_arity(epilogue: str) -> int:
     """Number of pre-drawn (N,) noise operands the epilogue consumes."""
@@ -95,12 +91,8 @@ def ig_gamma_from_noise(residual: torch.Tensor, nu: torch.Tensor,
                            eps)
 
 
-def check_ported(epilogue: str) -> None:
-    """Raise for an epilogue this port does not carry yet."""
-    if epilogue in _NOT_PORTED:
-        raise NotImplementedError(
-            f"epilogue {epilogue!r} is not ported yet: "
-            f"{_NOT_PORTED[epilogue]}")
+def check_epilogue(epilogue: str) -> None:
+    """Raise for an unknown epilogue name."""
     if epilogue not in EPILOGUES:
         raise ValueError(f"epilogue must be one of {EPILOGUES}, "
                          f"got {epilogue!r}")
@@ -111,12 +103,30 @@ def apply_epilogue(epilogue: str, margin, rho, beta, noise, eps: float,
     """-> (aug, sigma_weight, coef) for float tensors aligned with
     ``margin``. em_hinge: gamma = max(eps, |rho - margin|) (paper Eq. 9/36
     and the Sec 5.7.3 clamp); mc_hinge: the Gibbs draw from ``noise`` =
-    (nu, u). Both weigh Sigma by 1/gamma, with coef rho/gamma + beta."""
-    del eps_ins  # only the SVR epilogues have a tube
-    check_ported(epilogue)
-    if epilogue == "em_hinge":
-        gamma = (rho - margin).abs().clamp_min(eps)
+    (nu, u). Both weigh Sigma by 1/gamma, with coef rho/gamma + beta.
+
+    SVR (``rho`` is the target y, ``beta`` unused), with res = rho -
+    margin: em_svr gamma = max(eps, |res - eps_ins|), omega = max(eps,
+    |res + eps_ins|); mc_svr draws gamma from res - eps_ins with (nu_g,
+    u_g) and omega from res + eps_ins with (nu_o, u_o), ``noise`` in that
+    order. Weight 1/gamma + 1/omega, coef (rho - eps_ins)/gamma +
+    (rho + eps_ins)/omega."""
+    check_epilogue(epilogue)
+    if epilogue in ("em_hinge", "mc_hinge"):
+        if epilogue == "em_hinge":
+            gamma = (rho - margin).abs().clamp_min(eps)
+        else:
+            nu, u = noise
+            gamma = ig_gamma_from_noise(rho - margin, nu, u, eps)
+        return (gamma,), 1.0 / gamma, rho / gamma + beta
+    res = rho - margin
+    if epilogue == "em_svr":
+        gamma = (res - eps_ins).abs().clamp_min(eps)
+        omega = (res + eps_ins).abs().clamp_min(eps)
     else:
-        nu, u = noise
-        gamma = ig_gamma_from_noise(rho - margin, nu, u, eps)
-    return (gamma,), 1.0 / gamma, rho / gamma + beta
+        nu_g, u_g, nu_o, u_o = noise
+        gamma = ig_gamma_from_noise(res - eps_ins, nu_g, u_g, eps)
+        omega = ig_gamma_from_noise(res + eps_ins, nu_o, u_o, eps)
+    weight = 1.0 / gamma + 1.0 / omega
+    coef = (rho - eps_ins) / gamma + (rho + eps_ins) / omega
+    return (gamma, omega), weight, coef

@@ -1,20 +1,26 @@
 """The whole iteration statistic on Hopper, in one pass over X:
-margin = Xw; gamma from the epilogue; b = X^T (rho/gamma + beta);
-Sigma = X^T diag(wmask / gamma) X.
+margin = Xw; the epilogue's gamma (and omega), weight and coef;
+b = X^T coef; Sigma = X^T diag(wmask * weight) X.
 
 Replaces the TPU kernel ``repro/kernels/fused_stats.py::fused_stats``
-(body ``_make_kernel``) at full width for the hinge epilogues:
+(body ``_make_kernel``) at full width for all four epilogues:
 
-  * em_hinge: gamma = max(eps, |rho - margin|);
-  * mc_hinge with noise operands: the Gibbs draw from two pre-drawn (N,)
-    vectors (nu, u) (rng modes 'host' and 'fused_predraw');
-  * mc_hinge with a seed: (nu, u) derived in-body from the counter cipher
-    at (global row, chain) (rng mode 'fused');
-  * multichain: a (K, C) wvec with the seed runs C chains, giving margin
-    and gamma (N, C), b (K, C) and Sigma (C, K, K).
+  * em_hinge: gamma = max(eps, |rho - margin|), weight 1/gamma, coef
+    rho/gamma + beta;
+  * em_svr (rho = y): gamma and omega = max(eps, |y - margin -+ eps_ins|),
+    weight 1/gamma + 1/omega, coef (y - eps_ins)/gamma +
+    (y + eps_ins)/omega (paper Eq. 25-28);
+  * mc_hinge / mc_svr with noise operands: the Gibbs draws from pre-drawn
+    (N,) vectors, (nu, u) or SVR's (nu_g, u_g, nu_o, u_o) (rng modes
+    'host' and 'fused_predraw');
+  * mc_hinge / mc_svr with a seed: the noise derived in-body from the
+    counter cipher at (global row, chain), SVR's omega on mixture 1's
+    counter words (rng mode 'fused');
+  * multichain: a (K, C) wvec with the seed runs C chains, giving margin,
+    gamma (and omega) (N, C), b (K, C) and Sigma (C, K, K).
 
-The SVR epilogues and the column window are still to port (ROADMAP
-queue 2).
+The column window is still to port (ROADMAP queue 2): no single-card path
+reaches it.
 
 What bounds it on the H100: fp32 FMAs, not bytes. Sigma's lower triangle
 is N*K*(K+1) flop on 4*N*K bytes of X, (K+1)/4 flop per byte (~125 at
@@ -45,6 +51,10 @@ The Gibbs noise (``csrc/rng.cuh``) is a pure function of (key words,
 global row, chain), so every CTA that recomputes a row's gamma derives
 the same draw, and the draw does not depend on the grid. The epilogue
 (``csrc/epilogues.cuh``) rounds each operation as PyTorch's eager ops do.
+SVR doubles the per-row epilogue (two mixtures, two Threefry pairs a
+mixture in the seed variants); it runs on 4 lanes a warp between the
+margin and the tile phases, so it adds registers to the tile kernel but
+no tile work.
 
 Multichain is a chain grid dimension, fastest-varying: CTA (split, tile,
 c) reads chain c's weights and noise plane and writes Sigma_c's partial.
@@ -55,35 +65,56 @@ from __future__ import annotations
 
 import torch
 
-from . import _build, ref
+from . import _build, epilogues, ref
 
 # Launches per variant, for chip_smoke.py's check that the main path ran
 # through the kernel it names. Each launch adds one to exactly one entry.
 LAUNCHES = {"em_hinge": 0, "mc_hinge,noise": 0, "mc_hinge,seed": 0,
-            "mc_hinge,seed,multichain": 0}
+            "mc_hinge,seed,multichain": 0, "em_svr": 0, "mc_svr,noise": 0,
+            "mc_svr,seed": 0, "mc_svr,seed,multichain": 0}
+# The launchers' epilogue codes (csrc/epilogues.cuh, enum Epilogue).
 _EPILOGUE_CODE = {"em_hinge": 0, "mc_hinge,noise": 1, "mc_hinge,seed": 2,
-                  "mc_hinge,seed,multichain": 2}
+                  "mc_hinge,seed,multichain": 2, "em_svr": 3,
+                  "mc_svr,noise": 4, "mc_svr,seed": 5,
+                  "mc_svr,seed,multichain": 5}
 
 
 def variant(epilogue: str, noise, seed, wvec: torch.Tensor) -> str:
     """The LAUNCHES key of a call, after validating the combination."""
-    if epilogue == "em_hinge":
+    if epilogue in ("em_hinge", "em_svr"):
         if noise is not None or seed is not None or wvec.dim() != 1:
-            raise ValueError("em_hinge takes no noise, no seed and a 1-D "
+            raise ValueError(f"{epilogue} takes no noise, no seed and a 1-D "
                              "wvec")
-        return "em_hinge"
-    if epilogue != "mc_hinge":
-        raise NotImplementedError(
-            f"epilogue {epilogue!r} has no CUDA kernel yet: ROADMAP "
-            "queue 1 item 6 (SVR)")
+        return epilogue
+    epilogues.check_epilogue(epilogue)
     if (noise is None) == (seed is None):
-        raise ValueError("mc_hinge takes exactly one of noise= (nu, u) "
-                         "and seed=")
+        raise ValueError(f"{epilogue} takes exactly one of noise= and seed=")
+    arity = epilogues.noise_arity(epilogue)
+    if noise is not None and len(noise) != arity:
+        raise ValueError(f"{epilogue} takes {arity} noise operands, got "
+                         f"{len(noise)}")
     if wvec.dim() == 2:
         if seed is None:
             raise ValueError("multichain fused_stats requires seed")
-        return "mc_hinge,seed,multichain"
-    return "mc_hinge,noise" if seed is None else "mc_hinge,seed"
+        return f"{epilogue},seed,multichain"
+    return f"{epilogue},noise" if seed is None else f"{epilogue},seed"
+
+
+def noise_operands(noise: tuple | None, seed: torch.Tensor | None, N: int,
+                   X: torch.Tensor) -> list:
+    """The launchers' four noise operand slots (None where unused), after
+    checking the (N,) ``noise`` vectors and the (4,) int64 ``seed``."""
+    ops = [None] * 4
+    for i, z in enumerate(noise or ()):
+        _build.check_vec(f"noise[{i}]", z, N, X)
+        ops[i] = z
+    if seed is not None and (seed.device != X.device
+                             or seed.dtype != torch.int64
+                             or tuple(seed.shape) != (4,)
+                             or not seed.is_contiguous()):
+        raise ValueError("seed must be a contiguous (4,) int64 tensor on "
+                         f"{X.device}")
+    return ops
 
 
 def zero_launches() -> None:
@@ -94,32 +125,27 @@ def zero_launches() -> None:
 def fused_stats(X: torch.Tensor, rho: torch.Tensor, beta: torch.Tensor,
                 wvec: torch.Tensor, wmask: torch.Tensor | None = None,
                 noise: tuple | None = None, seed: torch.Tensor | None = None,
-                *, epilogue: str = "em_hinge", eps: float = 1e-6):
-    """(margin, gamma, b, Sigma), float32. X (N, K) float32 or bfloat16;
-    rho, beta, wmask (N,) float32, ``wmask=None`` weighs every row 1;
-    wvec (K,) or (K, C) float32; ``noise`` two (N,) float32 vectors;
-    ``seed`` (4,) int64 words on X's device. For C chains margin and
-    gamma are (N, C), b (K, C) and Sigma (C, K, K). A CPU tensor runs the
-    plain version."""
+                *, epilogue: str = "em_hinge", eps: float = 1e-6,
+                eps_ins: float = 0.0):
+    """(margin, gamma, b, Sigma) for the hinge epilogues and (margin,
+    gamma, omega, b, Sigma) for SVR, float32. X (N, K) float32 or
+    bfloat16; rho (the target y under SVR), beta, wmask (N,) float32,
+    ``wmask=None`` weighs every row 1; wvec (K,) or (K, C) float32;
+    ``noise`` two (mc_hinge) or four (mc_svr) (N,) float32 vectors;
+    ``seed`` (4,) int64 words on X's device; ``eps_ins`` the SVR tube. For
+    C chains the per-row outputs are (N, C), b (K, C) and Sigma
+    (C, K, K). A CPU tensor runs the plain version."""
     if X.device.type == "cpu":
         return ref.fused_stats(X, rho, beta, wvec, wmask, eps, epilogue,
-                               noise=noise, seed=seed)
+                               noise=noise, seed=seed, eps_ins=eps_ins)
     var = variant(epilogue, noise, seed, wvec)
+    svr = epilogue.endswith("svr")
     N, K = _build.check_x(X)
     for name, v, n in (("rho", rho, N), ("beta", beta, N)):
         _build.check_vec(name, v, n, X)
     if wmask is not None:
         _build.check_vec("wmask", wmask, N, X)
-    nu = u = None
-    if noise is not None:
-        nu, u = noise
-        _build.check_vec("nu", nu, N, X)
-        _build.check_vec("u", u, N, X)
-    if seed is not None:
-        if (seed.device != X.device or seed.dtype != torch.int64
-                or tuple(seed.shape) != (4,) or not seed.is_contiguous()):
-            raise ValueError("seed must be a contiguous (4,) int64 tensor "
-                             f"on {X.device}")
+    ops = noise_operands(noise, seed, N, X)
     multi = wvec.dim() == 2
     C = wvec.shape[1] if multi else 1
     if multi:
@@ -136,6 +162,7 @@ def fused_stats(X: torch.Tensor, rho: torch.Tensor, beta: torch.Tensor,
     f32 = dict(dtype=torch.float32, device=X.device)
     per_row = (N, C) if multi else (N,)
     margin, gamma = torch.empty(per_row, **f32), torch.empty(per_row, **f32)
+    omega = torch.empty(per_row, **f32) if svr else None
     part = torch.empty(nsplits * ntiles * C * _build.BK * _build.BK, **f32)
     bpart = torch.empty(nsplits * C * Kp, **f32)
     sigma, b = torch.empty((C, K, K), **f32), torch.empty((C, K), **f32)
@@ -145,12 +172,14 @@ def fused_stats(X: torch.Tensor, rho: torch.Tensor, beta: torch.Tensor,
 
     _build.launch("rt_fused_stats", X.device, X.data_ptr(),
                   int(X.dtype == torch.bfloat16), rho.data_ptr(),
-                  beta.data_ptr(), ptr(wmask), wt.data_ptr(), ptr(nu),
-                  ptr(u), ptr(seed), margin.data_ptr(), gamma.data_ptr(),
-                  part.data_ptr(), bpart.data_ptr(), sigma.data_ptr(),
-                  b.data_ptr(), N, K, Kp, ntiles, nsplits, rows, C,
-                  _EPILOGUE_CODE[var], float(eps))
+                  beta.data_ptr(), ptr(wmask), wt.data_ptr(),
+                  *(ptr(z) for z in ops), ptr(seed), margin.data_ptr(),
+                  gamma.data_ptr(), ptr(omega), part.data_ptr(),
+                  bpart.data_ptr(), sigma.data_ptr(), b.data_ptr(), N, K, Kp,
+                  ntiles, nsplits, rows, C, _EPILOGUE_CODE[var], float(eps),
+                  float(eps_ins))
     LAUNCHES[var] += 1
+    aug = (gamma, omega) if svr else (gamma,)
     if multi:
-        return margin, gamma, b.t(), sigma
-    return margin, gamma, b[0], sigma[0]
+        return (margin, *aug, b.t(), sigma)
+    return (margin, *aug, b[0], sigma[0])

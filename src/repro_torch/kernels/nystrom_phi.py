@@ -8,9 +8,9 @@ Replaces the TPU kernels of ``repro/kernels/nystrom_phi.py``:
   * ``nystrom_score`` (``_make_score_kernel``): phi @ W, (N, C), phi never
     written to device memory;
   * ``nystrom_fused_stats`` (``_make_fused_kernel``): the statistic of
-    ``fused_stats`` on phi, em_hinge and mc_hinge (noise operands or the
-    counter seed); no (N, M) phi buffer exists. The SVR epilogues and the
-    column window are still to port (ROADMAP queue 2).
+    ``fused_stats`` on phi, em_hinge and em_svr, mc_hinge and mc_svr
+    (noise operands or the counter seed); no (N, M) phi buffer exists.
+    The column window is still to port (ROADMAP queue 2).
 
 What bounds them on the H100: fp32 operations. The projection is
 2 N m M flop, Sigma N M (M + 1); at m = 1,000 landmarks that is ~1,000
@@ -38,7 +38,8 @@ scratch (R = splits x rows per split, 16 MB a split at M = 1,024, so a
 split's rows stay in the 50 MB L2 while its tiles read them), then
   C. a warp a row: margin = phi . w, the epilogue (``csrc/epilogues.cuh``,
      ``csrc/rng.cuh`` for the seed at global row seed[2] + row), the
-     row's weight mask / gamma and coef rho / gamma + beta;
+     row's Sigma weight (mask times 1/gamma, or 1/gamma + 1/omega under
+     SVR) and its coef;
   D. Sigma's lower-triangle 128 x 128 tiles over the chunk's row splits,
      b on the diagonal tiles, then the partials added to Sigma and b in
      split order (no atomics: bitwise repeatable).
@@ -65,8 +66,12 @@ from . import fused_stats as _fused_stats
 LAUNCHES = {"nystrom_phi": 0, "nystrom_score": 0,
             "nystrom_fused_stats[em_hinge]": 0,
             "nystrom_fused_stats[mc_hinge,noise]": 0,
-            "nystrom_fused_stats[mc_hinge,seed]": 0}
-_EPILOGUE_CODE = {"em_hinge": 0, "mc_hinge,noise": 1, "mc_hinge,seed": 2}
+            "nystrom_fused_stats[mc_hinge,seed]": 0,
+            "nystrom_fused_stats[em_svr]": 0,
+            "nystrom_fused_stats[mc_svr,noise]": 0,
+            "nystrom_fused_stats[mc_svr,seed]": 0}
+_EPILOGUE_CODE = {"em_hinge": 0, "mc_hinge,noise": 1, "mc_hinge,seed": 2,
+                  "em_svr": 3, "mc_svr,noise": 4, "mc_svr,seed": 5}
 _KINDS = {"rbf": 0, "linear": 1}
 
 GT = 128                        # phi tile edge (csrc/rbf.cuh)
@@ -197,35 +202,28 @@ def nystrom_fused_stats(X: torch.Tensor, landmarks: torch.Tensor,
                         seed: torch.Tensor | None = None, *,
                         sigma: float = 1.0, kind: str = "rbf",
                         add_bias: bool = False, epilogue: str = "em_hinge",
-                        eps: float = 1e-6):
-    """(margin (N,), gamma (N,), b (M,), Sigma (M, M)), float32: the
-    statistic of ``fused_stats`` on phi, Sigma weighted by mask / gamma.
-    rho, beta (N,), wvec (M,) float32; ``noise`` two (N,) float32
-    vectors or ``seed`` (4,) int64 words on X's device (mc_hinge). A CPU
-    tensor runs the plain version."""
+                        eps: float = 1e-6, eps_ins: float = 0.0):
+    """(margin (N,), gamma (N,), b (M,), Sigma (M, M)), float32, with
+    omega (N,) after gamma under SVR: the statistic of ``fused_stats`` on
+    phi, Sigma weighted by mask times the epilogue's weight. rho (the
+    target y under SVR), beta (N,), wvec (M,) float32; ``noise`` two
+    (mc_hinge) or four (mc_svr) (N,) float32 vectors or ``seed`` (4,)
+    int64 words on X's device; ``eps_ins`` the SVR tube. A CPU tensor runs
+    the plain version."""
     if X.device.type == "cpu":
         return ref.nystrom_fused_stats(
             X, landmarks, proj, rho, beta, wvec, mask, float(sigma), kind,
-            add_bias, eps, epilogue, noise=noise, seed=seed)
+            add_bias, eps, epilogue, noise=noise, seed=seed, eps_ins=eps_ins)
     var = _fused_stats.variant(epilogue, noise, seed, wvec)
     if var not in _EPILOGUE_CODE:
         raise ValueError("the Nystrom statistic is single-chain: wvec must "
                          "be (M,)")
+    svr = epilogue.endswith("svr")
     N, D, m, P = _check(X, landmarks, proj, mask, kind)
     M = P + int(add_bias)
     for name, v, n in (("rho", rho, N), ("beta", beta, N), ("wvec", wvec, M)):
         _build.check_vec(name, v, n, X)
-    nu = u = None
-    if noise is not None:
-        nu, u = noise
-        _build.check_vec("nu", nu, N, X)
-        _build.check_vec("u", u, N, X)
-    if seed is not None and (seed.device != X.device
-                             or seed.dtype != torch.int64
-                             or tuple(seed.shape) != (4,)
-                             or not seed.is_contiguous()):
-        raise ValueError("seed must be a contiguous (4,) int64 tensor on "
-                         f"{X.device}")
+    ops = _fused_stats.noise_operands(noise, seed, N, X)
     ntiles, rows, chunk = stats_plan(N, m, M, X.device)
     head, s, t = _featurizer_args(X, landmarks, proj, mask, N, D, m, P,
                                   add_bias, kind, sigma, chunk)
@@ -237,19 +235,22 @@ def nystrom_fused_stats(X: torch.Tensor, landmarks: torch.Tensor,
     part = torch.empty(nsplits * ntiles * _build.BK * _build.BK, **f32)
     bpart = torch.empty(nsplits * Mp, **f32)
     margin, gamma = torch.empty(N, **f32), torch.empty(N, **f32)
+    omega = torch.empty(N, **f32) if svr else None
     sigma_out, b = torch.empty((M, M), **f32), torch.empty(M, **f32)
 
     def ptr(v):
         return None if v is None else v.data_ptr()
 
     _build.launch("rt_nystrom_fused_stats", X.device, *head,
-                  rho.data_ptr(), beta.data_ptr(), wvec.data_ptr(), ptr(nu),
-                  ptr(u), ptr(seed), s["sqx"].data_ptr(),
+                  rho.data_ptr(), beta.data_ptr(), wvec.data_ptr(),
+                  *(ptr(z) for z in ops), ptr(seed), s["sqx"].data_ptr(),
                   s["sql"].data_ptr(), s["kc"].data_ptr(), phi.data_ptr(),
                   wgt.data_ptr(), coef.data_ptr(), part.data_ptr(),
                   bpart.data_ptr(), margin.data_ptr(), gamma.data_ptr(),
-                  sigma_out.data_ptr(), b.data_ptr(), t["N"], t["D"],
-                  t["m"], t["P"], t["bias"], t["kind"], t["inv"], chunk,
-                  ntiles, rows, _EPILOGUE_CODE[var], float(eps))
+                  ptr(omega), sigma_out.data_ptr(), b.data_ptr(), t["N"],
+                  t["D"], t["m"], t["P"], t["bias"], t["kind"], t["inv"],
+                  chunk, ntiles, rows, _EPILOGUE_CODE[var], float(eps),
+                  float(eps_ins))
     LAUNCHES[f"nystrom_fused_stats[{var}]"] += 1
-    return margin, gamma, b, sigma_out
+    aug = (gamma, omega) if svr else (gamma,)
+    return (margin, *aug, b, sigma_out)

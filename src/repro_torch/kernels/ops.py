@@ -29,6 +29,7 @@ from . import nystrom_phi as _nystrom_phi
 from . import rbf_gram as _rbf_gram
 from . import ref
 from . import syrk as _syrk
+from . import weighted_gram as _weighted_gram
 
 VALID_BACKENDS = ("ref", "cuda")
 
@@ -77,6 +78,16 @@ def _f32(v: torch.Tensor) -> torch.Tensor:
     return v.to(torch.float32).contiguous()
 
 
+def weighted_gram(X: torch.Tensor, w: torch.Tensor, *,
+                  backend: str | None = None) -> torch.Tensor:
+    """S = X^T diag(w) X, (K, K) float32, over the dense tile grid (the
+    paper's Table 9 statistic; ``syrk_tri`` computes only the lower
+    triangle)."""
+    if _resolve(backend, X) == "ref":
+        return ref.weighted_gram(X, w)
+    return _weighted_gram.weighted_gram(X, _f32(w))
+
+
 def syrk_tri(X: torch.Tensor, w: torch.Tensor, *,
              backend: str | None = None) -> torch.Tensor:
     """S = X^T diag(w) X computing only lower-triangle tiles; the result
@@ -104,11 +115,13 @@ def fused_stats(X: torch.Tensor, rho: torch.Tensor, beta: torch.Tensor,
                 eps_ins: float = 0.0, col_window: tuple | None = None,
                 seed: torch.Tensor | None = None,
                 backend: str | None = None):
-    """(margin, gamma, b, S): the whole iteration statistic in one X
-    pass, under the em_hinge or mc_hinge epilogue. mc_hinge takes the
-    pre-drawn (nu, u) ``noise`` or derives it from ``seed`` (the (4,)
+    """(margin, *aug, b, S): the whole iteration statistic in one X
+    pass, under any epilogue: em_hinge / mc_hinge give aug = (gamma,),
+    em_svr / mc_svr (rho the target y, tube ``eps_ins``) give
+    (gamma, omega). The MC epilogues take pre-drawn ``noise`` ((nu, u), or
+    SVR's (nu_g, u_g, nu_o, u_o)) or derive it from ``seed`` (the (4,)
     words of ``rng.pack_seed``); a 2-D (K, C) ``wvec`` with ``seed`` runs
-    C chains: margin and gamma (N, C), b (K, C), S (C, K, K).
+    C chains: margin and aug (N, C), b (K, C), S (C, K, K).
 
     Routes, as the reference's kernel routes: for K > FUSED_STATS_MAX_K
     a single chain takes fused_estep + syrk_tri (em_hinge) or the
@@ -118,9 +131,8 @@ def fused_stats(X: torch.Tensor, rho: torch.Tensor, beta: torch.Tensor,
     the Hopper kernel tiles Sigma at any K * C, so the cuda flavour runs
     the multichain kernel at every width. Callers get the same outputs
     either way."""
-    del eps_ins  # only the SVR epilogues read it
     _check_noise(epilogue, noise, seed)
-    epilogues.check_ported(epilogue)
+    epilogues.check_epilogue(epilogue)
     if col_window is not None:
         raise NotImplementedError(
             "the column-windowed statistic (k_shard_axis) is not ported "
@@ -133,18 +145,18 @@ def fused_stats(X: torch.Tensor, rho: torch.Tensor, beta: torch.Tensor,
     if multi or X.shape[1] <= FUSED_STATS_MAX_K:
         if flavour == "ref":
             return ref.fused_stats(X, rho, beta, wvec, wmask, eps, epilogue,
-                                   noise=noise, seed=seed)
+                                   noise=noise, seed=seed, eps_ins=eps_ins)
         return _fused_stats.fused_stats(
             X, _f32(rho), _f32(beta), _f32(wvec),
             None if wmask is None else _f32(wmask),
             noise=None if noise is None else tuple(_f32(z) for z in noise),
-            seed=seed, epilogue=epilogue, eps=eps)
+            seed=seed, epilogue=epilogue, eps=eps, eps_ins=eps_ins)
     if epilogue == "em_hinge":
         margin, gamma, b = fused_estep(X, rho, beta, wvec, eps=eps,
                                        backend=flavour)
         w = (1.0 / gamma) if wmask is None else wmask.to(gamma.dtype) / gamma
         return margin, gamma, b, syrk_tri(X, w, backend=flavour)
-    # Generalised split fallback: the O(NK) E-step (margin, gamma, coef,
+    # Generalised split fallback: the O(NK) E-step (margin, aug, coef,
     # b) in plain PyTorch, the O(NK^2) Sigma through syrk_tri.
     if seed is not None:
         noise = ref.seed_noise(seed, X.shape[0], 1, epilogue)
@@ -152,7 +164,7 @@ def fused_stats(X: torch.Tensor, rho: torch.Tensor, beta: torch.Tensor,
     margin = Xf @ wvec.to(torch.float32)
     aug, weight, coef = epilogues.apply_epilogue(
         epilogue, margin, rho.to(torch.float32), beta.to(torch.float32),
-        noise, eps)
+        noise, eps, eps_ins)
     w = weight if wmask is None else wmask.to(torch.float32) * weight
     return (margin, *aug, Xf.T @ coef, syrk_tri(X, w, backend=flavour))
 
@@ -268,16 +280,16 @@ def nystrom_fused_stats(X: torch.Tensor, landmarks: torch.Tensor,
                         col_window: tuple | None = None,
                         seed: torch.Tensor | None = None,
                         backend: str | None = None):
-    """(margin, gamma, b, S): the phi-space iteration statistic,
-    ``fused_stats`` on nystrom_phi(X) with S weighted by mask / gamma.
+    """(margin, *aug, b, S): the phi-space iteration statistic,
+    ``fused_stats`` on nystrom_phi(X) with S weighted by mask times the
+    epilogue's weight; aug is (gamma,) or, under SVR, (gamma, omega).
 
     Within ``nystrom_fused_fits`` it is one call of the featurize-and-
     accumulate kernel, which allocates no (N, M) phi; past it (m > 1024,
     or wide D) it is nystrom_phi, then fused_stats on phi, as in the
     reference. Callers get the same outputs either way."""
-    del eps_ins  # only the SVR epilogues read it
     _check_noise(epilogue, noise, seed)
-    epilogues.check_ported(epilogue)
+    epilogues.check_epilogue(epilogue)
     if col_window is not None:
         raise NotImplementedError(
             "the column-windowed Nystrom statistic (k_shard_axis) is not "
@@ -288,15 +300,15 @@ def nystrom_fused_stats(X: torch.Tensor, landmarks: torch.Tensor,
         phi = nystrom_phi(X, landmarks, proj, mask, sigma=sigma, kind=kind,
                           add_bias=add_bias, backend=flavour)
         return fused_stats(phi, rho, beta, wvec, mask, noise,
-                           epilogue=epilogue, eps=eps, seed=seed,
-                           backend=flavour)
+                           epilogue=epilogue, eps=eps, eps_ins=eps_ins,
+                           seed=seed, backend=flavour)
     if flavour == "ref":
         return ref.nystrom_fused_stats(
             X, landmarks, proj, rho, beta, wvec, mask, float(sigma), kind,
-            add_bias, eps, epilogue, noise=noise, seed=seed)
+            add_bias, eps, epilogue, noise=noise, seed=seed, eps_ins=eps_ins)
     return _nystrom_phi.nystrom_fused_stats(
         X.contiguous(), _f32(landmarks), _f32(proj), _f32(rho), _f32(beta),
         _f32(wvec), _mask32(mask),
         noise=None if noise is None else tuple(_f32(z) for z in noise),
         seed=seed, sigma=sigma, kind=kind, add_bias=add_bias,
-        epilogue=epilogue, eps=eps)
+        epilogue=epilogue, eps=eps, eps_ins=eps_ins)

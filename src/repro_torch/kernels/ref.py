@@ -1,12 +1,14 @@
 """Plain PyTorch versions of the ported kernels: port of
-``repro/kernels/ref.py`` (the hinge epilogues, pre-drawn noise, the
-counter seed and multichain; the RBF Gram and the Nystrom featurizer,
-scorer and statistic; no column window).
+``repro/kernels/ref.py`` (the hinge and SVR epilogues, pre-drawn noise,
+the counter seed and multichain; the weighted Gram; the RBF Gram and the
+Nystrom featurizer, scorer and statistic; no column window).
 
 They are the CPU path of ``ops`` and the oracles the CUDA kernels are held
 against. Inputs are computed in float32, as in the reference; float64
 inputs stay float64, which is how ``chip_smoke.py`` evaluates the plain
-version exactly. Padded rows (X-row 0, rho = beta = 0) contribute nothing.
+version exactly. Padded rows (X-row 0) contribute nothing to b and Sigma;
+under the SVR epilogues their weight and coef are not zero, so it is the
+zero X row (X-space) or the mask (phi-space) that makes them no-ops.
 """
 from __future__ import annotations
 
@@ -66,12 +68,14 @@ def fused_estep(X: torch.Tensor, rho: torch.Tensor, beta: torch.Tensor,
 def fused_stats(X: torch.Tensor, rho: torch.Tensor, beta: torch.Tensor,
                 wvec: torch.Tensor, wmask: torch.Tensor | None, eps: float,
                 epilogue: str = "em_hinge", noise: tuple | None = None,
-                seed: torch.Tensor | None = None):
-    """(margin, gamma, b, S): the whole iteration statistic with
-    S = X^T diag(wmask * weight) X (wmask defaults to ones). MC epilogues
-    take pre-drawn ``noise`` or derive it from ``seed`` (``seed_noise``).
-    A 2-D (K, C) ``wvec`` (seed required) runs C chains: margin and gamma
-    (N, C), b (K, C), S (C, K, K)."""
+                seed: torch.Tensor | None = None, eps_ins: float = 0.0):
+    """(margin, *aug, b, S): the whole iteration statistic with
+    S = X^T diag(wmask * weight) X (wmask defaults to ones); aug is
+    (gamma,) for the hinge epilogues and (gamma, omega) for SVR, whose
+    tube is ``eps_ins``. MC epilogues take pre-drawn ``noise`` or derive
+    it from ``seed`` (``seed_noise``). A 2-D (K, C) ``wvec`` (seed
+    required) runs C chains: margin and aug (N, C), b (K, C),
+    S (C, K, K)."""
     Xf = _acc(X)
     if wvec.dim() == 2:
         assert seed is not None, "multichain fused_stats requires seed"
@@ -80,7 +84,7 @@ def fused_stats(X: torch.Tensor, rho: torch.Tensor, beta: torch.Tensor,
         noise = seed_noise(seed, X.shape[0], C, epilogue)
         aug, weight, coef = epilogues.apply_epilogue(
             epilogue, margin, _acc(rho)[:, None], _acc(beta)[:, None],
-            noise, eps)
+            noise, eps, eps_ins)
         w = weight if wmask is None else _acc(wmask)[:, None] * weight
         S = torch.stack([weighted_gram(X, w[:, c]) for c in range(C)])
         return (margin, *aug, Xf.T @ coef, S)
@@ -88,7 +92,7 @@ def fused_stats(X: torch.Tensor, rho: torch.Tensor, beta: torch.Tensor,
         noise = seed_noise(seed, X.shape[0], 1, epilogue)
     margin = Xf @ _acc(wvec)
     aug, weight, coef = epilogues.apply_epilogue(
-        epilogue, margin, _acc(rho), _acc(beta), noise, eps)
+        epilogue, margin, _acc(rho), _acc(beta), noise, eps, eps_ins)
     w = weight if wmask is None else _acc(wmask) * weight
     return (margin, *aug, Xf.T @ coef, weighted_gram(X, w))
 
@@ -144,13 +148,14 @@ def nystrom_fused_stats(X: torch.Tensor, landmarks: torch.Tensor,
                         epilogue: str = "em_hinge",
                         noise: tuple | None = None,
                         col_window: tuple | None = None,
-                        seed: torch.Tensor | None = None):
-    """``fused_stats`` on ``nystrom_phi``: (margin, gamma, b (M,),
-    S (M, M)) with S weighted by mask / gamma."""
+                        seed: torch.Tensor | None = None,
+                        eps_ins: float = 0.0):
+    """``fused_stats`` on ``nystrom_phi``: (margin, *aug, b (M,),
+    S (M, M)) with S weighted by mask times the epilogue's weight."""
     if col_window is not None:
         raise NotImplementedError(
             "the column-windowed Nystrom statistic (k_shard_axis) is not "
             "ported yet: ROADMAP queue 1 item 10 (multi-GPU)")
     phi = nystrom_phi(X, landmarks, proj, mask, sigma, kind, add_bias)
     return fused_stats(phi, rho, beta, wvec, mask, eps, epilogue,
-                       noise=noise, seed=seed)
+                       noise=noise, seed=seed, eps_ins=eps_ins)

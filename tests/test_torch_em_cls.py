@@ -172,22 +172,44 @@ def test_objective_terms_match_reference(masked):
 
 @pytest.mark.parametrize("kw", [
     dict(algorithm="MC", task="MLT", num_classes=3),
-    dict(task="SVR"),
     dict(task="MLT", num_classes=3),
     dict(formulation="KRN"),
     dict(driver="stream"),
     dict(k_shard_axis="model"),
     dict(pad_features=8),
-    dict(phi_spec=PhiSpec(), add_bias=False, task="SVR"),
     dict(fault=object()),
     dict(decay=0.5, driver="stream"),
     dict(window=2, driver="stream"),
-    dict(algorithm="MC", rng="fused", task="SVR"),
-    dict(algorithm="MC", rng="fused", n_chains=2, task="SVR"),
 ])
 def test_unsupported_config_raises(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
         PEMSVM(SVMConfig(**kw), device="cpu")
+
+
+@pytest.mark.parametrize("kw", [
+    dict(task="SVR"),
+    dict(phi_spec=PhiSpec(), add_bias=False, task="SVR"),
+    dict(algorithm="MC", rng="fused", task="SVR"),
+    dict(algorithm="MC", rng="fused", n_chains=2, task="SVR"),
+])
+def test_svr_configs_fit(kw):
+    """The SVR configurations this file once held as not ported fit now:
+    X-space, phi-space (the NystromSVM delegate, given a featurizer), MC
+    with the counter seed, and two chains; predict gives the regression
+    values and score the negated RMSE."""
+    X, y = tsyn.make_year_like(400, 6, seed=1)
+    svm = PEMSVM(SVMConfig(lam=1.0, eps_ins=0.3, max_iters=12, **kw),
+                 device="cpu")
+    if svm.config.phi_spec is not None:
+        L = X[:9].copy()
+        svm._phi_arrays = (L, np.eye(9, dtype=np.float32))
+    res = svm.fit(X, y)
+    assert set(res.aux_history) == {"objective", "gamma_mean", "omega_mean"}
+    assert np.all(np.isfinite(res.weights)) and len(res.objective) >= 10
+    pred = svm.predict(X)
+    assert pred.dtype == np.float32 and pred.shape == y.shape
+    assert svm.score(X, y) == -svm.rmse(X, y)
+    assert svm.rmse(X, y) < float(np.std(y))
 
 
 @pytest.mark.parametrize("kw", [

@@ -17,7 +17,13 @@ held as in ``chip_smoke.py`` phase 3: margins as above; gamma against the
 plain epilogue on the kernel's own margin and noise (>= 99 % of rows
 bitwise equal, >= 99.95 % within 1e-3 relative, all finite and >= eps);
 b and Sigma against a float64 recomputation from the kernel's own gamma.
+The SVR variants (em_svr; mc_svr with four noise operands, the seed, C
+chains) are held the same way with gamma and omega each, on targets
+y = m64 +- U[0.35, 2.3] (every |res -+ eps_ins| >= 0.05); em_svr's gamma
+and omega also against the float64 plain version. weighted_gram is held
+as syrk_tri.
 """
+import dataclasses
 import math
 
 import numpy as np
@@ -437,3 +443,179 @@ def test_nystrom_fit_goes_through_the_kernels(cuda):
     assert abs(plain.score(Xh, yh) - acc) <= 0.01 and acc >= 0.99
     w, wp = res.weights.astype(np.float64), rp.weights.astype(np.float64)
     assert np.linalg.norm(w - wp) / np.linalg.norm(wp) <= 5e-2
+
+
+# -------------------------------------------------------------------- SVR
+EPS_INS = 0.3
+SVR = [("em_svr", 1), ("mc_svr,noise", 1), ("mc_svr,seed", 1),
+       ("mc_svr,seed,multichain", 3)]
+
+
+def _svr_targets(m64, mask, seed=1):
+    g = np.random.default_rng(seed)
+    n = m64.shape[0]
+    off = g.uniform(0.35, 2.3, n) * g.choice([-1.0, 1.0], n)
+    y = (m64.cpu() + torch.from_numpy(off)).float().to(m64.device)
+    return y if mask is None else y * mask
+
+
+def _svr_stats64(X, y, wm, g, o):
+    X64, y64, g64, o64 = X.double(), y.double(), g.double(), o.double()
+    wt = 1.0 / g64 + 1.0 / o64
+    wt = wt if wm is None else wm.double() * wt
+    coef = (y64 - EPS_INS) / g64 + (y64 + EPS_INS) / o64
+    return X64.T @ coef, (X64 * wt[:, None]).T @ X64
+
+
+@pytest.mark.parametrize("var,C", SVR)
+@pytest.mark.parametrize("n,k,dtype", SHAPES)
+def test_fused_stats_svr_kernel(cuda, n, k, dtype, var, C):
+    X, _, beta, w, wm = _problem(n, k, dtype, cuda)
+    y = _svr_targets(X.double() @ w.double(), None)
+    epi, *rest = var.split(",")
+    source = rest[0] if rest else None
+    seed = rng.pack_seed(prng.fold_in(prng.PRNGKey(5), 2), 3, 1).to(cuda)
+    noise = ref.seed_noise(seed, n, C, "mc_svr") if source else None
+    kw = (dict(noise=noise) if source == "noise" else
+          dict(seed=seed) if source == "seed" else {})
+    if C > 1:
+        w = torch.stack([w * (1.0 + 0.25 * c) for c in range(C)], 1)
+    before = fused_stats.LAUNCHES[var]
+    args = (X, y, beta, w, wm)
+    opts = dict(epilogue=epi, eps=1e-6, eps_ins=EPS_INS)
+    got = fused_stats.fused_stats(*args, **kw, **opts)
+    again = fused_stats.fused_stats(*args, **kw, **opts)
+    torch.cuda.synchronize()
+    assert fused_stats.LAUNCHES[var] == before + 2
+    assert all(torch.equal(a, b) for a, b in zip(got, again))
+    m, g, o, b, S = got
+    _close_rows(m, X.double() @ w.double())
+    yc = y if C == 1 else y[:, None]
+    (g_plain, o_plain), _, _ = epilogues.apply_epilogue(
+        epi, m, yc, torch.zeros_like(yc), noise, 1e-6, EPS_INS)
+    if epi == "em_svr":
+        assert torch.equal(g, g_plain) and torch.equal(o, o_plain)
+        want = ref.fused_stats(X.double(), y.double(), beta.double(),
+                               w.double(), wm.double(), 1e-6, "em_svr",
+                               eps_ins=EPS_INS)
+        _close_rows(g, want[1])
+        _close_rows(o, want[2])
+    else:
+        _gamma_band(g, g_plain)
+        _gamma_band(o, o_plain)
+    for c in range(C):
+        gc, oc = (g, o) if C == 1 else (g[:, c], o[:, c])
+        b64, S64 = _svr_stats64(X, y, wm, gc, oc)
+        _close_max(b if C == 1 else b[:, c], b64)
+        _close_max(S if C == 1 else S[c], S64)
+
+
+def test_svr_fit_goes_through_the_kernels(cuda):
+    from repro_torch.data import make_year_like
+    X, y = make_year_like(6000, 40, seed=0)
+    for opts, key, kw in (("LIN-EM-SVR", "em_svr", {}),
+                          ("LIN-MC-SVR", "mc_svr,seed", dict(rng="fused"))):
+        cfg = SVMConfig.from_options(opts, lam=lam_from_C(0.01),
+                                     eps_ins=EPS_INS, max_iters=60, **kw)
+        before = dict(fused_stats.LAUNCHES)
+        svm = PEMSVM(cfg)
+        res = svm.fit(X, y)
+        chunk = cfg.scan_chunk
+        steps = min(cfg.max_iters, -(-res.n_iters // chunk) * chunk)
+        launched = {k: v - before[k] for k, v in fused_stats.LAUNCHES.items()
+                    if v != before[k]}
+        assert res.converged and launched == {key: steps}
+        plain = PEMSVM(dataclasses.replace(cfg, backend="ref"))
+        rp = plain.fit(X, y)
+        assert abs(plain.rmse(X, y) - svm.rmse(X, y)) <= 0.01
+        assert np.all(np.isfinite(res.weights))
+        if opts == "LIN-EM-SVR":
+            assert abs(rp.n_iters - res.n_iters) <= 3
+
+
+def test_wide_svr_route_launches_syrk_only(cuda):
+    """em_svr past FUSED_STATS_MAX_K: a plain E-step, then syrk_tri; no
+    fused_estep (em_hinge only) and no fused_stats."""
+    X, _, beta, w, wm = _problem(300, ops.FUSED_STATS_MAX_K + 1,
+                                 torch.float32, cuda)
+    y = _svr_targets(X.double() @ w.double(), None)
+    counts = (dict(fused_stats.LAUNCHES), fused_estep.LAUNCHES,
+              syrk.LAUNCHES)
+    got = ops.fused_stats(X, y, beta, w, wm, epilogue="em_svr",
+                          eps_ins=EPS_INS)
+    assert (fused_stats.LAUNCHES, fused_estep.LAUNCHES,
+            syrk.LAUNCHES - 1) == counts
+    want = ref.fused_stats(X.double(), y.double(), beta.double(),
+                           w.double(), wm.double(), 1e-6, "em_svr",
+                           eps_ins=EPS_INS)
+    _close_max(got[4], want[4])
+
+
+NYS_SVR = ["em_svr", "mc_svr,noise", "mc_svr,seed"]
+
+
+@pytest.mark.parametrize("chunked", [False, True])
+@pytest.mark.parametrize("var", NYS_SVR)
+@pytest.mark.parametrize("shape", NYS_SHAPES)
+def test_nystrom_fused_stats_svr_kernel(cuda, shape, var, chunked,
+                                        monkeypatch):
+    kind = "linear" if shape[1] == 130 else "rbf"
+    X, L, P, mask, k64 = _nys(*shape, cuda, kind=kind)
+    n, M = X.shape[0], L.shape[0] + 1
+    g = torch.Generator(device=cuda).manual_seed(3)
+    w = torch.randn(M, generator=g, device=cuda) / math.sqrt(M)
+    phi64 = ref.nystrom_phi(X.double(), L.double(), P.double(),
+                            mask.double(), 1.3, kind, True)
+    m64 = phi64 @ w.double()
+    y = _svr_targets(m64, mask)
+    epi, _, source = var.partition(",")
+    seed = rng.pack_seed(prng.fold_in(prng.PRNGKey(5), 2), 3, 0).to(cuda)
+    noise = ref.seed_noise(seed, n, 1, "mc_svr") if source else None
+    kw = (dict(noise=noise) if source == "noise" else
+          dict(seed=seed) if source == "seed" else {})
+    zero = torch.zeros_like(y)
+    args = (X, L, P, y, zero, w, mask)
+    opts = dict(sigma=1.3, kind=kind, add_bias=True, epilogue=epi, eps=1e-6,
+                eps_ins=EPS_INS)
+    one = nys.nystrom_fused_stats(*args, **kw, **opts)
+    if chunked:  # several row chunks give the same bits as one
+        monkeypatch.setattr(nys, "SCRATCH_WORDS", 32 * M * 2)
+    key = f"nystrom_fused_stats[{var}]"
+    before = nys.LAUNCHES[key]
+    m, gam, om, b, S = nys.nystrom_fused_stats(*args, **kw, **opts)
+    torch.cuda.synchronize()
+    assert nys.LAUNCHES[key] == before + 1
+    assert all(torch.equal(a, c) for a, c in zip(one, (m, gam, om, b, S)))
+    _within(m, m64, _phi_scale(k64, P, mask, True) @ w.double().abs())
+    (g_plain, o_plain), _, _ = epilogues.apply_epilogue(
+        epi, m, y, zero, noise, 1e-6, EPS_INS)
+    if epi == "em_svr":
+        assert torch.equal(gam, g_plain) and torch.equal(om, o_plain)
+        # padded and masked rows: y = 0, phi row 0, so res = 0
+        assert torch.all(gam[mask == 0] == torch.tensor(EPS_INS))
+    else:
+        _nys_gamma_band(gam, g_plain)
+        _nys_gamma_band(om, o_plain)
+    phi = nys.nystrom_phi(X, L, P, mask, sigma=1.3, kind=kind,
+                          add_bias=True)
+    b64, S64 = _svr_stats64(phi, y, mask, gam, om)
+    _close_max(b, b64)
+    _close_max(S, S64)
+
+
+# ---------------------------------------------------------- weighted_gram
+@pytest.mark.parametrize("n,k,dtype", SHAPES + [(4097, 130, torch.float32)])
+def test_weighted_gram_kernel(cuda, n, k, dtype):
+    from repro_torch.kernels import weighted_gram as wg
+    X, rho, _, w, _ = _problem(n, k, dtype, cuda)
+    wt = 1.0 / (rho - X.float() @ w).abs().clamp_min(1e-6)
+    before = wg.LAUNCHES
+    got = wg.weighted_gram(X, wt)
+    again = ops.weighted_gram(X, wt)
+    torch.cuda.synchronize()
+    assert wg.LAUNCHES == before + 2 and torch.equal(got, again)
+    want = ref.weighted_gram(X.double(), wt.double())
+    _close_max(got, want)
+    _close_max(got.T, want)  # each triangle on its own, not mirrored
+    with pytest.raises(TypeError):
+        wg.weighted_gram(X, wt.double())

@@ -251,9 +251,8 @@ def test_wide_route_matches_one_pass():
 
 
 @pytest.mark.parametrize("kw,exc", [
-    (dict(epilogue="mc_svr", noise=(torch.zeros(3),) * 4),
-     NotImplementedError),
-    (dict(epilogue="em_svr"), NotImplementedError),
+    (dict(epilogue="mc_svr", noise=(torch.zeros(3),) * 2), ValueError),
+    (dict(epilogue="em_svr", noise=(torch.zeros(3),) * 4), ValueError),
     (dict(col_window=(0, 2)), NotImplementedError),
     (dict(epilogue="em_hinge", noise=(torch.zeros(3),)), ValueError),
     (dict(backend="pallas"), ValueError),
@@ -264,6 +263,26 @@ def test_ops_rejects(kw, exc):
     v = torch.zeros(3)
     with pytest.raises(exc):
         tops.fused_stats(X, v, v, torch.zeros(2), **kw)
+
+
+@pytest.mark.parametrize("kw", [
+    dict(epilogue="mc_svr", noise=(torch.zeros(3),) * 4),
+    dict(epilogue="em_svr"),
+])
+def test_ops_svr_epilogues_run(kw):
+    """The two SVR calls test_ops_rejects once held as not ported: the
+    statistic runs and returns (margin, gamma, omega, b, S); at y = 0,
+    w = 0 every row sits at res = 0, so em_svr gives gamma = omega =
+    eps_ins."""
+    X = torch.ones(3, 2)
+    v = torch.zeros(3)
+    out = tops.fused_stats(X, v, v, torch.zeros(2), eps_ins=0.25, **kw)
+    assert len(out) == 5
+    assert [tuple(t.shape) for t in out] == [(3,), (3,), (3,), (2,), (2, 2)]
+    assert all(bool(torch.all(torch.isfinite(t))) for t in out)
+    if kw["epilogue"] == "em_svr":
+        assert torch.all(out[1] == 0.25) and torch.all(out[2] == 0.25)
+        assert torch.allclose(out[4], torch.full((2, 2), 3 * 2 / 0.25))
 
 
 # ----------------------------------------------------------------- mc_hinge

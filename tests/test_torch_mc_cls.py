@@ -197,7 +197,6 @@ def test_chain_c_is_the_single_chain_at_chain0_c():
 
 # ------------------------------------------------------- not ported yet
 @pytest.mark.parametrize("kw,item", [
-    (dict(task="SVR"), "item 6"),
     (dict(task="MLT", num_classes=3), "item 7"),
     (dict(driver="stream"), "item 8"),
     (dict(k_shard_axis="model"), "item 10"),
@@ -205,6 +204,21 @@ def test_chain_c_is_the_single_chain_at_chain0_c():
 def test_out_of_slice_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         PEMSVM(SVMConfig(**{"algorithm": "MC", **kw}), device="cpu")
+
+
+def test_mc_svr_runs():
+    """task='SVR', which this file once held as out of slice: the MC
+    (Gibbs) SVR fit runs, averages its draws after burn-in, and scores
+    the negated RMSE."""
+    from repro_torch.data import make_year_like
+    X, y = make_year_like(2000, 20, seed=4)
+    svm = PEMSVM(SVMConfig(algorithm="MC", task="SVR", lam=2.0,
+                           eps_ins=0.3, max_iters=40, burnin=3),
+                 device="cpu")
+    res = svm.fit(X, y)
+    assert res.converged and np.all(np.isfinite(res.weights))
+    assert not np.array_equal(res.weights, res.last_sample)
+    assert svm.score(X, y) == -svm.rmse(X, y) and svm.rmse(X, y) < 0.5
 
 
 def test_mesh_and_col_window_raise():

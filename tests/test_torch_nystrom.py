@@ -377,8 +377,9 @@ def test_nystrom_ops_reject():
     with pytest.raises(NotImplementedError, match="item 10"):
         tref.nystrom_fused_stats(X, L, P, v, v, w, None, 1.0, "rbf", True,
                                  EPS, col_window=(0, 1))
-    with pytest.raises(NotImplementedError, match="item 6"):
-        tops.nystrom_fused_stats(X, L, P, v, v, w, epilogue="em_svr")
+    out = tops.nystrom_fused_stats(X, L, P, v, v, w, add_bias=True,
+                                   epilogue="em_svr", eps_ins=0.25)
+    assert len(out) == 5 and torch.all(out[2] == 0.25)
     with pytest.raises(ValueError, match="noise"):
         tops.nystrom_fused_stats(X, L, P, v, v, w, epilogue="mc_hinge")
     with pytest.raises(ValueError, match="kind"):
@@ -558,11 +559,13 @@ def test_out_of_slice_raises():
                              n_chains=2), device="cpu")
     with pytest.raises(ValueError, match="KRN"):
         NystromSVM(SVMConfig(), device="cpu")
-    for kw, item in ((dict(task="SVR"), "item 6"),
-                     (dict(task="MLT", num_classes=3), "item 7"),
+    for kw, item in ((dict(task="MLT", num_classes=3), "item 7"),
                      (dict(driver="stream"), "item 8")):
         with pytest.raises(NotImplementedError, match=item):
             NystromSVM(SVMConfig(formulation="KRN", **kw), device="cpu")
+    # KRN-SVR is in the slice now: the delegate carries the task
+    svr = NystromSVM(SVMConfig(formulation="KRN", task="SVR"), device="cpu")
+    assert svr.svm.config.task == "SVR" and svr.svm.config.phi_spec
     ny = NystromSVM(SVMConfig(formulation="KRN"), device="cpu")
     X, y = tsyn.make_circles(64)
     for name in ("resume_from", "warm_start"):

@@ -112,6 +112,39 @@ plain epilogue on the kernel's own margin and noise; b and Sigma within
 1e-5 max of a float64 recomputation from the kernel's own phi (the
 nystrom_phi kernel's bits) and gamma.
 
+11. the multi-device fit (the paper's Sec 4.1 reduce and the 2-D k-shard):
+   four processes on cuda:0 under gloo (the card is one; NCCL refuses two
+   ranks on one device; gloo stages the collectives through the host, the
+   kernels run on the card), spawned with torch.multiprocessing after the
+   kernels are built. Fit 1: LIN-EM-CLS on the alpha-like split on a 2 x 2
+   (data x k) mesh with pad_features=2 (K = 502), held to phase 4's bands
+   against the one-device kernel fit with the same pad_features; the
+   window variant of fused_stats once a step on each rank, the full one
+   never. Fit 2: LIN-MC-CLS rng='fused' on a 4 x 1 mesh, held to phase 6's
+   bands against phase 6's kernel fit, its first objective within 1e-6
+   (the same draws). Fit 3: KRN-EM-SVR on phase 10's year split and
+   featurizer (m = 681, phi width 682) on a 2 x 2 mesh, held to phase 10's
+   bands (RMSE within 0.01, trace within 2e-2); the window variant of
+   nystrom_fused_stats once a step. Then short (4-iteration) 2 x 2 fits run
+   each other window variant once a step. In every fit all ranks' weights
+   are bitwise equal; step times are printed labelled "4 ranks share one
+   card" (they say nothing about scaling). A one-rank NCCL group fits
+   LIN-EM-CLS bitwise equal to the fit without a mesh. Where two or more
+   cards are visible, fit 1 runs again under NCCL, one rank a card;
+   otherwise the script says that no multi-card run was made.
+
+Phase 3 also holds the column window of fused_stats (its six single-chain
+variants) and of nystrom_fused_stats (six variants): at 1037 x 29 with the
+reference's windows and at 1037 x 300 (windows across and between 128-
+column tiles), f32 and bf16, both regimes; at 250,000 x 502 with (0, 251)
+and (251, 251); the Nystrom windows at odd masked shapes and at the year
+shape 463,715 x 90, m = 681, with (0, 341) and (341, 341). Each window is
+called twice and must be bitwise repeatable, bitwise the full variant's
+column slice (margin, gamma, omega and b bitwise the full variant's), and
+within 1e-5 max|S64| of the float64 statistic from the kernel's own gamma
+(and omega); it is timed at the second window with the bound flop
+2 N K blk + 4 N K (Nystrom: plus the cross-Gram and the projection).
+
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
 
@@ -425,6 +458,9 @@ def phase_kernels(dev, main_nk=(250_000, 501), wide_nk=(131_072, 2048),
             check_mc(dev, n, k, f32, regime, True, name)
             check_mc(dev, n, k, bf16, regime, True, name)
             check_mc(dev, n, k, bf16, regime, False, name)
+        if name == "fused_stats[mc_hinge,seed]":  # each rank of the 4 x 1
+            check_mc(dev, rank_rows(250_000, 4), 501, f32, "hinge", False,
+                     name)
         n, k = main_nk
         err, (X, rho, beta, w, kw) = check_mc(dev, n, k, f32, "hinge",
                                               False, name)
@@ -677,7 +713,8 @@ def _counts():
     from repro_torch.kernels import (fused_estep, fused_stats, nystrom_phi,
                                      rbf_gram, syrk, weighted_gram)
     out = {"fused_stats": fused_stats.LAUNCHES["em_hinge"]}
-    for name, (key, _, _) in {**MC_VARIANTS, **SVR_VARIANTS}.items():
+    for name, (key, _, _) in {**MC_VARIANTS, **SVR_VARIANTS,
+                              **WIN_VARIANTS}.items():
         out[name] = fused_stats.LAUNCHES[key]
     out["fused_estep"] = fused_estep.LAUNCHES
     out["syrk_tri"] = syrk.LAUNCHES
@@ -921,9 +958,10 @@ def phase_mc(dev, n=300_000, n_train=250_000, k=500):
     check(rc.chain_weights.shape == (4, k + 1)
           and bool(np.all(np.isfinite(rc.chain_std))),
           "n_chains=4: bad chain_weights or chain_std")
-    return {"fused_stats[mc_hinge,seed]": (c_k, rk.n_iters, st_k),
-            "fused_stats[mc_hinge,noise]": (c_h, rh.n_iters, st_h),
-            "fused_stats[mc_hinge,seed,C=4]": (c_c, rc.n_iters, st_c)}
+    return ({"fused_stats[mc_hinge,seed]": (c_k, rk.n_iters, st_k),
+             "fused_stats[mc_hinge,noise]": (c_h, rh.n_iters, st_h),
+             "fused_stats[mc_hinge,seed,C=4]": (c_c, rc.n_iters, st_c)},
+            (rk, spread))
 
 
 # ------------------------------------------------------- Nystrom kernels
@@ -1673,10 +1711,581 @@ def phase_krn_svr(dev):
             check(orel <= 2e-2, f"{tag}: objective trace outside "
                   "the band of the plain fit")
             profile_krn(cfg, dev, Xtr, ytr, m, ny)
+            em_fit = (ny, res)
         say(line)
         runs[name] = (c, res.n_iters, k["steps"])
         torch.cuda.empty_cache()
-    return runs
+    return runs, em_fit
+
+
+# ---------------------------------------------------------- the windows
+WIN_VARIANTS = {  # chip_smoke name: (LAUNCHES key, epilogue, noise source)
+    f"fused_stats[{v},window]": (f"{v},window", v.split(",")[0],
+                                 v.split(",")[1] if "," in v else None)
+    for v in ("em_hinge", "mc_hinge,noise", "mc_hinge,seed", "em_svr",
+              "mc_svr,noise", "mc_svr,seed")}
+NYS_WIN_VARIANTS = {  # chip_smoke name: (epilogue, noise source)
+    f"nystrom_fused_stats[{v},window]": (v.split(",")[0],
+                                         v.split(",")[1] if "," in v
+                                         else None)
+    for v in ("em_hinge", "mc_hinge,noise", "mc_hinge,seed", "em_svr",
+              "mc_svr,noise", "mc_svr,seed")}
+ODD_WINDOWS = ((0, 29), (5, 7), (22, 7), (13, 1), (0, 1))  # the reference's
+MID_WINDOWS = ((0, 7), (130, 7), (293, 7), (100, 150), (0, 300))
+
+
+def rank_rows(n, shards):
+    """Rows of one data shard's block as the port pads a training set of
+    ``n`` rows over ``shards`` (``distributed.pad_rows``): 125,000 of the
+    alpha-like 250,000 on two shards, 62,504 on four, 231,864 of the year
+    split's 463,715 on two."""
+    from repro_torch.core import distributed
+    z = np.zeros((n, 0), np.float32)
+    return distributed.pad_rows(z, z.sum(1), shards)[0].shape[0] // shards
+
+
+def halves(width):
+    """The windows of a 2-way k axis over ``width`` columns: (0, 251) and
+    (251, 251) at K = 502, (0, 341) and (341, 341) at phi width 682."""
+    half = width // 2
+    return (0, half), (half, width - half)
+
+
+def win_inputs(dev, n, k, dtype, regime, name, g):
+    """(X, rho, beta, w, wm, kw) for one window variant: the hinge pair
+    from ``problem``, SVR targets from ``svr_targets`` (beta 0); kw the
+    noise= or seed= of an MC variant."""
+    _, epi, source = WIN_VARIANTS[name]
+    X, rho, beta, w, wm = problem(n, k, dtype, "well" if epi.endswith("svr")
+                                  else regime, dev)
+    if epi.endswith("svr"):
+        rho = svr_targets(X.double() @ w.double(),
+                          "knee" if regime == "hinge" else "well", g)
+        beta = torch.zeros_like(rho)
+    kw = {}
+    if source:
+        kw = mc_inputs(dev, n, k, source, 1, w, epi)[0]
+    return X, rho, beta, w, wm, kw
+
+
+def check_win(X, rho, beta, w, wm, kw, name, windows, label):
+    """One window variant of fused_stats at ``windows``: each window twice
+    and bitwise repeatable; margin, gamma (omega) and b bitwise the full
+    variant's; Sigma's window bitwise the full variant's column slice and
+    within 1e-5 max|S64| of the float64 statistic from the kernel's own
+    gamma (and omega). Returns max |d|."""
+    from repro_torch.kernels import fused_stats
+    _, epi, _ = WIN_VARIANTS[name]
+    svr = epi.endswith("svr")
+    kw = dict(kw, epilogue=epi, eps=EPS, eps_ins=EPS_INS if svr else 0.0)
+    full = fused_stats.fused_stats(X, rho, beta, w, wm, **kw)
+    if svr:
+        _, S64 = svr_stats64(X, rho, wm, full[1], full[2])
+    else:
+        _, S64 = stats64(X, rho, beta, wm, full[1])
+    scale = S64.abs().max().item()
+    err = 0.0
+    for start, blk in windows:
+        out = twice(lambda: fused_stats.fused_stats(
+            X, rho, beta, w, wm, col_window=(start, blk), **kw))
+        check(all(torch.equal(a, b) for a, b in zip(out[:-1], full[:-1])),
+              f"{label} ({start}, {blk}): margin, gamma or b differ from "
+              "the full variant's")
+        check(torch.equal(out[-1], full[-1][:, start:start + blk]),
+              f"{label} ({start}, {blk}): Sigma is not the full variant's "
+              "column slice")
+        e = (out[-1].double() - S64[:, start:start + blk]).abs().max().item()
+        check(e <= REL * scale, f"{label} ({start}, {blk}): max |d| {e:.3e}"
+              f" exceeds 1e-5 max|S64| = {REL * scale:.3e}")
+        err = max(err, e)
+    say(f"  ok {label} windows {list(windows)}: bitwise repeatable, bitwise "
+        f"the full variant's column slice, max |d| {err:.3e}")
+    return err
+
+
+def nys_sigma64(X, L, P, mask, sigma, kind, y, g, o=None):
+    """Sigma in float64 from the nystrom_phi kernel's own phi and the
+    given gamma (and omega under SVR), in row chunks."""
+    from repro_torch.kernels import nystrom_phi as nys
+    S64 = None
+    for c0 in range(0, X.shape[0], ROWS_A_CHECK):
+        sl = slice(c0, c0 + ROWS_A_CHECK)
+        mk = None if mask is None else mask[sl]
+        phik = nys.nystrom_phi(X[sl], L, P, mk, sigma=sigma, kind=kind,
+                               add_bias=True).double()
+        wt = 1.0 / g[sl].double()
+        if o is not None:
+            wt = wt + 1.0 / o[sl].double()
+        if mk is not None:
+            wt = wt * mk.double()
+        Sk = (phik * wt[:, None]).T @ phik
+        S64 = Sk if S64 is None else S64 + Sk
+    return S64
+
+
+def check_nys_win(dev, X, L, P, mask, sigma, kind, name, windows, label,
+                  y_svr=None):
+    """One window variant of nystrom_fused_stats, held as check_win holds
+    fused_stats's; returns (max |d|, the call's arguments)."""
+    from repro_torch.kernels import nystrom_phi as nys
+    epi, source = NYS_WIN_VARIANTS[name]
+    svr = epi.endswith("svr")
+    n, M = X.shape[0], P.shape[1] + 1
+    y, w, kw, _ = nys_stat_inputs(dev, n, M, source, epi)
+    if svr:
+        y = y_svr
+    elif mask is not None:
+        y = y * mask
+    beta = torch.zeros_like(y) if svr else y
+    kw = dict(kw, sigma=sigma, kind=kind, add_bias=True, epilogue=epi,
+              eps=EPS, eps_ins=EPS_INS if svr else 0.0)
+    full = nys.nystrom_fused_stats(X, L, P, y, beta, w, mask, **kw)
+    S64 = nys_sigma64(X, L, P, mask, sigma, kind, y, full[1],
+                      full[2] if svr else None)
+    scale = S64.abs().max().item()
+    err = 0.0
+    for start, blk in windows:
+        out = twice(lambda: nys.nystrom_fused_stats(
+            X, L, P, y, beta, w, mask, col_window=(start, blk), **kw))
+        check(all(torch.equal(a, b) for a, b in zip(out[:-1], full[:-1])),
+              f"{label} ({start}, {blk}): margin, gamma or b differ from "
+              "the full variant's")
+        check(torch.equal(out[-1], full[-1][:, start:start + blk]),
+              f"{label} ({start}, {blk}): Sigma is not the full variant's "
+              "column slice")
+        e = (out[-1].double() - S64[:, start:start + blk]).abs().max().item()
+        check(e <= REL * scale, f"{label} ({start}, {blk}): max |d| {e:.3e}"
+              f" exceeds 1e-5 max|S64| = {REL * scale:.3e}")
+        err = max(err, e)
+    del S64, full
+    say(f"  ok {label} windows {list(windows)}: bitwise repeatable, bitwise "
+        f"the full variant's column slice, max |d| {err:.3e}")
+    return err, (y, beta, w, kw)
+
+
+def phase_window_kernels(dev, small_nk=(1037, 29), mid_nk=(1037, 300),
+                         main_nk=(250_000, 502)):
+    """Phase 3 for the column window of fused_stats and
+    nystrom_fused_stats: every variant at odd shapes (f32 and bf16, both
+    regimes), at the one-device shapes (250,000 x 502; the year split at
+    phi width 682) and at the shapes each rank of its 2 x 2 fit in phase
+    11 gives it (``mesh_specs``: 125,000 x 502 for the hinge variants,
+    231,864 x 92 for the SVR ones, both year blocks of 231,864 rows for
+    the Nystrom ones), timed at the rank shape's second window."""
+    from repro_torch.core import distributed
+    from repro_torch.kernels import fused_stats, ref
+    from repro_torch.kernels import nystrom_phi as nys
+    f32, bf16 = torch.float32, torch.bfloat16
+    g = torch.Generator(device=dev).manual_seed(8)
+    Xtr, ytr = year_split()[:2]
+    rank_nk = {False: (rank_rows(250_000, 2), 502),  # alpha, pad_features=2
+               True: (rank_rows(Xtr.shape[0], 2), 92)}  # year, the same
+    out = {}
+    for name in WIN_VARIANTS:
+        for (n, k), windows in ((small_nk, ODD_WINDOWS),
+                                (mid_nk, MID_WINDOWS)):
+            for regime in ("well", "hinge"):
+                for dtype, masked in ((f32, True), (bf16, True),
+                                      (bf16, False)):
+                    X, rho, beta, w, wm, kw = win_inputs(
+                        dev, n, k, dtype, regime, name, g)
+                    check_win(X, rho, beta, w, wm if masked else None, kw,
+                              name, windows,
+                              f"{name} {n}x{k} {str(dtype)[6:]} {regime}"
+                              f"{' masked' if masked else ''}")
+        _, epi, source = WIN_VARIANTS[name]
+        svr = epi.endswith("svr")
+        # as the fits call it (no Sigma weight mask): one device, then a rank
+        for n, k in (main_nk, rank_nk[svr]):
+            X, rho, beta, w, _, kw = win_inputs(dev, n, k, f32, "hinge",
+                                                name, g)
+            windows = halves(k)
+            err = check_win(X, rho, beta, w, None, kw, name, windows,
+                            f"{name} {n}x{k} f32")
+        ck = dict(kw, eps_ins=EPS_INS if svr else 0.0)
+        start, blk = windows[-1]
+        t_first = time_ms(lambda: fused_stats.fused_stats(
+            X, rho, beta, w, epilogue=epi, eps=EPS, col_window=windows[0],
+            **ck))
+        ms = time_ms(lambda: fused_stats.fused_stats(
+            X, rho, beta, w, epilogue=epi, eps=EPS, col_window=(start, blk),
+            **ck))
+        plain = time_ms(lambda: ref.fused_stats(
+            X, rho, beta, w, None, EPS, epi, col_window=(start, blk), **ck))
+        n_noise = ((4 if svr else 2) * n if source == "noise" else 0)
+        b_ms, by = bound(2 * n * k * blk + 4 * n * k,
+                         4 * (n * k + 2 * n + k + n_noise
+                              + (3 if svr else 2) * n + k + k * blk))
+        out[name] = dict(shape=[n, k, start, blk], max_abs_err=err, ms=ms,
+                         plain_ms=plain, bound_ms=b_ms, bound_by=by,
+                         library_ms=None)
+        say(f"  time {name} at window {windows[0]}: kernel "
+            f"{t_first:.3f} ms")
+        del X, rho, beta, w, kw
+
+    for dtype in (f32, bf16):  # odd masked Nystrom shapes, both kinds
+        for kind in ("rbf", "linear"):
+            X, L, P, mask = nys_odd(dev, dtype, kind)
+            y_svr = torch.randn(X.shape[0], generator=torch.Generator(
+                device=dev).manual_seed(9), device=dev) * mask
+            for name in NYS_WIN_VARIANTS:
+                check_nys_win(dev, X, L, P, mask, 1.3, kind, name,
+                              ((0, 46), (3, 5), (9, 5), (23, 23), (45, 1)),
+                              f"{name} 1037x7 m=45 {str(dtype)[6:]} {kind} "
+                              "masked", y_svr=y_svr)
+    m = math.ceil(math.sqrt(Xtr.shape[0]))
+    Ly, Py = featurizer(dev, Xtr, m, math.sqrt(90))
+    s = math.sqrt(90)
+    windows = halves(Py.shape[1] + 1)
+    # the one-device set, then the two data shards' blocks as the ranks of
+    # the 2 x 2 KRN fits hold them (the second ends in masked pad rows)
+    Xp, yp, mp = distributed.pad_rows(Xtr, ytr, 2)
+    nb = Xp.shape[0] // 2
+    sets = [(Xtr, ytr, np.ones(Xtr.shape[0], np.float32), "one device")]
+    sets += [(Xp[r * nb:(r + 1) * nb], yp[r * nb:(r + 1) * nb],
+              mp[r * nb:(r + 1) * nb], f"data shard {r}") for r in (0, 1)]
+    for name, (epi, source) in NYS_WIN_VARIANTS.items():
+        for Xa, ya, ma, where in sets:
+            X, yy, mask = (torch.from_numpy(np.ascontiguousarray(a)).to(dev)
+                           for a in (Xa, ya, ma))
+            err, (y, beta, w, kw) = check_nys_win(
+                dev, X, Ly, Py, mask, s, "rbf", name, windows,
+                f"{name} {X.shape[0]}x90 m={m} ({where})", y_svr=yy)
+        start, blk = windows[-1]
+        ms = time_ms(lambda: nys.nystrom_fused_stats(
+            X, Ly, Py, y, beta, w, mask, col_window=(start, blk), **kw))
+        ck = {key: v for key, v in kw.items()
+              if key not in ("sigma", "kind", "add_bias", "epilogue", "eps")}
+        plain = time_ms(lambda: ref.nystrom_fused_stats(
+            X, Ly, Py, y, beta, w, mask, s, "rbf", True, EPS, epi,
+            col_window=(start, blk), **ck))
+        (n, d), (mm, p) = X.shape, Py.shape
+        M = p + 1
+        svr = epi.endswith("svr")
+        n_noise = ((4 if svr else 2) * n if source == "noise" else 0)
+        b_ms, by = bound(2 * n * mm * d + 2 * n * mm * M + 2 * n * M * blk
+                         + 4 * n * M,
+                         4 * (n * d + mm * d + mm * p + 3 * n + n_noise
+                              + (3 if svr else 2) * n + 2 * M + M * blk))
+        out[name] = dict(shape=[n, d, mm, start, blk], max_abs_err=err,
+                         ms=ms, plain_ms=plain, bound_ms=b_ms, bound_by=by,
+                         library_ms=None)
+        del X, yy, mask, y, beta, w, kw
+        torch.cuda.empty_cache()
+    for name, row in out.items():
+        say(f"  time {name} {row['shape']}: kernel {row['ms']:.3f} ms, "
+            f"plain {row['plain_ms']:.3f} ms, library none, bound "
+            f"{row['bound_ms']:.3f} ms ({row['bound_by']})")
+    return out
+
+
+# ------------------------------------------------------- the mesh fits
+MESH_TIMEOUT = 600  # seconds a collective may wait before the ranks fail
+
+
+def _rank_setup(rank, world, init, backend):
+    """A spawned rank: torch, the port on sys.path, TF32 off, the process
+    group (ranks sharing a card all on cuda:0 under gloo; one card a rank
+    under NCCL)."""
+    global torch
+    import datetime
+    import torch as _torch
+    torch = _torch
+    sys.path.insert(0, str(ROOT / "src"))
+    torch.cuda.set_device(rank if backend == "nccl" else 0)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.distributed.init_process_group(
+        backend, init_method=f"file://{init}", rank=rank, world_size=world,
+        timeout=datetime.timedelta(seconds=MESH_TIMEOUT))
+    return torch.device("cuda", torch.cuda.current_device())
+
+
+def _mesh(shape):
+    from torch.distributed.device_mesh import DeviceMesh
+    return DeviceMesh("cuda", torch.arange(
+        int(np.prod(shape))).view(*shape), mesh_dim_names=("data", "k"))
+
+
+def _mesh_fit(label, make, X, y, Xte, yte, cfg, live=None):
+    """One fit on this rank, counts zeroed just before and read just
+    after; returns its record (weights, trace, counts, time, metric)."""
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    svm = make()
+    res = svm.fit(X, y) if live is None else svm.fit(X, y, live=live)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    counts = _counts()
+    steps = min(cfg.max_iters, -(-res.n_iters // cfg.scan_chunk)
+                * cfg.scan_chunk)
+    return dict(label=label, weights=res.weights, objective=res.objective,
+                n_iters=res.n_iters, converged=res.converged, steps=steps,
+                secs=secs, counts=counts, metric=_metric(svm, cfg, Xte,
+                                                         yte)[1])
+
+
+def mesh_specs(featurizer_path):
+    """The fits of the multi-rank phase: (name, mesh shape, what it
+    runs). The first three are the main path; the short k-shard fits after
+    them run each other window variant once a step."""
+    from repro_torch.core import SVMConfig, lam_from_C
+    lin = dict(lam=lam_from_C(1.0), max_iters=100)
+    short = dict(max_iters=4, min_iters=4)
+    svr = dict(lam=lam_from_C(0.01), eps_ins=EPS_INS, pad_features=2,
+               k_shard_axis="k", **short)
+    krn = dict(lam=1.0, sigma=math.sqrt(90), eps_ins=EPS_INS, max_iters=60,
+               k_shard_axis="k")
+    return [
+        ("LIN-EM-CLS 2x2", (2, 2), "alpha", SVMConfig.from_options(
+            "LIN-EM-CLS", pad_features=2, k_shard_axis="k", **lin),
+         "fused_stats[em_hinge,window]"),
+        ("LIN-MC-CLS 4x1", (4, 1), "alpha", SVMConfig.from_options(
+            "LIN-MC-CLS", rng="fused", **lin), "fused_stats[mc_hinge,seed]"),
+        ("KRN-EM-SVR 2x2", (2, 2), "krn", SVMConfig.from_options(
+            "KRN-EM-SVR", **krn), "nystrom_fused_stats[em_svr,window]"),
+        ("LIN-MC-CLS 2x2 fused", (2, 2), "alpha", SVMConfig.from_options(
+            "LIN-MC-CLS", rng="fused", pad_features=2, k_shard_axis="k",
+            **dict(lin, **short)), "fused_stats[mc_hinge,seed,window]"),
+        ("LIN-MC-CLS 2x2 host", (2, 2), "alpha", SVMConfig.from_options(
+            "LIN-MC-CLS", pad_features=2, k_shard_axis="k",
+            **dict(lin, **short)), "fused_stats[mc_hinge,noise,window]"),
+        ("LIN-EM-SVR 2x2", (2, 2), "year", SVMConfig.from_options(
+            "LIN-EM-SVR", **svr), "fused_stats[em_svr,window]"),
+        ("LIN-MC-SVR 2x2 fused", (2, 2), "year", SVMConfig.from_options(
+            "LIN-MC-SVR", rng="fused", **svr),
+         "fused_stats[mc_svr,seed,window]"),
+        ("LIN-MC-SVR 2x2 host", (2, 2), "year", SVMConfig.from_options(
+            "LIN-MC-SVR", **svr), "fused_stats[mc_svr,noise,window]"),
+        ("KRN-MC-SVR 2x2 fused", (2, 2), "krn", SVMConfig.from_options(
+            "KRN-MC-SVR", rng="fused", **dict(krn, **short)),
+         "nystrom_fused_stats[mc_svr,seed,window]"),
+        ("KRN-MC-SVR 2x2 host", (2, 2), "krn", SVMConfig.from_options(
+            "KRN-MC-SVR", **dict(krn, **short)),
+         "nystrom_fused_stats[mc_svr,noise,window]"),
+        ("KRN-EM-CLS 2x2", (2, 2), "krn_cls", SVMConfig.from_options(
+            "KRN-EM-CLS", **dict(krn, **short)),
+         "nystrom_fused_stats[em_hinge,window]"),
+        ("KRN-MC-CLS 2x2 fused", (2, 2), "krn_cls", SVMConfig.from_options(
+            "KRN-MC-CLS", rng="fused", **dict(krn, **short)),
+         "nystrom_fused_stats[mc_hinge,seed,window]"),
+        ("KRN-MC-CLS 2x2 host", (2, 2), "krn_cls", SVMConfig.from_options(
+            "KRN-MC-CLS", **dict(krn, **short)),
+         "nystrom_fused_stats[mc_hinge,noise,window]"),
+    ]
+
+
+def _mesh_data(kind, featurizer_path):
+    """(X, y, X held out, y held out, featurizer or None) of a mesh fit:
+    the alpha-like split of phases 4 and 6, the year split of phases 9 and
+    10 (KRN: phase 10's featurizer; KRN-CLS: the year rows labelled by the
+    sign of their target)."""
+    if kind == "alpha":
+        X, y = alpha_data()
+        return X[:250_000], y[:250_000], X[250_000:], y[250_000:], None
+    Xtr, ytr, Xte, yte = year_split()
+    if kind == "year":
+        return Xtr, ytr, Xte, yte, None
+    f = np.load(featurizer_path)
+    if kind == "krn_cls":
+        ytr, yte = np.where(ytr >= 0, 1.0, -1.0), np.where(yte >= 0, 1.0,
+                                                            -1.0)
+    return Xtr, ytr, Xte, yte, (f["L"], f["P"])
+
+
+def _rank_main(rank, world, init, outdir, featurizer_path):
+    """One of the four gloo ranks on cuda:0: every mesh fit of
+    ``mesh_specs``, its record written to ``outdir``."""
+    dev = _rank_setup(rank, world, init, "gloo")
+    from repro_torch.core import NystromSVM, PEMSVM
+    records = []
+    meshes = {}  # one mesh a shape: its process groups are made once
+    for name, shape, kind, cfg, _ in mesh_specs(featurizer_path):
+        mesh = meshes.setdefault(shape, _mesh(shape))
+        X, y, Xte, yte, feat = _mesh_data(kind, featurizer_path)
+        if feat is None:
+            make = functools.partial(PEMSVM, cfg, device=dev, mesh=mesh)
+        else:
+            def make(cfg=cfg, mesh=mesh, feat=feat):
+                ny = NystromSVM(cfg, n_landmarks=feat[0].shape[0],
+                                device=dev, mesh=mesh)
+                ny.fit = functools.partial(ny.fit_featurized,
+                                           landmarks=feat[0], proj=feat[1])
+                return ny
+        records.append(_mesh_fit(name, make, X, y, Xte, yte, cfg))
+    torch.distributed.barrier()
+    np.save(Path(outdir) / f"rank{rank}.npy", np.array(records, object),
+            allow_pickle=True)
+    torch.distributed.destroy_process_group()
+
+
+def _nccl_one_rank(rank, world, init, outdir):
+    """A one-rank NCCL group on the card: LIN-EM-CLS on the alpha-like set
+    without a mesh and on a 1 x 1 mesh; the two must agree bitwise."""
+    dev = _rank_setup(rank, world, init, "nccl")
+    from repro_torch.core import PEMSVM, SVMConfig, lam_from_C
+    X, y = alpha_data()
+    cfg = SVMConfig.from_options("LIN-EM-CLS", lam=lam_from_C(1.0),
+                                 max_iters=100)
+    data = (X[:250_000], y[:250_000], X[250_000:], y[250_000:])
+    one = _mesh_fit("no mesh", functools.partial(PEMSVM, cfg, device=dev),
+                    *data, cfg)
+    mesh = _mesh((world, 1))
+    on = _mesh_fit("NCCL 1x1", functools.partial(PEMSVM, cfg, device=dev,
+                                                  mesh=mesh), *data, cfg)
+    np.save(Path(outdir) / f"nccl{rank}.npy", np.array([one, on], object),
+            allow_pickle=True)
+    torch.distributed.destroy_process_group()
+
+
+def _nccl_fit1(rank, world, init, outdir, featurizer_path):
+    """Fit 1 under NCCL, one rank a card: 2 x 2 on four cards, 1 x 2 on
+    two or three."""
+    dev = _rank_setup(rank, world, init, "nccl")
+    from repro_torch.core import PEMSVM
+    name, _, kind, cfg, _ = mesh_specs(featurizer_path)[0]
+    X, y, Xte, yte, _ = _mesh_data(kind, featurizer_path)
+    rec = _mesh_fit(f"{name[:10]} {world // 2}x2 NCCL", functools.partial(
+        PEMSVM, cfg, device=dev, mesh=_mesh((world // 2, 2))), X, y, Xte,
+        yte, cfg)
+    np.save(Path(outdir) / f"multi{rank}.npy", np.array([rec], object),
+            allow_pickle=True)
+    torch.distributed.destroy_process_group()
+
+
+def _spawn(fn, nprocs, prefix, *args):
+    """Run ``fn(rank, nprocs, store, outdir, *args)`` in ``nprocs`` spawned
+    processes; any rank's failure stops the others and fails the script.
+    Returns each rank's records (its ``{prefix}{rank}.npy``); the
+    directory of the file store and the records is removed."""
+    import shutil
+    import tempfile
+    import torch.multiprocessing as mp
+    outdir = tempfile.mkdtemp(prefix="chip_smoke_mesh_")
+    store = Path(outdir) / "store"
+    try:
+        try:
+            mp.start_processes(fn, args=(nprocs, str(store), outdir, *args),
+                               nprocs=nprocs, join=True,
+                               start_method="spawn")
+        except Exception as e:  # noqa: BLE001 (a rank's failure, re-raised)
+            check(False, f"a rank of {fn.__name__} failed: {e}")
+        return [list(np.load(Path(outdir) / f"{prefix}{r}.npy",
+                             allow_pickle=True)) for r in range(nprocs)]
+    finally:
+        shutil.rmtree(outdir, ignore_errors=True)
+
+
+def phase_mesh(dev, krn_ref, mc_ref):
+    """Phase 11: the multi-device fit. Four gloo ranks on cuda:0 (one
+    card is enough; NCCL refuses two ranks on one device), every kernel
+    on the card at the window each rank computes; a one-rank NCCL group;
+    fit 1 under NCCL, one rank a card, when two or more cards are
+    visible.
+    ``krn_ref`` is phase 10's KRN-EM-SVR kernel fit (its featurizer and
+    result), ``mc_ref`` phase 6's rng='fused' fits and seed spread."""
+    import shutil
+    import tempfile
+    from repro_torch.core import PEMSVM
+    ny, r10 = krn_ref
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_featurizer_")
+    feat = str(Path(tmp) / "featurizer.npz")
+    np.savez(feat, L=ny._landmarks, P=ny._proj)
+    try:
+        specs = mesh_specs(feat)
+        # fit 1's one-device yardstick, the same pad_features
+        _, _, kind1, cfg1, _ = specs[0]
+        one = _mesh_fit("one device", functools.partial(
+            PEMSVM, dataclasses.replace(cfg1, k_shard_axis=None),
+            device=dev), *_mesh_data(kind1, feat)[:4], cfg1)
+        t0 = time.perf_counter()
+        ranks = _spawn(_rank_main, 4, "rank", feat)
+        say(f"  4 gloo ranks on cuda:0: {time.perf_counter() - t0:.1f} s "
+            "with start-up")
+        runs = {}
+        for j, (name, shape, kind, cfg, variant) in enumerate(specs):
+            recs = [r[j] for r in ranks]
+            for r in recs[1:]:
+                check(np.array_equal(r["weights"], recs[0]["weights"])
+                      and r["objective"] == recs[0]["objective"],
+                      f"{name}: the ranks' weights or traces differ")
+            for r in recs:
+                c = r["counts"]
+                check(c[variant] == r["steps"], f"{name}: {variant} launched "
+                      f"{c[variant]} times for {r['steps']} steps run")
+                check(all(v == 0 for key, v in c.items() if key != variant),
+                      f"{name}: launched other kernels: {c}")
+                check(bool(np.all(np.isfinite(r["weights"]))),
+                      f"{name}: non-finite weights")
+            r = recs[0]
+            say(f"  {name} (4 ranks share one card): {r['secs']:.3f} s, "
+                f"{r['n_iters']} iterations ({r['steps']} steps run, "
+                f"{r['secs'] / r['steps'] * 1e3:.2f} ms a step), converged "
+                f"{r['converged']}, held-out "
+                f"{'RMSE' if cfg.task == 'SVR' else 'accuracy'} "
+                f"{r['metric']:.4f}, ranks bitwise equal, {variant} "
+                f"{r['counts'][variant]} a rank")
+            if variant.endswith(",window]"):  # summed over the four ranks
+                runs[variant] = ({variant: sum(x["counts"][variant]
+                                               for x in recs)},
+                                 r["n_iters"], r["steps"])
+            if j == 0:
+                orel, wrel = trace_rel(r["objective"], one["objective"]), _rel(
+                    r["weights"], one["weights"])
+                say(f"  bands {name} against one device (pad_features=2, "
+                    f"{one['n_iters']} iterations, accuracy "
+                    f"{one['metric']:.4f}): iterations {r['n_iters']}, "
+                    f"objective rel {orel:.3e} (<= 2e-2), weights rel "
+                    f"{wrel:.3e} (<= 5e-2), accuracy diff "
+                    f"{abs(r['metric'] - one['metric']):.4f} (<= 0.01)")
+                check(r["converged"]
+                      and abs(r["n_iters"] - one["n_iters"]) <= 3
+                      and orel <= 2e-2 and wrel <= 5e-2
+                      and abs(r["metric"] - one["metric"]) <= 0.01,
+                      f"{name}: outside phase 4's bands of the one-device fit")
+            elif j == 1:
+                rk, spread = mc_ref
+                wrel = _rel(r["weights"], rk.weights)
+                first = abs(r["objective"][0] - rk.objective[0]) / abs(
+                    rk.objective[0])
+                say(f"  bands {name} against phase 6's one-device kernel fit: "
+                    f"first objective rel {first:.3e} (<= 1e-6: the same "
+                    f"draws), weights rel {wrel:.4e} (<= 3 x the plain seed "
+                    f"spread {spread:.4e})")
+                check(r["converged"] and first <= 1e-6 and wrel <= 3 * spread,
+                      f"{name}: outside phase 6's bands")
+            elif j == 2:
+                rmse10 = ny.rmse(*year_split()[2:])
+                orel = trace_rel(r["objective"], r10.objective)
+                say(f"  bands {name} against phase 10's one-device kernel fit "
+                    f"(RMSE {rmse10:.4f}): iterations {r['n_iters']} vs "
+                    f"{r10.n_iters}, RMSE diff "
+                    f"{abs(r['metric'] - rmse10):.4f} (<= 0.01), objective "
+                    f"rel {orel:.3e} (<= 2e-2), weights rel "
+                    f"{_rel(r['weights'], r10.weights):.3e} (printed)")
+                check(r["converged"] and abs(r["metric"] - rmse10) <= 0.01
+                      and orel <= 2e-2, f"{name}: outside phase 10's bands")
+        one, on = _spawn(_nccl_one_rank, 1, "nccl")[0]
+        check(np.array_equal(one["weights"], on["weights"])
+              and one["objective"] == on["objective"],
+              "the one-rank NCCL mesh fit is not bitwise the fit without a "
+              "mesh")
+        say(f"  one-rank NCCL group: {on['n_iters']} iterations in "
+            f"{on['secs']:.3f} s, bitwise equal to the fit without a mesh "
+            f"({one['secs']:.3f} s)")
+        n_cards = torch.cuda.device_count()
+        if n_cards >= 2:
+            world = 4 if n_cards >= 4 else 2
+            (rec,) = _spawn(_nccl_fit1, world, "multi", feat)[0]
+            say(f"  {rec['label']} on {world} cards: {rec['secs']:.3f} s, "
+                f"{rec['n_iters']} iterations, accuracy {rec['metric']:.4f}")
+        else:
+            say(f"  no multi-card run made: {n_cards} card visible (NCCL "
+                "needs one card a rank)")
+        return runs
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
 
 
 SOURCES = {
@@ -1709,6 +2318,12 @@ SOURCES = {
        for name in NYS_SVR_VARIANTS},
     "weighted_gram": ("src/repro_torch/csrc/weighted_gram.cu",
                       "src/repro/kernels/weighted_gram.py:40"),
+    **{name: ("src/repro_torch/csrc/fused_stats.cu",
+              "src/repro/kernels/fused_stats.py:155")
+       for name in WIN_VARIANTS},
+    **{name: ("src/repro_torch/csrc/nystrom_phi.cu",
+              "src/repro/kernels/nystrom_phi.py:283")
+       for name in NYS_WIN_VARIANTS},
 }
 
 
@@ -1736,12 +2351,13 @@ def main() -> int:
     svr_rows, gram_counts = phase_svr_kernels(dev)
     rows.update(svr_rows)
     rows.update(phase_nystrom_kernels(dev))
+    rows.update(phase_window_kernels(dev))
     say("== 4. main path, K <= 1536: LIN-EM-CLS on alpha-like 250,000 x 501")
     it4, st4, c4 = phase_main_path(dev)
     say("== 5. main path, K > 1536: LIN-EM-CLS at K = 2,048")
     it5, st5, c5 = phase_wide(dev)
     say("== 6. main path, LIN-MC-CLS on alpha-like 250,000 x 501")
-    runs = phase_mc(dev)
+    runs, mc_ref = phase_mc(dev)
     runs["fused_stats"] = (c4, it4, st4)
     for name in ("fused_estep", "syrk_tri"):
         runs[name] = (c5, it5, st5)
@@ -1756,7 +2372,11 @@ def main() -> int:
     runs.update(phase_svr(dev))
     say("== 10. main path, KRN-{EM,MC}-SVR (NystromSVM) on the year split, "
         "m = 681: the fused route")
-    runs.update(phase_krn_svr(dev))
+    krn_svr_runs, krn_ref = phase_krn_svr(dev)
+    runs.update(krn_svr_runs)
+    say("== 11. the multi-device fit: a 2 x 2 (data x k) mesh and a 4 x 1 "
+        "one, four gloo ranks on cuda:0; a one-rank NCCL group")
+    runs.update(phase_mesh(dev, krn_ref, mc_ref))
     runs["weighted_gram"] = (gram_counts, 0, 0)
     say(f"== done in {time.perf_counter() - t0:.1f} s")
     kernels = []

@@ -19,9 +19,11 @@ _FIELDS = tuple(f.name for f in dataclasses.fields(SVMConfig))
 
 def config_from_reference(fields: dict) -> SVMConfig:
     """The port's SVMConfig with the same field values as the reference
-    config whose ``dataclasses.asdict`` is ``fields``. The reference's
-    kernel backends ('interpret', 'pallas') map to the port's default
-    (the kernels on a CUDA tensor, the plain path on a CPU tensor)."""
+    config whose ``dataclasses.asdict`` is ``fields``, the mesh fields
+    (``k_shard_axis``, ``pad_features``, ``triangle_reduce``,
+    ``reduce_dtype``) included. The reference's kernel backends
+    ('interpret', 'pallas') map to the port's default (the kernels on a
+    CUDA tensor, the plain path on a CPU tensor)."""
     unknown = sorted(set(fields) - set(_FIELDS))
     if unknown:
         raise ValueError(f"fields unknown to SVMConfig: {unknown}")

@@ -1,18 +1,26 @@
 """LIN-{EM,MC}-CLS: linear binary SVM via data augmentation (paper Sec 2,
-4). Port of the one-device part of ``repro/core/linear.py``.
+4). Port of ``repro/core/linear.py``.
 
-One iteration over the training set:
+One iteration over a local row block (other blocks live on other ranks of
+the mesh; the reductions go through ``stats.reduce_stats``):
 
-  E-step   gamma_d from the residual y_d - w^T x_d      O(NK)
-  stats    Sigma = X^T diag(1/gamma) X                  O(NK^2)  <- kernel
-           mu    = X^T (y (1 + 1/gamma))                O(NK)    <- fused
-  M-step   Cholesky solve (EM) / Gaussian draw (MC)     O(K^3)
+  E-step   gamma_d from the residual y_d - w^T x_d      O(NK/P)
+  stats    Sigma^p = X^T diag(1/gamma) X                O(NK^2/P) <- kernel
+           mu^p    = X^T (y (1 + 1/gamma))              O(NK/P)   <- fused
+  reduce   sum over the data axes                       collective
+  M-step   Cholesky solve (EM) / Gaussian draw (MC)     O(K^3), replicated
 
 Padding convention: invalid rows have X-row == 0 and target == 0, which
 makes their statistics contributions exactly zero; ``mask`` only enters
 the objective. In Nystrom phi-space (``phi_spec``) the statistic
 featurizes raw rows on the device, and there the mask is what zeroes
 padded rows: a zero X row is not a zero phi row.
+
+``k_shard_axis``: the 2-D (data x k) statistic. Each rank of the k axis
+computes only its Sigma column block, inside the one-pass statistic
+(``col_window`` of ``ops.fused_stats`` / ``ops.nystrom_fused_stats``);
+the blocks ride one packed sum with b over the data axes and are gathered
+over the k axis (``stats.reduce_kshard``).
 """
 from __future__ import annotations
 
@@ -55,10 +63,13 @@ def accumulate_stats(X: torch.Tensor, rho: torch.Tensor, beta: torch.Tensor,
                      backend: str | None, row0: int = 0, rng: str = "host",
                      chain0: int = 0, phi=None,
                      phi_spec: PhiSpec | None = None,
-                     mask: torch.Tensor | None = None):
+                     mask: torch.Tensor | None = None,
+                     col_window: tuple | None = None):
     """(margin, gamma, Sigma, mu) for the generic hinge over a row block,
     in one X pass through ``ops.fused_stats``. Shared by CLS
-    (rho = beta = y).
+    (rho = beta = y). ``col_window = (start, blk)`` narrows Sigma to its
+    column block (X columns, or phi columns in phi-space): the statistic
+    of one k-shard; margin, gamma and mu stay full width.
 
     EM runs the em_hinge epilogue. MC runs mc_hinge with its noise from
     ``rng``: 'host' pre-draws the fold_in-keyed (nu, u)
@@ -91,12 +102,40 @@ def accumulate_stats(X: torch.Tensor, rho: torch.Tensor, beta: torch.Tensor,
             X, landmarks, proj, rho, beta, w, mask, noise,
             sigma=phi_spec.sigma, kind=phi_spec.kind,
             add_bias=phi_spec.add_bias, epilogue=epilogue, eps=eps,
-            seed=seed, backend=backend)
+            col_window=col_window, seed=seed, backend=backend)
     else:
-        margin, gamma, b, S = ops.fused_stats(X, rho, beta, w, None, noise,
-                                              epilogue=epilogue, eps=eps,
-                                              seed=seed, backend=backend)
+        margin, gamma, b, S = ops.fused_stats(
+            X, rho, beta, w, None, noise, epilogue=epilogue, eps=eps,
+            col_window=col_window, seed=seed, backend=backend)
     return margin, gamma, S, b
+
+
+def _k_block(width: int, k_axis) -> tuple[int, int]:
+    """(start, blk): this k-shard's Sigma column window of the width-K
+    statistic (X columns for LIN, the phi width in phi-space). The k axis
+    must divide K: truncating to K // n would drop the trailing K % n
+    Sigma columns and corrupt the posterior."""
+    n = k_axis.size
+    if width % n != 0:
+        name = k_axis.names[0]
+        raise ValueError(
+            f"k_shard_axis {name!r} of size {n} does not divide "
+            f"K={width}; pad the feature dimension to a multiple of "
+            f"{n} with explicit zero columns "
+            f"(data.pipeline.pad_features_to / SVMConfig.pad_features) "
+            f"or drop k_shard_axis.")
+    blk = width // n
+    return k_axis.index * blk, blk
+
+
+def _reduce(S, b, axes, k_shard_axis, triangle, reduce_dtype, live):
+    """The step's reduction of (Sigma^p, mu^p): the packed all-reduce over
+    the data axes, or under a k axis the 2-D ``reduce_kshard``."""
+    if k_shard_axis is None:
+        return stats.reduce_stats(S, b, axes, triangle=triangle,
+                                  reduce_dtype=reduce_dtype, live=live)
+    return stats.reduce_kshard(S, b, axes, k_shard_axis,
+                               reduce_dtype=reduce_dtype, live=live)
 
 
 def chain_keys(key: torch.Tensor, chain0: int, n_chains: int
@@ -126,27 +165,42 @@ def cls_step(data: SVMData, w: torch.Tensor, key: torch.Tensor | None = None,
              *, mode: str = "EM", lam: float = 1.0, eps: float = 1e-6,
              jitter: float = 1e-6, backend: str | None = None,
              rng: str = "host", n_chains: int = 1, chain0: int = 0,
-             phi=None, phi_spec: PhiSpec | None = None):
+             phi=None, phi_spec: PhiSpec | None = None, axes=None,
+             triangle: bool = True, k_shard_axis=None,
+             reduce_dtype: str | None = None, live=None):
     """One LIN-*-CLS iteration. Returns (w_new, aux dict of 0-d device
-    tensors); nothing in it waits for the device. ``n_chains > 1``
-    (rng='fused') carries the state chain-major as (C, K) and reports
-    cross-chain means. ``phi``/``phi_spec`` run it in Nystrom phi-space
-    (see ``accumulate_stats``)."""
+    tensors); nothing in it waits for the device but the collectives.
+    ``n_chains > 1`` (rng='fused') carries the state chain-major as (C, K)
+    and reports cross-chain means. ``phi``/``phi_spec`` run it in Nystrom
+    phi-space (see ``accumulate_stats``).
+
+    On a mesh, ``axes`` (``distributed.MeshAxes`` of the data axes) sums
+    the statistics over the workers, ``k_shard_axis`` (the k axis's
+    MeshAxes) gives each rank one Sigma column block, ``triangle`` and
+    ``reduce_dtype`` shape the collective, and ``live`` (this shard's 0-d
+    liveness weight) renormalizes every reduction around dropped shards;
+    all-ones is bitwise the plain sum. The MC draws are keyed by global
+    row (``stats.shard_row_offset``): a mesh fit draws the chain of a
+    one-device fit."""
     X, y, mask = data
     multi = n_chains > 1
+    row0 = stats.shard_row_offset(X.shape[0], axes)
+    col_window = (None if k_shard_axis is None
+                  else _k_block(w.shape[-1], k_shard_axis))
     margin, gamma, S, b = accumulate_stats(
         X, y, y, w.T if multi else w, mode=mode, key=key, eps=eps,
-        backend=backend, rng=rng, chain0=chain0, phi=phi,
-        phi_spec=phi_spec, mask=mask)
-    S, b = stats.reduce_stats(S, b)
+        backend=backend, row0=row0, rng=rng, chain0=chain0, phi=phi,
+        phi_spec=phi_spec, mask=mask, col_window=col_window)
+    S, b = _reduce(S, b, axes, k_shard_axis, triangle, reduce_dtype, live)
     if multi:
         w_new = multichain_draw(key, S, b, lam, jitter, chain0)
         maskc = mask[:, None].expand_as(margin)
         obj = objective.l2_reg(w_new, lam) / n_chains + stats.preduce(
-            objective.hinge_obj_terms(margin, y[:, None], maskc)) / n_chains
-        n_sv = stats.preduce(torch.sum(maskc * (gamma <= 2.0 * eps))
-                             ) / n_chains
-        gamma_mean = stats.masked_mean(gamma, maskc)
+            objective.hinge_obj_terms(margin, y[:, None], maskc), axes,
+            live) / n_chains
+        n_sv = stats.preduce(torch.sum(maskc * (gamma <= 2.0 * eps)), axes,
+                             live) / n_chains
+        gamma_mean = stats.masked_mean(gamma, maskc, axes, live)
     else:
         L, mu = stats.posterior_params(S, b, lam, jitter=jitter)
         if mode == "EM":
@@ -156,9 +210,10 @@ def cls_step(data: SVMData, w: torch.Tensor, key: torch.Tensor | None = None,
         else:
             w_new = stats.draw_weight(chain_keys(key, chain0, 1)[0], L, mu)
         obj = objective.l2_reg(w_new, lam) + stats.preduce(
-            objective.hinge_obj_terms(margin, y, mask))
-        n_sv = stats.preduce(torch.sum(mask * (gamma <= 2.0 * eps)))
-        gamma_mean = stats.masked_mean(gamma, mask)
+            objective.hinge_obj_terms(margin, y, mask), axes, live)
+        n_sv = stats.preduce(torch.sum(mask * (gamma <= 2.0 * eps)), axes,
+                             live)
+        gamma_mean = stats.masked_mean(gamma, mask, axes, live)
     return w_new, {"objective": obj, "gamma_mean": gamma_mean,
                    "n_sv": n_sv}
 

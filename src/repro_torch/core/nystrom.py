@@ -14,7 +14,11 @@ Host work is one-time: the landmark choice and the K_mm^{-1/2}
 eigendecomposition (float64, with a spectral floor), cached on the model.
 
 The delegate carries the task: KRN-{EM,MC}-CLS and KRN-{EM,MC}-SVR (the
-phi-space SVR statistic under the em_svr / mc_svr epilogues).
+phi-space SVR statistic under the em_svr / mc_svr epilogues), and the
+mesh: with ``mesh`` every rank draws the same landmarks from the same host
+rows and computes the same projection (replicated), and the delegate fits
+in phi-space on the mesh, a ``k_shard_axis`` splitting the phi columns of
+Sigma.
 
 Not ported yet: ``fit_libsvm`` (ROADMAP queue 1 item 8),
 ``export_servable``/``scorer`` (item 12), ``resume_from``/``warm_start``
@@ -84,10 +88,6 @@ class NystromSVM:
         if config.formulation != "KRN":
             raise ValueError("NystromSVM approximates KRN; got formulation "
                              f"{config.formulation!r}")
-        if data_axes is not None:
-            raise NotImplementedError(
-                "data_axes is not ported yet: ROADMAP queue 1 item 10 "
-                "(multi-GPU)")
         self.config = config
         self.kernel_kind = config.kernel
         self.sigma = config.sigma
@@ -101,7 +101,8 @@ class NystromSVM:
             config, formulation="LIN", add_bias=False,
             phi_spec=PhiSpec(sigma=config.sigma, kind=config.kernel,
                              add_bias=True))
-        self.svm = PEMSVM(lin_cfg, device=device, mesh=mesh)
+        self.svm = PEMSVM(lin_cfg, device=device, mesh=mesh,
+                          data_axes=data_axes)
         self._landmarks: np.ndarray | None = None
         self._proj: np.ndarray | None = None
 

@@ -1,7 +1,7 @@
 """PEMSVM driver: port of ``repro/core/solver.py`` for LIN-{EM,MC}-CLS and
-LIN-{EM,MC}-SVR on one device, with the ``scan`` (default) and ``loop``
-drivers, in X-space or (``phi_spec``, the delegate of ``NystromSVM``) in
-Nystrom phi-space.
+LIN-{EM,MC}-SVR, with the ``scan`` (default) and ``loop`` drivers, in
+X-space or (``phi_spec``, the delegate of ``NystromSVM``) in Nystrom
+phi-space, on one device or on a device mesh.
 
 The run protocol is the paper's: the objective is evaluated every
 iteration and the fit stops when its change falls to tol*N (Sec 5.5);
@@ -13,10 +13,14 @@ chains over one X stream.
 
 ``PEMSVM(config)`` runs on ``cuda:0`` and its statistic goes through the
 hand-written kernels (``kernels/ops.py``); ``device="cpu"`` runs the plain
-PyTorch path. ``SVMConfig`` carries every field of the reference, so a
+PyTorch path. With ``mesh`` (a ``torch.distributed`` DeviceMesh with
+``mesh_dim_names``) every rank fits its row block of the data axes and
+the statistics are summed over them, the paper's Fig. 1; a
+``config.k_shard_axis`` splits Sigma's columns over that axis (the 2-D
+statistic). ``SVMConfig`` carries every field of the reference, so a
 reference config converts field for field (``core/convert.py``); the
-options this slice does not carry raise ``NotImplementedError`` naming the
-ROADMAP item that brings them.
+options this port does not carry yet raise ``NotImplementedError`` naming
+the ROADMAP item that brings them.
 """
 from __future__ import annotations
 
@@ -28,6 +32,7 @@ from typing import Any, Callable
 import numpy as np
 import torch
 
+from repro_torch.data.pipeline import pad_features_to
 from repro_torch.kernels import ops
 from . import distributed, linear, prng, svr
 from .linear import SVMData
@@ -151,7 +156,10 @@ class FitResult:
     aux_history: dict
     n_iters: int
     converged: bool
-    n_host_syncs: int = 0           # device->host transfers
+    n_host_syncs: int = 0           # the fit loop's device->host transfers
+    #                                 (a gloo collective on CUDA tensors
+    #                                 also passes through the host; those
+    #                                 are not counted)
     chain_weights: np.ndarray | None = None  # (C, K) per-chain posterior
     #                                 means (n_chains > 1); ``weights`` is
     #                                 their cross-chain mean
@@ -168,9 +176,6 @@ def _unsupported(cfg: SVMConfig) -> list[str]:
          "NystromSVM)"),
         ("task", cfg.task == "MLT", "item 7 (MLT)"),
         ("driver", cfg.driver == "stream", "item 8 (streaming and data)"),
-        ("k_shard_axis", cfg.k_shard_axis is not None, "item 10 (multi-GPU)"),
-        ("pad_features", cfg.pad_features is not None,
-         "item 8 (streaming and data)"),
         ("fault", cfg.fault is not None, "item 11 (reliability)"),
         ("decay", cfg.decay != 0.0, "item 8 (streaming and data)"),
         ("window", cfg.window != 0, "item 8 (streaming and data)"),
@@ -183,7 +188,6 @@ _FIT_KEYWORDS = {
     "resume_from": "item 11 (reliability)",
     "resume_step": "item 11 (reliability)",
     "warm_start": "item 8 (streaming and data)",
-    "live": "item 10 (multi-GPU)",
     "fault_hook": "item 11 (reliability)",
     "epoch": "item 11 (reliability)",
 }
@@ -197,23 +201,51 @@ def _device(device) -> torch.device:
             "PEMSVM runs on the GPU by default and no CUDA device is "
             "visible; pass device='cpu' to run the plain PyTorch path on "
             "the CPU")
-    return torch.device("cuda", 0)
+    return torch.device("cuda", torch.cuda.current_device())
 
 
 class PEMSVM:
-    """Parallel EM SVM (the paper's PEMSVM): LIN-{EM,MC}-{CLS,SVR} on one
-    device, in X-space or Nystrom phi-space."""
+    """Parallel EM SVM (the paper's PEMSVM): LIN-{EM,MC}-{CLS,SVR} in
+    X-space or Nystrom phi-space, on one device or on a device mesh.
 
-    def __init__(self, config: SVMConfig, device=None, mesh=None):
+    ``mesh``: a ``torch.distributed.device_mesh.DeviceMesh`` with
+    ``mesh_dim_names``, on a process group the caller has created (NCCL
+    for one card a rank, gloo on the CPU or for ranks sharing a card).
+    ``data_axes`` defaults to every mesh axis but ``config.k_shard_axis``,
+    as in the reference. Every rank constructs the model and calls
+    ``fit`` with the same host arrays; outputs are replicated."""
+
+    def __init__(self, config: SVMConfig, device=None, mesh=None,
+                 data_axes=None):
         bad = _unsupported(config)
         if bad:
             raise NotImplementedError("not ported yet: " + "; ".join(bad))
-        if mesh is not None:
-            raise NotImplementedError(
-                "a device mesh is not ported yet: ROADMAP queue 1 item 10 "
-                "(multi-GPU)")
         self.config = config
         self.device = _device(device)
+        self.mesh = mesh
+        self._axes = self._k_axis = None
+        if mesh is None:
+            if config.k_shard_axis is not None or data_axes is not None:
+                raise ValueError("k_shard_axis and data_axes name axes of a "
+                                 "device mesh; pass mesh=")
+            self.data_axes: tuple[str, ...] = ()
+        else:
+            distributed.check_mesh(mesh)
+            if mesh.device_type != self.device.type:
+                raise ValueError(
+                    f"the mesh is on {mesh.device_type!r} devices and the "
+                    f"fit on {self.device}; pass a matching device=")
+            k = config.k_shard_axis
+            if data_axes is None:
+                data_axes = distributed.data_axes_of(
+                    mesh, (k,) if k else ())
+            self.data_axes = tuple(data_axes)
+            if k is not None and k in self.data_axes:
+                raise ValueError(f"k_shard_axis {k!r} is also a data axis")
+            if self.data_axes:
+                self._axes = distributed.axes_of(mesh, self.data_axes)
+            if k is not None:
+                self._k_axis = distributed.axes_of(mesh, (k,))
         # fp32 statistics must stay fp32: TF32 keeps ~3 decimal digits, and
         # a reduced-precision Sigma collapsed the posterior (DESIGN.md
         # §6.2). Both flags are process-wide in PyTorch.
@@ -238,11 +270,15 @@ class PEMSVM:
             self.device) for a in self._phi_arrays)
 
     # ------------------------------------------------------------- fitting
-    def fit(self, X: np.ndarray, y: np.ndarray, **kw) -> FitResult:
+    def fit(self, X: np.ndarray, y: np.ndarray, *, live=None,
+            **kw) -> FitResult:
         """Fit on host arrays X (N, D) and labels y in {+-1} (CLS) or real
-        targets (SVR). The elastic
-        keywords of the reference (``resume_from``, ``warm_start``,
-        ``live``, ``fault_hook``, ``epoch``) are not ported yet."""
+        targets (SVR). ``live`` (mesh only) is the initial liveness weight
+        of each data shard, shape (num_shards,): a shard at 0 drops out of
+        every reduction and the sums renormalize (``stats.preduce``). The
+        other elastic keywords of the reference (``resume_from``,
+        ``resume_step``, ``warm_start``, ``fault_hook``, ``epoch``) are not
+        ported yet."""
         for name, value in kw.items():
             if name not in _FIT_KEYWORDS:
                 raise TypeError(f"fit() got an unexpected keyword {name!r}")
@@ -251,18 +287,26 @@ class PEMSVM:
                     f"fit({name}=...) is not ported yet: ROADMAP queue 1 "
                     f"{_FIT_KEYWORDS[name]}")
         cfg = self.config
+        live = self._live(live)
         X = np.asarray(X, np.float32)
         y = np.asarray(y)
         self._n_features = X.shape[1]
         if cfg.add_bias:
             X = np.concatenate([X, np.ones((X.shape[0], 1), np.float32)], 1)
+        if cfg.pad_features:
+            # Zero columns after the bias: the route to a k_shard-divisible
+            # width; their weights stay 0, predictions are unchanged.
+            X = pad_features_to(X, cfg.pad_features)
         N = X.shape[0]
         phi = self._phi()
         data, state = self._prepare(X, y, phi)
         common = dict(mode=cfg.algorithm, lam=cfg.lam, eps=cfg.eps,
                       jitter=cfg.jitter, backend=cfg.backend, rng=cfg.rng,
                       n_chains=cfg.n_chains, chain0=cfg.chain0, phi=phi,
-                      phi_spec=cfg.phi_spec)
+                      phi_spec=cfg.phi_spec, axes=self._axes,
+                      triangle=cfg.triangle_reduce,
+                      k_shard_axis=self._k_axis,
+                      reduce_dtype=cfg.reduce_dtype, live=live)
         if cfg.task == "SVR":
             step = functools.partial(svr.svr_step, eps_ins=cfg.eps_ins,
                                      **common)
@@ -275,6 +319,27 @@ class PEMSVM:
         if cfg.driver == "loop":
             return self._fit_loop(data, state, key, step, N)
         return self._fit_scan(data, state, key, step, N)
+
+    def _live(self, live) -> torch.Tensor | None:
+        """This rank's liveness weight as a 0-d device tensor (all shards
+        live by default on a mesh: bitwise the plain sums), from the
+        per-data-shard vector ``live``; None without a mesh."""
+        if self.mesh is None:
+            if live is not None:
+                raise ValueError("live (per-shard liveness weights) needs a "
+                                 "mesh: a one-device fit has no shards to "
+                                 "drop")
+            return None
+        n = 1 if self._axes is None else self._axes.size
+        vec = np.ones((n,), np.float32)
+        if live is not None:
+            live = np.asarray(live, np.float32)
+            if live.shape != (n,):
+                raise ValueError(f"live must be one weight per data shard, "
+                                 f"shape ({n},); got {live.shape}")
+            vec = live
+        i = 0 if self._axes is None else self._axes.index
+        return torch.tensor(vec[i], dtype=torch.float32, device=self.device)
 
     def _fit_scan(self, data: SVMData, state: torch.Tensor,
                   key: torch.Tensor | None, step: Callable,
@@ -451,7 +516,7 @@ class PEMSVM:
             uniq = set(np.unique(target).tolist())
             if not uniq <= {-1.0, 1.0}:
                 raise ValueError(f"CLS labels must be +-1, got {uniq}")
-        Xp, tp, mask = distributed.pad_rows(X, target, 1)
+        Xp, tp, mask = distributed.shard_rows(self._axes, X, target)
         dev = self.device
         data = SVMData(torch.from_numpy(Xp).to(dev),
                        torch.from_numpy(tp).to(dev),
@@ -471,6 +536,8 @@ class PEMSVM:
                              f"got {X.shape}")
         if self.config.add_bias:
             X = np.concatenate([X, np.ones((X.shape[0], 1), np.float32)], 1)
+        if self.config.pad_features:
+            X = pad_features_to(X, self.config.pad_features)
         return torch.from_numpy(X).to(self.device)
 
     def decision_function(self, X: np.ndarray) -> np.ndarray:

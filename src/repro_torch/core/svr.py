@@ -1,6 +1,5 @@
 """LIN-{EM,MC}-SVR: support vector regression via the double scale mixture
-(paper Sec 3.2, Lemma 3). Port of the one-device part of
-``repro/core/svr.py``.
+(paper Sec 3.2, Lemma 3). Port of ``repro/core/svr.py``.
 
 Two augmentation variables per datum for the eps-insensitive loss
 max(0, |y - w^T x| - eps_ins):
@@ -13,8 +12,9 @@ max(0, |y - w^T x| - eps_ins):
 
 Both mixtures run as the ``em_svr`` / ``mc_svr`` epilogue of one fused
 statistic, in X-space (``ops.fused_stats``) or, with ``phi_spec``, in
-Nystrom phi-space (``ops.nystrom_fused_stats``). The streaming driver's
-``svr_chunk_stats`` is ROADMAP queue 1 item 8.
+Nystrom phi-space (``ops.nystrom_fused_stats``), on one device or on a
+mesh (as ``linear.cls_step``). The streaming driver's ``svr_chunk_stats``
+is ROADMAP queue 1 item 8.
 """
 from __future__ import annotations
 
@@ -22,7 +22,8 @@ import torch
 
 from repro_torch.kernels import ops
 from . import augment, objective, stats
-from .linear import PhiSpec, SVMData, chain_keys, multichain_draw
+from .linear import (PhiSpec, SVMData, _k_block, _reduce, chain_keys,
+                     multichain_draw)
 
 
 def svr_local_stats(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor, *,
@@ -30,7 +31,7 @@ def svr_local_stats(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor, *,
                     eps_ins: float, backend: str | None, row0: int = 0,
                     phi=None, phi_spec: PhiSpec | None = None,
                     mask: torch.Tensor | None = None, rng: str = "host",
-                    chain0: int = 0):
+                    chain0: int = 0, col_window: tuple | None = None):
     """(pred, gamma, omega, Sigma, mu) over one row block, in one X pass.
 
     MC noise comes from ``rng``: 'host' splits the key into (k_lo, k_hi)
@@ -40,7 +41,8 @@ def svr_local_stats(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor, *,
     counter words chain*4 + {0, 1}, omega's on chain*4 + {2, 3});
     'fused_predraw' materializes that stream. Padded rows (X-row 0,
     y = 0) have a nonzero weight and coef under SVR: in X-space the zero
-    X row makes them no-ops, in phi-space ``mask``."""
+    X row makes them no-ops, in phi-space ``mask``. ``col_window`` narrows
+    Sigma to one k-shard's column block."""
     epilogue = "em_svr" if mode == "EM" else "mc_svr"
     noise = seed = None
     if mode == "MC":
@@ -62,11 +64,13 @@ def svr_local_stats(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor, *,
             X, landmarks, proj, y, beta0, w, mask, noise,
             sigma=phi_spec.sigma, kind=phi_spec.kind,
             add_bias=phi_spec.add_bias, epilogue=epilogue, eps=eps,
-            eps_ins=eps_ins, seed=seed, backend=backend)
+            eps_ins=eps_ins, col_window=col_window, seed=seed,
+            backend=backend)
     else:
         pred, gamma, omega, b, S = ops.fused_stats(
             X, y, beta0, w, None, noise, epilogue=epilogue, eps=eps,
-            eps_ins=eps_ins, seed=seed, backend=backend)
+            eps_ins=eps_ins, col_window=col_window, seed=seed,
+            backend=backend)
     return pred, gamma, omega, S, b
 
 
@@ -75,28 +79,37 @@ def svr_step(data: SVMData, w: torch.Tensor,
              lam: float = 1.0, eps: float = 1e-6, eps_ins: float = 1e-3,
              jitter: float = 1e-6, backend: str | None = None,
              rng: str = "host", n_chains: int = 1, chain0: int = 0,
-             phi=None, phi_spec: PhiSpec | None = None):
+             phi=None, phi_spec: PhiSpec | None = None, axes=None,
+             triangle: bool = True, k_shard_axis=None,
+             reduce_dtype: str | None = None, live=None):
     """One LIN-*-SVR iteration. Returns (w_new, aux dict of 0-d device
     tensors: objective, gamma_mean, omega_mean); nothing in it waits for
-    the device. ``rng``/``n_chains``/``chain0`` and ``phi``/``phi_spec``
-    as in ``linear.cls_step``: the state is chain-major (C, K) when
+    the device but the collectives. ``rng``/``n_chains``/``chain0``,
+    ``phi``/``phi_spec`` and the mesh arguments (``axes``,
+    ``k_shard_axis``, ``triangle``, ``reduce_dtype``, ``live``) as in
+    ``linear.cls_step``: the state is chain-major (C, K) when
     n_chains > 1."""
     X, y, mask = data
     multi = n_chains > 1
+    row0 = stats.shard_row_offset(X.shape[0], axes)
+    col_window = (None if k_shard_axis is None
+                  else _k_block(w.shape[-1], k_shard_axis))
     pred, gamma, omega, S, b = svr_local_stats(
         X, y, w.T if multi else w, mode=mode, key=key, eps=eps,
-        eps_ins=eps_ins, backend=backend, phi=phi, phi_spec=phi_spec,
-        mask=mask, rng=rng, chain0=chain0)
-    S, b = stats.reduce_stats(S, b)
+        eps_ins=eps_ins, backend=backend, row0=row0, phi=phi,
+        phi_spec=phi_spec, mask=mask, rng=rng, chain0=chain0,
+        col_window=col_window)
+    S, b = _reduce(S, b, axes, k_shard_axis, triangle, reduce_dtype, live)
     if multi:
         w_new = multichain_draw(key, S, b, lam, jitter, chain0)
         maskc = mask[:, None].expand_as(pred)
         obj = objective.l2_reg(w_new, lam) / n_chains + stats.preduce(
-            objective.svr_obj_terms(pred, y[:, None], eps_ins, maskc)
-        ) / n_chains
-        return w_new, {"objective": obj,
-                       "gamma_mean": stats.masked_mean(gamma, maskc),
-                       "omega_mean": stats.masked_mean(omega, maskc)}
+            objective.svr_obj_terms(pred, y[:, None], eps_ins, maskc), axes,
+            live) / n_chains
+        return w_new, {
+            "objective": obj,
+            "gamma_mean": stats.masked_mean(gamma, maskc, axes, live),
+            "omega_mean": stats.masked_mean(omega, maskc, axes, live)}
     L, mu = stats.posterior_params(S, b, lam, jitter=jitter)
     if mode == "EM":
         w_new = mu
@@ -105,7 +118,7 @@ def svr_step(data: SVMData, w: torch.Tensor,
     else:
         w_new = stats.draw_weight(chain_keys(key, chain0, 1)[0], L, mu)
     obj = objective.l2_reg(w_new, lam) + stats.preduce(
-        objective.svr_obj_terms(pred, y, eps_ins, mask))
+        objective.svr_obj_terms(pred, y, eps_ins, mask), axes, live)
     return w_new, {"objective": obj,
-                   "gamma_mean": stats.masked_mean(gamma, mask),
-                   "omega_mean": stats.masked_mean(omega, mask)}
+                   "gamma_mean": stats.masked_mean(gamma, mask, axes, live),
+                   "omega_mean": stats.masked_mean(omega, mask, axes, live)}

@@ -147,6 +147,56 @@ static __global__ void tri_finalize(const float* __restrict__ part,
   *o = sum;
 }
 
+// The column window Sigma[:, start:start + blk] of a width-K statistic,
+// tiled with the full statistic's own lower-triangle tiles (i >= j, BK
+// each side): ``tab`` lists the window's ``ntw`` tiles as (i, j, bmode),
+// those with i or j among the column blocks the window overlaps, and
+// ``tmap`` (nb x nb, nb = tiles a side) gives the index in ``tab`` of tile
+// (i, j), -1 where it is not computed. Every tile block q of b is summed
+// by one CTA a split: bmode 1, its B side holds block j (a diagonal tile,
+// or a tile left of the window); bmode 2, it reads block i from the rows
+// (no tile of the window has i as its column block); 0, none.
+struct WinArgs {
+  const int* tab;
+  const int* tmap;
+  int ntw, nb, start, blk;
+};
+
+// out (K x blk) += or = the window's columns, each element summed over the
+// S splits of part[S][ntw][BK][BK] in split order from the tile that holds
+// it, or above the diagonal from the transposed lower tile: the sums
+// tri_finalize forms for the same elements, so the window is bitwise the
+// full statistic's column slice. ``acc`` as in tri_finalize.
+static __global__ void win_finalize(const float* __restrict__ part,
+                                    float* __restrict__ out, int K,
+                                    WinArgs w, int S, int acc) {
+  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
+  if (idx >= (int64_t)K * w.blk) return;
+  const int r = (int)(idx / w.blk), c = w.start + (int)(idx % w.blk);
+  const int bi = r / BK, bj = c / BK;
+  int t, off;
+  if (bi >= bj) {
+    t = w.tmap[bi * w.nb + bj];
+    off = (r % BK) * BK + c % BK;
+  } else {
+    t = w.tmap[bj * w.nb + bi];
+    off = (c % BK) * BK + r % BK;
+  }
+  float sum = acc ? out[idx] : 0.f;
+  for (int s = 0; s < S; ++s)
+    sum += part[((int64_t)s * w.ntw + t) * BK * BK + off];
+  out[idx] = sum;
+}
+
+static inline void launch_win_finalize(const float* part, float* out, int K,
+                                       const WinArgs& w, int S,
+                                       cudaStream_t stream,
+                                       bool acc = false) {
+  const int64_t n = (int64_t)K * w.blk;
+  win_finalize<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
+      part, out, K, w, S, (int)acc);
+}
+
 // out[ch][c] = sum over S rows of part[S][C][ld] for chain ch =
 // blockIdx.y, in row order (c < K); ``acc`` as in tri_finalize.
 static __global__ void sum_partials(const float* __restrict__ part,

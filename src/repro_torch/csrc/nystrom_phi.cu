@@ -1,11 +1,12 @@
 // The Nystrom kernels: the featurizer phi = k(X, L) @ proj (masked, with an
 // optional mask-valued bias column LAST), the scorer phi @ W, and the
 // featurize-and-accumulate statistic (margin, gamma[, omega], b, Sigma on
-// phi).
+// phi, or a column window of Sigma).
 //
 // Replaces the TPU kernels of repro/kernels/nystrom_phi.py: nystrom_phi,
 // nystrom_score and nystrom_fused_stats (em_hinge and em_svr; mc_hinge and
-// mc_svr from noise operands or from the counter seed). The TPU kernels
+// mc_svr from noise operands or from the counter seed; full width or a
+// column window of phi columns). The TPU kernels
 // hold the landmark strip, the projection, the cross tile, the phi tile and
 // the (M, M) Sigma in VMEM at once; a Hopper CTA has 227 KB of shared
 // memory, so here the rows go in chunks and every operand streams through
@@ -24,7 +25,9 @@
 //   D. phi_stat_tiles: Sigma's lower-triangle 128 x 128 tiles over row
 //      splits (the tile code of common.cuh) and b on the diagonal tiles;
 //      the partials are added to Sigma and b in split order, chunk after
-//      chunk (tri_finalize / sum_partials with acc).
+//      chunk (tri_finalize / sum_partials with acc). Under a column window
+//      phi_window_tiles runs the window's tiles (WinArgs) and win_finalize
+//      adds its columns: bitwise the full statistic's column slice.
 //
 // No (N, m) and no (N, M) buffer is allocated on the statistic's route.
 // Each phi entry is one thread's fmaf chain over the landmarks in order,
@@ -186,6 +189,37 @@ __global__ void phi_rows(RowArgs a) {
   if (is_svr(EPI)) a.omega[row] = o;
 }
 
+// The tile (bi, bj) of row split s of the chunk, weighted by wgt, into acc;
+// b's block from coef: bmode 1 from the staged B side (block bj), bmode 2
+// (WIN only) from the phi rows of block bi (WinArgs, common.cuh), with the
+// values and order of bmode 1. Returns b's partial.
+template <bool WIN>
+__device__ __forceinline__ float phi_tile_pass(
+    const float* __restrict__ phi, const float* __restrict__ wgt,
+    const float* __restrict__ coef, int64_t nrows, int M, int64_t s,
+    int64_t rows_per_split, int bi, int bj, int bmode, float (*As)[BK],
+    float (*Bs)[BK], float acc[8][8]) {
+  const int64_t r_begin = s * rows_per_split;
+  const int64_t r_end = min64(nrows, r_begin + rows_per_split);
+  float bacc = 0.f;
+  for (int64_t rb = r_begin; rb < r_end; rb += BN) {
+    stage_rows(phi, rb, r_end, M, bi * BK, bj * BK, wgt + rb, As, Bs);
+    __syncthreads();
+    if (bmode == 1 && threadIdx.x < BK) {
+      for (int r = 0; r < BN && rb + r < r_end; ++r)
+        bacc = fmaf(coef[rb + r], Bs[r][threadIdx.x], bacc);
+    } else if (WIN && bmode == 2 && threadIdx.x < BK) {
+      const int col = bi * BK + threadIdx.x;
+      for (int r = 0; r < BN && rb + r < r_end; ++r)
+        bacc = fmaf(coef[rb + r],
+                    col < M ? phi[(rb + r) * (int64_t)M + col] : 0.f, bacc);
+    }
+    accumulate(acc, As, Bs);
+    __syncthreads();
+  }
+  return bacc;
+}
+
 // Sigma's lower-triangle tile t of row split s of the chunk, weighted by
 // wgt, and on diagonal tiles b's block from coef (fused_stats.cu's tile
 // body with the margin phase moved out to phi_rows).
@@ -202,26 +236,42 @@ __global__ void __launch_bounds__(TILE_THREADS, 2)
   int bi, bj;
   tri_ij(t, bi, bj);
   const bool diag = bi == bj;
-  const int64_t r_begin = s * rows_per_split;
-  const int64_t r_end = min64(nrows, r_begin + rows_per_split);
   float acc[8][8];
 #pragma unroll
   for (int p = 0; p < 8; ++p)
 #pragma unroll
     for (int q = 0; q < 8; ++q) acc[p][q] = 0.f;
-  float bacc = 0.f;
-  for (int64_t rb = r_begin; rb < r_end; rb += BN) {
-    stage_rows(phi, rb, r_end, M, bi * BK, bj * BK, wgt + rb, As, Bs);
-    __syncthreads();
-    if (diag && threadIdx.x < BK) {
-      for (int r = 0; r < BN && rb + r < r_end; ++r)
-        bacc = fmaf(coef[rb + r], Bs[r][threadIdx.x], bacc);
-    }
-    accumulate(acc, As, Bs);
-    __syncthreads();
-  }
+  const float bacc = phi_tile_pass<false>(phi, wgt, coef, nrows, M, s,
+                                          rows_per_split, bi, bj,
+                                          diag ? 1 : 0, As, Bs, acc);
   store_tile(part + ((int64_t)s * ntiles + t) * BK * BK, acc);
   if (diag && threadIdx.x < BK) bpart[s * Mp + bi * BK + threadIdx.x] = bacc;
+}
+
+// The window variant: tile t of the window table (WinArgs) of split s.
+__global__ void __launch_bounds__(TILE_THREADS, 2)
+    phi_window_tiles(const float* __restrict__ phi,
+                     const float* __restrict__ wgt,
+                     const float* __restrict__ coef, float* __restrict__ part,
+                     float* __restrict__ bpart, int64_t nrows, int M, int Mp,
+                     WinArgs win, int64_t rows_per_split) {
+  __shared__ __align__(16) float As[BN][BK];
+  __shared__ __align__(16) float Bs[BN][BK];
+  const int t = (int)(blockIdx.x % win.ntw);
+  const int64_t s = blockIdx.x / win.ntw;
+  const int bi = win.tab[3 * t], bj = win.tab[3 * t + 1];
+  const int bmode = win.tab[3 * t + 2];
+  float acc[8][8];
+#pragma unroll
+  for (int p = 0; p < 8; ++p)
+#pragma unroll
+    for (int q = 0; q < 8; ++q) acc[p][q] = 0.f;
+  const float bacc = phi_tile_pass<true>(phi, wgt, coef, nrows, M, s,
+                                         rows_per_split, bi, bj, bmode, As,
+                                         Bs, acc);
+  store_tile(part + ((int64_t)s * win.ntw + t) * BK * BK, acc);
+  if (bmode != 0 && threadIdx.x < BK)
+    bpart[s * Mp + (bmode == 1 ? bj : bi) * BK + threadIdx.x] = bacc;
 }
 
 struct Featurizer {
@@ -389,7 +439,11 @@ extern "C" int rt_nystrom_score(int device, void* stream, const void* X,
 // rows_per_split, ntiles, 128, 128), bpart (chunk_rows / rows_per_split,
 // Mp) f32 with Mp = 128 ceil(M / 128); chunk_rows a multiple of
 // rows_per_split. Outputs margin, gamma (N,), omega (N,) for SVR (else
-// unused, may be null), sigma (M, M), b (M,) f32.
+// unused, may be null), sigma (M, M), b (M,) f32. With win_tab non-null:
+// the column window (win_start, win_blk) of phi columns, sigma (M,
+// win_blk); win_tab (ntiles, 3) and win_tmap (nb, nb) int32 on the device
+// as WinArgs describes, ntiles the window's tile count, rows_per_split and
+// chunk_rows the full statistic's plan.
 extern "C" int rt_nystrom_fused_stats(
     int device, void* stream, const void* X, int x_bf16, const void* L,
     const void* proj, const void* mask, const void* rho, const void* beta,
@@ -399,7 +453,8 @@ extern "C" int rt_nystrom_fused_stats(
     void* gamma, void* omega, void* sigma, void* b, int64_t N, int D, int m,
     int P, int bias, int kind, float inv_two_sigma_sq, int64_t chunk_rows,
     int ntiles, int64_t rows_per_split, int epilogue, float eps,
-    float eps_ins) {
+    float eps_ins, const void* win_tab, const void* win_tmap, int win_nb,
+    int win_start, int win_blk) {
   if (epilogue < rt::EM_HINGE || epilogue > rt::MC_SVR_SEED) return -1;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -414,6 +469,13 @@ extern "C" int rt_nystrom_fused_stats(
   float* bp = static_cast<float*>(bpart);
   float* sg = static_cast<float*>(sigma);
   float* bo = static_cast<float*>(b);
+  rt::WinArgs win;
+  win.tab = static_cast<const int*>(win_tab);
+  win.tmap = static_cast<const int*>(win_tmap);
+  win.ntw = ntiles;
+  win.nb = win_nb;
+  win.start = win_start;
+  win.blk = win_blk;
   const float* ops[4] = {static_cast<const float*>(nu),
                          static_cast<const float*>(u),
                          static_cast<const float*>(nu_o),
@@ -450,10 +512,16 @@ extern "C" int rt_nystrom_fused_stats(
       default: rt::launch_rows<rt::MC_SVR_SEED>(a, st); break;
     }
     const int nsplits = (int)((nr + rows_per_split - 1) / rows_per_split);
-    rt::phi_stat_tiles<<<(unsigned)((int64_t)nsplits * ntiles),
-                         rt::TILE_THREADS, 0, st>>>(
-        ph, a.wgt, a.coef, pt, bp, nr, M, Mp, ntiles, rows_per_split);
-    rt::launch_tri_finalize(pt, sg, M, ntiles, nsplits, st, 1, c0 > 0);
+    const unsigned nctas = (unsigned)((int64_t)nsplits * ntiles);
+    if (win_tab == nullptr) {
+      rt::phi_stat_tiles<<<nctas, rt::TILE_THREADS, 0, st>>>(
+          ph, a.wgt, a.coef, pt, bp, nr, M, Mp, ntiles, rows_per_split);
+      rt::launch_tri_finalize(pt, sg, M, ntiles, nsplits, st, 1, c0 > 0);
+    } else {
+      rt::phi_window_tiles<<<nctas, rt::TILE_THREADS, 0, st>>>(
+          ph, a.wgt, a.coef, pt, bp, nr, M, Mp, win, rows_per_split);
+      rt::launch_win_finalize(pt, sg, M, win, nsplits, st, c0 > 0);
+    }
     rt::launch_sum_partials(bp, bo, M, Mp, nsplits, st, 1, c0 > 0);
   }
   return (int)cudaGetLastError();

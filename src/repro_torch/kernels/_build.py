@@ -45,7 +45,8 @@ _SIGNATURES = {
                        _c_int64, _c_float],
     "rt_fused_stats": [_c_int, _c_void_p, _c_void_p, _c_int,
                        *[_c_void_p] * 16, _c_int64, _c_int, _c_int, _c_int,
-                       _c_int, _c_int64, _c_int, _c_int, _c_float, _c_float],
+                       _c_int, _c_int64, _c_int, _c_int, _c_float, _c_float,
+                       _c_void_p, _c_void_p, _c_int, _c_int, _c_int],
     "rt_weighted_gram": [_c_int, _c_void_p, _c_void_p, _c_int, _c_void_p,
                          _c_void_p, _c_void_p, _c_int64, _c_int, _c_int,
                          _c_int64],
@@ -64,7 +65,8 @@ _SIGNATURES = {
     "rt_nystrom_fused_stats": [_c_int, _c_void_p, _c_void_p, _c_int,
                                *[_c_void_p] * 24, _c_int64, _c_int, _c_int,
                                _c_int, _c_int, _c_int, _c_float, _c_int64,
-                               _c_int, _c_int64, _c_int, _c_float, _c_float],
+                               _c_int, _c_int64, _c_int, _c_float, _c_float,
+                               _c_void_p, _c_void_p, _c_int, _c_int, _c_int],
 }
 
 _lib: ctypes.CDLL | None = None
@@ -194,3 +196,26 @@ def tile_plan(N: int, K: int, device: torch.device) -> tuple[int, int, int]:
     rows = -(-N // want)
     rows = -(-rows // BN) * BN
     return ntiles, -(-N // rows), rows
+
+
+def window_tiles(K: int, start: int, blk: int) -> tuple[list, list]:
+    """The tile table of the column window [start, start + blk) of a
+    width-K Sigma (``WinArgs`` in csrc/common.cuh): the lower-triangle
+    tiles (i, j), in the full grid's order, with i or j among the column
+    blocks the window overlaps, each as (i, j, bmode), and the (nb, nb)
+    map from (i, j) to its index in the table (-1: not computed). Each
+    tile block q of b gets one CTA: the first tile whose column block is
+    q (bmode 1), else the first whose row block is q (bmode 2)."""
+    nb = -(-K // BK)
+    lo, hi = start // BK, (start + blk - 1) // BK
+    tiles = [[i, j, 0] for i in range(nb) for j in range(i + 1)
+             if lo <= i <= hi or lo <= j <= hi]
+    for q in range(nb):
+        tile = (next((t for t in tiles if t[1] == q), None)
+                or next(t for t in tiles if t[0] == q))
+        assert tile[2] == 0, (K, start, blk, q)
+        tile[2] = 1 if tile[1] == q else 2
+    tmap = [-1] * (nb * nb)
+    for idx, (i, j, _) in enumerate(tiles):
+        tmap[i * nb + j] = idx
+    return tiles, tmap

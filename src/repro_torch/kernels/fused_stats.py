@@ -19,8 +19,9 @@ Replaces the TPU kernel ``repro/kernels/fused_stats.py::fused_stats``
   * multichain: a (K, C) wvec with the seed runs C chains, giving margin,
     gamma (and omega) (N, C), b (K, C) and Sigma (C, K, K).
 
-The column window is still to port (ROADMAP queue 2): no single-card path
-reaches it.
+  * the column window (``col_window = (start, blk)``, single chain): the
+    block Sigma[:, start:start + blk] of one k-shard of the 2-D (data x k)
+    fit, with margin, gamma (omega) and b at full width.
 
 What bounds it on the H100: fp32 FMAs, not bytes. Sigma's lower triangle
 is N*K*(K+1) flop on 4*N*K bytes of X, (K+1)/4 flop per byte (~125 at
@@ -60,6 +61,22 @@ Multichain is a chain grid dimension, fastest-varying: CTA (split, tile,
 c) reads chain c's weights and noise plane and writes Sigma_c's partial.
 X rows are read once per chain, from L2 for all but the first of the C
 adjacent CTAs; the tile work scales with C (no chain is free here).
+
+The window: ``start = k_rank * blk`` need not be a multiple of 128 (K =
+502 splits into (0, 251) and (251, 251)). Of the two ways to place such
+a window, this is the 128-aligned cover: the window kernel runs the full
+statistic's own lower-triangle tiles whose row or column block meets the
+window's column blocks (``_build.window_tiles``, 7 and 9 of 10 at K = 502),
+over the full statistic's split plan, and its finalize takes each window
+column from the tile that holds it, transposed above the diagonal, in
+split order. Every element is then summed exactly as the full variant sums
+it: the window is bitwise the full variant's column slice, and b (summed
+by one CTA a block, from its B side or, for blocks right of the window,
+from the rows) bitwise the full b. Offsetting the column loads instead
+would do up to a tile less work but round the elements above the diagonal
+differently ((x_r w) x_c against the mirror's (x_c w) x_r), and bitwise
+equality with the full variant is the check that shows the window right.
+The cost is the slack of the cover: at most a tile column a side.
 """
 from __future__ import annotations
 
@@ -69,14 +86,20 @@ from . import _build, epilogues, ref
 
 # Launches per variant, for chip_smoke.py's check that the main path ran
 # through the kernel it names. Each launch adds one to exactly one entry.
-LAUNCHES = {"em_hinge": 0, "mc_hinge,noise": 0, "mc_hinge,seed": 0,
-            "mc_hinge,seed,multichain": 0, "em_svr": 0, "mc_svr,noise": 0,
-            "mc_svr,seed": 0, "mc_svr,seed,multichain": 0}
+# The window variants are the single-chain keys with ",window".
+_SINGLE = ("em_hinge", "mc_hinge,noise", "mc_hinge,seed", "em_svr",
+           "mc_svr,noise", "mc_svr,seed")
+LAUNCHES = {key: 0 for key in (
+    *_SINGLE, "mc_hinge,seed,multichain", "mc_svr,seed,multichain",
+    *(f"{k},window" for k in _SINGLE))}
 # The launchers' epilogue codes (csrc/epilogues.cuh, enum Epilogue).
 _EPILOGUE_CODE = {"em_hinge": 0, "mc_hinge,noise": 1, "mc_hinge,seed": 2,
                   "mc_hinge,seed,multichain": 2, "em_svr": 3,
                   "mc_svr,noise": 4, "mc_svr,seed": 5,
                   "mc_svr,seed,multichain": 5}
+# Window tile tables on the device, by (device, K, start, blk): a fit
+# calls with one window every step.
+_WINDOWS: dict = {}
 
 
 def variant(epilogue: str, noise, seed, wvec: torch.Tensor) -> str:
@@ -122,11 +145,26 @@ def zero_launches() -> None:
         LAUNCHES[k] = 0
 
 
+def window_args(K: int, col_window: tuple, device: torch.device) -> list:
+    """The launchers' window arguments [tab, tmap, nb, start, blk] and the
+    window's tile count, the tables cached on ``device``."""
+    start, blk = ref.check_window(col_window, K)
+    key = (device, K, start, blk)
+    if key not in _WINDOWS:
+        tiles, tmap = _build.window_tiles(K, start, blk)
+        _WINDOWS[key] = (
+            torch.tensor(tiles, dtype=torch.int32, device=device).ravel(),
+            torch.tensor(tmap, dtype=torch.int32, device=device), len(tiles))
+    tab, tmap, ntw = _WINDOWS[key]
+    nb = -(-K // _build.BK)
+    return [tab.data_ptr(), tmap.data_ptr(), nb, start, blk], ntw
+
+
 def fused_stats(X: torch.Tensor, rho: torch.Tensor, beta: torch.Tensor,
                 wvec: torch.Tensor, wmask: torch.Tensor | None = None,
                 noise: tuple | None = None, seed: torch.Tensor | None = None,
                 *, epilogue: str = "em_hinge", eps: float = 1e-6,
-                eps_ins: float = 0.0):
+                eps_ins: float = 0.0, col_window: tuple | None = None):
     """(margin, gamma, b, Sigma) for the hinge epilogues and (margin,
     gamma, omega, b, Sigma) for SVR, float32. X (N, K) float32 or
     bfloat16; rho (the target y under SVR), beta, wmask (N,) float32,
@@ -134,11 +172,17 @@ def fused_stats(X: torch.Tensor, rho: torch.Tensor, beta: torch.Tensor,
     ``noise`` two (mc_hinge) or four (mc_svr) (N,) float32 vectors;
     ``seed`` (4,) int64 words on X's device; ``eps_ins`` the SVR tube. For
     C chains the per-row outputs are (N, C), b (K, C) and Sigma
-    (C, K, K). A CPU tensor runs the plain version."""
+    (C, K, K). ``col_window = (start, blk)`` (one chain) gives Sigma's
+    column block, (K, blk), through the window kernel. A CPU tensor runs
+    the plain version."""
     if X.device.type == "cpu":
         return ref.fused_stats(X, rho, beta, wvec, wmask, eps, epilogue,
-                               noise=noise, seed=seed, eps_ins=eps_ins)
+                               noise=noise, seed=seed, eps_ins=eps_ins,
+                               col_window=col_window)
     var = variant(epilogue, noise, seed, wvec)
+    if col_window is not None and wvec.dim() == 2:
+        raise ValueError("multichain fused_stats does not compose with a "
+                         "column window")
     svr = epilogue.endswith("svr")
     N, K = _build.check_x(X)
     for name, v, n in (("rho", rho, N), ("beta", beta, N)):
@@ -157,7 +201,12 @@ def fused_stats(X: torch.Tensor, rho: torch.Tensor, beta: torch.Tensor,
     else:
         _build.check_vec("wvec", wvec, K, X)
         wt = wvec
+    # The window runs over the full statistic's split plan (bitwise).
     ntiles, nsplits, rows = _build.tile_plan(N, K, X.device)
+    win, width = [None, None, 0, 0, 0], K
+    if col_window is not None:
+        win, ntiles = window_args(K, col_window, X.device)
+        width = win[-1]
     Kp = -(-K // _build.BK) * _build.BK
     f32 = dict(dtype=torch.float32, device=X.device)
     per_row = (N, C) if multi else (N,)
@@ -165,7 +214,7 @@ def fused_stats(X: torch.Tensor, rho: torch.Tensor, beta: torch.Tensor,
     omega = torch.empty(per_row, **f32) if svr else None
     part = torch.empty(nsplits * ntiles * C * _build.BK * _build.BK, **f32)
     bpart = torch.empty(nsplits * C * Kp, **f32)
-    sigma, b = torch.empty((C, K, K), **f32), torch.empty((C, K), **f32)
+    sigma, b = torch.empty((C, K, width), **f32), torch.empty((C, K), **f32)
 
     def ptr(t):
         return None if t is None else t.data_ptr()
@@ -177,8 +226,8 @@ def fused_stats(X: torch.Tensor, rho: torch.Tensor, beta: torch.Tensor,
                   gamma.data_ptr(), ptr(omega), part.data_ptr(),
                   bpart.data_ptr(), sigma.data_ptr(), b.data_ptr(), N, K, Kp,
                   ntiles, nsplits, rows, C, _EPILOGUE_CODE[var], float(eps),
-                  float(eps_ins))
-    LAUNCHES[var] += 1
+                  float(eps_ins), *win)
+    LAUNCHES[var if col_window is None else var + ",window"] += 1
     aug = (gamma, omega) if svr else (gamma,)
     if multi:
         return (margin, *aug, b.t(), sigma)

@@ -10,7 +10,10 @@ Replaces the TPU kernels of ``repro/kernels/nystrom_phi.py``:
   * ``nystrom_fused_stats`` (``_make_fused_kernel``): the statistic of
     ``fused_stats`` on phi, em_hinge and em_svr, mc_hinge and mc_svr
     (noise operands or the counter seed); no (N, M) phi buffer exists.
-    The column window is still to port (ROADMAP queue 2).
+    With ``col_window`` it gives the block Sigma[:, start:start + blk] of
+    phi columns (one k-shard of a 2-D fit in phi-space), as
+    ``fused_stats``'s window does: the window's own tiles of the full
+    lower triangle over the full plan, bitwise the full column slice.
 
 What bounds them on the H100: fp32 operations. The projection is
 2 N m M flop, Sigma N M (M + 1); at m = 1,000 landmarks that is ~1,000
@@ -69,7 +72,10 @@ LAUNCHES = {"nystrom_phi": 0, "nystrom_score": 0,
             "nystrom_fused_stats[mc_hinge,seed]": 0,
             "nystrom_fused_stats[em_svr]": 0,
             "nystrom_fused_stats[mc_svr,noise]": 0,
-            "nystrom_fused_stats[mc_svr,seed]": 0}
+            "nystrom_fused_stats[mc_svr,seed]": 0,
+            **{f"nystrom_fused_stats[{v},window]": 0 for v in (
+                "em_hinge", "mc_hinge,noise", "mc_hinge,seed", "em_svr",
+                "mc_svr,noise", "mc_svr,seed")}}
 _EPILOGUE_CODE = {"em_hinge": 0, "mc_hinge,noise": 1, "mc_hinge,seed": 2,
                   "em_svr": 3, "mc_svr,noise": 4, "mc_svr,seed": 5}
 _KINDS = {"rbf": 0, "linear": 1}
@@ -202,18 +208,21 @@ def nystrom_fused_stats(X: torch.Tensor, landmarks: torch.Tensor,
                         seed: torch.Tensor | None = None, *,
                         sigma: float = 1.0, kind: str = "rbf",
                         add_bias: bool = False, epilogue: str = "em_hinge",
-                        eps: float = 1e-6, eps_ins: float = 0.0):
+                        eps: float = 1e-6, eps_ins: float = 0.0,
+                        col_window: tuple | None = None):
     """(margin (N,), gamma (N,), b (M,), Sigma (M, M)), float32, with
     omega (N,) after gamma under SVR: the statistic of ``fused_stats`` on
     phi, Sigma weighted by mask times the epilogue's weight. rho (the
     target y under SVR), beta (N,), wvec (M,) float32; ``noise`` two
     (mc_hinge) or four (mc_svr) (N,) float32 vectors or ``seed`` (4,)
-    int64 words on X's device; ``eps_ins`` the SVR tube. A CPU tensor runs
-    the plain version."""
+    int64 words on X's device; ``eps_ins`` the SVR tube;
+    ``col_window = (start, blk)`` gives Sigma's block of phi columns,
+    (M, blk). A CPU tensor runs the plain version."""
     if X.device.type == "cpu":
         return ref.nystrom_fused_stats(
             X, landmarks, proj, rho, beta, wvec, mask, float(sigma), kind,
-            add_bias, eps, epilogue, noise=noise, seed=seed, eps_ins=eps_ins)
+            add_bias, eps, epilogue, noise=noise, col_window=col_window,
+            seed=seed, eps_ins=eps_ins)
     var = _fused_stats.variant(epilogue, noise, seed, wvec)
     if var not in _EPILOGUE_CODE:
         raise ValueError("the Nystrom statistic is single-chain: wvec must "
@@ -224,7 +233,12 @@ def nystrom_fused_stats(X: torch.Tensor, landmarks: torch.Tensor,
     for name, v, n in (("rho", rho, N), ("beta", beta, N), ("wvec", wvec, M)):
         _build.check_vec(name, v, n, X)
     ops = _fused_stats.noise_operands(noise, seed, N, X)
+    # The window runs over the full statistic's plan (bitwise).
     ntiles, rows, chunk = stats_plan(N, m, M, X.device)
+    win, width = [None, None, 0, 0, 0], M
+    if col_window is not None:
+        win, ntiles = _fused_stats.window_args(M, col_window, X.device)
+        width = win[-1]
     head, s, t = _featurizer_args(X, landmarks, proj, mask, N, D, m, P,
                                   add_bias, kind, sigma, chunk)
     f32 = dict(dtype=torch.float32, device=X.device)
@@ -236,7 +250,7 @@ def nystrom_fused_stats(X: torch.Tensor, landmarks: torch.Tensor,
     bpart = torch.empty(nsplits * Mp, **f32)
     margin, gamma = torch.empty(N, **f32), torch.empty(N, **f32)
     omega = torch.empty(N, **f32) if svr else None
-    sigma_out, b = torch.empty((M, M), **f32), torch.empty(M, **f32)
+    sigma_out, b = torch.empty((M, width), **f32), torch.empty(M, **f32)
 
     def ptr(v):
         return None if v is None else v.data_ptr()
@@ -250,7 +264,8 @@ def nystrom_fused_stats(X: torch.Tensor, landmarks: torch.Tensor,
                   ptr(omega), sigma_out.data_ptr(), b.data_ptr(), t["N"],
                   t["D"], t["m"], t["P"], t["bias"], t["kind"], t["inv"],
                   chunk, ntiles, rows, _EPILOGUE_CODE[var], float(eps),
-                  float(eps_ins))
-    LAUNCHES[f"nystrom_fused_stats[{var}]"] += 1
+                  float(eps_ins), *win)
+    LAUNCHES[f"nystrom_fused_stats[{var}"
+             + ("]" if col_window is None else ",window]")] += 1
     aug = (gamma, omega) if svr else (gamma,)
     return (margin, *aug, b, sigma_out)

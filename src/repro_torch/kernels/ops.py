@@ -10,13 +10,16 @@ tensor. An explicit ``backend="ref"`` on CUDA tensors is for
 ``chip_smoke.py`` and the tests, which hold the kernels against it.
 
 Routes follow the reference's, so one input takes one route in both
-packages: ``fused_stats`` past FUSED_STATS_MAX_K, and
+packages: ``fused_stats`` past FUSED_STATS_MAX_K (full width), and
 ``nystrom_fused_stats`` past ``nystrom_fused_fits`` (featurize with
-``nystrom_phi``, then ``fused_stats``). One difference, on purpose: the
-reference's ``nystrom_phi`` and ``nystrom_score`` fall back to plain XLA
-past their VMEM budgets, a TPU memory limit; the Hopper kernels stream
-the landmark strip and the projection through shared memory in chunks
-and run at every landmark count. Same function, another route.
+``nystrom_phi``, then ``fused_stats``). Two differences, on purpose,
+where the reference's route is a TPU memory limit: its ``nystrom_phi``
+and ``nystrom_score`` fall back to plain XLA past their VMEM budgets,
+and its column-windowed ``fused_stats`` past a windowed VMEM budget. The
+Hopper kernels stream the landmark strip and the projection through
+shared memory in chunks and tile a Sigma window at any width, so on the
+card they run at every landmark count and every window. Same function,
+another route.
 """
 from __future__ import annotations
 
@@ -39,6 +42,10 @@ VALID_BACKENDS = ("ref", "cuda")
 # fused_estep + syrk_tri. On Hopper the cap is a routing choice, not a
 # memory limit: the fused kernel tiles Sigma across CTAs at any K.
 FUSED_STATS_MAX_K = 1536
+
+
+def _ru(x: int, m: int) -> int:
+    return ((x + m - 1) // m) * m
 
 
 def _resolve(backend: str | None, X: torch.Tensor) -> str:
@@ -76,6 +83,14 @@ def _check_noise(epilogue: str, noise: tuple | None, seed=None) -> None:
 
 def _f32(v: torch.Tensor) -> torch.Tensor:
     return v.to(torch.float32).contiguous()
+
+
+def _mask32(mask):
+    return None if mask is None else _f32(mask)
+
+
+def _noise32(noise):
+    return None if noise is None else tuple(_f32(z) for z in noise)
 
 
 def weighted_gram(X: torch.Tensor, w: torch.Tensor, *,
@@ -130,27 +145,42 @@ def fused_stats(X: torch.Tensor, rho: torch.Tensor, beta: torch.Tensor,
     blocks past the cap and the reference runs plain XLA there, while
     the Hopper kernel tiles Sigma at any K * C, so the cuda flavour runs
     the multichain kernel at every width. Callers get the same outputs
-    either way."""
+    either way.
+
+    ``col_window = (start, blk)`` narrows S to its column block
+    S[:, start:start + blk], (K, blk): the statistic of one k-shard of
+    the 2-D (data x k) fit. Margin, aug and b stay full width. On the card
+    every window runs the window kernel, at any K (the reference's
+    windowed VMEM budget is a TPU limit). A window does not compose with
+    multichain."""
     _check_noise(epilogue, noise, seed)
     epilogues.check_epilogue(epilogue)
-    if col_window is not None:
-        raise NotImplementedError(
-            "the column-windowed statistic (k_shard_axis) is not ported "
-            "yet: ROADMAP queue 1 item 10 (multi-GPU)")
     multi = wvec.dim() == 2
     if multi and seed is None:
         raise ValueError("multichain fused_stats (2-D wvec) requires the "
                          "counter seed (rng='fused')")
     flavour = _resolve(backend, X)
+    if col_window is not None:
+        if multi:
+            raise ValueError("multichain fused_stats does not compose with "
+                             "a column window")
+        window = ref.check_window(col_window, X.shape[1])
+        if flavour == "ref":
+            return ref.fused_stats(X, rho, beta, wvec, wmask, eps, epilogue,
+                                   noise=noise, seed=seed, eps_ins=eps_ins,
+                                   col_window=window)
+        return _fused_stats.fused_stats(
+            X, _f32(rho), _f32(beta), _f32(wvec), _mask32(wmask),
+            noise=_noise32(noise), seed=seed, epilogue=epilogue, eps=eps,
+            eps_ins=eps_ins, col_window=window)
     if multi or X.shape[1] <= FUSED_STATS_MAX_K:
         if flavour == "ref":
             return ref.fused_stats(X, rho, beta, wvec, wmask, eps, epilogue,
                                    noise=noise, seed=seed, eps_ins=eps_ins)
         return _fused_stats.fused_stats(
-            X, _f32(rho), _f32(beta), _f32(wvec),
-            None if wmask is None else _f32(wmask),
-            noise=None if noise is None else tuple(_f32(z) for z in noise),
-            seed=seed, epilogue=epilogue, eps=eps, eps_ins=eps_ins)
+            X, _f32(rho), _f32(beta), _f32(wvec), _mask32(wmask),
+            noise=_noise32(noise), seed=seed, epilogue=epilogue, eps=eps,
+            eps_ins=eps_ins)
     if epilogue == "em_hinge":
         margin, gamma, b = fused_estep(X, rho, beta, wvec, eps=eps,
                                        backend=flavour)
@@ -187,10 +217,6 @@ def rbf_gram(X1: torch.Tensor, X2: torch.Tensor, *, sigma: float = 1.0,
 # streams all of them at any m.
 NYSTROM_FUSED_MAX_M = 1024
 _NYSTROM_VMEM_BUDGET = 14 * 2 ** 20
-
-
-def _ru(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
 
 
 def _nystrom_vmem_words(n_landmarks: int, n_features: int, add_bias: bool,
@@ -232,10 +258,6 @@ def nystrom_fused_fits(n_landmarks: int, n_features: int,
     return 4 * _nystrom_vmem_words(n_landmarks, n_features, add_bias,
                                    block_n, epilogue, col_blk,
                                    rng) <= _NYSTROM_VMEM_BUDGET
-
-
-def _mask32(mask):
-    return None if mask is None else _f32(mask)
 
 
 def nystrom_phi(X: torch.Tensor, landmarks: torch.Tensor,
@@ -287,28 +309,32 @@ def nystrom_fused_stats(X: torch.Tensor, landmarks: torch.Tensor,
     Within ``nystrom_fused_fits`` it is one call of the featurize-and-
     accumulate kernel, which allocates no (N, M) phi; past it (m > 1024,
     or wide D) it is nystrom_phi, then fused_stats on phi, as in the
-    reference. Callers get the same outputs either way."""
+    reference. Callers get the same outputs either way.
+
+    ``col_window = (start, blk)`` narrows S to a block of phi columns,
+    (M, blk): the phi-space statistic of one k-shard. The route rule
+    counts the window (``nystrom_fused_fits(..., col_blk=blk)``)."""
     _check_noise(epilogue, noise, seed)
     epilogues.check_epilogue(epilogue)
-    if col_window is not None:
-        raise NotImplementedError(
-            "the column-windowed Nystrom statistic (k_shard_axis) is not "
-            "ported yet: ROADMAP queue 1 item 10 (multi-GPU)")
     flavour = _resolve(backend, X)
+    window = (None if col_window is None else ref.check_window(
+        col_window, proj.shape[1] + int(add_bias)))
     if not nystrom_fused_fits(landmarks.shape[0], X.shape[1], add_bias,
-                              256, epilogue, None, seed is not None):
+                              256, epilogue,
+                              None if window is None else window[1],
+                              seed is not None):
         phi = nystrom_phi(X, landmarks, proj, mask, sigma=sigma, kind=kind,
                           add_bias=add_bias, backend=flavour)
         return fused_stats(phi, rho, beta, wvec, mask, noise,
                            epilogue=epilogue, eps=eps, eps_ins=eps_ins,
-                           seed=seed, backend=flavour)
+                           col_window=window, seed=seed, backend=flavour)
     if flavour == "ref":
         return ref.nystrom_fused_stats(
             X, landmarks, proj, rho, beta, wvec, mask, float(sigma), kind,
-            add_bias, eps, epilogue, noise=noise, seed=seed, eps_ins=eps_ins)
+            add_bias, eps, epilogue, noise=noise, col_window=window,
+            seed=seed, eps_ins=eps_ins)
     return _nystrom_phi.nystrom_fused_stats(
         X.contiguous(), _f32(landmarks), _f32(proj), _f32(rho), _f32(beta),
-        _f32(wvec), _mask32(mask),
-        noise=None if noise is None else tuple(_f32(z) for z in noise),
-        seed=seed, sigma=sigma, kind=kind, add_bias=add_bias,
-        epilogue=epilogue, eps=eps, eps_ins=eps_ins)
+        _f32(wvec), _mask32(mask), noise=_noise32(noise), seed=seed,
+        sigma=sigma, kind=kind, add_bias=add_bias, epilogue=epilogue,
+        eps=eps, eps_ins=eps_ins, col_window=window)

@@ -1,7 +1,8 @@
 """Plain PyTorch versions of the ported kernels: port of
 ``repro/kernels/ref.py`` (the hinge and SVR epilogues, pre-drawn noise,
-the counter seed and multichain; the weighted Gram; the RBF Gram and the
-Nystrom featurizer, scorer and statistic; no column window).
+the counter seed and multichain; the column window of the statistic; the
+weighted Gram; the RBF Gram and the Nystrom featurizer, scorer and
+statistic).
 
 They are the CPU path of ``ops`` and the oracles the CUDA kernels are held
 against. Inputs are computed in float32, as in the reference; float64
@@ -30,18 +31,35 @@ def _acc(t: torch.Tensor) -> torch.Tensor:
     return t if t.dtype == torch.float64 else t.float()
 
 
-def weighted_gram(X: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
+def check_window(col_window, K: int) -> tuple[int, int]:
+    """(start, blk) of a Sigma column window over K columns, as Python
+    ints; raises unless 0 <= start and 1 <= blk and start + blk <= K
+    (the reference's dynamic slice would clamp instead)."""
+    start, blk = (int(v) for v in col_window)
+    if start < 0 or blk < 1 or start + blk > K:
+        raise ValueError(f"col_window ({start}, {blk}) is not a column "
+                         f"block of a width-{K} Sigma")
+    return start, blk
+
+
+def weighted_gram(X: torch.Tensor, w: torch.Tensor,
+                  col_window: tuple | None = None) -> torch.Tensor:
     """S = X^T diag(w) X, (K, K), summed over splits of ROWS_PER_SPLIT
     rows in order, as the kernels sum theirs. One float32 product over a
     million rows has several times the error: on the 1e6-row Nystrom
     statistic (``chip_nystrom_numerics.py``) it was 6.6 from float64 in
     the 2-norm, pushed an eigenvalue to -1.4 against a ridge of 0.3 and
-    broke the Cholesky, where the split sum stays within 2.0."""
+    broke the Cholesky, where the split sum stays within 2.0.
+    ``col_window = (start, blk)`` gives the column block
+    S[:, start:start + blk], (K, blk)."""
     Xf, wf = _acc(X), _acc(w)
+    win = (None if col_window is None
+           else check_window(col_window, X.shape[1]))
     S = None
     for r0 in range(0, max(X.shape[0], 1), ROWS_PER_SPLIT):
         Xb = Xf[r0:r0 + ROWS_PER_SPLIT]
-        part = (Xb * wf[r0:r0 + ROWS_PER_SPLIT, None]).T @ Xb
+        Xc = Xb if win is None else Xb[:, win[0]:win[0] + win[1]]
+        part = (Xb * wf[r0:r0 + ROWS_PER_SPLIT, None]).T @ Xc
         S = part if S is None else S + part
     return S
 
@@ -68,17 +86,24 @@ def fused_estep(X: torch.Tensor, rho: torch.Tensor, beta: torch.Tensor,
 def fused_stats(X: torch.Tensor, rho: torch.Tensor, beta: torch.Tensor,
                 wvec: torch.Tensor, wmask: torch.Tensor | None, eps: float,
                 epilogue: str = "em_hinge", noise: tuple | None = None,
-                seed: torch.Tensor | None = None, eps_ins: float = 0.0):
+                seed: torch.Tensor | None = None, eps_ins: float = 0.0,
+                col_window: tuple | None = None):
     """(margin, *aug, b, S): the whole iteration statistic with
     S = X^T diag(wmask * weight) X (wmask defaults to ones); aug is
     (gamma,) for the hinge epilogues and (gamma, omega) for SVR, whose
     tube is ``eps_ins``. MC epilogues take pre-drawn ``noise`` or derive
     it from ``seed`` (``seed_noise``). A 2-D (K, C) ``wvec`` (seed
     required) runs C chains: margin and aug (N, C), b (K, C),
-    S (C, K, K)."""
+    S (C, K, K). ``col_window = (start, blk)`` narrows S to its column
+    block S[:, start:start + blk], (K, blk), the statistic of the 2-D
+    (data x k) ``k_shard_axis`` fit; margin, aug and b stay full width.
+    A window does not compose with multichain (as in the reference)."""
     Xf = _acc(X)
     if wvec.dim() == 2:
         assert seed is not None, "multichain fused_stats requires seed"
+        if col_window is not None:
+            raise ValueError("multichain fused_stats does not compose with "
+                             "a column window")
         C = wvec.shape[1]
         margin = Xf @ _acc(wvec)
         noise = seed_noise(seed, X.shape[0], C, epilogue)
@@ -94,7 +119,7 @@ def fused_stats(X: torch.Tensor, rho: torch.Tensor, beta: torch.Tensor,
     aug, weight, coef = epilogues.apply_epilogue(
         epilogue, margin, _acc(rho), _acc(beta), noise, eps, eps_ins)
     w = weight if wmask is None else _acc(wmask) * weight
-    return (margin, *aug, Xf.T @ coef, weighted_gram(X, w))
+    return (margin, *aug, Xf.T @ coef, weighted_gram(X, w, col_window))
 
 
 def rbf_gram(X1: torch.Tensor, X2: torch.Tensor, sigma: float
@@ -151,11 +176,9 @@ def nystrom_fused_stats(X: torch.Tensor, landmarks: torch.Tensor,
                         seed: torch.Tensor | None = None,
                         eps_ins: float = 0.0):
     """``fused_stats`` on ``nystrom_phi``: (margin, *aug, b (M,),
-    S (M, M)) with S weighted by mask times the epilogue's weight."""
-    if col_window is not None:
-        raise NotImplementedError(
-            "the column-windowed Nystrom statistic (k_shard_axis) is not "
-            "ported yet: ROADMAP queue 1 item 10 (multi-GPU)")
+    S (M, M)) with S weighted by mask times the epilogue's weight;
+    ``col_window`` narrows S to a block of phi columns, (M, blk)."""
     phi = nystrom_phi(X, landmarks, proj, mask, sigma, kind, add_bias)
     return fused_stats(phi, rho, beta, wvec, mask, eps, epilogue,
-                       noise=noise, seed=seed, eps_ins=eps_ins)
+                       noise=noise, seed=seed, eps_ins=eps_ins,
+                       col_window=col_window)

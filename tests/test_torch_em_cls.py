@@ -175,8 +175,8 @@ def test_objective_terms_match_reference(masked):
     dict(task="MLT", num_classes=3),
     dict(formulation="KRN"),
     dict(driver="stream"),
-    dict(k_shard_axis="model"),
-    dict(pad_features=8),
+    dict(task="MLT", num_classes=3, k_shard_axis="model"),
+    dict(formulation="KRN", k_shard_axis="model"),
     dict(fault=object()),
     dict(decay=0.5, driver="stream"),
     dict(window=2, driver="stream"),
@@ -212,8 +212,22 @@ def test_svr_configs_fit(kw):
     assert svm.rmse(X, y) < float(np.std(y))
 
 
+def test_pad_features_and_k_shard_axis_configs():
+    """Two options this file once held as not ported: pad_features fits
+    on one device (zero columns after the bias, their weights exactly 0,
+    predictions through the same padding), and k_shard_axis names an axis
+    of a device mesh, so without one it is refused."""
+    X, y = tsyn.make_blobs(400, 5, seed=1)
+    svm = PEMSVM(SVMConfig(pad_features=8, max_iters=15), device="cpu")
+    res = svm.fit(X, y)
+    assert res.weights.shape == (8,) and np.all(res.weights[6:] == 0.0)
+    assert svm.score(X, y) > 0.9
+    with pytest.raises(ValueError, match="mesh"):
+        PEMSVM(SVMConfig(k_shard_axis="model"), device="cpu")
+
+
 @pytest.mark.parametrize("kw", [
-    dict(resume_from="ckpt"), dict(warm_start=object()), dict(live=[1.0]),
+    dict(resume_from="ckpt"), dict(warm_start=object()), dict(resume_step=3),
     dict(fault_hook=print), dict(epoch=3),
 ])
 def test_unsupported_fit_keyword_raises(kw):
@@ -222,8 +236,15 @@ def test_unsupported_fit_keyword_raises(kw):
         PEMSVM(SVMConfig(), device="cpu").fit(X, y, **kw)
 
 
+def test_live_needs_a_mesh():
+    X, y = tsyn.make_blobs(64, 4, seed=1)
+    with pytest.raises(ValueError, match="needs a mesh"):
+        PEMSVM(SVMConfig(), device="cpu").fit(X, y, live=[1.0])
+
+
 def test_mesh_raises():
-    with pytest.raises(NotImplementedError, match="item 10"):
+    """A mesh is now ported; what is not a torch DeviceMesh is refused."""
+    with pytest.raises(TypeError, match="DeviceMesh"):
         PEMSVM(SVMConfig(), device="cpu", mesh=object())
 
 

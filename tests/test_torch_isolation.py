@@ -46,3 +46,26 @@ _IMPORT = re.compile(
 def test_source_names_no_jax_or_repro_import(path):
     text = (ROOT / path).read_text()
     assert not _IMPORT.search(text), _IMPORT.search(text).group(0)
+
+
+_ALONE = r"""
+import importlib, sys
+importlib.import_module(sys.argv[1])
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "repro"))
+print(bad)
+"""
+
+
+@pytest.mark.parametrize("module", ["repro_torch.core.stats",
+                                    "repro_torch.core.distributed",
+                                    "repro_torch.data.pipeline"])
+def test_mesh_modules_import_alone(module):
+    """The modules of the multi-device fit (the reduction, the mesh axes,
+    the port's own pad_features_to) import on their own and pull in no JAX
+    and nothing of the JAX package."""
+    env = dict(os.environ, PYTHONPATH=str(ROOT / "src"))
+    out = subprocess.run([sys.executable, "-c", _ALONE, module], env=env,
+                         capture_output=True, text=True, timeout=120,
+                         check=True).stdout
+    assert out.strip() == "[]", out

@@ -619,3 +619,103 @@ def test_weighted_gram_kernel(cuda, n, k, dtype):
     _close_max(got.T, want)  # each triangle on its own, not mirrored
     with pytest.raises(TypeError):
         wg.weighted_gram(X, wt.double())
+
+
+# The column window: the window kernels run the full statistic's own tiles
+# over its split plan, so every window is bitwise the full kernel's column
+# slice, and margin, gamma (omega) and b are bitwise the full kernel's;
+# Sigma's window is also held within 1e-5 max of a float64 recomputation
+# from the kernel's own gamma (and omega).
+WIN_VARIANTS = ["em_hinge", "mc_hinge,noise", "mc_hinge,seed", "em_svr",
+                "mc_svr,seed"]
+
+
+def _windows(width):
+    return [(0, width // 2), (width // 3, width // 3), (width - 1, 1),
+            (0, width)]
+
+
+@pytest.mark.parametrize("var", WIN_VARIANTS)
+@pytest.mark.parametrize("n,k,dtype", SHAPES)
+def test_fused_stats_window_kernel(cuda, n, k, dtype, var):
+    X, rho, beta, w, wm = _problem(n, k, dtype, cuda)
+    epi, _, source = var.partition(",")
+    svr = epi.endswith("svr")
+    if svr:
+        beta = torch.zeros_like(rho)
+    seed = rng.pack_seed(prng.fold_in(prng.PRNGKey(5), 2), 3, 0).to(cuda)
+    kw = (dict(noise=ref.seed_noise(seed, n, 1, epi)) if source == "noise"
+          else dict(seed=seed) if source == "seed" else {})
+    kw.update(epilogue=epi, eps=1e-6, eps_ins=0.3 if svr else 0.0)
+    full = fused_stats.fused_stats(X, rho, beta, w, wm, **kw)
+    g64 = full[1].double()
+    wt = 1.0 / g64 + (1.0 / full[2].double() if svr else 0.0)
+    S64 = (X.double() * (wm.double() * wt)[:, None]).T @ X.double()
+    for start, blk in _windows(k):
+        before = fused_stats.LAUNCHES[var + ",window"]
+        got = fused_stats.fused_stats(X, rho, beta, w, wm,
+                                      col_window=(start, blk), **kw)
+        torch.cuda.synchronize()
+        assert fused_stats.LAUNCHES[var + ",window"] == before + 1
+        assert all(torch.equal(a, c) for a, c in zip(got[:-1], full[:-1]))
+        assert torch.equal(got[-1], full[-1][:, start:start + blk])
+        err = (got[-1].double() - S64[:, start:start + blk]).abs().max()
+        assert err <= REL * S64.abs().max(), (start, blk, err)
+
+
+@pytest.mark.parametrize("var", ["em_hinge", "mc_hinge,seed", "em_svr"])
+@pytest.mark.parametrize("shape", NYS_SHAPES)
+def test_nystrom_fused_stats_window_kernel(cuda, shape, var, monkeypatch):
+    kind = "linear" if shape[1] == 130 else "rbf"
+    X, L, P, mask, _ = _nys(*shape, cuda, kind=kind)
+    n, M = X.shape[0], L.shape[0] + 1
+    g = torch.Generator(device=cuda).manual_seed(3)
+    w = torch.randn(M, generator=g, device=cuda) / math.sqrt(M)
+    y = torch.where(torch.rand(n, generator=g, device=cuda) < 0.5, -1.0,
+                    1.0) * mask
+    epi, _, source = var.partition(",")
+    svr = epi.endswith("svr")
+    seed = rng.pack_seed(prng.fold_in(prng.PRNGKey(5), 2), 3, 0).to(cuda)
+    kw = dict(seed=seed) if source == "seed" else {}
+    opts = dict(sigma=1.3, kind=kind, add_bias=True, epilogue=epi, eps=1e-6,
+                eps_ins=0.3 if svr else 0.0)
+    beta = torch.zeros_like(y) if svr else y
+    monkeypatch.setattr(nys, "SCRATCH_WORDS", 32 * M * 2)  # several chunks
+    full = nys.nystrom_fused_stats(X, L, P, y, beta, w, mask, **kw, **opts)
+    for start, blk in _windows(M):
+        before = nys.LAUNCHES[f"nystrom_fused_stats[{var},window]"]
+        got = nys.nystrom_fused_stats(X, L, P, y, beta, w, mask,
+                                      col_window=(start, blk), **kw, **opts)
+        torch.cuda.synchronize()
+        assert nys.LAUNCHES[f"nystrom_fused_stats[{var},window]"] == \
+            before + 1
+        assert all(torch.equal(a, c) for a, c in zip(got[:-1], full[:-1]))
+        assert torch.equal(got[-1], full[-1][:, start:start + blk])
+
+
+def test_ops_window_routes(cuda):
+    """On the card every window runs the window kernel, also past
+    FUSED_STATS_MAX_K (where the full width takes the split route) and at
+    a wide window (4000 x 2000, past the reference's windowed VMEM budget):
+    one em_hinge window launch a call, the window within 1e-5 max|S| of
+    the plain windowed statistic, and margin, gamma, b and the window
+    bitwise the full-width kernel's (and its column slice)."""
+    for n, k, window in ((300, 1600, (800, 800)), (300, 4000, (0, 2000))):
+        X, rho, beta, w, _ = _problem(n, k, torch.float32, cuda)
+        before = dict(fused_stats.LAUNCHES)
+        got = ops.fused_stats(X, rho, beta, w, col_window=window)
+        torch.cuda.synchronize()
+        after = dict(fused_stats.LAUNCHES)
+        assert after.pop("em_hinge,window") == \
+            before.pop("em_hinge,window") + 1
+        assert after == before
+        plain = ops.fused_stats(X, rho, beta, w, col_window=window,
+                                backend="ref")
+        assert got[-1].shape == (k, window[1])
+        _close_rows(got[0], plain[0].double())
+        scale = REL * plain[-1].abs().max()
+        assert (got[-1] - plain[-1]).abs().max() <= scale
+        full = fused_stats.fused_stats(X, rho, beta, w)  # the kernel, any K
+        assert all(torch.equal(a, c) for a, c in zip(got[:-1], full[:-1]))
+        start, blk = window
+        assert torch.equal(got[-1], full[-1][:, start:start + blk])

@@ -253,7 +253,7 @@ def test_wide_route_matches_one_pass():
 @pytest.mark.parametrize("kw,exc", [
     (dict(epilogue="mc_svr", noise=(torch.zeros(3),) * 2), ValueError),
     (dict(epilogue="em_svr", noise=(torch.zeros(3),) * 4), ValueError),
-    (dict(col_window=(0, 2)), NotImplementedError),
+    (dict(col_window=(0, 3)), ValueError),
     (dict(epilogue="em_hinge", noise=(torch.zeros(3),)), ValueError),
     (dict(backend="pallas"), ValueError),
     (dict(backend="cuda"), ValueError),

@@ -199,7 +199,7 @@ def test_chain_c_is_the_single_chain_at_chain0_c():
 @pytest.mark.parametrize("kw,item", [
     (dict(task="MLT", num_classes=3), "item 7"),
     (dict(driver="stream"), "item 8"),
-    (dict(k_shard_axis="model"), "item 10"),
+    (dict(fault=object()), "item 11"),
 ])
 def test_out_of_slice_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
@@ -222,10 +222,17 @@ def test_mc_svr_runs():
 
 
 def test_mesh_and_col_window_raise():
+    """The mesh and the column window are ported now: what still raises is
+    a mesh that is not a torch DeviceMesh, and a window on a multichain
+    statistic (the reference forbids the pair)."""
     from repro_torch.kernels import ops
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(TypeError, match="DeviceMesh"):
         PEMSVM(_cfg(SVMConfig), device="cpu", mesh=object())
     X, v = torch.zeros(3, 2), torch.zeros(3)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        ops.fused_stats(X, v, v, torch.zeros(2), None, (v, v),
-                        epilogue="mc_hinge", col_window=(0, 1))
+    seed = torch.zeros(4, dtype=torch.int64)
+    with pytest.raises(ValueError, match="multichain"):
+        ops.fused_stats(X, v, v, torch.zeros(2, 2), None,
+                        epilogue="mc_hinge", seed=seed, col_window=(0, 1))
+    out = ops.fused_stats(X, v, v, torch.zeros(2), None, (v, v),
+                          epilogue="mc_hinge", col_window=(0, 1))
+    assert out[-1].shape == (2, 1)

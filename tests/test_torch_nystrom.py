@@ -372,11 +372,14 @@ def test_nystrom_fused_fits_matches_reference(m, d, add_bias, epilogue, rng):
 def test_nystrom_ops_reject():
     X, v = torch.zeros(3, 2), torch.zeros(3)
     L, P, w = torch.zeros(2, 2), torch.zeros(2, 2), torch.zeros(3)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        tops.nystrom_fused_stats(X, L, P, v, v, w, col_window=(0, 1))
-    with pytest.raises(NotImplementedError, match="item 10"):
+    with pytest.raises(ValueError, match="column"):
+        tops.nystrom_fused_stats(X, L, P, v, v, w, add_bias=True,
+                                 col_window=(2, 2))
+    with pytest.raises(ValueError, match="column"):
         tref.nystrom_fused_stats(X, L, P, v, v, w, None, 1.0, "rbf", True,
-                                 EPS, col_window=(0, 1))
+                                 EPS, col_window=(2, 2))
+    assert tops.nystrom_fused_stats(X, L, P, v, v, w, add_bias=True,
+                                    col_window=(1, 2))[-1].shape == (3, 2)
     out = tops.nystrom_fused_stats(X, L, P, v, v, w, add_bias=True,
                                    epilogue="em_svr", eps_ins=0.25)
     assert len(out) == 5 and torch.all(out[2] == 0.25)

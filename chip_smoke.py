@@ -9,7 +9,14 @@ Needs one CUDA device (an H100: the kernels are built for sm_90a) and
 1. device: the card's name and power limit, torch/CUDA versions, TF32
    flags (both set off);
 2. build: compile the kernels from ``src/repro_torch/csrc`` and print the
-   compiler's register / shared-memory / spill report;
+   compiler's register / shared-memory / spill report; for the six
+   instantiations of the Gram engine's tile kernel (csrc/gram_pipe.cuh:
+   triangle and dense, fp32 16-byte, fp32 4-byte and bf16 copies) also
+   their dynamic shared memory and resident CTAs an SM; and, under the
+   nvcc named in TILE_PASS_NVCC, require the report of the kernels that
+   keep common.cuh's staged tile pass (fused_tiles, fused_window_tiles,
+   phi_stat_tiles, phi_window_tiles) to be the one recorded in
+   TILE_PASS_BUILD (under another nvcc it prints the differences);
 3. kernels vs plain: each kernel at its main-path shape and at odd masked
    shapes, f32 and bf16 X, in the well-conditioned and the hinge regime of
    tests/test_torch_kernels_ref.py, against the plain PyTorch version
@@ -31,7 +38,8 @@ Needs one CUDA device (an H100: the kernels are built for sm_90a) and
    tests/test_torch_em_cls.py; fused_stats must have launched once per
    iteration run;
 5. main path, K > 1536: 5 iterations at K = 2,048 through fused_estep
-   and syrk_tri, and not through fused_stats;
+   and syrk_tri, and not through fused_stats; then a torch.profiler
+   breakdown of the fit (device time by kernel) and its set-up time;
 6. main path, LIN-MC-CLS (the Gibbs sampler) on the alpha-like set:
    rng='fused' through the kernels and through the plain path, both
    converged, accuracy within 0.01, posterior-mean weights within 3x the
@@ -56,7 +64,8 @@ Needs one CUDA device (an H100: the kernels are built for sm_90a) and
    nystrom_phi, then fused_estep and syrk_tri at K = 2,049, never
    nystrom_fused_stats; objective trace within 2e-2 relative and held-out
    accuracy within 0.01 of the plain fit on the same landmarks and
-   projection. The weights band of 5e-2 is measured and printed, not
+   projection, then a torch.profiler breakdown of the kernel fit on its
+   featurizer. The weights band of 5e-2 is measured and printed, not
    gated: at this configuration two correct float32 fits sit ~14 % apart
    (a posterior condition number ~3.5e6), so the script prints both
    fits' distance to a float64 EM on the same featurizer beside it
@@ -95,9 +104,16 @@ b and Sigma against a float64 recomputation from the kernel's own gamma
 and omega; weighted_gram (the dense grid of the Table 9 statistic) at odd
 shapes and at 250,000 x 500, timed beside syrk_tri and torch.einsum, and
 called once through ops.weighted_gram as a user calls it (its launch
-count); one em_svr call at K = 2,048 through the split route, where
-syrk_tri must launch; the three SVR variants of nystrom_fused_stats at
-odd masked shapes and at 463,715 x 90 with m = 681.
+count); syrk_tri also at phase 8's 250,000 x 2,049 beside its einsum and
+bound; each Gram kernel's rate in TFLOP/s, of the FMAs its tiles execute
+and of the flop the function needs; the engine's design choices, timed
+past the wrappers (uncounted) on the same inputs: 4-byte against 16-byte
+copies for syrk_tri at 131,072 x 2,048 and weighted_gram at 250,000 x
+500, and each wrapper's split plan beside shorter and longer splits (the
+L2 question at K = 2,048, the last wave at Table 9); one em_svr call at
+K = 2,048 through the split route, where syrk_tri must launch; the three SVR
+variants of nystrom_fused_stats at odd masked shapes and at 463,715 x 90
+with m = 681.
 
 Phase 3 also holds the four Nystrom kernels against their plain versions
 in float64: rbf_gram at (1,000 x 2)^2 and (2,048 x 500)^2; nystrom_phi at
@@ -153,6 +169,7 @@ import dataclasses
 import functools
 import json
 import math
+import re
 import statistics
 import subprocess
 import sys
@@ -311,16 +328,128 @@ def phase_device():
     return card
 
 
+# The -Xptxas -v report of the kernels that keep common.cuh's staged tile
+# pass, as built before the Gram engine came, by nvcc TILE_PASS_NVCC:
+# kernel -> (registers, stack frame bytes, spill stores, spill loads,
+# static shared memory bytes). fused_*<T,e>: X's type and the epilogue's
+# template index. Another nvcc may allocate otherwise: phase 2 holds the
+# report to this table only under TILE_PASS_NVCC and else prints the
+# differences.
+TILE_PASS_NVCC = "12.9, V12.9.86"
+TILE_PASS_BUILD = {
+    **{f"{kern}<float,{e}>": (128, st, sst, sld, 33024)
+       for kern, e, st, sst, sld in (
+           ("fused_tiles", 0, 0, 0, 0), ("fused_tiles", 1, 0, 0, 0),
+           ("fused_tiles", 2, 32, 0, 0), ("fused_tiles", 3, 0, 0, 0),
+           ("fused_tiles", 4, 0, 0, 0), ("fused_tiles", 5, 32, 0, 0),
+           ("fused_window_tiles", 0, 0, 0, 0),
+           ("fused_window_tiles", 1, 0, 0, 0),
+           ("fused_window_tiles", 2, 64, 32, 52),
+           ("fused_window_tiles", 3, 0, 0, 0),
+           ("fused_window_tiles", 4, 0, 0, 0),
+           ("fused_window_tiles", 5, 24, 20, 24))},
+    **{f"{kern}<bf16,{e}>": (128, st, sst, sld, 33024)
+       for kern, e, st, sst, sld in (
+           ("fused_tiles", 0, 24, 28, 40), ("fused_tiles", 1, 24, 28, 40),
+           ("fused_tiles", 2, 64, 40, 52), ("fused_tiles", 3, 24, 28, 40),
+           ("fused_tiles", 4, 24, 28, 40), ("fused_tiles", 5, 72, 44, 56),
+           ("fused_window_tiles", 0, 32, 24, 44),
+           ("fused_window_tiles", 1, 32, 24, 44),
+           ("fused_window_tiles", 2, 72, 36, 56),
+           ("fused_window_tiles", 3, 32, 24, 44),
+           ("fused_window_tiles", 4, 32, 24, 44),
+           ("fused_window_tiles", 5, 24, 20, 24))},
+    "phi_stat_tiles": (127, 0, 0, 0, 32768),
+    "phi_window_tiles": (123, 0, 0, 0, 32768),
+}
+
+
+def _kernel_key(mangled):
+    """A readable key for a tile kernel's mangled name, or None."""
+    m = re.search(r"(fused_window_tiles|fused_tiles)I(f|13__nv_bfloat16)"
+                  r"Li(\d+)E", mangled)
+    if m:
+        t = "float" if m.group(2) == "f" else "bf16"
+        return f"{m.group(1)}<{t},{m.group(3)}>"
+    m = re.search(r"(phi_stat_tiles|phi_window_tiles)E", mangled)
+    if m:
+        return m.group(1)
+    m = re.search(r"gram_tiles.*?(CopyF32ILi(\d)E|CopyBf16)E*Lb(\d)",
+                  mangled)
+    if m:
+        path = ("bf16" if m.group(1) == "CopyBf16"
+                else "f32x16" if m.group(2) == "4" else "f32x4")
+        return f"gram_tiles<{path},{'tri' if m.group(3) == '1' else 'dense'}>"
+    return None
+
+
+def build_report(log):
+    """kernel key -> (registers, stack frame, spill stores, spill loads,
+    static shared memory bytes) from nvcc's -Xptxas -v output."""
+    out, cur = {}, None
+    for line in log.splitlines():
+        m = re.search(r"Function properties for (\S+)", line)
+        if m:
+            cur = _kernel_key(m.group(1))
+            continue
+        if cur is None:
+            continue
+        m = re.search(r"(\d+) bytes stack frame, (\d+) bytes spill stores, "
+                      r"(\d+) bytes spill loads", line)
+        if m:
+            out[cur] = [0, *map(int, m.groups()), 0]
+        m = re.search(r"Used (\d+) registers", line)
+        if m and cur in out:
+            out[cur][0] = int(m.group(1))
+            sm = re.search(r"(\d+) bytes smem", line)
+            out[cur][4] = int(sm.group(1)) if sm else 0
+            out[cur] = tuple(out[cur])
+            cur = None
+    return out
+
+
 def phase_build():
+    import ctypes
     from repro_torch.kernels import _build
     path, log, secs = _build.build()
-    _build.library()
+    lib = _build.library()
     say(f"build: {path.relative_to(ROOT)} in {secs:.1f} s "
         f"(sources: {', '.join(p.name for p in sorted(_build.CSRC.glob('*.cu')))})")
     for line in log.splitlines():
         if line.startswith("==") or "Used" in line or "spill" in line \
                 or "Compiling entry" in line:
             say(f"  {line.strip()}")
+    report = build_report(log)
+    say("  the Gram engine's tile kernel (csrc/gram_pipe.cuh): registers, "
+        "stack, spill stores / loads, dynamic shared memory, CTAs an SM")
+    for layout, fn in (("tri", lib.rt_syrk_occupancy),
+                       ("dense", lib.rt_weighted_gram_occupancy)):
+        for code, name in enumerate(_build.GRAM_PATHS):
+            key = f"gram_tiles<{name},{layout}>"
+            smem, ctas = ctypes.c_int(), ctypes.c_int()
+            err = fn(torch.cuda.current_device(), code, ctypes.byref(smem),
+                     ctypes.byref(ctas))
+            check(err == 0 and key in report,
+                  f"{key}: occupancy query error {err} or no build report")
+            reg, stack, sst, sld, _ = report[key]
+            say(f"  {key}: {reg} registers, {stack} B stack, {sst} / {sld} "
+                f"B spilled, {smem.value} B dynamic shared, {ctas.value} "
+                f"CTAs an SM")
+    version = subprocess.run([_build._nvcc(), "--version"],
+                             capture_output=True, text=True).stdout
+    m = re.search(r"release ([\d.]+, V[\d.]+)", version)
+    nvcc = m.group(1) if m else "unknown"
+    bad = {k: (report.get(k), want) for k, want in TILE_PASS_BUILD.items()
+           if report.get(k) != want}
+    if nvcc == TILE_PASS_NVCC:
+        check(not bad, f"the staged tile pass's build report changed: {bad}")
+        say(f"  nvcc {nvcc}: the staged tile pass's {len(TILE_PASS_BUILD)} "
+            f"kernels build as recorded (registers, stack, spills, shared "
+            f"memory)")
+    else:
+        say(f"  nvcc {nvcc}, not the recorded {TILE_PASS_NVCC}: the staged "
+            f"tile pass's report differs from the table in {len(bad)} "
+            f"kernels (got, recorded): {bad}")
 
 
 def check_fused_stats(dev, n, k, dtype, regime, masked):
@@ -426,8 +555,88 @@ def check_mc(dev, n, k, dtype, regime, masked, name):
     return err, (X, rho, beta, w, kw)
 
 
+def gram_flop(n, k, tri):
+    """The flop the Gram engine's FMAs execute on (n, k): 2 n 128 for each
+    of the 16 A rows of each busy warp of each tile (a warp whose A rows
+    all lie past k skips its FMAs); tri: lower-triangle tiles only."""
+    nb = -(-k // 128)
+    flop = 0
+    for i in range(nb):
+        cols = k - 128 * i
+        busy = sum(8 * v < cols or 64 + 8 * v < cols for v in range(8))
+        flop += busy * 16 * 128 * 2 * n * (i + 1 if tri else nb)
+    return flop
+
+
+def gram_design(name, X, wt, others):
+    """The Gram engine's design choices timed on the same inputs, launched
+    past the wrapper (uncounted; nothing is asserted): on the wrapper's
+    split plan, 4-byte against 16-byte copies in the order 4, 16, 16, 4
+    (each a median of 10); then the wrapper's plan beside splits of each
+    length in ``others`` (rows)."""
+    from repro_torch.kernels import _build
+    n, k = X.shape
+    tri = name == "rt_syrk_tri"
+    nb = -(-k // _build.BK)
+    ntiles = nb * (nb + 1) // 2 if tri else nb * nb
+    sms = torch.cuda.get_device_properties(X.device).multi_processor_count
+    plan = (_build.tile_plan(n, k, X.device)[2] if tri
+            else _build.gram_plan(n, ntiles, sms)[1])
+    out = torch.empty((k, k), device=X.device)
+
+    def launcher(path, rows):
+        nsplits = -(-n // rows)
+        part = torch.empty(nsplits * ntiles * _build.BK ** 2, device=X.device)
+        tail = (ntiles, nsplits, rows) if tri else (nsplits, rows)
+        return lambda: _build.launch(name, X.device, X.data_ptr(), path,
+                                     wt.data_ptr(), part.data_ptr(),
+                                     out.data_ptr(), n, k, *tail)
+
+    f32x4, f32x16 = (_build.GRAM_PATHS.index(p) for p in ("f32x4", "f32x16"))
+    if _build.gram_copy(X) == f32x16:
+        fns = {p: launcher(p, plan) for p in (f32x4, f32x16)}
+        t = {f32x4: [], f32x16: []}
+        for p in (f32x4, f32x16, f32x16, f32x4):
+            t[p].append(time_ms(fns[p]))
+        a, b = statistics.mean(t[f32x4]), statistics.mean(t[f32x16])
+        say(f"  copy A/B {name} {[n, k]}: 4-byte {a:.3f} ms "
+            f"{[round(x, 3) for x in t[f32x4]]}, 16-byte {b:.3f} ms "
+            f"{[round(x, 3) for x in t[f32x16]]}; 4-byte / 16-byte "
+            f"{a / b:.4f}")
+    for rows in [plan, *others]:
+        nsplits = -(-n // rows)
+        ms = time_ms(launcher(_build.gram_copy(X), rows))
+        say(f"  split plan {name} {[n, k]}: {nsplits} splits of {rows} rows "
+            f"({nsplits * ntiles / (2 * sms):.2f} waves of two CTAs an SM)"
+            f"{' (the plan of the wrapper)' if rows == plan else ''}: "
+            f"{ms:.3f} ms")
+
+
+def time_gram(name, fn, X, wt, err):
+    """Time a Gram kernel (syrk_tri, weighted_gram) beside its plain
+    version and torch.einsum; print its rates; returns its kernels row."""
+    from repro_torch.kernels import ref
+    n, k = X.shape
+    ms = time_ms(lambda: fn(X, wt))
+    plain = time_ms(lambda: ref.weighted_gram(X, wt))
+    lib = time_ms(lambda: torch.einsum("nk,n,nj->kj", X, wt, X))
+    need = n * k * (k + 1)
+    b_ms, by = bound(need, 4 * (n * k + n + k * k))
+    run = gram_flop(n, k, name == "syrk_tri")
+    say(f"  rate {name} {[n, k]}: {run / ms / 1e9:.1f} TFLOP/s of the "
+        f"{run:.4e} flop its tiles execute, {need / ms / 1e9:.1f} TFLOP/s "
+        f"of the {need:.4e} the function needs; the bound {b_ms:.3f} ms "
+        f"is {PEAK_FP32 / 1e12:.0f} TFLOP/s"
+        + ("" if name == "syrk_tri" else
+           f"; the dense grid alone needs "
+           f"{2 * n * k * k / PEAK_FP32 * 1e3:.3f} ms, "
+           f"{run / PEAK_FP32 * 1e3:.3f} on its 128-padded tiles"))
+    return dict(shape=[n, k], max_abs_err=err, ms=ms, plain_ms=plain,
+                bound_ms=b_ms, bound_by=by, library_ms=lib)
+
+
 def phase_kernels(dev, main_nk=(250_000, 501), wide_nk=(131_072, 2048),
-                  small_nk=(1037, 29)):
+                  small_nk=(1037, 29), wide8_nk=(250_000, 2049)):
     from repro_torch.kernels import fused_estep, fused_stats, ref, syrk
     f32, bf16 = torch.float32, torch.bfloat16
     out = {}
@@ -491,14 +700,20 @@ def phase_kernels(dev, main_nk=(250_000, 501), wide_nk=(131_072, 2048),
 
     check_syrk(dev, n, k, f32, "hinge")
     err, (X, wt) = check_syrk(dev, n, k, f32, "well")
-    ms = time_ms(lambda: syrk.syrk_tri(X, wt))
-    plain = time_ms(lambda: ref.syrk_tri(X, wt))
-    lib = time_ms(lambda: torch.einsum("nk,n,nj->kj", X, wt, X))
-    b_ms, by = bound(n * k * (k + 1), 4 * (n * k + n + k * k))
-    out["syrk_tri"] = dict(shape=[n, k], max_abs_err=err, ms=ms,
-                           plain_ms=plain, bound_ms=b_ms, bound_by=by,
-                           library_ms=lib)
+    out["syrk_tri"] = time_gram("syrk_tri", syrk.syrk_tri, X, wt, err)
+    # At K = 2,048 one split of 4,096 rows is 32 MB of the 50 MB L2:
+    # shorter splits would win if X were read from DRAM more than once.
+    gram_design("rt_syrk_tri", X, wt, [2048, 1024])
     del X, wt
+    # phase 8's width: the 4-byte copy path and a one-column edge block
+    n, k = wide8_nk
+    err, (X, wt) = check_syrk(dev, n, k, f32, "well")
+    row = time_gram("syrk_tri", syrk.syrk_tri, X, wt, err)
+    del X, wt
+    say(f"  time syrk_tri {row['shape']} (phase 8's width): kernel "
+        f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, library "
+        f"{row['library_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms "
+        f"({row['bound_by']})")
     for name, row in out.items():
         say(f"  time {name} {row['shape']}: kernel {row['ms']:.3f} ms, "
             f"plain {row['plain_ms']:.3f} ms, library "
@@ -661,16 +876,12 @@ def phase_svr_kernels(dev, small_nk=(1037, 29), table9=(250_000, 500),
     n, k = table9
     err, (X, wt) = check_gram(dev, n, k, f32, f"weighted_gram {n}x{k} "
                               "(Table 9)")
-    ms = time_ms(lambda: weighted_gram.weighted_gram(X, wt))
+    out["weighted_gram"] = time_gram("weighted_gram",
+                                     weighted_gram.weighted_gram, X, wt, err)
     tri = time_ms(lambda: syrk.syrk_tri(X, wt))
-    plain = time_ms(lambda: ref.weighted_gram(X, wt))
-    lib = time_ms(lambda: torch.einsum("nk,n,nj->kj", X, wt, X))
-    b_ms, by = bound(n * k * (k + 1), 4 * (n * k + n + k * k))
-    out["weighted_gram"] = dict(shape=[n, k], max_abs_err=err, ms=ms,
-                                plain_ms=plain, bound_ms=b_ms, bound_by=by,
-                                library_ms=lib)
     say(f"  time syrk_tri {[n, k]} (the triangle beside the dense grid): "
         f"{tri:.3f} ms")
+    gram_design("rt_weighted_gram", X, wt, [4096, 3808, 2048])
     # The Table 9 statistic as a user calls it: ops.weighted_gram, counted.
     _zero_counts()
     S = ops.weighted_gram(X, wt)
@@ -832,6 +1043,7 @@ def phase_wide(dev, n=131_072, k=2047, iters=5):
           "the K > 1536 path launched fused_stats")
     check(bool(np.all(np.isfinite(res.weights)))
           and bool(np.all(np.isfinite(res.objective))), "non-finite fit")
+    profile_fit(f"the K={k + 1} fit", cfg, dev, (X, y), top=6)
     return res.n_iters, res.n_iters, counts
 
 
@@ -899,10 +1111,15 @@ def profile_fit(label, cfg, dev, data, top=8):
 
 
 def say_profile(prof, secs, top, head):
-    """The device's busy share of ``secs`` and its time by kernel name."""
+    """The device's busy share of ``secs`` and its time by kernel name,
+    summed over the device's own activities (kernels, copies): a host
+    operator's self device time is that of the activities it launched,
+    which would count them twice."""
+    from torch.autograd import DeviceType
     rows = [(getattr(e, "self_device_time_total",
                      getattr(e, "self_cuda_time_total", 0)) / 1e3, e.count,
-             e.key) for e in prof.key_averages()]
+             e.key) for e in prof.key_averages()
+            if e.device_type != DeviceType.CPU]
     rows = sorted((r for r in rows if r[0] > 0), reverse=True)
     busy = sum(r[0] for r in rows)
     say(f"  {head}, device busy {busy:.1f} ms ({busy / (secs * 1e3):.3f} "
@@ -1436,6 +1653,7 @@ def phase_krn_wide(dev, n_train=250_000, k=500, m=2048, iters=5):
         f"{_rel(res.weights, w64):.3e}, plain {_rel(rp.weights, w64):.3e}")
     check(orel <= 2e-2 and abs(kr["metric"] - p["metric"]) <= 0.01,
           "kernel fit outside the EM bands of the plain fit")
+    profile_krn(cfg, dev, Xtr, ytr, m, ny, top=6)
     return {"nystrom_phi": (c, res.n_iters, steps)}
 
 

@@ -7,8 +7,9 @@
 // rows and writes the tile as a per-split partial. ``tri_finalize`` then
 // sums the partials of every split in a fixed order and mirrors the upper
 // triangle, so the result is deterministic: no floating-point atomics.
-// syrk.cu and fused_stats.cu both use this tile code; fused_stats runs
-// C chains as C interleaved copies of the grid, finalized per chain.
+// fused_stats.cu and nystrom_phi.cu use this tile code (syrk.cu and
+// weighted_gram.cu run the pipelined engine of gram_pipe.cuh); fused_stats
+// runs C chains as C interleaved copies of the grid, finalized per chain.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -119,32 +120,36 @@ __device__ __forceinline__ void store_tile(float* __restrict__ dst,
 }
 
 // out[c] (K x K) = sum over S splits of the tile partials
-// part[S][T][C][BK][BK] of chain c = blockIdx.y, in split order; elements
-// above the tile diagonal read the transposed lower tile, so out is
-// exactly symmetric outside the diagonal tiles. With ``acc`` the sum
-// starts from out's values instead of 0: splits finalized in several
-// launches are summed in the one global split order.
+// part[S][T][C][BK][BK] of chain c, in split order: a thread an element of
+// lower tile t = blockIdx.y of chain c = blockIdx.z, reading the S
+// partials coalesced. An element of an off-diagonal tile is also written
+// at its mirror, so out is exactly symmetric outside the diagonal tiles.
+// With ``acc`` each sum starts from out's value at the element it writes
+// instead of 0: splits finalized in several launches are summed in the one
+// global split order.
 static __global__ void tri_finalize(const float* __restrict__ part,
                                     float* __restrict__ out, int K, int T,
                                     int S, int C, int acc) {
-  const int64_t idx = (int64_t)blockIdx.x * blockDim.x + threadIdx.x;
-  if (idx >= (int64_t)K * K) return;
-  const int ch = blockIdx.y;
-  const int r = (int)(idx / K), c = (int)(idx % K);
-  const int bi = r / BK, bj = c / BK;
-  int t, off;
-  if (bi >= bj) {
-    t = bi * (bi + 1) / 2 + bj;
-    off = (r % BK) * BK + c % BK;
-  } else {
-    t = bj * (bj + 1) / 2 + bi;
-    off = (c % BK) * BK + r % BK;
+  const int t = blockIdx.y, ch = blockIdx.z;
+  const int off = blockIdx.x * blockDim.x + threadIdx.x;
+  int bi, bj;
+  tri_ij(t, bi, bj);
+  const int r = bi * BK + off / BK, c = bj * BK + off % BK;
+  if (r >= K || c >= K) return;
+  const bool mirror = bi != bj;
+  float* lo = out + (int64_t)ch * K * K + (int64_t)r * K + c;
+  float* up = out + (int64_t)ch * K * K + (int64_t)c * K + r;
+  float sum_lo = acc ? *lo : 0.f;
+  float sum_up = acc && mirror ? *up : 0.f;
+  const float* p = part + ((int64_t)t * C + ch) * BK * BK + off;
+  const int64_t stride = (int64_t)T * C * BK * BK;
+  for (int s = 0; s < S; ++s) {
+    const float v = p[s * stride];
+    sum_lo += v;
+    sum_up += v;
   }
-  float* o = out + (int64_t)ch * K * K + idx;
-  float sum = acc ? *o : 0.f;
-  for (int s = 0; s < S; ++s)
-    sum += part[(((int64_t)s * T + t) * C + ch) * BK * BK + off];
-  *o = sum;
+  *lo = sum_lo;
+  if (mirror) *up = sum_up;
 }
 
 // The column window Sigma[:, start:start + blk] of a width-K statistic,
@@ -215,8 +220,7 @@ static __global__ void sum_partials(const float* __restrict__ part,
 static inline void launch_tri_finalize(const float* part, float* out, int K,
                                        int T, int S, cudaStream_t stream,
                                        int C = 1, bool acc = false) {
-  const int64_t n = (int64_t)K * K;
-  const dim3 grid((unsigned)((n + 255) / 256), (unsigned)C);
+  const dim3 grid(BK * BK / 256, (unsigned)T, (unsigned)C);
   tri_finalize<<<grid, 256, 0, stream>>>(part, out, K, T, S, C, (int)acc);
 }
 

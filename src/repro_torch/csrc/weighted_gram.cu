@@ -7,43 +7,17 @@
 // nothing, so it does twice the triangle's work by design (the Table 9
 // comparison is dense against triangle). Grid = (S row splits of
 // ROWS_PER_SPLIT rows) x (nb^2 tiles), tile index fastest, so the CTAs that
-// read the same rows run together and share them in L2. Each CTA keeps its
-// 128 x 128 tile in registers over its rows (common.cuh) and writes a
-// per-split partial; dense_finalize sums the partials in split order, so
-// the result is bitwise repeatable (no atomics). Tile (i, j) and tile
-// (j, i) round differently, as the TPU kernel's blocks do: the result is
-// not required to be bitwise symmetric. See kernels/weighted_gram.py.
-#include "common.cuh"
+// read the same rows run together and share them in L2. Each CTA runs the
+// pipelined tile pass of gram_pipe.cuh (the engine syrk_tri runs, on the
+// dense grid) and writes a per-split partial; dense_finalize sums the
+// partials in split order, so the result is bitwise repeatable (no
+// atomics). Tile (i, j) and tile (j, i) round differently, as the TPU
+// kernel's blocks do: the result is not required to be bitwise symmetric.
+// See gram_pipe.cuh for what bounds it and kernels/weighted_gram.py.
+#include "gram_pipe.cuh"
 
 namespace rt {
 namespace {
-
-template <typename T>
-__global__ void __launch_bounds__(TILE_THREADS, 2)
-    gram_tiles(const T* __restrict__ X, const float* __restrict__ w,
-               float* __restrict__ part, int64_t N, int K, int nb,
-               int64_t rows_per_split) {
-  __shared__ __align__(16) float As[BN][BK];
-  __shared__ __align__(16) float Bs[BN][BK];
-  const int ntiles = nb * nb;
-  const int t = (int)(blockIdx.x % ntiles);
-  const int64_t s = blockIdx.x / ntiles;
-  const int bi = t / nb, bj = t % nb;
-  const int64_t r_begin = s * rows_per_split;
-  const int64_t r_end = min64(N, r_begin + rows_per_split);
-  float acc[8][8];
-#pragma unroll
-  for (int p = 0; p < 8; ++p)
-#pragma unroll
-    for (int q = 0; q < 8; ++q) acc[p][q] = 0.f;
-  for (int64_t row0 = r_begin; row0 < r_end; row0 += BN) {
-    stage_rows(X, row0, r_end, K, bi * BK, bj * BK, w + row0, As, Bs);
-    __syncthreads();
-    accumulate(acc, As, Bs);
-    __syncthreads();
-  }
-  store_tile(part + ((int64_t)s * ntiles + t) * BK * BK, acc);
-}
 
 // out (K x K) = sum over S splits of the tile partials part[S][nb^2][BK][BK]
 // in split order.
@@ -61,40 +35,37 @@ __global__ void dense_finalize(const float* __restrict__ part,
   out[idx] = sum;
 }
 
-template <typename T>
-void launch(const void* X, const float* w, float* part, float* out,
-            int64_t N, int K, int nsplits, int64_t rows_per_split,
-            cudaStream_t stream) {
-  const int nb = (K + BK - 1) / BK;
-  gram_tiles<T><<<(unsigned)((int64_t)nsplits * nb * nb), TILE_THREADS, 0,
-                  stream>>>(static_cast<const T*>(X), w, part, N, K, nb,
-                            rows_per_split);
-  const int64_t n = (int64_t)K * K;
-  dense_finalize<<<(unsigned)((n + 255) / 256), 256, 0, stream>>>(
-      part, out, K, nb, nsplits);
-}
-
 }  // namespace
 }  // namespace rt
 
-// X (N, K) row-major f32 (x_bf16 = 0) or bf16 (x_bf16 = 1); w (N,) f32;
-// part: nsplits * ceil(K / 128)^2 * 128 * 128 f32 scratch; out (K, K) f32;
-// nsplits = ceil(N / rows_per_split). Returns cudaGetLastError() after the
-// launches.
+// X (N, K) row-major f32 or bf16, copied on ``path`` as in rt_syrk_tri;
+// w (N,) f32; part: nsplits * ceil(K / 128)^2 * 128 * 128 f32 scratch;
+// out (K, K) f32; nsplits = ceil(N / rows_per_split). Returns the first
+// CUDA error of the launches, 0 if none.
 extern "C" int rt_weighted_gram(int device, void* stream, const void* X,
-                                int x_bf16, const void* w, void* part,
+                                int path, const void* w, void* part,
                                 void* out, int64_t N, int K, int nsplits,
                                 int64_t rows_per_split) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const float* wf = static_cast<const float*>(w);
   float* pf = static_cast<float*>(part);
-  float* of = static_cast<float*>(out);
-  if (x_bf16)
-    rt::launch<__nv_bfloat16>(X, wf, pf, of, N, K, nsplits, rows_per_split,
-                              st);
-  else
-    rt::launch<float>(X, wf, pf, of, N, K, nsplits, rows_per_split, st);
+  const int nb = (K + rt::BK - 1) / rt::BK;
+  err = rt::gp::launch_tiles<false>(X, path, static_cast<const float*>(w),
+                                    pf, N, K, nb * nb, nsplits,
+                                    rows_per_split, st);
+  if (err != cudaSuccess) return (int)err;
+  const int64_t n = (int64_t)K * K;
+  rt::dense_finalize<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
+      pf, static_cast<float*>(out), K, nb, nsplits);
   return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory bytes and resident CTAs an SM of the tile kernel
+// on copy path ``path``.
+extern "C" int rt_weighted_gram_occupancy(int device, int path, int* smem,
+                                          int* ctas) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return (int)rt::gp::occupancy<false>(path, smem, ctas);
 }

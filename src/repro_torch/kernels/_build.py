@@ -50,6 +50,8 @@ _SIGNATURES = {
     "rt_weighted_gram": [_c_int, _c_void_p, _c_void_p, _c_int, _c_void_p,
                          _c_void_p, _c_void_p, _c_int64, _c_int, _c_int,
                          _c_int64],
+    "rt_syrk_occupancy": [_c_int, _c_int, _c_void_p, _c_void_p],
+    "rt_weighted_gram_occupancy": [_c_int, _c_int, _c_void_p, _c_void_p],
     "rt_rbf_gram": [_c_int, _c_void_p, _c_void_p, _c_int, _c_void_p, _c_int,
                     _c_void_p, _c_void_p, _c_void_p, _c_int64, _c_int,
                     _c_int, _c_float],
@@ -185,6 +187,22 @@ def check_vec(name: str, v: torch.Tensor, n: int, X: torch.Tensor) -> None:
                          f"{tuple(v.shape)}")
 
 
+# The Gram engine's copy paths (csrc/gram_pipe.cuh's Path), by index.
+GRAM_PATHS = ("f32x4", "f32x16", "bf16")
+
+
+def gram_copy(X: torch.Tensor) -> int:
+    """The index in GRAM_PATHS of how the Gram engine copies X's rows:
+    "f32x16", one 16-byte cp.async a four-column group, for float32 rows
+    whose every group is 16-byte aligned (K % 4 == 0 and X 16-byte
+    aligned); "f32x4", 4-byte copies, for other float32; "bf16", the
+    covering 4-byte words, for bfloat16."""
+    if X.dtype == torch.bfloat16:
+        return GRAM_PATHS.index("bf16")
+    aligned = X.shape[1] % 4 == 0 and X.data_ptr() % 16 == 0
+    return GRAM_PATHS.index("f32x16" if aligned else "f32x4")
+
+
 def tile_plan(N: int, K: int, device: torch.device) -> tuple[int, int, int]:
     """(ntiles, nsplits, rows_per_split) of the triangle-tiled Sigma grid:
     one CTA per (lower-triangle tile, row split). Splits are at most
@@ -196,6 +214,28 @@ def tile_plan(N: int, K: int, device: torch.device) -> tuple[int, int, int]:
     rows = -(-N // want)
     rows = -(-rows // BN) * BN
     return ntiles, -(-N // rows), rows
+
+
+def gram_plan(N: int, ntiles: int, sms: int) -> tuple[int, int]:
+    """(nsplits, rows_per_split) of the dense Gram grid (``weighted_gram``):
+    one CTA per (tile, row split), two CTAs an SM. Splits hold at most
+    ROWS_PER_SPLIT rows, a multiple of BN, and are numerous enough for two
+    CTAs an SM where N allows; up to twice the fewest that allows. Of those
+    plans it takes the one whose waves of CTAs times rows a split is least:
+    a last wave that would run nearly empty is bought back with shorter
+    splits (at Table 9's 250,000 x 500 on 132 SMs: 99 splits of 2,528
+    rows, six full waves, in place of 62 of 4,096 in 3.76 waves)."""
+    slots = 2 * sms
+    fill = min(-(-slots // ntiles), -(-N // BN))
+    most = max(2 * -(-N // ROWS_PER_SPLIT), 2 * fill)
+    best = None
+    for rows in range(ROWS_PER_SPLIT, BN - 1, -BN):
+        nsplits = -(-N // rows)
+        if fill <= nsplits <= most:
+            cost = -(-nsplits * ntiles // slots) * rows
+            if best is None or cost < best[0]:
+                best = (cost, nsplits, rows)
+    return best[1], best[2]
 
 
 def window_tiles(K: int, start: int, blk: int) -> tuple[list, list]:

@@ -45,12 +45,12 @@ def check_window(col_window, K: int) -> tuple[int, int]:
 def weighted_gram(X: torch.Tensor, w: torch.Tensor,
                   col_window: tuple | None = None) -> torch.Tensor:
     """S = X^T diag(w) X, (K, K), summed over splits of ROWS_PER_SPLIT
-    rows in order, as the kernels sum theirs. One float32 product over a
-    million rows has several times the error: on the 1e6-row Nystrom
-    statistic (``chip_nystrom_numerics.py``) it was 6.6 from float64 in
-    the 2-norm, pushed an eigenvalue to -1.4 against a ridge of 0.3 and
-    broke the Cholesky, where the split sum stays within 2.0.
-    ``col_window = (start, blk)`` gives the column block
+    rows in order (the kernels sum splits of at most that many). One
+    float32 product over a million rows has several times the error: on
+    the 1e6-row Nystrom statistic (``chip_nystrom_numerics.py``) it was
+    6.6 from float64 in the 2-norm, pushed an eigenvalue to -1.4 against
+    a ridge of 0.3 and broke the Cholesky, where the split sum stays
+    within 2.0. ``col_window = (start, blk)`` gives the column block
     S[:, start:start + blk], (K, blk)."""
     Xf, wf = _acc(X), _acc(w)
     win = (None if col_window is None

@@ -12,15 +12,20 @@ byte, far above the fp32 ridge of ~20 flop per byte (67 TFLOP/s over
 the way the bf16 reduction did that collapsed the posterior (DESIGN.md
 §6.2).
 
-Design (``csrc/syrk.cu``, ``csrc/common.cuh``): a TPU grid runs in order
-and carries the block sum across N steps; Hopper's CTAs run in parallel in
-no order. So the N sweep is split into row ranges of at most 4096 rows,
-and the grid is (row split) x (lower-triangle 128 x 128 tile). Each CTA of
-256 threads keeps its tile in registers (8 x 8 a thread), stages 32 rows
-of its two column blocks in shared memory per step (the i-block scaled by
-w), and writes the tile as a per-split partial. A second launch sums the
-partials in split order and mirrors the upper triangle: deterministic,
-no atomics, and each sequential fp32 sum is at most 4096 rows long.
+Design (``csrc/syrk.cu`` on the engine of ``csrc/gram_pipe.cuh``, shared
+with ``weighted_gram``): a TPU grid runs in order and carries the block
+sum across N steps; Hopper's CTAs run in parallel in no order. So the N
+sweep is split into row ranges of at most 4096 rows (``tile_plan``), and
+the grid is (row split) x (lower-triangle 128 x 128 tile). Each CTA of
+256 threads keeps its tile in registers (8 x 8 a thread) while 32-row
+stages of its two column blocks stream through a three-slot cp.async ring
+in shared memory, two stages ahead of the FMAs; the arrived stage's
+i-block is scaled by w in place, and a diagonal tile copies its one block
+once. It writes the tile as a per-split partial, and ``tri_finalize``
+(csrc/common.cuh) sums the partials in split order and mirrors the upper triangle:
+deterministic, no atomics, and each sequential fp32 sum is at most 4096
+rows long. The sums are bit for bit those of common.cuh's staged tile
+pass over the same plan (the same rounded x w, the same FMA chain).
 Computing only the lower tiles halves the flops of the dense product.
 """
 from __future__ import annotations
@@ -45,8 +50,7 @@ def syrk_tri(X: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
                        dtype=torch.float32, device=X.device)
     out = torch.empty((K, K), dtype=torch.float32, device=X.device)
     _build.launch("rt_syrk_tri", X.device, X.data_ptr(),
-                  int(X.dtype == torch.bfloat16), w.data_ptr(),
-                  part.data_ptr(), out.data_ptr(), N, K, ntiles, nsplits,
-                  rows)
+                  _build.gram_copy(X), w.data_ptr(), part.data_ptr(),
+                  out.data_ptr(), N, K, ntiles, nsplits, rows)
     LAUNCHES += 1
     return out

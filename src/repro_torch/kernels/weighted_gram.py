@@ -13,13 +13,16 @@ by design it can reach at most about half of the function's bound. That
 is what Table 9 compares, so the kernel keeps the dense grid and never
 calls ``syrk_tri`` to mirror a triangle.
 
-Design (``csrc/weighted_gram.cu``, tile code shared with ``syrk_tri``
-through ``csrc/common.cuh``): a CTA of 256 threads owns one 128 x 128
-tile (i, j) of S for one split of ROWS_PER_SPLIT rows, keeps it in
-registers (8 x 8 a thread) while it stages 32 rows of its two column
-blocks at a time (the i-block scaled by w), and writes a per-split
-partial. A second launch sums the partials in split order: the same
-splits as the plain ``ref.weighted_gram``, and bitwise repeatable. The
+Design (``csrc/weighted_gram.cu`` on the engine of ``csrc/gram_pipe.cuh``,
+shared with ``syrk_tri``): a CTA of 256 threads owns one 128 x 128 tile
+(i, j) of S for one row split, keeps it in registers (8 x 8 a thread)
+while 32-row stages of its two column blocks stream through a cp.async
+ring in shared memory (the i-block scaled by w as it arrives), and writes
+a per-split partial. A second launch sums the partials in split order:
+bitwise repeatable, no atomics. The splits (``_build.gram_plan``) hold at
+most ROWS_PER_SPLIT rows and are sized so the last wave of CTAs is not
+nearly empty; the plain ``ref.weighted_gram`` sums splits of exactly
+ROWS_PER_SPLIT rows, so the two agree to rounding, not bit for bit. The
 (i, j) and (j, i) tiles round differently, as the TPU kernel's blocks
 do, so S is symmetric only to rounding.
 """
@@ -42,13 +45,13 @@ def weighted_gram(X: torch.Tensor, w: torch.Tensor) -> torch.Tensor:
     N, K = _build.check_x(X)
     _build.check_vec("w", w, N, X)
     nb = -(-K // _build.BK)
-    nsplits = -(-N // _build.ROWS_PER_SPLIT)
+    sms = torch.cuda.get_device_properties(X.device).multi_processor_count
+    nsplits, rows = _build.gram_plan(N, nb * nb, sms)
     part = torch.empty(nsplits * nb * nb * _build.BK * _build.BK,
                        dtype=torch.float32, device=X.device)
     out = torch.empty((K, K), dtype=torch.float32, device=X.device)
     _build.launch("rt_weighted_gram", X.device, X.data_ptr(),
-                  int(X.dtype == torch.bfloat16), w.data_ptr(),
-                  part.data_ptr(), out.data_ptr(), N, K, nsplits,
-                  _build.ROWS_PER_SPLIT)
+                  _build.gram_copy(X), w.data_ptr(), part.data_ptr(),
+                  out.data_ptr(), N, K, nsplits, rows)
     LAUNCHES += 1
     return out

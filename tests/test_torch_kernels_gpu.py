@@ -102,10 +102,42 @@ def test_fused_estep_kernel(cuda, n, k, dtype):
     _close_max(got[2], want[2])
 
 
-@pytest.mark.parametrize("n,k,dtype", SHAPES)
-def test_syrk_kernel(cuda, n, k, dtype):
-    X, rho, _, w, _ = _problem(n, k, dtype, cuda)
+# Shapes of the Gram engine (csrc/gram_pipe.cuh) behind syrk_tri and
+# weighted_gram, each reaching one of its paths: float32 with K % 4 != 0
+# (4-byte copies) and K % 4 == 0 (16-byte copies); bfloat16 with odd and
+# even K; N below one 32-row stage (1, 31) and N not a multiple of it;
+# K = 1, K = 129 (a one-column edge block), K = 2,049 (a one-column edge
+# block row at phase 8's width). The fourth field starts X that many
+# elements into its buffer: a float32 X off 16-byte alignment takes the
+# 4-byte copies, a bfloat16 X off 4-byte alignment starts its rows half a
+# word early.
+GRAM_SHAPES = [(n, k, dtype, 0) for n, k, dtype in SHAPES] + [
+    (4097, 500, torch.float32, 0), (4097, 130, torch.float32, 0),
+    (1, 7, torch.float32, 0), (1, 8, torch.float32, 0),
+    (1, 1, torch.bfloat16, 0), (31, 130, torch.float32, 0),
+    (31, 129, torch.bfloat16, 0), (33, 129, torch.float32, 0),
+    (4099, 1, torch.float32, 0), (4099, 1, torch.bfloat16, 0),
+    (3000, 2049, torch.float32, 0), (3000, 2049, torch.bfloat16, 0),
+    (3000, 2048, torch.float32, 0), (8200, 257, torch.bfloat16, 0),
+    (1000, 8, torch.float32, 1), (1000, 9, torch.bfloat16, 1),
+    (1000, 8, torch.bfloat16, 3)]
+
+
+def _gram_problem(n, k, dtype, offset, dev):
+    """X (n, k) starting ``offset`` elements into its buffer, and weights
+    1 / gamma of the well-conditioned regime."""
+    X, rho, _, w, _ = _problem(n, k, dtype, dev)
     wt = 1.0 / (rho - X.float() @ w).abs().clamp_min(1e-6)
+    if offset:
+        buf = torch.zeros(n * k + offset, dtype=dtype, device=dev)
+        buf[offset:] = X.reshape(-1)
+        X = buf[offset:].view(n, k)
+    return X, wt
+
+
+@pytest.mark.parametrize("n,k,dtype,offset", GRAM_SHAPES)
+def test_syrk_kernel(cuda, n, k, dtype, offset):
+    X, wt = _gram_problem(n, k, dtype, offset, cuda)
     got = syrk.syrk_tri(X, wt)
     torch.cuda.synchronize()
     assert torch.equal(got, syrk.syrk_tri(X, wt))
@@ -604,11 +636,10 @@ def test_nystrom_fused_stats_svr_kernel(cuda, shape, var, chunked,
 
 
 # ---------------------------------------------------------- weighted_gram
-@pytest.mark.parametrize("n,k,dtype", SHAPES + [(4097, 130, torch.float32)])
-def test_weighted_gram_kernel(cuda, n, k, dtype):
+@pytest.mark.parametrize("n,k,dtype,offset", GRAM_SHAPES)
+def test_weighted_gram_kernel(cuda, n, k, dtype, offset):
     from repro_torch.kernels import weighted_gram as wg
-    X, rho, _, w, _ = _problem(n, k, dtype, cuda)
-    wt = 1.0 / (rho - X.float() @ w).abs().clamp_min(1e-6)
+    X, wt = _gram_problem(n, k, dtype, offset, cuda)
     before = wg.LAUNCHES
     got = wg.weighted_gram(X, wt)
     again = ops.weighted_gram(X, wt)

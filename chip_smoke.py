@@ -9,14 +9,14 @@ Needs one CUDA device (an H100: the kernels are built for sm_90a) and
 1. device: the card's name and power limit, torch/CUDA versions, TF32
    flags (both set off);
 2. build: compile the kernels from ``src/repro_torch/csrc`` and print the
-   compiler's register / shared-memory / spill report; for the six
-   instantiations of the Gram engine's tile kernel (csrc/gram_pipe.cuh:
-   triangle and dense, fp32 16-byte, fp32 4-byte and bf16 copies) also
-   their dynamic shared memory and resident CTAs an SM; and, under the
-   nvcc named in TILE_PASS_NVCC, require the report of the kernels that
-   keep common.cuh's staged tile pass (fused_tiles, fused_window_tiles,
-   phi_stat_tiles, phi_window_tiles) to be the one recorded in
-   TILE_PASS_BUILD (under another nvcc it prints the differences);
+   compiler's register / shared-memory / spill report; for the twelve
+   instantiations of the Gram engine's tile kernels (csrc/gram_pipe.cuh:
+   gram_tiles, triangle and dense, for syrk_tri and weighted_gram;
+   stat_tiles, triangle and window, for the two statistics; each with
+   fp32 16-byte, fp32 4-byte and bf16 copies) also their dynamic shared
+   memory and resident CTAs an SM, naming any spills, and require <= 128
+   registers and two CTAs an SM of each; then the row pass's twelve
+   instantiations (six epilogues x f32, bf16 X);
 3. kernels vs plain: each kernel at its main-path shape and at odd masked
    shapes, f32 and bf16 X, in the well-conditioned and the hinge regime of
    tests/test_torch_kernels_ref.py, against the plain PyTorch version
@@ -160,6 +160,15 @@ column slice (margin, gamma, omega and b bitwise the full variant's), and
 within 1e-5 max|S64| of the float64 statistic from the kernel's own gamma
 (and omega); it is timed at the second window with the bound flop
 2 N K blk + 4 N K (Nystrom: plus the cross-Gram and the projection).
+
+Phase 3 ends with the statistics' design choices on the Gram engine,
+timed through the wrappers on the same inputs (nothing asserted): each
+shipped split plan against the plan the staged pass ran on (tile_plan
+for fused_stats at 250,000 x 501, one chain and four, and at a rank's
+window (251, 251) of 125,000 x 502; the old stats_plan for
+nystrom_fused_stats at 1,000,000 x 2, m = 1,000), and the Nystrom phi
+scratch at a 16-byte row stride against M (phase 7's and phase 10's
+shapes), in the order a, b, b, a.
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
@@ -328,58 +337,23 @@ def phase_device():
     return card
 
 
-# The -Xptxas -v report of the kernels that keep common.cuh's staged tile
-# pass, as built before the Gram engine came, by nvcc TILE_PASS_NVCC:
-# kernel -> (registers, stack frame bytes, spill stores, spill loads,
-# static shared memory bytes). fused_*<T,e>: X's type and the epilogue's
-# template index. Another nvcc may allocate otherwise: phase 2 holds the
-# report to this table only under TILE_PASS_NVCC and else prints the
-# differences.
-TILE_PASS_NVCC = "12.9, V12.9.86"
-TILE_PASS_BUILD = {
-    **{f"{kern}<float,{e}>": (128, st, sst, sld, 33024)
-       for kern, e, st, sst, sld in (
-           ("fused_tiles", 0, 0, 0, 0), ("fused_tiles", 1, 0, 0, 0),
-           ("fused_tiles", 2, 32, 0, 0), ("fused_tiles", 3, 0, 0, 0),
-           ("fused_tiles", 4, 0, 0, 0), ("fused_tiles", 5, 32, 0, 0),
-           ("fused_window_tiles", 0, 0, 0, 0),
-           ("fused_window_tiles", 1, 0, 0, 0),
-           ("fused_window_tiles", 2, 64, 32, 52),
-           ("fused_window_tiles", 3, 0, 0, 0),
-           ("fused_window_tiles", 4, 0, 0, 0),
-           ("fused_window_tiles", 5, 24, 20, 24))},
-    **{f"{kern}<bf16,{e}>": (128, st, sst, sld, 33024)
-       for kern, e, st, sst, sld in (
-           ("fused_tiles", 0, 24, 28, 40), ("fused_tiles", 1, 24, 28, 40),
-           ("fused_tiles", 2, 64, 40, 52), ("fused_tiles", 3, 24, 28, 40),
-           ("fused_tiles", 4, 24, 28, 40), ("fused_tiles", 5, 72, 44, 56),
-           ("fused_window_tiles", 0, 32, 24, 44),
-           ("fused_window_tiles", 1, 32, 24, 44),
-           ("fused_window_tiles", 2, 72, 36, 56),
-           ("fused_window_tiles", 3, 32, 24, 44),
-           ("fused_window_tiles", 4, 32, 24, 44),
-           ("fused_window_tiles", 5, 24, 20, 24))},
-    "phi_stat_tiles": (127, 0, 0, 0, 32768),
-    "phi_window_tiles": (123, 0, 0, 0, 32768),
-}
-
-
 def _kernel_key(mangled):
-    """A readable key for a tile kernel's mangled name, or None."""
-    m = re.search(r"(fused_window_tiles|fused_tiles)I(f|13__nv_bfloat16)"
-                  r"Li(\d+)E", mangled)
+    """A readable key for an engine or row-pass kernel's mangled name
+    (gram_tiles<copy path, tri|dense>, stat_tiles<copy path, tri|window>,
+    stat_rows<X's type, epilogue index>), or None."""
+    m = re.search(r"(gram_tiles|stat_tiles)I.*?(CopyF32ILi(\d)ELi\dE|"
+                  r"CopyBf16ILi\dE)E*Lb(\d)", mangled)
     if m:
-        t = "float" if m.group(2) == "f" else "bf16"
-        return f"{m.group(1)}<{t},{m.group(3)}>"
-    m = re.search(r"(phi_stat_tiles|phi_window_tiles)E", mangled)
+        path = ("bf16" if m.group(2).startswith("CopyBf16")
+                else "f32x16" if m.group(3) == "4" else "f32x4")
+        grid = {("gram_tiles", "1"): "tri", ("gram_tiles", "0"): "dense",
+                ("stat_tiles", "0"): "tri",
+                ("stat_tiles", "1"): "window"}[m.group(1), m.group(4)]
+        return f"{m.group(1)}<{path},{grid}>"
+    m = re.search(r"stat_rowsI(f|13__nv_bfloat16)Li(\d)E", mangled)
     if m:
-        return m.group(1)
-    m = re.search(r"gram_tiles.*?(CopyF32ILi(\d)E|CopyBf16)E*Lb(\d)",
-                  mangled)
-    if m:
-        path = ("bf16" if m.group(1) == "CopyBf16"
-                else "f32x16" if m.group(2) == "4" else "f32x4")
-        return f"gram_tiles<{path},{'tri' if m.group(3) == '1' else 'dense'}>"
+        return f"stat_rows<{'float' if m.group(1) == 'f' else 'bf16'}," \
+               f"{m.group(2)}>"
     return None
 
 
@@ -420,36 +394,38 @@ def phase_build():
                 or "Compiling entry" in line:
             say(f"  {line.strip()}")
     report = build_report(log)
-    say("  the Gram engine's tile kernel (csrc/gram_pipe.cuh): registers, "
+    say("  the Gram engine's tile kernels (csrc/gram_pipe.cuh): registers, "
         "stack, spill stores / loads, dynamic shared memory, CTAs an SM")
-    for layout, fn in (("tri", lib.rt_syrk_occupancy),
-                       ("dense", lib.rt_weighted_gram_occupancy)):
+    dev = torch.cuda.current_device()
+    grids = (("gram_tiles", "tri", lambda c, a, b: lib.rt_syrk_occupancy(
+                 dev, c, a, b)),
+             ("gram_tiles", "dense",
+              lambda c, a, b: lib.rt_weighted_gram_occupancy(dev, c, a, b)),
+             ("stat_tiles", "tri",
+              lambda c, a, b: lib.rt_fused_stats_occupancy(dev, c, 0, a, b)),
+             ("stat_tiles", "window",
+              lambda c, a, b: lib.rt_fused_stats_occupancy(dev, c, 1, a, b)))
+    for kern, grid, fn in grids:
         for code, name in enumerate(_build.GRAM_PATHS):
-            key = f"gram_tiles<{name},{layout}>"
+            key = f"{kern}<{name},{grid}>"
             smem, ctas = ctypes.c_int(), ctypes.c_int()
-            err = fn(torch.cuda.current_device(), code, ctypes.byref(smem),
-                     ctypes.byref(ctas))
+            err = fn(code, ctypes.byref(smem), ctypes.byref(ctas))
             check(err == 0 and key in report,
                   f"{key}: occupancy query error {err} or no build report")
             reg, stack, sst, sld, _ = report[key]
             say(f"  {key}: {reg} registers, {stack} B stack, {sst} / {sld} "
-                f"B spilled, {smem.value} B dynamic shared, {ctas.value} "
-                f"CTAs an SM")
-    version = subprocess.run([_build._nvcc(), "--version"],
-                             capture_output=True, text=True).stdout
-    m = re.search(r"release ([\d.]+, V[\d.]+)", version)
-    nvcc = m.group(1) if m else "unknown"
-    bad = {k: (report.get(k), want) for k, want in TILE_PASS_BUILD.items()
-           if report.get(k) != want}
-    if nvcc == TILE_PASS_NVCC:
-        check(not bad, f"the staged tile pass's build report changed: {bad}")
-        say(f"  nvcc {nvcc}: the staged tile pass's {len(TILE_PASS_BUILD)} "
-            f"kernels build as recorded (registers, stack, spills, shared "
-            f"memory)")
-    else:
-        say(f"  nvcc {nvcc}, not the recorded {TILE_PASS_NVCC}: the staged "
-            f"tile pass's report differs from the table in {len(bad)} "
-            f"kernels (got, recorded): {bad}")
+                f"B spilled{' (SPILLS)' if sst or sld else ''}, "
+                f"{smem.value} B dynamic shared, {ctas.value} CTAs an SM")
+            check(reg <= 128 and ctas.value >= 2,
+                  f"{key}: {reg} registers, {ctas.value} CTAs an SM; the "
+                  "engine is laid out for two CTAs of 256 threads an SM")
+    rows = sorted(k for k in report if k.startswith("stat_rows"))
+    check(len(rows) == 12, f"the row pass has {len(rows)} instantiations, "
+          "not 12 (6 epilogues x f32, bf16)")
+    say("  the row pass (stat_rows<X, epilogue>): " + "; ".join(
+        f"{k[10:-1]} {report[k][0]} registers"
+        + (f", {report[k][2]} / {report[k][3]} B spilled"
+           if report[k][2] or report[k][3] else "") for k in rows))
 
 
 def check_fused_stats(dev, n, k, dtype, regime, masked):
@@ -568,6 +544,30 @@ def gram_flop(n, k, tri):
     return flop
 
 
+def ab(label, a, b):
+    """Time the calls a = (name, fn) and b in the order a, b, b, a, each
+    a median of 10; print both means and their ratio a / b."""
+    t = {a[0]: [], b[0]: []}
+    for name, fn in (a, b, b, a):
+        t[name].append(time_ms(fn))
+    ma, mb = statistics.mean(t[a[0]]), statistics.mean(t[b[0]])
+    say(f"  {label}: {a[0]} {ma:.3f} ms {[round(x, 3) for x in t[a[0]]]}, "
+        f"{b[0]} {mb:.3f} ms {[round(x, 3) for x in t[b[0]]]}; "
+        f"{a[0]} / {b[0]} {ma / mb:.4f}")
+
+
+def patched(fn, obj, name, value):
+    """fn with obj.name set to value while it runs."""
+    def call():
+        old = getattr(obj, name)
+        setattr(obj, name, value)
+        try:
+            return fn()
+        finally:
+            setattr(obj, name, old)
+    return call
+
+
 def gram_design(name, X, wt, others):
     """The Gram engine's design choices timed on the same inputs, launched
     past the wrapper (uncounted; nothing is asserted): on the wrapper's
@@ -594,15 +594,8 @@ def gram_design(name, X, wt, others):
 
     f32x4, f32x16 = (_build.GRAM_PATHS.index(p) for p in ("f32x4", "f32x16"))
     if _build.gram_copy(X) == f32x16:
-        fns = {p: launcher(p, plan) for p in (f32x4, f32x16)}
-        t = {f32x4: [], f32x16: []}
-        for p in (f32x4, f32x16, f32x16, f32x4):
-            t[p].append(time_ms(fns[p]))
-        a, b = statistics.mean(t[f32x4]), statistics.mean(t[f32x16])
-        say(f"  copy A/B {name} {[n, k]}: 4-byte {a:.3f} ms "
-            f"{[round(x, 3) for x in t[f32x4]]}, 16-byte {b:.3f} ms "
-            f"{[round(x, 3) for x in t[f32x16]]}; 4-byte / 16-byte "
-            f"{a / b:.4f}")
+        ab(f"copy A/B {name} {[n, k]}", ("4-byte", launcher(f32x4, plan)),
+           ("16-byte", launcher(f32x16, plan)))
     for rows in [plan, *others]:
         nsplits = -(-n // rows)
         ms = time_ms(launcher(_build.gram_copy(X), rows))
@@ -2197,6 +2190,90 @@ def phase_window_kernels(dev, small_nk=(1037, 29), mid_nk=(1037, 300),
     return out
 
 
+def old_stats_plan(N, m, M, sms):
+    """The Nystrom statistic's plan before the Gram engine ran it: enough
+    splits a chunk for two CTAs an SM, however full the chunk's last wave
+    of CTAs (at m = 1,000: 8 splits, 288 CTAs on 264 slots)."""
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import nystrom_phi as nys
+    nb = -(-M // _build.BK)
+    ntiles = nb * (nb + 1) // 2
+    splits = -(-2 * sms // ntiles)
+    per_split = -(-N // splits)
+    rows = min(_build.ROWS_PER_SPLIT, -(-per_split // _build.BN) * _build.BN)
+    splits = max(1, min(splits, nys.SCRATCH_WORDS // (rows * max(m, M))))
+    return ntiles, rows, rows * splits
+
+
+def stat_design(dev):
+    """The statistics' design choices on the Gram engine, timed through
+    the wrappers on the same inputs (the main path's counts are zeroed
+    before it runs; nothing is asserted): each split plan the kernels
+    ship (``_build.stat_plan``, ``nystrom_phi.stats_plan``) against the
+    plan the staged pass ran on (``tile_plan``, ``old_stats_plan``), and
+    the Nystrom phi scratch's 16-byte row stride (16-byte copies) against
+    the row width M (4-byte copies)."""
+    from repro_torch.kernels import _build, fused_stats
+    from repro_torch.kernels import nystrom_phi as nys
+    g = torch.Generator(device=dev).manual_seed(11)
+
+    def tile_plan(N, K, C, sms):
+        return _build.tile_plan(N, K, dev)
+
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    for n, k, C, window in ((250_000, 501, 1, None), (250_000, 501, 4, None),
+                            (125_000, 502, 1, (251, 251))):
+        X = torch.randn(n, k, generator=g, device=dev)
+        w = torch.randn(k, C, generator=g, device=dev) / math.sqrt(k)
+        w = w[:, 0].contiguous() if C == 1 else w
+        y = torch.where(torch.rand(n, generator=g, device=dev) < 0.5, -1.0,
+                        1.0)
+        seed = torch.tensor([1, 2, 3, 4], dtype=torch.int64, device=dev)
+        kw = (dict(epilogue="mc_hinge", seed=seed) if C > 1
+              else dict(col_window=window))
+        ntiles, nsplits, rows = _build.stat_plan(n, k, C, sms)
+        _, n_old, r_old = _build.tile_plan(n, k, dev)
+
+        def call():
+            return fused_stats.fused_stats(X, y, y, w, **kw)
+        ab(f"plan fused_stats {[n, k]} C={C} window={window} "
+           f"({n_old} x {r_old} rows against {nsplits} x {rows})",
+           ("tile_plan", patched(call, _build, "stat_plan", tile_plan)),
+           ("shipped plan", call))
+        del X
+    for n, d, m, epi in ((1_000_000, 2, 1000, "em_hinge"),
+                         (N_YEAR_TRAIN, 90, 681, "em_svr")):
+        X = torch.randn(n, d, generator=g, device=dev)
+        L = X[:m].contiguous()
+        P = torch.randn(m, m, generator=g, device=dev) / math.sqrt(m)
+        M = m + 1
+        w = torch.randn(M, generator=g, device=dev) / math.sqrt(M)
+        y = torch.where(torch.rand(n, generator=g, device=dev) < 0.5, -1.0,
+                        1.0)
+        beta = torch.zeros_like(y) if epi == "em_svr" else y
+        mask = torch.ones(n, device=dev)
+
+        def call():
+            return nys.nystrom_fused_stats(
+                X, L, P, y, beta, w, mask, sigma=math.sqrt(d),
+                add_bias=True, epilogue=epi,
+                eps_ins=EPS_INS if epi == "em_svr" else 0.0)
+        plan, plan_old = nys.stats_plan(n, m, M, sms), old_stats_plan(
+            n, m, M, sms)
+        if plan != plan_old:
+            ab(f"plan nystrom_fused_stats[{epi}] {[n, d, m]} (splits of "
+               f"{plan_old[1]} rows, {plan_old[2] // plan_old[1]} a chunk, "
+               f"against {plan[2] // plan[1]})",
+               ("old_stats_plan",
+                patched(call, nys, "stats_plan", old_stats_plan)),
+               ("shipped plan", call))
+        ab(f"phi stride nystrom_fused_stats[{epi}] {[n, d, m]} (M = {M})",
+           ("rows M apart", patched(call, nys, "PHI_ALIGN", 1)),
+           ("rows 16-byte aligned", call))
+        del X
+        torch.cuda.empty_cache()
+
+
 # ------------------------------------------------------- the mesh fits
 MESH_TIMEOUT = 600  # seconds a collective may wait before the ranks fail
 
@@ -2570,6 +2647,7 @@ def main() -> int:
     rows.update(svr_rows)
     rows.update(phase_nystrom_kernels(dev))
     rows.update(phase_window_kernels(dev))
+    stat_design(dev)
     say("== 4. main path, K <= 1536: LIN-EM-CLS on alpha-like 250,000 x 501")
     it4, st4, c4 = phase_main_path(dev)
     say("== 5. main path, K > 1536: LIN-EM-CLS at K = 2,048")

@@ -2,14 +2,16 @@
 // CUDA cores: no TF32, no fast-math, IEEE division).
 //
 // The Sigma statistic X^T diag(w) X is tiled across CTAs. A CTA owns one
-// (BK x BK) lower-triangle tile (i >= j) of Sigma and one contiguous range
-// of rows (a "split"); it keeps the tile in registers while it sweeps its
-// rows and writes the tile as a per-split partial. ``tri_finalize`` then
-// sums the partials of every split in a fixed order and mirrors the upper
-// triangle, so the result is deterministic: no floating-point atomics.
-// fused_stats.cu and nystrom_phi.cu use this tile code (syrk.cu and
-// weighted_gram.cu run the pipelined engine of gram_pipe.cuh); fused_stats
-// runs C chains as C interleaved copies of the grid, finalized per chain.
+// (BK x BK) tile of Sigma and one contiguous range of rows (a "split"); it
+// keeps the tile in registers while it sweeps its rows and writes the tile
+// as a per-split partial. The sweep is the pipelined Gram engine of
+// gram_pipe.cuh (syrk.cu, weighted_gram.cu, and the statistic of
+// fused_stats.cu and nystrom_phi.cu); this file holds what surrounds it:
+// the row dot product of the row passes, the triangle's tile index, the
+// tile store, and the finalize launches. ``tri_finalize`` sums the
+// partials of every split in a fixed order and mirrors the upper triangle,
+// so the result is deterministic: no floating-point atomics. C chains run
+// as C interleaved copies of the grid, finalized per chain.
 #pragma once
 
 #include <cuda_bf16.h>
@@ -38,16 +40,32 @@ __device__ __forceinline__ float warp_sum(float v) {
   return v;
 }
 
-// w . x for one row, read lane-strided (coalesced) by a whole warp. The
-// summation order depends only on K, so every CTA that recomputes the
-// margin of a row gets the same bits.
-template <typename T>
+// w . x for R rows xrow, xrow + ld, ... (those below nr), read
+// lane-strided (coalesced) by a whole warp, the rows' loads interleaved.
+// Each row's summation order depends only on K, so a row's margin has the
+// same bits in every kernel that forms it (the row pass of stats.cuh,
+// fused_estep). Lane k returns row k % R's sum (R = 1: every lane).
+template <int R, typename T>
 __device__ __forceinline__ float row_dot(const T* __restrict__ xrow,
+                                         int64_t ld, int nr,
                                          const float* __restrict__ w, int K,
                                          int lane) {
-  float s = 0.f;
-  for (int c = lane; c < K; c += 32) s = fmaf(to_f32(xrow[c]), __ldg(w + c), s);
-  return warp_sum(s);
+  float s[R];
+#pragma unroll
+  for (int k = 0; k < R; ++k) s[k] = 0.f;
+  for (int c = lane; c < K; c += 32) {
+    const float wc = __ldg(w + c);
+#pragma unroll
+    for (int k = 0; k < R; ++k)
+      if (k < nr) s[k] = fmaf(to_f32(xrow[k * ld + c]), wc, s[k]);
+  }
+  float mine = 0.f;
+#pragma unroll
+  for (int k = 0; k < R; ++k) {
+    const float d = warp_sum(s[k]);
+    if (lane % R == k) mine = d;
+  }
+  return mine;
 }
 
 // Flattened lower-triangle index t -> tile (i, j), i >= j.
@@ -57,51 +75,6 @@ __device__ __forceinline__ void tri_ij(int t, int& i, int& j) {
   while ((ii + 1) * (ii + 2) / 2 <= t) ++ii;
   i = ii;
   j = t - ii * (ii + 1) / 2;
-}
-
-// Stage BN rows starting at row0 (rows >= row_end and columns >= K read as
-// zero): As = X[:, c0i:c0i+BK] scaled by the row weight sw[r], and
-// Bs = X[:, c0j:c0j+BK]. ``sw`` may point to global or shared memory.
-template <typename T>
-__device__ __forceinline__ void stage_rows(const T* __restrict__ X,
-                                           int64_t row0, int64_t row_end,
-                                           int K, int c0i, int c0j,
-                                           const float* sw,
-                                           float (*As)[BK], float (*Bs)[BK]) {
-  const int c = threadIdx.x % BK;
-  for (int r = threadIdx.x / BK; r < BN; r += TILE_THREADS / BK) {
-    const int64_t row = row0 + r;
-    float a = 0.f, b = 0.f;
-    if (row < row_end) {
-      const T* xr = X + row * (int64_t)K;
-      if (c0i + c < K) a = to_f32(xr[c0i + c]) * sw[r];
-      if (c0j + c < K) b = to_f32(xr[c0j + c]);
-    }
-    As[r][c] = a;
-    Bs[r][c] = b;
-  }
-}
-
-// acc[p][q] += sum_r As[r][ai(p)] * Bs[r][bj(q)] over the BN staged rows,
-// where thread (tx, ty) owns rows ai = {4ty..4ty+3, 64+4ty..64+4ty+3} and
-// the same pattern of columns in tx.
-__device__ __forceinline__ void accumulate(float acc[8][8],
-                                           float (*As)[BK],
-                                           float (*Bs)[BK]) {
-  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
-#pragma unroll 4
-  for (int r = 0; r < BN; ++r) {
-    const float4 a0 = *reinterpret_cast<const float4*>(&As[r][ty * 4]);
-    const float4 a1 = *reinterpret_cast<const float4*>(&As[r][64 + ty * 4]);
-    const float4 b0 = *reinterpret_cast<const float4*>(&Bs[r][tx * 4]);
-    const float4 b1 = *reinterpret_cast<const float4*>(&Bs[r][64 + tx * 4]);
-    const float a[8] = {a0.x, a0.y, a0.z, a0.w, a1.x, a1.y, a1.z, a1.w};
-    const float b[8] = {b0.x, b0.y, b0.z, b0.w, b1.x, b1.y, b1.z, b1.w};
-#pragma unroll
-    for (int p = 0; p < 8; ++p)
-#pragma unroll
-      for (int q = 0; q < 8; ++q) acc[p][q] = fmaf(a[p], b[q], acc[p][q]);
-  }
 }
 
 // Write the (BK x BK) tile, row-major, to dst (16-byte aligned).

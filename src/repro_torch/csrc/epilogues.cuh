@@ -86,8 +86,7 @@ struct Noise {
 // indexes the noise operands and ``crow`` is the row's counter word.
 // Outputs gamma, omega (SVR; gamma otherwise), the Sigma weight before the
 // mask, and the b coefficient. The hinge's coefficient is rho/gamma; the
-// caller adds beta after the epilogue (loading beta ahead of it changes
-// fused_tiles' register allocation and slows the hinge instantiations).
+// caller adds beta after the epilogue.
 template <int EPI>
 __device__ __forceinline__ void row_epilogue(float rho, float m,
                                              const Noise& nz, int64_t i,

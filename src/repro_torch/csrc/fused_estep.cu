@@ -31,7 +31,7 @@ __global__ void __launch_bounds__(ESTEP_THREADS)
     const int64_t row = row0 + warp;
     float cf = 0.f;
     if (row < r_end) {  // warp-uniform
-      const float m = row_dot(X + row * (int64_t)K, wvec, K, lane);
+      const float m = row_dot<1>(X + row * (int64_t)K, K, 1, wvec, K, lane);
       const float g = fmaxf(fabsf(rho[row] - m), eps);
       cf = rho[row] / g + beta[row];
       if (lane == 0) {

@@ -1,13 +1,15 @@
-// The pipelined fp32 Gram engine of syrk.cu (lower-triangle tiles) and
-// weighted_gram.cu (the dense tile grid): Sigma = X^T diag(w) X on the CUDA
-// cores (FFMA; no TF32, no fast-math).
+// The pipelined fp32 Gram engine: Sigma = X^T diag(w) X on the CUDA cores
+// (FFMA; no TF32, no fast-math), for syrk.cu (lower-triangle tiles),
+// weighted_gram.cu (the dense tile grid) and the iteration statistic of
+// fused_stats.cu and nystrom_phi.cu (stat_tiles: lower-triangle tiles or a
+// column window's tile table, C chains, and b = X^T coef beside Sigma).
 //
 // What bounds it on the H100: fp32 FMAs. The triangle needs N K (K + 1)
 // flop on 4 N K bytes of X, (K + 1) / 4 flop a byte against a ridge of ~20
-// (67 TFLOP/s over 3.35 TB/s). So a CTA must keep its FMA pipe fed, which
-// the staged pass of common.cuh does not: its loads, its shared-memory
-// stores and its FMAs follow one another behind __syncthreads, and only a
-// second CTA on the SM fills the gaps.
+// (67 TFLOP/s over 3.35 TB/s). So a CTA must keep its FMA pipe fed: a pass
+// whose loads, shared-memory stores and FMAs follow one another behind
+// __syncthreads leaves it idle between them (the staged pass the port ran
+// before reached ~37 % of fp32 peak; this one 72-74 %).
 //
 // The engine: a CTA of 256 threads owns one 128 x 128 tile (i, j) of
 // Sigma for one split of at most ROWS_PER_SPLIT rows (the plan of the
@@ -19,9 +21,10 @@
 // and the arrived stage s + 1 is prepared in shared memory (its i-block
 // scaled by w, or converted from bf16). One __syncthreads a stage. The
 // FMAs read the next row's fragments while they run (mma_stage).
-// The preparation rounds each product fl(x w) once, as common.cuh's
-// stage_rows does, and mma_stage runs accumulate()'s FMA chain over the
-// same rows: the same split plan gives the same bits as that staged pass.
+// The preparation rounds each product fl(x w) once, and every element of
+// the tile is one FMA chain over the split's rows in order, so the bits
+// depend only on the split plan: every caller of the engine on one plan
+// gives the bits of the staged pass it replaced.
 //
 // How a stage is copied, by the row alignment (the wrapper picks it):
 // - CopyF32<4>: fp32 with K % 4 == 0 and X 16-byte aligned: one 16-byte
@@ -42,6 +45,21 @@
 // Where the last column block is ragged (K = 2,049: one column), the warps
 // whose A rows all lie past K skip the FMAs; 17 of phase 8's 153 tiles are
 // such edge tiles, and in each only the first warp multiplies.
+//
+// The statistic's hooks (stat_tiles; NV = 2 per-row vectors in the ring):
+// - b: the row's b coefficient is copied beside its weight. A CTA that
+//   owns b's column block q sums coef[r] x[r][q-block] over its split's
+//   rows in row order: from the unscaled B side when q = j (bmode 1: the
+//   diagonal tiles of the triangle), else from X's rows of block i (bmode
+//   2, a window's tile whose row block no window tile has as its column
+//   block). The sum is the one the B side gives, so b does not depend on
+//   which CTA forms it.
+// - the window: (i, j, bmode) from WinArgs' table (common.cuh) in place of
+//   the triangle's index; win_finalize then picks the window's columns
+//   from the full statistic's tiles: bitwise the full call's slice.
+// - C chains: a chain index in the grid, fastest, so the C CTAs of one
+//   (split, tile) run together and read the same rows of X from L2; chain
+//   c's weights and coefficients are row c of (C, N) operands.
 #pragma once
 
 #include "common.cuh"
@@ -91,29 +109,53 @@ struct Tile {
 
 // The operands of one stage as mma_stage reads them.
 struct Operands {
-  float (*A)[BK];  // X[rows, c0i:c0i + BK] * w[rows]
-  float (*B)[BK];  // X[rows, c0j:c0j + BK]
+  float (*A)[BK];     // X[rows, c0i:c0i + BK] * w[rows]
+  float (*B)[BK];     // X[rows, c0j:c0j + BK]
+  const float* coef;  // NV = 2: the rows' b coefficients
 };
+
+// Copy the stage's per-row vectors: w to v[0, BN) and, with NV = 2, coef
+// to v[BN, 2 BN); rows past the split's end read 0.
+template <int NV>
+__device__ __forceinline__ void fetch_vectors(float* v, const float* w,
+                                              const float* coef,
+                                              int64_t row0, const Tile& t) {
+  if (threadIdx.x < BN) {
+    const int64_t row = row0 + threadIdx.x;
+    const bool ok = row < t.r_end;
+    cp_async<4>(&v[threadIdx.x], ok ? w + row : w, ok ? 4 : 0);
+  }
+  if constexpr (NV == 2) {
+    if (threadIdx.x >= BN && threadIdx.x < 2 * BN) {
+      const int64_t row = row0 + threadIdx.x - BN;
+      const bool ok = row < t.r_end;
+      cp_async<4>(&v[threadIdx.x], ok ? coef + row : coef, ok ? 4 : 0);
+    }
+  }
+}
 
 // fp32 rows copied straight into the operand slot; the preparation scales
 // the A block by w in place (or makes it from B on a diagonal tile).
-// VEC = 4: 16-byte copies of four columns; VEC = 1: 4-byte copies.
-template <int VEC>
+// VEC = 4: 16-byte copies of four columns; VEC = 1: 4-byte copies. NV:
+// per-row vectors staged (1: w; 2: w and coef).
+template <int VEC, int NV = 1>
 struct CopyF32 {
   static constexpr int SLOTS = 3;
   struct Slot {
     float A[BN][BK];
     float B[BN][BK];
-    float w[BN];
+    float w[NV * BN];  // [0, BN): w; [BN, 2 BN): coef
   };
   static constexpr size_t SMEM = SLOTS * sizeof(Slot);
 
   const float* __restrict__ X;
   const float* __restrict__ w;
+  const float* __restrict__ coef;
   Slot* slot;
 
-  __device__ CopyF32(const float* X_, const float* w_, unsigned char* smem)
-      : X(X_), w(w_), slot(reinterpret_cast<Slot*>(smem)) {}
+  __device__ CopyF32(const float* X_, const float* w_, unsigned char* smem,
+                     const float* coef_ = nullptr)
+      : X(X_), w(w_), coef(coef_), slot(reinterpret_cast<Slot*>(smem)) {}
 
   // The thread copies one VEC-column group of every ROWS-th row: one
   // pointer, stepped a row group at a time.
@@ -139,11 +181,7 @@ struct CopyF32 {
     Slot& s = slot[k];
     if (!t.diag) block(s.A, row0, t, t.c0i);
     block(s.B, row0, t, t.c0j);
-    if (threadIdx.x < BN) {
-      const int64_t row = row0 + threadIdx.x;
-      const bool ok = row < t.r_end;
-      cp_async<4>(&s.w[threadIdx.x], ok ? w + row : w, ok ? 4 : 0);
-    }
+    fetch_vectors<NV>(s.w, w, coef, row0, t);
   }
 
   // A = (diag ? B : A) * w, row by row (the stage has arrived and is
@@ -166,36 +204,55 @@ struct CopyF32 {
   }
 
   __device__ __forceinline__ Operands operands(int k) const {
-    return {slot[k].A, slot[k].B};
+    return {slot[k].A, slot[k].B, NV == 2 ? slot[k].w + BN : nullptr};
   }
+
+  // X[row, col] as the B side holds it (row < N, col < K).
+  __device__ __forceinline__ float value(int64_t row, int K, int col) const {
+    return X[row * (int64_t)K + col];
+  }
+};
+
+// The fp32 operand ring of CopyBf16, with the stage's b coefficients
+// (NV = 2) carried over from the raw ring.
+template <int NV>
+struct Bf16Ops {
+  float A[BN][BK];
+  float B[BN][BK];
+  float coef[BN];
+};
+template <>
+struct Bf16Ops<1> {
+  float A[BN][BK];
+  float B[BN][BK];
 };
 
 // bf16 rows: the covering 4-byte words land raw in a two-slot ring, and the
 // preparation writes the fp32 operands into a two-slot operand ring.
+template <int NV = 1>
 struct CopyBf16 {
   static constexpr int SLOTS = 2;
   struct Raw {
     uint32_t word[2][BN][RAW_WORDS];  // [0]: the i-block, [1]: the j-block
-    float w[BN];
+    float w[NV * BN];                 // [0, BN): w; [BN, 2 BN): coef
   };
-  struct Ops {
-    float A[BN][BK];
-    float B[BN][BK];
-  };
+  using Ops = Bf16Ops<NV>;
   static constexpr size_t SMEM = SLOTS * (sizeof(Raw) + sizeof(Ops));
 
   const uint32_t* __restrict__ base;  // X rounded down to a 4-byte word
   int64_t shift;                      // X's first element's half-word in it
   const float* __restrict__ w;
+  const float* __restrict__ coef;
   Raw* raw;
   Ops* ops;
 
   __device__ CopyBf16(const __nv_bfloat16* X, const float* w_,
-                      unsigned char* smem)
+                      unsigned char* smem, const float* coef_ = nullptr)
       : base(reinterpret_cast<const uint32_t*>(
             reinterpret_cast<uintptr_t>(X) & ~uintptr_t(3))),
         shift((int64_t)((reinterpret_cast<uintptr_t>(X) >> 1) & 1)),
         w(w_),
+        coef(coef_),
         raw(reinterpret_cast<Raw*>(smem)),
         ops(reinterpret_cast<Ops*>(smem + SLOTS * sizeof(Raw))) {}
 
@@ -223,11 +280,7 @@ struct CopyBf16 {
     Raw& s = raw[k];
     if (!t.diag) block(s.word[0], row0, t, t.c0i);
     block(s.word[1], row0, t, t.c0j);
-    if (threadIdx.x < BN) {
-      const int64_t row = row0 + threadIdx.x;
-      const bool ok = row < t.r_end;
-      cp_async<4>(&s.w[threadIdx.x], ok ? w + row : w, ok ? 4 : 0);
-    }
+    fetch_vectors<NV>(s.w, w, coef, row0, t);
   }
 
   __device__ __forceinline__ void prepare(int k, int64_t row0,
@@ -248,18 +301,29 @@ struct CopyBf16 {
       o.A[r][c] = __fmul_rn(a, s.w[r]);
       o.B[r][c] = b;
     }
+    if constexpr (NV == 2) {
+      if (threadIdx.x < BN) o.coef[threadIdx.x] = s.w[BN + threadIdx.x];
+    }
   }
 
   __device__ __forceinline__ Operands operands(int k) const {
-    return {ops[k].A, ops[k].B};
+    if constexpr (NV == 2) return {ops[k].A, ops[k].B, ops[k].coef};
+    return {ops[k].A, ops[k].B, nullptr};
+  }
+
+  // X[row, col] in fp32, as the B side holds it (row < N, col < K).
+  __device__ __forceinline__ float value(int64_t row, int K, int col) const {
+    const uint16_t h =
+        reinterpret_cast<const uint16_t*>(base)[half(row, K, col)];
+    return __uint_as_float((uint32_t)h << 16);
   }
 };
 
 // acc[p][q] += A[r][ai(p)] * B[r][bj(q)] over the stage's BN rows in
-// order, in common.cuh's thread layout (thread (tx, ty) owns A rows
-// 4ty..4ty+3 and 64+4ty..64+4ty+3, and the same B columns in tx), so every
-// element's FMA chain is accumulate()'s. The next row's fragments are read
-// while this row's FMAs run.
+// order. Thread (tx, ty) owns A rows 4ty..4ty+3 and 64+4ty..64+4ty+3 and
+// the same pattern of B columns in tx (common.cuh's store_tile layout), so
+// every element is one FMA chain over the rows. The next row's fragments
+// are read while this row's FMAs run.
 __device__ __forceinline__ void frag(float a[8], float b[8], const float* Ar,
                                      const float* Br, int tx, int ty) {
   const float4 a0 = *reinterpret_cast<const float4*>(Ar + ty * 4);
@@ -290,14 +354,40 @@ __device__ __forceinline__ void mma_stage(float acc[8][8],
   }
 }
 
-// One CTA: tile (bi, bj) over rows [r_begin, r_end), partial to dst. The
-// stage s sits in slot s % SLOTS of the copy ring (CopyF32: 3 slots, so the
-// stage being copied, prepared and multiplied never share one; CopyBf16: 2
-// raw and 2 operand slots, as it copies two stages ahead but prepares into
-// its own ring).
+// b's column c = threadIdx.x (< BK) of block q over the stage's rows from
+// row0, in row order: bmode 1 from the B side (q = j), bmode 2 from X's
+// rows of block i (q = i); rows past the split and columns past K add 0.
 template <class Copy>
-__device__ __forceinline__ void tile_pass(Copy& cp, const Tile& t,
-                                          int64_t r_begin, float* dst) {
+__device__ __forceinline__ float b_stage(const Copy& cp, const Operands& o,
+                                         const Tile& t, int64_t row0,
+                                         int bmode, float bacc) {
+  const int c = threadIdx.x;
+  if (bmode == 1) {
+#pragma unroll 8
+    for (int r = 0; r < BN; ++r) bacc = fmaf(o.coef[r], o.B[r][c], bacc);
+    return bacc;
+  }
+  const int col = t.c0i + c;
+#pragma unroll 8
+  for (int r = 0; r < BN; ++r) {
+    const int64_t row = row0 + r;
+    const float x = (row < t.r_end && col < t.K) ? cp.value(row, t.K, col)
+                                                  : 0.f;
+    bacc = fmaf(o.coef[r], x, bacc);
+  }
+  return bacc;
+}
+
+// One CTA: tile (bi, bj) over rows [r_begin, r_end), partial to dst; and
+// b's block as bmode says (b_stage), returned (0 with bmode 0). The
+// stage s sits in slot s % SLOTS of the copy ring (CopyF32: 3 slots, so
+// the stage being copied, prepared and multiplied never share one;
+// CopyBf16: 2 raw and 2 operand slots, as it copies two stages ahead but
+// prepares into its own ring).
+template <class Copy>
+__device__ __forceinline__ float tile_pass(Copy& cp, const Tile& t,
+                                           int64_t r_begin, float* dst,
+                                           int bmode = 0) {
   constexpr int S = Copy::SLOTS;
   const int nst = (int)((t.r_end - r_begin + BN - 1) / BN);
   // A warp whose A rows all lie past K (the last block of a ragged K, as
@@ -310,6 +400,7 @@ __device__ __forceinline__ void tile_pass(Copy& cp, const Tile& t,
   for (int p = 0; p < 8; ++p)
 #pragma unroll
     for (int q = 0; q < 8; ++q) acc[p][q] = 0.f;
+  float bacc = 0.f;
 
   cp.fetch(0, r_begin, t);
   cp_commit();
@@ -330,9 +421,12 @@ __device__ __forceinline__ void tile_pass(Copy& cp, const Tile& t,
     if (st + 1 < nst)
       cp.prepare((st + 1) % S, r_begin + (int64_t)(st + 1) * BN, t);
     const Operands o = cp.operands(st % S);
+    if (bmode != 0 && threadIdx.x < BK)
+      bacc = b_stage(cp, o, t, r_begin + (int64_t)st * BN, bmode, bacc);
     if (busy) mma_stage(acc, o.A, o.B);
   }
   store_tile(dst, acc);
+  return bacc;
 }
 
 // Grid = (S row splits) x (T tiles), tile index fastest. TRI: T lower-
@@ -385,9 +479,9 @@ cudaError_t launch_tiles(const void* X, int path, const float* w,
                          int nsplits, int64_t rows_per_split,
                          cudaStream_t stream) {
   if (path == BF16)
-    return launch_one<TRI, CopyBf16>(static_cast<const __nv_bfloat16*>(X),
-                                     w, part, N, K, ntiles, nsplits,
-                                     rows_per_split, stream);
+    return launch_one<TRI, CopyBf16<>>(static_cast<const __nv_bfloat16*>(X),
+                                       w, part, N, K, ntiles, nsplits,
+                                       rows_per_split, stream);
   const float* Xf = static_cast<const float*>(X);
   if (path == F32_16B)
     return launch_one<TRI, CopyF32<4>>(Xf, w, part, N, K, ntiles, nsplits,
@@ -396,26 +490,110 @@ cudaError_t launch_tiles(const void* X, int path, const float* w,
                                      rows_per_split, stream);
 }
 
-// The dynamic shared memory a CTA of copy path ``path`` takes, and how
-// many such CTAs fit an SM (cudaOccupancyMaxActiveBlocksPerMultiprocessor).
-template <bool TRI, class Copy, typename T>
-cudaError_t occupancy_one(int* smem, int* ctas) {
+// The dynamic shared memory a CTA of kernel ``fn`` on copy path Copy
+// takes, and how many such CTAs fit an SM.
+template <class Copy, class Fn>
+cudaError_t occupancy_of(Fn fn, int* smem, int* ctas) {
   cudaError_t err = cudaFuncSetAttribute(
-      gram_tiles<Copy, TRI, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
-      (int)Copy::SMEM);
+      fn, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)Copy::SMEM);
   if (err != cudaSuccess) return err;
   *smem = (int)Copy::SMEM;
-  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-      ctas, gram_tiles<Copy, TRI, T>, TILE_THREADS, Copy::SMEM);
+  return cudaOccupancyMaxActiveBlocksPerMultiprocessor(ctas, fn,
+                                                       TILE_THREADS,
+                                                       Copy::SMEM);
 }
 
 template <bool TRI>
 cudaError_t occupancy(int path, int* smem, int* ctas) {
   if (path == BF16)
-    return occupancy_one<TRI, CopyBf16, __nv_bfloat16>(smem, ctas);
+    return occupancy_of<CopyBf16<>>(gram_tiles<CopyBf16<>, TRI,
+                                               __nv_bfloat16>, smem, ctas);
   if (path == F32_16B)
-    return occupancy_one<TRI, CopyF32<4>, float>(smem, ctas);
-  return occupancy_one<TRI, CopyF32<1>, float>(smem, ctas);
+    return occupancy_of<CopyF32<4>>(gram_tiles<CopyF32<4>, TRI, float>,
+                                    smem, ctas);
+  return occupancy_of<CopyF32<1>>(gram_tiles<CopyF32<1>, TRI, float>, smem,
+                                  ctas);
+}
+
+// The statistic's tile grid (stat_tiles): Sigma_c's tiles and b_c's
+// blocks from the row pass's weights and coefficients.
+struct StatArgs {
+  const float* wgt;   // (C, N): chain c's Sigma weights at wgt + c * N
+  const float* coef;  // (C, N): its b coefficients
+  float* part;        // (S, T, C) tiles of BK x BK
+  float* bpart;       // (S, C, Kp): b's blocks
+  int64_t N, rows_per_split;
+  int K, Kp, ntiles, C, nsplits;
+  WinArgs win;        // WIN: the window's tile table (ntiles = win.ntw)
+};
+
+// Grid = (S row splits) x (T tiles) x (C chains), chain fastest, then
+// tile. TRI (WIN false): the lower triangle in tri_ij order, b's block q
+// on the diagonal tile (q, q); WIN: the table's (i, j, bmode).
+template <class Copy, bool WIN, typename T>
+__global__ void __launch_bounds__(TILE_THREADS, 2)
+    stat_tiles(const T* __restrict__ X, const StatArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int c = (int)(blockIdx.x % a.C);
+  const int tt = (int)((blockIdx.x / a.C) % a.ntiles);
+  const int64_t s = blockIdx.x / ((int64_t)a.C * a.ntiles);
+  int bi, bj, bmode;
+  if (WIN) {
+    bi = a.win.tab[3 * tt];
+    bj = a.win.tab[3 * tt + 1];
+    bmode = a.win.tab[3 * tt + 2];
+  } else {
+    tri_ij(tt, bi, bj);
+    bmode = bi == bj ? 1 : 0;
+  }
+  const int64_t r_begin = s * a.rows_per_split;
+  const Tile t{a.N, min64(a.N, r_begin + a.rows_per_split), a.K, bi * BK,
+               bj * BK, bi == bj};
+  Copy cp(X, a.wgt + (int64_t)c * a.N, smem, a.coef + (int64_t)c * a.N);
+  const float bacc = tile_pass(
+      cp, t, r_begin, a.part + ((s * a.ntiles + tt) * a.C + c) * BK * BK,
+      bmode);
+  if (bmode != 0 && threadIdx.x < BK)
+    a.bpart[(s * a.C + c) * a.Kp + (int64_t)(bmode == 1 ? bj : bi) * BK +
+            threadIdx.x] = bacc;
+}
+
+template <bool WIN, class Copy, typename T>
+cudaError_t launch_stat_one(const T* X, const StatArgs& a,
+                            cudaStream_t stream) {
+  cudaError_t err = cudaFuncSetAttribute(
+      stat_tiles<Copy, WIN, T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)Copy::SMEM);
+  if (err != cudaSuccess) return err;
+  stat_tiles<Copy, WIN, T>
+      <<<(unsigned)((int64_t)a.nsplits * a.ntiles * a.C), TILE_THREADS,
+         Copy::SMEM, stream>>>(X, a);
+  return cudaGetLastError();
+}
+
+// Launch stat_tiles for X on copy path ``path``.
+template <bool WIN>
+cudaError_t launch_stats(const void* X, int path, const StatArgs& a,
+                         cudaStream_t stream) {
+  if (path == BF16)
+    return launch_stat_one<WIN, CopyBf16<2>>(
+        static_cast<const __nv_bfloat16*>(X), a, stream);
+  const float* Xf = static_cast<const float*>(X);
+  if (path == F32_16B)
+    return launch_stat_one<WIN, CopyF32<4, 2>>(Xf, a, stream);
+  return launch_stat_one<WIN, CopyF32<1, 2>>(Xf, a, stream);
+}
+
+template <bool WIN>
+cudaError_t stat_occupancy(int path, int* smem, int* ctas) {
+  if (path == BF16)
+    return occupancy_of<CopyBf16<2>>(
+        stat_tiles<CopyBf16<2>, WIN, __nv_bfloat16>, smem, ctas);
+  if (path == F32_16B)
+    return occupancy_of<CopyF32<4, 2>>(stat_tiles<CopyF32<4, 2>, WIN, float>,
+                                       smem, ctas);
+  return occupancy_of<CopyF32<1, 2>>(stat_tiles<CopyF32<1, 2>, WIN, float>,
+                                     smem, ctas);
 }
 
 }  // namespace gp

@@ -18,16 +18,18 @@
 //      registers, with the bias column; WRITE stores the phi rows, SCORE
 //      multiplies them by W at once and keeps (column block, row, C)
 //      partial scores, summed in column-block order by score_reduce;
-//   and for the statistic, phi rows go to an (R, M) scratch, then
-//   C. phi_rows: a warp a row: margin = phi . w, the epilogue (rng.cuh,
-//      epilogues.cuh), the row's Sigma weight (mask times the epilogue's)
-//      and coef;
-//   D. phi_stat_tiles: Sigma's lower-triangle 128 x 128 tiles over row
-//      splits (the tile code of common.cuh) and b on the diagonal tiles;
-//      the partials are added to Sigma and b in split order, chunk after
-//      chunk (tri_finalize / sum_partials with acc). Under a column window
-//      phi_window_tiles runs the window's tiles (WinArgs) and win_finalize
-//      adds its columns: bitwise the full statistic's column slice.
+//   and for the statistic, phi rows go to an (R, M) scratch, then the two
+//   passes of fused_stats (stats.cuh) run on it:
+//   C. the row pass: a warp 4 rows: margin = phi . w, the epilogue
+//      (rng.cuh, epilogues.cuh), the row's Sigma weight (mask times the
+//      epilogue's) and coef;
+//   D. the Gram engine's statistic grid (gram_pipe.cuh's stat_tiles):
+//      Sigma's lower-triangle 128 x 128 tiles over row splits, b on the
+//      diagonal tiles; the partials are added to Sigma and b in split
+//      order, chunk after chunk (tri_finalize / sum_partials with acc).
+//      Under a column window the engine runs the window's tiles (WinArgs)
+//      and win_finalize adds its columns: bitwise the full statistic's
+//      column slice.
 //
 // No (N, m) and no (N, M) buffer is allocated on the statistic's route.
 // Each phi entry is one thread's fmaf chain over the landmarks in order,
@@ -35,6 +37,7 @@
 // writes. See kernels/nystrom_phi.py for the design note.
 #include "epilogues.cuh"
 #include "rbf.cuh"
+#include "stats.cuh"
 
 namespace rt {
 namespace {
@@ -51,7 +54,8 @@ struct PhiArgs {
   const float* mask;  // (nrows,), null = ones
   int64_t nrows;
   int m, P, bias;     // phi width M = P + bias
-  float* out;         // WRITE: (nrows, M)
+  float* out;         // WRITE: (nrows, M) rows, ldo apart
+  int ldo;            // WRITE: >= M; columns M..ldo - 1 are written 0
   const float* W;     // SCORE: (M, C)
   int C;
   float* spart;       // SCORE: (column blocks, nrows, C)
@@ -100,7 +104,7 @@ __global__ void __launch_bounds__(TILE_THREADS, 2) phi_tiles(PhiArgs a) {
 #pragma unroll
       for (int q = 0; q < 8; ++q) {
         const int j = j0 + tile_col(q);
-        if (j < M) a.out[i * M + j] = acc[p][q];
+        if (j < a.ldo) a.out[i * a.ldo + j] = acc[p][q];
       }
     }
     return;
@@ -142,138 +146,6 @@ __global__ void score_reduce(const float* __restrict__ spart,
   out[idx] = s;
 }
 
-struct RowArgs {
-  const float* phi;    // (nrows, M) chunk
-  const float* w;      // (M,)
-  const float* rho;    // the chunk's rows of (N,) operands and outputs
-  const float* beta;
-  const float* mask;   // null = ones
-  const float* noise[4];  // noise variants: nu, u[, nu_o, u_o]
-  const int64_t* seed; // seed variants: [k0, k1, row0, chain0]
-  int64_t row_base;    // operand row of the chunk's first row
-  int64_t nrows;
-  int M;
-  float* margin;
-  float* gamma;
-  float* omega;        // SVR only
-  float* wgt;          // (nrows,) Sigma weight: mask times the epilogue's
-  float* coef;         // (nrows,) b coefficient
-  float eps, eps_ins;
-};
-
-// A warp a row: margin (fixed summation order), then lane 0 runs the
-// epilogue with the same rounding as the plain version.
-template <int EPI>
-__global__ void phi_rows(RowArgs a) {
-  const int lane = threadIdx.x & 31;
-  const int64_t row = (int64_t)blockIdx.x * (TILE_THREADS / 32) +
-                      (threadIdx.x >> 5);
-  if (row >= a.nrows) return;
-  const float m = row_dot(a.phi + row * (int64_t)a.M, a.w, a.M, lane);
-  if (lane != 0) return;
-  Noise nz = {{a.noise[0], a.noise[1], a.noise[2], a.noise[3]}, 0u, 0u, 0u};
-  uint32_t crow = 0;
-  if (is_seed(EPI)) {
-    nz.k0 = (uint32_t)a.seed[0];
-    nz.k1 = (uint32_t)a.seed[1];
-    nz.chain = (uint32_t)a.seed[3];
-    crow = (uint32_t)a.seed[2] + (uint32_t)(a.row_base + row);
-  }
-  float g, o, weight, cf;
-  row_epilogue<EPI>(a.rho[row], m, nz, row, crow, a.eps, a.eps_ins, g, o,
-                    weight, cf);
-  a.wgt[row] = a.mask ? __fmul_rn(a.mask[row], weight) : weight;
-  a.coef[row] = is_svr(EPI) ? cf : __fadd_rn(cf, a.beta[row]);
-  a.margin[row] = m;
-  a.gamma[row] = g;
-  if (is_svr(EPI)) a.omega[row] = o;
-}
-
-// The tile (bi, bj) of row split s of the chunk, weighted by wgt, into acc;
-// b's block from coef: bmode 1 from the staged B side (block bj), bmode 2
-// (WIN only) from the phi rows of block bi (WinArgs, common.cuh), with the
-// values and order of bmode 1. Returns b's partial.
-template <bool WIN>
-__device__ __forceinline__ float phi_tile_pass(
-    const float* __restrict__ phi, const float* __restrict__ wgt,
-    const float* __restrict__ coef, int64_t nrows, int M, int64_t s,
-    int64_t rows_per_split, int bi, int bj, int bmode, float (*As)[BK],
-    float (*Bs)[BK], float acc[8][8]) {
-  const int64_t r_begin = s * rows_per_split;
-  const int64_t r_end = min64(nrows, r_begin + rows_per_split);
-  float bacc = 0.f;
-  for (int64_t rb = r_begin; rb < r_end; rb += BN) {
-    stage_rows(phi, rb, r_end, M, bi * BK, bj * BK, wgt + rb, As, Bs);
-    __syncthreads();
-    if (bmode == 1 && threadIdx.x < BK) {
-      for (int r = 0; r < BN && rb + r < r_end; ++r)
-        bacc = fmaf(coef[rb + r], Bs[r][threadIdx.x], bacc);
-    } else if (WIN && bmode == 2 && threadIdx.x < BK) {
-      const int col = bi * BK + threadIdx.x;
-      for (int r = 0; r < BN && rb + r < r_end; ++r)
-        bacc = fmaf(coef[rb + r],
-                    col < M ? phi[(rb + r) * (int64_t)M + col] : 0.f, bacc);
-    }
-    accumulate(acc, As, Bs);
-    __syncthreads();
-  }
-  return bacc;
-}
-
-// Sigma's lower-triangle tile t of row split s of the chunk, weighted by
-// wgt, and on diagonal tiles b's block from coef (fused_stats.cu's tile
-// body with the margin phase moved out to phi_rows).
-__global__ void __launch_bounds__(TILE_THREADS, 2)
-    phi_stat_tiles(const float* __restrict__ phi,
-                   const float* __restrict__ wgt,
-                   const float* __restrict__ coef, float* __restrict__ part,
-                   float* __restrict__ bpart, int64_t nrows, int M, int Mp,
-                   int ntiles, int64_t rows_per_split) {
-  __shared__ __align__(16) float As[BN][BK];
-  __shared__ __align__(16) float Bs[BN][BK];
-  const int t = (int)(blockIdx.x % ntiles);
-  const int64_t s = blockIdx.x / ntiles;
-  int bi, bj;
-  tri_ij(t, bi, bj);
-  const bool diag = bi == bj;
-  float acc[8][8];
-#pragma unroll
-  for (int p = 0; p < 8; ++p)
-#pragma unroll
-    for (int q = 0; q < 8; ++q) acc[p][q] = 0.f;
-  const float bacc = phi_tile_pass<false>(phi, wgt, coef, nrows, M, s,
-                                          rows_per_split, bi, bj,
-                                          diag ? 1 : 0, As, Bs, acc);
-  store_tile(part + ((int64_t)s * ntiles + t) * BK * BK, acc);
-  if (diag && threadIdx.x < BK) bpart[s * Mp + bi * BK + threadIdx.x] = bacc;
-}
-
-// The window variant: tile t of the window table (WinArgs) of split s.
-__global__ void __launch_bounds__(TILE_THREADS, 2)
-    phi_window_tiles(const float* __restrict__ phi,
-                     const float* __restrict__ wgt,
-                     const float* __restrict__ coef, float* __restrict__ part,
-                     float* __restrict__ bpart, int64_t nrows, int M, int Mp,
-                     WinArgs win, int64_t rows_per_split) {
-  __shared__ __align__(16) float As[BN][BK];
-  __shared__ __align__(16) float Bs[BN][BK];
-  const int t = (int)(blockIdx.x % win.ntw);
-  const int64_t s = blockIdx.x / win.ntw;
-  const int bi = win.tab[3 * t], bj = win.tab[3 * t + 1];
-  const int bmode = win.tab[3 * t + 2];
-  float acc[8][8];
-#pragma unroll
-  for (int p = 0; p < 8; ++p)
-#pragma unroll
-    for (int q = 0; q < 8; ++q) acc[p][q] = 0.f;
-  const float bacc = phi_tile_pass<true>(phi, wgt, coef, nrows, M, s,
-                                         rows_per_split, bi, bj, bmode, As,
-                                         Bs, acc);
-  store_tile(part + ((int64_t)s * win.ntw + t) * BK * BK, acc);
-  if (bmode != 0 && threadIdx.x < BK)
-    bpart[s * Mp + (bmode == 1 ? bj : bi) * BK + threadIdx.x] = bacc;
-}
-
 struct Featurizer {
   const void* X;
   int x_bf16;
@@ -313,11 +185,11 @@ static void cross_chunk(const Featurizer& f, int64_t c0, int64_t nr,
                        f.inv_two_sigma_sq, st);
 }
 
-// Stage B for rows [c0, c0 + nr).
+// Stage B for rows [c0, c0 + nr); WRITE stores them ldo apart.
 template <int MODE>
 static void phi_chunk(const Featurizer& f, int64_t c0, int64_t nr,
-                      float* out, const float* W, int C, float* spart,
-                      cudaStream_t st) {
+                      float* out, int ldo, const float* W, int C,
+                      float* spart, cudaStream_t st) {
   PhiArgs a;
   a.kc = f.kc;
   a.proj = f.proj;
@@ -327,17 +199,13 @@ static void phi_chunk(const Featurizer& f, int64_t c0, int64_t nr,
   a.P = f.P;
   a.bias = f.bias;
   a.out = out;
+  a.ldo = ldo;
   a.W = W;
   a.C = C;
   a.spart = spart;
   const int ntc = (f.P + f.bias + GT - 1) / GT;
   const int64_t nctas = ((nr + GT - 1) / GT) * ntc;
   phi_tiles<MODE><<<(unsigned)nctas, TILE_THREADS, 0, st>>>(a);
-}
-
-template <int EPI>
-static void launch_rows(const RowArgs& a, cudaStream_t st) {
-  phi_rows<EPI><<<(unsigned)((a.nrows + 7) / 8), TILE_THREADS, 0, st>>>(a);
 }
 
 static Featurizer featurizer(const void* X, int x_bf16, const void* L,
@@ -393,8 +261,8 @@ extern "C" int rt_nystrom_phi(int device, void* stream, const void* X,
   for (int64_t c0 = 0; c0 < N; c0 += chunk_rows) {
     const int64_t nr = rt::rows_left(chunk_rows, N - c0);
     rt::cross_chunk(f, c0, nr, st);
-    rt::phi_chunk<rt::PHI_WRITE>(f, c0, nr, o + c0 * M, nullptr, 0, nullptr,
-                                 st);
+    rt::phi_chunk<rt::PHI_WRITE>(f, c0, nr, o + c0 * M, (int)M, nullptr, 0,
+                                 nullptr, st);
   }
   return (int)cudaGetLastError();
 }
@@ -421,7 +289,7 @@ extern "C" int rt_nystrom_score(int device, void* stream, const void* X,
   for (int64_t c0 = 0; c0 < N; c0 += chunk_rows) {
     const int64_t nr = rt::rows_left(chunk_rows, N - c0);
     rt::cross_chunk(f, c0, nr, st);
-    rt::phi_chunk<rt::PHI_SCORE>(f, c0, nr, nullptr,
+    rt::phi_chunk<rt::PHI_SCORE>(f, c0, nr, nullptr, 0,
                                  static_cast<const float*>(W), C, sp, st);
     const int64_t n = nr * C;
     rt::score_reduce<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
@@ -435,15 +303,17 @@ extern "C" int rt_nystrom_score(int device, void* stream, const void* X,
 // them from seed (four int64 words on the device; the counter row is
 // seed[2] + operand row), 3 = em_svr, 4 = mc_svr reading nu, u, nu_o, u_o
 // (N,) f32, 5 = mc_svr from the seed; eps_ins is the SVR tube. Scratch:
-// phi (chunk_rows, M), wgt and coef (chunk_rows,), part (chunk_rows /
-// rows_per_split, ntiles, 128, 128), bpart (chunk_rows / rows_per_split,
-// Mp) f32 with Mp = 128 ceil(M / 128); chunk_rows a multiple of
-// rows_per_split. Outputs margin, gamma (N,), omega (N,) for SVR (else
-// unused, may be null), sigma (M, M), b (M,) f32. With win_tab non-null:
-// the column window (win_start, win_blk) of phi columns, sigma (M,
-// win_blk); win_tab (ntiles, 3) and win_tmap (nb, nb) int32 on the device
-// as WinArgs describes, ntiles the window's tile count, rows_per_split and
-// chunk_rows the full statistic's plan.
+// phi (chunk_rows, phi_ld) with phi_ld >= M (the columns past M are
+// written 0), copied by the Gram engine on ``phi_path`` (gram_pipe.cuh's
+// Path: 1 if phi_ld % 4 == 0, else 0), wgt and coef
+// (chunk_rows,), part (chunk_rows / rows_per_split, ntiles, 128, 128),
+// bpart (chunk_rows / rows_per_split, Mp) f32 with Mp = 128 ceil(M / 128);
+// chunk_rows a multiple of rows_per_split. Outputs margin, gamma (N,),
+// omega (N,) for SVR (else unused, may be null), sigma (M, M), b (M,) f32.
+// With win_tab non-null: the column window (win_start, win_blk) of phi
+// columns, sigma (M, win_blk); win_tab (ntiles, 3) and win_tmap (nb, nb)
+// int32 on the device as WinArgs describes, ntiles the window's tile
+// count, rows_per_split and chunk_rows the full statistic's plan.
 extern "C" int rt_nystrom_fused_stats(
     int device, void* stream, const void* X, int x_bf16, const void* L,
     const void* proj, const void* mask, const void* rho, const void* beta,
@@ -452,9 +322,10 @@ extern "C" int rt_nystrom_fused_stats(
     void* phi, void* wgt, void* coef, void* part, void* bpart, void* margin,
     void* gamma, void* omega, void* sigma, void* b, int64_t N, int D, int m,
     int P, int bias, int kind, float inv_two_sigma_sq, int64_t chunk_rows,
-    int ntiles, int64_t rows_per_split, int epilogue, float eps,
-    float eps_ins, const void* win_tab, const void* win_tmap, int win_nb,
-    int win_start, int win_blk) {
+    int ntiles, int64_t rows_per_split, int phi_ld, int phi_path,
+    int epilogue,
+    float eps, float eps_ins, const void* win_tab, const void* win_tmap,
+    int win_nb, int win_start, int win_blk) {
   if (epilogue < rt::EM_HINGE || epilogue > rt::MC_SVR_SEED) return -1;
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
@@ -463,19 +334,39 @@ extern "C" int rt_nystrom_fused_stats(
       rt::featurizer(X, x_bf16, L, proj, mask, sqx, sql, kc, N, D, m, P,
                      bias, kind, inv_two_sigma_sq);
   const int M = P + bias;
-  const int Mp = rt::BK * ((M + rt::BK - 1) / rt::BK);
+  const bool win = win_tab != nullptr;
   float* ph = static_cast<float*>(phi);
-  float* pt = static_cast<float*>(part);
-  float* bp = static_cast<float*>(bpart);
   float* sg = static_cast<float*>(sigma);
   float* bo = static_cast<float*>(b);
-  rt::WinArgs win;
-  win.tab = static_cast<const int*>(win_tab);
-  win.tmap = static_cast<const int*>(win_tmap);
-  win.ntw = ntiles;
-  win.nb = win_nb;
-  win.start = win_start;
-  win.blk = win_blk;
+  rt::RowArgs r;
+  r.X = ph;
+  r.ld = phi_ld;
+  r.w = static_cast<const float*>(w);
+  r.seed = static_cast<const int64_t*>(seed);
+  r.K = M;
+  r.C = 1;
+  r.wgt = static_cast<float*>(wgt);
+  r.coef = static_cast<float*>(coef);
+  r.eps = eps;
+  r.eps_ins = eps_ins;
+  rt::gp::StatArgs a;
+  a.wgt = r.wgt;
+  a.coef = r.coef;
+  a.part = static_cast<float*>(part);
+  a.bpart = static_cast<float*>(bpart);
+  a.rows_per_split = rows_per_split;
+  // The engine runs on all phi_ld columns: those past M are 0, and so
+  // are their entries of the tiles, which the finalize never reads.
+  a.K = phi_ld;
+  a.Kp = rt::BK * ((M + rt::BK - 1) / rt::BK);
+  a.ntiles = ntiles;
+  a.C = 1;
+  a.win.tab = static_cast<const int*>(win_tab);
+  a.win.tmap = static_cast<const int*>(win_tmap);
+  a.win.ntw = ntiles;
+  a.win.nb = win_nb;
+  a.win.start = win_start;
+  a.win.blk = win_blk;
   const float* ops[4] = {static_cast<const float*>(nu),
                          static_cast<const float*>(u),
                          static_cast<const float*>(nu_o),
@@ -484,45 +375,29 @@ extern "C" int rt_nystrom_fused_stats(
   for (int64_t c0 = 0; c0 < N; c0 += chunk_rows) {
     const int64_t nr = rt::rows_left(chunk_rows, N - c0);
     rt::cross_chunk(f, c0, nr, st);
-    rt::phi_chunk<rt::PHI_WRITE>(f, c0, nr, ph, nullptr, 0, nullptr, st);
-    rt::RowArgs a;
-    a.phi = ph;
-    a.w = static_cast<const float*>(w);
-    a.rho = static_cast<const float*>(rho) + c0;
-    a.beta = static_cast<const float*>(beta) + c0;
-    a.mask = f.mask ? f.mask + c0 : nullptr;
-    for (int q = 0; q < 4; ++q) a.noise[q] = ops[q] ? ops[q] + c0 : nullptr;
-    a.seed = static_cast<const int64_t*>(seed);
-    a.row_base = c0;
-    a.nrows = nr;
-    a.M = M;
-    a.margin = static_cast<float*>(margin) + c0;
-    a.gamma = static_cast<float*>(gamma) + c0;
-    a.omega = omega ? static_cast<float*>(omega) + c0 : nullptr;
-    a.wgt = static_cast<float*>(wgt);
-    a.coef = static_cast<float*>(coef);
-    a.eps = eps;
-    a.eps_ins = eps_ins;
-    switch (epilogue) {
-      case rt::EM_HINGE: rt::launch_rows<rt::EM_HINGE>(a, st); break;
-      case rt::MC_NOISE: rt::launch_rows<rt::MC_NOISE>(a, st); break;
-      case rt::MC_SEED: rt::launch_rows<rt::MC_SEED>(a, st); break;
-      case rt::EM_SVR: rt::launch_rows<rt::EM_SVR>(a, st); break;
-      case rt::MC_SVR_NOISE: rt::launch_rows<rt::MC_SVR_NOISE>(a, st); break;
-      default: rt::launch_rows<rt::MC_SVR_SEED>(a, st); break;
-    }
-    const int nsplits = (int)((nr + rows_per_split - 1) / rows_per_split);
-    const unsigned nctas = (unsigned)((int64_t)nsplits * ntiles);
-    if (win_tab == nullptr) {
-      rt::phi_stat_tiles<<<nctas, rt::TILE_THREADS, 0, st>>>(
-          ph, a.wgt, a.coef, pt, bp, nr, M, Mp, ntiles, rows_per_split);
-      rt::launch_tri_finalize(pt, sg, M, ntiles, nsplits, st, 1, c0 > 0);
-    } else {
-      rt::phi_window_tiles<<<nctas, rt::TILE_THREADS, 0, st>>>(
-          ph, a.wgt, a.coef, pt, bp, nr, M, Mp, win, rows_per_split);
-      rt::launch_win_finalize(pt, sg, M, win, nsplits, st, c0 > 0);
-    }
-    rt::launch_sum_partials(bp, bo, M, Mp, nsplits, st, 1, c0 > 0);
+    rt::phi_chunk<rt::PHI_WRITE>(f, c0, nr, ph, phi_ld, nullptr, 0, nullptr,
+                                 st);
+    r.rho = static_cast<const float*>(rho) + c0;
+    r.beta = static_cast<const float*>(beta) + c0;
+    r.mask = f.mask ? f.mask + c0 : nullptr;
+    for (int q = 0; q < 4; ++q) r.noise[q] = ops[q] ? ops[q] + c0 : nullptr;
+    r.row_base = c0;
+    r.nrows = nr;
+    r.margin = static_cast<float*>(margin) + c0;
+    r.gamma = static_cast<float*>(gamma) + c0;
+    r.omega = omega ? static_cast<float*>(omega) + c0 : nullptr;
+    const int bad = rt::launch_stat_rows(r, false, epilogue, st);
+    if (bad) return bad;
+    a.N = nr;
+    a.nsplits = (int)((nr + rows_per_split - 1) / rows_per_split);
+    err = rt::launch_stat_tiles(ph, phi_path, a, win, st);
+    if (err != cudaSuccess) return (int)err;
+    if (win)
+      rt::launch_win_finalize(a.part, sg, M, a.win, a.nsplits, st, c0 > 0);
+    else
+      rt::launch_tri_finalize(a.part, sg, M, ntiles, a.nsplits, st, 1,
+                              c0 > 0);
+    rt::launch_sum_partials(a.bpart, bo, M, a.Kp, a.nsplits, st, 1, c0 > 0);
   }
   return (int)cudaGetLastError();
 }

@@ -44,9 +44,11 @@ _SIGNATURES = {
                        _c_void_p, _c_void_p, _c_int64, _c_int, _c_int,
                        _c_int64, _c_float],
     "rt_fused_stats": [_c_int, _c_void_p, _c_void_p, _c_int,
-                       *[_c_void_p] * 16, _c_int64, _c_int, _c_int, _c_int,
+                       *[_c_void_p] * 18, _c_int64, _c_int, _c_int, _c_int,
                        _c_int, _c_int64, _c_int, _c_int, _c_float, _c_float,
                        _c_void_p, _c_void_p, _c_int, _c_int, _c_int],
+    "rt_fused_stats_occupancy": [_c_int, _c_int, _c_int, _c_void_p,
+                                 _c_void_p],
     "rt_weighted_gram": [_c_int, _c_void_p, _c_void_p, _c_int, _c_void_p,
                          _c_void_p, _c_void_p, _c_int64, _c_int, _c_int,
                          _c_int64],
@@ -67,7 +69,8 @@ _SIGNATURES = {
     "rt_nystrom_fused_stats": [_c_int, _c_void_p, _c_void_p, _c_int,
                                *[_c_void_p] * 24, _c_int64, _c_int, _c_int,
                                _c_int, _c_int, _c_int, _c_float, _c_int64,
-                               _c_int, _c_int64, _c_int, _c_float, _c_float,
+                               _c_int, _c_int64, _c_int, _c_int, _c_int,
+                               _c_float, _c_float,
                                _c_void_p, _c_void_p, _c_int, _c_int, _c_int],
 }
 
@@ -236,6 +239,20 @@ def gram_plan(N: int, ntiles: int, sms: int) -> tuple[int, int]:
             if best is None or cost < best[0]:
                 best = (cost, nsplits, rows)
     return best[1], best[2]
+
+
+def stat_plan(N: int, K: int, C: int, sms: int) -> tuple[int, int, int]:
+    """(ntiles, nsplits, rows_per_split) of ``fused_stats``' tile grid:
+    the lower-triangle tiles of a width-K Sigma for C chains, one CTA per
+    (split, tile, chain), split by ``gram_plan`` so that the last wave of
+    CTAs is not nearly empty (at 250,000 x 501, one chain, on 132 SMs: 79
+    splits of 3,168 rows, 790 CTAs in three waves of 264, in place of
+    ``tile_plan``'s 62 of 4,064 in 2.35 waves). A column window runs on
+    the plan of the full call."""
+    nb = -(-K // BK)
+    ntiles = nb * (nb + 1) // 2
+    nsplits, rows = gram_plan(N, ntiles * C, sms)
+    return ntiles, nsplits, rows
 
 
 def window_tiles(K: int, start: int, blk: int) -> tuple[list, list]:

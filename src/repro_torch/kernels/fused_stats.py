@@ -1,5 +1,5 @@
-"""The whole iteration statistic on Hopper, in one pass over X:
-margin = Xw; the epilogue's gamma (and omega), weight and coef;
+"""The whole iteration statistic on Hopper, in a row pass and a tile pass
+over X: margin = Xw; the epilogue's gamma (and omega), weight and coef;
 b = X^T coef; Sigma = X^T diag(wmask * weight) X.
 
 Replaces the TPU kernel ``repro/kernels/fused_stats.py::fused_stats``
@@ -26,45 +26,49 @@ Replaces the TPU kernel ``repro/kernels/fused_stats.py::fused_stats``
 What bounds it on the H100: fp32 FMAs, not bytes. Sigma's lower triangle
 is N*K*(K+1) flop on 4*N*K bytes of X, (K+1)/4 flop per byte (~125 at
 K = 501), far above the fp32 ridge of ~20. The TPU's argument that X
-streams count as iteration time does not carry over; the single pass is
-kept because it is right and cheap. Accumulation stays fp32 without TF32.
+streams count as iteration time does not carry over: here X is read
+twice (once a chain by the row pass, once by the tile grid, mostly from
+L2 for all but the first of a split's tiles), which is cheap beside the
+FMAs. Accumulation stays fp32 without TF32.
 
-Design (``csrc/fused_stats.cu``, tile code shared with ``syrk_tri`` in
-``csrc/common.cuh``): the TPU kernel keeps the whole (K, K) Sigma in VMEM
-for the N sweep (9.4 MB at K = 1536); a Hopper CTA has 227 KB of shared
-memory. So Sigma is tiled across CTAs with syrk's grid, (row split) x
-(lower-triangle 128 x 128 tile), and only the lower tiles are computed.
+Design (``csrc/fused_stats.cu``; the Gram engine of ``csrc/gram_pipe.cuh``
+shared with ``syrk_tri`` and ``weighted_gram``): the TPU kernel keeps the
+whole (K, K) Sigma in VMEM for the N sweep (9.4 MB at K = 1536); a Hopper
+CTA has 227 KB of shared memory. So Sigma is tiled across CTAs with
+syrk's grid, (row split) x (lower-triangle 128 x 128 tile), and only the
+lower tiles are computed.
 
-How the CTAs share the margin and gamma of a row block: they do not
-exchange them; each CTA recomputes them. Before staging 32 rows, the 8
-warps of a CTA compute those rows' margins (a warp a row, fixed summation
-order, so every CTA gets the same bits); then lane k of each warp runs the
-epilogue of the warp's k-th row, and the weight and coef go to shared
-memory. The recomputation is bn*K FMAs next to the tile's bn*128*128, ~3 %
-at K = 501. It reads the full rows again, once per tile: the T tiles of a
-split are adjacent in the grid, so they run together and those reads hit
-L2 rather than HBM. The tile-0 CTAs write margin and gamma; the
-diagonal-tile CTAs of column block i accumulate b[i-block] from their
-unweighted staged columns. Partials are summed in split order by two small
-launches (Sigma with the mirror, and b): deterministic, no atomics.
+How the CTAs share the margin and gamma of a row: a row pass before the
+tile grid computes them once (``stat_rows``, a warp 4 rows: their
+margins with all lanes, in a fixed summation order, then lanes 0-3 run
+the rows' epilogues) and writes each row's Sigma weight
+wmask * weight and b coefficient to two (C, N) scratch vectors. The tile
+grid is then the Gram engine: its CTAs stream 32-row stages of their two
+column blocks, with the rows' weights and coefficients beside them,
+through a three-stage ``cp.async`` ring and only multiply (72-74 % of
+fp32 peak where ``syrk_tri`` runs it). Each diagonal-tile CTA (q, q) also
+sums b's block q from its unscaled B side. Partials are summed in split
+order by two small launches (Sigma with the mirror, and b):
+deterministic, no atomics. The splits (``_build.stat_plan``) are at most
+4,096 rows and sized so the last wave of CTAs is not nearly empty (at
+250,000 x 501: 79 splits, 790 CTAs in three waves of two an SM).
 
 The Gibbs noise (``csrc/rng.cuh``) is a pure function of (key words,
-global row, chain), so every CTA that recomputes a row's gamma derives
-the same draw, and the draw does not depend on the grid. The epilogue
+global row, chain), so the draw does not depend on the grid. The epilogue
 (``csrc/epilogues.cuh``) rounds each operation as PyTorch's eager ops do.
 SVR doubles the per-row epilogue (two mixtures, two Threefry pairs a
-mixture in the seed variants); it runs on 4 lanes a warp between the
-margin and the tile phases, so it adds registers to the tile kernel but
-no tile work.
+mixture in the seed variants); it runs in the row pass only, so the tile
+grid is one kernel for every epilogue.
 
-Multichain is a chain grid dimension, fastest-varying: CTA (split, tile,
-c) reads chain c's weights and noise plane and writes Sigma_c's partial.
-X rows are read once per chain, from L2 for all but the first of the C
-adjacent CTAs; the tile work scales with C (no chain is free here).
+Multichain is a chain grid dimension, fastest-varying in both passes: CTA
+(split, tile, c) reads chain c's weights and coefficients and writes
+Sigma_c's partial. X rows are read once per chain, from L2 for all but
+the first of the C adjacent CTAs; the tile work scales with C (no chain
+is free here).
 
 The window: ``start = k_rank * blk`` need not be a multiple of 128 (K =
 502 splits into (0, 251) and (251, 251)). Of the two ways to place such
-a window, this is the 128-aligned cover: the window kernel runs the full
+a window, this is the 128-aligned cover: the tile grid runs the full
 statistic's own lower-triangle tiles whose row or column block meets the
 window's column blocks (``_build.window_tiles``, 7 and 9 of 10 at K = 502),
 over the full statistic's split plan, and its finalize takes each window
@@ -72,7 +76,7 @@ column from the tile that holds it, transposed above the diagonal, in
 split order. Every element is then summed exactly as the full variant sums
 it: the window is bitwise the full variant's column slice, and b (summed
 by one CTA a block, from its B side or, for blocks right of the window,
-from the rows) bitwise the full b. Offsetting the column loads instead
+from X's rows) bitwise the full b. Offsetting the column loads instead
 would do up to a tile less work but round the elements above the diagonal
 differently ((x_r w) x_c against the mirror's (x_c w) x_r), and bitwise
 equality with the full variant is the check that shows the window right.
@@ -160,6 +164,21 @@ def window_args(K: int, col_window: tuple, device: torch.device) -> list:
     return [tab.data_ptr(), tmap.data_ptr(), nb, start, blk], ntw
 
 
+def grid(N: int, K: int, C: int, sms: int, col_window: tuple | None = None,
+         device: torch.device | None = None) -> tuple[int, int, int, list]:
+    """(ntiles, nsplits, rows_per_split, win) of a call on ``sms`` SMs.
+    The split plan is the full statistic's (``_build.stat_plan``), also
+    under a column window, so that the window's columns are summed as the
+    full call sums them (bitwise its slice); with a window, ``ntiles``
+    counts the window's tiles and ``win`` holds the launcher's window
+    arguments (``window_args``, the tables on ``device``)."""
+    ntiles, nsplits, rows = _build.stat_plan(N, K, C, sms)
+    if col_window is None:
+        return ntiles, nsplits, rows, [None, None, 0, 0, 0]
+    win, ntw = window_args(K, col_window, device)
+    return ntw, nsplits, rows, win
+
+
 def fused_stats(X: torch.Tensor, rho: torch.Tensor, beta: torch.Tensor,
                 wvec: torch.Tensor, wmask: torch.Tensor | None = None,
                 noise: tuple | None = None, seed: torch.Tensor | None = None,
@@ -201,17 +220,15 @@ def fused_stats(X: torch.Tensor, rho: torch.Tensor, beta: torch.Tensor,
     else:
         _build.check_vec("wvec", wvec, K, X)
         wt = wvec
-    # The window runs over the full statistic's split plan (bitwise).
-    ntiles, nsplits, rows = _build.tile_plan(N, K, X.device)
-    win, width = [None, None, 0, 0, 0], K
-    if col_window is not None:
-        win, ntiles = window_args(K, col_window, X.device)
-        width = win[-1]
+    sms = torch.cuda.get_device_properties(X.device).multi_processor_count
+    ntiles, nsplits, rows, win = grid(N, K, C, sms, col_window, X.device)
+    width = K if col_window is None else win[-1]
     Kp = -(-K // _build.BK) * _build.BK
     f32 = dict(dtype=torch.float32, device=X.device)
     per_row = (N, C) if multi else (N,)
     margin, gamma = torch.empty(per_row, **f32), torch.empty(per_row, **f32)
     omega = torch.empty(per_row, **f32) if svr else None
+    wgt, coef = torch.empty(C * N, **f32), torch.empty(C * N, **f32)
     part = torch.empty(nsplits * ntiles * C * _build.BK * _build.BK, **f32)
     bpart = torch.empty(nsplits * C * Kp, **f32)
     sigma, b = torch.empty((C, K, width), **f32), torch.empty((C, K), **f32)
@@ -220,10 +237,10 @@ def fused_stats(X: torch.Tensor, rho: torch.Tensor, beta: torch.Tensor,
         return None if t is None else t.data_ptr()
 
     _build.launch("rt_fused_stats", X.device, X.data_ptr(),
-                  int(X.dtype == torch.bfloat16), rho.data_ptr(),
-                  beta.data_ptr(), ptr(wmask), wt.data_ptr(),
-                  *(ptr(z) for z in ops), ptr(seed), margin.data_ptr(),
-                  gamma.data_ptr(), ptr(omega), part.data_ptr(),
+                  _build.gram_copy(X), rho.data_ptr(), beta.data_ptr(),
+                  ptr(wmask), wt.data_ptr(), *(ptr(z) for z in ops),
+                  ptr(seed), margin.data_ptr(), gamma.data_ptr(), ptr(omega),
+                  wgt.data_ptr(), coef.data_ptr(), part.data_ptr(),
                   bpart.data_ptr(), sigma.data_ptr(), b.data_ptr(), N, K, Kp,
                   ntiles, nsplits, rows, C, _EPILOGUE_CODE[var], float(eps),
                   float(eps_ins), *win)

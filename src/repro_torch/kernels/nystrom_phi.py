@@ -21,8 +21,9 @@ flop per byte of X, fifty times the ridge. The cross-Gram is 2 N m D flop
 and, at small D, the bytes of its chunk scratch.
 
 Design (``csrc/nystrom_phi.cu``; the RBF tile body and the 128 x 128
-register tile come from ``csrc/rbf.cuh``, Sigma's tile code from
-``csrc/common.cuh``). The TPU kernels hold the landmark strip, the
+register tile come from ``csrc/rbf.cuh``, the statistic's two passes
+from ``csrc/fused_stats.cu`` and the Gram engine of
+``csrc/gram_pipe.cuh``). The TPU kernels hold the landmark strip, the
 projection, the cross tile, the phi tile and Sigma in VMEM at once, under
 a 14 MB budget; a Hopper CTA has 227 KB of shared memory. So the rows go
 in chunks of R, and per chunk:
@@ -36,22 +37,25 @@ in chunks of R, and per chunk:
      multiplies them by W in registers and writes (column block, row, C)
      partial scores, summed in block order by a last launch.
 
-``nystrom_fused_stats`` stores the phi rows of a chunk in an (R, M)
-scratch (R = splits x rows per split, 16 MB a split at M = 1,024, so a
-split's rows stay in the 50 MB L2 while its tiles read them), then
-  C. a warp a row: margin = phi . w, the epilogue (``csrc/epilogues.cuh``,
-     ``csrc/rng.cuh`` for the seed at global row seed[2] + row), the
-     row's Sigma weight (mask times 1/gamma, or 1/gamma + 1/omega under
-     SVR) and its coef;
-  D. Sigma's lower-triangle 128 x 128 tiles over the chunk's row splits,
-     b on the diagonal tiles, then the partials added to Sigma and b in
-     split order (no atomics: bitwise repeatable).
-This avoids what ``fused_stats`` does for X, where every tile CTA
-recomputes its rows' margin: recomputing phi per tile would cost 2m/128
-times the tile's own Sigma work. Launches a call: 2 (norms) + 6 a chunk;
-at N = 1,000,000 and m = 1,000, R = 32,768, 31 chunks. The scratch is
-the cross and phi chunks plus the split partials, a few hundred MB, where
-phi itself would be 4 GB.
+``nystrom_fused_stats`` stores the phi rows of a chunk in an (R, ld)
+scratch, ld = M rounded up to PHI_ALIGN columns (zero past M, so the Gram
+engine copies its rows 16 bytes at a time), then
+  C. the row pass of ``fused_stats``: a warp 4 rows: margin = phi . w,
+     the epilogue (``csrc/epilogues.cuh``, ``csrc/rng.cuh`` for the seed
+     at global row seed[2] + row), the row's Sigma weight (mask times
+     1/gamma, or 1/gamma + 1/omega under SVR) and its coef;
+  D. the Gram engine's statistic grid on the chunk: Sigma's lower-
+     triangle 128 x 128 tiles over the chunk's row splits, b on the
+     diagonal tiles, then the partials added to Sigma and b in split
+     order (no atomics: bitwise repeatable).
+Computing each row's margin once, before the tiles, avoids recomputing
+phi per tile (2m/128 times the tile's own Sigma work). The plan
+(``stats_plan``) makes a chunk a whole number of 4,096-row splits whose
+tile CTAs fill whole waves of two an SM (at m = 1,000: 7 splits, 252 CTAs
+on 264 slots; 8 left 24 CTAs to a second wave). Launches a call: 2
+(norms) + 6 a chunk; at N = 1,000,000 and m = 1,000, R = 28,672, 35
+chunks. The scratch is the cross and phi chunks plus the split partials,
+a few hundred MB, where phi itself would be 4 GB.
 
 Every phi entry is one thread's fmaf chain over the landmarks in order,
 so the bits do not depend on R: ``nystrom_fused_stats`` accumulates the
@@ -82,6 +86,9 @@ _KINDS = {"rbf": 0, "linear": 1}
 
 GT = 128                        # phi tile edge (csrc/rbf.cuh)
 SCRATCH_WORDS = 1 << 25         # cross-Gram chunk: at most 128 MB
+# The statistic's phi rows lie PHI_ALIGN columns apart, rounded up (zero
+# columns past M), so the Gram engine copies them 16 bytes at a time.
+PHI_ALIGN = 4
 
 
 def zero_launches() -> None:
@@ -184,19 +191,27 @@ def nystrom_score(X: torch.Tensor, landmarks: torch.Tensor,
     return out
 
 
-def stats_plan(N: int, m: int, M: int, device: torch.device
-               ) -> tuple[int, int, int]:
-    """(ntiles, rows_per_split, chunk_rows) of the statistic: a chunk is
-    enough row splits for two tile CTAs per SM, split boundaries aligned
-    across chunks, and at most SCRATCH_WORDS words of cross or phi
-    chunk."""
+def stats_plan(N: int, m: int, M: int, sms: int) -> tuple[int, int, int]:
+    """(ntiles, rows_per_split, chunk_rows) of the statistic on ``sms``
+    SMs. Splits are at most ROWS_PER_SPLIT rows, as long as N split
+    enough ways for two tile CTAs an SM allows; a chunk is a whole number
+    of them (so split boundaries align across chunks, and the sums do not
+    depend on the chunking) and holds at most SCRATCH_WORDS words of cross
+    chunk or of phi rows (M wide; their scratch pads them to the 16-byte
+    stride, PHI_ALIGN - 1 columns more at most). The CTAs of a chunk
+    (splits x tiles) run in waves of two an SM, and every split costs its
+    rows in each wave, so a chunk takes the number of splits with the
+    fewest waves a split, the most of those (at m = 1,000, M = 1,001, 36
+    tiles, on 132 SMs: 7 splits, 252 CTAs in one wave, where 8 would
+    leave 24 CTAs to a second)."""
     nb = -(-M // _build.BK)
     ntiles = nb * (nb + 1) // 2
-    sms = torch.cuda.get_device_properties(device).multi_processor_count
-    splits = -(-2 * sms // ntiles)
-    per_split = -(-N // splits)
+    slots = 2 * sms
+    per_split = -(-N // -(-slots // ntiles))
     rows = min(_build.ROWS_PER_SPLIT, -(-per_split // _build.BN) * _build.BN)
-    splits = max(1, min(splits, SCRATCH_WORDS // (rows * max(m, M))))
+    most = max(1, min(SCRATCH_WORDS // (rows * max(m, M)), -(-N // rows)))
+    splits = min(range(1, most + 1),
+                 key=lambda s: (-(-s * ntiles // slots) / s, -s))
     return ntiles, rows, rows * splits
 
 
@@ -234,7 +249,8 @@ def nystrom_fused_stats(X: torch.Tensor, landmarks: torch.Tensor,
         _build.check_vec(name, v, n, X)
     ops = _fused_stats.noise_operands(noise, seed, N, X)
     # The window runs over the full statistic's plan (bitwise).
-    ntiles, rows, chunk = stats_plan(N, m, M, X.device)
+    sms = torch.cuda.get_device_properties(X.device).multi_processor_count
+    ntiles, rows, chunk = stats_plan(N, m, M, sms)
     win, width = [None, None, 0, 0, 0], M
     if col_window is not None:
         win, ntiles = _fused_stats.window_args(M, col_window, X.device)
@@ -244,7 +260,8 @@ def nystrom_fused_stats(X: torch.Tensor, landmarks: torch.Tensor,
     f32 = dict(dtype=torch.float32, device=X.device)
     nsplits = chunk // rows
     Mp = -(-M // _build.BK) * _build.BK
-    phi = torch.empty(chunk * M, **f32)
+    ld = -(-M // PHI_ALIGN) * PHI_ALIGN
+    phi = torch.empty(chunk * ld, **f32)
     wgt, coef = torch.empty(chunk, **f32), torch.empty(chunk, **f32)
     part = torch.empty(nsplits * ntiles * _build.BK * _build.BK, **f32)
     bpart = torch.empty(nsplits * Mp, **f32)
@@ -263,8 +280,9 @@ def nystrom_fused_stats(X: torch.Tensor, landmarks: torch.Tensor,
                   bpart.data_ptr(), margin.data_ptr(), gamma.data_ptr(),
                   ptr(omega), sigma_out.data_ptr(), b.data_ptr(), t["N"],
                   t["D"], t["m"], t["P"], t["bias"], t["kind"], t["inv"],
-                  chunk, ntiles, rows, _EPILOGUE_CODE[var], float(eps),
-                  float(eps_ins), *win)
+                  chunk, ntiles, rows, ld,
+                  _build.gram_copy(phi.view(chunk, ld)), _EPILOGUE_CODE[var],
+                  float(eps), float(eps_ins), *win)
     LAUNCHES[f"nystrom_fused_stats[{var}"
              + ("]" if col_window is None else ",window]")] += 1
     aug = (gamma, omega) if svr else (gamma,)

@@ -22,10 +22,11 @@ stages of its two column blocks stream through a three-slot cp.async ring
 in shared memory, two stages ahead of the FMAs; the arrived stage's
 i-block is scaled by w in place, and a diagonal tile copies its one block
 once. It writes the tile as a per-split partial, and ``tri_finalize``
-(csrc/common.cuh) sums the partials in split order and mirrors the upper triangle:
-deterministic, no atomics, and each sequential fp32 sum is at most 4096
-rows long. The sums are bit for bit those of common.cuh's staged tile
-pass over the same plan (the same rounded x w, the same FMA chain).
+(csrc/common.cuh) sums the partials in split order and mirrors the upper
+triangle: deterministic, no atomics, and each sequential fp32 sum is at
+most 4096 rows long. Each element is one FMA chain over the split's rows
+of the once-rounded x w, so the bits depend only on the split plan (those
+of the staged tile pass the port ran before, on the same plan).
 Computing only the lower tiles halves the flops of the dense product.
 """
 from __future__ import annotations

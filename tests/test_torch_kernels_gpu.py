@@ -71,9 +71,18 @@ def _close_max(got, want):
 
 SHAPES = [(1037, 29, torch.float32), (1037, 29, torch.bfloat16),
           (4099, 501, torch.float32), (2053, 300, torch.bfloat16)]
+# The edges of the statistic's tile grid on the Gram engine (stat_tiles in
+# csrc/gram_pipe.cuh), beside SHAPES: float32 with K % 4 == 0 (16-byte
+# copies; K % 4 != 0 takes 4-byte ones), ragged last column blocks
+# (K = 129, 257, also bfloat16), and a last split ending mid-stage
+# (N % 32 != 0; N = 31, one partial stage).
+STAT_SHAPES = SHAPES + [(4097, 500, torch.float32),
+                        (3001, 129, torch.float32),
+                        (2050, 257, torch.bfloat16),
+                        (31, 130, torch.float32)]
 
 
-@pytest.mark.parametrize("n,k,dtype", SHAPES)
+@pytest.mark.parametrize("n,k,dtype", STAT_SHAPES)
 def test_fused_stats_kernel(cuda, n, k, dtype):
     X, rho, beta, w, wm = _problem(n, k, dtype, cuda)
     got = fused_stats.fused_stats(X, rho, beta, w, wm, eps=1e-6)
@@ -188,7 +197,7 @@ def test_wide_route_launches_estep_and_syrk(cuda):
 
 
 MC = [("mc_hinge,noise", 1), ("mc_hinge,seed", 1),
-      ("mc_hinge,seed,multichain", 3)]
+      ("mc_hinge,seed,multichain", 3), ("mc_hinge,seed,multichain", 4)]
 
 
 def _gamma_band(g, g_plain):
@@ -199,7 +208,7 @@ def _gamma_band(g, g_plain):
 
 
 @pytest.mark.parametrize("var,C", MC)
-@pytest.mark.parametrize("n,k,dtype", SHAPES)
+@pytest.mark.parametrize("n,k,dtype", STAT_SHAPES)
 def test_fused_stats_mc_kernel(cuda, n, k, dtype, var, C):
     X, rho, beta, w, wm = _problem(n, k, dtype, cuda)
     seed = rng.pack_seed(prng.fold_in(prng.PRNGKey(5), 2), 3, 1).to(cuda)
@@ -258,9 +267,13 @@ def test_mc_fit_goes_through_the_seed_kernel(cuda):
 from repro_torch.kernels import nystrom_phi as nys  # noqa: E402
 from repro_torch.kernels import rbf_gram as rbfk  # noqa: E402
 
+# (n, d, m, padded tail rows, dtype): phi widths M = m + 1 of 46, 301 and
+# 258 (4-byte copies in the statistic's Gram engine, the last a ragged
+# 2-column block) and 256 (16-byte copies).
 NYS_SHAPES = [(203, 7, 45, 13, torch.float32), (1037, 2, 300, 5,
                                                    torch.bfloat16),
-              (517, 130, 257, 0, torch.float32)]
+              (517, 130, 257, 0, torch.float32),
+              (1031, 3, 255, 7, torch.float32)]
 
 
 def _nys(n, d, m, n_pad, dtype, dev, kind="rbf", sigma=1.3, seed=0):
@@ -480,7 +493,7 @@ def test_nystrom_fit_goes_through_the_kernels(cuda):
 # -------------------------------------------------------------------- SVR
 EPS_INS = 0.3
 SVR = [("em_svr", 1), ("mc_svr,noise", 1), ("mc_svr,seed", 1),
-       ("mc_svr,seed,multichain", 3)]
+       ("mc_svr,seed,multichain", 3), ("mc_svr,seed,multichain", 4)]
 
 
 def _svr_targets(m64, mask, seed=1):
@@ -500,7 +513,7 @@ def _svr_stats64(X, y, wm, g, o):
 
 
 @pytest.mark.parametrize("var,C", SVR)
-@pytest.mark.parametrize("n,k,dtype", SHAPES)
+@pytest.mark.parametrize("n,k,dtype", STAT_SHAPES)
 def test_fused_stats_svr_kernel(cuda, n, k, dtype, var, C):
     X, _, beta, w, wm = _problem(n, k, dtype, cuda)
     y = _svr_targets(X.double() @ w.double(), None)
@@ -667,7 +680,7 @@ def _windows(width):
 
 
 @pytest.mark.parametrize("var", WIN_VARIANTS)
-@pytest.mark.parametrize("n,k,dtype", SHAPES)
+@pytest.mark.parametrize("n,k,dtype", STAT_SHAPES)
 def test_fused_stats_window_kernel(cuda, n, k, dtype, var):
     X, rho, beta, w, wm = _problem(n, k, dtype, cuda)
     epi, _, source = var.partition(",")

@@ -16,7 +16,10 @@ Needs one CUDA device (an H100: the kernels are built for sm_90a) and
    fp32 16-byte, fp32 4-byte and bf16 copies) also their dynamic shared
    memory and resident CTAs an SM, naming any spills, and require <= 128
    registers and two CTAs an SM of each; then the row pass's twelve
-   instantiations (six epilogues x f32, bf16 X);
+   instantiations (six epilogues x f32, bf16 X); the Nystrom projection
+   phi_tiles (write and score, on the engine's CopyPair) under the same
+   gates; and the ten cross_tiles instantiations (rbf_gram's row-major,
+   the Nystrom kernels' landmark-major);
 3. kernels vs plain: each kernel at its main-path shape and at odd masked
    shapes, f32 and bf16 X, in the well-conditioned and the hinge regime of
    tests/test_torch_kernels_ref.py, against the plain PyTorch version
@@ -126,7 +129,16 @@ Tolerances: rbf_gram |d| <= 1e-5 |ref| + 1e-7; phi |d| <= 1e-5 (|k| @
 gamma |dg| <= |dm| + 2^-24 (g + g_ref) + 1e-7; mc_hinge gamma against the
 plain epilogue on the kernel's own margin and noise; b and Sigma within
 1e-5 max of a float64 recomputation from the kernel's own phi (the
-nystrom_phi kernel's bits) and gamma.
+nystrom_phi kernel's bits) and gamma. Beside them, the device time by
+stage (torch.profiler, a call's mean over three: norms, cross-Gram,
+projection, score reduce, other) of nystrom_phi, nystrom_score and one
+nystrom_fused_stats call at phase 7's and phase 10's shapes; the
+projection stage at phase 7's, 8's and 10's shapes beside torch.mm of the
+same row chunks' cross-Gram and proj (TF32 off, summed over the chunks)
+and its bound 2 N m M flop at the fp32 peak; and a phi_design line at
+those shapes (each operand's copy path, proj's stride, the CTAs of a
+chunk and their waves, phi_tiles' registers, spills, shared memory and
+CTAs an SM).
 
 11. the multi-device fit (the paper's Sec 4.1 reduce and the 2-D k-shard):
    four processes on cuda:0 under gloo (the card is one; NCCL refuses two
@@ -340,7 +352,8 @@ def phase_device():
 def _kernel_key(mangled):
     """A readable key for an engine or row-pass kernel's mangled name
     (gram_tiles<copy path, tri|dense>, stat_tiles<copy path, tri|window>,
-    stat_rows<X's type, epilogue index>), or None."""
+    stat_rows<X's type, epilogue index>, phi_tiles<write|score>,
+    cross_tiles<operand types, kind, layout>), or None."""
     m = re.search(r"(gram_tiles|stat_tiles)I.*?(CopyF32ILi(\d)ELi\dE|"
                   r"CopyBf16ILi\dE)E*Lb(\d)", mangled)
     if m:
@@ -354,6 +367,16 @@ def _kernel_key(mangled):
     if m:
         return f"stat_rows<{'float' if m.group(1) == 'f' else 'bf16'}," \
                f"{m.group(2)}>"
+    m = re.search(r"phi_tilesILi(\d)E", mangled)
+    if m:
+        return f"phi_tiles<{('write', 'score')[int(m.group(1))]}>"
+    m = re.search(r"cross_tilesI(ff|13__nv_bfloat16f|13__nv_bfloat16S2_)"
+                  r"Li(\d)ELb(\d)E", mangled)
+    if m:
+        types = {"ff": "f32,f32", "13__nv_bfloat16f": "bf16,f32",
+                 "13__nv_bfloat16S2_": "bf16,bf16"}[m.group(1)]
+        return (f"cross_tiles<{types},{('rbf', 'linear')[int(m.group(2))]},"
+                f"{('row-major', 'landmark-major')[int(m.group(3))]}>")
     return None
 
 
@@ -419,6 +442,32 @@ def phase_build():
             check(reg <= 128 and ctas.value >= 2,
                   f"{key}: {reg} registers, {ctas.value} CTAs an SM; the "
                   "engine is laid out for two CTAs of 256 threads an SM")
+    say("  the Nystrom projection on the engine (phi_tiles, csrc/"
+        "nystrom_phi.cu, copy policy CopyPair):")
+    for code, mode in enumerate(("write", "score")):
+        key = f"phi_tiles<{mode}>"
+        smem, ctas = ctypes.c_int(), ctypes.c_int()
+        err = lib.rt_nystrom_phi_occupancy(dev, code, ctypes.byref(smem),
+                                           ctypes.byref(ctas))
+        check(err == 0 and key in report,
+              f"{key}: occupancy query error {err} or no build report")
+        reg, stack, sst, sld, _ = report[key]
+        say(f"  {key}: {reg} registers, {stack} B stack, {sst} / {sld} B "
+            f"spilled{' (SPILLS)' if sst or sld else ''}, {smem.value} B "
+            f"dynamic shared, {ctas.value} CTAs an SM")
+        check(reg <= 128 and ctas.value >= 2,
+              f"{key}: {reg} registers, {ctas.value} CTAs an SM; the "
+              "engine is laid out for two CTAs of 256 threads an SM")
+    cross = sorted(k for k in report if k.startswith("cross_tiles"))
+    check(len(cross) == 10, f"cross_tiles has {len(cross)} instantiations, "
+          "not 10 (rbf_gram's six row-major, the Nystrom kernels' four "
+          "landmark-major)")
+    say("  the cross-Gram (cross_tiles<A, B, kind, layout>, csrc/rbf.cuh): "
+        + "; ".join(f"{k[12:-1]} {report[k][0]} registers, {report[k][4]} B "
+                    f"static shared" + (f", {report[k][2]} / {report[k][3]} "
+                                        "B spilled" if report[k][2]
+                                        or report[k][3] else "")
+                    for k in cross))
     rows = sorted(k for k in report if k.startswith("stat_rows"))
     check(len(rows) == 12, f"the row pass has {len(rows)} instantiations, "
           "not 12 (6 epilogues x f32, bf16)")
@@ -708,6 +757,8 @@ def phase_kernels(dev, main_nk=(250_000, 501), wide_nk=(131_072, 2048),
         f"{row['library_ms']:.3f} ms, bound {row['bound_ms']:.3f} ms "
         f"({row['bound_by']})")
     for name, row in out.items():
+        if name.startswith("projection["):
+            continue
         say(f"  time {name} {row['shape']}: kernel {row['ms']:.3f} ms, "
             f"plain {row['plain_ms']:.3f} ms, library "
             f"{row['library_ms'] if row['library_ms'] is None else round(row['library_ms'], 3)} ms, "
@@ -1398,6 +1449,90 @@ def time_nys_stats(dev, X, L, P, mask, sigma, name, label, y_svr=None):
                 bound_ms=b_ms, bound_by=by, library_ms=None)
 
 
+PHI_STAGES = (("row_sqnorm", "norms"), ("cross_tiles", "cross-Gram"),
+              ("phi_tiles", "projection"), ("score_reduce", "score reduce"))
+
+
+def device_ms(fn, reps=3):
+    """{kernel name: device ms a call} of fn() under torch.profiler, over
+    ``reps`` calls after one warm-up (the device's own activities)."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        for _ in range(reps):
+            fn()
+        torch.cuda.synchronize()
+    return {e.key: getattr(e, "self_device_time_total",
+                           getattr(e, "self_cuda_time_total", 0)) / 1e3 / reps
+            for e in prof.key_averages() if e.device_type != DeviceType.CPU}
+
+
+def phi_stages(fn):
+    """A featurizer call's device ms by stage: the norms, the cross-Gram,
+    the projection, the score reduce, and what else it runs ("other": the
+    statistic's passes, proj's aligned copy)."""
+    out = dict.fromkeys([name for _, name in PHI_STAGES] + ["other"], 0.0)
+    for key, ms in device_ms(fn).items():
+        out[next((n for k, n in PHI_STAGES if k in key), "other")] += ms
+    return out
+
+
+def projection_row(label, X, L, P, sigma, chunk, stages):
+    """The projection stage at a main-path shape: its device ms from
+    ``stages``; torch.mm of the same row chunks' cross-Gram (R, m) with
+    proj, TF32 off, summed over the chunks (the library yardstick, used
+    nowhere in the port); the bound 2 N m M flop at the fp32 peak; and the
+    share of the peak on the flop the function needs and on the FMAs the
+    engine's tiles execute (depth padded to 32, product columns to 128)."""
+    from repro_torch.kernels import ref
+    (n, _), (m, p) = X.shape, P.shape
+    M = p + 1
+    kcs = [ref.rbf_gram(X[c0:c0 + chunk], L, sigma)
+           for c0 in range(0, n, chunk)]
+    lib = sum(device_ms(lambda: [torch.mm(k, P) for k in kcs]).values())
+    del kcs
+    torch.cuda.empty_cache()
+    b_ms, by = bound(2 * n * m * M, 4 * (n * m + m * p + n * M))
+    ms, chunks = stages["projection"], -(-n // chunk)
+    tile = 2 * n * (-(-m // 32) * 32) * (-(-p // 128) * 128)
+    say(f"  projection {label} {[n, m, M]}: kernel {ms:.3f} ms ({chunks} "
+        f"launches a call), torch.mm {lib:.3f} ms (kernel / mm "
+        f"{ms / lib:.3f}), bound {b_ms:.3f} ms ({by}); of fp32 peak "
+        f"{b_ms / ms:.3f} on the flop needed, {tile / PEAK_FP32 * 1e3 / ms:.3f}"
+        f" on the tiles' FMAs")
+    return dict(shape=[n, m, M], ms=ms, library_ms=lib, bound_ms=b_ms,
+                bound_by=by, launches_a_call=chunks)
+
+
+def say_stages(name, stages):
+    say(f"  stages {name} (device ms a call, torch.profiler): " + ", ".join(
+        f"{k} {v:.3f}" for k, v in stages.items()))
+
+
+def stat_projection(dev, label, X, L, P, mask, sigma, epi, y_svr=None):
+    """The stage split of one nystrom_fused_stats call (``epi``) at a main-
+    path shape, and its projection row (projection_row) on the
+    statistic's chunks."""
+    from repro_torch.kernels import nystrom_phi as nys
+    n, M = X.shape[0], P.shape[1] + 1
+    y, w, _, _ = nys_stat_inputs(dev, n, M, None)
+    svr = epi.endswith("svr")
+    y = y_svr if svr else y
+    beta = torch.zeros_like(y) if svr else y
+    stages = phi_stages(lambda: nys.nystrom_fused_stats(
+        X, L, P, y, beta, w, mask, sigma=sigma, add_bias=True, epilogue=epi,
+        eps=EPS, eps_ins=EPS_INS if svr else 0.0))
+    say_stages(f"nystrom_fused_stats[{epi}] {[n, X.shape[1], L.shape[0]]}",
+               stages)
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    chunk = nys.stats_plan(n, L.shape[0], M, sms)[2]
+    return projection_row(f"{label} (nystrom_fused_stats[{epi}])", X, L, P,
+                          sigma, chunk, stages)
+
+
 def phase_nystrom_kernels(dev):
     """Phase 3 for the four Nystrom kernels; returns their rows."""
     from repro_torch.kernels import nystrom_phi as nys
@@ -1457,6 +1592,15 @@ def phase_nystrom_kernels(dev):
     out["nystrom_phi"] = dict(shape=[n, d, m], max_abs_err=err, ms=ms,
                               plain_ms=plain, bound_ms=b_ms, bound_by=by,
                               library_ms=None)
+    stages = phi_stages(lambda: nys.nystrom_phi(X, La, Pa, sigma=s,
+                                                add_bias=True))
+    say_stages("nystrom_phi 250000x500 m=2048", stages)
+    out["projection[phase 8]"] = projection_row(
+        "phase 8 (nystrom_phi)", X, La, Pa, s, nys._phi_chunk_rows(n, m, M),
+        stages)
+    out["nystrom_phi"].update(
+        stages_ms=stages,
+        projection_library_ms=out["projection[phase 8]"]["library_ms"])
     del X
 
     Xs = torch.from_numpy(circles_data(100_000, 1)[0]).to(dev)
@@ -1475,6 +1619,13 @@ def phase_nystrom_kernels(dev):
     out["nystrom_score"] = dict(shape=[n, d, m, C], max_abs_err=err, ms=ms,
                                 plain_ms=plain, bound_ms=b_ms, bound_by=by,
                                 library_ms=None)
+    stages = phi_stages(lambda: nys.nystrom_score(Xs, Lc, Pc, W, sigma=0.7,
+                                                  add_bias=True))
+    say_stages("nystrom_score 100000x2 m=1000 C=1", stages)
+    proj = projection_row("nystrom_score", Xs, Lc, Pc, 0.7,
+                          nys._phi_chunk_rows(n, m, M), stages)
+    out["nystrom_score"].update(stages_ms=stages,
+                                projection_library_ms=proj["library_ms"])
     del Xs
 
     X = torch.from_numpy(Xc).to(dev)
@@ -1482,6 +1633,8 @@ def phase_nystrom_kernels(dev):
     for name in NYS_VARIANTS:
         out[name] = time_nys_stats(dev, X, Lc, Pc, mask, 0.7, name,
                                    f"{name} 1000000x2 m=1000")
+    out["projection[phase 7]"] = stat_projection(dev, "phase 7", X, Lc, Pc,
+                                                 mask, 0.7, "em_hinge")
     del X
     # phase 10's shape: the year split with its featurizer, m = 681
     Xtr, ytr = year_split()[:2]
@@ -1494,12 +1647,61 @@ def phase_nystrom_kernels(dev):
         out[name] = time_nys_stats(dev, X, Ly, Py, mask, math.sqrt(90), name,
                                    f"{name} {Xtr.shape[0]}x90 m={m}",
                                    y_svr=y)
+    out["projection[phase 10]"] = stat_projection(
+        dev, "phase 10", X, Ly, Py, mask, math.sqrt(90), "em_svr", y)
     del X
     for name, row in out.items():
+        if name.startswith("projection["):
+            continue
         say(f"  time {name} {row['shape']}: kernel {row['ms']:.3f} ms, "
             f"plain {row['plain_ms']:.3f} ms, library none, bound "
             f"{row['bound_ms']:.3f} ms ({row['bound_by']})")
     return out
+
+
+def phi_design(dev):
+    """The projection's layout on the Gram engine at phase 7's, 8's and
+    10's shapes (nothing timed or asserted): each operand's copy path,
+    proj's row stride, the CTAs of a chunk and their waves of resident
+    CTAs, and phi_tiles' registers, spills, dynamic shared memory and CTAs
+    an SM."""
+    import ctypes
+    from repro_torch.kernels import _build
+    from repro_torch.kernels import nystrom_phi as nys
+    report = build_report(_build.build()[1])
+    lib = _build.library()
+    sms = torch.cuda.get_device_properties(dev).multi_processor_count
+    kern, per_sm = [], 0
+    for code, mode in enumerate(("write", "score")):
+        smem, ctas = ctypes.c_int(), ctypes.c_int()
+        check(lib.rt_nystrom_phi_occupancy(dev.index, code,
+                                           ctypes.byref(smem),
+                                           ctypes.byref(ctas)) == 0,
+              "phi_tiles: occupancy query failed")
+        reg, _, sst, sld, _ = report[f"phi_tiles<{mode}>"]
+        kern.append(f"phi_tiles<{mode}> {reg} registers, {sst} / {sld} B "
+                    f"spilled, {smem.value} B dynamic shared, {ctas.value} "
+                    "CTAs an SM")
+        per_sm = per_sm or ctas.value
+    for label, n, m, chunk in (
+            ("phase 7", 1_000_000, 1000,
+             nys.stats_plan(1_000_000, 1000, 1001, sms)[2]),
+            ("phase 8", 250_000, 2048, nys._phi_chunk_rows(250_000, 2048,
+                                                           2049)),
+            ("phase 10", N_YEAR_TRAIN, 681,
+             nys.stats_plan(N_YEAR_TRAIN, 681, 682, sms)[2])):
+        M = m + 1
+        ldp = nys.proj_operand(torch.empty((m, m), device=dev)).shape[1]
+        row_tiles = -(-chunk // nys.GT)
+        ctas = row_tiles * -(-M // nys.GT)
+        product = row_tiles * -(-m // nys.GT)
+        say(f"  phi_design {label} {[n, m, M]}: A the cross-Gram chunk "
+            f"(m, R = {chunk}) landmark-major, rows {chunk} apart, 16-byte "
+            f"cp.async; B proj, rows {ldp} apart "
+            f"({'a padded copy' if ldp != m else 'as given'}), 16-byte "
+            f"cp.async; {ctas} CTAs a chunk ({product} with a product), "
+            f"{product / (per_sm * sms):.2f} waves of {per_sm} an SM on "
+            f"{sms} SMs, {-(-n // chunk)} chunks; " + "; ".join(kern))
 
 
 def _nys_fit(label, cfg, dev, X, y, Xte, yte, m, featurizer_of=None):
@@ -2184,6 +2386,8 @@ def phase_window_kernels(dev, small_nk=(1037, 29), mid_nk=(1037, 300),
         del X, yy, mask, y, beta, w, kw
         torch.cuda.empty_cache()
     for name, row in out.items():
+        if name.startswith("projection["):
+            continue
         say(f"  time {name} {row['shape']}: kernel {row['ms']:.3f} ms, "
             f"plain {row['plain_ms']:.3f} ms, library none, bound "
             f"{row['bound_ms']:.3f} ms ({row['bound_by']})")
@@ -2646,6 +2850,7 @@ def main() -> int:
     svr_rows, gram_counts = phase_svr_kernels(dev)
     rows.update(svr_rows)
     rows.update(phase_nystrom_kernels(dev))
+    phi_design(dev)
     rows.update(phase_window_kernels(dev))
     stat_design(dev)
     say("== 4. main path, K <= 1536: LIN-EM-CLS on alpha-like 250,000 x 501")

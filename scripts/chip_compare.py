@@ -9,25 +9,31 @@ parent commit unpacked with ``git archive`` into a directory that
 its own kernel library. Each step runs each tree's package in a process
 of its own:
 
-1. bits: the statistics and the Gram kernels of both trees on the same
-   inputs, and how many outputs are bitwise equal: fused_stats (six
-   epilogues, with and without the Sigma weight mask, at float32 K % 4 !=
-   0 and == 0, bfloat16, ragged last column blocks, N % 32 != 0; four
-   chains; column windows), nystrom_fused_stats (six epilogues and their
-   windows over several row chunks, phi width M % 4 != 0 and == 0),
-   fused_estep, syrk_tri and weighted_gram. This tree runs twice: on its
-   own split plans, and on the plans the kernels ran before the Gram
-   engine (``_build.tile_plan`` and chip_smoke.py's ``old_stats_plan``
-   patched in), where a change that keeps the arithmetic must be bitwise
-   the other tree;
-2. times: chip_smoke.py's phase 3 kernel rows (this file's chip_smoke.py
-   on each tree's package) in the order OTHER, this, this, OTHER, one line
-   of kernel ms for each run;
-3. with --sass: the SASS of syrk.cu's and weighted_gram.cu's kernels in
-   both trees, function by function (names compared without the copy
-   policies' default template argument, NV = 1, and the path hash of
-   anonymous namespaces).
+1. bits: the statistics, the Gram kernels and the featurizer of both
+   trees, each on its own split plans, on the same inputs: how many
+   outputs are bitwise equal, how many of the others are equal up to the
+   sign of zero (and in how many entries), and how far the rest differ.
+   fused_stats (six epilogues, with and without the Sigma weight mask, at
+   float32 K % 4 != 0 and == 0, bfloat16, ragged last column blocks,
+   N % 32 != 0; four chains; column windows), nystrom_fused_stats (six
+   epilogues and their windows over several row chunks, phi width
+   M % 4 != 0 and == 0), fused_estep, syrk_tri and weighted_gram;
+   nystrom_phi and nystrom_score (C = 1 and 3) at odd shapes (m % 32 !=
+   0, P % 4 != 0, M = 129: a column tile holding only the bias column)
+   over several row chunks, both kinds, float32 and bfloat16 X, mask and
+   bias on and off, and on the featurizers of chip_smoke.py's phases 7,
+   8 and 10 (made once, by this tree, and read by both) over several
+   chunks of their rows; and rbf_gram for each pair of operand types;
+2. times: chip_smoke.py's phase 3 kernel rows and projection rows (this
+   file's chip_smoke.py on each tree's package) in the order OTHER, this,
+   this, OTHER, one line of kernel ms (and the projection's torch.mm ms)
+   for each run;
+3. with --sass: the SASS of every kernel source in both trees, function
+   by function (names compared without the copy policies' default
+   template argument, NV = 1, without cross_tiles' row-major layout
+   argument, and without the path hash of anonymous namespaces).
 """
+import itertools
 import json
 import math
 import re
@@ -48,29 +54,38 @@ def _worker_env(tree):
         raise SystemExit(f"imported {repro_torch.__file__}, not {tree}'s")
 
 
-def old_plans():
-    """Patch in the split plans the statistics ran on before the Gram
-    engine (this tree only; the other tree keeps its own)."""
+def featurizers(tree, out):
+    """Rows and featurizers (landmarks, projection, sigma) of chip_smoke.py's
+    phases 7, 8 and 10, made by ``tree``'s package and saved to ``out``:
+    the bits step of both trees reads them."""
+    _worker_env(tree)
     import torch
     import chip_smoke
-    from repro_torch.kernels import _build
-    from repro_torch.kernels import nystrom_phi as nys
+    chip_smoke.torch = torch
     dev = torch.device("cuda", 0)
-    if hasattr(_build, "stat_plan"):
-        _build.stat_plan = lambda N, K, C, sms: _build.tile_plan(N, K, dev)
-        nys.stats_plan = chip_smoke.old_stats_plan
+    Xc = chip_smoke.circles_data(1_000_000)[0]
+    Xa = chip_smoke.alpha_data(300_000, 500)[0][:250_000]
+    Xy = chip_smoke.year_split()[0]
+    feats = {}
+    for label, X, m, sigma, rows in (("phase 7", Xc, 1000, 0.7, 70_001),
+                                     ("phase 8", Xa, 2048, math.sqrt(500),
+                                      40_000),
+                                     ("phase 10", Xy, 681, math.sqrt(90),
+                                      50_000)):
+        L, P = chip_smoke.featurizer(dev, X, m, sigma)
+        feats[label] = (torch.from_numpy(X[:rows].copy()), L.cpu(), P.cpu(),
+                        sigma)
+    torch.save(feats, out)
 
 
-def bits(tree, out, plans):
+def bits(tree, out, feats):
     """The kernels' outputs on fixed inputs, saved to ``out``."""
     _worker_env(tree)
     import torch
     from repro_torch.core import prng
-    from repro_torch.kernels import (fused_estep, fused_stats, ref, rng,
-                                     syrk, weighted_gram)
+    from repro_torch.kernels import (fused_estep, fused_stats, rbf_gram,
+                                     ref, rng, syrk, weighted_gram)
     from repro_torch.kernels import nystrom_phi as nys
-    if plans == "old":
-        old_plans()
     dev = torch.device("cuda", 0)
     g = torch.Generator(device=dev).manual_seed(3)
     seed = rng.pack_seed(prng.fold_in(prng.PRNGKey(7), 3), 11, 1).to(dev)
@@ -149,6 +164,52 @@ def bits(tree, out, plans):
                         X, L, P, rho, beta, w, mask, col_window=win, **o,
                         **kw(epi, src, n)))
         del X
+    scratch = nys.SCRATCH_WORDS
+    for n, d, m, p in ((5003, 7, 45, 45), (3001, 3, 100, 99),
+                       (2050, 5, 128, 128)):
+        # several row chunks: a few hundred rows each
+        nys.SCRATCH_WORDS = 384 * (m + 1)
+        for dt in (torch.float32, torch.bfloat16):
+            X = (torch.randn(n, d, generator=g, device=dev)
+                 / math.sqrt(d)).to(dt)
+            L = X[torch.randperm(n, generator=g, device=dev)[:m]].float()
+            P = (0.2 * torch.randn(m, p, generator=g, device=dev)
+                 / math.sqrt(m / 45))
+            mask = (torch.rand(n, generator=g, device=dev) > 0.2).float()
+            for kind in ("rbf", "linear"):
+                for mk in (mask, None):
+                    tag = (f"{n}x{d} m={m} P={p} {str(dt)[6:]} {kind} "
+                           f"mask={mk is not None}")
+                    for bias in (False, True):
+                        res[f"nystrom_phi {tag} bias={bias}"] = flat(
+                            nys.nystrom_phi(X, L, P, mk, sigma=1.3,
+                                            kind=kind, add_bias=bias))
+                    for C in (1, 3):
+                        W = torch.randn(p + 1, C, generator=g, device=dev)
+                        res[f"nystrom_score {tag} C={C}"] = flat(
+                            nys.nystrom_score(X, L, P, W, mk, sigma=1.3,
+                                              kind=kind, add_bias=True))
+            del X
+    nys.SCRATCH_WORDS = scratch
+    for label, (X, L, P, sigma) in torch.load(feats).items():
+        X, L, P = X.to(dev), L.to(dev), P.to(dev)
+        tag = f"{label} featurizer {list(X.shape)} m={L.shape[0]}"
+        res[f"nystrom_phi {tag}"] = flat(nys.nystrom_phi(
+            X, L, P, sigma=sigma, add_bias=True))
+        W = torch.randn(P.shape[1] + 1, 3, generator=g, device=dev)
+        res[f"nystrom_score {tag} C=3"] = flat(nys.nystrom_score(
+            X, L, P, W, sigma=sigma, add_bias=True))
+        del X
+    for (n1, n2, d), (ta, tb) in itertools.product(
+            ((300, 257, 500), (1000, 1000, 2), (37, 45, 29)),
+            ((torch.float32,) * 2, (torch.bfloat16, torch.float32),
+             (torch.bfloat16,) * 2)):
+        A = (torch.randn(n1, d, generator=g, device=dev)
+             / math.sqrt(d)).to(ta)
+        B = (torch.randn(n2, d, generator=g, device=dev)
+             / math.sqrt(d)).to(tb)
+        res[f"rbf_gram {n1}x{n2}x{d} {str(ta)[6:]},{str(tb)[6:]}"] = flat(
+            rbf_gram.rbf_gram(A, B, sigma=0.7))
     torch.cuda.synchronize()
     torch.save(res, out)
 
@@ -165,21 +226,27 @@ def times(tree):
     rows.update(chip_smoke.phase_svr_kernels(dev)[0])
     rows.update(chip_smoke.phase_nystrom_kernels(dev))
     rows.update(chip_smoke.phase_window_kernels(dev))
-    print("TIMES " + json.dumps({k: round(v["ms"], 4)
-                                 for k, v in rows.items()}), flush=True)
+    line = {k: round(v["ms"], 4) for k, v in rows.items()}
+    line.update({f"{k} torch.mm": round(v["library_ms"], 4)
+                 for k, v in rows.items() if k.startswith("projection[")})
+    print("TIMES " + json.dumps(line), flush=True)
 
 
 def sass(tree, out):
-    """{function: instructions} of syrk.cu and weighted_gram.cu."""
+    """{function: instructions} of every kernel source of ``tree``."""
     _worker_env(tree)
     from repro_torch.kernels import _build
     flags = [f for f in _build.FLAGS if f not in ("-Xptxas", "-v")]
     cuobjdump = Path(_build._nvcc()).parent / "cuobjdump"
+    srcs = sorted(_build.CSRC.glob("*.cu"))
+    cubins = [Path(out).with_suffix(f".{src.name}.cubin") for src in srcs]
+    procs = [subprocess.Popen([_build._nvcc(), *flags, "-cubin", "-o",
+                               str(cubin), str(src)])
+             for src, cubin in zip(srcs, cubins)]
+    if any(p.wait() != 0 for p in procs):
+        raise SystemExit("nvcc -cubin failed")
     fns = {}
-    for src in ("syrk.cu", "weighted_gram.cu"):
-        cubin = Path(out).with_suffix(f".{src}.cubin")
-        subprocess.run([_build._nvcc(), *flags, "-cubin", "-o", str(cubin),
-                        str(_build.CSRC / src)], check=True)
+    for src, cubin in zip(srcs, cubins):
         text = subprocess.run([str(cuobjdump), "-sass", str(cubin)],
                               capture_output=True, text=True,
                               check=True).stdout
@@ -190,10 +257,12 @@ def sass(tree, out):
                 # the copy policies' default NV = 1 dropped from the name
                 name = re.sub(r"(CopyF32ILi\d+E)Li1EE", r"\1E", m.group(1))
                 name = name.replace("CopyBf16ILi1EE", "CopyBf16")
+                # cross_tiles' row-major layout argument dropped
+                name = re.sub(r"(cross_tilesI\w+?Li\dE)Lb0E", r"\1", name)
                 # an anonymous namespace's name hashes the source's path
                 name = re.sub(r"_GLOBAL__N__[0-9a-f]{8}_", "_GLOBAL__N__",
                               name)
-                cur = fns.setdefault(f"{src} {name}", [])
+                cur = fns.setdefault(f"{src.name} {name}", [])
             elif cur is not None and re.search(r"/\*[0-9a-f]{4}\*/", line):
                 cur.append(re.sub(r"/\*[0-9a-f]{4}\*/", "", line)
                            .split(";")[0].strip())
@@ -210,34 +279,52 @@ def _run(*args):
 
 
 def compare_bits(a, b, label):
+    """Per kernel: outputs bitwise equal; of the others, those equal up to
+    the sign of zero (and in how many entries the sign differs); the
+    rest's largest difference over their largest value."""
     import torch
     x, y = torch.load(a), torch.load(b)
-    same = [k for k in x if torch.equal(x[k], y[k])]
-    worst = max((((x[k].double() - y[k].double()).abs().max()
-                  / x[k].double().abs().max().clamp_min(1e-30)).item()
-                 for k in x if k not in same), default=0.0)
-    print(f"bits, {label}: {len(same)} of {len(x)} outputs bitwise equal; "
-          f"the others within max |d| / max|v| {worst:.3e}")
-    for k in [k for k in x if k not in same][:8]:
-        print(f"  differs: {k}")
+    groups = {}
+    for k in x:
+        g = groups.setdefault(k.split()[0], dict(n=0, bits=0, zero=0,
+                                                 entries=0, worst=0.0,
+                                                 differ=[]))
+        g["n"] += 1
+        xb, yb = x[k].view(torch.int32), y[k].view(torch.int32)
+        if torch.equal(xb, yb):
+            g["bits"] += 1
+        elif bool(torch.all(x[k] == y[k])):
+            g["zero"] += 1
+            g["entries"] += int((xb != yb).sum())
+        else:
+            g["worst"] = max(g["worst"], (
+                (x[k].double() - y[k].double()).abs().max()
+                / x[k].double().abs().max().clamp_min(1e-30)).item())
+            g["differ"].append(k)
+    for name, g in groups.items():
+        print(f"bits, {label}: {name}: {g['bits']} of {g['n']} outputs "
+              f"bitwise equal, {g['zero']} more equal up to the sign of zero "
+              f"({g['entries']} entries), {len(g['differ'])} differ (max |d| "
+              f"/ max|v| {g['worst']:.3e})")
+        for k in g["differ"][:4]:
+            print(f"  differs: {k}")
 
 
 def main():
     if len(sys.argv) > 2 and sys.argv[1] == "--worker":
         step, tree, *rest = sys.argv[2:]
-        {"bits": bits, "times": times, "sass": sass}[step](tree, *rest)
+        {"featurizers": featurizers, "bits": bits, "times": times,
+         "sass": sass}[step](tree, *rest)
         return
     other = str(Path(sys.argv[1]).resolve())
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         t = Path(tmp)
-        _run("--worker", "bits", other, str(t / "other.pt"), "own")
-        _run("--worker", "bits", str(ROOT), str(t / "old.pt"), "old")
-        _run("--worker", "bits", str(ROOT), str(t / "own.pt"), "own")
-        compare_bits(t / "other.pt", t / "old.pt",
-                     "this tree on the staged pass's plans against OTHER")
-        compare_bits(t / "other.pt", t / "own.pt",
-                     "this tree on its own plans against OTHER")
+        feats = str(t / "feats.pt")
+        _run("--worker", "featurizers", str(ROOT), feats)
+        _run("--worker", "bits", other, str(t / "other.pt"), feats)
+        _run("--worker", "bits", str(ROOT), str(t / "this.pt"), feats)
+        compare_bits(t / "other.pt", t / "this.pt", "this tree against OTHER")
         for tree, label in ((other, "OTHER"), (str(ROOT), "this"),
                             (str(ROOT), "this"), (other, "OTHER")):
             line = [x for x in _run("--worker", "times", tree).splitlines()
@@ -249,10 +336,12 @@ def main():
             a = json.loads((t / "other.json").read_text())
             b = json.loads((t / "this.json").read_text())
             for name in sorted(set(a) | set(b)):
-                same = a.get(name) == b.get(name)
+                same = ("identical" if a.get(name) == b.get(name) else
+                        "only in OTHER" if name not in b else
+                        "only in this tree" if name not in a else
+                        "DIFFERENT")
                 print(f"sass {name}: {len(a.get(name, []))} / "
-                      f"{len(b.get(name, []))} instructions, "
-                      f"{'identical' if same else 'DIFFERENT'}")
+                      f"{len(b.get(name, []))} instructions, {same}")
 
 
 if __name__ == "__main__":

@@ -2,7 +2,9 @@
 // (FFMA; no TF32, no fast-math), for syrk.cu (lower-triangle tiles),
 // weighted_gram.cu (the dense tile grid) and the iteration statistic of
 // fused_stats.cu and nystrom_phi.cu (stat_tiles: lower-triangle tiles or a
-// column window's tile table, C chains, and b = X^T coef beside Sigma).
+// column window's tile table, C chains, and b = X^T coef beside Sigma);
+// and, with two operands (CopyPair), the Nystrom projection A^T B of
+// nystrom_phi.cu, whose depth is the landmarks.
 //
 // What bounds it on the H100: fp32 FMAs. The triangle needs N K (K + 1)
 // flop on 4 N K bytes of X, (K + 1) / 4 flop a byte against a ridge of ~20
@@ -39,6 +41,9 @@
 //   half a word early reads the two bytes before it, which lie in the same
 //   aligned word as an element of X (never outside a mapped page); bytes
 //   past the end of X are not read (cp.async's source size).
+// - CopyPair: two fp32 operands, each with its own base, leading
+//   dimension and width (the projection: A the landmark-major cross-Gram
+//   chunk, B proj), 16-byte copies, nothing to prepare.
 // Rows past the split's end and columns past K are zero-filled by
 // cp.async's source size. On a diagonal tile (i == j) the A and B blocks
 // are the same columns: only B is copied, and A = B w is made from it.
@@ -319,6 +324,72 @@ struct CopyBf16 {
   }
 };
 
+// Two fp32 operands whose rows are the depth: the stage's A block is
+// A[row0:row0 + BN, c0i:c0i + BK] and its B block B[.., c0j:c0j + BK],
+// each row-major with its own leading dimension (a multiple of 4, the base
+// 16-byte aligned) and width. One 16-byte cp.async a four-column group;
+// rows past t.r_end and columns past the width are zero-filled by the
+// source size (a group across the width copies its columns below it). No
+// per-row vector, nothing to prepare: the operands are multiplied as they
+// land. The Nystrom projection (nystrom_phi.cu): A the (m, R) landmark-
+// major cross-Gram chunk, B proj (m, P), the depth the m landmarks.
+struct CopyPair {
+  static constexpr int SLOTS = 3;
+  struct Slot {
+    float A[BN][BK];
+    float B[BN][BK];
+  };
+  static constexpr size_t SMEM = SLOTS * sizeof(Slot);
+
+  const float* __restrict__ A;
+  const float* __restrict__ B;
+  int64_t lda, ldb;
+  int wa, wb;  // widths: columns at or past them read 0
+  Slot* slot;
+
+  __device__ CopyPair(const float* A_, int64_t lda_, int wa_, const float* B_,
+                      int64_t ldb_, int wb_, unsigned char* smem)
+      : A(A_), B(B_), lda(lda_), ldb(ldb_), wa(wa_), wb(wb_),
+        slot(reinterpret_cast<Slot*>(smem)) {}
+
+  // The thread copies one four-column group of every ROWS-th row.
+  __device__ __forceinline__ static void block(float (*dst)[BK],
+                                               const float* X, int64_t ld,
+                                               int width, int64_t row0,
+                                               const Tile& t, int c0) {
+    constexpr int PER_ROW = BK / 4, ROWS = TILE_THREADS / PER_ROW;
+    const int r0 = threadIdx.x / PER_ROW, c = (threadIdx.x % PER_ROW) * 4;
+    const int left = width - c0 - c;
+    const int bytes = left <= 0 ? 0 : (left >= 4 ? 16 : 4 * left);
+    const int nrows = (int)min64(BN, t.r_end - row0);
+    const float* src = X + (row0 + r0) * ld + c0 + c;
+#pragma unroll
+    for (int i = 0; i < BN / ROWS; ++i) {
+      const int r = r0 + i * ROWS;
+      const bool ok = bytes != 0 && r < nrows;
+      cp_async<16>(&dst[r][c], ok ? src : X, ok ? bytes : 0);
+      src += (int64_t)ROWS * ld;
+    }
+  }
+
+  __device__ __forceinline__ void fetch(int k, int64_t row0,
+                                        const Tile& t) const {
+    block(slot[k].A, A, lda, wa, row0, t, t.c0i);
+    block(slot[k].B, B, ldb, wb, row0, t, t.c0j);
+  }
+
+  __device__ __forceinline__ void prepare(int, int64_t, const Tile&) {}
+
+  __device__ __forceinline__ Operands operands(int k) const {
+    return {slot[k].A, slot[k].B, nullptr};
+  }
+
+  // B[row, col] (b_stage's hook; the projection runs with bmode 0).
+  __device__ __forceinline__ float value(int64_t row, int, int col) const {
+    return B[row * ldb + col];
+  }
+};
+
 // acc[p][q] += A[r][ai(p)] * B[r][bj(q)] over the stage's BN rows in
 // order. Thread (tx, ty) owns A rows 4ty..4ty+3 and 64+4ty..64+4ty+3 and
 // the same pattern of B columns in tx (common.cuh's store_tile layout), so
@@ -378,21 +449,31 @@ __device__ __forceinline__ float b_stage(const Copy& cp, const Operands& o,
   return bacc;
 }
 
-// One CTA: tile (bi, bj) over rows [r_begin, r_end), partial to dst; and
-// b's block as bmode says (b_stage), returned (0 with bmode 0). The
+// The accumulator's destination in gram_tiles and stat_tiles: the tile,
+// row-major, at dst (a per-split partial).
+struct StoreTile {
+  float* dst;
+  __device__ __forceinline__ void operator()(float (&acc)[8][8]) const {
+    store_tile(dst, acc);
+  }
+};
+
+// One CTA: tile (bi, bj) over rows [r_begin, r_end), the accumulator
+// handed to ``epi`` (StoreTile: the partial); and b's block as bmode
+// says (b_stage), returned (0 with bmode 0). The
 // stage s sits in slot s % SLOTS of the copy ring (CopyF32: 3 slots, so
 // the stage being copied, prepared and multiplied never share one;
 // CopyBf16: 2 raw and 2 operand slots, as it copies two stages ahead but
-// prepares into its own ring).
-template <class Copy>
+// prepares into its own ring; CopyPair: 3 slots, nothing prepared).
+template <class Copy, class Epi>
 __device__ __forceinline__ float tile_pass(Copy& cp, const Tile& t,
-                                           int64_t r_begin, float* dst,
+                                           int64_t r_begin, const Epi& epi,
                                            int bmode = 0) {
   constexpr int S = Copy::SLOTS;
   const int nst = (int)((t.r_end - r_begin + BN - 1) / BN);
   // A warp whose A rows all lie past K (the last block of a ragged K, as
-  // at K = 2,049) multiplies nothing: its part of the tile stays 0 and is
-  // never read.
+  // at K = 2,049; the projection's rows past its chunk) multiplies
+  // nothing: its part of the tile stays 0 and is never read.
   const int wr = 8 * (threadIdx.x / 32);
   const bool busy = t.c0i + wr < t.K || t.c0i + 64 + wr < t.K;
   float acc[8][8];
@@ -425,7 +506,7 @@ __device__ __forceinline__ float tile_pass(Copy& cp, const Tile& t,
       bacc = b_stage(cp, o, t, r_begin + (int64_t)st * BN, bmode, bacc);
     if (busy) mma_stage(acc, o.A, o.B);
   }
-  store_tile(dst, acc);
+  epi(acc);
   return bacc;
 }
 
@@ -451,7 +532,8 @@ __global__ void __launch_bounds__(TILE_THREADS, 2)
   const Tile t{N, min64(N, r_begin + rows_per_split), K, bi * BK, bj * BK,
                bi == bj};
   Copy cp(X, w, smem);
-  tile_pass(cp, t, r_begin, part + ((int64_t)s * ntiles + tt) * BK * BK);
+  tile_pass(cp, t, r_begin,
+            StoreTile{part + ((int64_t)s * ntiles + tt) * BK * BK});
 }
 
 // Launch gram_tiles for X of dtype T (float or bf16) on copy path Copy,
@@ -551,8 +633,8 @@ __global__ void __launch_bounds__(TILE_THREADS, 2)
                bj * BK, bi == bj};
   Copy cp(X, a.wgt + (int64_t)c * a.N, smem, a.coef + (int64_t)c * a.N);
   const float bacc = tile_pass(
-      cp, t, r_begin, a.part + ((s * a.ntiles + tt) * a.C + c) * BK * BK,
-      bmode);
+      cp, t, r_begin,
+      StoreTile{a.part + ((s * a.ntiles + tt) * a.C + c) * BK * BK}, bmode);
   if (bmode != 0 && threadIdx.x < BK)
     a.bpart[(s * a.C + c) * a.Kp + (int64_t)(bmode == 1 ? bj : bi) * BK +
             threadIdx.x] = bacc;

@@ -12,12 +12,16 @@
 // memory, so here the rows go in chunks and every operand streams through
 // shared memory in 32-deep slices. Per chunk of R rows:
 //
-//   A. cross_tiles (rbf.cuh): the (R, m) cross-Gram chunk k(X, L) into an
-//      L2-sized scratch, each entry computed once;
-//   B. phi_tiles: its product with proj, 128 x 128 tiles, masked in
-//      registers, with the bias column; WRITE stores the phi rows, SCORE
-//      multiplies them by W at once and keeps (column block, row, C)
-//      partial scores, summed in column-block order by score_reduce;
+//   A. cross_tiles (rbf.cuh): the cross-Gram chunk k(X, L), each entry
+//      computed once, into an L2-sized scratch stored landmark-major,
+//      (m, R) with rows R apart;
+//   B. phi_tiles: its product with proj on the Gram engine
+//      (gram_pipe.cuh's tile_pass and CopyPair: a three-slot cp.async ring
+//      of 16-byte copies of both operands, the landmarks the depth), 128 x
+//      128 tiles, masked in registers, with the bias column; WRITE stores
+//      the phi rows, SCORE multiplies them by W at once and keeps (column
+//      block, row, C) partial scores, summed in column-block order by
+//      score_reduce;
 //   and for the statistic, phi rows go to an (R, M) scratch, then the two
 //   passes of fused_stats (stats.cuh) run on it:
 //   C. the row pass: a warp 4 rows: margin = phi . w, the epilogue
@@ -33,8 +37,11 @@
 //
 // No (N, m) and no (N, M) buffer is allocated on the statistic's route.
 // Each phi entry is one thread's fmaf chain over the landmarks in order,
-// so phi does not depend on R: the statistic sees the bits nystrom_phi
-// writes. See kernels/nystrom_phi.py for the design note.
+// from +0, so phi does not depend on R: the statistic sees the bits
+// nystrom_phi writes. Past the last landmark the engine's last stage is
+// zero-filled (m % 32 != 0), and its fmaf(0, 0, acc) turns an accumulator
+// of -0 into +0; no other bit depends on it. See kernels/nystrom_phi.py
+// for the design note.
 #include "epilogues.cuh"
 #include "rbf.cuh"
 #include "stats.cuh"
@@ -49,8 +56,10 @@ inline int64_t rows_left(int64_t chunk, int64_t rest) {
 }
 
 struct PhiArgs {
-  const float* kc;    // (nrows, m) cross-Gram chunk
-  const float* proj;  // (m, P)
+  const float* kc;    // (m, ldk): the landmark-major cross-Gram chunk
+  int64_t ldk;        // a multiple of 4
+  const float* proj;  // (m, ldp), ldp a multiple of 4: P columns, 0 after
+  int ldp;
   const float* mask;  // (nrows,), null = ones
   int64_t nrows;
   int m, P, bias;     // phi width M = P + bias
@@ -61,78 +70,95 @@ struct PhiArgs {
   float* spart;       // SCORE: (column blocks, nrows, C)
 };
 
+// The projection tile's epilogue, on the engine's accumulator (acc[p][q]:
+// chunk row i0 + tile_row(p), phi column j0 + tile_col(q)).
 template <int MODE>
-__global__ void __launch_bounds__(TILE_THREADS, 2) phi_tiles(PhiArgs a) {
-  __shared__ __align__(16) float As[GK][GLD];
-  __shared__ __align__(16) float Bs[GK][GLD];
-  const int M = a.P + a.bias;
-  const int ntc = (M + GT - 1) / GT;
-  const int cb = (int)(blockIdx.x % ntc);
-  const int64_t i0 = (int64_t)(blockIdx.x / ntc) * GT;
-  const int j0 = cb * GT;
-  float acc[8][8];
-#pragma unroll
-  for (int p = 0; p < 8; ++p)
-#pragma unroll
-    for (int q = 0; q < 8; ++q) acc[p][q] = 0.f;
-  if (j0 < a.P) {  // a tile holding only the bias column needs no product
-    for (int k0 = 0; k0 < a.m; k0 += GK) {
-      const int kd = min(GK, a.m - k0);
-      stage_rows_t(a.kc, a.m, i0, a.nrows, k0, kd, As);
-      stage_depth_rows(a.proj, a.P, k0, kd, j0, a.P, Bs);
-      __syncthreads();
-      gemm_acc(acc, As, Bs, kd);
-      __syncthreads();
-    }
-  }
-  // phi = [k @ proj, 1] * mask, in place.
-#pragma unroll
-  for (int p = 0; p < 8; ++p) {
-    const int64_t i = i0 + tile_row(p);
-    const float mk = (a.mask != nullptr && i < a.nrows) ? a.mask[i] : 1.0f;
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const int j = j0 + tile_col(q);
-      acc[p][q] = j < a.P ? __fmul_rn(acc[p][q], mk) : (j < M ? mk : 0.f);
-    }
-  }
-  if (MODE == PHI_WRITE) {
+struct PhiEpilogue {
+  const PhiArgs& a;
+  int64_t i0;
+  int j0, cb;
+  unsigned char* smem;  // the engine's ring, free after a barrier
+
+  __device__ __forceinline__ void operator()(float (&acc)[8][8]) const {
+    const int M = a.P + a.bias;
+    // phi = [k @ proj, 1] * mask, in place.
 #pragma unroll
     for (int p = 0; p < 8; ++p) {
       const int64_t i = i0 + tile_row(p);
-      if (i >= a.nrows) continue;
+      const float mk = (a.mask != nullptr && i < a.nrows) ? a.mask[i] : 1.0f;
 #pragma unroll
       for (int q = 0; q < 8; ++q) {
         const int j = j0 + tile_col(q);
-        if (j < a.ldo) a.out[i * a.ldo + j] = acc[p][q];
+        acc[p][q] = j < a.P ? __fmul_rn(acc[p][q], mk) : (j < M ? mk : 0.f);
       }
     }
-    return;
+    if (MODE == PHI_WRITE) {
+#pragma unroll
+      for (int p = 0; p < 8; ++p) {
+        const int64_t i = i0 + tile_row(p);
+        if (i >= a.nrows) continue;
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const int j = j0 + tile_col(q);
+          if (j < a.ldo) a.out[i * a.ldo + j] = acc[p][q];
+        }
+      }
+      return;
+    }
+    // SCORE: the tile's partial scores, phi never leaving registers. Each
+    // thread sums its 8 columns; the 16 threads of a row group are summed
+    // in tx order through shared memory (a ring slot, once every thread
+    // is past its last stage).
+    __syncthreads();
+    float(*red)[GT] = reinterpret_cast<float(*)[GT]>(smem);
+    const int tx = threadIdx.x % 16;
+    for (int c = 0; c < a.C; ++c) {
+#pragma unroll
+      for (int p = 0; p < 8; ++p) {
+        float s = 0.f;
+#pragma unroll
+        for (int q = 0; q < 8; ++q) {
+          const int j = j0 + tile_col(q);
+          if (j < M) s = fmaf(acc[p][q], __ldg(a.W + (int64_t)j * a.C + c), s);
+        }
+        red[tx][tile_row(p)] = s;
+      }
+      __syncthreads();
+      if (threadIdx.x < GT) {
+        float s = 0.f;
+        for (int x = 0; x < 16; ++x) s += red[x][threadIdx.x];
+        const int64_t i = i0 + threadIdx.x;
+        if (i < a.nrows) a.spart[((int64_t)cb * a.nrows + i) * a.C + c] = s;
+      }
+      __syncthreads();
+    }
   }
-  // SCORE: the tile's partial scores, phi never leaving registers. Each
-  // thread sums its 8 columns; the 16 threads of a row group are summed
-  // in tx order through shared memory (As is free after the last sync).
-  float(*red)[GT] = reinterpret_cast<float(*)[GT]>(&As[0][0]);
-  const int tx = threadIdx.x % 16;
-  for (int c = 0; c < a.C; ++c) {
+};
+
+// One CTA a 128 x 128 phi tile: rows i0.., columns j0.. of the chunk,
+// column tiles fastest, so the CTAs that share a row block of kc run
+// together and read it from L2. The product is the engine's tile pass over
+// the m landmarks (A = kc's columns i0.., B = proj's columns j0..); a tile
+// holding only the bias column runs none.
+template <int MODE>
+__global__ void __launch_bounds__(TILE_THREADS, 2) phi_tiles(PhiArgs a) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int ntc = (a.P + a.bias + GT - 1) / GT;
+  const int cb = (int)(blockIdx.x % ntc);
+  const int64_t i0 = (int64_t)(blockIdx.x / ntc) * GT;
+  const int j0 = cb * GT;
+  const PhiEpilogue<MODE> epi{a, i0, j0, cb, smem};
+  if (j0 < a.P) {
+    gp::CopyPair cp(a.kc, a.ldk, (int)a.nrows, a.proj, a.ldp, a.P, smem);
+    const gp::Tile t{a.m, a.m, (int)a.nrows, (int)i0, j0, false};
+    gp::tile_pass(cp, t, 0, epi);
+  } else {
+    float acc[8][8];
 #pragma unroll
-    for (int p = 0; p < 8; ++p) {
-      float s = 0.f;
+    for (int p = 0; p < 8; ++p)
 #pragma unroll
-      for (int q = 0; q < 8; ++q) {
-        const int j = j0 + tile_col(q);
-        if (j < M) s = fmaf(acc[p][q], __ldg(a.W + (int64_t)j * a.C + c), s);
-      }
-      red[tx][tile_row(p)] = s;
-    }
-    __syncthreads();
-    if (threadIdx.x < GT) {
-      float s = 0.f;
-      for (int x = 0; x < 16; ++x) s += red[x][threadIdx.x];
-      const int64_t i = i0 + threadIdx.x;
-      if (i < a.nrows) a.spart[((int64_t)cb * a.nrows + i) * a.C + c] = s;
-    }
-    __syncthreads();
+      for (int q = 0; q < 8; ++q) acc[p][q] = 0.f;
+    epi(acc);
   }
 }
 
@@ -150,13 +176,13 @@ struct Featurizer {
   const void* X;
   int x_bf16;
   const float* L;     // (m, D)
-  const float* proj;  // (m, P)
+  const float* proj;  // (m, ldp)
   const float* mask;  // (N,), null = ones
   float* sqx;         // (N,) scratch (rbf)
   float* sql;         // (m,) scratch (rbf)
-  float* kc;          // (chunk_rows, m) scratch
-  int64_t N;
-  int D, m, P, bias, kind;
+  float* kc;          // (m, ldk) scratch, landmark-major
+  int64_t N, ldk;
+  int D, m, P, ldp, bias, kind;
   float inv_two_sigma_sq;
 };
 
@@ -171,28 +197,32 @@ static void sqnorms(const Featurizer& f, cudaStream_t st) {
   launch_row_sqnorm(f.L, (int64_t)f.m, f.D, f.sql, st);
 }
 
-// Stage A for rows [c0, c0 + nr): the cross-Gram chunk into kc.
+// Stage A for rows [c0, c0 + nr): the cross-Gram chunk into kc, landmark-
+// major.
 static void cross_chunk(const Featurizer& f, int64_t c0, int64_t nr,
                         cudaStream_t st) {
   const float* sq = f.kind == KIND_RBF ? f.sqx + c0 : nullptr;
   if (f.x_bf16)
-    launch_cross_tiles(static_cast<const __nv_bfloat16*>(f.X) + c0 * f.D,
-                       f.L, sq, f.sql, f.kc, nr, f.m, f.D, (int64_t)f.m,
-                       f.kind, f.inv_two_sigma_sq, st);
+    launch_cross_tiles<true>(static_cast<const __nv_bfloat16*>(f.X) +
+                                 c0 * f.D,
+                             f.L, sq, f.sql, f.kc, nr, f.m, f.D, f.ldk,
+                             f.kind, f.inv_two_sigma_sq, st);
   else
-    launch_cross_tiles(static_cast<const float*>(f.X) + c0 * f.D, f.L, sq,
-                       f.sql, f.kc, nr, f.m, f.D, (int64_t)f.m, f.kind,
-                       f.inv_two_sigma_sq, st);
+    launch_cross_tiles<true>(static_cast<const float*>(f.X) + c0 * f.D, f.L,
+                             sq, f.sql, f.kc, nr, f.m, f.D, f.ldk, f.kind,
+                             f.inv_two_sigma_sq, st);
 }
 
 // Stage B for rows [c0, c0 + nr); WRITE stores them ldo apart.
 template <int MODE>
-static void phi_chunk(const Featurizer& f, int64_t c0, int64_t nr,
-                      float* out, int ldo, const float* W, int C,
-                      float* spart, cudaStream_t st) {
+static cudaError_t phi_chunk(const Featurizer& f, int64_t c0, int64_t nr,
+                             float* out, int ldo, const float* W, int C,
+                             float* spart, cudaStream_t st) {
   PhiArgs a;
   a.kc = f.kc;
+  a.ldk = f.ldk;
   a.proj = f.proj;
+  a.ldp = f.ldp;
   a.mask = f.mask ? f.mask + c0 : nullptr;
   a.nrows = nr;
   a.m = f.m;
@@ -205,14 +235,20 @@ static void phi_chunk(const Featurizer& f, int64_t c0, int64_t nr,
   a.spart = spart;
   const int ntc = (f.P + f.bias + GT - 1) / GT;
   const int64_t nctas = ((nr + GT - 1) / GT) * ntc;
-  phi_tiles<MODE><<<(unsigned)nctas, TILE_THREADS, 0, st>>>(a);
+  cudaError_t err = cudaFuncSetAttribute(
+      phi_tiles<MODE>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      (int)gp::CopyPair::SMEM);
+  if (err != cudaSuccess) return err;
+  phi_tiles<MODE><<<(unsigned)nctas, TILE_THREADS, gp::CopyPair::SMEM, st>>>(
+      a);
+  return cudaGetLastError();
 }
 
 static Featurizer featurizer(const void* X, int x_bf16, const void* L,
                              const void* proj, const void* mask, void* sqx,
                              void* sql, void* kc, int64_t N, int D, int m,
-                             int P, int bias, int kind,
-                             float inv_two_sigma_sq) {
+                             int P, int proj_ld, int bias, int kind,
+                             float inv_two_sigma_sq, int64_t chunk_rows) {
   Featurizer f;
   f.X = X;
   f.x_bf16 = x_bf16;
@@ -223,9 +259,11 @@ static Featurizer featurizer(const void* X, int x_bf16, const void* L,
   f.sql = static_cast<float*>(sql);
   f.kc = static_cast<float*>(kc);
   f.N = N;
+  f.ldk = chunk_rows;
   f.D = D;
   f.m = m;
   f.P = P;
+  f.ldp = proj_ld;
   f.bias = bias;
   f.kind = kind;
   f.inv_two_sigma_sq = inv_two_sigma_sq;
@@ -236,33 +274,37 @@ static Featurizer featurizer(const void* X, int x_bf16, const void* L,
 }  // namespace rt
 
 // Common arguments: X (N, D) row-major f32 (x_bf16 = 0) or bf16; L (m, D)
-// and proj (m, P) f32 row-major; mask (N,) f32 or null (ones); bias 0/1
-// appends the mask-valued column after the P projected ones (M = P +
-// bias); kind 0 = rbf, 1 = linear; chunk_rows rows a chunk. Scratch: sqx
-// (N,) and sql (m,) f32 (rbf only), kc (chunk_rows, m) f32. Each returns
-// cudaGetLastError() after its launches (-1 for a bad epilogue code).
+// f32 row-major; proj (m, P) f32 with rows proj_ld apart (proj_ld a
+// multiple of 4, proj 16-byte aligned; columns P..proj_ld - 1 unread);
+// mask (N,) f32 or null (ones); bias 0/1 appends the mask-valued column
+// after the P projected ones (M = P + bias); kind 0 = rbf, 1 = linear;
+// chunk_rows rows a chunk, a multiple of 4. Scratch: sqx (N,) and sql
+// (m,) f32 (rbf only), kc (m, chunk_rows) f32, 16-byte aligned. Each
+// returns the first CUDA error of its launches (-1 for a bad epilogue
+// code).
 
 // out (N, M) f32: the phi rows.
 extern "C" int rt_nystrom_phi(int device, void* stream, const void* X,
                               int x_bf16, const void* L, const void* proj,
                               const void* mask, void* sqx, void* sql,
                               void* kc, void* out, int64_t N, int D, int m,
-                              int P, int bias, int kind,
+                              int P, int proj_ld, int bias, int kind,
                               float inv_two_sigma_sq, int64_t chunk_rows) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const rt::Featurizer f =
       rt::featurizer(X, x_bf16, L, proj, mask, sqx, sql, kc, N, D, m, P,
-                     bias, kind, inv_two_sigma_sq);
+                     proj_ld, bias, kind, inv_two_sigma_sq, chunk_rows);
   float* o = static_cast<float*>(out);
   const int64_t M = P + bias;
   rt::sqnorms(f, st);
   for (int64_t c0 = 0; c0 < N; c0 += chunk_rows) {
     const int64_t nr = rt::rows_left(chunk_rows, N - c0);
     rt::cross_chunk(f, c0, nr, st);
-    rt::phi_chunk<rt::PHI_WRITE>(f, c0, nr, o + c0 * M, (int)M, nullptr, 0,
-                                 nullptr, st);
+    err = rt::phi_chunk<rt::PHI_WRITE>(f, c0, nr, o + c0 * M, (int)M,
+                                       nullptr, 0, nullptr, st);
+    if (err != cudaSuccess) return (int)err;
   }
   return (int)cudaGetLastError();
 }
@@ -273,15 +315,15 @@ extern "C" int rt_nystrom_score(int device, void* stream, const void* X,
                                 int x_bf16, const void* L, const void* proj,
                                 const void* mask, const void* W, void* sqx,
                                 void* sql, void* kc, void* spart, void* out,
-                                int64_t N, int D, int m, int P, int bias,
-                                int C, int kind, float inv_two_sigma_sq,
-                                int64_t chunk_rows) {
+                                int64_t N, int D, int m, int P,
+                                int proj_ld, int bias, int C, int kind,
+                                float inv_two_sigma_sq, int64_t chunk_rows) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const rt::Featurizer f =
       rt::featurizer(X, x_bf16, L, proj, mask, sqx, sql, kc, N, D, m, P,
-                     bias, kind, inv_two_sigma_sq);
+                     proj_ld, bias, kind, inv_two_sigma_sq, chunk_rows);
   float* sp = static_cast<float*>(spart);
   float* o = static_cast<float*>(out);
   const int ncb = (P + bias + rt::GT - 1) / rt::GT;
@@ -289,8 +331,10 @@ extern "C" int rt_nystrom_score(int device, void* stream, const void* X,
   for (int64_t c0 = 0; c0 < N; c0 += chunk_rows) {
     const int64_t nr = rt::rows_left(chunk_rows, N - c0);
     rt::cross_chunk(f, c0, nr, st);
-    rt::phi_chunk<rt::PHI_SCORE>(f, c0, nr, nullptr, 0,
-                                 static_cast<const float*>(W), C, sp, st);
+    err = rt::phi_chunk<rt::PHI_SCORE>(f, c0, nr, nullptr, 0,
+                                       static_cast<const float*>(W), C, sp,
+                                       st);
+    if (err != cudaSuccess) return (int)err;
     const int64_t n = nr * C;
     rt::score_reduce<<<(unsigned)((n + 255) / 256), 256, 0, st>>>(
         sp, o + c0 * C, n, ncb);
@@ -321,7 +365,8 @@ extern "C" int rt_nystrom_fused_stats(
     const void* u_o, const void* seed, void* sqx, void* sql, void* kc,
     void* phi, void* wgt, void* coef, void* part, void* bpart, void* margin,
     void* gamma, void* omega, void* sigma, void* b, int64_t N, int D, int m,
-    int P, int bias, int kind, float inv_two_sigma_sq, int64_t chunk_rows,
+    int P, int proj_ld, int bias, int kind, float inv_two_sigma_sq,
+    int64_t chunk_rows,
     int ntiles, int64_t rows_per_split, int phi_ld, int phi_path,
     int epilogue,
     float eps, float eps_ins, const void* win_tab, const void* win_tmap,
@@ -332,7 +377,7 @@ extern "C" int rt_nystrom_fused_stats(
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const rt::Featurizer f =
       rt::featurizer(X, x_bf16, L, proj, mask, sqx, sql, kc, N, D, m, P,
-                     bias, kind, inv_two_sigma_sq);
+                     proj_ld, bias, kind, inv_two_sigma_sq, chunk_rows);
   const int M = P + bias;
   const bool win = win_tab != nullptr;
   float* ph = static_cast<float*>(phi);
@@ -375,8 +420,9 @@ extern "C" int rt_nystrom_fused_stats(
   for (int64_t c0 = 0; c0 < N; c0 += chunk_rows) {
     const int64_t nr = rt::rows_left(chunk_rows, N - c0);
     rt::cross_chunk(f, c0, nr, st);
-    rt::phi_chunk<rt::PHI_WRITE>(f, c0, nr, ph, phi_ld, nullptr, 0, nullptr,
-                                 st);
+    err = rt::phi_chunk<rt::PHI_WRITE>(f, c0, nr, ph, phi_ld, nullptr, 0,
+                                       nullptr, st);
+    if (err != cudaSuccess) return (int)err;
     r.rho = static_cast<const float*>(rho) + c0;
     r.beta = static_cast<const float*>(beta) + c0;
     r.mask = f.mask ? f.mask + c0 : nullptr;
@@ -400,4 +446,17 @@ extern "C" int rt_nystrom_fused_stats(
     rt::launch_sum_partials(a.bpart, bo, M, a.Kp, a.nsplits, st, 1, c0 > 0);
   }
   return (int)cudaGetLastError();
+}
+
+// Dynamic shared memory bytes and resident CTAs an SM of the projection
+// kernel phi_tiles (mode 0 = WRITE, 1 = SCORE) on the engine's CopyPair.
+extern "C" int rt_nystrom_phi_occupancy(int device, int mode, int* smem,
+                                        int* ctas) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return (int)(mode == rt::PHI_SCORE
+                   ? rt::gp::occupancy_of<rt::gp::CopyPair>(
+                         rt::phi_tiles<rt::PHI_SCORE>, smem, ctas)
+                   : rt::gp::occupancy_of<rt::gp::CopyPair>(
+                         rt::phi_tiles<rt::PHI_WRITE>, smem, ctas));
 }

@@ -10,12 +10,14 @@
 // in the order of the Pallas tile, and calls the IEEE-mode expf (not the
 // __expf intrinsic). The linear kind keeps the inner product itself.
 //
-// The same 128 x 128 register tile (gemm_acc) serves the projection
-// k(X, L) @ proj of the Nystrom kernels: a CTA of 256 threads owns a
-// 128 x 128 output tile, 8 x 8 outputs a thread, and stages 32-deep slices
-// of both operands in shared memory. Each output is one thread's
-// sequential fmaf over the depth in ascending order, so its bits do not
-// depend on the grid or on how the rows are chunked.
+// A CTA of 256 threads owns a 128 x 128 output tile, 8 x 8 outputs a
+// thread (gemm_acc), and stages 32-deep slices of both operands in shared
+// memory. Each inner product is one thread's sequential fmaf over D in
+// ascending order, so its bits do not depend on the grid or on how the
+// rows are chunked. The output is row-major (rbf_gram.cu) or, for the
+// Nystrom kernels, landmark-major: the (m, R) transpose of a row chunk's
+// cross-Gram, the A operand of the projection k(X, L) @ proj, which runs
+// on the Gram engine (gram_pipe.cuh's CopyPair; nystrom_phi.cu).
 #pragma once
 
 #include "common.cuh"
@@ -81,20 +83,6 @@ __device__ __forceinline__ void stage_rows_t(const T* __restrict__ A,
   }
 }
 
-// Bs[k][j] = B[(k0 + k) * ldb + c0 + j] for k < kd and c0 + j < ncols,
-// else 0: a row-major operand whose rows are the depth (coalesced in j).
-__device__ __forceinline__ void stage_depth_rows(const float* __restrict__ B,
-                                                 int64_t ldb, int k0, int kd,
-                                                 int c0, int ncols,
-                                                 float (*Bs)[GLD]) {
-  const int j = threadIdx.x % GT;
-  for (int k = threadIdx.x / GT; k < GK; k += TILE_THREADS / GT) {
-    float v = 0.f;
-    if (k < kd && c0 + j < ncols) v = B[(int64_t)(k0 + k) * ldb + c0 + j];
-    Bs[k][j] = v;
-  }
-}
-
 // Output row / column of slot p (or q) of thread (tx, ty) in a tile.
 __device__ __forceinline__ int tile_row(int p) {
   return (p < 4 ? 0 : 64) + (threadIdx.x / 16) * 4 + (p & 3);
@@ -123,9 +111,14 @@ __device__ __forceinline__ void gemm_acc(float acc[8][8], float (*As)[GLD],
 }
 
 // out[i * ldo + j] = k(A_i, B_j) for i < na, j < nb: the RBF (or linear)
-// cross-Gram of two row-major (., D) operands. One CTA a 128 x 128 tile,
-// column tiles fastest so the CTAs that share rows of A run together.
-template <typename TA, typename TB, int KIND>
+// cross-Gram of two row-major (., D) operands; with LM (landmark-major)
+// its transpose, out[j * ldo + i]. One CTA a 128 x 128 tile, B's tiles
+// fastest so the CTAs that share rows of A run together. Under LM the
+// tile is computed as (B rows) x (A rows), so that a thread's consecutive
+// outputs are consecutive in memory and the stores stay coalesced:
+// fmaf(b, a, acc) is fmaf(a, b, acc) exactly, and the transform keeps A's
+// squared norm first, so every value has the bits of the row-major form.
+template <typename TA, typename TB, int KIND, bool LM>
 __global__ void __launch_bounds__(TILE_THREADS, 2)
     cross_tiles(const TA* __restrict__ A, const TB* __restrict__ B,
                 const float* __restrict__ sqa, const float* __restrict__ sqb,
@@ -143,29 +136,54 @@ __global__ void __launch_bounds__(TILE_THREADS, 2)
     for (int q = 0; q < 8; ++q) acc[p][q] = 0.f;
   for (int d0 = 0; d0 < D; d0 += GK) {
     const int kd = min(GK, D - d0);
-    stage_rows_t(A, D, i0, na, d0, kd, As);
-    stage_rows_t(B, D, j0, nb, d0, kd, Bs);
+    if constexpr (LM) {
+      stage_rows_t(B, D, j0, nb, d0, kd, As);
+      stage_rows_t(A, D, i0, na, d0, kd, Bs);
+    } else {
+      stage_rows_t(A, D, i0, na, d0, kd, As);
+      stage_rows_t(B, D, j0, nb, d0, kd, Bs);
+    }
     __syncthreads();
     gemm_acc(acc, As, Bs, kd);
     __syncthreads();
   }
+  if constexpr (LM) {
 #pragma unroll
-  for (int p = 0; p < 8; ++p) {
-    const int64_t i = i0 + tile_row(p);
-    if (i >= na) continue;
-#pragma unroll
-    for (int q = 0; q < 8; ++q) {
-      const int j = j0 + tile_col(q);
+    for (int p = 0; p < 8; ++p) {
+      const int j = j0 + tile_row(p);
       if (j >= nb) continue;
-      out[i * ldo + j] = KIND == KIND_RBF
-                             ? rbf_value(sqa[i], sqb[j], acc[p][q],
-                                         inv_two_sigma_sq)
-                             : acc[p][q];
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int64_t i = i0 + tile_col(q);
+        if (i >= na) continue;
+        out[j * ldo + i] = KIND == KIND_RBF
+                               ? rbf_value(sqa[i], sqb[j], acc[p][q],
+                                           inv_two_sigma_sq)
+                               : acc[p][q];
+      }
+    }
+  } else {
+#pragma unroll
+    for (int p = 0; p < 8; ++p) {
+      const int64_t i = i0 + tile_row(p);
+      if (i >= na) continue;
+#pragma unroll
+      for (int q = 0; q < 8; ++q) {
+        const int j = j0 + tile_col(q);
+        if (j >= nb) continue;
+        out[i * ldo + j] = KIND == KIND_RBF
+                               ? rbf_value(sqa[i], sqb[j], acc[p][q],
+                                           inv_two_sigma_sq)
+                               : acc[p][q];
+      }
     }
   }
 }
 
-template <typename TA, typename TB>
+// The cross-Gram of A (na, D) and B (nb, D) into out, row-major (na, nb)
+// with rows ldo apart, or with LM landmark-major (nb, na) with rows ldo
+// apart.
+template <bool LM, typename TA, typename TB>
 static inline void launch_cross_tiles(const TA* A, const TB* B,
                                       const float* sqa, const float* sqb,
                                       float* out, int64_t na, int nb, int D,
@@ -174,13 +192,15 @@ static inline void launch_cross_tiles(const TA* A, const TB* B,
                                       cudaStream_t stream) {
   const int64_t nctas = ((na + GT - 1) / GT) * ((nb + GT - 1) / GT);
   if (kind == KIND_RBF)
-    cross_tiles<TA, TB, KIND_RBF><<<(unsigned)nctas, TILE_THREADS, 0,
-                                    stream>>>(A, B, sqa, sqb, out, na, nb, D,
-                                              ldo, inv_two_sigma_sq);
+    cross_tiles<TA, TB, KIND_RBF, LM><<<(unsigned)nctas, TILE_THREADS, 0,
+                                        stream>>>(A, B, sqa, sqb, out, na,
+                                                  nb, D, ldo,
+                                                  inv_two_sigma_sq);
   else
-    cross_tiles<TA, TB, KIND_LINEAR><<<(unsigned)nctas, TILE_THREADS, 0,
-                                       stream>>>(A, B, sqa, sqb, out, na, nb,
-                                                 D, ldo, inv_two_sigma_sq);
+    cross_tiles<TA, TB, KIND_LINEAR, LM><<<(unsigned)nctas, TILE_THREADS, 0,
+                                           stream>>>(A, B, sqa, sqb, out, na,
+                                                     nb, D, ldo,
+                                                     inv_two_sigma_sq);
 }
 
 }  // namespace

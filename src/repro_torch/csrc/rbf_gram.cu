@@ -18,8 +18,8 @@ static void launch_rbf_gram(const void* X1, const void* X2, float* sq1,
   const TB* b = static_cast<const TB*>(X2);
   launch_row_sqnorm(a, N1, D, sq1, stream);
   launch_row_sqnorm(b, (int64_t)N2, D, sq2, stream);
-  launch_cross_tiles(a, b, sq1, sq2, out, N1, N2, D, (int64_t)N2, KIND_RBF,
-                     inv_two_sigma_sq, stream);
+  launch_cross_tiles<false>(a, b, sq1, sq2, out, N1, N2, D, (int64_t)N2,
+                            KIND_RBF, inv_two_sigma_sq, stream);
 }
 
 }  // namespace rt

@@ -53,6 +53,7 @@ _SIGNATURES = {
                          _c_void_p, _c_void_p, _c_int64, _c_int, _c_int,
                          _c_int64],
     "rt_syrk_occupancy": [_c_int, _c_int, _c_void_p, _c_void_p],
+    "rt_nystrom_phi_occupancy": [_c_int, _c_int, _c_void_p, _c_void_p],
     "rt_weighted_gram_occupancy": [_c_int, _c_int, _c_void_p, _c_void_p],
     "rt_rbf_gram": [_c_int, _c_void_p, _c_void_p, _c_int, _c_void_p, _c_int,
                     _c_void_p, _c_void_p, _c_void_p, _c_int64, _c_int,
@@ -60,15 +61,16 @@ _SIGNATURES = {
     "rt_nystrom_phi": [_c_int, _c_void_p, _c_void_p, _c_int, _c_void_p,
                        _c_void_p, _c_void_p, _c_void_p, _c_void_p,
                        _c_void_p, _c_void_p, _c_int64, _c_int, _c_int,
-                       _c_int, _c_int, _c_int, _c_float, _c_int64],
+                       _c_int, _c_int, _c_int, _c_int, _c_float, _c_int64],
     "rt_nystrom_score": [_c_int, _c_void_p, _c_void_p, _c_int, _c_void_p,
                          _c_void_p, _c_void_p, _c_void_p, _c_void_p,
                          _c_void_p, _c_void_p, _c_void_p, _c_void_p,
                          _c_int64, _c_int, _c_int, _c_int, _c_int, _c_int,
-                         _c_int, _c_float, _c_int64],
+                         _c_int, _c_int, _c_float, _c_int64],
     "rt_nystrom_fused_stats": [_c_int, _c_void_p, _c_void_p, _c_int,
                                *[_c_void_p] * 24, _c_int64, _c_int, _c_int,
-                               _c_int, _c_int, _c_int, _c_float, _c_int64,
+                               _c_int, _c_int, _c_int, _c_int, _c_float,
+                               _c_int64,
                                _c_int, _c_int64, _c_int, _c_int, _c_int,
                                _c_float, _c_float,
                                _c_void_p, _c_void_p, _c_int, _c_int, _c_int],

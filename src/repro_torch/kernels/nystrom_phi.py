@@ -20,22 +20,29 @@ What bounds them on the H100: fp32 operations. The projection is
 flop per byte of X, fifty times the ridge. The cross-Gram is 2 N m D flop
 and, at small D, the bytes of its chunk scratch.
 
-Design (``csrc/nystrom_phi.cu``; the RBF tile body and the 128 x 128
-register tile come from ``csrc/rbf.cuh``, the statistic's two passes
-from ``csrc/fused_stats.cu`` and the Gram engine of
-``csrc/gram_pipe.cuh``). The TPU kernels hold the landmark strip, the
+Design (``csrc/nystrom_phi.cu``; the RBF tile body from ``csrc/rbf.cuh``,
+the projection and the statistic's Sigma on the Gram engine of
+``csrc/gram_pipe.cuh``, the statistic's row pass from
+``csrc/fused_stats.cu``). The TPU kernels hold the landmark strip, the
 projection, the cross tile, the phi tile and Sigma in VMEM at once, under
 a 14 MB budget; a Hopper CTA has 227 KB of shared memory. So the rows go
 in chunks of R, and per chunk:
 
-  A. the (R, m) cross-Gram chunk, once, into a scratch of at most 128 MB
-     (each entry is computed once; recomputing it per output column block
-     would cost D / 128 times the projection);
-  B. phi tiles of 128 x 128 = cross chunk @ proj, landmarks and proj
-     streaming through shared memory 32 deep; masked in registers, bias
-     column appended. ``nystrom_phi`` stores them; ``nystrom_score``
-     multiplies them by W in registers and writes (column block, row, C)
-     partial scores, summed in block order by a last launch.
+  A. the cross-Gram chunk, once, into a scratch of at most 128 MB (each
+     entry is computed once; recomputing it per output column block would
+     cost D / 128 times the projection), stored landmark-major: (m, R),
+     rows R apart (R a multiple of 4), so that it is the projection's
+     A operand as the engine copies it;
+  B. phi tiles of 128 x 128 = chunk^T @ proj on the Gram engine: the m
+     landmarks are the depth, and 32 of them at a time land in a three-slot
+     ``cp.async`` ring by 16-byte copies of both operands while the CTA
+     multiplies the stage before (``CopyPair``). proj goes with its rows
+     16-byte aligned: where P % 4 != 0 the wrapper pads a copy to
+     PROJ_ALIGN columns (zero past P) once a call. Masked in registers,
+     bias column appended. ``nystrom_phi`` stores the tiles;
+     ``nystrom_score`` multiplies them by W in registers and writes
+     (column block, row, C) partial scores, summed in block order by a
+     last launch.
 
 ``nystrom_fused_stats`` stores the phi rows of a chunk in an (R, ld)
 scratch, ld = M rounded up to PHI_ALIGN columns (zero past M, so the Gram
@@ -58,8 +65,10 @@ chunks. The scratch is the cross and phi chunks plus the split partials,
 a few hundred MB, where phi itself would be 4 GB.
 
 Every phi entry is one thread's fmaf chain over the landmarks in order,
-so the bits do not depend on R: ``nystrom_fused_stats`` accumulates the
-phi that ``nystrom_phi`` writes.
+from +0, so the bits do not depend on R: ``nystrom_fused_stats``
+accumulates the phi that ``nystrom_phi`` writes. Where m % 32 != 0 the
+engine's last stage is zero-filled past m, and fmaf(0, 0, -0) is +0: an
+entry whose chain over the m landmarks ends at -0 is stored as +0.
 """
 from __future__ import annotations
 
@@ -86,6 +95,9 @@ _KINDS = {"rbf": 0, "linear": 1}
 
 GT = 128                        # phi tile edge (csrc/rbf.cuh)
 SCRATCH_WORDS = 1 << 25         # cross-Gram chunk: at most 128 MB
+# proj's rows lie PROJ_ALIGN columns apart, so that the engine copies them
+# 16 bytes at a time (csrc/gram_pipe.cuh's CopyPair).
+PROJ_ALIGN = 4
 # The statistic's phi rows lie PHI_ALIGN columns apart, rounded up (zero
 # columns past M), so the Gram engine copies them 16 bytes at a time.
 PHI_ALIGN = 4
@@ -120,18 +132,37 @@ def _phi_chunk_rows(N: int, m: int, M: int) -> int:
     return min(rows, -(-N // GT) * GT)
 
 
+def proj_operand(proj: torch.Tensor) -> torch.Tensor:
+    """proj (m, P) with its rows 16-byte aligned, as the projection's B
+    operand: proj itself where P % PROJ_ALIGN == 0 and it is 16-byte
+    aligned, else an (m, P rounded up to PROJ_ALIGN) copy, zero past P."""
+    m, P = proj.shape
+    if P % PROJ_ALIGN == 0 and proj.data_ptr() % 16 == 0:
+        return proj
+    out = torch.zeros((m, -(-P // PROJ_ALIGN) * PROJ_ALIGN),
+                      dtype=proj.dtype, device=proj.device)
+    out[:, :P] = proj
+    return out
+
+
 def _featurizer_args(X, landmarks, proj, mask, N, D, m, P, add_bias, kind,
                      sigma, chunk):
+    """The featurizer's leading pointers, its scratch (the norms, the
+    landmark-major cross-Gram chunk kc (m, chunk) and the aligned proj,
+    kept alive here) and its trailing sizes, for ``chunk`` rows a chunk
+    (a multiple of 4, so kc's rows stay 16-byte aligned)."""
     f32 = dict(dtype=torch.float32, device=X.device)
     rbf = kind == "rbf"
+    projp = proj_operand(proj)
     scratch = dict(sqx=torch.empty(N if rbf else 0, **f32),
                    sql=torch.empty(m if rbf else 0, **f32),
-                   kc=torch.empty(chunk * m, **f32))
+                   kc=torch.empty((m, chunk), **f32), proj=projp)
     head = (X.data_ptr(), int(X.dtype == torch.bfloat16),
-            landmarks.data_ptr(), proj.data_ptr(),
+            landmarks.data_ptr(), projp.data_ptr(),
             None if mask is None else mask.data_ptr())
-    tail = dict(N=N, D=D, m=m, P=P, bias=int(add_bias), kind=_KINDS[kind],
-                inv=1.0 / (2.0 * float(sigma) ** 2), chunk=chunk)
+    tail = dict(N=N, D=D, m=m, P=P, ldp=projp.shape[1], bias=int(add_bias),
+                kind=_KINDS[kind], inv=1.0 / (2.0 * float(sigma) ** 2),
+                chunk=chunk)
     return head, scratch, tail
 
 
@@ -153,8 +184,8 @@ def nystrom_phi(X: torch.Tensor, landmarks: torch.Tensor,
     out = torch.empty((N, M), dtype=torch.float32, device=X.device)
     _build.launch("rt_nystrom_phi", X.device, *head, s["sqx"].data_ptr(),
                   s["sql"].data_ptr(), s["kc"].data_ptr(), out.data_ptr(),
-                  t["N"], t["D"], t["m"], t["P"], t["bias"], t["kind"],
-                  t["inv"], t["chunk"])
+                  t["N"], t["D"], t["m"], t["P"], t["ldp"], t["bias"],
+                  t["kind"], t["inv"], t["chunk"])
     LAUNCHES["nystrom_phi"] += 1
     return out
 
@@ -185,8 +216,8 @@ def nystrom_score(X: torch.Tensor, landmarks: torch.Tensor,
     _build.launch("rt_nystrom_score", X.device, *head, W.data_ptr(),
                   s["sqx"].data_ptr(), s["sql"].data_ptr(),
                   s["kc"].data_ptr(), spart.data_ptr(), out.data_ptr(),
-                  t["N"], t["D"], t["m"], t["P"], t["bias"], C, t["kind"],
-                  t["inv"], t["chunk"])
+                  t["N"], t["D"], t["m"], t["P"], t["ldp"], t["bias"], C,
+                  t["kind"], t["inv"], t["chunk"])
     LAUNCHES["nystrom_score"] += 1
     return out
 
@@ -279,8 +310,8 @@ def nystrom_fused_stats(X: torch.Tensor, landmarks: torch.Tensor,
                   wgt.data_ptr(), coef.data_ptr(), part.data_ptr(),
                   bpart.data_ptr(), margin.data_ptr(), gamma.data_ptr(),
                   ptr(omega), sigma_out.data_ptr(), b.data_ptr(), t["N"],
-                  t["D"], t["m"], t["P"], t["bias"], t["kind"], t["inv"],
-                  chunk, ntiles, rows, ld,
+                  t["D"], t["m"], t["P"], t["ldp"], t["bias"], t["kind"],
+                  t["inv"], chunk, ntiles, rows, ld,
                   _build.gram_copy(phi.view(chunk, ld)), _EPILOGUE_CODE[var],
                   float(eps), float(eps_ins), *win)
     LAUNCHES[f"nystrom_fused_stats[{var}"

@@ -32,8 +32,8 @@ import torch
 
 from repro_torch.core import PEMSVM, SVMConfig, lam_from_C, prng
 from repro_torch.data import make_blobs
-from repro_torch.kernels import (epilogues, fused_estep, fused_stats, ops,
-                                 ref, rng, syrk)
+from repro_torch.kernels import (_build, epilogues, fused_estep, fused_stats,
+                                 ops, ref, rng, syrk)
 
 pytestmark = pytest.mark.gpu
 REL = 1e-5
@@ -461,6 +461,99 @@ def test_nystrom_wrappers_reject_bad_operands(cuda):
                                 epilogue="mc_hinge", add_bias=True)
     with pytest.raises(TypeError):
         rbfk.rbf_gram(X, X.bfloat16())
+
+
+# The projection on the Gram engine at its odd shapes: (n, d, m, padded
+# tail rows, dtype, P). m % 32 != 0 zero-fills the last 32-landmark stage;
+# P % 4 != 0 pads proj to a 16-byte row stride; P = 128 with the bias
+# column gives M = 129, a second column tile holding only the bias column.
+PHI_ODD = [(1037, 5, 45, 13, torch.float32, 45),
+           (517, 3, 100, 0, torch.bfloat16, 99),
+           (300, 4, 128, 7, torch.float32, 128),
+           (2051, 2, 61, 5, torch.float32, 30)]
+
+
+def _bits(t):
+    return t.contiguous().view(torch.int32)
+
+
+@pytest.mark.parametrize("shape", PHI_ODD)
+def test_nystrom_phi_bitwise_across_chunk_sizes(cuda, shape, monkeypatch):
+    """Each phi entry is one fmaf chain over the landmarks: the bits of
+    phi and of the scores do not depend on how the rows are chunked."""
+    n, d, m, n_pad, dtype, p = shape
+    X, L, P, mask, _ = _nys(n, d, m, n_pad, dtype, cuda)
+    P = P[:, :p].contiguous()
+    W = torch.randn(p + 1, 3, generator=torch.Generator(
+        device=cuda).manual_seed(2), device=cuda)
+    kw = dict(sigma=1.3, add_bias=True)
+    one = nys.nystrom_phi(X, L, P, mask, **kw)
+    score = nys.nystrom_score(X, L, P, W, mask, **kw)
+    monkeypatch.setattr(nys, "SCRATCH_WORDS", 128 * max(m, p + 1))
+    assert nys._phi_chunk_rows(n, m, p + 1) == 128 < n
+    many = nys.nystrom_phi(X, L, P, mask, **kw)
+    score_many = nys.nystrom_score(X, L, P, W, mask, **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(_bits(one), _bits(many))
+    assert torch.equal(_bits(score), _bits(score_many))
+
+
+@pytest.mark.parametrize("add_bias", [False, True])
+@pytest.mark.parametrize("kind", ["rbf", "linear"])
+@pytest.mark.parametrize("shape", PHI_ODD)
+def test_nystrom_phi_odd_shapes(cuda, shape, kind, add_bias, monkeypatch):
+    """phi and the scores (C = 1, 3) at the odd shapes, over several row
+    chunks, against the plain version in float64."""
+    n, d, m, n_pad, dtype, p = shape
+    X, L, P, mask, k64 = _nys(n, d, m, n_pad, dtype, cuda, kind=kind)
+    P = P[:, :p].contiguous()
+    monkeypatch.setattr(nys, "SCRATCH_WORDS", 256 * max(m, p + 1))
+    kw = dict(sigma=1.3, kind=kind, add_bias=add_bias)
+    got = nys.nystrom_phi(X, L, P, mask, **kw)
+    want = ref.nystrom_phi(X.double(), L.double(), P.double(),
+                           mask.double(), 1.3, kind, add_bias)
+    scale = _phi_scale(k64, P, mask, add_bias)
+    _within(got, want, scale)
+    assert not torch.any(got[mask == 0])
+    M = p + int(add_bias)
+    for C in (1, 3):
+        W = torch.randn(M, C, generator=torch.Generator(
+            device=cuda).manual_seed(C), device=cuda)
+        s = nys.nystrom_score(X, L, P, W, mask, **kw)
+        _within(s, want @ W.double(), scale @ W.double().abs())
+
+
+@pytest.mark.parametrize("var", ["em_hinge", "mc_hinge,seed", "em_svr"])
+def test_nystrom_fused_stats_is_fused_stats_on_phi(cuda, var, monkeypatch):
+    """On fused_stats' split plan and in one chunk, the Nystrom statistic
+    is fused_stats on the phi rows nystrom_phi writes, bit for bit: the
+    statistic's projection is nystrom_phi's, and the row pass and the
+    Gram engine after it are fused_stats'."""
+    X, L, P, mask, _ = _nys(1031, 3, 255, 7, torch.float32, cuda)
+    P = P[:, :250].contiguous()
+    n, M = X.shape[0], 251
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    ntiles, nsplits, rows = _build.stat_plan(n, M, 1, sms)
+    monkeypatch.setattr(nys, "stats_plan",
+                        lambda N, m, M_, s: (ntiles, rows, rows * nsplits))
+    g = torch.Generator(device=cuda).manual_seed(4)
+    w = torch.randn(M, generator=g, device=cuda) / math.sqrt(M)
+    y = torch.where(torch.rand(n, generator=g, device=cuda) < 0.5, -1.0,
+                    1.0) * mask
+    epi, _, source = var.partition(",")
+    beta = torch.zeros_like(y) if epi == "em_svr" else y
+    seed = rng.pack_seed(prng.fold_in(prng.PRNGKey(5), 2), 3, 0).to(cuda)
+    kw = dict(epilogue=epi, eps=1e-6,
+              eps_ins=0.3 if epi == "em_svr" else 0.0,
+              **(dict(seed=seed) if source == "seed" else {}))
+    got = nys.nystrom_fused_stats(X, L, P, y, beta, w, mask, sigma=1.3,
+                                  add_bias=True, **kw)
+    phi = nys.nystrom_phi(X, L, P, mask, sigma=1.3, add_bias=True)
+    want = fused_stats.fused_stats(phi, y, beta, w, mask, **kw)
+    torch.cuda.synchronize()
+    assert len(got) == len(want)
+    for a, b in zip(got, want):
+        assert torch.equal(_bits(a), _bits(b))
 
 
 def test_nystrom_fit_goes_through_the_kernels(cuda):

@@ -18,8 +18,13 @@ Needs one CUDA device (an H100: the kernels are built for sm_90a) and
    registers and two CTAs an SM of each; then the row pass's twelve
    instantiations (six epilogues x f32, bf16 X); the Nystrom projection
    phi_tiles (write and score, on the engine's CopyPair) under the same
-   gates; and the ten cross_tiles instantiations (rbf_gram's row-major,
-   the Nystrom kernels' landmark-major);
+   gates; the cross-Gram's six (csrc/rbf.cuh: cross_tiles on the engine's
+   CopyPair and cross_direct for small depths, each rbf_gram's row-major
+   and the Nystrom kernels' landmark-major rbf and linear) under the same
+   gates, and its transposing pass cross_operand (float32, bfloat16 X);
+   and the E-step's four (estep_rows: float32, bfloat16 X x a group of
+   four columns one 16-byte (8-byte) load or four element loads), which
+   must fit fused_estep.CTAS_PER_SM CTAs an SM;
 3. kernels vs plain: each kernel at its main-path shape and at odd masked
    shapes, f32 and bf16 X, in the well-conditioned and the hinge regime of
    tests/test_torch_kernels_ref.py, against the plain PyTorch version
@@ -135,10 +140,19 @@ projection, score reduce, other) of nystrom_phi, nystrom_score and one
 nystrom_fused_stats call at phase 7's and phase 10's shapes; the
 projection stage at phase 7's, 8's and 10's shapes beside torch.mm of the
 same row chunks' cross-Gram and proj (TF32 off, summed over the chunks)
-and its bound 2 N m M flop at the fp32 peak; and a phi_design line at
-those shapes (each operand's copy path, proj's stride, the CTAs of a
-chunk and their waves, phi_tiles' registers, spills, shared memory and
-CTAs an SM).
+and its bound 2 N m M flop at the fp32 peak; the cross-Gram stage (its
+operands' transposing pass and its product) at the same three shapes
+beside torch.mm of the same row chunks with the landmarks (TF32 off) and
+its bound max(2 N m D flop, the bytes of X, L and the (m, N) output); a
+phi_design line at those shapes (each operand's copy path, proj's
+stride, the CTAs of a chunk and their waves, phi_tiles' registers,
+spills, shared memory and CTAs an SM); and cross_design: the cross-
+Gram's two routes on the same inputs at D = 2, 8, 12, 16, 32, 90 and 500
+(250,000 rows, m = 1,000), in the order engine, direct, direct, engine,
+beside the route rbf_gram.cross_route ships. fused_estep is timed at
+phase 5's 131,072 x 2,048 and phase 8's 250,000 x 2,049, each beside
+its bytes bound, the plain version and, for reference only, the
+torch.mv pair X w, X^T coef.
 
 11. the multi-device fit (the paper's Sec 4.1 reduce and the 2-D k-shard):
    four processes on cuda:0 under gloo (the card is one; NCCL refuses two
@@ -353,7 +367,8 @@ def _kernel_key(mangled):
     """A readable key for an engine or row-pass kernel's mangled name
     (gram_tiles<copy path, tri|dense>, stat_tiles<copy path, tri|window>,
     stat_rows<X's type, epilogue index>, phi_tiles<write|score>,
-    cross_tiles<operand types, kind, layout>), or None."""
+    cross_tiles|cross_direct<kind, layout>, cross_operand<X's type>,
+    estep_rows<X's type, loads>), or None."""
     m = re.search(r"(gram_tiles|stat_tiles)I.*?(CopyF32ILi(\d)ELi\dE|"
                   r"CopyBf16ILi\dE)E*Lb(\d)", mangled)
     if m:
@@ -370,13 +385,17 @@ def _kernel_key(mangled):
     m = re.search(r"phi_tilesILi(\d)E", mangled)
     if m:
         return f"phi_tiles<{('write', 'score')[int(m.group(1))]}>"
-    m = re.search(r"cross_tilesI(ff|13__nv_bfloat16f|13__nv_bfloat16S2_)"
-                  r"Li(\d)ELb(\d)E", mangled)
+    m = re.search(r"cross_(tiles|direct)ILi(\d)ELb(\d)E", mangled)
     if m:
-        types = {"ff": "f32,f32", "13__nv_bfloat16f": "bf16,f32",
-                 "13__nv_bfloat16S2_": "bf16,bf16"}[m.group(1)]
-        return (f"cross_tiles<{types},{('rbf', 'linear')[int(m.group(2))]},"
+        return (f"cross_{m.group(1)}<{('rbf', 'linear')[int(m.group(2))]},"
                 f"{('row-major', 'landmark-major')[int(m.group(3))]}>")
+    m = re.search(r"cross_operandI(f|13__nv_bfloat16)E", mangled)
+    if m:
+        return f"cross_operand<{'float' if m.group(1) == 'f' else 'bf16'}>"
+    m = re.search(r"estep_rowsI(f|13__nv_bfloat16)Lb(\d)E", mangled)
+    if m:
+        return (f"estep_rows<{'float' if m.group(1) == 'f' else 'bf16'},"
+                f"{('element', '16-byte')[int(m.group(2))]}>")
     return None
 
 
@@ -458,16 +477,60 @@ def phase_build():
         check(reg <= 128 and ctas.value >= 2,
               f"{key}: {reg} registers, {ctas.value} CTAs an SM; the "
               "engine is laid out for two CTAs of 256 threads an SM")
-    cross = sorted(k for k in report if k.startswith("cross_tiles"))
-    check(len(cross) == 10, f"cross_tiles has {len(cross)} instantiations, "
-          "not 10 (rbf_gram's six row-major, the Nystrom kernels' four "
-          "landmark-major)")
-    say("  the cross-Gram (cross_tiles<A, B, kind, layout>, csrc/rbf.cuh): "
-        + "; ".join(f"{k[12:-1]} {report[k][0]} registers, {report[k][4]} B "
-                    f"static shared" + (f", {report[k][2]} / {report[k][3]} "
-                                        "B spilled" if report[k][2]
-                                        or report[k][3] else "")
-                    for k in cross))
+    say("  the cross-Gram (csrc/rbf.cuh; cross_tiles on the engine's "
+        "CopyPair, cross_direct for small depths; rbf_gram's row-major, the "
+        "Nystrom kernels' landmark-major):")
+    cross = sorted(k for k in report if k.startswith(("cross_tiles",
+                                                      "cross_direct")))
+    want = {f"cross_{r}<{k},{lay}>" for r in ("tiles", "direct")
+            for k, lay in (("rbf", "row-major"), ("rbf", "landmark-major"),
+                           ("linear", "landmark-major"))}
+    check(set(cross) == want, f"the cross-Gram's instantiations are "
+          f"{cross}, not {sorted(want)}")
+    for key in cross:
+        route = 1 if key.startswith("cross_direct") else 0
+        smem, ctas = ctypes.c_int(), ctypes.c_int()
+        if "row-major" in key:
+            err = lib.rt_rbf_gram_occupancy(dev, route, ctypes.byref(smem),
+                                            ctypes.byref(ctas))
+        else:
+            err = lib.rt_nystrom_cross_occupancy(
+                dev, route, int("linear" in key), ctypes.byref(smem),
+                ctypes.byref(ctas))
+        check(err == 0, f"{key}: occupancy query error {err}")
+        reg, stack, sst, sld, _ = report[key]
+        say(f"  {key}: {reg} registers, {stack} B stack, {sst} / {sld} B "
+            f"spilled{' (SPILLS)' if sst or sld else ''}, {smem.value} B "
+            f"dynamic shared, {ctas.value} CTAs an SM")
+        check(reg <= 128 and ctas.value >= 2,
+              f"{key}: {reg} registers, {ctas.value} CTAs an SM; its tiles "
+              "are laid out for two CTAs of 256 threads an SM")
+    ops = sorted(k for k in report if k.startswith("cross_operand"))
+    check(ops == ["cross_operand<bf16>", "cross_operand<float>"],
+          f"the transposing pass has instantiations {ops}")
+    say("  the transposing pass: " + "; ".join(
+        f"{k} {report[k][0]} registers, {report[k][4]} B static shared"
+        for k in ops))
+    from repro_torch.kernels import fused_estep
+    say("  the E-step (estep_rows<X, loads>, csrc/fused_estep.cu):")
+    est = sorted(k for k in report if k.startswith("estep_rows"))
+    check(est == [f"estep_rows<{t},{ld}>" for t in ("bf16", "float")
+                  for ld in ("16-byte", "element")],
+          f"estep_rows has instantiations {est}")
+    for key in est:
+        smem, ctas = ctypes.c_int(), ctypes.c_int()
+        err = lib.rt_fused_estep_occupancy(
+            dev, int("bf16" in key), int("16-byte" in key),
+            ctypes.byref(smem), ctypes.byref(ctas))
+        check(err == 0, f"{key}: occupancy query error {err}")
+        reg, stack, sst, sld, _ = report[key]
+        say(f"  {key}: {reg} registers, {stack} B stack, {sst} / {sld} B "
+            f"spilled{' (SPILLS)' if sst or sld else ''}, {smem.value} B "
+            f"static shared, {ctas.value} CTAs of {32 * fused_estep.WARPS} "
+            "threads an SM")
+        check(ctas.value >= fused_estep.CTAS_PER_SM,
+              f"{key}: {ctas.value} CTAs an SM; its plan (estep_plan) "
+              f"launches one wave of {fused_estep.CTAS_PER_SM}")
     rows = sorted(k for k in report if k.startswith("stat_rows"))
     check(len(rows) == 12, f"the row pass has {len(rows)} instantiations, "
           "not 12 (6 epilogues x f32, bf16)")
@@ -729,16 +792,30 @@ def phase_kernels(dev, main_nk=(250_000, 501), wide_nk=(131_072, 2048),
                          library_ms=None)
         del X, rho, beta, w, kw
 
+    # fused_estep at phase 5's shape and phase 8's (K = 2,049: rows off
+    # the 16-byte grid), each beside the plain version and, for
+    # reference, the torch.mv pair X @ w, X^T coef (no one call computes
+    # the E-step)
+    rows = []
+    for n, k in (wide_nk, wide8_nk):
+        check_estep(dev, n, k, f32, "hinge")
+        err, (X, rho, beta, w) = check_estep(dev, n, k, f32, "well")
+        ms = time_ms(lambda: fused_estep.fused_estep(X, rho, beta, w,
+                                                     eps=EPS))
+        plain = time_ms(lambda: ref.fused_estep(X, rho, beta, w, EPS))
+        mv = time_ms(lambda: (torch.mv(X, w), torch.mv(X.T, rho)))
+        b_ms, by = bound(4 * n * k, 4 * (n * k + 2 * n + k + 2 * n + k))
+        rows.append(dict(shape=[n, k], max_abs_err=err, ms=ms,
+                         plain_ms=plain, bound_ms=b_ms, bound_by=by,
+                         library_ms=None, mv_pair_ms=mv,
+                         share_of_bound=b_ms / ms))
+        say(f"  time fused_estep {[n, k]}: kernel {ms:.3f} ms "
+            f"({b_ms / ms:.3f} of the bytes bound {b_ms:.3f} ms, "
+            f"{4 * n * k / ms / 1e9:.2f} TB/s of X), plain {plain:.3f} ms, "
+            f"torch.mv pair (X w, X^T coef; reference only) {mv:.3f} ms")
+        del X, rho, beta, w
+    out["fused_estep"] = dict(rows[0], phase8=rows[1])
     n, k = wide_nk
-    check_estep(dev, n, k, f32, "hinge")
-    err, (X, rho, beta, w) = check_estep(dev, n, k, f32, "well")
-    ms = time_ms(lambda: fused_estep.fused_estep(X, rho, beta, w, eps=EPS))
-    plain = time_ms(lambda: ref.fused_estep(X, rho, beta, w, EPS))
-    b_ms, by = bound(4 * n * k, 4 * (n * k + 2 * n + k + 2 * n + k))
-    out["fused_estep"] = dict(shape=[n, k], max_abs_err=err, ms=ms,
-                              plain_ms=plain, bound_ms=b_ms, bound_by=by,
-                              library_ms=None)
-    del X, rho, beta, w
 
     check_syrk(dev, n, k, f32, "hinge")
     err, (X, wt) = check_syrk(dev, n, k, f32, "well")
@@ -1449,8 +1526,11 @@ def time_nys_stats(dev, X, L, P, mask, sigma, name, label, y_svr=None):
                 bound_ms=b_ms, bound_by=by, library_ms=None)
 
 
-PHI_STAGES = (("row_sqnorm", "norms"), ("cross_tiles", "cross-Gram"),
-              ("phi_tiles", "projection"), ("score_reduce", "score reduce"))
+# kernel name (substring, the first that matches) -> stage
+PHI_STAGES = (("row_sqnorm", "norms"),
+              ("cross_operand", "cross-Gram operands"),
+              ("cross_", "cross-Gram"), ("phi_tiles", "projection"),
+              ("score_reduce", "score reduce"))
 
 
 def device_ms(fn, reps=3):
@@ -1471,8 +1551,9 @@ def device_ms(fn, reps=3):
 
 
 def phi_stages(fn):
-    """A featurizer call's device ms by stage: the norms, the cross-Gram,
-    the projection, the score reduce, and what else it runs ("other": the
+    """A featurizer call's device ms by stage: the norms, the cross-Gram's
+    operands written depth-major, the cross-Gram's product, the
+    projection, the score reduce, and what else it runs ("other": the
     statistic's passes, proj's aligned copy)."""
     out = dict.fromkeys([name for _, name in PHI_STAGES] + ["other"], 0.0)
     for key, ms in device_ms(fn).items():
@@ -1507,6 +1588,42 @@ def projection_row(label, X, L, P, sigma, chunk, stages):
                 bound_by=by, launches_a_call=chunks)
 
 
+def with_depth(plan, *args, D):
+    """plan(*args, D=D): a Nystrom chunk plan counting the rows' depth-
+    major scratch; plan(*args) for a package whose plans have no depth
+    (an older tree's, as scripts/chip_compare.py runs them)."""
+    import inspect
+    if "D" in inspect.signature(plan).parameters:
+        return plan(*args, D=D)
+    return plan(*args)
+
+
+def cross_row(label, X, L, sigma, chunk, stages):
+    """The cross-Gram stage at a main-path shape: its device ms from
+    ``stages`` (the operands' transposing pass and the product); torch.mm
+    of the same row chunks (R, D) with the landmarks' transpose, TF32 off,
+    summed over the chunks (the product alone, without the transform: the
+    library yardstick, used nowhere in the port); the bound max(2 N m D
+    flop at the fp32 peak, the bytes of X, L and the (m, N) output)."""
+    from repro_torch.kernels import rbf_gram
+    (n, d), m = X.shape, L.shape[0]
+    Lt = L.T.contiguous()
+    lib = sum(device_ms(lambda: [torch.mm(X[c0:c0 + chunk], Lt)
+                                 for c0 in range(0, n, chunk)]).values())
+    b_ms, by = bound(2 * n * m * d, 4 * (n * d + m * d + n * m))
+    ms = stages["cross-Gram operands"] + stages["cross-Gram"]
+    chunks = -(-n // chunk)
+    route = (rbf_gram.CROSS_ROUTES[rbf_gram.cross_route(d)]
+             if hasattr(rbf_gram, "cross_route") else "staged")
+    say(f"  cross-Gram {label} {[n, d, m]}: kernel {ms:.3f} ms a call "
+        f"({stages['cross-Gram operands']:.3f} of it the operands' "
+        f"transposing pass; route {route}, {chunks} launches a call), "
+        f"torch.mm {lib:.3f} ms (kernel / mm {ms / lib:.3f}), bound "
+        f"{b_ms:.3f} ms ({by}), {b_ms / ms:.3f} of it")
+    return dict(shape=[n, d, m], ms=ms, library_ms=lib, bound_ms=b_ms,
+                bound_by=by, launches_a_call=chunks, route=route)
+
+
 def say_stages(name, stages):
     say(f"  stages {name} (device ms a call, torch.profiler): " + ", ".join(
         f"{k} {v:.3f}" for k, v in stages.items()))
@@ -1528,9 +1645,11 @@ def stat_projection(dev, label, X, L, P, mask, sigma, epi, y_svr=None):
     say_stages(f"nystrom_fused_stats[{epi}] {[n, X.shape[1], L.shape[0]]}",
                stages)
     sms = torch.cuda.get_device_properties(dev).multi_processor_count
-    chunk = nys.stats_plan(n, L.shape[0], M, sms)[2]
-    return projection_row(f"{label} (nystrom_fused_stats[{epi}])", X, L, P,
-                          sigma, chunk, stages)
+    chunk = with_depth(nys.stats_plan, n, L.shape[0], M, sms,
+                       D=X.shape[1])[2]
+    tag = f"{label} (nystrom_fused_stats[{epi}])"
+    return (projection_row(tag, X, L, P, sigma, chunk, stages),
+            cross_row(tag, X, L, sigma, chunk, stages))
 
 
 def phase_nystrom_kernels(dev):
@@ -1595,9 +1714,11 @@ def phase_nystrom_kernels(dev):
     stages = phi_stages(lambda: nys.nystrom_phi(X, La, Pa, sigma=s,
                                                 add_bias=True))
     say_stages("nystrom_phi 250000x500 m=2048", stages)
+    chunk = with_depth(nys._phi_chunk_rows, n, m, M, D=d)
     out["projection[phase 8]"] = projection_row(
-        "phase 8 (nystrom_phi)", X, La, Pa, s, nys._phi_chunk_rows(n, m, M),
-        stages)
+        "phase 8 (nystrom_phi)", X, La, Pa, s, chunk, stages)
+    out["cross[phase 8]"] = cross_row("phase 8 (nystrom_phi)", X, La, s,
+                                      chunk, stages)
     out["nystrom_phi"].update(
         stages_ms=stages,
         projection_library_ms=out["projection[phase 8]"]["library_ms"])
@@ -1623,7 +1744,8 @@ def phase_nystrom_kernels(dev):
                                                   add_bias=True))
     say_stages("nystrom_score 100000x2 m=1000 C=1", stages)
     proj = projection_row("nystrom_score", Xs, Lc, Pc, 0.7,
-                          nys._phi_chunk_rows(n, m, M), stages)
+                          with_depth(nys._phi_chunk_rows, n, m, M, D=d),
+                          stages)
     out["nystrom_score"].update(stages_ms=stages,
                                 projection_library_ms=proj["library_ms"])
     del Xs
@@ -1633,8 +1755,8 @@ def phase_nystrom_kernels(dev):
     for name in NYS_VARIANTS:
         out[name] = time_nys_stats(dev, X, Lc, Pc, mask, 0.7, name,
                                    f"{name} 1000000x2 m=1000")
-    out["projection[phase 7]"] = stat_projection(dev, "phase 7", X, Lc, Pc,
-                                                 mask, 0.7, "em_hinge")
+    out["projection[phase 7]"], out["cross[phase 7]"] = stat_projection(
+        dev, "phase 7", X, Lc, Pc, mask, 0.7, "em_hinge")
     del X
     # phase 10's shape: the year split with its featurizer, m = 681
     Xtr, ytr = year_split()[:2]
@@ -1647,11 +1769,11 @@ def phase_nystrom_kernels(dev):
         out[name] = time_nys_stats(dev, X, Ly, Py, mask, math.sqrt(90), name,
                                    f"{name} {Xtr.shape[0]}x90 m={m}",
                                    y_svr=y)
-    out["projection[phase 10]"] = stat_projection(
+    out["projection[phase 10]"], out["cross[phase 10]"] = stat_projection(
         dev, "phase 10", X, Ly, Py, mask, math.sqrt(90), "em_svr", y)
     del X
     for name, row in out.items():
-        if name.startswith("projection["):
+        if name.startswith(("projection[", "cross[")):
             continue
         say(f"  time {name} {row['shape']}: kernel {row['ms']:.3f} ms, "
             f"plain {row['plain_ms']:.3f} ms, library none, bound "
@@ -1685,11 +1807,11 @@ def phi_design(dev):
         per_sm = per_sm or ctas.value
     for label, n, m, chunk in (
             ("phase 7", 1_000_000, 1000,
-             nys.stats_plan(1_000_000, 1000, 1001, sms)[2]),
+             nys.stats_plan(1_000_000, 1000, 1001, sms, D=2)[2]),
             ("phase 8", 250_000, 2048, nys._phi_chunk_rows(250_000, 2048,
-                                                           2049)),
+                                                           2049, D=500)),
             ("phase 10", N_YEAR_TRAIN, 681,
-             nys.stats_plan(N_YEAR_TRAIN, 681, 682, sms)[2])):
+             nys.stats_plan(N_YEAR_TRAIN, 681, 682, sms, D=90)[2])):
         M = m + 1
         ldp = nys.proj_operand(torch.empty((m, m), device=dev)).shape[1]
         row_tiles = -(-chunk // nys.GT)
@@ -1702,6 +1824,39 @@ def phi_design(dev):
             f"cp.async; {ctas} CTAs a chunk ({product} with a product), "
             f"{product / (per_sm * sms):.2f} waves of {per_sm} an SM on "
             f"{sms} SMs, {-(-n // chunk)} chunks; " + "; ".join(kern))
+
+
+def cross_design(dev, n=250_000, m=1000,
+                 depths=(2, 8, 12, 16, 32, 90, 500)):
+    """The cross-Gram's two routes (csrc/rbf.cuh: the Gram engine's tile
+    pass, the direct product) on the same inputs at each depth (nothing
+    asserted): the cross-Gram stage (operands and product, torch.profiler,
+    a call's mean over three) of nystrom_phi on n rows, m landmarks and a
+    4-column proj, in the order engine, direct, direct, engine; beside the
+    bound and the route rbf_gram.cross_route ships."""
+    from repro_torch.kernels import nystrom_phi as nys
+    from repro_torch.kernels import rbf_gram
+    g = torch.Generator(device=dev).manual_seed(5)
+    for d in depths:
+        X = torch.randn(n, d, generator=g, device=dev) / math.sqrt(d)
+        L = X[:m].contiguous()
+        P = torch.randn(m, 4, generator=g, device=dev)
+        t = {"engine": [], "direct": []}
+        for route in ("engine", "direct", "direct", "engine"):
+            st = phi_stages(patched(
+                lambda: nys.nystrom_phi(X, L, P, sigma=1.0), rbf_gram,
+                "CROSS_DIRECT_MAX_D", 1 << 20 if route == "direct" else 0))
+            t[route].append(st["cross-Gram operands"] + st["cross-Gram"])
+        e, r = statistics.mean(t["engine"]), statistics.mean(t["direct"])
+        b_ms, by = bound(2 * n * m * d, 4 * (n * d + m * d + n * m))
+        say(f"  cross_design D={d} {[n, d, m]}: engine {e:.3f} ms "
+            f"{[round(x, 3) for x in t['engine']]}, direct {r:.3f} ms "
+            f"{[round(x, 3) for x in t['direct']]}; engine / direct "
+            f"{e / r:.3f}; bound {b_ms:.3f} ms ({by}); shipped route "
+            f"{rbf_gram.CROSS_ROUTES[rbf_gram.cross_route(d)]} "
+            f"(CROSS_DIRECT_MAX_D = {rbf_gram.CROSS_DIRECT_MAX_D})")
+        del X, L, P
+    torch.cuda.empty_cache()
 
 
 def _nys_fit(label, cfg, dev, X, y, Xte, yte, m, featurizer_of=None):
@@ -2386,7 +2541,7 @@ def phase_window_kernels(dev, small_nk=(1037, 29), mid_nk=(1037, 300),
         del X, yy, mask, y, beta, w, kw
         torch.cuda.empty_cache()
     for name, row in out.items():
-        if name.startswith("projection["):
+        if name.startswith(("projection[", "cross[")):
             continue
         say(f"  time {name} {row['shape']}: kernel {row['ms']:.3f} ms, "
             f"plain {row['plain_ms']:.3f} ms, library none, bound "
@@ -2394,10 +2549,11 @@ def phase_window_kernels(dev, small_nk=(1037, 29), mid_nk=(1037, 300),
     return out
 
 
-def old_stats_plan(N, m, M, sms):
+def old_stats_plan(N, m, M, sms, D=0):
     """The Nystrom statistic's plan before the Gram engine ran it: enough
     splits a chunk for two CTAs an SM, however full the chunk's last wave
-    of CTAs (at m = 1,000: 8 splits, 288 CTAs on 264 slots)."""
+    of CTAs (at m = 1,000: 8 splits, 288 CTAs on 264 slots); its scratch
+    counted as the shipped plan counts it."""
     from repro_torch.kernels import _build
     from repro_torch.kernels import nystrom_phi as nys
     nb = -(-M // _build.BK)
@@ -2405,7 +2561,8 @@ def old_stats_plan(N, m, M, sms):
     splits = -(-2 * sms // ntiles)
     per_split = -(-N // splits)
     rows = min(_build.ROWS_PER_SPLIT, -(-per_split // _build.BN) * _build.BN)
-    splits = max(1, min(splits, nys.SCRATCH_WORDS // (rows * max(m, M))))
+    splits = max(1, min(splits,
+                        nys.SCRATCH_WORDS // (rows * max(m, M, D))))
     return ntiles, rows, rows * splits
 
 
@@ -2851,6 +3008,7 @@ def main() -> int:
     rows.update(svr_rows)
     rows.update(phase_nystrom_kernels(dev))
     phi_design(dev)
+    cross_design(dev)
     rows.update(phase_window_kernels(dev))
     stat_design(dev)
     say("== 4. main path, K <= 1536: LIN-EM-CLS on alpha-like 250,000 x 501")

@@ -17,17 +17,23 @@ of its own:
    float32 K % 4 != 0 and == 0, bfloat16, ragged last column blocks,
    N % 32 != 0; four chains; column windows), nystrom_fused_stats (six
    epilogues and their windows over several row chunks, phi width
-   M % 4 != 0 and == 0), fused_estep, syrk_tri and weighted_gram;
-   nystrom_phi and nystrom_score (C = 1 and 3) at odd shapes (m % 32 !=
-   0, P % 4 != 0, M = 129: a column tile holding only the bias column)
-   over several row chunks, both kinds, float32 and bfloat16 X, mask and
-   bias on and off, and on the featurizers of chip_smoke.py's phases 7,
-   8 and 10 (made once, by this tree, and read by both) over several
-   chunks of their rows; and rbf_gram for each pair of operand types;
-2. times: chip_smoke.py's phase 3 kernel rows and projection rows (this
-   file's chip_smoke.py on each tree's package) in the order OTHER, this,
-   this, OTHER, one line of kernel ms (and the projection's torch.mm ms)
-   for each run;
+   M % 4 != 0 and == 0), fused_estep (also at K = 1,537, 2,048, 2,049
+   and 4,100, float32 and bfloat16, with each output's distance from
+   OTHER's printed: max |d|, max |d| / max|v|, max |d| / |v|), syrk_tri
+   and weighted_gram; nystrom_phi and nystrom_score (C = 1 and 3) at odd
+   shapes (m % 32 != 0, P % 4 != 0, M = 129: a column tile holding only
+   the bias column) over several row chunks, both kinds, float32 and
+   bfloat16 X, mask and bias on and off, and on the featurizers of
+   chip_smoke.py's phases 7, 8 and 10 (made once, by this tree, and read
+   by both) over several chunks of their rows; the three Nystrom kernels
+   (em_hinge for the statistic) at the cross-Gram's depths D = 1, 2, 3,
+   31, 32, 33, 90 and 500, both kinds, float32 and bfloat16 X, over
+   several chunks; and rbf_gram for each pair of operand types at those
+   depths too;
+2. times: chip_smoke.py's phase 3 kernel rows, projection rows and
+   cross-Gram stage rows (this file's chip_smoke.py on each tree's
+   package) in the order OTHER, this, this, OTHER, one line of kernel ms
+   (and the projection's and the cross-Gram's torch.mm ms) for each run;
 3. with --sass: the SASS of every kernel source in both trees, function
    by function (names compared without the copy policies' default
    template argument, NV = 1, without cross_tiles' row-major layout
@@ -105,6 +111,15 @@ def bits(tree, out, feats):
             d["seed"] = seed
         return d
 
+    def well(X, w):
+        """rho = X w +- U[0.05, 2] (gamma >= ~0.05: the well-conditioned
+        regime of chip_smoke.py, where b's distance from OTHER's is the
+        summation order's and not 1/gamma's amplification)."""
+        n = X.shape[0]
+        off = 0.05 + 1.95 * torch.rand(n, generator=g, device=dev,
+                                       dtype=torch.float64)
+        return (X.double() @ w.double() + off * sign(n).double()).float()
+
     def flat(r):
         r = r if isinstance(r, tuple) else (r,)
         return torch.cat([t.reshape(-1).float() for t in r]).cpu()
@@ -139,11 +154,26 @@ def bits(tree, out, feats):
                 fused_stats.fused_stats(X, rho, beta, wc.contiguous(), wm,
                                         seed=seed, epilogue=epi, eps=1e-6,
                                         eps_ins=0.3 if "svr" in epi else 0))
-        res[f"fused_estep {tag}"] = flat(fused_estep.fused_estep(X, s, s, w))
+        rho = well(X, w)
+        for name, t in zip(("margin", "gamma", "b"),
+                           fused_estep.fused_estep(X, rho, s, w)):
+            res[f"fused_estep {tag} {name}"] = flat(t)
         wt = 1.0 / (0.05 + torch.rand(n, generator=g, device=dev))
         res[f"syrk_tri {tag}"] = flat(syrk.syrk_tri(X, wt))
         res[f"weighted_gram {tag}"] = flat(weighted_gram.weighted_gram(X, wt))
         del X
+    # fused_estep at the K > 1536 route's widths: 16-byte loads (2,048),
+    # one element a lane (1,537, 2,049), two column segments (4,100)
+    for n, k in ((30001, 2048), (30001, 2049), (10007, 1537), (5003, 4100)):
+        for dt in (torch.float32, torch.bfloat16):
+            X = torch.randn(n, k, generator=g, device=dev).to(dt)
+            w = torch.randn(k, generator=g, device=dev) / math.sqrt(k)
+            beta = torch.randn(n, generator=g, device=dev)
+            for name, t in zip(("margin", "gamma", "b"),
+                               fused_estep.fused_estep(X, well(X, w), beta,
+                                                       w)):
+                res[f"fused_estep {n}x{k} {str(dt)[6:]} {name}"] = flat(t)
+            del X
     for n, d, m, dt in ((70001, 16, 1000, torch.float32),
                         (70001, 16, 1023, torch.float32),
                         (20011, 5, 681, torch.bfloat16)):
@@ -190,6 +220,31 @@ def bits(tree, out, feats):
                             nys.nystrom_score(X, L, P, W, mk, sigma=1.3,
                                               kind=kind, add_bias=True))
             del X
+    # the cross-Gram's depths on both sides of its routes' threshold and of
+    # a 32-deep stage, bfloat16 through the transposing pass, several chunks
+    for d in (1, 2, 3, 31, 32, 33, 90, 500):
+        n, m, p = 3001, 100, 99
+        nys.SCRATCH_WORDS = 384 * max(m + 1, d)
+        for dt in (torch.float32, torch.bfloat16):
+            X = (torch.randn(n, d, generator=g, device=dev)
+                 / math.sqrt(d)).to(dt)
+            L = X[torch.randperm(n, generator=g, device=dev)[:m]].float()
+            P = 0.2 * torch.randn(m, p, generator=g, device=dev)
+            mask = (torch.rand(n, generator=g, device=dev) > 0.2).float()
+            W = torch.randn(p + 1, 3, generator=g, device=dev)
+            s = sign(n) * mask
+            w = torch.randn(p + 1, generator=g, device=dev) / math.sqrt(p)
+            for kind in ("rbf", "linear"):
+                tag = f"{n}x{d} m={m} P={p} {str(dt)[6:]} {kind} depth"
+                o = dict(sigma=1.3, kind=kind, add_bias=True)
+                res[f"nystrom_phi {tag}"] = flat(nys.nystrom_phi(
+                    X, L, P, mask, **o))
+                res[f"nystrom_score {tag}"] = flat(nys.nystrom_score(
+                    X, L, P, W, mask, **o))
+                res[f"nystrom_fused_stats {tag} em_hinge"] = flat(
+                    nys.nystrom_fused_stats(X, L, P, s, s, w, mask, **o,
+                                            **kw("em_hinge", None, n)))
+            del X
     nys.SCRATCH_WORDS = scratch
     for label, (X, L, P, sigma) in torch.load(feats).items():
         X, L, P = X.to(dev), L.to(dev), P.to(dev)
@@ -201,7 +256,9 @@ def bits(tree, out, feats):
             X, L, P, W, sigma=sigma, add_bias=True))
         del X
     for (n1, n2, d), (ta, tb) in itertools.product(
-            ((300, 257, 500), (1000, 1000, 2), (37, 45, 29)),
+            ((300, 257, 500), (1000, 1000, 2), (37, 45, 29), (301, 130, 1),
+             (129, 255, 3), (300, 257, 31), (300, 257, 32), (300, 257, 33),
+             (681, 681, 90), (2048, 131, 500)),
             ((torch.float32,) * 2, (torch.bfloat16, torch.float32),
              (torch.bfloat16,) * 2)):
         A = (torch.randn(n1, d, generator=g, device=dev)
@@ -228,7 +285,10 @@ def times(tree):
     rows.update(chip_smoke.phase_window_kernels(dev))
     line = {k: round(v["ms"], 4) for k, v in rows.items()}
     line.update({f"{k} torch.mm": round(v["library_ms"], 4)
-                 for k, v in rows.items() if k.startswith("projection[")})
+                 for k, v in rows.items()
+                 if k.startswith(("projection[", "cross["))})
+    line["fused_estep[phase 8]"] = round(rows["fused_estep"]["phase8"]["ms"],
+                                         4)
     print("TIMES " + json.dumps(line), flush=True)
 
 
@@ -301,6 +361,12 @@ def compare_bits(a, b, label):
                 (x[k].double() - y[k].double()).abs().max()
                 / x[k].double().abs().max().clamp_min(1e-30)).item())
             g["differ"].append(k)
+    for k in [k for k in x if k.startswith("fused_estep")]:
+        d = (x[k].double() - y[k].double()).abs()
+        v = x[k].double().abs()
+        print(f"distance, {label}: {k}: max |d| {d.max().item():.3e}, max "
+              f"|d| / max|v| {(d.max() / v.max().clamp_min(1e-30)).item():.3e}"
+              f", max |d| / |v| {(d / v.clamp_min(1e-30)).max().item():.3e}")
     for name, g in groups.items():
         print(f"bits, {label}: {name}: {g['bits']} of {g['n']} outputs "
               f"bitwise equal, {g['zero']} more equal up to the sign of zero "

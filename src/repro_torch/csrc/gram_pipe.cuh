@@ -4,7 +4,8 @@
 // fused_stats.cu and nystrom_phi.cu (stat_tiles: lower-triangle tiles or a
 // column window's tile table, C chains, and b = X^T coef beside Sigma);
 // and, with two operands (CopyPair), the Nystrom projection A^T B of
-// nystrom_phi.cu, whose depth is the landmarks.
+// nystrom_phi.cu, whose depth is the landmarks, and the cross-Gram of
+// rbf.cuh (rbf_gram.cu, nystrom_phi.cu), whose depth is the rows' D.
 //
 // What bounds it on the H100: fp32 FMAs. The triangle needs N K (K + 1)
 // flop on 4 N K bytes of X, (K + 1) / 4 flop a byte against a ridge of ~20
@@ -332,7 +333,9 @@ struct CopyBf16 {
 // source size (a group across the width copies its columns below it). No
 // per-row vector, nothing to prepare: the operands are multiplied as they
 // land. The Nystrom projection (nystrom_phi.cu): A the (m, R) landmark-
-// major cross-Gram chunk, B proj (m, P), the depth the m landmarks.
+// major cross-Gram chunk, B proj (m, P), the depth the m landmarks. The
+// cross-Gram (rbf.cuh): A and B the depth-major (D, n) copies of its two
+// operands' rows.
 struct CopyPair {
   static constexpr int SLOTS = 3;
   struct Slot {

@@ -12,9 +12,11 @@
 // memory, so here the rows go in chunks and every operand streams through
 // shared memory in 32-deep slices. Per chunk of R rows:
 //
-//   A. cross_tiles (rbf.cuh): the cross-Gram chunk k(X, L), each entry
-//      computed once, into an L2-sized scratch stored landmark-major,
-//      (m, R) with rows R apart;
+//   A. the cross-Gram chunk k(X, L) (rbf.cuh): the chunk's rows of X
+//      written depth-major (cross_operand; the landmarks once a call), then
+//      each entry computed once on the Gram engine's tile pass (or, at
+//      small D, the direct route) into an L2-sized scratch stored
+//      landmark-major, (m, R) with rows R apart;
 //   B. phi_tiles: its product with proj on the Gram engine
 //      (gram_pipe.cuh's tile_pass and CopyPair: a three-slot cp.async ring
 //      of 16-byte copies of both operands, the landmarks the depth), 128 x
@@ -181,36 +183,53 @@ struct Featurizer {
   float* sqx;         // (N,) scratch (rbf)
   float* sql;         // (m,) scratch (rbf)
   float* kc;          // (m, ldk) scratch, landmark-major
+  float* xt;          // (D, ldk) scratch: a chunk's rows of X, depth-major
+  float* lt;          // (D, ldl) scratch: the landmarks, depth-major
   int64_t N, ldk;
-  int D, m, P, ldp, bias, kind;
+  int D, m, ldl, P, ldp, bias, kind, route;
   float inv_two_sigma_sq;
 };
 
-// Squared norms of every row and landmark (rbf only).
-static void sqnorms(const Featurizer& f, cudaStream_t st) {
-  if (f.kind != KIND_RBF) return;
-  if (f.x_bf16)
-    launch_row_sqnorm(static_cast<const __nv_bfloat16*>(f.X), f.N, f.D,
-                      f.sqx, st);
-  else
-    launch_row_sqnorm(static_cast<const float*>(f.X), f.N, f.D, f.sqx, st);
-  launch_row_sqnorm(f.L, (int64_t)f.m, f.D, f.sql, st);
+// What every chunk reads: the squared norms of every row and landmark
+// (rbf only) and the landmarks depth-major.
+static void prepare(const Featurizer& f, cudaStream_t st) {
+  if (f.kind == KIND_RBF) {
+    if (f.x_bf16)
+      launch_row_sqnorm(static_cast<const __nv_bfloat16*>(f.X), f.N, f.D,
+                        f.sqx, st);
+    else
+      launch_row_sqnorm(static_cast<const float*>(f.X), f.N, f.D, f.sqx,
+                        st);
+    launch_row_sqnorm(f.L, (int64_t)f.m, f.D, f.sql, st);
+  }
+  launch_cross_operand(f.L, (int64_t)f.m, f.D, f.lt, (int64_t)f.ldl, st);
 }
 
-// Stage A for rows [c0, c0 + nr): the cross-Gram chunk into kc, landmark-
-// major.
-static void cross_chunk(const Featurizer& f, int64_t c0, int64_t nr,
-                        cudaStream_t st) {
-  const float* sq = f.kind == KIND_RBF ? f.sqx + c0 : nullptr;
+// Stage A for rows [c0, c0 + nr): the rows depth-major into xt, then the
+// cross-Gram chunk into kc, landmark-major.
+static cudaError_t cross_chunk(const Featurizer& f, int64_t c0, int64_t nr,
+                               cudaStream_t st) {
   if (f.x_bf16)
-    launch_cross_tiles<true>(static_cast<const __nv_bfloat16*>(f.X) +
-                                 c0 * f.D,
-                             f.L, sq, f.sql, f.kc, nr, f.m, f.D, f.ldk,
-                             f.kind, f.inv_two_sigma_sq, st);
+    launch_cross_operand(static_cast<const __nv_bfloat16*>(f.X) + c0 * f.D,
+                         nr, f.D, f.xt, f.ldk, st);
   else
-    launch_cross_tiles<true>(static_cast<const float*>(f.X) + c0 * f.D, f.L,
-                             sq, f.sql, f.kc, nr, f.m, f.D, f.ldk, f.kind,
-                             f.inv_two_sigma_sq, st);
+    launch_cross_operand(static_cast<const float*>(f.X) + c0 * f.D, nr,
+                         f.D, f.xt, f.ldk, st);
+  CrossArgs a;
+  a.A = f.lt;
+  a.lda = f.ldl;
+  a.wa = f.m;
+  a.B = f.xt;
+  a.ldb = f.ldk;
+  a.wb = (int)nr;
+  a.sqa = f.sql;
+  a.sqb = f.kind == KIND_RBF ? f.sqx + c0 : nullptr;
+  a.out = f.kc;
+  a.ldo = f.ldk;
+  a.D = f.D;
+  a.vec = 1;  // kc 16-byte aligned, ldk a multiple of 4
+  a.inv_two_sigma_sq = f.inv_two_sigma_sq;
+  return launch_cross<true>(a, f.kind, f.route, st);
 }
 
 // Stage B for rows [c0, c0 + nr); WRITE stores them ldo apart.
@@ -246,8 +265,9 @@ static cudaError_t phi_chunk(const Featurizer& f, int64_t c0, int64_t nr,
 
 static Featurizer featurizer(const void* X, int x_bf16, const void* L,
                              const void* proj, const void* mask, void* sqx,
-                             void* sql, void* kc, int64_t N, int D, int m,
-                             int P, int proj_ld, int bias, int kind,
+                             void* sql, void* kc, void* xt, void* lt,
+                             int64_t N, int D, int m, int P, int proj_ld,
+                             int bias, int kind, int route,
                              float inv_two_sigma_sq, int64_t chunk_rows) {
   Featurizer f;
   f.X = X;
@@ -258,14 +278,18 @@ static Featurizer featurizer(const void* X, int x_bf16, const void* L,
   f.sqx = static_cast<float*>(sqx);
   f.sql = static_cast<float*>(sql);
   f.kc = static_cast<float*>(kc);
+  f.xt = static_cast<float*>(xt);
+  f.lt = static_cast<float*>(lt);
   f.N = N;
   f.ldk = chunk_rows;
   f.D = D;
   f.m = m;
+  f.ldl = (m + 3) / 4 * 4;
   f.P = P;
   f.ldp = proj_ld;
   f.bias = bias;
   f.kind = kind;
+  f.route = route;
   f.inv_two_sigma_sq = inv_two_sigma_sq;
   return f;
 }
@@ -278,30 +302,34 @@ static Featurizer featurizer(const void* X, int x_bf16, const void* L,
 // multiple of 4, proj 16-byte aligned; columns P..proj_ld - 1 unread);
 // mask (N,) f32 or null (ones); bias 0/1 appends the mask-valued column
 // after the P projected ones (M = P + bias); kind 0 = rbf, 1 = linear;
+// route: the cross-Gram's (rbf.cuh's CrossRoute: 0 the engine, 1 direct);
 // chunk_rows rows a chunk, a multiple of 4. Scratch: sqx (N,) and sql
-// (m,) f32 (rbf only), kc (m, chunk_rows) f32, 16-byte aligned. Each
-// returns the first CUDA error of its launches (-1 for a bad epilogue
-// code).
+// (m,) f32 (rbf only), kc (m, chunk_rows), xt (D, chunk_rows) and lt (D,
+// m rounded up to 4) f32, 16-byte aligned. Each returns the first CUDA
+// error of its launches (-1 for a bad epilogue code).
 
 // out (N, M) f32: the phi rows.
 extern "C" int rt_nystrom_phi(int device, void* stream, const void* X,
                               int x_bf16, const void* L, const void* proj,
                               const void* mask, void* sqx, void* sql,
-                              void* kc, void* out, int64_t N, int D, int m,
-                              int P, int proj_ld, int bias, int kind,
+                              void* kc, void* xt, void* lt, void* out,
+                              int64_t N, int D, int m, int P, int proj_ld,
+                              int bias, int kind, int route,
                               float inv_two_sigma_sq, int64_t chunk_rows) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const rt::Featurizer f =
-      rt::featurizer(X, x_bf16, L, proj, mask, sqx, sql, kc, N, D, m, P,
-                     proj_ld, bias, kind, inv_two_sigma_sq, chunk_rows);
+      rt::featurizer(X, x_bf16, L, proj, mask, sqx, sql, kc, xt, lt, N, D,
+                     m, P, proj_ld, bias, kind, route, inv_two_sigma_sq,
+                     chunk_rows);
   float* o = static_cast<float*>(out);
   const int64_t M = P + bias;
-  rt::sqnorms(f, st);
+  rt::prepare(f, st);
   for (int64_t c0 = 0; c0 < N; c0 += chunk_rows) {
     const int64_t nr = rt::rows_left(chunk_rows, N - c0);
-    rt::cross_chunk(f, c0, nr, st);
+    err = rt::cross_chunk(f, c0, nr, st);
+    if (err != cudaSuccess) return (int)err;
     err = rt::phi_chunk<rt::PHI_WRITE>(f, c0, nr, o + c0 * M, (int)M,
                                        nullptr, 0, nullptr, st);
     if (err != cudaSuccess) return (int)err;
@@ -314,23 +342,26 @@ extern "C" int rt_nystrom_phi(int device, void* stream, const void* X,
 extern "C" int rt_nystrom_score(int device, void* stream, const void* X,
                                 int x_bf16, const void* L, const void* proj,
                                 const void* mask, const void* W, void* sqx,
-                                void* sql, void* kc, void* spart, void* out,
-                                int64_t N, int D, int m, int P,
-                                int proj_ld, int bias, int C, int kind,
-                                float inv_two_sigma_sq, int64_t chunk_rows) {
+                                void* sql, void* kc, void* xt, void* lt,
+                                void* spart, void* out, int64_t N, int D,
+                                int m, int P, int proj_ld, int bias, int C,
+                                int kind, int route, float inv_two_sigma_sq,
+                                int64_t chunk_rows) {
   cudaError_t err = cudaSetDevice(device);
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const rt::Featurizer f =
-      rt::featurizer(X, x_bf16, L, proj, mask, sqx, sql, kc, N, D, m, P,
-                     proj_ld, bias, kind, inv_two_sigma_sq, chunk_rows);
+      rt::featurizer(X, x_bf16, L, proj, mask, sqx, sql, kc, xt, lt, N, D,
+                     m, P, proj_ld, bias, kind, route, inv_two_sigma_sq,
+                     chunk_rows);
   float* sp = static_cast<float*>(spart);
   float* o = static_cast<float*>(out);
   const int ncb = (P + bias + rt::GT - 1) / rt::GT;
-  rt::sqnorms(f, st);
+  rt::prepare(f, st);
   for (int64_t c0 = 0; c0 < N; c0 += chunk_rows) {
     const int64_t nr = rt::rows_left(chunk_rows, N - c0);
-    rt::cross_chunk(f, c0, nr, st);
+    err = rt::cross_chunk(f, c0, nr, st);
+    if (err != cudaSuccess) return (int)err;
     err = rt::phi_chunk<rt::PHI_SCORE>(f, c0, nr, nullptr, 0,
                                        static_cast<const float*>(W), C, sp,
                                        st);
@@ -363,10 +394,10 @@ extern "C" int rt_nystrom_fused_stats(
     const void* proj, const void* mask, const void* rho, const void* beta,
     const void* w, const void* nu, const void* u, const void* nu_o,
     const void* u_o, const void* seed, void* sqx, void* sql, void* kc,
-    void* phi, void* wgt, void* coef, void* part, void* bpart, void* margin,
-    void* gamma, void* omega, void* sigma, void* b, int64_t N, int D, int m,
-    int P, int proj_ld, int bias, int kind, float inv_two_sigma_sq,
-    int64_t chunk_rows,
+    void* xt, void* lt, void* phi, void* wgt, void* coef, void* part,
+    void* bpart, void* margin, void* gamma, void* omega, void* sigma, void* b, int64_t N, int D, int m,
+    int P, int proj_ld, int bias, int kind, int route,
+    float inv_two_sigma_sq, int64_t chunk_rows,
     int ntiles, int64_t rows_per_split, int phi_ld, int phi_path,
     int epilogue,
     float eps, float eps_ins, const void* win_tab, const void* win_tmap,
@@ -376,8 +407,9 @@ extern "C" int rt_nystrom_fused_stats(
   if (err != cudaSuccess) return (int)err;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   const rt::Featurizer f =
-      rt::featurizer(X, x_bf16, L, proj, mask, sqx, sql, kc, N, D, m, P,
-                     proj_ld, bias, kind, inv_two_sigma_sq, chunk_rows);
+      rt::featurizer(X, x_bf16, L, proj, mask, sqx, sql, kc, xt, lt, N, D,
+                     m, P, proj_ld, bias, kind, route, inv_two_sigma_sq,
+                     chunk_rows);
   const int M = P + bias;
   const bool win = win_tab != nullptr;
   float* ph = static_cast<float*>(phi);
@@ -416,10 +448,11 @@ extern "C" int rt_nystrom_fused_stats(
                          static_cast<const float*>(u),
                          static_cast<const float*>(nu_o),
                          static_cast<const float*>(u_o)};
-  rt::sqnorms(f, st);
+  rt::prepare(f, st);
   for (int64_t c0 = 0; c0 < N; c0 += chunk_rows) {
     const int64_t nr = rt::rows_left(chunk_rows, N - c0);
-    rt::cross_chunk(f, c0, nr, st);
+    err = rt::cross_chunk(f, c0, nr, st);
+    if (err != cudaSuccess) return (int)err;
     err = rt::phi_chunk<rt::PHI_WRITE>(f, c0, nr, ph, phi_ld, nullptr, 0,
                                        nullptr, st);
     if (err != cudaSuccess) return (int)err;
@@ -459,4 +492,17 @@ extern "C" int rt_nystrom_phi_occupancy(int device, int mode, int* smem,
                          rt::phi_tiles<rt::PHI_SCORE>, smem, ctas)
                    : rt::gp::occupancy_of<rt::gp::CopyPair>(
                          rt::phi_tiles<rt::PHI_WRITE>, smem, ctas));
+}
+
+// Dynamic shared memory bytes and resident CTAs an SM of the landmark-major
+// cross-Gram kernel of (route, kind): rbf.cuh's CrossRoute and Kind.
+extern "C" int rt_nystrom_cross_occupancy(int device, int route, int kind,
+                                          int* smem, int* ctas) {
+  cudaError_t err = cudaSetDevice(device);
+  if (err != cudaSuccess) return (int)err;
+  return (int)(kind == rt::KIND_RBF
+                   ? rt::cross_occupancy_kind<rt::KIND_RBF, true>(route, smem,
+                                                                  ctas)
+                   : rt::cross_occupancy_kind<rt::KIND_LINEAR, true>(
+                         route, smem, ctas));
 }

@@ -39,10 +39,11 @@ _SIGNATURES = {
     "rt_syrk_tri": [_c_int, _c_void_p, _c_void_p, _c_int, _c_void_p,
                     _c_void_p, _c_void_p, _c_int64, _c_int, _c_int, _c_int,
                     _c_int64],
-    "rt_fused_estep": [_c_int, _c_void_p, _c_void_p, _c_int, _c_void_p,
-                       _c_void_p, _c_void_p, _c_void_p, _c_void_p,
-                       _c_void_p, _c_void_p, _c_int64, _c_int, _c_int,
-                       _c_int64, _c_float],
+    "rt_fused_estep": [_c_int, _c_void_p, _c_void_p, _c_int, _c_int,
+                       *[_c_void_p] * 7, _c_int64, _c_int, _c_int, _c_int64,
+                       _c_float],
+    "rt_fused_estep_occupancy": [_c_int, _c_int, _c_int, _c_void_p,
+                                 _c_void_p],
     "rt_fused_stats": [_c_int, _c_void_p, _c_void_p, _c_int,
                        *[_c_void_p] * 18, _c_int64, _c_int, _c_int, _c_int,
                        _c_int, _c_int64, _c_int, _c_int, _c_float, _c_float,
@@ -56,21 +57,23 @@ _SIGNATURES = {
     "rt_nystrom_phi_occupancy": [_c_int, _c_int, _c_void_p, _c_void_p],
     "rt_weighted_gram_occupancy": [_c_int, _c_int, _c_void_p, _c_void_p],
     "rt_rbf_gram": [_c_int, _c_void_p, _c_void_p, _c_int, _c_void_p, _c_int,
-                    _c_void_p, _c_void_p, _c_void_p, _c_int64, _c_int,
-                    _c_int, _c_float],
-    "rt_nystrom_phi": [_c_int, _c_void_p, _c_void_p, _c_int, _c_void_p,
-                       _c_void_p, _c_void_p, _c_void_p, _c_void_p,
-                       _c_void_p, _c_void_p, _c_int64, _c_int, _c_int,
-                       _c_int, _c_int, _c_int, _c_int, _c_float, _c_int64],
-    "rt_nystrom_score": [_c_int, _c_void_p, _c_void_p, _c_int, _c_void_p,
-                         _c_void_p, _c_void_p, _c_void_p, _c_void_p,
-                         _c_void_p, _c_void_p, _c_void_p, _c_void_p,
-                         _c_int64, _c_int, _c_int, _c_int, _c_int, _c_int,
-                         _c_int, _c_int, _c_float, _c_int64],
+                    *[_c_void_p] * 5, _c_int, _c_int, _c_int, _c_float,
+                    _c_int],
+    "rt_rbf_gram_occupancy": [_c_int, _c_int, _c_void_p, _c_void_p],
+    "rt_nystrom_cross_occupancy": [_c_int, _c_int, _c_int, _c_void_p,
+                                   _c_void_p],
+    "rt_nystrom_phi": [_c_int, _c_void_p, _c_void_p, _c_int,
+                       *[_c_void_p] * 9, _c_int64, _c_int, _c_int,
+                       _c_int, _c_int, _c_int, _c_int, _c_int, _c_float,
+                       _c_int64],
+    "rt_nystrom_score": [_c_int, _c_void_p, _c_void_p, _c_int,
+                         *[_c_void_p] * 11, _c_int64, _c_int, _c_int,
+                         _c_int, _c_int, _c_int, _c_int, _c_int, _c_int,
+                         _c_float, _c_int64],
     "rt_nystrom_fused_stats": [_c_int, _c_void_p, _c_void_p, _c_int,
-                               *[_c_void_p] * 24, _c_int64, _c_int, _c_int,
-                               _c_int, _c_int, _c_int, _c_int, _c_float,
-                               _c_int64,
+                               *[_c_void_p] * 26, _c_int64, _c_int, _c_int,
+                               _c_int, _c_int, _c_int, _c_int, _c_int,
+                               _c_float, _c_int64,
                                _c_int, _c_int64, _c_int, _c_int, _c_int,
                                _c_float, _c_float,
                                _c_void_p, _c_void_p, _c_int, _c_int, _c_int],

@@ -32,7 +32,12 @@ in chunks of R, and per chunk:
      entry is computed once; recomputing it per output column block would
      cost D / 128 times the projection), stored landmark-major: (m, R),
      rows R apart (R a multiple of 4), so that it is the projection's
-     A operand as the engine copies it;
+     A operand as the engine copies it. Its own operands, the chunk's rows
+     of X and the landmarks, are row-major (., D), the depth along a row;
+     a transposing pass writes them depth-major first ((D, R) a chunk,
+     (D, m) once a call, fp32), and the product runs on the same engine
+     (``csrc/rbf.cuh``), or at small D on a direct route
+     (``rbf_gram.cross_route``);
   B. phi tiles of 128 x 128 = chunk^T @ proj on the Gram engine: the m
      landmarks are the depth, and 32 of them at a time land in a three-slot
      ``cp.async`` ring by 16-byte copies of both operands while the CTA
@@ -59,10 +64,11 @@ Computing each row's margin once, before the tiles, avoids recomputing
 phi per tile (2m/128 times the tile's own Sigma work). The plan
 (``stats_plan``) makes a chunk a whole number of 4,096-row splits whose
 tile CTAs fill whole waves of two an SM (at m = 1,000: 7 splits, 252 CTAs
-on 264 slots; 8 left 24 CTAs to a second wave). Launches a call: 2
-(norms) + 6 a chunk; at N = 1,000,000 and m = 1,000, R = 28,672, 35
-chunks. The scratch is the cross and phi chunks plus the split partials,
-a few hundred MB, where phi itself would be 4 GB.
+on 264 slots; 8 left 24 CTAs to a second wave). Launches a call: 3
+(norms, the landmarks depth-major) + 7 a chunk; at N = 1,000,000 and m =
+1,000, R = 28,672, 35 chunks. The scratch is the cross and phi chunks,
+the chunk's rows depth-major and the split partials, a few hundred MB,
+where phi itself would be 4 GB.
 
 Every phi entry is one thread's fmaf chain over the landmarks in order,
 from +0, so the bits do not depend on R: ``nystrom_fused_stats``
@@ -76,6 +82,7 @@ import torch
 
 from . import _build, ref
 from . import fused_stats as _fused_stats
+from . import rbf_gram as _rbf_gram
 
 # Launches per kernel and variant, for chip_smoke.py's check that the
 # main path ran through the kernel it names.
@@ -94,7 +101,7 @@ _EPILOGUE_CODE = {"em_hinge": 0, "mc_hinge,noise": 1, "mc_hinge,seed": 2,
 _KINDS = {"rbf": 0, "linear": 1}
 
 GT = 128                        # phi tile edge (csrc/rbf.cuh)
-SCRATCH_WORDS = 1 << 25         # cross-Gram chunk: at most 128 MB
+SCRATCH_WORDS = 1 << 25         # each chunk scratch: at most 128 MB
 # proj's rows lie PROJ_ALIGN columns apart, so that the engine copies them
 # 16 bytes at a time (csrc/gram_pipe.cuh's CopyPair).
 PROJ_ALIGN = 4
@@ -127,8 +134,13 @@ def _check(X, landmarks, proj, mask, kind):
     return N, D, m, P
 
 
-def _phi_chunk_rows(N: int, m: int, M: int) -> int:
-    rows = max(GT, SCRATCH_WORDS // max(m, M) // GT * GT)
+def _phi_chunk_rows(N: int, m: int, M: int, *, D: int = 0) -> int:
+    """Rows R of a chunk of ``nystrom_phi`` / ``nystrom_score``: a
+    multiple of 128 (of 4, so the chunk scratch rows stay 16-byte aligned),
+    no more than N needs, with each scratch of a chunk at most
+    SCRATCH_WORDS words: the cross chunk (m, R), its rows of X depth-major
+    (D, R) and R rows of M (the score partials)."""
+    rows = max(GT, SCRATCH_WORDS // max(m, M, D) // GT * GT)
     return min(rows, -(-N // GT) * GT)
 
 
@@ -148,22 +160,31 @@ def proj_operand(proj: torch.Tensor) -> torch.Tensor:
 def _featurizer_args(X, landmarks, proj, mask, N, D, m, P, add_bias, kind,
                      sigma, chunk):
     """The featurizer's leading pointers, its scratch (the norms, the
-    landmark-major cross-Gram chunk kc (m, chunk) and the aligned proj,
-    kept alive here) and its trailing sizes, for ``chunk`` rows a chunk
-    (a multiple of 4, so kc's rows stay 16-byte aligned)."""
+    landmark-major cross-Gram chunk kc (m, chunk), the chunk's rows of X
+    depth-major xt (D, chunk), the landmarks depth-major lt (D, m rounded
+    up to 4) and the aligned proj, kept alive here) and its trailing
+    sizes, for ``chunk`` rows a chunk (a multiple of 4, so the rows of kc
+    and xt stay 16-byte aligned)."""
     f32 = dict(dtype=torch.float32, device=X.device)
     rbf = kind == "rbf"
     projp = proj_operand(proj)
     scratch = dict(sqx=torch.empty(N if rbf else 0, **f32),
                    sql=torch.empty(m if rbf else 0, **f32),
-                   kc=torch.empty((m, chunk), **f32), proj=projp)
+                   kc=torch.empty((m, chunk), **f32),
+                   xt=torch.empty((D, chunk), **f32),
+                   lt=_rbf_gram.depth_major(m, D, X.device), proj=projp)
     head = (X.data_ptr(), int(X.dtype == torch.bfloat16),
             landmarks.data_ptr(), projp.data_ptr(),
             None if mask is None else mask.data_ptr())
     tail = dict(N=N, D=D, m=m, P=P, ldp=projp.shape[1], bias=int(add_bias),
-                kind=_KINDS[kind], inv=1.0 / (2.0 * float(sigma) ** 2),
-                chunk=chunk)
+                kind=_KINDS[kind], route=_rbf_gram.cross_route(D),
+                inv=1.0 / (2.0 * float(sigma) ** 2), chunk=chunk)
     return head, scratch, tail
+
+
+def _scratch(s):
+    """The featurizer's scratch pointers in the launchers' order."""
+    return tuple(s[k].data_ptr() for k in ("sqx", "sql", "kc", "xt", "lt"))
 
 
 def nystrom_phi(X: torch.Tensor, landmarks: torch.Tensor,
@@ -178,14 +199,13 @@ def nystrom_phi(X: torch.Tensor, landmarks: torch.Tensor,
                                add_bias)
     N, D, m, P = _check(X, landmarks, proj, mask, kind)
     M = P + int(add_bias)
-    chunk = _phi_chunk_rows(N, m, M)
+    chunk = _phi_chunk_rows(N, m, M, D=D)
     head, s, t = _featurizer_args(X, landmarks, proj, mask, N, D, m, P,
                                   add_bias, kind, sigma, chunk)
     out = torch.empty((N, M), dtype=torch.float32, device=X.device)
-    _build.launch("rt_nystrom_phi", X.device, *head, s["sqx"].data_ptr(),
-                  s["sql"].data_ptr(), s["kc"].data_ptr(), out.data_ptr(),
-                  t["N"], t["D"], t["m"], t["P"], t["ldp"], t["bias"],
-                  t["kind"], t["inv"], t["chunk"])
+    _build.launch("rt_nystrom_phi", X.device, *head, *_scratch(s),
+                  out.data_ptr(), t["N"], t["D"], t["m"], t["P"], t["ldp"],
+                  t["bias"], t["kind"], t["route"], t["inv"], t["chunk"])
     LAUNCHES["nystrom_phi"] += 1
     return out
 
@@ -207,29 +227,30 @@ def nystrom_score(X: torch.Tensor, landmarks: torch.Tensor,
         raise ValueError(f"W must be a contiguous float32 ({M}, C) matrix "
                          f"on {X.device} (M = proj cols + add_bias)")
     C = W.shape[1]
-    chunk = _phi_chunk_rows(N, m, M)
+    chunk = _phi_chunk_rows(N, m, M, D=D)
     head, s, t = _featurizer_args(X, landmarks, proj, mask, N, D, m, P,
                                   add_bias, kind, sigma, chunk)
     f32 = dict(dtype=torch.float32, device=X.device)
     spart = torch.empty(-(-M // GT) * chunk * C, **f32)
     out = torch.empty((N, C), **f32)
     _build.launch("rt_nystrom_score", X.device, *head, W.data_ptr(),
-                  s["sqx"].data_ptr(), s["sql"].data_ptr(),
-                  s["kc"].data_ptr(), spart.data_ptr(), out.data_ptr(),
-                  t["N"], t["D"], t["m"], t["P"], t["ldp"], t["bias"], C,
-                  t["kind"], t["inv"], t["chunk"])
+                  *_scratch(s), spart.data_ptr(), out.data_ptr(), t["N"],
+                  t["D"], t["m"], t["P"], t["ldp"], t["bias"], C, t["kind"],
+                  t["route"], t["inv"], t["chunk"])
     LAUNCHES["nystrom_score"] += 1
     return out
 
 
-def stats_plan(N: int, m: int, M: int, sms: int) -> tuple[int, int, int]:
+def stats_plan(N: int, m: int, M: int, sms: int, *, D: int = 0
+               ) -> tuple[int, int, int]:
     """(ntiles, rows_per_split, chunk_rows) of the statistic on ``sms``
     SMs. Splits are at most ROWS_PER_SPLIT rows, as long as N split
     enough ways for two tile CTAs an SM allows; a chunk is a whole number
     of them (so split boundaries align across chunks, and the sums do not
-    depend on the chunking) and holds at most SCRATCH_WORDS words of cross
-    chunk or of phi rows (M wide; their scratch pads them to the 16-byte
-    stride, PHI_ALIGN - 1 columns more at most). The CTAs of a chunk
+    depend on the chunking) with each of its scratches at most
+    SCRATCH_WORDS words: the cross chunk (m wide), its rows of X depth-
+    major (D), the phi rows (M wide; their scratch pads them to the
+    16-byte stride, PHI_ALIGN - 1 columns more at most). The CTAs of a chunk
     (splits x tiles) run in waves of two an SM, and every split costs its
     rows in each wave, so a chunk takes the number of splits with the
     fewest waves a split, the most of those (at m = 1,000, M = 1,001, 36
@@ -240,7 +261,8 @@ def stats_plan(N: int, m: int, M: int, sms: int) -> tuple[int, int, int]:
     slots = 2 * sms
     per_split = -(-N // -(-slots // ntiles))
     rows = min(_build.ROWS_PER_SPLIT, -(-per_split // _build.BN) * _build.BN)
-    most = max(1, min(SCRATCH_WORDS // (rows * max(m, M)), -(-N // rows)))
+    most = max(1, min(SCRATCH_WORDS // (rows * max(m, M, D)),
+                      -(-N // rows)))
     splits = min(range(1, most + 1),
                  key=lambda s: (-(-s * ntiles // slots) / s, -s))
     return ntiles, rows, rows * splits
@@ -281,7 +303,7 @@ def nystrom_fused_stats(X: torch.Tensor, landmarks: torch.Tensor,
     ops = _fused_stats.noise_operands(noise, seed, N, X)
     # The window runs over the full statistic's plan (bitwise).
     sms = torch.cuda.get_device_properties(X.device).multi_processor_count
-    ntiles, rows, chunk = stats_plan(N, m, M, sms)
+    ntiles, rows, chunk = stats_plan(N, m, M, sms, D=D)
     win, width = [None, None, 0, 0, 0], M
     if col_window is not None:
         win, ntiles = _fused_stats.window_args(M, col_window, X.device)
@@ -305,13 +327,13 @@ def nystrom_fused_stats(X: torch.Tensor, landmarks: torch.Tensor,
 
     _build.launch("rt_nystrom_fused_stats", X.device, *head,
                   rho.data_ptr(), beta.data_ptr(), wvec.data_ptr(),
-                  *(ptr(z) for z in ops), ptr(seed), s["sqx"].data_ptr(),
-                  s["sql"].data_ptr(), s["kc"].data_ptr(), phi.data_ptr(),
+                  *(ptr(z) for z in ops), ptr(seed), *_scratch(s),
+                  phi.data_ptr(),
                   wgt.data_ptr(), coef.data_ptr(), part.data_ptr(),
                   bpart.data_ptr(), margin.data_ptr(), gamma.data_ptr(),
                   ptr(omega), sigma_out.data_ptr(), b.data_ptr(), t["N"],
                   t["D"], t["m"], t["P"], t["ldp"], t["bias"], t["kind"],
-                  t["inv"], chunk, ntiles, rows, ld,
+                  t["route"], t["inv"], chunk, ntiles, rows, ld,
                   _build.gram_copy(phi.view(chunk, ld)), _EPILOGUE_CODE[var],
                   float(eps), float(eps_ins), *win)
     LAUNCHES[f"nystrom_fused_stats[{var}"

@@ -97,7 +97,18 @@ def test_fused_stats_kernel(cuda, n, k, dtype):
     _close_max(got[3], want[3])
 
 
-@pytest.mark.parametrize("n,k,dtype", SHAPES)
+# fused_estep (csrc/fused_estep.cu) beside SHAPES: the K > 1536 route's
+# widths, K = 1,537 and 2,049 (phase 8's; rows off the 16-byte grid, so a
+# shuffle realigns each lane's four columns), 2,048 (rows on it), and rows
+# wider than the register-resident 2,176 columns (two column segments, X
+# read twice: K = 2,300, 4,100), at N % 8 != 0, float32 and bfloat16.
+ESTEP_SHAPES = SHAPES + [(n, k, dtype) for n, k in ((517, 1537), (1031, 2048),
+                                                    (517, 2049), (203, 2300),
+                                                    (301, 4100))
+                         for dtype in (torch.float32, torch.bfloat16)]
+
+
+@pytest.mark.parametrize("n,k,dtype", ESTEP_SHAPES)
 def test_fused_estep_kernel(cuda, n, k, dtype):
     X, rho, beta, w, _ = _problem(n, k, dtype, cuda)
     got = fused_estep.fused_estep(X, rho, beta, w, eps=1e-6)
@@ -109,6 +120,29 @@ def test_fused_estep_kernel(cuda, n, k, dtype):
     _close_rows(got[0], want[0])
     _close_rows(got[1], want[1])
     _close_max(got[2], want[2])
+
+
+@pytest.mark.parametrize("n,k,dtype", [(517, 2048, torch.float32),
+                                       (517, 2049, torch.float32),
+                                       (203, 4100, torch.bfloat16),
+                                       (517, 2049, torch.bfloat16)])
+def test_fused_estep_kernel_off_alignment(cuda, n, k, dtype):
+    """X starting one element into its buffer (off the 16-byte, or for
+    bfloat16 the 8-byte, grid of its loads): the same values as the
+    aligned X, within the tolerance of the plain version."""
+    X, rho, beta, w, _ = _problem(n, k, dtype, cuda)
+    buf = torch.empty(n * k + 1, dtype=dtype, device=cuda)
+    Xo = buf[1:].view(n, k)
+    Xo.copy_(X)
+    got = fused_estep.fused_estep(Xo, rho, beta, w, eps=1e-6)
+    want = ref.fused_estep(X.double(), rho.double(), beta.double(),
+                           w.double(), 1e-6)
+    _close_rows(got[0], want[0])
+    _close_rows(got[1], want[1])
+    _close_max(got[2], want[2])
+    aligned = fused_estep.fused_estep(X, rho, beta, w, eps=1e-6)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(got, aligned))
 
 
 # Shapes of the Gram engine (csrc/gram_pipe.cuh) behind syrk_tri and
@@ -535,7 +569,8 @@ def test_nystrom_fused_stats_is_fused_stats_on_phi(cuda, var, monkeypatch):
     sms = torch.cuda.get_device_properties(cuda).multi_processor_count
     ntiles, nsplits, rows = _build.stat_plan(n, M, 1, sms)
     monkeypatch.setattr(nys, "stats_plan",
-                        lambda N, m, M_, s: (ntiles, rows, rows * nsplits))
+                        lambda N, m, M_, s, D=0: (ntiles, rows,
+                                                  rows * nsplits))
     g = torch.Generator(device=cuda).manual_seed(4)
     w = torch.randn(M, generator=g, device=cuda) / math.sqrt(M)
     y = torch.where(torch.rand(n, generator=g, device=cuda) < 0.5, -1.0,
@@ -856,3 +891,81 @@ def test_ops_window_routes(cuda):
         assert all(torch.equal(a, c) for a, c in zip(got[:-1], full[:-1]))
         start, blk = window
         assert torch.equal(got[-1], full[-1][:, start:start + blk])
+
+# The cross-Gram (csrc/rbf.cuh) on both of its routes: the Gram engine's
+# tile pass and the direct product of small depths. (n, D, m): depths on
+# both sides of rbf_gram.CROSS_DIRECT_MAX_D and of a 32-deep stage; row
+# and landmark counts that are not multiples of 128 or of 4.
+CROSS_SHAPES = [(1037, 1, 45), (517, 2, 130), (203, 3, 257), (1031, 31, 99),
+                (301, 32, 128), (517, 33, 61), (203, 90, 681),
+                (131, 500, 258)]
+
+
+def _routes(monkeypatch, route):
+    """Every depth on ``route`` (rbf_gram's threshold moved past it)."""
+    monkeypatch.setattr(rbfk, "CROSS_DIRECT_MAX_D",
+                        1 << 20 if route == "direct" else 0)
+
+
+def _cross_inputs(n, d, m, dtype, dev, seed=0):
+    g = np.random.default_rng(seed)
+    X = (g.normal(size=(n, d)) / np.sqrt(d)).astype(np.float32)
+    L = (g.normal(size=(m, d)) / np.sqrt(d)).astype(np.float32)
+    L[: min(5, m)] = X[: min(5, m)]
+    return (torch.from_numpy(X).to(dtype).to(dev),
+            torch.from_numpy(L).to(dev))
+
+
+@pytest.mark.parametrize("route", ["engine", "direct"])
+@pytest.mark.parametrize("dtype", [torch.float32, torch.bfloat16])
+@pytest.mark.parametrize("kind", ["rbf", "linear"])
+@pytest.mark.parametrize("shape", CROSS_SHAPES)
+def test_cross_gram_landmark_major(cuda, shape, kind, dtype, route,
+                                   monkeypatch):
+    """The featurizer's cross-Gram chunk, landmark-major, over several row
+    chunks: nystrom_phi with proj = I is k(X, L) itself (each phi entry is
+    k + exact zeros), held to the plain version in float64 (rbf |d| <=
+    1e-5 |ref| + 1e-7; linear 1e-5 of |X| @ |L|^T); the other route's
+    values equal, up to the sign of a linear kind's zero."""
+    n, d, m = shape
+    X, L = _cross_inputs(n, d, m, dtype, cuda)
+    eye = torch.eye(m, device=cuda)
+    monkeypatch.setattr(nys, "SCRATCH_WORDS", 128 * max(m, d) + 1)
+    assert nys._phi_chunk_rows(n, m, m, D=d) == 128 < n
+    _routes(monkeypatch, route)
+    got = nys.nystrom_phi(X, L, eye, sigma=0.9, kind=kind)
+    _routes(monkeypatch, "engine" if route == "direct" else "direct")
+    other = nys.nystrom_phi(X, L, eye, sigma=0.9, kind=kind)
+    torch.cuda.synchronize()
+    X64, L64 = X.double(), L.double()
+    if kind == "rbf":
+        want = ref.rbf_gram(X64, L64, 0.9)
+        assert torch.all((got.double() - want).abs()
+                         <= 1e-5 * want.abs() + 1e-7)
+        assert torch.equal(_bits(got), _bits(other))
+    else:
+        want = X64 @ L64.T
+        _within(got, want, X64.abs() @ L64.abs().T)
+        assert torch.equal(got, other)
+
+
+@pytest.mark.parametrize("route", ["engine", "direct"])
+@pytest.mark.parametrize("dtypes", [(torch.float32,) * 2,
+                                    (torch.bfloat16, torch.float32),
+                                    (torch.bfloat16,) * 2])
+@pytest.mark.parametrize("shape", CROSS_SHAPES)
+def test_cross_gram_row_major(cuda, shape, dtypes, route, monkeypatch):
+    """rbf_gram's row-major cross-Gram on each route, for each pair of
+    operand types (N2 % 4 != 0 takes 4-byte stores), against the plain
+    version in float64; both routes bitwise equal."""
+    n, d, m = shape
+    X, L = _cross_inputs(n, d, m, dtypes[0], cuda)
+    L = L.to(dtypes[1])
+    _routes(monkeypatch, route)
+    got = rbfk.rbf_gram(X, L, sigma=0.9)
+    _routes(monkeypatch, "engine" if route == "direct" else "direct")
+    other = rbfk.rbf_gram(X, L, sigma=0.9)
+    torch.cuda.synchronize()
+    want = ref.rbf_gram(X.double(), L.double(), 0.9)
+    assert torch.all((got.double() - want).abs() <= 1e-5 * want.abs() + 1e-7)
+    assert torch.equal(_bits(got), _bits(other))

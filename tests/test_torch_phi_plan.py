@@ -19,7 +19,7 @@ import torch
 
 from repro.kernels import ops as jops
 from repro_torch.kernels import nystrom_phi as nys
-from repro_torch.kernels import ref
+from repro_torch.kernels import rbf_gram, ref
 
 REL = 1e-5
 
@@ -101,6 +101,67 @@ def test_featurizer_scratch(N, m, P, kind):
     assert t["chunk"] == R and t["bias"] == 1
     assert s["sqx"].numel() == (N if kind == "rbf" else 0)
     assert s["sql"].numel() == (m if kind == "rbf" else 0)
+    # the cross-Gram's operands depth-major: the chunk's rows (D, R) with
+    # kc's stride, the landmarks (D, m rounded up to 4); both 16-byte rows
+    assert tuple(s["xt"].shape) == (2, R) and s["xt"].stride() == (R, 1)
+    assert tuple(s["lt"].shape) == (2, -(-m // 4) * 4)
+    assert s["xt"].data_ptr() % 16 == 0 and s["lt"].data_ptr() % 16 == 0
+    assert t["route"] == rbf_gram.cross_route(2)
+
+
+# (N, m, M, D): the three phases' featurizers at their depths (2, 500, 90),
+# and depths past the cross chunk's width (D > m, M), where the rows' depth-
+# major copy is the largest scratch of a chunk.
+DEPTHS = [(1_000_000, 1000, 1001, 2), (250_000, 2048, 2049, 500),
+          (463_715, 681, 682, 90), (70_001, 45, 46, 500),
+          (1037, 7, 8, 3000), (300_000, 128, 129, 1_000)]
+
+
+@pytest.mark.parametrize("N,m,M,D", DEPTHS)
+def test_phi_chunk_counts_the_depth_major_rows(N, m, M, D):
+    """nystrom_phi's chunk holds each of its scratches, the cross chunk
+    (m, R), the rows depth-major (D, R) and R rows of M, within
+    SCRATCH_WORDS; the depth changes R only where it is the widest."""
+    R = nys._phi_chunk_rows(N, m, M, D=D)
+    assert R % nys.GT == 0 and 0 < R <= -(-N // nys.GT) * nys.GT
+    for width in (m, M, D):
+        assert width * R <= max(nys.SCRATCH_WORDS, width * nys.GT)
+    assert (R == nys._phi_chunk_rows(N, m, M)) == (
+        D <= max(m, M) or R == -(-N // nys.GT) * nys.GT)
+
+
+@pytest.mark.parametrize("sms", [132, 114])
+@pytest.mark.parametrize("N,m,M,D", DEPTHS)
+def test_stats_plan_counts_the_depth_major_rows(N, m, M, D, sms):
+    """The statistic's chunk (whole splits) counts the (D, R) scratch
+    too; the split length does not depend on D, so the statistic's bits
+    do not; at the phases' depths the plan is the one without it."""
+    ntiles, rows, R = nys.stats_plan(N, m, M, sms, D=D)
+    assert (ntiles, rows) == nys.stats_plan(N, m, M, sms)[:2]
+    assert R % rows == 0 and R % nys.PROJ_ALIGN == 0
+    for width in (m, M, D):
+        assert width * R <= max(nys.SCRATCH_WORDS, width * rows)
+    if D <= max(m, M):
+        assert R == nys.stats_plan(N, m, M, sms)[2]
+
+
+@pytest.mark.parametrize("D", [1, 2, 3, 15, 16, 17, 31, 32, 33, 90, 500])
+def test_cross_route_by_depth(D):
+    """The cross-Gram's route: the direct product at or below
+    CROSS_DIRECT_MAX_D, the Gram engine's tile pass above it."""
+    route = rbf_gram.CROSS_ROUTES[rbf_gram.cross_route(D)]
+    assert route == ("direct" if D <= rbf_gram.CROSS_DIRECT_MAX_D
+                     else "engine")
+    assert rbf_gram.CROSS_ROUTES.index("engine") == 0  # csrc/rbf.cuh
+
+
+@pytest.mark.parametrize("n,D", [(1, 1), (45, 7), (681, 90), (2048, 500)])
+def test_depth_major_scratch(n, D):
+    """An (n, D) operand's depth-major scratch: (D, n rounded up to 4)
+    float32, rows 16-byte aligned."""
+    t = rbf_gram.depth_major(n, D, torch.device("cpu"))
+    assert tuple(t.shape) == (D, -(-n // 4) * 4) and t.dtype == torch.float32
+    assert t.stride(0) % 4 == 0 and t.data_ptr() % 16 == 0
 
 
 # (N, D, m, P): m % 32 != 0 and P % 4 != 0; P = 128 with the bias column

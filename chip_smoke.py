@@ -196,6 +196,65 @@ nystrom_fused_stats at 1,000,000 x 2, m = 1,000), and the Nystrom phi
 scratch at a 16-byte row stride against M (phase 7's and phase 10's
 shapes), in the order a, b, b, a.
 
+12. LIN-{EM,MC}-MLT, the paper's Table 8 at its full size
+   (benchmarks/table8_mlt.py, full=True): make_mnist8m_like(200,000, 784,
+   10), the last 40,000 rows held out, K = 785 with the bias column (the
+   Gram engine's 4-byte copies), lam_from_C(0.04) = 50, max_iters 40,
+   min_iters 25, burn-in 8. EM through the kernels and through the plain
+   path: iterations within 3, objective trace within 2e-2, held-out
+   accuracy within 0.01; the weights band of 5e-2 is measured and printed,
+   not gated, as in phase 8: two correct float32 MLT EM fits at this size
+   sit ~17 % apart in W (the flat start, where rows clamp at eps, magnifies
+   last-bit differences), so both fits' distance to a float64 EM and the
+   held-out class scores' distance are printed beside it (ROADMAP section
+   3). MC rng='host' (Table 8's) through the kernels and the plain
+   path (seeds 0 and 1), and an rng='fused' kernel fit: all converged,
+   accuracy within 0.01, posterior-mean weights within 3x the plain seed
+   spread. Every kernel fit launches its fused_stats variant M = 10 times
+   a step (a class pass each) and nothing else, within ceil(max_iters /
+   scan_chunk) host syncs; then a torch.profiler breakdown of the EM fit:
+   the device-busy share and a step by kernel, by part (row pass, Sigma,
+   Cholesky and solve, F refresh) and by host op;
+13. KRN-{EM,MC}-MLT through NystromSVM on phase 12's split, m = 400
+   landmarks, sigma 8.0 (the median pairwise distance of 2,000 training
+   rows printed beside it): rbf_gram once a fit, nystrom_phi once a step,
+   the fused_stats variant 10 times a step, nystrom_score once a predict
+   call (C = 10); against the plain path on the same featurizer, the EM
+   objective trace within 2e-2 and accuracy within 0.01 (EM and MC); the
+   weights distance and the EM's distance to a float64 EM printed;
+14. exact KRN-{EM,MC}-CLS, Table 7 (benchmarks/table7_krn.py):
+   make_circles(1,800), sigma 0.7, lam_from_C(1.0), max_iters 60, through
+   the kernels, against the plain path on the CPU (the plain path on the
+   card is run and printed: cuBLAS's float32 Sigma leaves P indefinite at
+   its first step, ROADMAP section 3): training accuracy >= 0.97 and
+   within 0.01; EM decision values within 5e-2 (and their distance to a
+   float64 EM printed) and iterations within 3; MC's first gamma_mean
+   within 1e-5 (the same draws); the Gram rows (1,800 > FUSED_STATS_MAX_K)
+   take fused_estep (EM) once a step and syrk_tri once a step, never
+   fused_stats; rbf_gram once a fit and once a predict. Then a timing
+   point at make_circles(16,384): one step at the default jitter (its
+   objective printed: NaN, P indefinite in float32 at this size), then 5
+   EM steps at jitter 1e-3 (launch counts, a finite objective, the peak
+   memory) and a step's parts timed on its own inputs (syrk_tri and
+   fused_estep beside their plain versions and bounds, the Cholesky, the
+   solve, the prior matvec).
+
+Phase 11 runs last (it holds its exact KRN fit against phase 14's) and
+also fits phase 12's LIN-EM-MLT on the 2 x 2 mesh (pad_features=2, K =
+786, 40,000 training rows, 8 iterations; the window variant 10 times a
+step; objective trace within 2e-2 and accuracy within 0.01 of the
+one-device fit, the weights band of 5e-2 printed as in phase 12) and the
+exact KRN-EM-CLS
+on a 4 x 1 mesh at N = 1,800 (padded to 1,824 rows; fused_estep and
+syrk_tri once a step on each rank, rbf_gram once a fit; decision values
+within 5e-2 of phase 14's and accuracy within 0.01). Phase 3 also holds
+the kernels at the shapes phases 12-14 give them: fused_stats (em_hinge,
+mc_hinge with noise operands and with the seed) at 160,000 x 785 in the
+well regime; nystrom_score with C = 10 at 40,000 x 784, m = 400;
+fused_estep and syrk_tri on Table 7's Gram rows (1,795 rings padded to
+1,800, the pad mask in syrk_tri's weights: the padded rows and columns of
+Sigma exactly 0); rbf_gram at (1,800 x 2)^2.
+
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
 
@@ -2635,6 +2694,686 @@ def stat_design(dev):
         torch.cuda.empty_cache()
 
 
+# ------------------------------------------- MLT and the exact KRN solver
+M_CLASSES = 10          # Table 8's classes (mnist8m)
+LAM_T8 = 50.0           # lam_from_C(0.04), benchmarks/table8_mlt.py
+LAM_T7 = 2.0            # lam_from_C(1.0), benchmarks/table7_krn.py
+KRN_JITTER = 1e-4       # SVMConfig's default jitter for exact KRN
+SLICE_NK = (160_000, 785)  # Table 8's training rows and width with bias
+
+
+@functools.lru_cache(maxsize=None)
+def mnist_split(n=200_000, k=784):
+    """Table 8 at its full size (benchmarks/table8_mlt.py, full=True):
+    make_mnist8m_like(200,000, 784, 10), the last 40,000 rows held out."""
+    from repro_torch.data import make_mnist8m_like
+    X, labels = make_mnist8m_like(n, k, M_CLASSES)
+    n_te = n // 5
+    return X[:-n_te], labels[:-n_te], X[-n_te:], labels[-n_te:]
+
+
+def t8_cfg(options, **kw):
+    """Table 8's settings (benchmarks/table8_mlt.py), ``kw`` on top."""
+    from repro_torch.core import SVMConfig
+    return SVMConfig.from_options(options, **{
+        "num_classes": M_CLASSES, "lam": LAM_T8, "max_iters": 40,
+        "min_iters": 25, "burnin": 8, **kw})
+
+
+def check_krn_pad(dev, n=1795, n_all=1800):
+    """fused_estep and syrk_tri on Table 7's padded Gram rows (1,795 rings
+    padded to 1,800: blockdiag(K, I)), the mask in syrk_tri's weights."""
+    from repro_torch.core import kernel
+    from repro_torch.kernels import fused_estep, ref, syrk
+    X, y = circles_data(n)
+    Xd = torch.from_numpy(X).to(dev)
+    G = kernel.pad_gram(kernel.gram_matrix(Xd, Xd, sigma=0.7), n_all - n)
+    t = torch.zeros(n_all, device=dev)
+    t[:n] = torch.from_numpy(y).to(dev)
+    mask = (torch.arange(n_all, device=dev) < n).float()
+    g = torch.Generator(device=dev).manual_seed(5)
+    om = torch.randn(n_all, generator=g, device=dev) * 0.05 * mask
+    m, gam, b = twice(lambda: fused_estep.fused_estep(G, t, t, om, eps=EPS))
+    want = ref.fused_estep(G.double(), t.double(), t.double(), om.double(),
+                           EPS)
+    name = f"fused_estep {n_all}x{n_all} (Table 7 Gram rows, pad mask)"
+    err_e = rows_close(name + " margin", m, want[0])
+    gamma_close(name, gam, m, want[1], want[0])
+    err_e = max(err_e, max_close(name + " b", b,
+                                 stats64(G, t, t, None, gam)[0]))
+    say(f"  ok {name}: bitwise repeatable, max |d| {err_e:.3e}")
+    wt = mask / gam
+    (S,) = twice(lambda: syrk.syrk_tri(G, wt))
+    name = f"syrk_tri {n_all}x{n_all} (Table 7 Gram rows, mask / gamma)"
+    err_s = max_close(name, S, ref.syrk_tri(G.double(), wt.double()))
+    check(not bool(torch.any(S[n:])) and not bool(torch.any(S[:, n:])),
+          f"{name}: the padded rows or columns of Sigma are not 0")
+    say(f"  ok {name}: bitwise repeatable, padded rows and columns 0, max "
+        f"|d| {err_s:.3e}")
+    return G, t, om, wt, err_e, err_s
+
+
+def gram_rows(label, G, t, om, wt, err_e, err_s):
+    """Timed rows of fused_estep and syrk_tri on an (n, n) Gram."""
+    from repro_torch.kernels import fused_estep, ref, syrk
+    n = G.shape[0]
+    ms = time_ms(lambda: fused_estep.fused_estep(G, t, t, om, eps=EPS))
+    plain = time_ms(lambda: ref.fused_estep(G, t, t, om, EPS))
+    b_ms, by = bound(4 * n * n, 4 * (n * n + 2 * n + n + 2 * n + n))
+    estep = dict(shape=[n, n], max_abs_err=err_e, ms=ms, plain_ms=plain,
+                 bound_ms=b_ms, bound_by=by, library_ms=None)
+    srow = time_gram("syrk_tri", syrk.syrk_tri, G, wt, err_s)
+    for name, row in (("fused_estep", estep), ("syrk_tri", srow)):
+        say(f"  time {name} {row['shape']} ({label}): kernel "
+            f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, library "
+            f"{row['library_ms'] if row['library_ms'] is None else round(row['library_ms'], 3)}"
+            f" ms, bound {row['bound_ms']:.3f} ms ({row['bound_by']})")
+    return estep, srow
+
+
+def phase_slice_kernels(dev):
+    """Phase 3 at the shapes phases 12-14 give the kernels: fused_stats
+    (em_hinge, mc_hinge with noise operands and with the seed) at Table 8's
+    160,000 x 785 in the well regime (rho != beta, as in a class pass);
+    nystrom_score with C = 10 at phase 13's predict shape; fused_estep and
+    syrk_tri on Table 7's padded 1,800-wide Gram rows; rbf_gram at
+    (1,800 x 2)^2. Returns each kernel's extra rows by name."""
+    from repro_torch.kernels import fused_stats
+    from repro_torch.kernels import nystrom_phi as nys
+    from repro_torch.kernels import rbf_gram, ref
+    f32 = torch.float32
+    out = {}
+    n, k = SLICE_NK
+    err, (X, rho, beta, w, _) = check_fused_stats(dev, n, k, f32, "well",
+                                                  False)
+    ms = time_ms(lambda: fused_stats.fused_stats(X, rho, beta, w, eps=EPS))
+    plain = time_ms(lambda: ref.fused_stats(X, rho, beta, w, None, EPS))
+    b_ms, by = bound(n * k * (k + 1) + 4 * n * k,
+                     4 * (n * k + 2 * n + k + 2 * n + k + k * k))
+    out["fused_stats"] = {"table8": dict(
+        shape=[n, k], max_abs_err=err, ms=ms, plain_ms=plain, bound_ms=b_ms,
+        bound_by=by, library_ms=None)}
+    del X, rho, beta, w
+    for name in ("fused_stats[mc_hinge,noise]", "fused_stats[mc_hinge,seed]"):
+        err, (X, rho, beta, w, kw) = check_mc(dev, n, k, f32, "well", False,
+                                              name)
+        ms = time_ms(lambda: fused_stats.fused_stats(
+            X, rho, beta, w, epilogue="mc_hinge", eps=EPS, **kw))
+        plain = time_ms(lambda: ref.fused_stats(
+            X, rho, beta, w, None, EPS, "mc_hinge", **kw))
+        n_noise = 2 * n if "noise" in kw else 0
+        b_ms, by = bound(n * k * (k + 1) + 4 * n * k,
+                         4 * (n * k + 2 * n + k + n_noise + 2 * n + k
+                              + k * k))
+        out[name] = {"table8": dict(shape=[n, k], max_abs_err=err, ms=ms,
+                                    plain_ms=plain, bound_ms=b_ms,
+                                    bound_by=by, library_ms=None)}
+        del X, rho, beta, w, kw
+    for name, row in out.items():
+        row = row["table8"]
+        say(f"  time {name} {row['shape']} (Table 8, well): kernel "
+            f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, bound "
+            f"{row['bound_ms']:.3f} ms ({row['bound_by']}), "
+            f"{row['bound_ms'] / row['ms']:.3f} of it")
+
+    Xtr, _, Xte, _ = mnist_split()
+    L, P = featurizer(dev, Xtr, 400, 8.0)
+    Xs = torch.from_numpy(Xte).to(dev)
+    C = M_CLASSES
+    Wc = torch.randn(P.shape[1] + 1, C, device=dev) / math.sqrt(P.shape[1])
+    err = check_score(Xs, L, P, Wc, None, 8.0, "rbf",
+                      f"nystrom_score {Xs.shape[0]}x784 m=400 C={C}")
+    ms = time_ms(lambda: nys.nystrom_score(Xs, L, P, Wc, sigma=8.0,
+                                           add_bias=True))
+    plain = time_ms(lambda: ref.nystrom_score(Xs, L, P, Wc, None, 8.0,
+                                              "rbf", True))
+    (n, d), (m, Pw) = Xs.shape, P.shape
+    Mw = Pw + 1
+    b_ms, by = bound(2 * n * m * d + 2 * n * m * Mw + 2 * n * Mw * C,
+                     4 * (n * d + m * d + m * Pw + Mw * C + n * C))
+    out["nystrom_score"] = {"table8_c10": dict(
+        shape=[n, d, m, C], max_abs_err=err, ms=ms, plain_ms=plain,
+        bound_ms=b_ms, bound_by=by, library_ms=None)}
+    say(f"  time nystrom_score [{n}, {d}, {m}, {C}] (phase 13's predict): "
+        f"kernel {ms:.3f} ms, plain {plain:.3f} ms, bound {b_ms:.3f} ms "
+        f"({by})")
+    del Xs, L, P
+
+    G, t, om, wt, err_e, err_s = check_krn_pad(dev)
+    estep, srow = gram_rows("Table 7's padded Gram", G, t, om, wt, err_e,
+                            err_s)
+    out["fused_estep"] = {"table7": estep}
+    out["syrk_tri"] = {"table7": srow}
+    Xc = torch.from_numpy(circles_data(1800)[0]).to(dev)
+    err = check_rbf(dev, Xc, Xc, 0.7, "rbf_gram 1800x1800x2 (Table 7)")
+    ms = time_ms(lambda: rbf_gram.rbf_gram(Xc, Xc, sigma=0.7))
+    plain = time_ms(lambda: ref.rbf_gram(Xc, Xc, 0.7))
+    b_ms, by = bound(2 * 1800 * 1800 * 2, 4 * (2 * 1800 * 2 + 1800 * 1800))
+    out["rbf_gram"] = {"table7": dict(shape=[1800, 1800, 2],
+                                      max_abs_err=err, ms=ms, plain_ms=plain,
+                                      bound_ms=b_ms, bound_by=by,
+                                      library_ms=None)}
+    say(f"  time rbf_gram [1800, 1800, 2] (Table 7's Gram): kernel "
+        f"{ms:.3f} ms, plain {plain:.3f} ms, bound {b_ms:.3f} ms ({by})")
+    return out
+
+
+def _mlt_fit(label, cfg, dev, data, variant=None, per_step=M_CLASSES):
+    """One MLT fit, the counts zeroed just before and read just after;
+    ``variant`` names the fused_stats variant that must launch
+    ``per_step`` times a step (a class pass each), None: the plain fit,
+    which launches nothing. Returns (the model, FitResult, held-out
+    accuracy, steps run, counts)."""
+    Xtr, ltr, Xte, lte = data
+    _zero_counts()
+    svm, res, secs = _fit(cfg, dev, Xtr, ltr)
+    counts = _counts()
+    acc, steps = _report(label, svm, res, secs, cfg, Xte, lte, counts)
+    if variant is None:
+        check(all(v == 0 for v in counts.values()),
+              f"{label}: the plain fit launched a kernel: {counts}")
+    else:
+        check(counts[variant] == per_step * steps,
+              f"{label}: {variant} launched {counts[variant]} times for "
+              f"{steps} steps run ({per_step} a step)")
+        check(all(v == 0 for name, v in counts.items() if name != variant),
+              f"{label}: launched other kernels: {counts}")
+    return svm, res, acc, steps, counts
+
+
+def mlt_em64(dev, A, labels, cfg, iters):
+    """``iters`` MLT EM sweeps from W = 0 in float64 on the card, on the
+    rows ``A`` (X with its bias column, or phi), with the solver's ridge
+    and relative jitter: the yardstick of phases 12 and 13."""
+    A = A.double()
+    lab = torch.from_numpy(np.asarray(labels, np.int64)).to(dev)
+    N, K = A.shape
+    M = cfg.num_classes
+    onehot = torch.nn.functional.one_hot(lab, M).double()
+    eye = torch.eye(K, dtype=torch.float64, device=dev)
+    W = torch.zeros(M, K, dtype=torch.float64, device=dev)
+    F = A @ W.T
+    for _ in range(iters):
+        for y in range(M):
+            Aex = F + (1.0 - onehot)
+            Aex[:, y] = -1e30
+            rho = Aex.amax(1) - (lab != y).double()
+            beta = torch.where(lab == y, 1.0, -1.0).double()
+            g = (rho - A @ W[y]).abs().clamp_min(cfg.eps)
+            Pm = (A / g[:, None]).T @ A + cfg.lam * eye
+            Pm = 0.5 * (Pm + Pm.T)
+            Pm = Pm + (cfg.jitter * torch.trace(Pm) / K) * eye
+            W[y] = torch.linalg.solve(Pm, A.T @ (rho / g + beta))
+            F[:, y] = A @ W[y]
+    return W.cpu().numpy()
+
+
+def mlt_mesh_witness(dev, data, cfg, w_mesh, w_one, iters):
+    """Phase 11's MLT mesh fit beside its one-device fit: the held-out
+    class scores' relative distance, and each fit's weights' distance
+    from a float64 EM of the same ``iters`` sweeps on the same padded
+    rows."""
+    from repro_torch.data.pipeline import pad_features_to
+    X, labels, Xte, _, _ = data
+
+    def rows(A):
+        return pad_features_to(np.concatenate(
+            [A, np.ones((A.shape[0], 1), np.float32)], 1), cfg.pad_features)
+
+    Ate = rows(Xte).astype(np.float64)
+    srel = _rel(Ate @ np.asarray(w_mesh, np.float64).T,
+                Ate @ np.asarray(w_one, np.float64).T)
+    A = torch.from_numpy(rows(X)).to(dev)
+    w64 = mlt_em64(dev, A, labels, cfg, iters).reshape(np.shape(w_one))
+    return srel, _rel(w_mesh, w64), _rel(w_one, w64)
+
+
+# kernel-name substrings -> a step's parts, for the MLT profile
+MLT_PARTS = (("row pass", ("stat_rows",)),
+             ("Sigma", ("stat_tiles", "tri_finalize")),
+             ("Cholesky and solve", ("potrf", "getrf", "trsm", "trsv",
+                                     "chol", "syrk", "getrs", "potrs")),
+             ("F refresh (gemv)", ("gemv", "gemm", "dot_kernel")))
+MLT_HOST_OPS = ("aten::linalg_cholesky_ex", "aten::cholesky_solve",
+                "aten::linalg_solve_triangular", "aten::mv",
+                "aten::index_put_", "aten::amax", "aten::where")
+
+
+def profile_mlt(cfg, dev, data):
+    """One Table 8 EM kernel fit under torch.profiler: the device-busy
+    share, a step's device time by kernel (top 10) and by part (row pass,
+    Sigma, Cholesky and solve, F refresh), and the device time of the
+    host ops that launch them."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    Xtr, ltr = data[:2]
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        _, res, secs = _fit(cfg, dev, Xtr, ltr)
+    steps = min(cfg.max_iters, -(-res.n_iters // cfg.scan_chunk)
+                * cfg.scan_chunk)
+    say_profile(prof, secs, 10, f"profile of the Table 8 EM kernels fit: "
+                f"{secs * 1e3:.1f} ms wall for {steps} steps")
+    dev_rows, host_rows = [], {}
+    for e in prof.key_averages():
+        self_ms = getattr(e, "self_device_time_total",
+                          getattr(e, "self_cuda_time_total", 0)) / 1e3
+        total_ms = getattr(e, "device_time_total",
+                           getattr(e, "cuda_time_total", 0)) / 1e3
+        if e.device_type != DeviceType.CPU:
+            dev_rows.append((e.key, self_ms))
+        elif e.key in MLT_HOST_OPS:
+            host_rows[e.key] = (total_ms, e.count)
+    parts = {name: 0.0 for name, _ in MLT_PARTS}
+    other = 0.0
+    for key, ms in dev_rows:
+        for name, subs in MLT_PARTS:
+            if any(s in key for s in subs):
+                parts[name] += ms
+                break
+        else:
+            other += ms
+    say(f"  a step by part (device ms a step over {steps} steps, "
+        f"{M_CLASSES} class passes a step): "
+        + ", ".join(f"{k} {v / steps:.3f}" for k, v in parts.items())
+        + f", other {other / steps:.3f}")
+    say("  a step by host op (device time of the kernels each launched, ms "
+        "a step; calls): " + ", ".join(
+            f"{k} {v[0] / steps:.3f} ({v[1]})" for k, v in host_rows.items()))
+
+
+def phase_mlt(dev):
+    """Phase 12: LIN-{EM,MC}-MLT, Table 8 at its full size."""
+    data = mnist_split()
+    Xtr, ltr, Xte, lte = data
+    Xw, lw = Xtr[:4096], ltr[:4096]
+    for backend in (None, "ref"):  # warm-up at K = 785
+        _fit(t8_cfg("LIN-EM-MLT", max_iters=1, min_iters=1,
+                    backend=backend), dev, Xw, lw)
+    em = t8_cfg("LIN-EM-MLT")
+    sk, rk, acc_k, st_k, c_k = _mlt_fit("EM kernels fit", em, dev, data,
+                                        "fused_stats")
+    sp, rp, acc_p, _, _ = _mlt_fit("EM plain fit", dataclasses.replace(
+        em, backend="ref"), dev, data)
+    orel = trace_rel(rk.objective, rp.objective)
+    wrel = _rel(rk.weights, rp.weights)
+    frel = _rel(sk.decision_function(Xte), sp.decision_function(Xte))
+    Xb = torch.from_numpy(np.concatenate(
+        [Xtr, np.ones((Xtr.shape[0], 1), np.float32)], 1)).to(dev)
+    w64 = mlt_em64(dev, Xb, ltr, em, rk.n_iters).reshape(rk.weights.shape)
+    del Xb
+    d_k, d_p = _rel(rk.weights, w64), _rel(rp.weights, w64)
+    say(f"  EM bands: iterations {rk.n_iters} vs plain {rp.n_iters} (<= 3 "
+        f"apart), objective rel {orel:.3e} (<= 2e-2), accuracy kernel "
+        f"{acc_k:.4f} plain {acc_p:.4f} (<= 0.01 apart); weights rel "
+        f"{wrel:.3e} (band 5e-2: "
+        f"{'met' if wrel <= 5e-2 else 'MISSED, see ROADMAP section 3'}), "
+        f"held-out class scores rel {frel:.3e} (<= 5e-2); against a float64 "
+        f"EM of {rk.n_iters} sweeps: kernel weights rel {d_k:.3e}, plain "
+        f"{d_p:.3e} (kernel <= 1.25 x plain)")
+    check(abs(rk.n_iters - rp.n_iters) <= 3 and orel <= 2e-2
+          and abs(acc_k - acc_p) <= 0.01 and frel <= 5e-2
+          and d_k <= 1.25 * d_p,
+          "the EM kernel fit is outside the bands of the plain fit")
+    mc = t8_cfg("LIN-MC-MLT")
+    _, rh, acc_h, st_h, c_h = _mlt_fit(
+        "MC kernels fit, rng='host' (Table 8)", mc, dev, data,
+        "fused_stats[mc_hinge,noise]")
+    plain = dataclasses.replace(mc, backend="ref")
+    _, rq, acc_q, _, _ = _mlt_fit("MC plain fit, rng='host', seed 0", plain,
+                                  dev, data)
+    _, rq1, _, _, _ = _mlt_fit("MC plain fit, rng='host', seed 1",
+                               dataclasses.replace(plain, seed=1), dev, data)
+    _, rf, acc_f, st_f, c_f = _mlt_fit(
+        "MC kernels fit, rng='fused'", dataclasses.replace(mc, rng="fused"),
+        dev, data, "fused_stats[mc_hinge,seed]")
+    spread = _rel(rq1.weights, rq.weights)
+    mrel = _rel(rh.weights, rq.weights)
+    say(f"  MC bands: kernel vs plain posterior-mean weights rel {mrel:.4e} "
+        f"(<= 3 x the plain seed 0 vs 1 spread, {spread:.4e}); accuracy "
+        f"kernel {acc_h:.4f} plain {acc_q:.4f} rng='fused' {acc_f:.4f} "
+        f"(each within 0.01 of the plain fit's)")
+    check(rh.converged and rq.converged and rf.converged,
+          "an MC MLT fit did not converge")
+    check(abs(acc_h - acc_q) <= 0.01 and abs(acc_f - acc_q) <= 0.01,
+          "MC MLT accuracy outside 0.01 of the plain fit")
+    check(mrel <= 3 * spread, "the MC kernel fit is outside 3x the seed "
+          "spread of the plain path")
+    profile_mlt(em, dev, data)
+    return {"fused_stats": (c_k, rk.n_iters, st_k),
+            "fused_stats[mc_hinge,noise]": (c_h, rh.n_iters, st_h),
+            "fused_stats[mc_hinge,seed]": (c_f, rf.n_iters, st_f)}
+
+
+def phase_krn_mlt(dev):
+    """Phase 13: KRN-{EM,MC}-MLT through NystromSVM on phase 12's split,
+    m = ceil(sqrt(160,000)) = 400, sigma 8.0."""
+    from repro_torch.kernels import ref
+    data = mnist_split()
+    Xtr, ltr, Xte, lte = data
+    m = math.ceil(math.sqrt(Xtr.shape[0]))
+    sub = torch.from_numpy(Xtr[:2000]).to(dev).double()
+    med = float(torch.median(torch.pdist(sub)))
+    say(f"  sigma 8.0; the median pairwise distance of 2,000 training rows "
+        f"is {med:.3f}")
+    runs = {}
+    for opts, name in (("KRN-EM-MLT", "fused_stats"),
+                       ("KRN-MC-MLT", "fused_stats[mc_hinge,noise]")):
+        cfg = t8_cfg(opts, sigma=8.0)
+        ny, res, k = _nys_fit(f"kernels fit {opts}", cfg, dev, Xtr, ltr, Xte,
+                              lte, m)
+        _, rp, p = _nys_fit(f"plain fit {opts}",
+                            dataclasses.replace(cfg, backend="ref"), dev,
+                            Xtr, ltr, Xte, lte, m, featurizer_of=ny)
+        c, steps = k["counts"], k["steps"]
+        check(c["rbf_gram"] == 1 and c["nystrom_phi"] == steps
+              and c[name] == M_CLASSES * steps,
+              f"{opts}: want rbf_gram 1, nystrom_phi {steps} and {name} "
+              f"{M_CLASSES * steps}; launched {c}")
+        check(all(v == 0 for key, v in c.items()
+                  if key not in (name, "rbf_gram", "nystrom_phi")),
+              f"{opts}: launched other kernels: {c}")
+        check(k["pred"]["nystrom_score"] == 1,
+              f"{opts}: predict did not run nystrom_score once")
+        check(all(v == 0 for v in p["counts"].values()),
+              f"{opts}: the plain fit launched a kernel")
+        acc_d = abs(k["metric"] - p["metric"])
+        line = (f"  bands {opts}: iterations {res.n_iters} vs plain "
+                f"{rp.n_iters}, accuracy diff {acc_d:.4f} (<= 0.01), weights "
+                f"rel {_rel(res.weights, rp.weights):.3e} (printed)")
+        if opts == "KRN-EM-MLT":
+            orel = trace_rel(res.objective, rp.objective)
+            L = torch.from_numpy(ny._landmarks).to(dev).double()
+            P = torch.from_numpy(ny._proj).to(dev).double()
+            Xd = torch.from_numpy(Xtr).to(dev)
+            phi = torch.cat([ref.nystrom_phi(Xd[c0:c0 + ROWS_A_CHECK].double(),
+                                             L, P, None, 8.0, "rbf", True)
+                             for c0 in range(0, Xtr.shape[0], ROWS_A_CHECK)])
+            w64 = mlt_em64(dev, phi, ltr, cfg, res.n_iters).reshape(
+                res.weights.shape)
+            del phi, Xd
+            line += (f", objective rel {orel:.3e} (<= 2e-2); against a "
+                     f"float64 EM on the same featurizer: kernel weights rel "
+                     f"{_rel(res.weights, w64):.3e}, plain "
+                     f"{_rel(rp.weights, w64):.3e} (printed)")
+            check(orel <= 2e-2, f"{opts}: objective outside 2e-2 of the "
+                  "plain fit")
+            runs["nystrom_phi"] = (c, res.n_iters, steps)
+        say(line)
+        check(acc_d <= 0.01, f"{opts}: accuracy outside 0.01 of the plain "
+              "fit")
+    return runs
+
+
+def krn_em64(dev, X, y, cfg, iters):
+    """``iters`` exact KRN EM steps from omega = 0 in float64 on the card
+    (the float64 Gram, the solver's prior lam*K and relative jitter): the
+    decision values f = K omega of phase 14's yardstick."""
+    from repro_torch.kernels import ref
+    Xd = torch.from_numpy(X).to(dev).double()
+    G = ref.rbf_gram(Xd, Xd, cfg.sigma)
+    t = torch.from_numpy(y).to(dev).double()
+    n = G.shape[0]
+    eye = torch.eye(n, dtype=torch.float64, device=dev)
+    om = torch.zeros(n, dtype=torch.float64, device=dev)
+    for _ in range(iters):
+        g = (t - G @ om).abs().clamp_min(cfg.eps)
+        P = (G / g[:, None]).T @ G + cfg.lam * G
+        P = 0.5 * (P + P.T)
+        P = P + (cfg.jitter * torch.trace(P) / n) * eye
+        om = torch.linalg.solve(P, G.T @ (t / g + t))
+    return (G @ om).cpu().numpy()
+
+
+def _factor_info(P, jitter):
+    """Cholesky info (0: factored) of P plus the solver's relative ridge,
+    factored in float32 (the reference's factor) and in float64 (the
+    port's)."""
+    n = P.shape[0]
+    out = []
+    for dt in (torch.float32, torch.float64):
+        Q = P.to(dt)
+        Q = Q + (jitter * torch.trace(Q) / n) * torch.eye(n, dtype=dt,
+                                                          device=P.device)
+        out.append(int(torch.linalg.cholesky_ex(Q)[1]))
+        del Q
+    return tuple(out)
+
+
+def krn_conditioning(dev, X, y):
+    """Table 7's first EM step (omega = 0, so gamma = 1 and S = K^T K):
+    each float32 Sigma's 2-norm distance from float64, the lowest
+    eigenvalue of P = S + lam*K beside the solver's ridge, and whether
+    P factors at the default jitter in float32 and in float64, for the
+    kernels and for the plain path on the card (cuBLAS)."""
+    from repro_torch.core import kernel
+    from repro_torch.kernels import ops
+    Xd = torch.from_numpy(X).to(dev)
+    G = kernel.gram_matrix(Xd, Xd, sigma=0.7)
+    t = torch.from_numpy(y).to(dev)
+    n = G.shape[0]
+    G64 = G.double()
+    S64 = G64.T @ G64
+    low64 = torch.linalg.eigvalsh(S64 + LAM_T7 * G64).min().item()
+    for backend in (None, "ref"):
+        S = ops.fused_stats(G, t, t, torch.zeros(n, device=dev),
+                            backend=backend)[-1]
+        P = (S + LAM_T7 * G).double()
+        P = 0.5 * (P + P.T)
+        ridge = KRN_JITTER * torch.trace(P).item() / n
+        i32, i64 = _factor_info(P, KRN_JITTER)
+        say(f"  Table 7, step 1, {'kernels' if backend is None else 'plain'}"
+            f": |S - S64|_2 {torch.linalg.matrix_norm(S.double() - S64, 2).item():.4g}"
+            f", lowest eigenvalue of P {torch.linalg.eigvalsh(P).min().item():.4g}"
+            f" (float64 {low64:.4g}) against the ridge {ridge:.4g}; "
+            f"Cholesky info float32 {i32}, float64 {i64} (0: factored)")
+
+
+def krn_factor_trace(dev, X, y, steps=20):
+    """Table 7's first ``steps`` EM steps through the kernels
+    (``kernel.krn_step``), past the fit's convergence: at each, whether
+    that step's P = lam*K + S factors at the default ridge in float32
+    (the solver's factor, as the reference's) and in float64. Printed:
+    where the float64 factor fails too, the float32 Sigma has left P
+    indefinite beyond the ridge."""
+    from repro_torch.core import kernel
+    from repro_torch.core.linear import SVMData
+    from repro_torch.kernels import ops
+    Xd = torch.from_numpy(X).to(dev)
+    G = kernel.gram_matrix(Xd, Xd, sigma=0.7)
+    t = torch.from_numpy(y).to(dev)
+    n = G.shape[0]
+    data = SVMData(G, t, torch.ones(n, device=dev))
+    om = torch.zeros(n, device=dev)
+    infos = []
+    for _ in range(steps):
+        S = ops.fused_stats(G, t, t, om, data.mask, None, eps=EPS)[-1]
+        P = S + LAM_T7 * G
+        infos.append(_factor_info(0.5 * (P + P.T), KRN_JITTER))
+        om = kernel.krn_step(data, G, om, mode="EM", lam=LAM_T7, eps=EPS,
+                             jitter=KRN_JITTER)[0]
+        if not bool(torch.isfinite(om).all()):
+            break
+    say(f"  Table 7, EM steps through the kernels past the fit's "
+        f"convergence (from step 0): {len(infos)} of {steps} run (the run "
+        f"stops where omega is not finite); P fails the float32 factor at steps "
+        f"{[i for i, (a, _) in enumerate(infos) if a]}, the float64 "
+        f"factor at {[i for i, (_, b) in enumerate(infos) if b]}")
+
+
+def phase_exact_krn(dev):
+    """Phase 14: exact KRN-{EM,MC}-CLS, Table 7 (make_circles(1,800),
+    sigma 0.7, lam_from_C(1.0), 60 iterations), then a timing point at
+    make_circles(16,384). The yardstick is the plain path on the CPU: the
+    plain path on the card forms S = K^T diag(w) K with cuBLAS, whose
+    float32 rounding at iteration 0 leaves lam*K + S indefinite beyond
+    the relative jitter's ridge, so that no factor of it exists (printed,
+    ROADMAP section 3). Returns the runs, the kernels' extra rows and the EM kernel fit's
+    decision values and accuracy on the training rows (phase 11's
+    yardstick)."""
+    from repro_torch.core import PEMSVM, SVMConfig
+    X, y = circles_data(1800)
+    krn_conditioning(dev, X, y)
+    krn_factor_trace(dev, X, y)
+    out = {}
+    ref_fit = None
+    for algo in ("EM", "MC"):
+        cfg = SVMConfig.from_options(f"KRN-{algo}-CLS", lam=LAM_T7,
+                                     sigma=0.7, max_iters=60)
+        _zero_counts()
+        svm, res, secs = _fit(cfg, dev, X, y)
+        c = _counts()
+        f = svm.decision_function(X)
+        pred = _counts()
+        acc = float(np.mean(np.where(f >= 0, 1, -1) == y))
+        _, steps = _report(f"{cfg.options} kernels fit", svm, res, secs,
+                           cfg, X, y, c)
+        t0 = time.perf_counter()
+        plain = PEMSVM(cfg, device="cpu")
+        rp = plain.fit(X, y)
+        fp = plain.decision_function(X)
+        accp = plain.score(X, y)
+        say(f"  {cfg.options} plain fit on the CPU: "
+            f"{time.perf_counter() - t0:.3f} s, {rp.n_iters} iterations, "
+            f"converged {rp.converged}, training accuracy {accp:.4f}")
+        _, rc, _ = _fit(dataclasses.replace(cfg, backend="ref"), dev, X, y)
+        say(f"  {cfg.options} plain fit on the card (printed): "
+            f"{rc.n_iters} iterations, converged {rc.converged}, weights "
+            f"finite {bool(np.all(np.isfinite(rc.weights)))}, first "
+            f"objective {rc.objective[0]:.6g}")
+        want = {"syrk_tri": steps, "rbf_gram": 1,
+                "fused_estep": steps if algo == "EM" else 0}
+        check(all(c[key] == v for key, v in want.items())
+              and all(v == 0 for key, v in c.items() if key not in want),
+              f"{cfg.options}: want {want}, launched {c}")
+        check(pred["rbf_gram"] == 2, f"{cfg.options}: predict did not run "
+              f"rbf_gram once ({pred['rbf_gram'] - 1})")
+        line = (f"  bands {cfg.options}: training accuracy kernel {acc:.4f} "
+                f"plain {accp:.4f} (>= 0.97, within 0.01), iterations "
+                f"{res.n_iters} vs {rp.n_iters}")
+        check(acc >= 0.97 and abs(acc - accp) <= 0.01,
+              f"{cfg.options}: training accuracy {acc:.4f} (plain "
+              f"{accp:.4f})")
+        if algo == "EM":
+            frel = _rel(f, fp)
+            f64 = krn_em64(dev, X, y, cfg, res.n_iters)
+            line += (f" (<= 3 apart), decision values rel {frel:.3e} "
+                     f"(<= 5e-2); against a float64 EM of {res.n_iters} "
+                     f"steps: kernel {_rel(f, f64):.3e}, plain "
+                     f"{_rel(fp, f64):.3e} (printed)")
+            check(res.converged and abs(res.n_iters - rp.n_iters) <= 3
+                  and frel <= 5e-2, f"{cfg.options}: outside the EM bands")
+            out["fused_estep"] = (c, res.n_iters, steps)
+            ref_fit = (f, acc)
+        else:
+            g0, gp0 = res.aux_history["gamma_mean"][0], rp.aux_history[
+                "gamma_mean"][0]
+            grel = abs(g0 - gp0) / abs(gp0)
+            line += (f", first gamma_mean {g0:.7g} vs {gp0:.7g} (rel "
+                     f"{grel:.3e} <= 1e-5)")
+            check(grel <= 1e-5, f"{cfg.options}: first gamma_mean differs")
+        say(line)
+    return out, krn_timing_point(dev), ref_fit
+
+
+def krn_timing_point(dev, n=16_384, iters=5, timing_jitter=1e-3):
+    """The exact solver at make_circles(16,384) (a 1 GiB Gram). First at
+    the default jitter: step 1's P from each path's float32 Sigma, and
+    whether it factors at the default ridge in float32 (the solver's
+    factor, as the reference's) and in float64; then 5 EM steps, gated on
+    their launch counts. Their objective is printed, not gated: the
+    float32 Sigma leaves P indefinite beyond the default ridge at this
+    size, and the reference's own step does the same from N = 8,192
+    (tests/test_torch_krn.py::test_default_jitter_fails_like_the_
+    reference; ROADMAP section 3). Then the timing run, 5 steps at
+    ``timing_jitter``, where P factors: launch counts and a finite
+    objective gated, the peak device memory, and a step's parts timed on
+    its own inputs (syrk_tri, fused_estep, the 16,384^2 Cholesky, the
+    prior matvec) beside their plain versions and bounds."""
+    from repro_torch.core import SVMConfig, kernel
+    from repro_torch.kernels import ops, ref
+    X, y = circles_data(n, 3)
+    base = SVMConfig.from_options("KRN-EM-CLS", lam=LAM_T7, sigma=0.7,
+                                  max_iters=iters, min_iters=iters)
+    check(base.jitter == KRN_JITTER, f"the default KRN jitter is "
+          f"{base.jitter}")
+    Xd = torch.from_numpy(X).to(dev)
+    G = kernel.gram_matrix(Xd, Xd, sigma=0.7)
+    t = torch.from_numpy(y).to(dev)
+    for backend in (None, "ref"):
+        S = ops.fused_stats(G, t, t, torch.zeros(n, device=dev),
+                            backend=backend)[-1]
+        P = S + base.lam * G
+        P = 0.5 * (P + P.T)
+        del S
+        i32, i64 = _factor_info(P, base.jitter)
+        say(f"  N = {n}, step 1, {'kernels' if backend is None else 'plain'}"
+            f": Cholesky info at the ridge of jitter {base.jitter:g}: "
+            f"float32 {i32}, float64 {i64} (0: factored)")
+    del G, P
+
+    def launched(label):
+        c = _counts()
+        check(c["fused_estep"] == iters and c["syrk_tri"] == iters
+              and c["rbf_gram"] == 1 and all(
+                  v == 0 for key, v in c.items()
+                  if key not in ("fused_estep", "syrk_tri", "rbf_gram")),
+              f"the N = {n} fit {label} launched {c}")
+        return c
+
+    _zero_counts()
+    _, r0, _ = _fit(base, dev, X, y)
+    launched("at the default jitter")
+    say(f"  N = {n}, {iters} EM steps at the default jitter "
+        f"{base.jitter:g}: objectives {[float(f'{v:.6g}') for v in r0.objective]}"
+        f" (finite {bool(np.all(np.isfinite(r0.objective)))}; the finite "
+        "gate is not held at this jitter: ROADMAP section 3)")
+    cfg = dataclasses.replace(base, jitter=timing_jitter)
+    _zero_counts()
+    torch.cuda.reset_peak_memory_stats()
+    svm, res, secs = _fit(cfg, dev, X, y)
+    mem = torch.cuda.max_memory_allocated()
+    c = launched(f"at jitter {timing_jitter:g}")
+    check(bool(np.all(np.isfinite(res.objective))),
+          f"the N = {n} fit's objective at jitter {timing_jitter:g} is not "
+          "finite")
+    say(f"  N = {n}, the timing run at jitter {timing_jitter:g}: {secs:.3f} s "
+        f"for {iters} EM steps ({secs / iters * 1e3:.1f} ms a step, the Gram "
+        f"included), objective {res.objective[-1]:.4e}, peak device memory "
+        f"{mem / 2**20:.0f} MiB, launches {c}")
+    Xd = torch.from_numpy(X).to(dev)
+    G = kernel.gram_matrix(Xd, Xd, sigma=0.7)
+    t = torch.from_numpy(y).to(dev)
+    om = torch.from_numpy(res.last_sample).to(dev)
+    from repro_torch.kernels import fused_estep
+    m, gam, b = fused_estep.fused_estep(G, t, t, om, eps=EPS)
+    want = ref.fused_estep(G.double(), t.double(), t.double(), om.double(),
+                           EPS)
+    err_e = rows_close(f"fused_estep {n}x{n} margin", m, want[0])
+    gamma_close(f"fused_estep {n}x{n}", gam, m, want[1], want[0])
+    del want
+    wt = 1.0 / gam
+    from repro_torch.kernels import syrk
+    S = syrk.syrk_tri(G, wt)
+    err_s = max_close(f"syrk_tri {n}x{n}", S,
+                      ref.syrk_tri(G.double(), wt.double()))
+    estep, srow = gram_rows(f"the N = {n} Gram", G, t, om, wt, err_e, err_s)
+    P = S + cfg.lam * G
+    P = 0.5 * (P + P.T)
+    K = G.shape[0]
+    P = P + (cfg.jitter * torch.trace(P) / K) * torch.eye(K, device=dev)
+    chol = time_ms(lambda: torch.linalg.cholesky_ex(P), reps=3, warmup=1)
+    L = torch.linalg.cholesky_ex(P)[0]
+    solve = time_ms(lambda: torch.cholesky_solve(b[:, None], L), reps=3,
+                    warmup=1)
+    mv = time_ms(lambda: G @ om)
+    say(f"  a step at N = {n} by part (ms): syrk_tri {srow['ms']:.3f}, "
+        f"fused_estep {estep['ms']:.3f}, Cholesky {chol:.3f}, cholesky_solve "
+        f"{solve:.3f}, prior matvec K omega {mv:.3f}")
+    return {"syrk_tri": {"n16384": srow},
+            "fused_estep": {"n16384": estep}}
+
+
 # ------------------------------------------------------- the mesh fits
 MESH_TIMEOUT = 600  # seconds a collective may wait before the ranks fail
 
@@ -2676,16 +3415,22 @@ def _mesh_fit(label, make, X, y, Xte, yte, cfg, live=None):
     counts = _counts()
     steps = min(cfg.max_iters, -(-res.n_iters // cfg.scan_chunk)
                 * cfg.scan_chunk)
+    # the exact KRN model's decision values on its training rows
+    f = (svm.decision_function(X)
+         if getattr(svm, "_train_X", None) is not None else None)
     return dict(label=label, weights=res.weights, objective=res.objective,
                 n_iters=res.n_iters, converged=res.converged, steps=steps,
                 secs=secs, counts=counts, metric=_metric(svm, cfg, Xte,
-                                                         yte)[1])
+                                                         yte)[1], f=f)
 
 
 def mesh_specs(featurizer_path):
-    """The fits of the multi-rank phase: (name, mesh shape, what it
-    runs). The first three are the main path; the short k-shard fits after
-    them run each other window variant once a step."""
+    """The fits of the multi-rank phase: (name, mesh shape, data, config,
+    launches: a variant that must run once a step, or {kernel: (a step, a
+    fit)}). The first three are the main path; the short k-shard fits
+    after them run each other window variant once a step; the last two
+    are phase 12's LIN-EM-MLT on 2 x 2 (the window variant M times a step)
+    and phase 14's exact KRN-EM-CLS on 4 x 1."""
     from repro_torch.core import SVMConfig, lam_from_C
     lin = dict(lam=lam_from_C(1.0), max_iters=100)
     short = dict(max_iters=4, min_iters=4)
@@ -2729,6 +3474,13 @@ def mesh_specs(featurizer_path):
         ("KRN-MC-CLS 2x2 host", (2, 2), "krn_cls", SVMConfig.from_options(
             "KRN-MC-CLS", **dict(krn, **short)),
          "nystrom_fused_stats[mc_hinge,noise,window]"),
+        ("LIN-EM-MLT 2x2", (2, 2), "mnist40k", t8_cfg(
+            "LIN-EM-MLT", pad_features=2, k_shard_axis="k", max_iters=8,
+            min_iters=8), {"fused_stats[em_hinge,window]": (M_CLASSES, 0)}),
+        ("KRN-EM-CLS 4x1 exact", (4, 1), "circles1800",
+         SVMConfig.from_options("KRN-EM-CLS", lam=LAM_T7, sigma=0.7,
+                                max_iters=60),
+         {"fused_estep": (1, 0), "syrk_tri": (1, 0), "rbf_gram": (0, 1)}),
     ]
 
 
@@ -2736,7 +3488,14 @@ def _mesh_data(kind, featurizer_path):
     """(X, y, X held out, y held out, featurizer or None) of a mesh fit:
     the alpha-like split of phases 4 and 6, the year split of phases 9 and
     10 (KRN: phase 10's featurizer; KRN-CLS: the year rows labelled by the
-    sign of their target)."""
+    sign of their target), 40,000 of phase 12's training rows with its
+    held-out rows, Table 7's rings (scored on the training rows)."""
+    if kind == "mnist40k":
+        Xtr, ltr, Xte, lte = mnist_split()
+        return Xtr[:40_000], ltr[:40_000], Xte, lte, None
+    if kind == "circles1800":
+        X, y = circles_data(1800)
+        return X, y, X, y, None
     if kind == "alpha":
         X, y = alpha_data()
         return X[:250_000], y[:250_000], X[250_000:], y[250_000:], None
@@ -2833,14 +3592,16 @@ def _spawn(fn, nprocs, prefix, *args):
         shutil.rmtree(outdir, ignore_errors=True)
 
 
-def phase_mesh(dev, krn_ref, mc_ref):
+def phase_mesh(dev, krn_ref, mc_ref, exact_ref):
     """Phase 11: the multi-device fit. Four gloo ranks on cuda:0 (one
     card is enough; NCCL refuses two ranks on one device), every kernel
     on the card at the window each rank computes; a one-rank NCCL group;
     fit 1 under NCCL, one rank a card, when two or more cards are
     visible.
     ``krn_ref`` is phase 10's KRN-EM-SVR kernel fit (its featurizer and
-    result), ``mc_ref`` phase 6's rng='fused' fits and seed spread."""
+    result), ``mc_ref`` phase 6's rng='fused' fits and seed spread,
+    ``exact_ref`` phase 14's exact KRN-EM-CLS kernel fit (decision values
+    and accuracy on the training rows)."""
     import shutil
     import tempfile
     from repro_torch.core import PEMSVM
@@ -2855,12 +3616,20 @@ def phase_mesh(dev, krn_ref, mc_ref):
         one = _mesh_fit("one device", functools.partial(
             PEMSVM, dataclasses.replace(cfg1, k_shard_axis=None),
             device=dev), *_mesh_data(kind1, feat)[:4], cfg1)
+        # the MLT fit's one-device yardstick, the same settings
+        name_m, _, kind_m, cfg_m, _ = next(
+            sp for sp in specs if sp[0].startswith("LIN-EM-MLT"))
+        one_mlt = _mesh_fit("one device", functools.partial(
+            PEMSVM, dataclasses.replace(cfg_m, k_shard_axis=None),
+            device=dev), *_mesh_data(kind_m, feat)[:4], cfg_m)
         t0 = time.perf_counter()
         ranks = _spawn(_rank_main, 4, "rank", feat)
         say(f"  4 gloo ranks on cuda:0: {time.perf_counter() - t0:.1f} s "
             "with start-up")
         runs = {}
         for j, (name, shape, kind, cfg, variant) in enumerate(specs):
+            want = (variant if isinstance(variant, dict)
+                    else {variant: (1, 0)})
             recs = [r[j] for r in ranks]
             for r in recs[1:]:
                 check(np.array_equal(r["weights"], recs[0]["weights"])
@@ -2868,9 +3637,12 @@ def phase_mesh(dev, krn_ref, mc_ref):
                       f"{name}: the ranks' weights or traces differ")
             for r in recs:
                 c = r["counts"]
-                check(c[variant] == r["steps"], f"{name}: {variant} launched "
-                      f"{c[variant]} times for {r['steps']} steps run")
-                check(all(v == 0 for key, v in c.items() if key != variant),
+                for key, (a_step, a_fit) in want.items():
+                    check(c[key] == a_step * r["steps"] + a_fit,
+                          f"{name}: {key} launched {c[key]} times for "
+                          f"{r['steps']} steps run ({a_step} a step, "
+                          f"{a_fit} a fit)")
+                check(all(v == 0 for key, v in c.items() if key not in want),
                       f"{name}: launched other kernels: {c}")
                 check(bool(np.all(np.isfinite(r["weights"]))),
                       f"{name}: non-finite weights")
@@ -2880,9 +3652,10 @@ def phase_mesh(dev, krn_ref, mc_ref):
                 f"{r['secs'] / r['steps'] * 1e3:.2f} ms a step), converged "
                 f"{r['converged']}, held-out "
                 f"{'RMSE' if cfg.task == 'SVR' else 'accuracy'} "
-                f"{r['metric']:.4f}, ranks bitwise equal, {variant} "
-                f"{r['counts'][variant]} a rank")
-            if variant.endswith(",window]"):  # summed over the four ranks
+                f"{r['metric']:.4f}, ranks bitwise equal, launches a rank "
+                f"{ {key: r['counts'][key] for key in want} }")
+            if isinstance(variant, str) and variant.endswith(",window]"):
+                # summed over the four ranks
                 runs[variant] = ({variant: sum(x["counts"][variant]
                                                for x in recs)},
                                  r["n_iters"], r["steps"])
@@ -2922,6 +3695,35 @@ def phase_mesh(dev, krn_ref, mc_ref):
                     f"{_rel(r['weights'], r10.weights):.3e} (printed)")
                 check(r["converged"] and abs(r["metric"] - rmse10) <= 0.01
                       and orel <= 2e-2, f"{name}: outside phase 10's bands")
+            elif name == name_m:
+                wrel = _rel(r["weights"], one_mlt["weights"])
+                orel = trace_rel(r["objective"], one_mlt["objective"])
+                srel, d_mesh, d_one = mlt_mesh_witness(
+                    dev, _mesh_data(kind_m, feat), cfg_m, r["weights"],
+                    one_mlt["weights"], r["n_iters"])
+                say(f"  bands {name} against one device (pad_features=2, "
+                    f"accuracy {one_mlt['metric']:.4f}): objective rel "
+                    f"{orel:.3e} (<= 2e-2), accuracy diff "
+                    f"{abs(r['metric'] - one_mlt['metric']):.4f} (<= 0.01), "
+                    f"held-out class scores rel {srel:.3e} (<= 5e-2); "
+                    f"against a float64 EM of {r['n_iters']} sweeps: mesh "
+                    f"weights rel {d_mesh:.3e}, one device {d_one:.3e} "
+                    f"(mesh <= 1.5 x one device); weights rel {wrel:.3e} "
+                    f"(band 5e-2: "
+                    f"{'met' if wrel <= 5e-2 else 'MISSED, see ROADMAP section 3'})")
+                check(orel <= 2e-2
+                      and abs(r["metric"] - one_mlt["metric"]) <= 0.01
+                      and srel <= 5e-2 and d_mesh <= 1.5 * d_one,
+                      f"{name}: outside the bands of the one-device fit")
+            elif name.startswith("KRN-EM-CLS 4x1"):
+                f14, acc14 = exact_ref
+                frel = _rel(r["f"], f14)
+                say(f"  bands {name} against phase 14's one-device kernel "
+                    f"fit: decision values rel {frel:.3e} (<= 5e-2), "
+                    f"training accuracy {r['metric']:.4f} vs {acc14:.4f} "
+                    f"(<= 0.01 apart)")
+                check(frel <= 5e-2 and abs(r["metric"] - acc14) <= 0.01,
+                      f"{name}: outside phase 14's bands")
         one, on = _spawn(_nccl_one_rank, 1, "nccl")[0]
         check(np.array_equal(one["weights"], on["weights"])
               and one["objective"] == on["objective"],
@@ -3011,6 +3813,8 @@ def main() -> int:
     cross_design(dev)
     rows.update(phase_window_kernels(dev))
     stat_design(dev)
+    for name, extra in phase_slice_kernels(dev).items():
+        rows[name].update(extra)
     say("== 4. main path, K <= 1536: LIN-EM-CLS on alpha-like 250,000 x 501")
     it4, st4, c4 = phase_main_path(dev)
     say("== 5. main path, K > 1536: LIN-EM-CLS at K = 2,048")
@@ -3033,9 +3837,19 @@ def main() -> int:
         "m = 681: the fused route")
     krn_svr_runs, krn_ref = phase_krn_svr(dev)
     runs.update(krn_svr_runs)
+    say("== 12. LIN-{EM,MC}-MLT (Table 8) on mnist8m-like 160,000 x 785 "
+        "(40,000 held out), M = 10")
+    phase_mlt(dev)
+    say("== 13. KRN-{EM,MC}-MLT (NystromSVM) on phase 12's split, m = 400")
+    phase_krn_mlt(dev)
+    say("== 14. exact KRN-{EM,MC}-CLS (Table 7) on make_circles(1,800); "
+        "a timing point at 16,384")
+    _, krn_rows, exact_ref = phase_exact_krn(dev)
+    for name, extra in krn_rows.items():
+        rows[name].update(extra)
     say("== 11. the multi-device fit: a 2 x 2 (data x k) mesh and a 4 x 1 "
         "one, four gloo ranks on cuda:0; a one-rank NCCL group")
-    runs.update(phase_mesh(dev, krn_ref, mc_ref))
+    runs.update(phase_mesh(dev, krn_ref, mc_ref, exact_ref))
     runs["weighted_gram"] = (gram_counts, 0, 0)
     say(f"== done in {time.perf_counter() - t0:.1f} s")
     kernels = []

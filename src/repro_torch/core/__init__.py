@@ -1,5 +1,7 @@
-"""The solver facade: SVMConfig / PEMSVM / FitResult and lam_from_C, and
-the Nystrom kernel SVM (NystromSVM, PhiSpec)."""
+"""The solver facade: SVMConfig / PEMSVM / FitResult and lam_from_C, the
+Nystrom kernel SVM (NystromSVM, PhiSpec), and the multiclass and exact-Gram
+kernel modules PEMSVM steps through (``multiclass``, ``kernel``)."""
+from . import kernel, multiclass  # noqa: F401
 from .linear import PhiSpec, SVMData  # noqa: F401
 from .nystrom import (NystromSVM, nystrom_features,  # noqa: F401
                       nystrom_projection)

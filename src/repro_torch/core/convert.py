@@ -34,18 +34,40 @@ def config_from_reference(fields: dict) -> SVMConfig:
 
 
 def svm_from_reference(config: SVMConfig, weights: np.ndarray,
-                       n_features: int, device=None) -> PEMSVM:
-    """A fitted port model from a reference fit's ``FitResult.weights``
-    (a LIN CLS or SVR fit): its decision_function / predict / score (and
-    rmse for SVR) give the reference model's results. ``n_features`` is the raw width D of a request row."""
+                       n_features: int, device=None,
+                       train_X: np.ndarray | None = None) -> PEMSVM:
+    """A fitted port model from a reference fit's ``FitResult.weights``:
+    its decision_function / predict / score (and rmse for SVR) give the
+    reference model's results. ``n_features`` is the raw width D of a
+    request row. A LIN model takes (K,) weights, or (M, K) for MLT, with
+    K = D + add_bias; an exact KRN model takes its dual weights (N_pad,)
+    and its (N, D) training rows ``train_X`` (the reference's
+    ``_train_X``), N <= N_pad."""
     w = np.asarray(weights, np.float32)
-    want = n_features + int(config.add_bias)
-    if w.shape != (want,):
-        raise ValueError(f"weights of shape {w.shape}; a LIN model of "
-                         f"{n_features} features needs ({want},)")
+    if config.formulation == "KRN":
+        if train_X is None:
+            raise ValueError("an exact KRN model needs its training rows "
+                             "(train_X)")
+        train_X = np.asarray(train_X, np.float32)
+        if (train_X.ndim != 2 or train_X.shape[1] != n_features
+                or w.ndim != 1 or w.shape[0] < train_X.shape[0]):
+            raise ValueError(
+                f"dual weights of shape {w.shape} and training rows of "
+                f"shape {train_X.shape}; a KRN model of {n_features} "
+                "features needs (N_pad,) weights with N_pad >= N and "
+                f"(N, {n_features}) rows")
+    else:
+        K = n_features + int(config.add_bias)
+        want = (config.num_classes, K) if config.task == "MLT" else (K,)
+        if w.shape != want:
+            raise ValueError(f"weights of shape {w.shape}; a LIN "
+                             f"{config.task} model of {n_features} "
+                             f"features needs {want}")
     svm = PEMSVM(config, device=device)
     svm._weights = torch.tensor(w, device=svm.device)
     svm._n_features = n_features
+    if train_X is not None:
+        svm._train_X = torch.tensor(train_X, device=svm.device)
     return svm
 
 
@@ -54,17 +76,22 @@ def nystrom_from_reference(fields: dict, landmarks: np.ndarray,
                            device=None, **kw) -> NystromSVM:
     """A fitted port NystromSVM from a reference one: its KRN config's
     ``dataclasses.asdict`` (``fields``), its featurizer (``_landmarks``
-    (m, D), ``_proj`` (m, P)) and ``FitResult.weights`` (P + 1,), all
-    numpy. ``kw`` goes to NystromSVM (``seed``, ``spectral_floor``)."""
+    (m, D), ``_proj`` (m, P)) and ``FitResult.weights`` (P + 1,), or
+    (M, P + 1) for MLT, all numpy. ``kw`` goes to NystromSVM (``seed``,
+    ``spectral_floor``)."""
     landmarks = np.asarray(landmarks, np.float32)
     proj = np.asarray(proj, np.float32)
     w = np.asarray(weights, np.float32)
-    if w.shape != (proj.shape[1] + 1,):
-        raise ValueError(f"weights of shape {w.shape}; a Nystrom model with "
-                         f"a ({proj.shape}) projection needs "
-                         f"({proj.shape[1] + 1},)")
-    ny = NystromSVM(config_from_reference(fields),
-                    n_landmarks=landmarks.shape[0], device=device, **kw)
+    config = config_from_reference(fields)
+    width = proj.shape[1] + 1
+    want = ((config.num_classes, width) if config.task == "MLT"
+            else (width,))
+    if w.shape != want:
+        raise ValueError(f"weights of shape {w.shape}; a Nystrom "
+                         f"{config.task} model with a {proj.shape} "
+                         f"projection needs {want}")
+    ny = NystromSVM(config, n_landmarks=landmarks.shape[0], device=device,
+                    **kw)
     ny._install_featurizer(landmarks, proj)
     ny.svm._weights = torch.tensor(w, device=ny.svm.device)
     ny.svm._n_features = landmarks.shape[1]

@@ -13,16 +13,18 @@ main route. The default is m = ceil(sqrt(N)) landmarks.
 Host work is one-time: the landmark choice and the K_mm^{-1/2}
 eigendecomposition (float64, with a spectral floor), cached on the model.
 
-The delegate carries the task: KRN-{EM,MC}-CLS and KRN-{EM,MC}-SVR (the
-phi-space SVR statistic under the em_svr / mc_svr epilogues), and the
-mesh: with ``mesh`` every rank draws the same landmarks from the same host
+The delegate carries the task: KRN-{EM,MC}-CLS, KRN-{EM,MC}-SVR (the
+phi-space SVR statistic under the em_svr / mc_svr epilogues) and
+KRN-{EM,MC}-MLT (the Crammer-Singer sweep on phi: one ``nystrom_phi`` a
+step, then M ``fused_stats`` passes; ``nystrom_score`` with the M class
+columns to predict), and the mesh: with ``mesh`` every rank draws the same landmarks from the same host
 rows and computes the same projection (replicated), and the delegate fits
 in phi-space on the mesh, a ``k_shard_axis`` splitting the phi columns of
 Sigma.
 
 Not ported yet: ``fit_libsvm`` (ROADMAP queue 1 item 8),
-``export_servable``/``scorer`` (item 12), ``resume_from``/``warm_start``
-(item 11), and the MLT task of the delegate (item 7).
+``export_servable``/``scorer`` (item 12) and ``resume_from``/``warm_start``
+(item 11).
 """
 from __future__ import annotations
 
@@ -79,7 +81,7 @@ def _host_phi(X, landmarks, proj, kind, sigma, backend, device):
 
 
 class NystromSVM:
-    """KRN-{EM,MC}-{CLS,SVR} through Nystrom features and the linear
+    """KRN-{EM,MC}-{CLS,MLT,SVR} through Nystrom features and the linear
     solver, on ``cuda:0`` unless ``device`` says otherwise."""
 
     def __init__(self, config: SVMConfig, n_landmarks: int | None = None,
@@ -187,5 +189,6 @@ class NystromSVM:
         return self.svm.rmse(np.asarray(X, np.float32), y)
 
     def score(self, X: np.ndarray, y: np.ndarray) -> float:
-        """Accuracy (CLS) or the negated RMSE (SVR): higher is better."""
+        """Accuracy (CLS, MLT) or the negated RMSE (SVR): higher is
+        better."""
         return self.svm.score(np.asarray(X, np.float32), y)

@@ -1,5 +1,5 @@
-"""Objectives and metrics of the CLS and SVR tasks: port of
-``repro/core/objective.py``.
+"""Objectives and metrics of every task (CLS, MLT, SVR; LIN and the exact
+KRN prior): port of ``repro/core/objective.py``.
 
 The paper's stopping rule (Sec 5.5) monitors the regularized-risk
 objective each iteration and stops when its change falls to tol*N.
@@ -24,9 +24,30 @@ def svr_obj_terms(pred: torch.Tensor, y: torch.Tensor, eps_ins: float,
         torch.abs(y - pred) - eps_ins, 0.0))
 
 
+def cs_obj_terms(scores: torch.Tensor, labels: torch.Tensor,
+                 mask: torch.Tensor) -> torch.Tensor:
+    """Crammer-Singer loss sum_d 2*max_y(Delta_d(y) - Delta f_d(y)) over
+    valid rows (paper Eq. 30). scores (N, M) f_d(y), labels (N,) integer
+    class ids, Delta the 0/1 cost."""
+    M = scores.shape[1]
+    onehot = torch.eye(M, dtype=scores.dtype,
+                       device=scores.device)[labels.long()]
+    delta = 1.0 - onehot
+    true_score = torch.sum(scores * onehot, dim=1)
+    worst = torch.amax(scores + delta, dim=1)
+    return torch.sum(mask * 2.0 * torch.clamp_min(worst - true_score, 0.0))
+
+
 def l2_reg(w: torch.Tensor, lam: float) -> torch.Tensor:
-    """0.5 * lam * ||w||_2^2."""
+    """0.5 * lam * ||w||_2^2 (a multiclass W flattens)."""
     return 0.5 * lam * torch.sum(torch.square(w))
+
+
+def kernel_reg(omega: torch.Tensor, K_omega: torch.Tensor,
+               lam: float) -> torch.Tensor:
+    """0.5 * lam * omega^T K omega (paper Eq. 15), from the product
+    K omega the caller has already formed."""
+    return 0.5 * lam * torch.dot(omega, K_omega)
 
 
 def accuracy(pred_labels: torch.Tensor, labels: torch.Tensor,

@@ -1,7 +1,8 @@
-"""PEMSVM driver: port of ``repro/core/solver.py`` for LIN-{EM,MC}-CLS and
-LIN-{EM,MC}-SVR, with the ``scan`` (default) and ``loop`` drivers, in
-X-space or (``phi_spec``, the delegate of ``NystromSVM``) in Nystrom
-phi-space, on one device or on a device mesh.
+"""PEMSVM driver: port of ``repro/core/solver.py`` for the paper's option
+strings LIN-{EM,MC}-{CLS,MLT,SVR} and the exact-Gram KRN-{EM,MC}-CLS, with
+the ``scan`` (default) and ``loop`` drivers, in X-space or (``phi_spec``,
+the delegate of ``NystromSVM``) in Nystrom phi-space, on one device or on
+a device mesh.
 
 The run protocol is the paper's: the objective is evaluated every
 iteration and the fit stops when its change falls to tol*N (Sec 5.5);
@@ -9,7 +10,10 @@ gamma is clamped for support vectors (Sec 5.7.3); the bias is a fixed unit
 feature (Sec 2.1). MC fits walk the reference's key chain
 (``prng.PRNGKey(seed)``, one ``split`` an iteration), average the samples
 after ``burnin`` into the posterior mean, and with ``n_chains > 1`` run C
-chains over one X stream.
+chains over one X stream. MLT (Crammer-Singer, Sec 3.3) carries an (M, K)
+state and sweeps the classes (``core/multiclass.py``); the exact KRN
+solver (Sec 3.1) fits the dual weights on the padded Gram matrix of the
+training rows, which it keeps for prediction (``core/kernel.py``).
 
 ``PEMSVM(config)`` runs on ``cuda:0`` and its statistic goes through the
 hand-written kernels (``kernels/ops.py``); ``device="cpu"`` runs the plain
@@ -17,10 +21,11 @@ PyTorch path. With ``mesh`` (a ``torch.distributed`` DeviceMesh with
 ``mesh_dim_names``) every rank fits its row block of the data axes and
 the statistics are summed over them, the paper's Fig. 1; a
 ``config.k_shard_axis`` splits Sigma's columns over that axis (the 2-D
-statistic). ``SVMConfig`` carries every field of the reference, so a
-reference config converts field for field (``core/convert.py``); the
-options this port does not carry yet raise ``NotImplementedError`` naming
-the ROADMAP item that brings them.
+statistic; the exact KRN fit shards the Gram's rows over the data axes).
+``SVMConfig`` carries every field of the reference, so a reference config
+converts field for field (``core/convert.py``); the options this port
+does not carry yet raise ``NotImplementedError`` naming the ROADMAP item
+that brings them.
 """
 from __future__ import annotations
 
@@ -34,7 +39,7 @@ import torch
 
 from repro_torch.data.pipeline import pad_features_to
 from repro_torch.kernels import ops
-from . import distributed, linear, prng, svr
+from . import distributed, kernel, linear, multiclass, prng, svr
 from .linear import SVMData
 
 FORMULATIONS = ("LIN", "KRN")
@@ -171,10 +176,6 @@ def _unsupported(cfg: SVMConfig) -> list[str]:
     """What ``cfg`` sets outside this slice, each with the ROADMAP queue-1
     item that brings it."""
     checks = [
-        ("formulation", cfg.formulation != "LIN",
-         "item 9 (the exact-Gram KRN solver; kernel models fit through "
-         "NystromSVM)"),
-        ("task", cfg.task == "MLT", "item 7 (MLT)"),
         ("driver", cfg.driver == "stream", "item 8 (streaming and data)"),
         ("fault", cfg.fault is not None, "item 11 (reliability)"),
         ("decay", cfg.decay != 0.0, "item 8 (streaming and data)"),
@@ -193,6 +194,28 @@ _FIT_KEYWORDS = {
 }
 
 
+def _check_krn(cfg: SVMConfig) -> None:
+    """The exact-Gram KRN solver's limits, the reference's: the host key
+    chain only, binary classification only, and no stream driver (the
+    N x N Gram statistic is not additive over row chunks). NystromSVM
+    covers the rest in phi-space."""
+    if cfg.rng != "host":
+        raise ValueError(
+            f"rng={cfg.rng!r} needs the fused LIN statistics; the "
+            "exact-Gram KRN step has no counter plumbing; use NystromSVM "
+            "for kernel models")
+    if cfg.task != "CLS":
+        raise NotImplementedError(
+            "the paper's exact KRN solver covers binary classification "
+            f"only; NystromSVM serves KRN {cfg.task} through the phi-space "
+            "route")
+    if cfg.driver == "stream":
+        raise NotImplementedError(
+            "driver='stream' cannot use the exact N x N Gram statistic "
+            "(not row-chunk-additive); use NystromSVM, whose phi-space "
+            "route streams raw rows")
+
+
 def _device(device) -> torch.device:
     if device is not None:
         return torch.device(device)
@@ -205,8 +228,9 @@ def _device(device) -> torch.device:
 
 
 class PEMSVM:
-    """Parallel EM SVM (the paper's PEMSVM): LIN-{EM,MC}-{CLS,SVR} in
-    X-space or Nystrom phi-space, on one device or on a device mesh.
+    """Parallel EM SVM (the paper's PEMSVM): LIN-{EM,MC}-{CLS,MLT,SVR} in
+    X-space or Nystrom phi-space, and the exact-Gram KRN-{EM,MC}-CLS, on
+    one device or on a device mesh.
 
     ``mesh``: a ``torch.distributed.device_mesh.DeviceMesh`` with
     ``mesh_dim_names``, on a process group the caller has created (NCCL
@@ -217,6 +241,8 @@ class PEMSVM:
 
     def __init__(self, config: SVMConfig, device=None, mesh=None,
                  data_axes=None):
+        if config.formulation == "KRN":
+            _check_krn(config)
         bad = _unsupported(config)
         if bad:
             raise NotImplementedError("not ported yet: " + "; ".join(bad))
@@ -253,6 +279,9 @@ class PEMSVM:
         torch.backends.cudnn.allow_tf32 = False
         self._weights: torch.Tensor | None = None
         self._n_features: int | None = None
+        # The training rows (device tensor) of an exact KRN fit: its
+        # decision function is a cross-Gram with them.
+        self._train_X: torch.Tensor | None = None
         # Nystrom phi-space featurizer arrays (landmarks, K_mm^{-1/2}) as
         # float32 numpy; set by NystromSVM before fit when phi_spec is set.
         self._phi_arrays: tuple | None = None
@@ -272,8 +301,9 @@ class PEMSVM:
     # ------------------------------------------------------------- fitting
     def fit(self, X: np.ndarray, y: np.ndarray, *, live=None,
             **kw) -> FitResult:
-        """Fit on host arrays X (N, D) and labels y in {+-1} (CLS) or real
-        targets (SVR). ``live`` (mesh only) is the initial liveness weight
+        """Fit on host arrays X (N, D) and labels y in {+-1} (CLS), integer
+        class ids in [0, num_classes) (MLT) or real targets (SVR).
+        ``live`` (mesh only) is the initial liveness weight
         of each data shard, shape (num_shards,): a shard at 0 drops out of
         every reduction and the sums renormalize (``stats.preduce``). The
         other elastic keywords of the reference (``resume_from``,
@@ -291,27 +321,43 @@ class PEMSVM:
         X = np.asarray(X, np.float32)
         y = np.asarray(y)
         self._n_features = X.shape[1]
-        if cfg.add_bias:
+        if cfg.add_bias and cfg.formulation == "LIN":
             X = np.concatenate([X, np.ones((X.shape[0], 1), np.float32)], 1)
         if cfg.pad_features:
             # Zero columns after the bias: the route to a k_shard-divisible
             # width; their weights stay 0, predictions are unchanged.
             X = pad_features_to(X, cfg.pad_features)
         N = X.shape[0]
-        phi = self._phi()
-        data, state = self._prepare(X, y, phi)
-        common = dict(mode=cfg.algorithm, lam=cfg.lam, eps=cfg.eps,
-                      jitter=cfg.jitter, backend=cfg.backend, rng=cfg.rng,
-                      n_chains=cfg.n_chains, chain0=cfg.chain0, phi=phi,
-                      phi_spec=cfg.phi_spec, axes=self._axes,
-                      triangle=cfg.triangle_reduce,
-                      k_shard_axis=self._k_axis,
-                      reduce_dtype=cfg.reduce_dtype, live=live)
-        if cfg.task == "SVR":
-            step = functools.partial(svr.svr_step, eps_ins=cfg.eps_ins,
-                                     **common)
+        target = self._targets(y)
+        if cfg.formulation == "KRN":
+            data, gram, state = self._prepare_krn(X, target)
+
+            def step(data, omega, key):
+                return kernel.krn_step(
+                    data, gram, omega, key, mode=cfg.algorithm, lam=cfg.lam,
+                    eps=cfg.eps, jitter=cfg.jitter, backend=cfg.backend,
+                    axes=self._axes, triangle=cfg.triangle_reduce,
+                    reduce_dtype=cfg.reduce_dtype, live=live)
         else:
-            step = functools.partial(linear.cls_step, **common)
+            phi = self._phi()
+            data, state = self._prepare(X, target, phi)
+            common = dict(mode=cfg.algorithm, lam=cfg.lam, eps=cfg.eps,
+                          jitter=cfg.jitter, backend=cfg.backend,
+                          rng=cfg.rng, chain0=cfg.chain0, phi=phi,
+                          phi_spec=cfg.phi_spec, axes=self._axes,
+                          triangle=cfg.triangle_reduce,
+                          k_shard_axis=self._k_axis,
+                          reduce_dtype=cfg.reduce_dtype, live=live)
+            if cfg.task == "MLT":
+                step = functools.partial(multiclass.mlt_step,
+                                         num_classes=cfg.num_classes,
+                                         **common)
+            elif cfg.task == "SVR":
+                step = functools.partial(svr.svr_step, eps_ins=cfg.eps_ins,
+                                         n_chains=cfg.n_chains, **common)
+            else:
+                step = functools.partial(linear.cls_step,
+                                         n_chains=cfg.n_chains, **common)
         # The reference's key chain: PRNGKey(seed), one split an
         # iteration. An EM step draws nothing, so EM fits skip it.
         key = (prng.PRNGKey(cfg.seed, self.device)
@@ -506,16 +552,55 @@ class PEMSVM:
 
     @property
     def _aux_keys(self) -> tuple:
-        """The per-iteration diagnostics the task's step reports, in the
-        order the scan driver stacks them."""
-        return _AUX_KEYS[self.config.task]
+        """The per-iteration diagnostics the step reports, in the order the
+        scan driver stacks them."""
+        return _AUX_KEYS[self.config.formulation, self.config.task]
 
-    def _prepare(self, X: np.ndarray, y: np.ndarray, phi=None):
+    def _targets(self, y: np.ndarray) -> np.ndarray:
+        """The targets as the step takes them: +-1 float32 labels (CLS),
+        int32 class ids (MLT) or float32 values (SVR)."""
+        cfg = self.config
+        if cfg.task == "MLT":
+            labels = np.asarray(y, np.int32)
+            if labels.size and (labels.min() < 0
+                                or labels.max() >= cfg.num_classes):
+                raise ValueError(
+                    f"MLT labels must be class ids in [0, "
+                    f"{cfg.num_classes}), got [{labels.min()}, "
+                    f"{labels.max()}]")
+            return labels
         target = np.asarray(y, np.float32)
-        if self.config.task == "CLS":
+        if cfg.task == "CLS":
             uniq = set(np.unique(target).tolist())
             if not uniq <= {-1.0, 1.0}:
                 raise ValueError(f"CLS labels must be +-1, got {uniq}")
+        return target
+
+    def _prepare_krn(self, X: np.ndarray, target: np.ndarray):
+        """(data, the padded Gram, omega = 0) of an exact KRN fit. The Gram
+        of the training rows is computed on the device (``rbf_gram``) and
+        padded as blockdiag(K, I) to a multiple of 8 rows a data shard;
+        this rank's data are its block of the Gram's rows, and the whole
+        padded Gram is the replicated prior. Padded rows have target 0
+        and mask 0."""
+        cfg = self.config
+        dev = self.device
+        shards = 1 if self._axes is None else self._axes.size
+        _, tp, mask = distributed.pad_rows(X[:, :0], target, shards)
+        n_all = tp.shape[0]
+        self._train_X = torch.from_numpy(X).to(dev)
+        gram = kernel.pad_gram(kernel.gram_matrix(
+            self._train_X, self._train_X, kind=cfg.kernel, sigma=cfg.sigma,
+            backend=cfg.backend), n_all - X.shape[0])
+        n_loc = n_all // shards
+        i = 0 if self._axes is None else self._axes.index
+        rows = slice(i * n_loc, (i + 1) * n_loc)
+        data = SVMData(gram[rows], torch.from_numpy(tp[rows]).to(dev),
+                       torch.from_numpy(mask[rows]).to(dev))
+        state = torch.zeros((n_all,), dtype=torch.float32, device=dev)
+        return data, gram, state
+
+    def _prepare(self, X: np.ndarray, target: np.ndarray, phi=None):
         Xp, tp, mask = distributed.shard_rows(self._axes, X, target)
         dev = self.device
         data = SVMData(torch.from_numpy(Xp).to(dev),
@@ -524,6 +609,9 @@ class PEMSVM:
         # phi-space width: projection columns plus the phi-space bias
         K = (X.shape[1] if phi is None
              else phi[1].shape[1] + int(self.config.phi_spec.add_bias))
+        if self.config.task == "MLT":
+            return data, torch.zeros((self.config.num_classes, K),
+                                     dtype=torch.float32, device=dev)
         return data, linear.init_weight(K, dev, self.config.n_chains)
 
     # ---------------------------------------------------------- inference
@@ -534,29 +622,44 @@ class PEMSVM:
         if X.ndim != 2 or X.shape[1] != self._n_features:
             raise ValueError(f"expected (n, {self._n_features}) features, "
                              f"got {X.shape}")
-        if self.config.add_bias:
+        if self.config.add_bias and self.config.formulation == "LIN":
             X = np.concatenate([X, np.ones((X.shape[0], 1), np.float32)], 1)
         if self.config.pad_features:
             X = pad_features_to(X, self.config.pad_features)
         return torch.from_numpy(X).to(self.device)
 
     def decision_function(self, X: np.ndarray) -> np.ndarray:
-        """Margins as float32: X_with_bias @ w (a plain matmul, as the
-        reference's LIN serving cell is plain XLA), or in phi-space the
-        scoring kernel, phi(X) @ w with phi never written out."""
-        spec = self.config.phi_spec
+        """Margins as float32, (n,) or for MLT the (n, M) class scores:
+        X_with_bias @ w (or @ W^T; a plain matmul, as the reference's LIN
+        serving cell is plain XLA); in phi-space the scoring kernel,
+        phi(X) @ w (W^T) with phi never written out; for the exact KRN
+        model the cross-Gram with the training rows times omega."""
+        cfg = self.config
+        spec = cfg.phi_spec
+        Xd = self._features(X)
+        if cfg.formulation == "KRN":
+            omega = self._weights[:self._train_X.shape[0]]
+            return kernel.decision_function(
+                omega, self._train_X, Xd, kind=cfg.kernel, sigma=cfg.sigma,
+                backend=cfg.backend).cpu().numpy()
+        mlt = cfg.task == "MLT"
         if spec is None:
-            return linear.decision_function(
-                self._weights, self._features(X)).cpu().numpy()
+            f = (multiclass.decision_function(self._weights, Xd) if mlt
+                 else linear.decision_function(self._weights, Xd))
+            return f.cpu().numpy()
         landmarks, proj = self._phi()
-        return ops.nystrom_score(
-            self._features(X), landmarks, proj, self._weights[:, None],
-            sigma=spec.sigma, kind=spec.kind, add_bias=spec.add_bias,
-            backend=self.config.backend)[:, 0].cpu().numpy()
+        W = self._weights.T if mlt else self._weights[:, None]
+        f = ops.nystrom_score(
+            Xd, landmarks, proj, W, sigma=spec.sigma, kind=spec.kind,
+            add_bias=spec.add_bias, backend=cfg.backend)
+        return (f if mlt else f[:, 0]).cpu().numpy()
 
     def predict(self, X: np.ndarray) -> np.ndarray:
-        """Labels in {+-1} (CLS) or the regression values f (SVR)."""
+        """Labels in {+-1} (CLS), class ids (MLT) or the regression values
+        f (SVR)."""
         f = self.decision_function(X)
+        if self.config.task == "MLT":
+            return np.argmax(f, axis=1)
         if self.config.task == "SVR":
             return f
         return np.where(f >= 0, 1, -1)
@@ -570,15 +673,19 @@ class PEMSVM:
             (pred - np.asarray(y, np.float32)) ** 2)))
 
     def score(self, X: np.ndarray, y: np.ndarray) -> float:
-        """Higher is better for every task: accuracy for CLS, the negated
-        RMSE for SVR (``rmse`` gives the error itself)."""
+        """Higher is better for every task: accuracy for CLS and MLT, the
+        negated RMSE for SVR (``rmse`` gives the error itself)."""
         if self.config.task == "SVR":
             return -self.rmse(X, y)
         return float(np.mean(self.predict(X) == np.asarray(y)))
 
 
-_AUX_KEYS = {"CLS": ("objective", "gamma_mean", "n_sv"),
-             "SVR": ("objective", "gamma_mean", "omega_mean")}
+# The per-iteration diagnostics of each step, by (formulation, task): the
+# class sweep reports the objective only, the exact KRN step no n_sv.
+_AUX_KEYS = {("LIN", "CLS"): ("objective", "gamma_mean", "n_sv"),
+             ("LIN", "MLT"): ("objective",),
+             ("LIN", "SVR"): ("objective", "gamma_mean", "omega_mean"),
+             ("KRN", "CLS"): ("objective", "gamma_mean")}
 
 
 def _next_key(key: torch.Tensor | None):

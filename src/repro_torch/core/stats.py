@@ -150,9 +150,11 @@ def reduce_kshard(S_blk: torch.Tensor, b: torch.Tensor, axes,
 
 
 def posterior_params(S: torch.Tensor, b: torch.Tensor, lam: float,
+                     prior_precision: torch.Tensor | None = None,
                      jitter: float = 0.0):
     """(L, mu) of the Gaussian conditional p(w | gamma, D) (Eq. 4/6):
-    P = lam*I + S, L its lower Cholesky factor, mu = P^{-1} b.
+    P = lam*I + S (LIN) or lam*K + S (the exact KRN prior, pass
+    ``prior_precision=K``), L its lower Cholesky factor, mu = P^{-1} b.
 
     ``cholesky_ex`` leaves the error flag on the device; plain
     ``cholesky`` would check it and force a host sync every iteration. A
@@ -162,7 +164,7 @@ def posterior_params(S: torch.Tensor, b: torch.Tensor, lam: float,
     """
     K = S.shape[0]
     eye = torch.eye(K, dtype=S.dtype, device=S.device)
-    P = S + lam * eye
+    P = S + lam * (eye if prior_precision is None else prior_precision)
     P = 0.5 * (P + P.T)  # exact symmetry for the factorization
     # Relative jitter: fp32 Gram statistics carry O(eps * trace/K)
     # negative eigenvalue noise; scale the ridge to the problem.

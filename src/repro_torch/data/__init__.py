@@ -2,4 +2,4 @@
 padding of the 2-D fit."""
 from .pipeline import pad_features_to  # noqa: F401
 from .synthetic import (make_alpha_like, make_blobs,  # noqa: F401
-                        make_circles, make_year_like)
+                        make_circles, make_mnist8m_like, make_year_like)

@@ -5,7 +5,8 @@ that give arrays bitwise equal to the reference's for the same arguments.
 (250,000 x 500 at full size); ``make_year_like`` the shape of its Table 6
 regression set YearPredictionMSD (515,345 x 90); ``make_blobs`` is the
 quickstart problem; ``make_circles`` is the kernel (KRN) problem, two
-rings no line separates.
+rings no line separates; ``make_mnist8m_like`` the shape of its Table 8
+multiclass set mnist8m (10 classes, 784 pixel features).
 """
 from __future__ import annotations
 
@@ -37,6 +38,21 @@ def make_year_like(n: int = 50_000, k: int = 90, seed: int = 2,
     ynorm = X @ w + noise * rng.normal(size=n)
     ynorm = (ynorm - ynorm.mean()) / ynorm.std()
     return X, ynorm.astype(np.float32)
+
+
+def make_mnist8m_like(n: int = 100_000, k: int = 798, m: int = 10,
+                      seed: int = 3, margin_noise: float = 1.0):
+    """'mnist8m'-shaped m-class problem: a class-prototype mixture in
+    [0, 1] pixel-like features, 8 % of the labels redrawn (accuracy in the
+    high 80s, as in Table 8). Labels are int32 class ids."""
+    rng = np.random.default_rng(seed)
+    protos = rng.random((m, k)).astype(np.float32)
+    labels = rng.integers(0, m, size=n).astype(np.int32)
+    X = 0.5 * protos[labels] + 0.5 * rng.random((n, k)).astype(np.float32)
+    flip = rng.random(n) < 0.08
+    labels[flip] = rng.integers(0, m, size=int(flip.sum()))
+    del margin_noise
+    return X.astype(np.float32), labels
 
 
 def make_blobs(n: int = 2000, k: int = 20, seed: int = 0,

@@ -8,6 +8,7 @@ objective traces 0.36 %, iteration counts 48 vs 49 against a float64 EM):
 final weights within relative error 5e-2, held-out accuracy within 0.01.
 """
 import dataclasses
+import json
 import math
 
 import numpy as np
@@ -171,12 +172,7 @@ def test_objective_terms_match_reference(masked):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(algorithm="MC", task="MLT", num_classes=3),
-    dict(task="MLT", num_classes=3),
-    dict(formulation="KRN"),
     dict(driver="stream"),
-    dict(task="MLT", num_classes=3, k_shard_axis="model"),
-    dict(formulation="KRN", k_shard_axis="model"),
     dict(fault=object()),
     dict(decay=0.5, driver="stream"),
     dict(window=2, driver="stream"),
@@ -184,6 +180,69 @@ def test_objective_terms_match_reference(masked):
 def test_unsupported_config_raises(kw):
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
         PEMSVM(SVMConfig(**kw), device="cpu")
+
+
+_KSHARD_FIT = """
+import json, sys
+import numpy as np
+import torch
+import torch.distributed as dist
+rank, world, init, out = int(sys.argv[1]), int(sys.argv[2]), sys.argv[3], \\
+    sys.argv[4]
+torch.set_num_threads(1)
+dist.init_process_group("gloo", init_method="file://" + init, rank=rank,
+                        world_size=world)
+from torch.distributed.device_mesh import DeviceMesh
+from repro_torch.core import PEMSVM, SVMConfig
+d = np.load(out + "/inputs.npz")
+mesh = DeviceMesh("cpu", torch.zeros(1, 1, dtype=torch.int64),
+                  mesh_dim_names=("data", "model"))
+svm = PEMSVM(SVMConfig(**json.loads(str(d["kw"]))), device="cpu",
+             mesh=mesh)
+res = svm.fit(d["X"], d["y"])
+np.savez(f"{out}/rank{rank}.npz", pred=svm.predict(d["X"]),
+         score=svm.score(d["X"], d["y"]), keys=sorted(res.aux_history))
+dist.destroy_process_group()
+"""
+
+
+@pytest.mark.parametrize("kw", [
+    dict(algorithm="MC", task="MLT", num_classes=3),
+    dict(task="MLT", num_classes=3),
+    dict(formulation="KRN"),
+    dict(task="MLT", num_classes=3, k_shard_axis="model"),
+    dict(formulation="KRN", k_shard_axis="model"),
+])
+def test_mlt_and_krn_configs_fit(kw, tmp_path):
+    """The MLT and exact-KRN configurations this file once held as not
+    ported fit now: on the CPU, and with a k_shard_axis on a one-rank
+    (data x model) mesh (MLT shares one Sigma window over its class
+    passes; the exact KRN solver leaves the k axis out of its data axes).
+    MLT predicts class ids and scores their accuracy; KRN predicts +-1."""
+    from test_torch_kshard import run_ranks
+    mlt = kw.get("task") == "MLT"
+    if mlt:
+        rng = np.random.default_rng(3)
+        X = rng.normal(size=(300, 6)).astype(np.float32)
+        y = np.argmax(X[:, :3], axis=1).astype(np.int32)
+        kw = dict(kw, pad_features=2)  # K = 7 -> 8, divisible by the k axis
+    else:
+        X, y = tsyn.make_circles(200)
+        kw = dict(kw, sigma=0.7, lam=0.1)
+    kw = dict(kw, max_iters=12)
+    if "k_shard_axis" in kw:
+        np.savez(tmp_path / "inputs.npz", X=X, y=y, kw=json.dumps(kw))
+        r = run_ranks(_KSHARD_FIT, tmp_path, world=1)[0]
+        keys, pred, score = set(r["keys"].tolist()), r["pred"], r["score"]
+    else:
+        svm = PEMSVM(SVMConfig(**kw), device="cpu")
+        res = svm.fit(X, y)
+        keys, pred, score = (set(res.aux_history), svm.predict(X),
+                             svm.score(X, y))
+    assert keys == ({"objective"} if mlt else {"objective", "gamma_mean"})
+    assert set(np.unique(pred).tolist()) <= (set(range(3)) if mlt
+                                             else {-1, 1})
+    assert float(score) > 0.9
 
 
 @pytest.mark.parametrize("kw", [

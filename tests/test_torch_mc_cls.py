@@ -197,13 +197,28 @@ def test_chain_c_is_the_single_chain_at_chain0_c():
 
 # ------------------------------------------------------- not ported yet
 @pytest.mark.parametrize("kw,item", [
-    (dict(task="MLT", num_classes=3), "item 7"),
     (dict(driver="stream"), "item 8"),
     (dict(fault=object()), "item 11"),
 ])
 def test_out_of_slice_options_raise(kw, item):
     with pytest.raises(NotImplementedError, match=item):
         PEMSVM(SVMConfig(**{"algorithm": "MC", **kw}), device="cpu")
+
+
+def test_mc_mlt_runs():
+    """task='MLT', which this file once held as out of slice: the
+    Crammer-Singer Gibbs sweep runs, averages its (M, K) draws after
+    burn-in, and scores the accuracy of its class ids."""
+    rng = np.random.default_rng(1)
+    X = rng.normal(size=(600, 8)).astype(np.float32)
+    y = np.argmax(X[:, :3], axis=1).astype(np.int32)
+    svm = PEMSVM(SVMConfig(algorithm="MC", task="MLT", num_classes=3,
+                           max_iters=20, burnin=5), device="cpu")
+    res = svm.fit(X, y)
+    assert res.weights.shape == (3, 9) and set(res.aux_history) == {
+        "objective"}
+    assert not np.array_equal(res.weights, res.last_sample)
+    assert svm.score(X, y) > 0.9
 
 
 def test_mc_svr_runs():

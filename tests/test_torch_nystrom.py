@@ -555,17 +555,14 @@ def test_phi_spec_and_delegate_config():
 
 
 def test_out_of_slice_raises():
-    with pytest.raises(NotImplementedError, match="NystromSVM"):
-        PEMSVM(SVMConfig(formulation="KRN"), device="cpu")
     with pytest.raises(AssertionError, match="single-chain"):
         NystromSVM(SVMConfig(formulation="KRN", algorithm="MC", rng="fused",
                              n_chains=2), device="cpu")
     with pytest.raises(ValueError, match="KRN"):
         NystromSVM(SVMConfig(), device="cpu")
-    for kw, item in ((dict(task="MLT", num_classes=3), "item 7"),
-                     (dict(driver="stream"), "item 8")):
-        with pytest.raises(NotImplementedError, match=item):
-            NystromSVM(SVMConfig(formulation="KRN", **kw), device="cpu")
+    with pytest.raises(NotImplementedError, match="item 8"):
+        NystromSVM(SVMConfig(formulation="KRN", driver="stream"),
+                   device="cpu")
     # KRN-SVR is in the slice now: the delegate carries the task
     svr = NystromSVM(SVMConfig(formulation="KRN", task="SVR"), device="cpu")
     assert svr.svm.config.task == "SVR" and svr.svm.config.phi_spec
@@ -582,6 +579,27 @@ def test_out_of_slice_raises():
         ny.scorer()
     with pytest.raises(RuntimeError, match="fit first"):
         ny._phi(X)
+
+
+def test_exact_krn_and_nystrom_mlt_fit():
+    """What this file once held as not ported fits now: PEMSVM with
+    formulation='KRN' (the exact-Gram solver) and NystromSVM with
+    task='MLT' (the delegate's class sweep in phi-space)."""
+    X, y = tsyn.make_circles(200)
+    krn = PEMSVM(SVMConfig(formulation="KRN", lam=0.1, sigma=0.7,
+                           max_iters=20), device="cpu")
+    krn.fit(X, y)
+    assert krn.score(X, y) > 0.95
+    rng = np.random.default_rng(2)
+    Xm = rng.normal(size=(400, 4)).astype(np.float32)
+    lm = np.argmax(np.abs(Xm[:, :3]), axis=1).astype(np.int32)
+    ny = NystromSVM(SVMConfig(formulation="KRN", task="MLT", num_classes=3,
+                              sigma=2.0, max_iters=10), n_landmarks=30,
+                    device="cpu")
+    res = ny.fit(Xm, lm)
+    assert ny.svm.config.task == "MLT" and res.weights.shape == (3, 31)
+    assert ny.decision_function(Xm).shape == (400, 3)
+    assert ny.score(Xm, lm) > 0.7
 
 
 def test_host_phi_oracle_matches_device_path(fits):

@@ -239,6 +239,47 @@ shapes), in the order a, b, b, a.
    fused_estep beside their plain versions and bounds, the Cholesky, the
    solve, the prior matvec).
 
+15. the stream driver (driver="stream"), run before phase 11. Table 5 at
+   its full size (benchmarks/table5_dna.py, full=True): make_dna_like(
+   2,500,000, 800), the last 10,000 rows held out, lam_from_C(1e-5), K =
+   801 (N = 1,000,000, lam scaled as the benchmark scales it, when the
+   host has less than 64 GB available). First the two copy paths of
+   in-memory rows, one pass each through the prefetcher (a pinned staging
+   ring, the page-locked array; GB/s), and the host work of a 4,096-row
+   chunk, each part alone (placing it; the chunk body). LIN-EM-CLS for a
+   fixed 20
+   iterations, resident (scan) and streamed from the arrays at chunk_rows
+   4,096 and 65,536: each fit's time, ms a pass, set-up, copy rate,
+   peak_input_bytes, max_memory_allocated, host syncs, launches and held-
+   out accuracy; gates: the first pass's (S, b) within 1e-4 max|S| of the
+   resident first statistic, objective trace within 2e-2, weights within
+   5e-2, accuracy within 0.01, peak_input_bytes = (prefetch + 2) chunks
+   (below 1/100 of the resident X at 4,096 rows), one host sync an
+   iteration, fused_stats once a chunk a pass; a torch.profiler breakdown
+   of a 3-iteration stream fit (copies and kernels against the wall; at
+   most one device-to-host copy an iteration); prefetch 1, 2, 4 and 2
+   again bitwise equal. LIN-MC-CLS rng 'fused', 5 iterations, streamed
+   against resident: the first gamma_mean within 1e-6. Phase 5's 131,072 x
+   2,048 for 3 iterations (fused_estep and syrk_tri once a chunk);
+   LIN-EM-SVR on phase 9's split (10 iterations) and LIN-EM-MLT on phase
+   12's (5 iterations, class scores within 5e-2), KRN-EM-MLT on phase 13's
+   featurizer (2 iterations, nystrom_phi once a chunk a pass), each
+   streamed against resident. KRN-EM-CLS through NystromSVM on phase 7's
+   rings (m = 1,000, 10 iterations) at 4,096 (its own featurizer, bitwise
+   the resident fit's), 62,500 and 65,536 rows: accuracy within 0.01, the
+   masked tail (65,536) within 1e-4 of the divisible chunking (62,500);
+   rbf_gram once a fit, nystrom_score once a predict. fused_stats and
+   nystrom_fused_stats timed on one stream chunk beside their bounds. The
+   file path: make_dna_like(20,000, 200) saved as libsvm text with comment
+   and blank lines, fit_libsvm streamed against the resident fit of the
+   same rows (12 iterations, weights within 1e-3) beside the parse rate;
+   on a staging-ring source, prefetch 1, 2, 4 and 2 again bitwise equal
+   and one IOError mid-pass absorbed by one retry, bitwise. Last, the
+   resident set-up of phases 4-10's inputs built as the parent tree built
+   it (host concatenation, host padding, pageable copies) and as this
+   tree builds it (pinned staging, bias and padding on the card), timed
+   in the order host, card, card, host and held bitwise equal.
+
 Phase 11 runs last (it holds its exact KRN fit against phase 14's) and
 also fits phase 12's LIN-EM-MLT on the 2 x 2 mesh (pad_features=2, K =
 786, 40,000 training rows, 8 iterations; the window variant 10 times a
@@ -263,6 +304,7 @@ import dataclasses
 import functools
 import json
 import math
+import os
 import re
 import statistics
 import subprocess
@@ -2759,15 +2801,18 @@ def gram_rows(label, G, t, om, wt, err_e, err_s):
     n = G.shape[0]
     ms = time_ms(lambda: fused_estep.fused_estep(G, t, t, om, eps=EPS))
     plain = time_ms(lambda: ref.fused_estep(G, t, t, om, EPS))
+    mv = time_ms(lambda: (torch.mv(G, om), torch.mv(G.T, t)))
     b_ms, by = bound(4 * n * n, 4 * (n * n + 2 * n + n + 2 * n + n))
     estep = dict(shape=[n, n], max_abs_err=err_e, ms=ms, plain_ms=plain,
-                 bound_ms=b_ms, bound_by=by, library_ms=None)
+                 bound_ms=b_ms, bound_by=by, library_ms=None, mv_pair_ms=mv)
     srow = time_gram("syrk_tri", syrk.syrk_tri, G, wt, err_s)
     for name, row in (("fused_estep", estep), ("syrk_tri", srow)):
         say(f"  time {name} {row['shape']} ({label}): kernel "
             f"{row['ms']:.3f} ms, plain {row['plain_ms']:.3f} ms, library "
             f"{row['library_ms'] if row['library_ms'] is None else round(row['library_ms'], 3)}"
-            f" ms, bound {row['bound_ms']:.3f} ms ({row['bound_by']})")
+            f" ms, bound {row['bound_ms']:.3f} ms ({row['bound_by']})"
+            + (f", torch.mv pair (X w, X^T coef; reference only) "
+               f"{row['mv_pair_ms']:.3f} ms" if "mv_pair_ms" in row else ""))
     return estep, srow
 
 
@@ -3374,6 +3419,730 @@ def krn_timing_point(dev, n=16_384, iters=5, timing_jitter=1e-3):
             "fused_estep": {"n16384": estep}}
 
 
+# ------------------------------------------------------ the stream driver
+T5_N, T5_K, T5_TEST = 2_500_000, 800, 10_000  # Table 5, full=True
+T5_CUT_N = 1_000_000    # N when the host has less than T5_HOST_GB free
+T5_HOST_GB = 64
+T5_ITERS = 20
+STREAM_CHUNKS = (4096, 65_536)
+
+
+def host_available_gb() -> float:
+    """The host's MemAvailable in GB (1e9 bytes)."""
+    with open("/proc/meminfo") as f:
+        for line in f:
+            if line.startswith("MemAvailable:"):
+                return int(line.split()[1]) * 1024 / 1e9
+    return 0.0
+
+
+class Timed:
+    """Records the wall time of every call of ``obj.name`` (the device
+    synchronized at its end) while the block runs: a fit's set-up,
+    ``PEMSVM._prepare`` (resident) or ``PageLock.__enter__`` (stream)."""
+
+    def __init__(self, obj, name):
+        self.obj, self.name, self.secs = obj, name, []
+
+    def __enter__(self):
+        self.orig = orig = getattr(self.obj, self.name)
+
+        def wrapper(*a, **k):
+            t0 = time.perf_counter()
+            out = orig(*a, **k)
+            torch.cuda.synchronize()
+            self.secs.append(time.perf_counter() - t0)
+            return out
+        setattr(self.obj, self.name, wrapper)
+        return self
+
+    def __exit__(self, *exc):
+        setattr(self.obj, self.name, self.orig)
+
+
+class FirstStats:
+    """Records the (S, b) the stream driver's first M-step receives (the
+    first pass's sums) while the block runs, by wrapping the
+    ``mstep`` that ``solver._stream_fns`` builds."""
+
+    def __enter__(self):
+        from repro_torch.core import solver
+        self.mod, self.orig, self.S = solver, solver._stream_fns, None
+        orig = self.orig
+
+        def fns(cfg, phi):
+            out = orig(cfg, phi)
+            mstep = out["mstep"]
+
+            def first(S, b, *a):
+                if self.S is None:
+                    self.S, self.b = S.clone(), b.clone()
+                return mstep(S, b, *a)
+            return dict(out, mstep=first)
+        solver._stream_fns = fns
+        return self
+
+    def __exit__(self, *exc):
+        self.mod._stream_fns = self.orig
+
+
+def stream_fit(label, cfg, dev, Xtr, ytr, Xte=None, yte=None, fit=None,
+               passes_per_iter=1):
+    """One fit (resident or stream), the launch counts zeroed just before
+    and read just after. Prints fit s, ms a pass, set-up s, the copy rate
+    of the passes, peak_input_bytes and the device's peak memory, host
+    syncs, launches and the held-out metric; returns (model, result,
+    facts)."""
+    from repro_torch.core import PEMSVM
+    from repro_torch.data import PageLock
+    _zero_counts()
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    with Timed(PEMSVM, "_prepare") as prep, \
+            Timed(PageLock, "__enter__") as lock:
+        t0 = time.perf_counter()
+        svm = PEMSVM(cfg, device=dev)
+        res = svm.fit(Xtr, ytr) if fit is None else fit(svm)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    counts = _counts()
+    mem = torch.cuda.max_memory_allocated()
+    setup = sum(prep.secs) + sum(lock.secs)
+    passes = res.n_iters * passes_per_iter
+    per_pass = (secs - setup) / passes
+    metric = None
+    if Xte is not None:
+        metric = _metric(svm, cfg, Xte, yte)
+    nbytes = Xtr.nbytes + 4 * len(ytr)
+    launched = {k: v for k, v in counts.items() if v}
+    say(f"  {label}: {secs:.3f} s, {res.n_iters} iterations, {passes} "
+        f"passes, {per_pass * 1e3:.1f} ms a pass"
+        + (f" ({nbytes / per_pass / 1e9:.2f} GB/s of rows)"
+           if cfg.driver == "stream" else "")
+        + f", set-up {setup:.3f} s, peak_input_bytes "
+        f"{res.peak_input_bytes:,}, max_memory_allocated "
+        f"{mem / 2**20:.0f} MiB, {res.n_host_syncs} host syncs, launches "
+        f"{launched}"
+        + ("" if metric is None else f", held-out {metric[0]} "
+           f"{metric[1]:.4f}"))
+    check(bool(np.all(np.isfinite(res.weights))), f"{label}: non-finite "
+          "weights")
+    if cfg.driver == "stream":
+        check(res.n_host_syncs == res.n_iters, f"{label}: "
+              f"{res.n_host_syncs} host syncs for {res.n_iters} iterations")
+    return svm, res, dict(secs=secs, setup=setup, per_pass=per_pass,
+                          counts=counts, mem=mem,
+                          metric=None if metric is None else metric[1])
+
+
+def chunk_bytes(rows, width):
+    """One chunk's X, target and mask."""
+    return rows * width * 4 + 2 * rows * 4
+
+
+def stream_gates(label, cfg, res, ref, width, n_rows, w_band=5e-2,
+                 t_band=2e-2):
+    """The bands of a stream fit against the resident one: objective trace
+    and weights; peak_input_bytes at (prefetch + 2) chunks."""
+    orel = trace_rel(res.objective, ref.objective)
+    wrel = _rel(res.weights, ref.weights)
+    want = (cfg.prefetch + 2) * chunk_bytes(cfg.chunk_rows, width)
+    say(f"  bands {label}: objective rel {orel:.3e} (<= {t_band}), weights "
+        f"rel {wrel:.3e} (<= {w_band}), peak_input_bytes "
+        f"{res.peak_input_bytes:,} (want {want:,}, "
+        f"{res.peak_input_bytes / (n_rows * width * 4):.4f} of the resident "
+        f"X)")
+    check(orel <= t_band and wrel <= w_band, f"{label}: outside the bands "
+          "of the resident fit")
+    check(res.peak_input_bytes == want, f"{label}: peak_input_bytes "
+          f"{res.peak_input_bytes} != (prefetch + 2) chunks {want}")
+    return orel, wrel
+
+
+def transfer_rates(dev, X, rows=65_536):
+    """One pass of X's rows through the prefetcher with a trivial consumer,
+    by the two copy paths of in-memory arrays: a pinned staging ring (a
+    host memcpy a chunk) and the page-locked array itself (no host copy),
+    in the order ring, locked, locked, ring; also one copy of the whole
+    locked array. Prints GB/s."""
+    from repro_torch.data import ChunkPrefetcher, DevicePlacer, PageLock
+    N, D = X.shape
+
+    def one_pass(pinned):
+        def chunks():
+            for i0 in range(0, N, rows):
+                yield X[i0:i0 + rows], np.zeros(min(rows, N - i0),
+                                                np.float32), None
+        placer = DevicePlacer(dev, rows, D + 1, D, pinned_source=pinned)
+        acc = torch.zeros((), device=dev)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        for Xc, _, _ in ChunkPrefetcher(chunks(), depth=2, place=placer):
+            acc += Xc[0, 0]
+        torch.cuda.synchronize()
+        return X.nbytes / (time.perf_counter() - t0) / 1e9
+
+    rates = {"ring": [], "locked": []}
+    t0 = time.perf_counter()
+    with PageLock(dev, X):
+        lock_s = time.perf_counter() - t0
+        for name in ("ring", "locked", "locked", "ring"):
+            rates[name].append(one_pass(name == "locked"))
+        big = torch.empty(X.shape, device=dev)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        big.copy_(torch.from_numpy(X), non_blocking=True)
+        torch.cuda.synchronize()
+        whole = X.nbytes / (time.perf_counter() - t1) / 1e9
+        del big
+    say(f"  copy paths, {X.nbytes / 1e9:.2f} GB of rows in {rows:,}-row "
+        f"chunks (ring, locked, locked, ring): pinned staging ring "
+        f"{[round(r, 2) for r in rates['ring']]} GB/s, page-locked array "
+        f"{[round(r, 2) for r in rates['locked']]} GB/s; one copy of the "
+        f"whole locked array {whole:.2f} GB/s; cudaHostRegister of "
+        f"{X.nbytes / 1e9:.2f} GB {lock_s:.3f} s")
+
+
+def host_costs(dev, X, y, rows=4096, n=100):
+    """The host work of one stream chunk, each part alone on the main
+    thread (the device synchronized once at the end of each loop): the
+    placer's stage and place (page-locked source, bias column and mask
+    written on the card; each chunk its own slot, so no stage waits for
+    an earlier chunk's copy), the chunk body with the sum, and the
+    fused_stats wrapper alone. Prints ms a chunk."""
+    from repro_torch.core import linear
+    from repro_torch.core.solver import _add_stats
+    from repro_torch.data import DevicePlacer, PageLock
+    from repro_torch.kernels import fused_stats
+    D = X.shape[1]
+    placer = DevicePlacer(dev, rows, D + 1, D, pinned_source=True)
+    out = {}
+    with PageLock(dev, X[:n * rows]):
+        def place():
+            for i in range(n):
+                sl = slice(i * rows, (i + 1) * rows)
+                placer.place(placer.stage((X[sl], y[sl], None), i), i)
+        data = linear.SVMData(*placer.place(placer.stage(
+            (X[:rows], y[:rows], None), 0), 0))
+        w = torch.zeros(D + 1, device=dev)
+
+        def body():
+            tot = None
+            for _ in range(n):
+                part = linear.cls_chunk_stats(data, w, None, 0, mode="EM",
+                                              eps=EPS, backend=None)
+                tot = part if tot is None else _add_stats(tot, part)
+
+        def wrapper():
+            for _ in range(n):
+                fused_stats.fused_stats(data.X, data.target, data.target, w,
+                                        eps=EPS)
+        for name, fn in (("place", place), ("body", body),
+                         ("fused_stats", wrapper)):
+            fn()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            out[name] = (time.perf_counter() - t0) / n * 1e3
+    say(f"  host work a {rows:,}-row chunk, each part alone: stage + place "
+        f"{out['place']:.3f} ms, chunk body + sum {out['body']:.3f} ms (of "
+        f"it the fused_stats wrapper {out['fused_stats']:.3f} ms)")
+    return out
+
+
+def profile_stream(label, cfg, dev, Xtr, ytr, top=8):
+    """One stream fit under torch.profiler: the device's busy share, the
+    kernels' and the copies' device time, and the host syncs (stream
+    synchronizes, device-to-host copies) against the iterations."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+    from repro_torch.core import PEMSVM
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        res = PEMSVM(cfg, device=dev).fit(Xtr, ytr)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    dev_rows, syncs, dtoh, htod = [], 0, 0, 0.0
+    for e in prof.key_averages():
+        t = getattr(e, "self_device_time_total",
+                    getattr(e, "self_cuda_time_total", 0)) / 1e3
+        if e.device_type != DeviceType.CPU:
+            if t > 0:
+                dev_rows.append((t, e.count, e.key))
+            if "DtoH" in e.key:
+                dtoh += e.count
+            if "HtoD" in e.key:
+                htod += t
+        elif e.key in ("cudaStreamSynchronize", "cudaDeviceSynchronize"):
+            syncs += e.count
+    dev_rows.sort(reverse=True)
+    busy = sum(r[0] for r in dev_rows)
+    kern = busy - htod - sum(r[0] for r in dev_rows if "DtoH" in r[2])
+    say(f"  profile of {label}: {secs * 1e3:.1f} ms wall for "
+        f"{res.n_iters} passes; device activities {busy:.1f} ms (copies "
+        f"host-to-device {htod:.1f} ms, {htod / (secs * 1e3):.3f} of the "
+        f"wall; kernels {kern:.1f} ms, {kern / (secs * 1e3):.3f} of the "
+        f"wall); {dtoh} device-to-host copies and {syncs} stream/device "
+        f"synchronizes for {res.n_iters} iterations; by self device time:")
+    for ms, count, name in dev_rows[:top]:
+        say(f"    {ms:9.3f} ms {count:6d}x  {name[:90]}")
+    # Outside the sweeps: the final state's copy, the weights' upload, the
+    # page lock's release and the timing's own synchronize.
+    check(dtoh == res.n_iters + 1 and syncs <= res.n_iters + 5,
+          f"{label}: {dtoh} device-to-host copies and {syncs} synchronizes "
+          f"for {res.n_iters} iterations: a sweep waits for the device")
+
+
+def hold_chunk_stats(label, X, y, w, out, epi, seed):
+    """A fused_stats call on a stream chunk (rho = beta = y) against
+    float64 on the same inputs, as phase 3 holds it: margins within 1e-5
+    (1 + |m|); em_hinge gamma within the margin's difference of float64's,
+    mc_hinge gamma in the band of the plain epilogue on the kernel's
+    margin and the plain counter noise of the same seed words; b and
+    Sigma from the kernel's gamma within 1e-5 max|ref|. Returns the
+    largest |d|."""
+    from repro_torch.kernels import epilogues, ref
+    m, g, b, S = out
+    m64 = X.double() @ w.double()
+    err = rows_close(label + " margin", m, m64)
+    if epi == "em_hinge":
+        want = ref.fused_stats(X.double(), y.double(), y.double(),
+                               w.double(), None, EPS)
+        gamma_close(label, g, m, want[1], want[0])
+        del want
+    else:
+        noise = ref.seed_noise(seed, X.shape[0], 1, epi)
+        (g_plain,), _, _ = epilogues.apply_epilogue(epi, m, y, y, noise, EPS)
+        gamma_band(label + " gamma", g, g_plain)
+    b64, S64 = stats64(X, y, y, None, g)
+    return max(err, max_close(label + " b", b, b64),
+               max_close(label + " Sigma", S, S64))
+
+
+def chunk_kernel_rows(dev, Xtr, n_pass, rings):
+    """The statistics on the stream driver's chunks, each held against
+    float64 on the same inputs (phase 3's tolerances), then timed beside
+    its plain version and its bound: fused_stats em_hinge on Table 5's
+    4,096- and 65,536-row chunks, fused_stats mc_hinge with counter seed
+    words on a 4,096-row chunk at the row offset of the last chunk of a
+    pass of ``n_pass`` rows (Table 5's: far from row 0); nystrom_fused_stats em_hinge on phase 7's first
+    4,096-row chunk and on its masked tail (the 576 rows left of
+    1,000,000, then 3,520 zero rows with mask 0: phi(0) != 0). Returns the
+    rows by kernel."""
+    from repro_torch.core import prng
+    from repro_torch.kernels import fused_stats, ref, rng
+    out = {}
+    k = Xtr.shape[1] + 1
+    row0 = (n_pass - 1) // STREAM_CHUNKS[0] * STREAM_CHUNKS[0]
+    cases = [(rows, "fused_stats", "em_hinge", 0) for rows in STREAM_CHUNKS]
+    cases.append((STREAM_CHUNKS[0], "fused_stats[mc_hinge,seed]",
+                  "mc_hinge", row0))
+    for rows, name, epi, r0 in cases:
+        X = torch.from_numpy(np.concatenate(
+            [Xtr[:rows], np.ones((rows, 1), np.float32)], 1)).to(dev)
+        g = torch.Generator(device=dev).manual_seed(rows + r0)
+        w = torch.randn(k, generator=g, device=dev) / math.sqrt(k)
+        y = torch.where(torch.rand(rows, generator=g, device=dev) < 0.5,
+                        -1.0, 1.0)
+        seed = None
+        if epi == "mc_hinge":
+            seed = rng.pack_seed(prng.fold_in(prng.PRNGKey(7), 3), r0,
+                                 0).to(dev)
+        label = f"{name} {rows}x{k}" + (f" at row {r0:,}" if r0 else "")
+
+        def call():
+            return fused_stats.fused_stats(X, y, y, w, epilogue=epi,
+                                           eps=EPS, seed=seed)
+        err = hold_chunk_stats(label, X, y, w, twice(call), epi, seed)
+        ms = time_ms(call)
+        plain = time_ms(lambda: ref.fused_stats(X, y, y, w, None, EPS, epi,
+                                                seed=seed))
+        b_ms, by = bound(rows * k * (k + 1) + 4 * rows * k,
+                         4 * (rows * k + 2 * rows + k + 2 * rows + k + k * k))
+        key = f"chunk{rows}" + (f"_row{r0}" if r0 else "")
+        out.setdefault(name, {})[key] = dict(
+            shape=[rows, k], max_abs_err=err, ms=ms, plain_ms=plain,
+            bound_ms=b_ms, bound_by=by, library_ms=None)
+        say(f"  ok {label} (a Table 5 stream chunk): max |d| {err:.3e}; "
+            f"kernel {ms:.3f} ms ({b_ms / ms:.3f} of the bound {b_ms:.3f} "
+            f"ms, {by}; {ms / rows * n_pass:.1f} ms a pass of "
+            f"{n_pass:,} rows), plain {plain:.3f} ms")
+        del X
+    Xr, L, P = rings
+    rows = STREAM_CHUNKS[0]
+    tail = Xr.shape[0] % rows
+    Xt = torch.zeros((rows, Xr.shape[1]), device=dev)
+    Xt[:tail] = Xr[Xr.shape[0] - tail:]
+    mt = (torch.arange(rows, device=dev) < tail).float()
+    name = "nystrom_fused_stats[em_hinge]"
+    out[name] = {}
+    for key, X, mask in (("chunk4096", Xr[:rows].contiguous(),
+                          torch.ones(rows, device=dev)),
+                         (f"chunk4096_tail{tail}", Xt, mt)):
+        row = time_nys_stats(dev, X, L, P, mask, 0.7, name,
+                             f"{name} {key} (a phase 7 stream chunk)")
+        out[name][key] = row
+        say(f"  time {name} {key}: kernel {row['ms']:.3f} ms "
+            f"({row['bound_ms'] / row['ms']:.3f} of the bound "
+            f"{row['bound_ms']:.3f} ms, {row['bound_by']}; "
+            f"{row['ms'] * 1e6 / rows:.1f} ms a pass of 1,000,000 rows), "
+            f"plain {row['plain_ms']:.3f} ms")
+    return out
+
+
+def setup_ab(dev):
+    """The resident set-up of phases 4-10's inputs built as the parent
+    built it (bias column by np.concatenate, row padding by
+    distributed.shard_rows, pageable copies) and as this tree builds it
+    (``PEMSVM._prepare``: pinned staging, bias and padding on the card),
+    timed in the order host, device, device, host, and held bitwise."""
+    from repro_torch.core import PEMSVM, SVMConfig, distributed
+    from repro_torch.data import make_alpha_like
+    Xa, ya = alpha_data()
+    Xy, yy, _, _ = year_split()
+    Xc, yc = circles_data(1_000_000)
+    Xw, yw = make_alpha_like(n=131_072, k=2047, seed=0)
+    cases = (("phase 4 (and 6)", Xa[:250_000], ya[:250_000], True),
+             ("phase 5", Xw, yw, True),
+             ("phase 9", Xy, yy, True),
+             ("phase 7", Xc, yc, False),
+             ("phase 8", Xa[:250_000], ya[:250_000], False),
+             ("phase 10", Xy, yy, False))
+    for label, X, y, bias in cases:
+        svm = PEMSVM(SVMConfig(task="SVR" if "9" in label or "10" in label
+                               else "CLS", add_bias=bias), device=dev)
+        target = svm._targets(y)
+
+        def host():
+            Xh = (np.concatenate([X, np.ones((len(X), 1), np.float32)], 1)
+                  if bias else X)
+            Xp, tp, mp = distributed.shard_rows(None, Xh, target)
+            out = tuple(torch.from_numpy(a).to(dev) for a in (Xp, tp, mp))
+            torch.cuda.synchronize()
+            return out
+
+        def device():
+            out = svm._prepare(X, target)[0]
+            torch.cuda.synchronize()
+            return out
+
+        secs = {"host": [], "device": []}
+        for name, fn in (("host", host), ("device", device),
+                         ("device", device), ("host", host)):
+            t0 = time.perf_counter()
+            out = fn()
+            secs[name].append(time.perf_counter() - t0)
+            if name == "host":
+                want = out
+            else:
+                got = out
+            del out
+        same = all(torch.equal(a, b) for a, b in zip(got, want))
+        say(f"  set-up {label}, {X.shape[0]:,} x {X.shape[1]}"
+            f"{' + bias' if bias else ''} ({X.nbytes / 1e9:.3f} GB): parent "
+            f"(host assembly, pageable copies) "
+            f"{[round(s * 1e3, 1) for s in secs['host']]} ms, this tree "
+            f"(pinned staging, assembly on the card) "
+            f"{[round(s * 1e3, 1) for s in secs['device']]} ms; bitwise "
+            f"equal {same}")
+        check(same, f"set-up {label}: the device-assembled matrix is not "
+              "the host-assembled one")
+        del got, want
+        torch.cuda.empty_cache()
+
+
+def phase_stream(dev):
+    """Phase 15: the stream driver."""
+    import shutil
+    import tempfile
+    from repro_torch.core import NystromSVM, PEMSVM, SVMConfig, lam_from_C
+    from repro_torch.data import (iter_libsvm, make_alpha_like,
+                                  make_dna_like, save_libsvm)
+    from repro_torch.core import distributed
+    runs = {}
+    # -- Table 5, LIN-EM-CLS (benchmarks/table5_dna.py, full=True)
+    free = host_available_gb()
+    n = T5_N if free >= T5_HOST_GB else T5_CUT_N
+    t0 = time.perf_counter()
+    X, y = make_dna_like(n, T5_K)
+    Xtr, ytr, Xte, yte = X[:-T5_TEST], y[:-T5_TEST], X[-T5_TEST:], y[-T5_TEST:]
+    say(f"  host MemAvailable {free:.1f} GB (>= {T5_HOST_GB} GB: full size):"
+        f" make_dna_like({n:,}, {T5_K}) in {time.perf_counter() - t0:.1f} s,"
+        f" {len(Xtr):,} training rows ({Xtr.nbytes / 1e9:.2f} GB), "
+        f"{T5_TEST:,} held out")
+    t5_rows = len(Xtr)
+    lam = lam_from_C(1e-5) * n / T5_N
+    cfg = SVMConfig(lam=lam, max_iters=T5_ITERS, min_iters=T5_ITERS)
+    K = T5_K + 1
+    _fit(dataclasses.replace(cfg, max_iters=1, min_iters=1), dev,
+         Xtr[:8192], ytr[:8192])       # warm-up at K = 801
+    transfer_rates(dev, Xtr)
+    host_costs(dev, Xtr, ytr)
+    res_svm, res, rf = stream_fit("resident (scan) fit", cfg, dev, Xtr, ytr,
+                                  Xte, yte)
+    # the resident first statistic, at w = 0 on the resident matrix
+    from repro_torch.kernels import ops
+    data, _ = res_svm._prepare(Xtr, res_svm._targets(ytr))
+    w0 = torch.zeros(K, device=dev)
+    _, _, bres, Sres = ops.fused_stats(data.X, data.target, data.target, w0,
+                                       eps=cfg.eps)
+    del data
+    torch.cuda.empty_cache()
+    fits = {}
+    for rows in STREAM_CHUNKS:
+        scfg = dataclasses.replace(cfg, driver="stream", chunk_rows=rows)
+        with FirstStats() as first:
+            svm, r, f = stream_fit(f"stream fit, chunk_rows {rows:,}", scfg,
+                                   dev, Xtr, ytr, Xte, yte)
+        fits[rows] = (svm, r, f)
+        srel = float((first.S - Sres).abs().max() / Sres.abs().max())
+        brel = float((first.b - bres).abs().max() / Sres.abs().max())
+        say(f"  first pass (S, b) against the resident first statistic: "
+            f"S {srel:.3e}, b {brel:.3e} of max|S| (<= 1e-4)")
+        check(srel <= 1e-4 and brel <= 1e-4, "the stream fit's first "
+              "statistic is not the resident one")
+        stream_gates(f"stream {rows:,} vs resident", scfg, r, res, K,
+                     len(Xtr))
+        check(abs(f["metric"] - rf["metric"]) <= 0.01, "stream accuracy "
+              "outside 0.01 of the resident fit's")
+        check(f["counts"]["fused_stats"] == r.n_iters * -(-len(Xtr) // rows),
+              f"fused_stats launched {f['counts']['fused_stats']} times")
+    r4 = fits[STREAM_CHUNKS[0]][1]
+    ratio = r4.peak_input_bytes / Xtr.nbytes
+    say(f"  peak_input_bytes at 4,096 rows: {ratio:.5f} of the resident X "
+        f"(< 1/100); at 65,536 rows "
+        f"{fits[STREAM_CHUNKS[1]][1].peak_input_bytes / Xtr.nbytes:.4f}")
+    check(ratio < 0.01, "peak_input_bytes at 4,096 rows not below 1/100 of "
+          "the resident bytes")
+    runs["fused_stats"] = fits[STREAM_CHUNKS[0]][2]["counts"]
+    del fits, res_svm
+    profile_stream("the 4,096-row stream fit (3 iterations)",
+                   dataclasses.replace(cfg, driver="stream", max_iters=3,
+                                       min_iters=3), dev, Xtr, ytr)
+    # -- bitwise: prefetch depths and repeats (page-locked arrays)
+    sub = slice(0, 500_000)
+    ws = []
+    for pf in (1, 2, 4, 2):
+        scfg = dataclasses.replace(cfg, driver="stream", prefetch=pf,
+                                   max_iters=3, min_iters=3)
+        ws.append(PEMSVM(scfg, device=dev).fit(Xtr[sub], ytr[sub]).weights)
+    same = all(np.array_equal(w, ws[0]) for w in ws[1:])
+    say(f"  prefetch 1, 2, 4 and 2 again (500,000 rows, 3 iterations): "
+        f"weights bitwise equal {same}")
+    check(same, "stream weights differ across prefetch depths or runs")
+    # -- LIN-MC-CLS rng 'fused', 5 iterations
+    mc = dataclasses.replace(cfg, algorithm="MC", rng="fused", max_iters=5,
+                             min_iters=5, burnin=2)
+    _, rmc, fmc = stream_fit("MC resident fit, rng='fused'", mc, dev, Xtr,
+                             ytr, Xte, yte)
+    _, smc, fsm = stream_fit("MC stream fit, rng='fused'", dataclasses.replace(
+        mc, driver="stream"), dev, Xtr, ytr, Xte, yte)
+    g0, g1 = rmc.aux_history["gamma_mean"], smc.aux_history["gamma_mean"]
+    grel = abs(g1[0] - g0[0]) / abs(g0[0])
+    say(f"  MC gamma_mean by iteration: resident {[round(v, 6) for v in g0]},"
+        f" stream {[round(v, 6) for v in g1]}; first iteration rel {grel:.3e}"
+        f" (<= 1e-6); weights rel {_rel(smc.weights, rmc.weights):.3e}")
+    check(grel <= 1e-6, "MC first gamma_mean differs")
+    runs["fused_stats[mc_hinge,seed]"] = fsm["counts"]
+    del X, y, Xtr, ytr, Xte, yte
+    # -- K > 1,536: phase 5's 131,072 x 2,048, 3 iterations
+    Xw, yw = make_alpha_like(n=131_072, k=2047, seed=0)
+    wcfg = SVMConfig(lam=lam_from_C(1.0), max_iters=3, min_iters=3)
+    _, rw, _ = stream_fit("K = 2,048 resident fit", wcfg, dev, Xw, yw)
+    _, sw, fw = stream_fit("K = 2,048 stream fit", dataclasses.replace(
+        wcfg, driver="stream"), dev, Xw, yw)
+    chunks = -(-len(Xw) // wcfg.chunk_rows)
+    check(fw["counts"]["fused_estep"] == fw["counts"]["syrk_tri"]
+          == 3 * chunks and fw["counts"]["fused_stats"] == 0,
+          f"K = 2,048 stream: launches {fw['counts']}")
+    stream_gates("K = 2,048 stream vs resident", wcfg, sw, rw,
+                 Xw.shape[1] + 1, len(Xw))
+    runs["fused_estep"] = runs["syrk_tri"] = fw["counts"]
+    del Xw, yw
+    # -- LIN-EM-SVR (phase 9's split), 10 iterations
+    Xy, yy, Xyt, yyt = year_split()
+    ycfg = SVMConfig.from_options("LIN-EM-SVR", lam=lam_from_C(0.01),
+                                  eps_ins=EPS_INS, max_iters=10, min_iters=10)
+    _, ry, fry = stream_fit("EM-SVR resident fit", ycfg, dev, Xy, yy, Xyt,
+                            yyt)
+    _, sy, fsy = stream_fit("EM-SVR stream fit", dataclasses.replace(
+        ycfg, driver="stream"), dev, Xy, yy, Xyt, yyt)
+    stream_gates("EM-SVR stream vs resident", ycfg, sy, ry, 91, len(Xy),
+                 t_band=SVR_TRACE_BAND)
+    check(abs(fsy["metric"] - fry["metric"]) <= 0.01, "EM-SVR stream RMSE "
+          "outside 0.01 of the resident fit's")
+    runs["fused_stats[em_svr]"] = fsy["counts"]
+    # -- LIN-EM-MLT (phase 12's Table 8 split), 5 iterations
+    data = mnist_split()
+    Xm, lm, Xmt, lmt = data
+    mcfg = t8_cfg("LIN-EM-MLT", max_iters=5, min_iters=5)
+    rsvm, rm, _ = stream_fit("EM-MLT resident fit", mcfg, dev, Xm, lm, Xmt,
+                             lmt)
+    ssvm, sm, fsm2 = stream_fit(
+        "EM-MLT stream fit", dataclasses.replace(mcfg, driver="stream"), dev,
+        Xm, lm, Xmt, lmt, passes_per_iter=M_CLASSES + 1)
+    frel = _rel(ssvm.decision_function(Xmt), rsvm.decision_function(Xmt))
+    say(f"  EM-MLT stream vs resident: held-out class scores rel {frel:.3e} "
+        f"(<= 5e-2), weights rel {_rel(sm.weights, rm.weights):.3e} "
+        f"(printed), objective rel {trace_rel(sm.objective, rm.objective):.3e}")
+    check(frel <= 5e-2, "EM-MLT stream class scores outside 5e-2")
+    check(fsm2["counts"]["fused_stats"] == 5 * M_CLASSES * -(-len(Xm) // 4096),
+          f"EM-MLT stream: fused_stats launched {fsm2['counts']}")
+    # -- KRN-EM-MLT through NystromSVM (phase 13's m = 400), 2 iterations:
+    # nystrom_phi on every chunk of every pass
+    kcfg = t8_cfg("KRN-EM-MLT", sigma=8.0, max_iters=2, min_iters=2)
+    rn = NystromSVM(kcfg, n_landmarks=400, device=dev)
+    rn_res = rn.fit(Xm, lm)
+    _zero_counts()
+    sn = NystromSVM(dataclasses.replace(kcfg, driver="stream"),
+                    n_landmarks=400, device=dev)
+    t0 = time.perf_counter()
+    sn_res = sn.fit_featurized(Xm, lm, rn._landmarks, rn._proj)
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    cn = _counts()
+    krel = _rel(sn.decision_function(Xmt), rn.decision_function(Xmt))
+    say(f"  KRN-EM-MLT stream fit (m = 400, 2 iterations): {secs:.3f} s, "
+        f"launches { {k: v for k, v in cn.items() if v} }, held-out class "
+        f"scores rel {krel:.3e} of the resident fit's (<= 5e-2)")
+    check(cn["nystrom_phi"] == 2 * (M_CLASSES + 1) * -(-len(Xm) // 4096),
+          f"KRN-EM-MLT stream: nystrom_phi launched {cn['nystrom_phi']}")
+    check(krel <= 5e-2, "KRN-EM-MLT stream class scores outside 5e-2")
+    runs["nystrom_phi"] = cn
+    del data, Xm, lm, Xmt, lmt, rn, sn
+    # -- KRN-EM-CLS through NystromSVM, phase 7's rings, m = 1,000
+    Xr, yr = circles_data(1_000_000)
+    Xrt, yrt = circles_data(100_000, 1)
+    ncfg = SVMConfig.from_options("KRN-EM-CLS", lam=0.1, sigma=0.7,
+                                  max_iters=10, min_iters=10)
+    resident = NystromSVM(ncfg, n_landmarks=1000, device=dev)
+    rr = resident.fit(Xr, yr)
+    racc = resident.score(Xrt, yrt)
+    nys, firsts = {}, {}
+    for rows in (4096, 62_500, 65_536):
+        scfg = dataclasses.replace(ncfg, driver="stream", chunk_rows=rows)
+        _zero_counts()
+        ny = NystromSVM(scfg, n_landmarks=1000, device=dev)
+        t0 = time.perf_counter()
+        with FirstStats() as first:
+            if rows == 4096:  # its own featurizer: the same draw and bits
+                r = ny.fit(Xr, yr)
+                check(np.array_equal(ny._proj, resident._proj)
+                      and np.array_equal(ny._landmarks, resident._landmarks),
+                      "the stream fit's featurizer is not the resident "
+                      "one's")
+            else:
+                r = ny.fit_featurized(Xr, yr, resident._landmarks,
+                                      resident._proj)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        firsts[rows] = (first.S, first.b)
+        c = _counts()
+        acc = ny.score(Xrt, yrt)
+        pred = _counts()
+        nys[rows] = r
+        say(f"  KRN-EM-CLS stream fit, chunk_rows {rows:,}: {secs:.3f} s "
+            f"({secs / r.n_iters * 1e3:.1f} ms a pass), held-out accuracy "
+            f"{acc:.4f} (resident {racc:.4f}), peak_input_bytes "
+            f"{r.peak_input_bytes:,}, {r.n_host_syncs} host syncs, launches "
+            f"{ {k: v for k, v in c.items() if v} }, on predict "
+            f"nystrom_score {pred['nystrom_score'] - c['nystrom_score']}")
+        check(abs(acc - racc) <= 0.01, "KRN stream accuracy outside 0.01")
+        check(r.n_host_syncs == r.n_iters, "KRN stream host syncs")
+        check(c["nystrom_fused_stats[em_hinge]"]
+              == r.n_iters * -(-len(Xr) // rows), "KRN stream launches")
+        if rows == 4096:
+            check(c["rbf_gram"] == 1 and pred["nystrom_score"]
+                  - c["nystrom_score"] == 1, "KRN stream: rbf_gram once a "
+                  "fit and nystrom_score once a predict")
+            runs["nystrom_fused_stats[em_hinge]"] = c
+            runs["rbf_gram"] = c
+            runs["nystrom_score"] = {"nystrom_score": pred["nystrom_score"]
+                                     - c["nystrom_score"]}
+    (Sa, ba), (Sb, bb) = firsts[65_536], firsts[62_500]
+    scale = float(Sb.abs().max())
+    srel = float((Sa - Sb).abs().max()) / scale
+    brel = float((ba - bb).abs().max()) / scale
+    mrel = float(np.max(np.abs(nys[65_536].weights - nys[62_500].weights))
+                 / np.max(np.abs(nys[62_500].weights)))
+    say(f"  masked tail (65,536 rows, a 16,960-row tail) against a divisible "
+        f"chunking (62,500): first pass S {srel:.3e}, b {brel:.3e} of max|S| "
+        f"(<= 1e-4); weights after {nys[62_500].n_iters} iterations rel "
+        f"{mrel:.3e}; 4,096 against resident weights rel "
+        f"{_rel(nys[4096].weights, rr.weights):.3e}")
+    check(srel <= 1e-4 and brel <= 1e-4, "the masked tail chunking's "
+          "statistic differs from a divisible one's")
+    L = torch.from_numpy(resident._landmarks).to(dev)
+    P = torch.from_numpy(resident._proj).to(dev)
+    kernel_rows = chunk_kernel_rows(
+        dev, make_dna_like(65_536, T5_K)[0], t5_rows,
+        (torch.from_numpy(Xr).to(dev), L, P))
+    del Xr, yr, resident, L, P
+    # -- the file path: make_dna_like(20,000, 200) as libsvm text
+    Xd, yd = make_dna_like(20_000, 200)
+    tmp = tempfile.mkdtemp(prefix="chip_smoke_libsvm_")
+    path = os.path.join(tmp, "stream_dna.libsvm")
+    save_libsvm(path, Xd, yd)
+    lines = open(path).read().splitlines()
+    with open(path, "w") as f:   # as tests/test_streaming.py writes it
+        f.write("# generated by chip_smoke\n\n")
+        for i, ln in enumerate(lines):
+            f.write(ln + ("  # sv" if i % 7 == 0 else "") + "\n")
+            if i % 11 == 0:
+                f.write("   \n")
+    t0 = time.perf_counter()
+    parsed = sum(int(mc.sum()) for _, _, mc in iter_libsvm(path, 4096, 200))
+    parse_s = time.perf_counter() - t0
+    # the reference test's eps and iterations
+    dcfg = SVMConfig(lam=lam_from_C(1e-5) * 20_000 / T5_N, eps=1e-2,
+                     max_iters=12, min_iters=12)
+    _, rd, _ = stream_fit("file rows, resident fit", dcfg, dev, Xd, yd)
+    _, sd, fd = stream_fit(
+        "fit_libsvm stream", dataclasses.replace(dcfg, driver="stream"), dev,
+        Xd, yd, fit=lambda s: s.fit_libsvm(path, n_features=200))
+    drel = float(np.max(np.abs(sd.weights - rd.weights))
+                 / np.max(np.abs(rd.weights)))
+    say(f"  libsvm parse: {parsed:,} rows in {parse_s:.3f} s "
+        f"({parsed / parse_s:,.0f} rows/s) beside {fd['per_pass'] * 1e3:.1f}"
+        f" ms a pass of fit_libsvm; weights rel {drel:.3e} of the resident "
+        f"fit (<= 1e-3)")
+    check(drel <= 1e-3, "fit_libsvm stream weights outside 1e-3")
+    shutil.rmtree(tmp, ignore_errors=True)
+    # one loader retry, and prefetch depths on the staging ring
+    Xb = np.concatenate([Xd, np.ones((len(Xd), 1), np.float32)], 1)
+    Xp, tp, mp = distributed.pad_rows(Xb, yd, 1, multiple=1024)
+    state = {"failed": False}
+
+    def chunks(fail):
+        def gen():
+            for j, i0 in enumerate(range(0, Xp.shape[0], 1024)):
+                if fail and j == 7 and not state["failed"]:
+                    state["failed"] = True
+                    raise IOError("transient read error")
+                yield Xp[i0:i0 + 1024], tp[i0:i0 + 1024], mp[i0:i0 + 1024]
+        return gen
+
+    ccfg = dataclasses.replace(dcfg, driver="stream", chunk_rows=1024)
+    ring = []
+    for pf in (1, 2, 4, 2):
+        ring.append(PEMSVM(dataclasses.replace(ccfg, prefetch=pf),
+                           device=dev).fit_chunks(chunks(False), 201))
+    flaky = PEMSVM(ccfg, device=dev).fit_chunks(chunks(True), 201)
+    same = all(np.array_equal(r.weights, ring[0].weights) for r in ring[1:])
+    say(f"  staging ring: prefetch 1, 2, 4 and 2 again bitwise equal {same};"
+        f" one IOError mid-pass: loader_retries {flaky.loader_retries}, "
+        f"backoff {flaky.loader_backoff_s:.3f} s, weights bitwise the "
+        f"fault-free fit's {np.array_equal(flaky.weights, ring[1].weights)}")
+    check(same and flaky.loader_retries == 1
+          and np.array_equal(flaky.weights, ring[1].weights),
+          "the staging ring's bitwise gates failed")
+    # -- the resident set-up, parent's host assembly against this tree's
+    setup_ab(dev)
+    return runs, kernel_rows
+
+
 # ------------------------------------------------------- the mesh fits
 MESH_TIMEOUT = 600  # seconds a collective may wait before the ranks fail
 
@@ -3847,6 +4616,12 @@ def main() -> int:
     _, krn_rows, exact_ref = phase_exact_krn(dev)
     for name, extra in krn_rows.items():
         rows[name].update(extra)
+    say("== 15. the stream driver: Table 5 (make_dna_like) resident and "
+        "streamed; MC, K = 2,048, SVR, MLT, Nystrom and the libsvm file "
+        "streamed; the resident set-up")
+    stream_runs, stream_rows = phase_stream(dev)
+    for name, extra in stream_rows.items():
+        rows[name].update(extra)
     say("== 11. the multi-device fit: a 2 x 2 (data x k) mesh and a 4 x 1 "
         "one, four gloo ranks on cuda:0; a one-rank NCCL group")
     runs.update(phase_mesh(dev, krn_ref, mc_ref, exact_ref))
@@ -3856,9 +4631,12 @@ def main() -> int:
     for name, (src, replaces) in SOURCES.items():
         counts, iters, steps = runs[name]
         launches = counts[name]
+        stream = stream_runs.get(name)
         kernels.append(dict(name=name, route="cuda", source=src,
                             replaces=replaces, launches=launches,
-                            iterations=iters, steps=steps, **rows[name]))
+                            iterations=iters, steps=steps, **rows[name],
+                            **({} if stream is None else
+                               {"stream_launches": stream[name]})))
     say(json.dumps({"kernels": kernels}))
     say(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

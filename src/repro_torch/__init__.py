@@ -5,14 +5,26 @@ it by the ``tests/test_torch_*.py`` suite and imports neither JAX nor
 anything under ``repro``. Importing it needs only CPU PyTorch: the CUDA
 kernels are compiled with ``nvcc`` on first use (``kernels/_build.py``).
 
-Ported so far: LIN-EM-CLS and LIN-MC-CLS (the Gibbs sampler, with the
-'host', 'fused_predraw' and 'fused' noise sources and ``n_chains``) on one
-device with the ``scan`` and ``loop`` drivers, the slice of ``jax.random``
-they need (``core/prng.py``), the Nystrom kernel SVM KRN-{EM,MC}-CLS
-(``NystromSVM``), and seven kernels: ``fused_stats`` (em_hinge and
-mc_hinge, noise operands or the in-kernel counter RNG, multichain),
-``fused_estep``, ``syrk_tri``, ``rbf_gram``, ``nystrom_phi``,
-``nystrom_score`` and ``nystrom_fused_stats``. ROADMAP.md lists what is
-still to come.
+Ported so far:
+
+* every option string of the paper through ``PEMSVM(SVMConfig...)``:
+  LIN-EM-CLS, LIN-MC-CLS, LIN-EM-SVR, LIN-MC-SVR, LIN-EM-MLT, LIN-MC-MLT
+  and the exact-Gram KRN-EM-CLS and KRN-MC-CLS, and through
+  ``NystromSVM`` KRN-{EM,MC}-{CLS,SVR,MLT}; the MC noise sources 'host',
+  'fused_predraw' and 'fused', and ``n_chains``;
+* the ``scan``, ``loop`` and ``stream`` drivers: ``fit``, and for the
+  out-of-core stream driver also ``fit_chunks`` and ``fit_libsvm``
+  (chunks copied to the card from page-locked memory on a side stream,
+  ``data/pipeline.py``; libsvm text IO, ``data/libsvm.py``);
+* one device, or a ``torch.distributed`` DeviceMesh (data-parallel, or
+  2-D with ``k_shard_axis``);
+* the slice of ``jax.random`` the samplers need (``core/prng.py``);
+* all eight kernels of the reference, hand-written in CUDA for sm_90a
+  (``csrc/``): ``fused_stats`` (em_hinge, mc_hinge, em_svr, mc_svr; noise
+  operands or the in-kernel counter RNG; multichain; column windows),
+  ``fused_estep``, ``syrk_tri``, ``weighted_gram``, ``rbf_gram``,
+  ``nystrom_phi``, ``nystrom_score`` and ``nystrom_fused_stats``.
+
+ROADMAP.md lists what is still to come.
 """
 from .core import NystromSVM, PEMSVM, SVMConfig, lam_from_C  # noqa: F401

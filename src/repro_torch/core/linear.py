@@ -218,6 +218,40 @@ def cls_step(data: SVMData, w: torch.Tensor, key: torch.Tensor | None = None,
                    "n_sv": n_sv}
 
 
+def cls_chunk_stats(chunk: SVMData, w: torch.Tensor,
+                    key: torch.Tensor | None, row0: int, *, mode: str,
+                    eps: float, backend: str | None, phi=None,
+                    phi_spec: PhiSpec | None = None, rng: str = "host",
+                    n_chains: int = 1, chain0: int = 0) -> dict:
+    """The stream driver's E-step body for CLS: one chunk's additive
+    contributions, device tensors. Every field is an exact sum over the
+    chunk's valid rows, so the driver sums these dicts over the chunks and
+    lands on the (Sigma, b, loss, diagnostics) of the in-memory step
+    (padded rows contribute zero: a zero X row, or in phi-space the
+    mask). ``row0`` is the chunk's global row, which keys the MC draws,
+    so the chain does not depend on the chunking. Multichain chunks carry
+    S (C, K, K), b (K, C) and chain-mean diagnostics."""
+    X, y, mask = chunk
+    multi = n_chains > 1
+    margin, gamma, S, b = accumulate_stats(
+        X, y, y, w.T if multi else w, mode=mode, key=key, eps=eps,
+        backend=backend, row0=row0, rng=rng, chain0=chain0, phi=phi,
+        phi_spec=phi_spec, mask=mask)
+    if multi:
+        maskc = mask[:, None].expand_as(margin)
+        return {"S": S, "b": b,
+                "loss": objective.hinge_obj_terms(margin, y[:, None],
+                                                  maskc) / n_chains,
+                "gamma_sum": torch.sum(gamma * maskc) / n_chains,
+                "mask_sum": torch.sum(mask),
+                "n_sv": torch.sum(maskc * (gamma <= 2.0 * eps)) / n_chains}
+    return {"S": S, "b": b,
+            "loss": objective.hinge_obj_terms(margin, y, mask),
+            "gamma_sum": torch.sum(gamma * mask),
+            "mask_sum": torch.sum(mask),
+            "n_sv": torch.sum(mask * (gamma <= 2.0 * eps))}
+
+
 def decision_function(w: torch.Tensor, X: torch.Tensor) -> torch.Tensor:
     return X.to(torch.float32) @ w.to(torch.float32)
 

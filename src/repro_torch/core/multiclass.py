@@ -19,9 +19,10 @@ F = X W^T and refreshes column y after updating w_y (one matrix-vector
 product, as the reference's XLA computes it).
 
 Nothing in a sweep waits for the device but the collectives: the class
-loop is a Python loop over device tensors. The streaming bodies of the
-reference (``mlt_class_chunk_stats``, ``mlt_chunk_obj``) come with the
-stream driver (ROADMAP queue 1 item 8).
+loop is a Python loop over device tensors. The stream driver's bodies
+(``mlt_class_chunk_stats``, ``mlt_chunk_obj``) recompute a chunk's F from
+the current W on every class pass instead, which is the same F: its
+columns are X w_c at each class's current value.
 """
 from __future__ import annotations
 
@@ -64,6 +65,42 @@ def _rho_beta(F: torch.Tensor, labels: torch.Tensor, y: int, M: int):
     rho = zeta - delta_y
     beta = torch.where(labels == y, 1.0, -1.0).to(torch.float32)
     return rho, beta
+
+
+def mlt_class_chunk_stats(chunk: SVMData, W: torch.Tensor,
+                          key: torch.Tensor | None, row0: int, y: int, *,
+                          num_classes: int, mode: str, eps: float,
+                          backend: str | None, phi=None,
+                          phi_spec: PhiSpec | None = None,
+                          rng: str = "host", chain0: int = 0) -> dict:
+    """The stream driver's class-y E-step body: one chunk's (Sigma, b).
+    The chunk's score matrix is recomputed from the current W (the classes
+    before y already updated in this sweep), and class y's key is
+    ``fold_in(key, y)`` with the rows keyed from ``row0``, as in
+    ``mlt_step``, so an MC chain is that of the in-memory drivers. In
+    phi-space the chunk is featurized first (``nystrom_phi``)."""
+    X, labels, mask = chunk
+    X = _maybe_featurize(X, mask, phi, phi_spec, backend)
+    F = X.to(torch.float32) @ W.to(torch.float32).T
+    rho, beta = _rho_beta(F, labels, y, num_classes)
+    _, _, S, b = accumulate_stats(
+        X, rho, beta, W[y], mode=mode,
+        key=None if key is None else prng.fold_in(key, y), eps=eps,
+        backend=backend, row0=row0, rng=rng, chain0=chain0)
+    return {"S": S, "b": b}
+
+
+def mlt_chunk_obj(chunk: SVMData, W: torch.Tensor, phi=None,
+                  phi_spec: PhiSpec | None = None,
+                  backend: str | None = None) -> dict:
+    """The stream driver's objective body: a chunk's Crammer-Singer loss
+    terms at the end-of-sweep W and its valid-row count (both
+    additive)."""
+    X, labels, mask = chunk
+    X = _maybe_featurize(X, mask, phi, phi_spec, backend)
+    F = X.to(torch.float32) @ W.to(torch.float32).T
+    return {"loss": objective.cs_obj_terms(F, labels, mask),
+            "mask_sum": torch.sum(mask)}
 
 
 def mlt_step(data: SVMData, W: torch.Tensor,

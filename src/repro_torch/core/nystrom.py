@@ -17,14 +17,17 @@ The delegate carries the task: KRN-{EM,MC}-CLS, KRN-{EM,MC}-SVR (the
 phi-space SVR statistic under the em_svr / mc_svr epilogues) and
 KRN-{EM,MC}-MLT (the Crammer-Singer sweep on phi: one ``nystrom_phi`` a
 step, then M ``fused_stats`` passes; ``nystrom_score`` with the M class
-columns to predict), and the mesh: with ``mesh`` every rank draws the same landmarks from the same host
-rows and computes the same projection (replicated), and the delegate fits
-in phi-space on the mesh, a ``k_shard_axis`` splitting the phi columns of
-Sigma.
+columns to predict), the drivers (``driver="stream"`` streams the raw
+D-wide rows in chunks and featurizes each on the device, through
+``nystrom_fused_stats``, or ``nystrom_phi`` for MLT and past m = 1,024),
+and the mesh: with ``mesh`` every rank draws the same landmarks from the
+same host rows and computes the same projection (replicated), and the
+delegate fits in phi-space on the mesh, a ``k_shard_axis`` splitting the
+phi columns of Sigma.
 
-Not ported yet: ``fit_libsvm`` (ROADMAP queue 1 item 8),
-``export_servable``/``scorer`` (item 12) and ``resume_from``/``warm_start``
-(item 11).
+Not ported yet: ``fit_libsvm`` (it needs reservoir landmarks, ROADMAP
+queue 1 item 8b), ``warm_start`` (item 8b), ``export_servable``/``scorer``
+(item 12) and ``resume_from`` (item 11).
 """
 from __future__ import annotations
 
@@ -145,16 +148,18 @@ class NystromSVM:
 
     @staticmethod
     def _check_fit_kw(fit_kw: dict) -> None:
-        for name in ("resume_from", "warm_start"):
+        for name, item in (("resume_from", "item 11 (reliability)"),
+                           ("warm_start", "item 8b (streaming and data)")):
             if fit_kw.get(name) is not None:
                 raise NotImplementedError(
                     f"fit({name}=...) is not ported yet: ROADMAP queue 1 "
-                    "item 11 (reliability)")
+                    f"{item}")
 
     def fit_libsvm(self, path: str, n_features: int, **fit_kw):
         raise NotImplementedError(
-            "fit_libsvm (out-of-core Nystrom fit) is not ported yet: "
-            "ROADMAP queue 1 item 8 (streaming and data)")
+            "fit_libsvm (out-of-core Nystrom fit, landmarks by reservoir "
+            "sampling) is not ported yet: ROADMAP queue 1 item 8b "
+            "(streaming and data)")
 
     # ---------------------------------------------------------- inference
     def _phi(self, X: np.ndarray, add_bias: bool = False) -> np.ndarray:

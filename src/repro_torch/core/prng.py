@@ -106,12 +106,13 @@ def erf_inv(x: torch.Tensor) -> torch.Tensor:
     w = -torch.log1p(-(x * x))
     lt = w < 5.0
     w = torch.where(lt, w - 2.5, sqrt_rn(w) - 3.0).double()
-    lt5 = torch.tensor(_ERFINV_LT5, dtype=torch.float64, device=x.device)
-    ge5 = torch.tensor(_ERFINV_GE5, dtype=torch.float64, device=x.device)
-    coef = torch.where(lt[..., None], lt5, ge5)
-    p = coef[..., 0].float()
-    for i in range(1, len(_ERFINV_LT5)):
-        p = (coef[..., i] + p.double() * w).float()  # one rounding a step
+    # The coefficients are float32 values, so a float32 select of the two
+    # scalars is exact; scalars travel as kernel arguments (a table copied
+    # from the host would synchronize the host with the stream).
+    coef = [torch.where(lt, a, b) for a, b in zip(_ERFINV_LT5, _ERFINV_GE5)]
+    p = coef[0]
+    for c in coef[1:]:
+        p = (c.double() + p.double() * w).float()  # one rounding a step
     out = p * x
     return torch.where(x.abs() == 1.0, x * float("inf"), out)
 

@@ -1,8 +1,8 @@
 """PEMSVM driver: port of ``repro/core/solver.py`` for the paper's option
 strings LIN-{EM,MC}-{CLS,MLT,SVR} and the exact-Gram KRN-{EM,MC}-CLS, with
-the ``scan`` (default) and ``loop`` drivers, in X-space or (``phi_spec``,
-the delegate of ``NystromSVM``) in Nystrom phi-space, on one device or on
-a device mesh.
+the ``scan`` (default), ``loop`` and ``stream`` drivers, in X-space or
+(``phi_spec``, the delegate of ``NystromSVM``) in Nystrom phi-space, on
+one device or on a device mesh.
 
 The run protocol is the paper's: the objective is evaluated every
 iteration and the fit stops when its change falls to tol*N (Sec 5.5);
@@ -14,6 +14,15 @@ chains over one X stream. MLT (Crammer-Singer, Sec 3.3) carries an (M, K)
 state and sweeps the classes (``core/multiclass.py``); the exact KRN
 solver (Sec 3.1) fits the dual weights on the padded Gram matrix of the
 training rows, which it keeps for prediction (``core/kernel.py``).
+
+The stream driver (``driver="stream"``; ``fit``, ``fit_chunks``,
+``fit_libsvm``) is the paper's Fig. 1 iteration as a map-reduce over row
+chunks (Sec 5.6): Sigma and the mu-numerator are exact sums over rows, so
+the data set passes through the device ``chunk_rows`` rows at a time,
+copied from page-locked host memory on a side stream
+(``data.pipeline``), and only (prefetch + 2) chunks are resident at once.
+The resident drivers' set-up builds the padded, biased statistic matrix
+on the device from the same page-locked copy path.
 
 ``PEMSVM(config)`` runs on ``cuda:0`` and its statistic goes through the
 hand-written kernels (``kernels/ops.py``); ``device="cpu"`` runs the plain
@@ -31,15 +40,22 @@ from __future__ import annotations
 
 import dataclasses
 import functools
+import itertools
 import math
 from typing import Any, Callable
 
 import numpy as np
 import torch
 
-from repro_torch.data.pipeline import pad_features_to
+from repro_torch.data.libsvm import iter_libsvm, load_libsvm
+from repro_torch.data.pipeline import (ChunkPrefetcher, DevicePlacer,
+                                       PageLock, RetryStats, pad_features_to,
+                                       padded_width, retrying_chunks,
+                                       rows_to_device)
 from repro_torch.kernels import ops
-from . import distributed, kernel, linear, multiclass, prng, svr
+from repro_torch.runtime.policy import FaultPolicy
+from . import (distributed, kernel, linear, multiclass, objective, prng,
+               stats, svr)
 from .linear import SVMData
 
 FORMULATIONS = ("LIN", "KRN")
@@ -170,16 +186,21 @@ class FitResult:
     #                                 their cross-chain mean
     chain_std: np.ndarray | None = None      # (K,) cross-chain std
     #                                 (ddof=1) of the per-chain means
+    peak_input_bytes: int = 0       # stream driver: the most input bytes
+    #                                 resident at once, (prefetch + 2)
+    #                                 chunks
+    loader_retries: int = 0         # stream driver: loader failures
+    #                                 absorbed by retrying_chunks
+    loader_backoff_s: float = 0.0   # seconds slept backing those off
 
 
 def _unsupported(cfg: SVMConfig) -> list[str]:
     """What ``cfg`` sets outside this slice, each with the ROADMAP queue-1
     item that brings it."""
     checks = [
-        ("driver", cfg.driver == "stream", "item 8 (streaming and data)"),
         ("fault", cfg.fault is not None, "item 11 (reliability)"),
-        ("decay", cfg.decay != 0.0, "item 8 (streaming and data)"),
-        ("window", cfg.window != 0, "item 8 (streaming and data)"),
+        ("decay", cfg.decay != 0.0, "item 8b (streaming and data)"),
+        ("window", cfg.window != 0, "item 8b (streaming and data)"),
     ]
     return [f"{name}={getattr(cfg, name)!r} -> ROADMAP queue 1 {item}"
             for name, bad, item in checks if bad]
@@ -188,7 +209,7 @@ def _unsupported(cfg: SVMConfig) -> list[str]:
 _FIT_KEYWORDS = {
     "resume_from": "item 11 (reliability)",
     "resume_step": "item 11 (reliability)",
-    "warm_start": "item 8 (streaming and data)",
+    "warm_start": "item 8b (streaming and data)",
     "fault_hook": "item 11 (reliability)",
     "epoch": "item 11 (reliability)",
 }
@@ -214,6 +235,18 @@ def _check_krn(cfg: SVMConfig) -> None:
             "driver='stream' cannot use the exact N x N Gram statistic "
             "(not row-chunk-additive); use NystromSVM, whose phi-space "
             "route streams raw rows")
+
+
+def _check_fit_keywords(kw: dict) -> None:
+    """Refuse the reference's elastic fit keywords, naming the ROADMAP
+    item that brings each."""
+    for name, value in kw.items():
+        if name not in _FIT_KEYWORDS:
+            raise TypeError(f"fit() got an unexpected keyword {name!r}")
+        if value is not None:
+            raise NotImplementedError(
+                f"fit({name}=...) is not ported yet: ROADMAP queue 1 "
+                f"{_FIT_KEYWORDS[name]}")
 
 
 def _device(device) -> torch.device:
@@ -308,27 +341,18 @@ class PEMSVM:
         every reduction and the sums renormalize (``stats.preduce``). The
         other elastic keywords of the reference (``resume_from``,
         ``resume_step``, ``warm_start``, ``fault_hook``, ``epoch``) are not
-        ported yet."""
-        for name, value in kw.items():
-            if name not in _FIT_KEYWORDS:
-                raise TypeError(f"fit() got an unexpected keyword {name!r}")
-            if value is not None:
-                raise NotImplementedError(
-                    f"fit({name}=...) is not ported yet: ROADMAP queue 1 "
-                    f"{_FIT_KEYWORDS[name]}")
+        ported yet. With ``driver="stream"`` the arrays are page-locked for
+        the fit and stream through the device in chunks
+        (``_fit_stream_arrays``)."""
+        _check_fit_keywords(kw)
         cfg = self.config
         live = self._live(live)
-        X = np.asarray(X, np.float32)
-        y = np.asarray(y)
+        X = np.ascontiguousarray(X, np.float32)
         self._n_features = X.shape[1]
-        if cfg.add_bias and cfg.formulation == "LIN":
-            X = np.concatenate([X, np.ones((X.shape[0], 1), np.float32)], 1)
-        if cfg.pad_features:
-            # Zero columns after the bias: the route to a k_shard-divisible
-            # width; their weights stay 0, predictions are unchanged.
-            X = pad_features_to(X, cfg.pad_features)
+        target = self._targets(np.asarray(y))
+        if cfg.driver == "stream":
+            return self._fit_stream_arrays(X, target)
         N = X.shape[0]
-        target = self._targets(y)
         if cfg.formulation == "KRN":
             data, gram, state = self._prepare_krn(X, target)
 
@@ -358,13 +382,33 @@ class PEMSVM:
             else:
                 step = functools.partial(linear.cls_step,
                                          n_chains=cfg.n_chains, **common)
-        # The reference's key chain: PRNGKey(seed), one split an
-        # iteration. An EM step draws nothing, so EM fits skip it.
-        key = (prng.PRNGKey(cfg.seed, self.device)
-               if cfg.algorithm == "MC" else None)
+        key = self._key()
         if cfg.driver == "loop":
             return self._fit_loop(data, state, key, step, N)
         return self._fit_scan(data, state, key, step, N)
+
+    def _key(self) -> torch.Tensor | None:
+        """The reference's key chain starts at PRNGKey(seed), one split an
+        iteration; an EM step draws nothing, so EM fits have no key."""
+        if self.config.algorithm != "MC":
+            return None
+        return prng.PRNGKey(self.config.seed, self.device)
+
+    def _width(self, n_features: int) -> int:
+        """The statistic matrix's width for raw rows ``n_features`` wide:
+        the bias column (LIN), then ``pad_features``' zero columns. In
+        phi-space (``add_bias`` False) the raw width."""
+        cfg = self.config
+        bias = int(cfg.add_bias and cfg.formulation == "LIN")
+        return padded_width(n_features + bias, cfg.pad_features)
+
+    def _state_width(self, n_features: int) -> int:
+        """The weight vector's width: the statistic width, or in phi-space
+        the projection's columns plus the phi-space bias."""
+        if self.config.phi_spec is None:
+            return self._width(n_features)
+        return (self._phi_arrays[1].shape[1]
+                + int(self.config.phi_spec.add_bias))
 
     def _live(self, live) -> torch.Tensor | None:
         """This rank's liveness weight as a 0-d device tensor (all shards
@@ -473,11 +517,15 @@ class PEMSVM:
                             n_syncs)
 
     def _fit_host_loop(self, iterate: Callable, state0: torch.Tensor,
-                       key: torch.Tensor | None) -> FitResult:
+                       key: torch.Tensor | None,
+                       host_aux: Callable | None = None) -> FitResult:
         """Host-loop tail of the reference's loop driver: key chain, trace
         bookkeeping, the MC posterior average (a float64 running mean
         after ``burnin``) and the Sec 5.5 stopping rule, one host sync per
-        iteration. ``iterate(sub_key, state) -> (state, aux, n_valid)``."""
+        iteration. ``iterate(sub_key, state) -> (state, scalars,
+        n_valid)`` with ``scalars`` a dict of 0-d device tensors: the aux
+        keys, or whatever ``host_aux`` maps (on the host, after the one
+        transfer) to ``(aux, n_valid)`` when ``n_valid`` is None."""
         cfg = self.config
         is_mc = cfg.algorithm == "MC"
         state = state0
@@ -491,17 +539,21 @@ class PEMSVM:
         it = 0
         for it in range(1, cfg.max_iters + 1):
             key, sub = _next_key(key)
-            state, aux, n_valid = iterate(sub, state)
+            state, scalars, n_valid = iterate(sub, state)
+            names = keys if host_aux is None else tuple(scalars)
             average = is_mc and it > cfg.burnin
-            parts = [torch.stack([aux[k] for k in keys])]
+            parts = [torch.stack([scalars[k] for k in names])]
             if average:
                 parts.append(state.ravel())
             vals = torch.cat([p.to(torch.float64) for p in parts]
                              ).cpu().numpy()
-            for k, v in zip(keys, vals[:len(keys)]):
-                aux_hist[k].append(float(v))
+            aux = {k: float(v) for k, v in zip(names, vals[:len(names)])}
+            if host_aux is not None:
+                aux, n_valid = host_aux(aux)
+            for k in keys:
+                aux_hist[k].append(aux[k])
             if average:
-                w_np = vals[len(keys):].reshape(tuple(state.shape))
+                w_np = vals[len(names):].reshape(tuple(state.shape))
                 mean_w = w_np if mean_w is None else (
                     mean_w * n_avg + w_np) / (n_avg + 1)
                 n_avg += 1
@@ -528,6 +580,183 @@ class PEMSVM:
             return state, aux, N
 
         return self._fit_host_loop(iterate, state, key)
+
+    # ------------------------------------------------------- the stream
+    def fit_libsvm(self, path: str, n_features: int, rank: int = 0,
+                   world: int = 1, **fit_kw) -> FitResult:
+        """Fit from a libsvm file. With ``driver="stream"`` the file is
+        re-read chunk by chunk every pass (``data.libsvm.iter_libsvm``
+        through the prefetcher) and the data set is never resident on the
+        host or the device; other drivers load it and defer to ``fit``.
+        ``rank``/``world`` stripe the lines per host (paper Sec 5.6)."""
+        cfg = self.config
+        if cfg.driver != "stream":
+            X, y = load_libsvm(path, n_features, rank=rank, world=world)
+            return self.fit(X, y, **fit_kw)
+        if world > 1:
+            # A rank stripe is a partial data set; the stream driver has no
+            # cross-rank reduction, so a stripe would train on 1/world of
+            # the rows.
+            raise NotImplementedError(
+                "driver='stream' with world > 1 needs a cross-host "
+                "reduction that does not exist yet; stream the full "
+                "file (world=1) or use a resident driver on a mesh")
+        self._n_features = n_features
+
+        def make_chunks():
+            for Xc, yc, mc in iter_libsvm(path, cfg.chunk_rows, n_features,
+                                          rank=rank, world=world):
+                if cfg.add_bias:
+                    # the bias column is the mask: padded rows stay zero
+                    Xc = np.concatenate([Xc, mc[:, None]], axis=1)
+                if cfg.pad_features:
+                    Xc = pad_features_to(Xc, cfg.pad_features)
+                yield Xc, self._stream_target(yc, mc), mc
+
+        return self.fit_chunks(make_chunks, self._state_width(n_features),
+                               **fit_kw)
+
+    def fit_chunks(self, make_chunks: Callable, K: int, **kw) -> FitResult:
+        """Out-of-core fit over a restartable chunk source: ``make_chunks()``
+        returns a fresh iterator of host ``(X, target, mask)`` blocks of one
+        shape, their width already final (bias column appended, features
+        padded; raw rows in phi-space), and ``K`` is the weight vector's
+        width. The chunks reach the device through a pinned staging ring
+        (``data.pipeline.DevicePlacer``); a failing source is retried per
+        the default ``FaultPolicy``. The reference's elastic keywords are
+        refused as in ``fit``."""
+        cfg = self.config
+        if cfg.driver != "stream":
+            raise ValueError(
+                f"fit_chunks is the stream driver's entry point; "
+                f"config.driver is {cfg.driver!r}")
+        _check_fit_keywords(kw)
+        return self._fit_stream(make_chunks, K, DevicePlacer(self.device))
+
+    def _stream_target(self, y: np.ndarray, mask: np.ndarray) -> np.ndarray:
+        """One chunk's targets, cast and checked on its valid rows as
+        ``fit`` checks them."""
+        y = np.asarray(y)
+        self._targets(y[np.asarray(mask) > 0])
+        return np.asarray(y, np.int32 if self.config.task == "MLT"
+                          else np.float32)
+
+    def _fit_stream_arrays(self, X: np.ndarray,
+                           target: np.ndarray) -> FitResult:
+        """``driver="stream"`` on in-memory arrays: chunk views of X, which
+        is page-locked in place for the fit (``PageLock``), so that each
+        chunk is copied to the device with no host copy, and of the
+        targets (copied once to pinned memory: small, and a small array
+        may share a page with others); the bias column, the padded tail
+        and the chunk's mask are written on the device
+        (``DevicePlacer``)."""
+        cfg = self.config
+        N, D = X.shape
+        cr = cfg.chunk_rows
+        target = np.ascontiguousarray(target)
+        bias = D if cfg.add_bias and cfg.formulation == "LIN" else None
+        cuda = self.device.type == "cuda"
+        placer = DevicePlacer(self.device, cr, self._width(D), bias,
+                              pinned_source=cuda)
+
+        def make_chunks():
+            for i0 in range(0, N, cr):
+                yield X[i0:i0 + cr], target[i0:i0 + cr], None
+
+        K = self._state_width(D)
+        if not cuda:
+            return self._fit_stream(make_chunks, K, placer)
+        target = torch.from_numpy(target).pin_memory().numpy()
+        with PageLock(self.device, X):
+            return self._fit_stream(make_chunks, K, placer)
+
+    def _fit_stream(self, make_chunks: Callable, K: int,
+                    placer) -> FitResult:
+        """The out-of-core driver (reference ``_fit_stream``, without its
+        checkpoint, decay and window branches: ROADMAP items 11 and 8b).
+
+        Each iteration sweeps the chunks through the prefetcher, sums the
+        per-chunk statistic dicts on the device in chunk order
+        (``totals = totals + part``), then runs the posterior solve or
+        draw on the sums; MLT sweeps M + 1 times (one pass a class, then
+        the objective). ``row0``, the chunk's global row, is a host int
+        carried across the chunks. Nothing in a sweep waits for the
+        device: the scalars stay device tensors until the iteration's one
+        transfer (``_fit_host_loop``), so ``n_host_syncs == n_iters``."""
+        cfg = self.config
+        if self.mesh is not None:
+            raise NotImplementedError(
+                "driver='stream' is single-process: on a mesh, stream "
+                "per-host shards via data_axes striping instead "
+                "(rank/world in fit_libsvm)")
+        dev = self.device
+        fns = _stream_fns(cfg, self._phi())
+        is_mlt = cfg.task == "MLT"
+        if is_mlt:
+            state0 = torch.zeros((cfg.num_classes, K), dtype=torch.float32,
+                                 device=dev)
+        else:
+            state0 = linear.init_weight(K, dev, cfg.n_chains)
+        pol = FaultPolicy()
+        retry = RetryStats()
+        peak = 0
+
+        def source(skip):
+            it = make_chunks()
+            return itertools.islice(it, skip, None) if skip else it
+
+        def sweep(fn):
+            """One pass: the chunks' contributions summed on the device."""
+            nonlocal peak
+            src = retrying_chunks(source, retries=pol.loader_retries,
+                                  backoff=pol.loader_backoff,
+                                  jitter=pol.loader_jitter, seed=cfg.seed,
+                                  stats=retry)
+            pf = ChunkPrefetcher(src, depth=cfg.prefetch, place=placer)
+            totals = None
+            row0 = 0
+            for chunk in pf:
+                data = SVMData(*chunk)
+                part = fn(data, row0)
+                totals = part if totals is None else _add_stats(totals, part)
+                row0 += data.X.shape[0]
+            if totals is None:
+                raise ValueError("stream source yielded no chunks")
+            peak = max(peak, pf.max_resident_bytes)
+            return totals
+
+        def iterate(sub, state):
+            if is_mlt:
+                for y in range(cfg.num_classes):
+                    t = sweep(lambda d, r0, _y=y:
+                              fns["chunk"](d, state, sub, r0, _y))
+                    state = fns["mstep"](state, t["S"], t["b"], sub, y)
+                t = sweep(lambda d, r0: fns["obj"](d, state))
+                return state, {"objective": fns["obj_total"](state,
+                                                              t["loss"]),
+                               "mask_sum": t["mask_sum"]}, None
+            t = sweep(lambda d, r0: fns["chunk"](d, state, sub, r0))
+            state, obj = fns["mstep"](t["S"], t["b"], t["loss"], sub)
+            return state, {"objective": obj,
+                           **{k: v for k, v in t.items()
+                              if k not in ("S", "b", "loss")}}, None
+
+        def host_aux(h):
+            den = max(h["mask_sum"], 1.0)
+            aux = {"objective": h["objective"]}
+            if cfg.task == "SVR":
+                aux["gamma_mean"] = h["gamma_sum"] / den
+                aux["omega_mean"] = h["omega_sum"] / den
+            elif not is_mlt:
+                aux["gamma_mean"] = h["gamma_sum"] / den
+                aux["n_sv"] = h["n_sv"]
+            return aux, h["mask_sum"]
+
+        result = self._fit_host_loop(iterate, state0, self._key(), host_aux)
+        result.peak_input_bytes = int(peak)
+        result.loader_retries = retry.retries
+        result.loader_backoff_s = retry.backoff_s
+        return result
 
     def _finish(self, weights, last, aux_hist, n_iters, converged,
                 n_syncs) -> FitResult:
@@ -601,18 +830,37 @@ class PEMSVM:
         return data, gram, state
 
     def _prepare(self, X: np.ndarray, target: np.ndarray, phi=None):
-        Xp, tp, mask = distributed.shard_rows(self._axes, X, target)
+        """(data, state0) of a resident fit. The statistic matrix is built
+        once, on the device: this rank's block of the rows padded as the
+        reference pads them (``distributed.pad_rows`` over all data
+        shards), the raw rows copied into its [:n, :D] slice through
+        pinned staging (``rows_to_device``), then the bias column (1 on
+        real rows) and the zero padding rows and columns written on the
+        device. The values are those of the host-built matrix, bit for
+        bit, without its two host copies of X."""
+        cfg = self.config
         dev = self.device
-        data = SVMData(torch.from_numpy(Xp).to(dev),
-                       torch.from_numpy(tp).to(dev),
-                       torch.from_numpy(mask).to(dev))
-        # phi-space width: projection columns plus the phi-space bias
-        K = (X.shape[1] if phi is None
-             else phi[1].shape[1] + int(self.config.phi_spec.add_bias))
-        if self.config.task == "MLT":
-            return data, torch.zeros((self.config.num_classes, K),
+        N, D = X.shape
+        shards = 1 if self._axes is None else self._axes.size
+        _, tp, mask = distributed.pad_rows(X[:, :0], target, shards)
+        n_loc = tp.shape[0] // shards
+        i = 0 if self._axes is None else self._axes.index
+        lo, hi = min(i * n_loc, N), min((i + 1) * n_loc, N)
+        width = self._width(D)
+        Xd = torch.empty((n_loc, width), dtype=torch.float32, device=dev)
+        Xd[:, D:].zero_()
+        if cfg.add_bias and cfg.formulation == "LIN":
+            Xd[:hi - lo, D].fill_(1.0)
+        Xd[hi - lo:].zero_()
+        rows_to_device(X[lo:hi], Xd)
+        rows = slice(i * n_loc, (i + 1) * n_loc)
+        data = SVMData(Xd, torch.from_numpy(tp[rows]).to(dev),
+                       torch.from_numpy(mask[rows]).to(dev))
+        K = self._state_width(D)
+        if cfg.task == "MLT":
+            return data, torch.zeros((cfg.num_classes, K),
                                      dtype=torch.float32, device=dev)
-        return data, linear.init_weight(K, dev, self.config.n_chains)
+        return data, linear.init_weight(K, dev, cfg.n_chains)
 
     # ---------------------------------------------------------- inference
     def _features(self, X: np.ndarray) -> torch.Tensor:
@@ -686,6 +934,79 @@ _AUX_KEYS = {("LIN", "CLS"): ("objective", "gamma_mean", "n_sv"),
              ("LIN", "MLT"): ("objective",),
              ("LIN", "SVR"): ("objective", "gamma_mean", "omega_mean"),
              ("KRN", "CLS"): ("objective", "gamma_mean")}
+
+
+def _add_stats(a: dict, b: dict) -> dict:
+    """The stream driver's sum of two chunk dicts, field by field."""
+    return {k: a[k] + b[k] for k in a}
+
+
+def _stream_fns(cfg: SVMConfig, phi) -> dict:
+    """The stream driver's per-chunk bodies and its M-step (reference
+    ``_stream_fns``): ``chunk`` maps one chunk to a dict of row-additive
+    device tensors, ``mstep`` is the posterior solve or draw on the sums
+    (for MLT also taking the class, with ``obj`` / ``obj_total`` the
+    objective pass). ``phi`` is the featurizer pair in phi-space, else
+    None."""
+    common = dict(mode=cfg.algorithm, eps=cfg.eps, backend=cfg.backend,
+                  phi=phi, phi_spec=cfg.phi_spec)
+    if cfg.task == "MLT":
+        def chunk(data, W, key, row0, y):
+            return multiclass.mlt_class_chunk_stats(
+                data, W, key, row0, y, num_classes=cfg.num_classes,
+                rng=cfg.rng, chain0=cfg.chain0, **common)
+
+        def mstep(W, S, b, key, y):
+            L, mu = stats.posterior_params(S, b, cfg.lam, jitter=cfg.jitter)
+            if cfg.algorithm == "EM":
+                w_new = mu
+            else:
+                ky = prng.fold_in(key, y)
+                if cfg.rng != "host":
+                    ky = prng.fold_in(ky, cfg.chain0)
+                w_new = stats.draw_weight(ky, L, mu)
+            W = W.clone()
+            W[y] = w_new
+            return W
+
+        def obj(data, W):
+            return multiclass.mlt_chunk_obj(data, W, phi, cfg.phi_spec,
+                                            cfg.backend)
+
+        def obj_total(W, loss_sum):
+            return objective.l2_reg(W, cfg.lam) + loss_sum
+
+        return dict(chunk=chunk, mstep=mstep, obj=obj, obj_total=obj_total)
+
+    chains = dict(rng=cfg.rng, n_chains=cfg.n_chains, chain0=cfg.chain0)
+    if cfg.task == "SVR":
+        def chunk(data, w, key, row0):
+            return svr.svr_chunk_stats(data, w, key, row0,
+                                       eps_ins=cfg.eps_ins, **common,
+                                       **chains)
+    else:
+        def chunk(data, w, key, row0):
+            return linear.cls_chunk_stats(data, w, key, row0, **common,
+                                          **chains)
+
+    def mstep(S, b, loss_sum, key):
+        if cfg.n_chains > 1:
+            # the chunk loss is already the cross-chain mean
+            w_new = linear.multichain_draw(key, S, b, cfg.lam, cfg.jitter,
+                                           cfg.chain0)
+            return w_new, (objective.l2_reg(w_new, cfg.lam) / cfg.n_chains
+                           + loss_sum)
+        L, mu = stats.posterior_params(S, b, cfg.lam, jitter=cfg.jitter)
+        if cfg.algorithm == "EM":
+            w_new = mu
+        elif cfg.rng == "host":
+            w_new = stats.draw_weight(key, L, mu)
+        else:
+            w_new = stats.draw_weight(
+                linear.chain_keys(key, cfg.chain0, 1)[0], L, mu)
+        return w_new, objective.l2_reg(w_new, cfg.lam) + loss_sum
+
+    return dict(chunk=chunk, mstep=mstep)
 
 
 def _next_key(key: torch.Tensor | None):

@@ -13,8 +13,8 @@ max(0, |y - w^T x| - eps_ins):
 Both mixtures run as the ``em_svr`` / ``mc_svr`` epilogue of one fused
 statistic, in X-space (``ops.fused_stats``) or, with ``phi_spec``, in
 Nystrom phi-space (``ops.nystrom_fused_stats``), on one device or on a
-mesh (as ``linear.cls_step``). The streaming driver's ``svr_chunk_stats``
-is ROADMAP queue 1 item 8.
+mesh (as ``linear.cls_step``), or chunk by chunk in the stream driver
+(``svr_chunk_stats``).
 """
 from __future__ import annotations
 
@@ -72,6 +72,37 @@ def svr_local_stats(X: torch.Tensor, y: torch.Tensor, w: torch.Tensor, *,
             eps_ins=eps_ins, col_window=col_window, seed=seed,
             backend=backend)
     return pred, gamma, omega, S, b
+
+
+def svr_chunk_stats(chunk: SVMData, w: torch.Tensor,
+                    key: torch.Tensor | None, row0: int, *, mode: str,
+                    eps: float, eps_ins: float, backend: str | None,
+                    phi=None, phi_spec: PhiSpec | None = None,
+                    rng: str = "host", n_chains: int = 1,
+                    chain0: int = 0) -> dict:
+    """The stream driver's E-step body for SVR: one chunk's additive
+    contributions (summed over the chunks by the driver). Multichain
+    chunks carry S (C, K, K), b (K, C) and chain-mean diagnostics, as
+    ``linear.cls_chunk_stats``."""
+    X, y, mask = chunk
+    multi = n_chains > 1
+    pred, gamma, omega, S, b = svr_local_stats(
+        X, y, w.T if multi else w, mode=mode, key=key, eps=eps,
+        eps_ins=eps_ins, backend=backend, row0=row0, phi=phi,
+        phi_spec=phi_spec, mask=mask, rng=rng, chain0=chain0)
+    if multi:
+        maskc = mask[:, None].expand_as(pred)
+        return {"S": S, "b": b,
+                "loss": objective.svr_obj_terms(pred, y[:, None], eps_ins,
+                                                maskc) / n_chains,
+                "gamma_sum": torch.sum(gamma * maskc) / n_chains,
+                "omega_sum": torch.sum(omega * maskc) / n_chains,
+                "mask_sum": torch.sum(mask)}
+    return {"S": S, "b": b,
+            "loss": objective.svr_obj_terms(pred, y, eps_ins, mask),
+            "gamma_sum": torch.sum(gamma * mask),
+            "omega_sum": torch.sum(omega * mask),
+            "mask_sum": torch.sum(mask)}
 
 
 def svr_step(data: SVMData, w: torch.Tensor,

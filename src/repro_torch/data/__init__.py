@@ -1,5 +1,10 @@
-"""Synthetic generators shaped like the paper's datasets, and the feature
-padding of the 2-D fit."""
-from .pipeline import pad_features_to  # noqa: F401
+"""Synthetic generators shaped like the paper's datasets, libsvm text IO,
+and the host-to-device chunk path of the stream driver."""
+from .libsvm import (iter_libsvm, load_libsvm, parse_libsvm_line,  # noqa: F401
+                     save_libsvm)
+from .pipeline import (ChunkPrefetcher, DevicePlacer, PageLock,  # noqa: F401
+                       RetryStats, pad_features_to, retrying_chunks,
+                       rows_to_device)
 from .synthetic import (make_alpha_like, make_blobs,  # noqa: F401
-                        make_circles, make_mnist8m_like, make_year_like)
+                        make_circles, make_dna_like, make_mnist8m_like,
+                        make_year_like)

@@ -2,7 +2,9 @@
 that give arrays bitwise equal to the reference's for the same arguments.
 
 ``make_alpha_like`` has the shape of the paper's Table 3 'alpha' set
-(250,000 x 500 at full size); ``make_year_like`` the shape of its Table 6
+(250,000 x 500 at full size); ``make_dna_like`` that of its Table 5
+'dna' set (wide, sparse-ish 0/1 rows; 25,000,000 x 800 in the paper);
+``make_year_like`` the shape of its Table 6
 regression set YearPredictionMSD (515,345 x 90); ``make_blobs`` is the
 quickstart problem; ``make_circles`` is the kernel (KRN) problem, two
 rings no line separates; ``make_mnist8m_like`` the shape of its Table 8
@@ -26,6 +28,19 @@ def make_alpha_like(n: int = 50_000, k: int = 500, seed: int = 0,
     """Dense, moderately hard binary problem (Pascal LSL 'alpha' shape)."""
     rng = np.random.default_rng(seed)
     return _blob_classifier(rng, n, k, margin_noise)
+
+
+def make_dna_like(n: int = 200_000, k: int = 800, seed: int = 1,
+                  sparsity: float = 0.25, margin_noise: float = 0.45):
+    """'dna'-shaped: wide-ish, sparse-ish binary data. Values in {0,1};
+    labels from a planted hyperplane with noise (~90 % achievable
+    accuracy, as in the paper's Table 5)."""
+    rng = np.random.default_rng(seed)
+    X = (rng.random((n, k)) < sparsity).astype(np.float32)
+    w = rng.normal(size=k) / np.sqrt(k * sparsity)
+    logits = X @ w - np.median(X @ w) + margin_noise * rng.normal(size=n)
+    y = np.where(logits > 0, 1.0, -1.0).astype(np.float32)
+    return X, y
 
 
 def make_year_like(n: int = 50_000, k: int = 90, seed: int = 2,

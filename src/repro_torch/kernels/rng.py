@@ -38,8 +38,13 @@ _TWO_M23 = 2.0 ** -23
 
 
 def _words(x, device=None) -> torch.Tensor:
-    """An int or int tensor as int64 words in [0, 2^32)."""
-    if not isinstance(x, torch.Tensor):
+    """An int or int tensor as int64 words in [0, 2^32). A Python int is
+    filled on the device (a kernel argument), not copied from the host:
+    a copy from pageable memory would synchronize the host with the
+    stream, once a chunk in the stream driver."""
+    if isinstance(x, int):
+        x = torch.full((), x, dtype=torch.int64, device=device)
+    elif not isinstance(x, torch.Tensor):
         x = torch.tensor(x, dtype=torch.int64, device=device)
     return x.to(torch.int64) & MASK
 

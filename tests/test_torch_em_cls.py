@@ -172,7 +172,7 @@ def test_objective_terms_match_reference(masked):
 
 
 @pytest.mark.parametrize("kw", [
-    dict(driver="stream"),
+    dict(fault=object(), driver="stream"),
     dict(fault=object()),
     dict(decay=0.5, driver="stream"),
     dict(window=2, driver="stream"),

@@ -197,7 +197,7 @@ def test_chain_c_is_the_single_chain_at_chain0_c():
 
 # ------------------------------------------------------- not ported yet
 @pytest.mark.parametrize("kw,item", [
-    (dict(driver="stream"), "item 8"),
+    (dict(decay=0.5, driver="stream"), "item 8b"),
     (dict(fault=object()), "item 11"),
 ])
 def test_out_of_slice_options_raise(kw, item):

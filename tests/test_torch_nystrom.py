@@ -560,18 +560,18 @@ def test_out_of_slice_raises():
                              n_chains=2), device="cpu")
     with pytest.raises(ValueError, match="KRN"):
         NystromSVM(SVMConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8"):
-        NystromSVM(SVMConfig(formulation="KRN", driver="stream"),
+    with pytest.raises(NotImplementedError, match="item 8b"):
+        NystromSVM(SVMConfig(formulation="KRN", window=2, driver="stream"),
                    device="cpu")
     # KRN-SVR is in the slice now: the delegate carries the task
     svr = NystromSVM(SVMConfig(formulation="KRN", task="SVR"), device="cpu")
     assert svr.svm.config.task == "SVR" and svr.svm.config.phi_spec
     ny = NystromSVM(SVMConfig(formulation="KRN"), device="cpu")
     X, y = tsyn.make_circles(64)
-    for name in ("resume_from", "warm_start"):
-        with pytest.raises(NotImplementedError, match="item 11"):
+    for name, item in (("resume_from", "item 11"), ("warm_start", "item 8b")):
+        with pytest.raises(NotImplementedError, match=item):
             ny.fit(X, y, **{name: object()})
-    with pytest.raises(NotImplementedError, match="item 8"):
+    with pytest.raises(NotImplementedError, match="item 8b"):
         ny.fit_libsvm("data.libsvm", 2)
     with pytest.raises(NotImplementedError, match="item 12"):
         ny.export_servable()

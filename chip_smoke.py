@@ -219,7 +219,7 @@ shapes), in the order a, b, b, a.
    landmarks, sigma 8.0 (the median pairwise distance of 2,000 training
    rows printed beside it): rbf_gram once a fit, nystrom_phi once a step,
    the fused_stats variant 10 times a step, nystrom_score once a predict
-   call (C = 10); against the plain path on the same featurizer, the EM
+   dispatch (C = 10; the scorer serves 1,024 rows a dispatch); against the plain path on the same featurizer, the EM
    objective trace within 2e-2 and accuracy within 0.01 (EM and MC); the
    weights distance and the EM's distance to a float64 EM printed;
 14. exact KRN-{EM,MC}-CLS, Table 7 (benchmarks/table7_krn.py):
@@ -231,7 +231,9 @@ shapes), in the order a, b, b, a.
    float64 EM printed) and iterations within 3; MC's first gamma_mean
    within 1e-5 (the same draws); the Gram rows (1,800 > FUSED_STATS_MAX_K)
    take fused_estep (EM) once a step and syrk_tri once a step, never
-   fused_stats; rbf_gram once a fit and once a predict. Then a timing
+   fused_stats; rbf_gram once a fit, and on predict nystrom_score once a
+   dispatch (the model served through the Nystrom score cell, landmarks =
+   the training rows, proj = omega) and no rbf_gram. Then a timing
    point at make_circles(16,384): one step at the default jitter (its
    objective printed: NaN, P indefinite in float32 at this size), then 5
    EM steps at jitter 1e-3 (launch counts, a finite objective, the peak
@@ -268,17 +270,50 @@ shapes), in the order a, b, b, a.
    rings (m = 1,000, 10 iterations) at 4,096 (its own featurizer, bitwise
    the resident fit's), 62,500 and 65,536 rows: accuracy within 0.01, the
    masked tail (65,536) within 1e-4 of the divisible chunking (62,500);
-   rbf_gram once a fit, nystrom_score once a predict. fused_stats and
-   nystrom_fused_stats timed on one stream chunk beside their bounds. The
+   rbf_gram once a fit, nystrom_score once a predict dispatch. fused_stats
+   and nystrom_fused_stats timed on one stream chunk beside their bounds,
+   fused_estep and syrk_tri on a K = 2,048 chunk of 4,096 rows beside
+   theirs, the torch.mv pair and torch.einsum. Warm-started generations:
+   three generations of a third of Table 5's training rows each at
+   65,536-row chunks with window = 2 (8 iterations each, each warm-started
+   from the one before; generation 3's effective (S, b) bitwise its fresh
+   plus generation 2's fresh), then a decay = 0.5 pair (one iteration
+   folds exactly fresh + 0.5 x the donor's (S, b)). The
    file path: make_dna_like(20,000, 200) saved as libsvm text with comment
    and blank lines, fit_libsvm streamed against the resident fit of the
    same rows (12 iterations, weights within 1e-3) beside the parse rate;
+   NystromSVM.fit_libsvm on the same file with 200 reservoir landmarks
+   (bitwise the host reservoir's rows) within the Nystrom bands of the
+   resident fit on its featurizer;
    on a staging-ring source, prefetch 1, 2, 4 and 2 again bitwise equal
    and one IOError mid-pass absorbed by one retry, bitwise. Last, the
    resident set-up of phases 4-10's inputs built as the parent tree built
    it (host concatenation, host padding, pageable copies) and as this
    tree builds it (pinned staging, bias and padding on the card), timed
    in the order host, card, card, host and held bitwise equal.
+
+16. serving, run after phase 15: the models of phases 4 (LIN-EM-CLS, K =
+   501), 8 (KRN-EM-CLS, m = 2,048), 13 (KRN-EM-MLT, m = 400, C = 10) and
+   14 (the exact KRN, 1,800 training rows, and the 16,384-row point)
+   through their scorers on 4,096 query rows: served scores bitwise
+   decision_function's at every bucket of the ladder 128 ... 1,024 (two
+   request sizes a bucket) and at row offsets 0, 1 and 333; coalesced
+   ServeLoop requests bitwise the same requests served alone;
+   nystrom_score launched once a dispatch and no cell built at a seen
+   bucket; phi_never_materialized at bucket 1,024 (no (1,024, M) buffer
+   among the wrapper's scratch, peak allocation within it);
+   nystrom_score timed at each Nystrom model's bucket-1,024 shape beside
+   its plain version, torch.mm of the projection and its bound; the exact
+   KRN margins within 1e-5 |k| @ |omega| of float64 and of the cross-Gram
+   x omega route; a dispatch's time at each bucket (CUDA events and host
+   wall). A threaded ServeLoop under 400 requests of 1-512 rows (p50 and
+   p99 latency, rows/s, results bitwise served alone) for phases 4's and
+   8's models; WeightPager with 8 resident of 12 tenants (hits, misses,
+   evictions against an LRU); score_with_std of phase 4's model with the
+   posterior from 50,000 training rows against a float64 Sigma oracle
+   (within the first-order bound of the float32 statistic's measured
+   error), and phase 6's 4-chain ensemble std against np.std(ddof=1) of
+   the chains' margins.
 
 Phase 11 runs last (it holds its exact KRN fit against phase 14's) and
 also fits phase 12's LIN-EM-MLT on the 2 x 2 mesh (pad_features=2, K =
@@ -321,6 +356,9 @@ REL = 1e-5              # tolerance of tests/test_torch_kernels_ref.py
 EPS = 1e-6              # the gamma clamp of SVMConfig
 
 torch = None            # imported in main(), after the device check
+# Models the fitting phases keep for phase 16 (serving): name -> (model,
+# query rows, training rows, training targets).
+SERVE_MODELS: dict = {}
 
 
 def check(ok: bool, msg: str) -> None:
@@ -1157,6 +1195,12 @@ def _counts():
     return out
 
 
+def dispatches(n, bucket=1024):
+    """nystrom_score launches of a predict on n rows: the scorer serves
+    them in chunks of its largest bucket, one launch a chunk."""
+    return -(-n // bucket)
+
+
 def _zero_counts():
     from repro_torch.kernels import (fused_estep, fused_stats, nystrom_phi,
                                      rbf_gram, syrk, weighted_gram)
@@ -1208,6 +1252,7 @@ def phase_main_path(dev, n=300_000, n_train=250_000, k=500):
     counts = _counts()
     mem = torch.cuda.max_memory_allocated()
     acc = svm.score(Xte, yte)
+    SERVE_MODELS["LIN-EM-CLS (phase 4)"] = (svm, Xte, Xtr, ytr)
     steps = min(cfg.max_iters, -(-res.n_iters // cfg.scan_chunk)
                 * cfg.scan_chunk)
     say(f"  kernels fit: {secs:.3f} s, {res.n_iters} iterations "
@@ -1295,12 +1340,15 @@ def _report(label, svm, res, secs, cfg, Xte, yte, counts=None):
     return acc, steps
 
 
-def _mc_fit(label, cfg, dev, data, launched=None):
+def _mc_fit(label, cfg, dev, data, launched=None, keep=None):
     """One MC fit with the launch counts zeroed just before and read just
-    after; ``launched`` names the variant that must run once a step."""
+    after; ``launched`` names the variant that must run once a step;
+    ``keep`` names the model for phase 16."""
     Xtr, ytr, Xte, yte = data
     _zero_counts()
     svm, res, secs = _fit(cfg, dev, Xtr, ytr)
+    if keep is not None:
+        SERVE_MODELS[keep] = (svm, Xte, Xtr, ytr)
     counts = _counts()
     acc, steps = _report(label, svm, res, secs, cfg, Xte, yte, counts)
     if launched is None:
@@ -1377,7 +1425,7 @@ def phase_mc(dev, n=300_000, n_train=250_000, k=500):
     rc, acc_c, st_c, c_c = _mc_fit(
         "kernels fit, rng='fused', n_chains=4",
         dataclasses.replace(cfg, n_chains=4), dev, data,
-        "fused_stats[mc_hinge,seed,C=4]")
+        "fused_stats[mc_hinge,seed,C=4]", keep="LIN-MC-CLS 4 chains (phase 6)")
 
     profile_fit("the rng='fused' kernels fit", cfg, dev, data)
     spread = _rel(rp1.weights, rp.weights)
@@ -2033,8 +2081,8 @@ def phase_krn(dev, n=1_000_000, n_test=100_000):
         check(all(v == 0 for key, v in c.items()
                   if key not in (name, "rbf_gram")),
               f"{tag}: launched other kernels: {c}")
-        check(k["pred"]["nystrom_score"] == 1, f"{tag}: predict did not "
-              "run nystrom_score once")
+        check(k["pred"]["nystrom_score"] == dispatches(len(Xte)),
+              f"{tag}: predict did not run nystrom_score once a dispatch")
         check(all(v == 0 for v in p["counts"].values()),
               f"{tag}: the plain fit launched a kernel")
         check(k["mem"] < phi_bytes, f"{tag}: peak device memory "
@@ -2078,6 +2126,7 @@ def phase_krn_wide(dev, n_train=250_000, k=500, m=2048, iters=5):
     cfg = SVMConfig.from_options("KRN-EM-CLS", lam=0.1, sigma=math.sqrt(k),
                                  max_iters=iters, min_iters=iters)
     ny, res, kr = _nys_fit("kernels fit", cfg, dev, Xtr, ytr, Xte, yte, m)
+    SERVE_MODELS["KRN-EM-CLS m=2048 (phase 8)"] = (ny, Xte, Xtr, ytr)
     _, rp, p = _nys_fit("plain fit", dataclasses.replace(cfg, backend="ref"),
                         dev, Xtr, ytr, Xte, yte, m, featurizer_of=ny)
     c = kr["counts"]
@@ -2343,8 +2392,8 @@ def phase_krn_svr(dev):
         check(all(v == 0 for key, v in c.items()
                   if key not in (name, "rbf_gram")),
               f"{tag}: launched other kernels: {c}")
-        check(k["pred"]["nystrom_score"] == 1, f"{tag}: predict did not "
-              "run nystrom_score once")
+        check(k["pred"]["nystrom_score"] == dispatches(len(Xte)),
+              f"{tag}: predict did not run nystrom_score once a dispatch")
         check(all(v == 0 for v in p["counts"].values()),
               f"{tag}: the plain fit launched a kernel")
         check(k["mem"] < phi_bytes, f"{tag}: peak device memory "
@@ -3107,6 +3156,9 @@ def phase_krn_mlt(dev):
         cfg = t8_cfg(opts, sigma=8.0)
         ny, res, k = _nys_fit(f"kernels fit {opts}", cfg, dev, Xtr, ltr, Xte,
                               lte, m)
+        if opts == "KRN-EM-MLT":
+            SERVE_MODELS["KRN-EM-MLT m=400 C=10 (phase 13)"] = (ny, Xte, Xtr,
+                                                                ltr)
         _, rp, p = _nys_fit(f"plain fit {opts}",
                             dataclasses.replace(cfg, backend="ref"), dev,
                             Xtr, ltr, Xte, lte, m, featurizer_of=ny)
@@ -3118,8 +3170,8 @@ def phase_krn_mlt(dev):
         check(all(v == 0 for key, v in c.items()
                   if key not in (name, "rbf_gram", "nystrom_phi")),
               f"{opts}: launched other kernels: {c}")
-        check(k["pred"]["nystrom_score"] == 1,
-              f"{opts}: predict did not run nystrom_score once")
+        check(k["pred"]["nystrom_score"] == dispatches(len(Xte)),
+              f"{opts}: predict did not run nystrom_score once a dispatch")
         check(all(v == 0 for v in p["counts"].values()),
               f"{opts}: the plain fit launched a kernel")
         acc_d = abs(k["metric"] - p["metric"])
@@ -3270,6 +3322,9 @@ def phase_exact_krn(dev):
         c = _counts()
         f = svm.decision_function(X)
         pred = _counts()
+        if algo == "EM":
+            SERVE_MODELS["exact KRN-EM-CLS m=1800 (phase 14)"] = (svm, X, X,
+                                                                  y)
         acc = float(np.mean(np.where(f >= 0, 1, -1) == y))
         _, steps = _report(f"{cfg.options} kernels fit", svm, res, secs,
                            cfg, X, y, c)
@@ -3291,8 +3346,10 @@ def phase_exact_krn(dev):
         check(all(c[key] == v for key, v in want.items())
               and all(v == 0 for key, v in c.items() if key not in want),
               f"{cfg.options}: want {want}, launched {c}")
-        check(pred["rbf_gram"] == 2, f"{cfg.options}: predict did not run "
-              f"rbf_gram once ({pred['rbf_gram'] - 1})")
+        check(pred["rbf_gram"] == 1 and pred["nystrom_score"]
+              == dispatches(len(X)), f"{cfg.options}: predict did not run "
+              "nystrom_score once a dispatch (and no cross-Gram): "
+              f"{pred['nystrom_score']}, rbf_gram {pred['rbf_gram'] - 1}")
         line = (f"  bands {cfg.options}: training accuracy kernel {acc:.4f} "
                 f"plain {accp:.4f} (>= 0.97, within 0.01), iterations "
                 f"{res.n_iters} vs {rp.n_iters}")
@@ -3379,6 +3436,7 @@ def krn_timing_point(dev, n=16_384, iters=5, timing_jitter=1e-3):
     svm, res, secs = _fit(cfg, dev, X, y)
     mem = torch.cuda.max_memory_allocated()
     c = launched(f"at jitter {timing_jitter:g}")
+    SERVE_MODELS["exact KRN-EM-CLS m=16384 (phase 14)"] = (svm, X, X, y)
     check(bool(np.all(np.isfinite(res.objective))),
           f"the N = {n} fit's objective at jitter {timing_jitter:g} is not "
           "finite")
@@ -3792,6 +3850,159 @@ def chunk_kernel_rows(dev, Xtr, n_pass, rings):
     return out
 
 
+WARM_ITERS = 8          # iterations a warm-started generation
+
+
+def warm_generations(dev, cfg, Xtr, ytr, Xte, yte):
+    """Warm-started stream generations on Table 5's rows at 65,536-row
+    chunks: three generations of a third of the training rows each with
+    window = 2 (each warm-started from the one before), then a decay =
+    0.5 pair. Gates: generation 3's effective statistics are its fresh
+    (S, b) plus generation 2's, bitwise (generation 1's rows expire
+    exactly); one iteration of the decay pair's second generation folds
+    exactly decay times the first's statistics; held-out accuracy of each
+    generation within 0.01 of the resident fit's is printed."""
+    from repro_torch.core import PEMSVM
+    g = len(Xtr) // 3
+    base = dataclasses.replace(cfg, driver="stream", chunk_rows=65_536,
+                               max_iters=WARM_ITERS, min_iters=WARM_ITERS)
+
+    parts = {}
+
+    def gen(i, c, warm):
+        # each generation's rows in an array of its own (page-locked whole
+        # for the fit)
+        if i not in parts:
+            parts[i] = (Xtr[i * g:(i + 1) * g].copy(),
+                        ytr[i * g:(i + 1) * g].copy())
+        Xg, yg = parts[i]
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        svm = PEMSVM(c, device=dev)
+        r = svm.fit(Xg, yg, warm_start=warm)
+        torch.cuda.synchronize()
+        return svm, r, time.perf_counter() - t0
+
+    wcfg = dataclasses.replace(base, window=2)
+    gens, prev = [], None
+    for i in range(3):
+        svm, r, secs = gen(i, wcfg, prev)
+        acc = svm.score(Xte, yte)
+        say(f"  window = 2, generation {i + 1} ({g:,} rows): {secs:.3f} s "
+            f"with the page lock ({secs / r.n_iters * 1e3:.1f} ms an "
+            f"iteration), {r.n_iters} "
+            f"iterations, held-out accuracy {acc:.4f}, ring "
+            f"{len(r.stats_window)} generation(s)")
+        check(bool(np.all(np.isfinite(r.weights))), "a generation's weights "
+              "are not finite")
+        gens.append(r)
+        prev = r
+    g2, g3 = gens[1], gens[2]
+    exact = all(np.array_equal(g3.stats[k], g3.stats_window[0][k]
+                               + g2.stats_window[0][k]) for k in ("S", "b"))
+    say(f"  generation 3's effective (S, b) bitwise its fresh plus "
+        f"generation 2's fresh (generation 1 expired): {exact}")
+    check(exact, "window = 2 did not expire generation 1 exactly")
+    dcfg = dataclasses.replace(base, decay=0.5)
+    _, d1, s1 = gen(0, dcfg, None)
+    d2svm, d2, s2 = gen(1, dcfg, d1)
+    one = dataclasses.replace(dcfg, max_iters=1, min_iters=1)
+    zero = dataclasses.replace(d1, stats={k: np.zeros_like(v)
+                                          for k, v in d1.stats.items()})
+    _, a, _ = gen(1, one, d1)
+    _, b, _ = gen(1, one, zero)
+    folded = all(np.array_equal(a.stats[k], b.stats[k] + np.float32(0.5)
+                                * d1.stats[k]) for k in ("S", "b"))
+    say(f"  decay = 0.5 pair: {s1:.3f} s and {s2:.3f} s, held-out accuracy "
+        f"{d2svm.score(Xte, yte):.4f}; the second generation folds exactly "
+        f"fresh + 0.5 x the first's (S, b): {folded}")
+    check(folded, "decay did not fold fresh + decay * the donor's stats")
+
+
+def wide_chunk_rows(dev, Xw, yw, rows):
+    """fused_estep and syrk_tri on a K = 2,048 stream chunk (the stream
+    driver's route past FUSED_STATS_MAX_K): each held against float64 and
+    timed beside its plain version, the library call (the torch.mv pair;
+    torch.einsum("nk,n,nj->kj")) and its bound."""
+    from repro_torch.kernels import fused_estep, ref, syrk
+    X = torch.from_numpy(np.concatenate(
+        [Xw[:rows], np.ones((rows, 1), np.float32)], 1)).to(dev)
+    k = X.shape[1]
+    t = torch.from_numpy(np.asarray(yw[:rows], np.float32)).to(dev)
+    g = torch.Generator(device=dev).manual_seed(2048)
+    w = torch.randn(k, generator=g, device=dev) / math.sqrt(k)
+    m, gam, b = twice(lambda: fused_estep.fused_estep(X, t, t, w, eps=EPS))
+    want = ref.fused_estep(X.double(), t.double(), t.double(), w.double(),
+                           EPS)
+    err_e = rows_close(f"fused_estep {rows}x{k} (a stream chunk)", m,
+                       want[0])
+    gamma_close(f"fused_estep {rows}x{k}", gam, m, want[1], want[0])
+    wt = 1.0 / gam
+    (S,) = twice(lambda: syrk.syrk_tri(X, wt))
+    err_s = max_close(f"syrk_tri {rows}x{k} (a stream chunk)", S,
+                      ref.syrk_tri(X.double(), wt.double()))
+    ms = time_ms(lambda: fused_estep.fused_estep(X, t, t, w, eps=EPS))
+    plain = time_ms(lambda: ref.fused_estep(X, t, t, w, EPS))
+    mv = time_ms(lambda: (torch.mv(X, w), torch.mv(X.T, t)))
+    b_ms, by = bound(4 * rows * k, 4 * (rows * k + 2 * rows + k + 2 * rows
+                                        + k))
+    estep = dict(shape=[rows, k], max_abs_err=err_e, ms=ms, plain_ms=plain,
+                 bound_ms=b_ms, bound_by=by, library_ms=mv,
+                 library="torch.mv pair")
+    srow = time_gram("syrk_tri", syrk.syrk_tri, X, wt, err_s)
+    srow["library"] = "torch.einsum"
+    for name, row in (("fused_estep", estep), ("syrk_tri", srow)):
+        say(f"  time {name} {row['shape']} (a K = 2,048 stream chunk): "
+            f"kernel {row['ms']:.3f} ms ({row['bound_ms'] / row['ms']:.3f} "
+            f"of the bound {row['bound_ms']:.3f} ms, {row['bound_by']}), "
+            f"plain {row['plain_ms']:.3f} ms, {row['library']} "
+            f"{row['library_ms']:.3f} ms")
+    return {"fused_estep": estep, "syrk_tri": srow}
+
+
+LIBSVM_ITERS = 4        # NystromSVM.fit_libsvm's iterations (a pass each)
+
+
+def nystrom_fit_libsvm(dev, path, Xd, yd, m=200):
+    """NystromSVM.fit_libsvm on phase 15's libsvm file with n_landmarks:
+    its landmarks bitwise the host reservoir's over the same file, and its
+    fit within the Nystrom bands (objective 2e-2, weights 5e-2, accuracy
+    0.01) of the resident fit on the same featurizer, both run for
+    LIBSVM_ITERS iterations (eps 1e-2, as the file path's LIN fit: the
+    passes re-read the file, ~1 s each)."""
+    from repro_torch.core import NystromSVM, SVMConfig
+    from repro_torch.data import iter_libsvm, reservoir_rows
+    cfg = SVMConfig.from_options("KRN-EM-CLS", lam=0.1,
+                                 sigma=math.sqrt(Xd.shape[1]) / 2, eps=1e-2,
+                                 driver="stream", max_iters=LIBSVM_ITERS,
+                                 min_iters=LIBSVM_ITERS)
+    ny = NystromSVM(cfg, n_landmarks=m, seed=3, device=dev)
+    t0 = time.perf_counter()
+    rs = ny.fit_libsvm(path, Xd.shape[1])
+    torch.cuda.synchronize()
+    secs = time.perf_counter() - t0
+    want, seen = reservoir_rows(iter_libsvm(path, cfg.chunk_rows,
+                                            Xd.shape[1]), m, seed=3)
+    same = np.array_equal(ny._landmarks, want)
+    res = NystromSVM(dataclasses.replace(cfg, driver="scan"), n_landmarks=m,
+                     device=dev)
+    rr = res.fit_featurized(Xd, yd, ny._landmarks, ny._proj)
+    acc, racc = ny.score(Xd, yd), res.score(Xd, yd)
+    j = min(len(rs.objective), len(rr.objective))
+    orel = trace_rel(rs.objective[:j], rr.objective[:j])
+    wrel = _rel(rs.weights, rr.weights)
+    say(f"  NystromSVM.fit_libsvm (m = {m} reservoir landmarks of {seen:,} "
+        f"rows): {secs:.3f} s, {rs.n_iters} iterations (resident "
+        f"{rr.n_iters}); landmarks bitwise the host reservoir's {same}; "
+        f"against the resident fit on the same featurizer: objective rel "
+        f"{orel:.3e} (<= 2e-2), weights rel {wrel:.3e} (<= 5e-2), accuracy "
+        f"{acc:.4f} vs {racc:.4f} (within 0.01)")
+    check(same and rs.n_iters == rr.n_iters and orel <= 2e-2
+          and wrel <= 5e-2 and abs(acc - racc) <= 0.01,
+          "NystromSVM.fit_libsvm outside the Nystrom bands or its landmarks "
+          "are not the reservoir's")
+
+
 def setup_ab(dev):
     """The resident set-up of phases 4-10's inputs built as the parent
     built it (bias column by np.concatenate, row padding by
@@ -3861,7 +4072,7 @@ def phase_stream(dev):
     from repro_torch.data import (iter_libsvm, make_alpha_like,
                                   make_dna_like, save_libsvm)
     from repro_torch.core import distributed
-    runs = {}
+    runs, stream_rows = {}, {}
     # -- Table 5, LIN-EM-CLS (benchmarks/table5_dna.py, full=True)
     free = host_available_gb()
     n = T5_N if free >= T5_HOST_GB else T5_CUT_N
@@ -3946,6 +4157,7 @@ def phase_stream(dev):
         f" (<= 1e-6); weights rel {_rel(smc.weights, rmc.weights):.3e}")
     check(grel <= 1e-6, "MC first gamma_mean differs")
     runs["fused_stats[mc_hinge,seed]"] = fsm["counts"]
+    warm_generations(dev, cfg, Xtr, ytr, Xte, yte)
     del X, y, Xtr, ytr, Xte, yte
     # -- K > 1,536: phase 5's 131,072 x 2,048, 3 iterations
     Xw, yw = make_alpha_like(n=131_072, k=2047, seed=0)
@@ -3960,6 +4172,8 @@ def phase_stream(dev):
     stream_gates("K = 2,048 stream vs resident", wcfg, sw, rw,
                  Xw.shape[1] + 1, len(Xw))
     runs["fused_estep"] = runs["syrk_tri"] = fw["counts"]
+    for name, row in wide_chunk_rows(dev, Xw, yw, wcfg.chunk_rows).items():
+        stream_rows.setdefault(name, {})[f"chunk{wcfg.chunk_rows}"] = row
     del Xw, yw
     # -- LIN-EM-SVR (phase 9's split), 10 iterations
     Xy, yy, Xyt, yyt = year_split()
@@ -4055,8 +4269,9 @@ def phase_stream(dev):
               == r.n_iters * -(-len(Xr) // rows), "KRN stream launches")
         if rows == 4096:
             check(c["rbf_gram"] == 1 and pred["nystrom_score"]
-                  - c["nystrom_score"] == 1, "KRN stream: rbf_gram once a "
-                  "fit and nystrom_score once a predict")
+                  - c["nystrom_score"] == dispatches(len(Xrt)),
+                  "KRN stream: rbf_gram once a fit and nystrom_score once a "
+                  "predict dispatch")
             runs["nystrom_fused_stats[em_hinge]"] = c
             runs["rbf_gram"] = c
             runs["nystrom_score"] = {"nystrom_score": pred["nystrom_score"]
@@ -4079,6 +4294,8 @@ def phase_stream(dev):
     kernel_rows = chunk_kernel_rows(
         dev, make_dna_like(65_536, T5_K)[0], t5_rows,
         (torch.from_numpy(Xr).to(dev), L, P))
+    for name, extra in stream_rows.items():
+        kernel_rows.setdefault(name, {}).update(extra)
     del Xr, yr, resident, L, P
     # -- the file path: make_dna_like(20,000, 200) as libsvm text
     Xd, yd = make_dna_like(20_000, 200)
@@ -4109,6 +4326,7 @@ def phase_stream(dev):
         f" ms a pass of fit_libsvm; weights rel {drel:.3e} of the resident "
         f"fit (<= 1e-3)")
     check(drel <= 1e-3, "fit_libsvm stream weights outside 1e-3")
+    nystrom_fit_libsvm(dev, path, Xd, yd)
     shutil.rmtree(tmp, ignore_errors=True)
     # one loader retry, and prefetch depths on the staging ring
     Xb = np.concatenate([Xd, np.ones((len(Xd), 1), np.float32)], 1)
@@ -4141,6 +4359,321 @@ def phase_stream(dev):
     # -- the resident set-up, parent's host assembly against this tree's
     setup_ab(dev)
     return runs, kernel_rows
+
+
+# ------------------------------------------------------------ serving
+SERVE_LADDER = (128, 256, 512, 1024)
+SERVE_OFFSETS = (0, 1, 333)
+SERVE_QUERY = 4096          # rows of each model's query set
+SERVE_REQUESTS = 400        # ServeLoop requests of 1-512 rows
+PAGER_TENANTS, PAGER_RESIDENT, PAGER_CALLS = 12, 8, 600
+
+
+def serve_score_row(dev, name, sc, Xq, bucket=1024):
+    """nystrom_score at a serving cell's shape (one bucket of the model's
+    arrays): held against float64, timed beside its plain version and
+    torch.mm of the projection (the bucket's cross-Gram (B, m) times proj,
+    TF32 off), with its bound."""
+    from repro_torch.kernels import nystrom_phi as nys, ref
+    m = sc.model
+    X = torch.from_numpy(np.ascontiguousarray(Xq[:bucket])).to(dev)
+    L, P, W = sc._lm, sc._pj, sc._W
+    kw = dict(sigma=m.phi_sigma, kind=m.phi_kind, add_bias=m.phi_add_bias)
+    (s,) = twice(lambda: nys.nystrom_score(X, L, P, W, **kw))
+    phi, scale = phi64_and_scale(kmat64(X, L, m.phi_sigma, m.phi_kind), P,
+                                 None, m.phi_add_bias)
+    err = within(f"nystrom_score {name}", s, phi @ W.double(),
+                 scale @ W.double().abs())
+    del phi, scale
+    ms = time_ms(lambda: nys.nystrom_score(X, L, P, W, **kw))
+    plain = time_ms(lambda: ref.nystrom_score(X, L, P, W, None,
+                                              m.phi_sigma, m.phi_kind,
+                                              m.phi_add_bias))
+    K = (ref.rbf_gram(X, L, m.phi_sigma) if m.phi_kind == "rbf"
+         else X @ L.T)
+    lib = time_ms(lambda: torch.mm(K, P))
+    del K
+    (n, d), (lm, Pw), C = X.shape, P.shape, W.shape[1]
+    Mw = Pw + int(m.phi_add_bias)
+    b_ms, by = bound(2 * n * lm * d + 2 * n * lm * Pw + 2 * n * Mw * C,
+                     4 * (n * d + lm * d + lm * Pw + Mw * C + n * C))
+    say(f"  time nystrom_score [{n}, {d}, {lm}, P = {Pw}, C = {C}] "
+        f"({name}): max |d| {err:.3e}; kernel {ms:.3f} ms "
+        f"({b_ms / ms:.3f} of the bound {b_ms:.3f} ms, {by}), plain "
+        f"{plain:.3f} ms, torch.mm of the projection {lib:.3f} ms")
+    return dict(shape=[n, d, lm, Pw, C], max_abs_err=err, ms=ms,
+                plain_ms=plain, bound_ms=b_ms, bound_by=by, library_ms=None,
+                projection_mm_ms=lib)
+
+
+def serve_bits(name, sc, Xq, f):
+    """Served scores at every bucket of the ladder (two request sizes a
+    bucket) and several row offsets, against the same rows of
+    decision_function (f), bitwise; then coalesced ServeLoop requests
+    against the same requests served alone."""
+    from repro_torch.serving import ServeLoop, WeightPager
+    bad = []
+    for b in SERVE_LADDER:
+        for n in (b // 2 + 1, b):
+            for j in SERVE_OFFSETS:
+                if not np.array_equal(sc.margins(Xq[j:j + n]), f[j:j + n]):
+                    bad.append((b, n, j))
+    pager = WeightPager(device=sc.device)
+    pager.register(dataclasses.replace(sc.model, name="m"))
+    loop = ServeLoop(pager)
+    tail = slice(len(Xq) // 2, len(Xq) // 2 + 100)
+    for filler in (1, 127, 500, 900):
+        f0 = loop.submit("m", Xq[:filler])
+        f1 = loop.submit("m", Xq[tail])
+        check(loop.step() == 2, f"{name}: the loop drained no pair")
+        if not (np.array_equal(f0.result(), sc.score(Xq[:filler]))
+                and np.array_equal(f1.result(), sc.score(Xq[tail]))):
+            bad.append(("coalesced", filler))
+    say(f"  {name}: served scores bitwise decision_function's at buckets "
+        f"{list(SERVE_LADDER)} x offsets {list(SERVE_OFFSETS)}, and "
+        f"coalesced requests bitwise served alone: {not bad}")
+    check(not bad, f"{name}: served bits differ at {bad}")
+
+
+def serve_dispatch_times(name, sc, Xq):
+    """One dispatch's time at each bucket: device time by CUDA events
+    (staging copy, cell, copy back) and the host's wall time."""
+    parts = []
+    for b in SERVE_LADDER:
+        dev_ms = time_ms(lambda: sc.score(Xq[:b]), reps=20, warmup=3)
+        walls = []
+        for _ in range(20):
+            t0 = time.perf_counter()
+            sc.score(Xq[:b])
+            walls.append((time.perf_counter() - t0) * 1e3)
+        parts.append(f"{b}: {dev_ms:.3f} / {statistics.median(walls):.3f}")
+    say(f"  {name}: a dispatch by bucket (device ms by CUDA events / host "
+        f"wall ms, median of 20): {'; '.join(parts)}")
+
+
+def serve_loop_run(name, model, Xq):
+    """A threaded ServeLoop under SERVE_REQUESTS requests of 1-512 rows
+    (seeded), all submitted at once: p50 and p99 latency, rows/s, and each
+    result bitwise the request served alone."""
+    from repro_torch.serving import ServeLoop, WeightPager
+    pager = WeightPager(device=model.device if hasattr(model, "device")
+                        else model.svm.device)
+    pager.register(model.export_servable(name="m"))
+    alone = pager.scorer("m")
+    rng = np.random.default_rng(16)
+    spans = [(int(rng.integers(0, len(Xq) - 512)), int(rng.integers(1, 513)))
+             for _ in range(SERVE_REQUESTS)]
+    loop = ServeLoop(pager, max_wait_ms=1.0).start()
+    t0 = time.perf_counter()
+    try:
+        futs = [loop.submit("m", Xq[j:j + n]) for j, n in spans]
+        outs = [f.result(timeout=120) for f in futs]
+    finally:
+        loop.stop()
+    secs = time.perf_counter() - t0
+    rows = sum(n for _, n in spans)
+    q = loop.latency_quantiles()
+    same = all(np.array_equal(o, alone.score(Xq[j:j + n]))
+               for (j, n), o in zip(spans, outs))
+    say(f"  {name}: ServeLoop, {SERVE_REQUESTS} requests of 1-512 rows "
+        f"({rows:,} rows): {rows / secs:,.0f} rows/s, {loop.n_batches} "
+        f"dispatches, latency p50 {q['p50_ms']:.3f} ms, p99 "
+        f"{q['p99_ms']:.3f} ms; results bitwise served alone {same}")
+    check(same and loop.n_requests == SERVE_REQUESTS,
+          f"{name}: ServeLoop results differ from single dispatches")
+
+
+def serve_pager(dev, model, Xq):
+    """WeightPager with PAGER_RESIDENT resident of PAGER_TENANTS tenants
+    (the model's weights scaled by a power of two a tenant), a seeded
+    skewed stream of PAGER_CALLS requests: hits, misses and evictions
+    against an LRU kept in the script; each tenant's scores bitwise its
+    scale times the first tenant's."""
+    from collections import OrderedDict
+    from repro_torch.serving import WeightPager
+    base = model.export_servable()
+    pager = WeightPager(max_resident=PAGER_RESIDENT, device=dev)
+    scale = [np.float32(2.0 ** (t % 4)) for t in range(PAGER_TENANTS)]
+    for t in range(PAGER_TENANTS):
+        pager.register(dataclasses.replace(
+            base, name=f"t{t}", weights=base.weights * scale[t]))
+    rng = np.random.default_rng(8)
+    p = 1.0 / np.arange(1, PAGER_TENANTS + 1)
+    names = [f"t{i}" for i in rng.choice(PAGER_TENANTS, PAGER_CALLS,
+                                         p=p / p.sum())]
+    lru, want = OrderedDict(), [0, 0, 0]
+    first = pager.scorer("t0").score(Xq[:64])
+    lru["t0"] = True
+    want[1] += 1
+    t0 = time.perf_counter()
+    ok = True
+    for nm in names:
+        if nm in lru:
+            want[0] += 1
+            lru.move_to_end(nm)
+        else:
+            want[1] += 1
+            lru[nm] = True
+            if len(lru) > PAGER_RESIDENT:
+                lru.popitem(last=False)
+                want[2] += 1
+        got = pager.scorer(nm).score(Xq[:64])
+        ok &= np.array_equal(got, first * scale[int(nm[1:])])
+    secs = time.perf_counter() - t0
+    have = [pager.hits, pager.misses, pager.evictions]
+    say(f"  WeightPager, {PAGER_RESIDENT} resident of {PAGER_TENANTS} "
+        f"tenants ({base.family}, {base.nbytes:,} B a tenant), "
+        f"{PAGER_CALLS} requests of 64 rows in {secs:.3f} s: hits "
+        f"{have[0]}, misses {have[1]}, evictions {have[2]} (an LRU: "
+        f"{want}), resident {pager.resident_bytes:,} B; scores scale with "
+        f"the tenant's weights {ok}")
+    check(have == want and list(lru) == pager.resident_names and ok,
+          "the pager's counts or residency differ from an LRU's")
+
+
+def serve_std(dev, name, svm, Xq, Xtr, ytr, n_post=50_000):
+    """score_with_std of an MC-posterior LIN model (posterior_from the
+    first n_post training rows) against a float64 Sigma oracle: S
+    recomputed in float64 on the card from the E-step's own gamma at the
+    fitted weights, P = S + lam I (symmetrised, the relative jitter),
+    std_i = sqrt(x_i^T P^{-1} x_i) in float64. Bound: the first-order
+    effect of the float32 statistic's measured error dS,
+    |d std_i| <= ||P^{-1} x_i||^2 ||dS||_2 / (2 std_i), twice, plus the
+    served product's 1e-5 (|x| @ |U|) row norm."""
+    from repro_torch.kernels import ops
+    from repro_torch.serving import SVMScorer
+    cfg = svm.config
+    n_post = min(n_post, len(Xtr))
+    t0 = time.perf_counter()
+    sm = svm.export_servable(posterior_from=(Xtr[:n_post], ytr[:n_post]))
+    secs = time.perf_counter() - t0
+    sc = SVMScorer(sm, device=dev)
+    margin, std = sc.score_with_std(Xq)
+    f = svm.decision_function(Xq)
+    X = torch.from_numpy(np.concatenate(
+        [Xtr[:n_post], np.ones((n_post, 1), np.float32)], 1)).to(dev)
+    y = torch.from_numpy(np.asarray(ytr[:n_post], np.float32)).to(dev)
+    _, gam, _, S32 = ops.fused_stats(X, y, y, svm._weights, eps=cfg.eps)
+    X64 = X.double()
+    S64 = (X64 * (1.0 / gam.double())[:, None]).T @ X64
+    dS = float(torch.linalg.matrix_norm(S32.double() - S64, ord=2))
+    K = S64.shape[0]
+    eye = torch.eye(K, dtype=torch.float64, device=dev)
+    P = 0.5 * ((S64 + cfg.lam * eye) + (S64 + cfg.lam * eye).T)
+    P = P + (cfg.jitter * torch.trace(P) / K) * eye
+    Q = torch.from_numpy(np.concatenate(
+        [Xq, np.ones((len(Xq), 1), np.float32)], 1)).to(dev).double()
+    sol = torch.linalg.solve(P, Q.T)                  # P^{-1} x_i
+    want = torch.sqrt((Q.T * sol).sum(0)).cpu().numpy()
+    first = (sol ** 2).sum(0).cpu().numpy() * dS / (2 * want)
+    U = torch.from_numpy(sm.weights[:, 1:]).to(dev).double()
+    prod = torch.sqrt(((Q.abs() @ U.abs()) ** 2).sum(1)).cpu().numpy()
+    err = np.abs(std.astype(np.float64) - want)
+    bnd = 2 * first + REL * prod
+    f_err = float(np.max(np.abs(margin.astype(np.float64) - f)))
+    say(f"  {name}: posterior columns from {n_post:,} rows in {secs:.3f} s "
+        f"(W {sm.weights.shape}); std against the float64 Sigma oracle: "
+        f"max rel {float(np.max(err / want)):.3e}, max |d| / bound "
+        f"{float(np.max(err / bnd)):.3f} (<= 1; ||dS||_2 {dS:.3e}, cond(P) "
+        f"{float(torch.linalg.cond(P)):.3e}); margin column against "
+        f"decision_function max |d| {f_err:.3e}")
+    check(bool(np.all(err <= bnd)) and bool(np.all(std > 0)),
+          f"{name}: served std outside its bound of the float64 oracle")
+
+
+def serve_ensemble(name, svm, Xq, res_chain_weights):
+    """The multichain ensemble's std columns: std equals np.std(ddof=1) of
+    the chains' margins (float64), within 1e-5 of the columns'
+    (|x| @ |U|) row norm."""
+    sc = svm.scorer()
+    margin, std = sc.score_with_std(Xq)
+    Xb = np.concatenate([Xq, np.ones((len(Xq), 1))], 1)
+    want = np.std(Xb @ res_chain_weights.astype(np.float64).T, axis=1,
+                  ddof=1)
+    U = sc.model.weights[:, 1:].astype(np.float64)
+    scale = np.sqrt(np.sum((np.abs(Xb) @ np.abs(U)) ** 2, axis=1))
+    err = np.abs(std - want)
+    say(f"  {name}: ensemble std (W {sc.model.weights.shape}) against "
+        f"np.std(ddof=1) of the 4 chains' margins: max |d| "
+        f"{float(err.max()):.3e}, max |d| / (1e-5 scale + 1e-7) "
+        f"{float(np.max(err / (REL * scale + 1e-7))):.3f} (<= 1)")
+    check(bool(np.all(err <= REL * scale + 1e-7)),
+          f"{name}: ensemble std outside its bound")
+    check(np.array_equal(margin, svm.decision_function(Xq)),
+          f"{name}: the margin column is not decision_function's")
+
+
+def phase_serve(dev):
+    """Phase 16: the serving path on the models phases 4, 6, 8, 13 and 14
+    fitted."""
+    from repro_torch.core import kernel
+    from repro_torch.serving import phi_never_materialized
+    from repro_torch.serving.svm_serve import BUILD_COUNTS
+    rows = {}
+    keys = {"KRN-EM-CLS m=2048 (phase 8)": "serve_b1024_m2048",
+            "KRN-EM-MLT m=400 C=10 (phase 13)": "serve_m400_c10",
+            "exact KRN-EM-CLS m=1800 (phase 14)": "serve_krn_m1800",
+            "exact KRN-EM-CLS m=16384 (phase 14)": "serve_krn_m16384"}
+    for name in ("LIN-EM-CLS (phase 4)", *keys):
+        model, Xte, Xtr, ytr = SERVE_MODELS[name]
+        Xq = np.ascontiguousarray(np.concatenate(
+            [Xte, Xtr])[:SERVE_QUERY], np.float32)
+        sc = model.scorer()
+        _zero_counts()
+        f = model.decision_function(Xq)
+        c = _counts()
+        for b in SERVE_LADDER:          # every bucket seen once
+            sc.score(Xq[:b])
+        builds = sum(BUILD_COUNTS.values())
+        serve_bits(name, sc, Xq, f)
+        rebuilt = sum(BUILD_COUNTS.values()) - builds
+        nys = sc.model.family == "nystrom"
+        want = dispatches(len(Xq)) if nys else 0
+        say(f"  {name}: decision_function of {len(Xq):,} rows launched "
+            f"nystrom_score {c['nystrom_score']} times (one a dispatch: "
+            f"{want}), other kernels "
+            f"{ {k: v for k, v in c.items() if v and k != 'nystrom_score'} };"
+            f" cells built at seen buckets {rebuilt}")
+        check(c["nystrom_score"] == want and all(
+            v == 0 for k, v in c.items() if k != "nystrom_score"),
+            f"{name}: predict launched {c}")
+        check(rebuilt == 0, f"{name}: a cell was rebuilt at a seen bucket")
+        if nys:
+            never = phi_never_materialized(sc, 1024)
+            say(f"  {name}: phi_never_materialized at bucket 1,024: {never}")
+            check(never, f"{name}: a (bucket, M) phi was allocated")
+            rows[keys[name]] = dict(serve_score_row(dev, name, sc, Xq),
+                                    predict_launches=c["nystrom_score"],
+                                    predict_rows=len(Xq))
+        if name.startswith("exact"):
+            omega = model._weights[:model._train_X.shape[0]]
+            Xd = torch.from_numpy(Xq[:2048]).to(dev)
+            old = kernel.decision_function(omega, model._train_X, Xd,
+                                           sigma=0.7).double()
+            k64 = kmat64(Xd, model._train_X, 0.7, "rbf")
+            f64 = k64 @ omega.double()
+            scale = k64.abs() @ omega.double().abs()
+            got = torch.from_numpy(f[:2048]).to(dev)
+            e_old = within(f"{name} against cross-Gram x omega", got, old,
+                           2 * scale)
+            e64 = within(f"{name} against float64", got, f64, scale)
+            say(f"  {name}: served margins against the cross-Gram x omega "
+                f"route max |d| {e_old:.3e}, against float64 {e64:.3e} "
+                f"(within 1e-5 |k| @ |omega|)")
+            del k64, f64, scale, Xd, old
+        serve_dispatch_times(name, sc, Xq)
+    lin, Xte, Xtr, ytr = SERVE_MODELS["LIN-EM-CLS (phase 4)"]
+    nys8 = SERVE_MODELS["KRN-EM-CLS m=2048 (phase 8)"][0]
+    for name, model in (("LIN-EM-CLS (phase 4)", lin),
+                        ("KRN-EM-CLS m=2048 (phase 8)", nys8)):
+        serve_loop_run(name, model, Xte[:8192])
+    serve_pager(dev, lin, Xte)
+    serve_std(dev, "LIN-EM-CLS (phase 4), posterior", lin, Xte[:SERVE_QUERY],
+              Xtr, ytr)
+    mc, Xmc, _, _ = SERVE_MODELS["LIN-MC-CLS 4 chains (phase 6)"]
+    serve_ensemble("LIN-MC-CLS 4 chains (phase 6)", mc, Xmc[:SERVE_QUERY],
+                   mc._chain_weights)
+    return {"nystrom_score": rows}
 
 
 # ------------------------------------------------------- the mesh fits
@@ -4554,6 +5087,11 @@ SOURCES = {
 }
 
 
+def stamp(t0, *a) -> None:
+    """A phase header with the seconds since the run began."""
+    say(*a, f"[{time.perf_counter() - t0:.1f} s]")
+
+
 def main() -> int:
     global torch
     import torch as _torch
@@ -4569,11 +5107,12 @@ def main() -> int:
     sys.path.insert(0, str(ROOT / "src"))
     dev = torch.device("cuda", 0)
     t0 = time.perf_counter()
-    say("== 1. device")
+    stamp(t0, "== 1. device")
     phase_device()
-    say("== 2. build")
+    stamp(t0, "== 2. build")
     phase_build()
-    say("== 3. kernels vs plain (float64 evaluation of the plain version)")
+    stamp(t0, "== 3. kernels vs plain (float64 evaluation of the plain "
+              "version)")
     rows = phase_kernels(dev)
     svr_rows, gram_counts = phase_svr_kernels(dev)
     rows.update(svr_rows)
@@ -4584,46 +5123,52 @@ def main() -> int:
     stat_design(dev)
     for name, extra in phase_slice_kernels(dev).items():
         rows[name].update(extra)
-    say("== 4. main path, K <= 1536: LIN-EM-CLS on alpha-like 250,000 x 501")
+    stamp(t0, "== 4. main path, K <= 1536: LIN-EM-CLS on alpha-like 250,000 "
+              "x 501")
     it4, st4, c4 = phase_main_path(dev)
-    say("== 5. main path, K > 1536: LIN-EM-CLS at K = 2,048")
+    stamp(t0, "== 5. main path, K > 1536: LIN-EM-CLS at K = 2,048")
     it5, st5, c5 = phase_wide(dev)
-    say("== 6. main path, LIN-MC-CLS on alpha-like 250,000 x 501")
+    stamp(t0, "== 6. main path, LIN-MC-CLS on alpha-like 250,000 x 501")
     runs, mc_ref = phase_mc(dev)
     runs["fused_stats"] = (c4, it4, st4)
     for name in ("fused_estep", "syrk_tri"):
         runs[name] = (c5, it5, st5)
-    say("== 7. main path, KRN-{EM,MC}-CLS (NystromSVM) on make_circles"
-        "(1,000,000), m = 1,000: the fused route")
+    stamp(t0, "== 7. main path, KRN-{EM,MC}-CLS (NystromSVM) on "
+              "make_circles(1,000,000), m = 1,000: the fused route")
     runs.update(phase_krn(dev))
-    say("== 8. main path, KRN-EM-CLS with m = 2,048 on alpha-like 250,000 x "
-        "500: the featurize-then-accumulate route")
+    stamp(t0, "== 8. main path, KRN-EM-CLS with m = 2,048 on alpha-like "
+              "250,000 x 500: the featurize-then-accumulate route")
     runs.update(phase_krn_wide(dev))
-    say("== 9. main path, LIN-{EM,MC}-SVR (Table 6) on year-like 463,715 x "
-        "91 (51,630 held out)")
+    stamp(t0, "== 9. main path, LIN-{EM,MC}-SVR (Table 6) on year-like "
+              "463,715 x 91 (51,630 held out)")
     runs.update(phase_svr(dev))
-    say("== 10. main path, KRN-{EM,MC}-SVR (NystromSVM) on the year split, "
-        "m = 681: the fused route")
+    stamp(t0, "== 10. main path, KRN-{EM,MC}-SVR (NystromSVM) on the year "
+              "split, m = 681: the fused route")
     krn_svr_runs, krn_ref = phase_krn_svr(dev)
     runs.update(krn_svr_runs)
-    say("== 12. LIN-{EM,MC}-MLT (Table 8) on mnist8m-like 160,000 x 785 "
-        "(40,000 held out), M = 10")
+    stamp(t0, "== 12. LIN-{EM,MC}-MLT (Table 8) on mnist8m-like 160,000 x "
+              "785 (40,000 held out), M = 10")
     phase_mlt(dev)
-    say("== 13. KRN-{EM,MC}-MLT (NystromSVM) on phase 12's split, m = 400")
+    stamp(t0, "== 13. KRN-{EM,MC}-MLT (NystromSVM) on phase 12's split, m = "
+              "400")
     phase_krn_mlt(dev)
-    say("== 14. exact KRN-{EM,MC}-CLS (Table 7) on make_circles(1,800); "
-        "a timing point at 16,384")
+    stamp(t0, "== 14. exact KRN-{EM,MC}-CLS (Table 7) on "
+              "make_circles(1,800); a timing point at 16,384")
     _, krn_rows, exact_ref = phase_exact_krn(dev)
     for name, extra in krn_rows.items():
         rows[name].update(extra)
-    say("== 15. the stream driver: Table 5 (make_dna_like) resident and "
-        "streamed; MC, K = 2,048, SVR, MLT, Nystrom and the libsvm file "
-        "streamed; the resident set-up")
+    stamp(t0, "== 15. the stream driver: Table 5 (make_dna_like) resident "
+              "and streamed; MC, K = 2,048, SVR, MLT, Nystrom and the libsvm "
+              "file streamed; the resident set-up")
     stream_runs, stream_rows = phase_stream(dev)
     for name, extra in stream_rows.items():
         rows[name].update(extra)
-    say("== 11. the multi-device fit: a 2 x 2 (data x k) mesh and a 4 x 1 "
-        "one, four gloo ranks on cuda:0; a one-rank NCCL group")
+    stamp(t0, "== 16. serving: the bucketed score cells, ServeLoop and "
+              "WeightPager on the models of phases 4, 6, 8, 13 and 14")
+    for name, extra in phase_serve(dev).items():
+        rows[name].update(extra)
+    stamp(t0, "== 11. the multi-device fit: a 2 x 2 (data x k) mesh and a 4 "
+              "x 1 one, four gloo ranks on cuda:0; a one-rank NCCL group")
     runs.update(phase_mesh(dev, krn_ref, mc_ref, exact_ref))
     runs["weighted_gram"] = (gram_counts, 0, 0)
     say(f"== done in {time.perf_counter() - t0:.1f} s")

@@ -16,6 +16,13 @@ Ported so far:
   out-of-core stream driver also ``fit_chunks`` and ``fit_libsvm``
   (chunks copied to the card from page-locked memory on a side stream,
   ``data/pipeline.py``; libsvm text IO, ``data/libsvm.py``);
+* warm-started stream generations: ``fit(warm_start=...)`` with
+  ``decay`` or a hard-expiry ``window`` of generations
+  (``core/stats.py``'s ``StatsWindow``), and ``NystromSVM.fit_libsvm``
+  with reservoir landmarks (``data.reservoir_rows``);
+* serving (``serving/``): ``export_servable`` / ``scorer``, bucketed
+  score cells bitwise across buckets, ``WeightPager``, ``ServeLoop``
+  (``launch/serve.py --mode svm``);
 * one device, or a ``torch.distributed`` DeviceMesh (data-parallel, or
   2-D with ``k_shard_axis``);
 * the slice of ``jax.random`` the samplers need (``core/prng.py``);

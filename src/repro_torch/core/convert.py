@@ -1,8 +1,10 @@
-"""Carry configs and fitted weights across from the JAX package.
+"""Carry configs, fitted weights, servable models and warm-start donors
+across from the JAX package.
 
-Both take plain Python and numpy values, never objects of ``repro``, so
-this module imports nothing of it: a caller passes
-``dataclasses.asdict(reference_config)`` and ``FitResult.weights``.
+Every function takes plain Python and numpy values, never objects of
+``repro``, so this module imports nothing of it: a caller passes
+``dataclasses.asdict(reference_config)``, ``FitResult.weights``, the
+fields of a reference ``ServableModel`` or of a reference ``FitResult``.
 """
 from __future__ import annotations
 
@@ -11,8 +13,10 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.serving import ServableModel
+
 from .nystrom import NystromSVM
-from .solver import PEMSVM, SVMConfig
+from .solver import FitResult, PEMSVM, SVMConfig
 
 _FIELDS = tuple(f.name for f in dataclasses.fields(SVMConfig))
 
@@ -96,3 +100,44 @@ def nystrom_from_reference(fields: dict, landmarks: np.ndarray,
     ny.svm._weights = torch.tensor(w, device=ny.svm.device)
     ny.svm._n_features = landmarks.shape[1]
     return ny
+
+
+_SERVABLE_FIELDS = tuple(f.name for f in dataclasses.fields(ServableModel))
+
+
+def servable_from_reference(fields: dict) -> ServableModel:
+    """The port's ServableModel with the field values of a reference one
+    (``{f: getattr(model, f)}`` over its dataclass fields, arrays as
+    numpy). The reference's kernel backends ('interpret', 'pallas') map
+    to the port's default, as in ``config_from_reference``."""
+    unknown = sorted(set(fields) - set(_SERVABLE_FIELDS))
+    if unknown:
+        raise ValueError(f"fields unknown to ServableModel: {unknown}")
+    fields = dict(fields)
+    if fields.get("backend") in ("interpret", "pallas"):
+        fields["backend"] = None
+    for k in ("weights", "landmarks", "proj"):
+        if fields.get(k) is not None:
+            fields[k] = np.array(fields[k], np.float32)
+    return ServableModel(**fields)
+
+
+def fit_result_from_reference(last_sample: np.ndarray,
+                              stats: dict | None = None,
+                              stats_window: list | None = None,
+                              weights: np.ndarray | None = None
+                              ) -> FitResult:
+    """A warm-start donor for the port from a reference fit's
+    ``FitResult.last_sample``, ``stats`` and ``stats_window`` (numpy):
+    ``fit(warm_start=...)`` reads exactly these. ``weights`` defaults to
+    the last sample."""
+    last = np.array(last_sample, np.float32)
+    return FitResult(
+        weights=last.copy() if weights is None
+        else np.array(weights, np.float32),
+        last_sample=last, objective=[], aux_history={}, n_iters=0,
+        converged=False,
+        stats=None if stats is None else {
+            k: np.array(v) for k, v in stats.items()},
+        stats_window=None if stats_window is None else [
+            {k: np.array(v) for k, v in e.items()} for e in stats_window])

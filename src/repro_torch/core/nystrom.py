@@ -25,9 +25,14 @@ same host rows and computes the same projection (replicated), and the
 delegate fits in phi-space on the mesh, a ``k_shard_axis`` splitting the
 phi columns of Sigma.
 
-Not ported yet: ``fit_libsvm`` (it needs reservoir landmarks, ROADMAP
-queue 1 item 8b), ``warm_start`` (item 8b), ``export_servable``/``scorer``
-(item 12) and ``resume_from`` (item 11).
+``fit_libsvm`` is the out-of-core nonlinear fit: one reservoir pass over
+the file picks the landmarks (``data.reservoir_rows``), then the delegate
+streams the raw rows through ``nystrom_fused_stats``. A warm start
+(``fit(warm_start=...)``) reuses the installed featurizer, since the
+donor's phi-space weights belong to it. ``export_servable`` / ``scorer``
+serve the model through the Nystrom score cell (``serving``).
+
+Not ported yet: ``resume_from`` (ROADMAP queue 1 item 11).
 """
 from __future__ import annotations
 
@@ -35,6 +40,9 @@ import dataclasses
 
 import numpy as np
 import torch
+
+from repro_torch.data.libsvm import iter_libsvm
+from repro_torch.data.pipeline import reservoir_rows
 
 from .kernel import gram_matrix
 from .linear import PhiSpec
@@ -125,16 +133,26 @@ class NystromSVM:
         self._proj = np.asarray(proj, np.float32)
         self.svm._phi_arrays = (self._landmarks, self._proj)
 
+    def _continuing(self, fit_kw: dict) -> bool:
+        """A warm-started fit reuses the installed featurizer: new
+        landmarks would change the feature map under the donor's
+        phi-space weights."""
+        return (fit_kw.get("warm_start") is not None
+                and self._landmarks is not None)
+
     def fit(self, X: np.ndarray, y: np.ndarray, **fit_kw) -> FitResult:
         """Fit on host arrays; m landmarks drawn without replacement by
-        ``np.random.default_rng(seed)``, as the reference draws them."""
+        ``np.random.default_rng(seed)``, as the reference draws them,
+        unless the fit continues (``warm_start``) on the installed
+        featurizer. ``fit_kw`` goes to ``PEMSVM.fit``."""
         self._check_fit_kw(fit_kw)
         X = np.asarray(X, np.float32)
-        N = X.shape[0]
-        m = self.n_landmarks or int(np.ceil(np.sqrt(N)))
-        rng = np.random.default_rng(self.seed)
-        self._install_featurizer(
-            X[rng.choice(N, size=min(m, N), replace=False)])
+        if not self._continuing(fit_kw):
+            N = X.shape[0]
+            m = self.n_landmarks or int(np.ceil(np.sqrt(N)))
+            rng = np.random.default_rng(self.seed)
+            self._install_featurizer(
+                X[rng.choice(N, size=min(m, N), replace=False)])
         return self.svm.fit(X, y, **fit_kw)
 
     def fit_featurized(self, X: np.ndarray, y: np.ndarray,
@@ -148,18 +166,36 @@ class NystromSVM:
 
     @staticmethod
     def _check_fit_kw(fit_kw: dict) -> None:
-        for name, item in (("resume_from", "item 11 (reliability)"),
-                           ("warm_start", "item 8b (streaming and data)")):
-            if fit_kw.get(name) is not None:
-                raise NotImplementedError(
-                    f"fit({name}=...) is not ported yet: ROADMAP queue 1 "
-                    f"{item}")
+        if fit_kw.get("resume_from") is not None:
+            raise NotImplementedError(
+                "fit(resume_from=...) is not ported yet: ROADMAP queue 1 "
+                "item 11 (reliability)")
 
-    def fit_libsvm(self, path: str, n_features: int, **fit_kw):
-        raise NotImplementedError(
-            "fit_libsvm (out-of-core Nystrom fit, landmarks by reservoir "
-            "sampling) is not ported yet: ROADMAP queue 1 item 8b "
-            "(streaming and data)")
+    def fit_libsvm(self, path: str, n_features: int,
+                   **fit_kw) -> FitResult:
+        """Out-of-core nonlinear fit from a libsvm file: one reservoir
+        pass picks the landmarks (O(m D) host memory; without
+        ``n_landmarks`` a counting pass first, then m = ceil(sqrt(N))),
+        then the delegate streams raw rows chunk by chunk and featurizes
+        them on the device (with ``driver="stream"``; other drivers load
+        the file). A continuing fit (``warm_start``) reuses the installed
+        featurizer and skips the sampling pass."""
+        self._check_fit_kw(fit_kw)
+        cfg = self.svm.config
+        if not self._continuing(fit_kw):
+            chunks = iter_libsvm(path, cfg.chunk_rows, n_features)
+            if self.n_landmarks:
+                landmarks, _ = reservoir_rows(chunks, self.n_landmarks,
+                                              seed=self.seed)
+            else:
+                n_valid = sum(int(np.sum(np.asarray(mc) > 0))
+                              for _, _, mc in chunks)
+                m = int(np.ceil(np.sqrt(n_valid)))
+                landmarks, _ = reservoir_rows(
+                    iter_libsvm(path, cfg.chunk_rows, n_features), m,
+                    seed=self.seed)
+            self._install_featurizer(landmarks)
+        return self.svm.fit_libsvm(path, n_features, **fit_kw)
 
     # ---------------------------------------------------------- inference
     def _phi(self, X: np.ndarray, add_bias: bool = False) -> np.ndarray:
@@ -175,14 +211,19 @@ class NystromSVM:
                 [phi, np.ones((phi.shape[0], 1), np.float32)], axis=1)
         return phi
 
-    def export_servable(self, **kw):
-        raise NotImplementedError(
-            "export_servable is not ported yet: ROADMAP queue 1 item 12 "
-            "(serving)")
+    def export_servable(self, *, name: str = "svm",
+                        posterior_from: tuple | None = None):
+        """Freeze into a ``serving.ServableModel`` (the Nystrom score
+        cell; ``posterior_from=(X, y)`` adds the phi-space posterior
+        uncertainty columns, exact here since the phi-space prior is
+        lam^{-1} I). See ``PEMSVM.export_servable``."""
+        return self.svm.export_servable(name=name,
+                                        posterior_from=posterior_from)
 
     def scorer(self):
-        raise NotImplementedError(
-            "scorer is not ported yet: ROADMAP queue 1 item 12 (serving)")
+        """The cached device-resident ``serving.SVMScorer`` (see
+        ``PEMSVM.scorer``)."""
+        return self.svm.scorer()
 
     def predict(self, X: np.ndarray) -> np.ndarray:
         return self.svm.predict(np.asarray(X, np.float32))

@@ -31,6 +31,16 @@ PyTorch path. With ``mesh`` (a ``torch.distributed`` DeviceMesh with
 the statistics are summed over them, the paper's Fig. 1; a
 ``config.k_shard_axis`` splits Sigma's columns over that axis (the 2-D
 statistic; the exact KRN fit shards the Gram's rows over the data axes).
+``fit(warm_start=result)`` starts a new fit from a finished one's last
+sample; on the stream driver ``config.decay`` folds the donor's
+statistics in at weight decay, or ``config.window`` a hard-expiry ring of
+the last generations' fresh statistics (``stats.StatsWindow``).
+
+A fitted model exports a frozen ``serving.ServableModel``
+(``export_servable``, with posterior or multichain uncertainty columns)
+and serves through a device-resident ``serving.SVMScorer`` built once a
+fit (``scorer``); ``decision_function`` and ``predict`` go through it.
+
 ``SVMConfig`` carries every field of the reference, so a reference config
 converts field for field (``core/convert.py``); the options this port
 does not carry yet raise ``NotImplementedError`` naming the ROADMAP item
@@ -192,6 +202,13 @@ class FitResult:
     loader_retries: int = 0         # stream driver: loader failures
     #                                 absorbed by retrying_chunks
     loader_backoff_s: float = 0.0   # seconds slept backing those off
+    stats: dict | None = None       # stream driver with decay > 0 or
+    #                                 window >= 1: the effective (S, b) of
+    #                                 the last M-step, numpy; feed back
+    #                                 through fit(warm_start=result)
+    stats_window: list | None = None  # window >= 1: the hard-expiry ring
+    #                                 the next generation folds (this
+    #                                 fit's fresh (S, b) first), numpy
 
 
 def _unsupported(cfg: SVMConfig) -> list[str]:
@@ -199,8 +216,6 @@ def _unsupported(cfg: SVMConfig) -> list[str]:
     item that brings it."""
     checks = [
         ("fault", cfg.fault is not None, "item 11 (reliability)"),
-        ("decay", cfg.decay != 0.0, "item 8b (streaming and data)"),
-        ("window", cfg.window != 0, "item 8b (streaming and data)"),
     ]
     return [f"{name}={getattr(cfg, name)!r} -> ROADMAP queue 1 {item}"
             for name, bad, item in checks if bad]
@@ -209,10 +224,55 @@ def _unsupported(cfg: SVMConfig) -> list[str]:
 _FIT_KEYWORDS = {
     "resume_from": "item 11 (reliability)",
     "resume_step": "item 11 (reliability)",
-    "warm_start": "item 8b (streaming and data)",
     "fault_hook": "item 11 (reliability)",
     "epoch": "item 11 (reliability)",
 }
+
+
+class _WarmStart:
+    """The warm-start part of the reference's ``_FitRuntime``: a new fit
+    starts from the donor ``FitResult``'s last sample; with ``decay > 0``
+    the donor's effective statistics (``stats``) are folded in, with
+    ``window >= 2`` its ring (``stats_window``, cut to window - 1
+    generations here: the hard expiry). Host numpy; every rank of a mesh
+    places the same arrays."""
+
+    def __init__(self, cfg: SVMConfig, warm_start):
+        self.state: np.ndarray | None = None
+        self.prev_stats: dict | None = None
+        self.window_entries: list = []
+        if warm_start is None:
+            return
+        self.state = np.asarray(warm_start.last_sample, np.float32)
+        if cfg.decay > 0.0:
+            if warm_start.stats is None:
+                raise ValueError(
+                    "decay > 0 folds the previous fit's statistics into "
+                    "the new one, but warm_start.stats is None; the donor "
+                    "fit must itself run driver='stream' with decay > 0 "
+                    "(which fills FitResult.stats)")
+            self.prev_stats = {k: np.asarray(v)
+                               for k, v in warm_start.stats.items()}
+        if cfg.window >= 2:
+            if warm_start.stats_window is None:
+                raise ValueError(
+                    "window >= 2 keeps the previous generations' fresh "
+                    "statistics, but warm_start.stats_window is None; the "
+                    "donor fit must itself run driver='stream' with "
+                    "window >= 1 (which fills FitResult.stats_window)")
+            self.window_entries = [
+                {k: np.asarray(v) for k, v in e.items()}
+                for e in warm_start.stats_window][: cfg.window - 1]
+
+    def place(self, state0: torch.Tensor) -> torch.Tensor:
+        """The fit's first state: the donor's last sample, or state0."""
+        if self.state is None:
+            return state0
+        if self.state.shape != tuple(state0.shape):
+            raise ValueError(
+                f"warm_start weights have shape {self.state.shape}, this "
+                f"fit expects {tuple(state0.shape)}")
+        return torch.from_numpy(self.state.copy()).to(state0.device)
 
 
 def _check_krn(cfg: SVMConfig) -> None:
@@ -318,6 +378,10 @@ class PEMSVM:
         # Nystrom phi-space featurizer arrays (landmarks, K_mm^{-1/2}) as
         # float32 numpy; set by NystromSVM before fit when phi_spec is set.
         self._phi_arrays: tuple | None = None
+        # (C, K) per-chain posterior means of a multichain fit: the
+        # ensemble's uncertainty columns in export_servable.
+        self._chain_weights: np.ndarray | None = None
+        self._scorer_cache: tuple | None = None
 
     def _phi(self):
         """The featurizer arrays as device tensors (None in X-space)."""
@@ -333,25 +397,28 @@ class PEMSVM:
 
     # ------------------------------------------------------------- fitting
     def fit(self, X: np.ndarray, y: np.ndarray, *, live=None,
-            **kw) -> FitResult:
+            warm_start: FitResult | None = None, **kw) -> FitResult:
         """Fit on host arrays X (N, D) and labels y in {+-1} (CLS), integer
         class ids in [0, num_classes) (MLT) or real targets (SVR).
         ``live`` (mesh only) is the initial liveness weight
         of each data shard, shape (num_shards,): a shard at 0 drops out of
-        every reduction and the sums renormalize (``stats.preduce``). The
-        other elastic keywords of the reference (``resume_from``,
-        ``resume_step``, ``warm_start``, ``fault_hook``, ``epoch``) are not
-        ported yet. With ``driver="stream"`` the arrays are page-locked for
-        the fit and stream through the device in chunks
-        (``_fit_stream_arrays``)."""
+        every reduction and the sums renormalize (``stats.preduce``).
+        ``warm_start`` (a previous ``FitResult``) starts a new fit from its
+        last sample; with ``config.decay > 0`` or ``config.window >= 2``
+        (stream driver) its statistics are folded in (``_fit_stream``).
+        The other elastic keywords of the reference (``resume_from``,
+        ``resume_step``, ``fault_hook``, ``epoch``) are not ported yet.
+        With ``driver="stream"`` the arrays are page-locked for the fit and
+        stream through the device in chunks (``_fit_stream_arrays``)."""
         _check_fit_keywords(kw)
         cfg = self.config
+        warm = _WarmStart(cfg, warm_start)
         live = self._live(live)
         X = np.ascontiguousarray(X, np.float32)
         self._n_features = X.shape[1]
         target = self._targets(np.asarray(y))
         if cfg.driver == "stream":
-            return self._fit_stream_arrays(X, target)
+            return self._fit_stream_arrays(X, target, warm)
         N = X.shape[0]
         if cfg.formulation == "KRN":
             data, gram, state = self._prepare_krn(X, target)
@@ -382,6 +449,7 @@ class PEMSVM:
             else:
                 step = functools.partial(linear.cls_step,
                                          n_chains=cfg.n_chains, **common)
+        state = warm.place(state)
         key = self._key()
         if cfg.driver == "loop":
             return self._fit_loop(data, state, key, step, N)
@@ -588,7 +656,8 @@ class PEMSVM:
         re-read chunk by chunk every pass (``data.libsvm.iter_libsvm``
         through the prefetcher) and the data set is never resident on the
         host or the device; other drivers load it and defer to ``fit``.
-        ``rank``/``world`` stripe the lines per host (paper Sec 5.6)."""
+        ``rank``/``world`` stripe the lines per host (paper Sec 5.6).
+        ``fit_kw`` goes to ``fit`` / ``fit_chunks`` (``warm_start``)."""
         cfg = self.config
         if cfg.driver != "stream":
             X, y = load_libsvm(path, n_features, rank=rank, world=world)
@@ -616,22 +685,24 @@ class PEMSVM:
         return self.fit_chunks(make_chunks, self._state_width(n_features),
                                **fit_kw)
 
-    def fit_chunks(self, make_chunks: Callable, K: int, **kw) -> FitResult:
+    def fit_chunks(self, make_chunks: Callable, K: int, *,
+                   warm_start: FitResult | None = None, **kw) -> FitResult:
         """Out-of-core fit over a restartable chunk source: ``make_chunks()``
         returns a fresh iterator of host ``(X, target, mask)`` blocks of one
         shape, their width already final (bias column appended, features
         padded; raw rows in phi-space), and ``K`` is the weight vector's
         width. The chunks reach the device through a pinned staging ring
         (``data.pipeline.DevicePlacer``); a failing source is retried per
-        the default ``FaultPolicy``. The reference's elastic keywords are
-        refused as in ``fit``."""
+        the default ``FaultPolicy``. ``warm_start`` as in ``fit``; the
+        other elastic keywords of the reference are refused as there."""
         cfg = self.config
         if cfg.driver != "stream":
             raise ValueError(
                 f"fit_chunks is the stream driver's entry point; "
                 f"config.driver is {cfg.driver!r}")
         _check_fit_keywords(kw)
-        return self._fit_stream(make_chunks, K, DevicePlacer(self.device))
+        return self._fit_stream(make_chunks, K, DevicePlacer(self.device),
+                                _WarmStart(cfg, warm_start))
 
     def _stream_target(self, y: np.ndarray, mask: np.ndarray) -> np.ndarray:
         """One chunk's targets, cast and checked on its valid rows as
@@ -641,8 +712,8 @@ class PEMSVM:
         return np.asarray(y, np.int32 if self.config.task == "MLT"
                           else np.float32)
 
-    def _fit_stream_arrays(self, X: np.ndarray,
-                           target: np.ndarray) -> FitResult:
+    def _fit_stream_arrays(self, X: np.ndarray, target: np.ndarray,
+                           warm: _WarmStart) -> FitResult:
         """``driver="stream"`` on in-memory arrays: chunk views of X, which
         is page-locked in place for the fit (``PageLock``), so that each
         chunk is copied to the device with no host copy, and of the
@@ -665,15 +736,15 @@ class PEMSVM:
 
         K = self._state_width(D)
         if not cuda:
-            return self._fit_stream(make_chunks, K, placer)
+            return self._fit_stream(make_chunks, K, placer, warm)
         target = torch.from_numpy(target).pin_memory().numpy()
         with PageLock(self.device, X):
-            return self._fit_stream(make_chunks, K, placer)
+            return self._fit_stream(make_chunks, K, placer, warm)
 
-    def _fit_stream(self, make_chunks: Callable, K: int,
-                    placer) -> FitResult:
+    def _fit_stream(self, make_chunks: Callable, K: int, placer,
+                    warm: _WarmStart) -> FitResult:
         """The out-of-core driver (reference ``_fit_stream``, without its
-        checkpoint, decay and window branches: ROADMAP items 11 and 8b).
+        checkpoint branch: ROADMAP item 11).
 
         Each iteration sweeps the chunks through the prefetcher, sums the
         per-chunk statistic dicts on the device in chunk order
@@ -682,7 +753,18 @@ class PEMSVM:
         the objective). ``row0``, the chunk's global row, is a host int
         carried across the chunks. Nothing in a sweep waits for the
         device: the scalars stay device tensors until the iteration's one
-        transfer (``_fit_host_loop``), so ``n_host_syncs == n_iters``."""
+        transfer (``_fit_host_loop``), so ``n_host_syncs == n_iters``.
+
+        A warm start begins at the donor's last sample. With
+        ``config.decay > 0`` the M-step takes fresh + decay * the donor's
+        effective (S, b); with ``config.window >= 1`` it takes the fresh
+        statistics plus the retained ring at full weight
+        (``StatsWindow.folded``); MLT folds per class, before each class's
+        M-step. The donor statistics are placed once and frozen for the
+        whole fit (generations advance per fit), and the objective stays
+        fresh-data-only. ``FitResult.stats`` is the effective (S, b) of
+        the last M-step and ``stats_window`` the ring advanced by this
+        fit's fresh (S, b), both numpy, copied after the loop."""
         cfg = self.config
         if self.mesh is not None:
             raise NotImplementedError(
@@ -697,9 +779,32 @@ class PEMSVM:
                                  device=dev)
         else:
             state0 = linear.init_weight(K, dev, cfg.n_chains)
+        state0 = warm.place(state0)
         pol = FaultPolicy()
         retry = RetryStats()
         peak = 0
+
+        def on_device(d):
+            return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
+                    for k, v in d.items()}
+
+        prev = None if warm.prev_stats is None else on_device(warm.prev_stats)
+        win = (stats.StatsWindow(cfg.window,
+                                 [on_device(e) for e in warm.window_entries])
+               if cfg.window >= 1 else None)
+        keep = cfg.decay > 0.0 or win is not None
+        held: dict = {}          # the last M-step's effective and fresh stats
+
+        def fold(S, b, y=None):
+            """The M-step's (S, b): the fresh sums plus the donor's."""
+            if prev is not None:
+                S = S + cfg.decay * (prev["S"] if y is None else prev["S"][y])
+                b = b + cfg.decay * (prev["b"] if y is None else prev["b"][y])
+            if win is not None:
+                for e in win.entries:     # newest first, as folded()
+                    S = S + (e["S"] if y is None else e["S"][y])
+                    b = b + (e["b"] if y is None else e["b"][y])
+            return S, b
 
         def source(skip):
             it = make_chunks()
@@ -727,16 +832,27 @@ class PEMSVM:
 
         def iterate(sub, state):
             if is_mlt:
+                fresh, eff = [], []
                 for y in range(cfg.num_classes):
                     t = sweep(lambda d, r0, _y=y:
                               fns["chunk"](d, state, sub, r0, _y))
-                    state = fns["mstep"](state, t["S"], t["b"], sub, y)
+                    S, b = fold(t["S"], t["b"], y)
+                    if keep:
+                        fresh.append((t["S"], t["b"]))
+                        eff.append((S, b))
+                    state = fns["mstep"](state, S, b, sub, y)
+                if keep:
+                    held["fresh"], held["eff"] = _stacked(fresh), _stacked(eff)
                 t = sweep(lambda d, r0: fns["obj"](d, state))
                 return state, {"objective": fns["obj_total"](state,
                                                               t["loss"]),
                                "mask_sum": t["mask_sum"]}, None
             t = sweep(lambda d, r0: fns["chunk"](d, state, sub, r0))
-            state, obj = fns["mstep"](t["S"], t["b"], t["loss"], sub)
+            S, b = fold(t["S"], t["b"])
+            if keep:
+                held["fresh"] = {"S": t["S"], "b": t["b"]}
+                held["eff"] = {"S": S, "b": b}
+            state, obj = fns["mstep"](S, b, t["loss"], sub)
             return state, {"objective": obj,
                            **{k: v for k, v in t.items()
                               if k not in ("S", "b", "loss")}}, None
@@ -756,6 +872,12 @@ class PEMSVM:
         result.peak_input_bytes = int(peak)
         result.loader_retries = retry.retries
         result.loader_backoff_s = retry.backoff_s
+        if held:
+            result.stats = {k: v.cpu().numpy()
+                            for k, v in held["eff"].items()}
+            if win is not None:
+                result.stats_window = stats.StatsWindow(
+                    cfg.window, warm.window_entries).advance(held["fresh"])
         return result
 
     def _finish(self, weights, last, aux_hist, n_iters, converged,
@@ -777,6 +899,7 @@ class PEMSVM:
             res.weights = np.mean(cw.astype(np.float64),
                                   axis=0).astype(np.float32)
         self._weights = torch.from_numpy(res.weights).to(self.device)
+        self._chain_weights = res.chain_weights
         return res
 
     @property
@@ -863,44 +986,147 @@ class PEMSVM:
         return data, linear.init_weight(K, dev, cfg.n_chains)
 
     # ---------------------------------------------------------- inference
-    def _features(self, X: np.ndarray) -> torch.Tensor:
+    def export_servable(self, *, name: str = "svm",
+                        posterior_from: tuple | None = None):
+        """Freeze this fitted model into a ``serving.ServableModel``, all
+        of the serving path's view of it.
+
+        The exact KRN model rides the Nystrom score cell: landmarks are
+        the training rows, the projection is the dual weight column
+        omega[:, None] and the score weight [[1.]], so score =
+        k(X, X_train) @ omega through ``nystrom_score``.
+
+        ``posterior_from=(X, y)`` appends the posterior uncertainty
+        directions U = L^{-T} as weight columns (``_posterior_columns``);
+        a multichain fit without it appends its ensemble's columns
+        (w_c - w_bar) / sqrt(C - 1), so ||x @ U|| is the ddof=1 std of
+        the chains' margins. Either is served by
+        ``SVMScorer.score_with_std`` from the same dispatch."""
+        from repro_torch.serving import ServableModel
+
+        cfg = self.config
+        if self._weights is None:
+            raise RuntimeError("fit first")
+        w = self._weights.cpu().numpy().astype(np.float32)
+        task = cfg.task.lower()
+        if cfg.formulation == "KRN":
+            if posterior_from is not None:
+                raise NotImplementedError(
+                    "posterior serving for the exact-Gram model needs the "
+                    "kernel prior precision; fit NystromSVM, whose "
+                    "phi-space posterior is lam^{-1} I exactly")
+            train = self._train_X.cpu().numpy()
+            return ServableModel(
+                task=task, weights=np.ones((1, 1), np.float32),
+                n_outputs=1, n_features=train.shape[1], landmarks=train,
+                proj=w[:train.shape[0], None], phi_kind=cfg.kernel,
+                phi_sigma=cfg.sigma, phi_add_bias=False,
+                backend=cfg.backend, name=name)
+        if cfg.task == "MLT":
+            W, n_out = np.ascontiguousarray(w.T), cfg.num_classes
+        else:
+            W, n_out = w[:, None], 1
+        if posterior_from is not None:
+            U = self._posterior_columns(*posterior_from)
+            W = np.concatenate([W, U], axis=1)
+        elif self._chain_weights is not None:
+            cw = self._chain_weights.astype(np.float64)
+            U = (cw - cw.mean(axis=0)) / np.sqrt(cw.shape[0] - 1)
+            W = np.concatenate([W, U.T.astype(np.float32)], axis=1)
+        if cfg.phi_spec is not None:
+            lm, pj = self._phi_arrays
+            return ServableModel(
+                task=task, weights=W, n_outputs=n_out,
+                n_features=lm.shape[1], landmarks=lm, proj=pj,
+                phi_kind=cfg.phi_spec.kind, phi_sigma=cfg.phi_spec.sigma,
+                phi_add_bias=cfg.phi_spec.add_bias, backend=cfg.backend,
+                name=name)
+        D = self._n_features
+        if D is None:
+            if cfg.pad_features:
+                raise ValueError(
+                    "raw feature width unknown (fit_chunks with "
+                    "pad_features); set svm._n_features or fit via "
+                    "fit/fit_libsvm")
+            D = W.shape[0] - int(cfg.add_bias)
+        if self._width(D) != W.shape[0]:
+            raise ValueError(
+                f"recorded request width {D} preps to {self._width(D)} "
+                f"columns but the fitted weights have {W.shape[0]}")
+        return ServableModel(task=task, weights=W, n_outputs=n_out,
+                             n_features=D, add_bias=cfg.add_bias,
+                             backend=cfg.backend, name=name)
+
+    def _posterior_columns(self, X: np.ndarray, y: np.ndarray
+                           ) -> np.ndarray:
+        """U = L^{-T}, (Kfit, Kfit) float32: the uncertainty directions of
+        the weight posterior N(mu, P^{-1}) at the fitted weights. One
+        E-step over (X, y) on the device (``ops.fused_stats``; in
+        phi-space on ``nystrom_phi``'s features) rebuilds S; then, in
+        float64 on the host as in the reference, P = S + lam I,
+        symmetrised, plus the config's relative jitter, L = chol(P). The
+        served std is ||phi U|| = sqrt(phi^T P^{-1} phi)."""
+        cfg = self.config
+        if cfg.task == "MLT":
+            raise NotImplementedError(
+                "MLT posterior columns need per-class statistics; export "
+                "per-class binary models instead")
+        dev = self.device
+        X = np.ascontiguousarray(X, np.float32)
+        if cfg.phi_spec is not None:
+            lm, pj = self._phi()
+            Xp = ops.nystrom_phi(
+                torch.from_numpy(X).to(dev), lm, pj, None,
+                sigma=cfg.phi_spec.sigma, kind=cfg.phi_spec.kind,
+                add_bias=cfg.phi_spec.add_bias, backend=cfg.backend)
+        else:
+            n, D = X.shape
+            Xp = torch.zeros((n, self._width(D)), dtype=torch.float32,
+                             device=dev)
+            if cfg.add_bias:
+                Xp[:, D] = 1.0
+            rows_to_device(X, Xp)
+        yf = torch.from_numpy(np.asarray(y, np.float32)).to(dev)
+        beta = yf if cfg.task == "CLS" else torch.zeros_like(yf)
+        epi = "em_hinge" if cfg.task == "CLS" else "em_svr"
+        out = ops.fused_stats(Xp, yf, beta, self._weights, None, None,
+                              epilogue=epi, eps=cfg.eps,
+                              eps_ins=cfg.eps_ins, backend=cfg.backend)
+        S = out[-1].cpu().numpy().astype(np.float64)
+        K = S.shape[0]
+        P = S + cfg.lam * np.eye(K)
+        P = 0.5 * (P + P.T)
+        P += (cfg.jitter * np.trace(P) / K) * np.eye(K)
+        L = np.linalg.cholesky(P)
+        return np.linalg.solve(L, np.eye(K)).T.astype(np.float32)
+
+    def scorer(self):
+        """The device-resident ``serving.SVMScorer`` of this fitted model,
+        built once a fit: its arrays go to the device at construction and
+        every ``decision_function`` / ``predict`` reuses them. A refit
+        assigns new source arrays, which invalidates the cache by
+        identity."""
+        from repro_torch.serving import SVMScorer
+
+        src = (self._weights, self._train_X, self._phi_arrays)
+        if (self._scorer_cache is None
+                or any(a is not b
+                       for a, b in zip(self._scorer_cache[0], src))):
+            self._scorer_cache = (src, SVMScorer(self.export_servable(),
+                                                 device=self.device))
+        return self._scorer_cache[1]
+
+    def decision_function(self, X: np.ndarray) -> np.ndarray:
+        """Margins as float32, (n,) or for MLT the (n, M) class scores,
+        through ``scorer()``: the bucketed linear cell (X with the bias
+        column and padding, times w), in phi-space and for the exact KRN
+        model the Nystrom score cell (``nystrom_score``)."""
         if self._weights is None:
             raise RuntimeError("fit first")
         X = np.asarray(X, np.float32)
-        if X.ndim != 2 or X.shape[1] != self._n_features:
-            raise ValueError(f"expected (n, {self._n_features}) features, "
-                             f"got {X.shape}")
-        if self.config.add_bias and self.config.formulation == "LIN":
-            X = np.concatenate([X, np.ones((X.shape[0], 1), np.float32)], 1)
-        if self.config.pad_features:
-            X = pad_features_to(X, self.config.pad_features)
-        return torch.from_numpy(X).to(self.device)
-
-    def decision_function(self, X: np.ndarray) -> np.ndarray:
-        """Margins as float32, (n,) or for MLT the (n, M) class scores:
-        X_with_bias @ w (or @ W^T; a plain matmul, as the reference's LIN
-        serving cell is plain XLA); in phi-space the scoring kernel,
-        phi(X) @ w (W^T) with phi never written out; for the exact KRN
-        model the cross-Gram with the training rows times omega."""
-        cfg = self.config
-        spec = cfg.phi_spec
-        Xd = self._features(X)
-        if cfg.formulation == "KRN":
-            omega = self._weights[:self._train_X.shape[0]]
-            return kernel.decision_function(
-                omega, self._train_X, Xd, kind=cfg.kernel, sigma=cfg.sigma,
-                backend=cfg.backend).cpu().numpy()
-        mlt = cfg.task == "MLT"
-        if spec is None:
-            f = (multiclass.decision_function(self._weights, Xd) if mlt
-                 else linear.decision_function(self._weights, Xd))
-            return f.cpu().numpy()
-        landmarks, proj = self._phi()
-        W = self._weights.T if mlt else self._weights[:, None]
-        f = ops.nystrom_score(
-            Xd, landmarks, proj, W, sigma=spec.sigma, kind=spec.kind,
-            add_bias=spec.add_bias, backend=cfg.backend)
-        return (f if mlt else f[:, 0]).cpu().numpy()
+        if self._n_features is None:  # fits straight from fit_chunks
+            self._n_features = X.shape[1]
+        return self.scorer().margins(X)
 
     def predict(self, X: np.ndarray) -> np.ndarray:
         """Labels in {+-1} (CLS), class ids (MLT) or the regression values
@@ -934,6 +1160,12 @@ _AUX_KEYS = {("LIN", "CLS"): ("objective", "gamma_mean", "n_sv"),
              ("LIN", "MLT"): ("objective",),
              ("LIN", "SVR"): ("objective", "gamma_mean", "omega_mean"),
              ("KRN", "CLS"): ("objective", "gamma_mean")}
+
+
+def _stacked(pairs: list) -> dict:
+    """MLT's per-class (S, b) pairs as one (M, K, K) S and (M, K) b."""
+    return {"S": torch.stack([S for S, _ in pairs]),
+            "b": torch.stack([b for _, b in pairs])}
 
 
 def _add_stats(a: dict, b: dict) -> dict:

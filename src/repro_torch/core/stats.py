@@ -13,10 +13,14 @@ triangle rides one collective with b (``reduce_stats``). The 2-D
 (data x k) statistic reduces each rank's column block with b over the data
 axes and gathers the blocks over the k axis (``reduce_kshard``). The
 M-step is the posterior solve (EM) or the Gaussian draw ``draw_weight``
-(MC), replicated on every rank.
+(MC), replicated on every rank. ``StatsWindow`` is the hard-expiry ring
+of per-generation statistics a warm-started stream fit folds in.
 """
 from __future__ import annotations
 
+import itertools
+
+import numpy as np
 import torch
 import torch.distributed as dist
 
@@ -183,3 +187,62 @@ def draw_weight(key: torch.Tensor, L: torch.Tensor, mu: torch.Tensor
     z = prng.normal(key, tuple(mu.shape)).to(mu.dtype)
     return mu + torch.linalg.solve_triangular(L.T, z[:, None],
                                               upper=True)[:, 0]
+
+
+class StatsWindow:
+    """Hard-expiry ring of per-generation (Sigma, b) statistic partials:
+    the windowed alternative to the geometric ``SVMConfig.decay`` warm
+    start.
+
+    Decay folds the previous generation's effective statistics in at
+    weight d, so every generation keeps a geometric tail. A window keeps
+    the fresh partials of the last ``horizon - 1`` generations as they
+    were and sums them at full weight; an older generation is dropped.
+    (Sigma, b) are sums over rows, so the drop is exact data expiry.
+
+    ``entries[0]`` is the newest retained previous generation; each entry
+    is a dict of "S" and "b" arrays (numpy, or device tensors while a fit
+    folds them). The ring is frozen for a whole fit and rides a
+    checkpoint as it is (``pack`` / ``unpack``)."""
+
+    def __init__(self, horizon: int, entries=()):
+        assert horizon >= 1, horizon
+        self.horizon = int(horizon)
+        self.entries = [dict(e) for e in entries][: self.horizon - 1]
+
+    def folded(self, fresh: dict) -> dict:
+        """The M-step's statistics: fresh + every retained generation at
+        full weight, newest first (``fresh + e0 + e1 + ...``: one
+        association order, so repeated folds are bitwise the same)."""
+        out = dict(fresh)
+        for e in self.entries:
+            out["S"] = out["S"] + e["S"]
+            out["b"] = out["b"] + e["b"]
+        return out
+
+    def advance(self, fresh: dict) -> list[dict]:
+        """The ring the next generation carries: this generation's fresh
+        partials (as numpy) in front, cut to the horizon."""
+        head = [{k: _numpy(fresh[k]) for k in ("S", "b")}]
+        return (head + self.entries)[: self.horizon - 1]
+
+    @staticmethod
+    def pack(entries) -> dict:
+        """Flat ``{win{i}_{S,b}: array}`` dict for a checkpoint."""
+        return {f"win{i}_{k}": _numpy(e[k])
+                for i, e in enumerate(entries) for k in ("S", "b")}
+
+    @staticmethod
+    def unpack(arrays: dict) -> list:
+        """Inverse of ``pack`` over a flat checkpoint-arrays dict."""
+        out: list[dict] = []
+        for i in itertools.count():
+            if f"win{i}_S" not in arrays:
+                break
+            out.append({"S": np.asarray(arrays[f"win{i}_S"]),
+                        "b": np.asarray(arrays[f"win{i}_b"])})
+        return out
+
+
+def _numpy(a) -> np.ndarray:
+    return a.cpu().numpy() if isinstance(a, torch.Tensor) else np.asarray(a)

@@ -3,8 +3,8 @@ and the host-to-device chunk path of the stream driver."""
 from .libsvm import (iter_libsvm, load_libsvm, parse_libsvm_line,  # noqa: F401
                      save_libsvm)
 from .pipeline import (ChunkPrefetcher, DevicePlacer, PageLock,  # noqa: F401
-                       RetryStats, pad_features_to, retrying_chunks,
-                       rows_to_device)
+                       RetryStats, pad_features_to, reservoir_rows,
+                       retrying_chunks, rows_to_device)
 from .synthetic import (make_alpha_like, make_blobs,  # noqa: F401
                         make_circles, make_dna_like, make_mnist8m_like,
                         make_year_like)

@@ -1,7 +1,8 @@
 """Host-side data preparation and the host-to-device chunk path: the
-port's copies of ``pad_features_to``, ``RetryStats``, ``retrying_chunks``
-and ``ChunkPrefetcher`` from ``repro/data/pipeline.py`` (that module
-imports jax, so the port keeps its own), and the device side of the copy.
+port's copies of ``pad_features_to``, ``reservoir_rows``,
+``RetryStats``, ``retrying_chunks`` and ``ChunkPrefetcher`` from
+``repro/data/pipeline.py`` (that module imports jax, so the port keeps
+its own), and the device side of the copy.
 
 On the card a chunk reaches the device through ``DevicePlacer``: the
 rows are copied host-to-device from page-locked memory on a side CUDA
@@ -9,8 +10,10 @@ stream, either from a pinned staging ring (any host array; one host
 memcpy a chunk) or straight from a source the caller page-locked with
 ``PageLock`` (``cudaHostRegister``, no host copy). The consumer's stream
 waits on the copy's event; no host synchronize is involved.
-``rows_to_device`` is the same path for the resident fit's set-up.
-Reservoir landmarks and ``ShardedBatcher`` are ROADMAP queue 1 item 8b.
+``rows_to_device`` is the same path for the resident fit's set-up, and
+the serving cells place each request bucket the same way.
+``reservoir_rows`` draws Nystrom landmarks from a chunk source in one
+pass. (``ShardedBatcher``, the LM token batcher, is ROADMAP item 13.)
 """
 from __future__ import annotations
 
@@ -24,21 +27,67 @@ import numpy as np
 import torch
 
 
-def pad_features_to(X: np.ndarray, multiple: int | None) -> np.ndarray:
+def pad_features_to(X: np.ndarray, multiple: int | None = None, *,
+                    width: int | None = None) -> np.ndarray:
     """Zero-pad the feature (last) dimension of a host row block so that its
     width divides ``multiple``: the route to a k_shard-divisible statistic
     width (``linear._k_block`` refuses an indivisible one rather than drop
-    Sigma columns; ``SVMConfig.pad_features`` applies this in ``fit`` and
-    ``predict``). Zero columns are exact no-ops for every statistic: their
-    Sigma rows and columns and b entries are zero and the ridge pins their
-    weights to 0. An already divisible width is returned as it is. (The
-    reference's ``width=`` mode, for serving, waits for ROADMAP item 12.)"""
-    if multiple is None or multiple <= 1:
-        return X
-    pad = (-X.shape[-1]) % multiple
+    Sigma columns; ``SVMConfig.pad_features`` applies this in ``fit``).
+    Zero columns are exact no-ops for every statistic: their Sigma rows
+    and columns and b entries are zero and the ridge pins their weights to
+    0. An already divisible width is returned as it is.
+
+    ``width=`` instead pads to an absolute width (serving: a request widens
+    to the model's fitted width, never narrows) and refuses a target below
+    the current width, since slicing features off would change every
+    score."""
+    K = X.shape[-1]
+    if width is not None:
+        assert multiple is None, "pass either multiple or width, not both"
+        if width < K:
+            raise ValueError(
+                f"target width {width} is below the current feature "
+                f"width {K}; refusing to slice columns off")
+        pad = width - K
+    else:
+        if multiple is None or multiple <= 1:
+            return X
+        pad = (-K) % multiple
     if pad == 0:
         return X
     return np.pad(X, [(0, 0)] * (X.ndim - 1) + [(0, pad)])
+
+
+def reservoir_rows(chunks: Iterable, m: int, seed: int = 0
+                   ) -> tuple[np.ndarray, int]:
+    """A uniform sample of ``m`` valid rows from an iterator of (X, y,
+    mask) host chunks, in one pass and O(m * D) memory: reservoir sampling
+    over the rows with mask > 0, so an out-of-core source
+    (``iter_libsvm``) can supply Nystrom landmarks without being resident.
+    Valid row j replaces a reservoir slot with probability m / (j + 1);
+    the slots of a chunk's rows come from one ``rng.integers`` call with a
+    per-row upper bound, so a seed draws the reference's rows. Returns
+    (rows (m', D), n_valid) with m' = min(m, n_valid)."""
+    rng = np.random.default_rng(seed)
+    reservoir: list[np.ndarray] = []
+    seen = 0
+    for Xc, _, mc in chunks:
+        rows = np.asarray(Xc, np.float32)[np.asarray(mc) > 0]
+        fill = min(max(m - len(reservoir), 0), len(rows))
+        reservoir.extend(np.array(r) for r in rows[:fill])
+        seen += fill
+        rows = rows[fill:]
+        if not len(rows):
+            continue
+        # Row i of this chunk is valid row seen + i: its slot is drawn
+        # from [0, seen + i + 1).
+        slots = rng.integers(0, seen + 1 + np.arange(len(rows)))
+        seen += len(rows)
+        for i in np.nonzero(slots < m)[0]:    # in order: later rows win
+            reservoir[slots[i]] = np.array(rows[i])
+    if not reservoir:
+        raise ValueError("reservoir_rows: source yielded no valid rows")
+    return np.stack(reservoir), seen
 
 
 def padded_width(width: int, multiple: int | None) -> int:
@@ -291,7 +340,8 @@ class DevicePlacer:
     """Places host chunks on ``device`` as the stream driver consumes them:
     ``(X, target, mask)`` with n <= ``rows`` rows and D <= ``width``
     columns becomes X (rows, width) float32 with X in [:n, :D], every
-    other entry 0; target (rows,) and mask (rows,) zero past n.
+    other entry 0; target (rows,) and mask (rows,) zero past n (a target
+    of None, a serving request's, stays None).
     ``mask=None`` means all n rows are valid; then column ``bias_col``
     (when given) is 1 on them, the bias column of in-memory arrays. A
     full-size block with a mask (every block, when ``rows`` and ``width``
@@ -343,16 +393,19 @@ class DevicePlacer:
                 for a, b in zip(src, buf)]
 
     # ------------------------------------------------ consumer side
-    def place(self, staged, slot: int):
+    def place(self, staged, slot: int, rows: int | None = None):
+        """The chunk on the device; ``rows`` overrides the placer's row
+        count for this chunk (a serving bucket)."""
         if not self.cuda:
-            return self._assemble(*staged, non_blocking=False)
+            return self._assemble(*staged, non_blocking=False, rows=rows)
         cur = torch.cuda.current_stream(self.device)
         with torch.cuda.stream(self.stream):
-            arrs = self._assemble(*staged, non_blocking=True)
+            arrs = self._assemble(*staged, non_blocking=True, rows=rows)
         self.retire(slot, self.stream)
         cur.wait_event(self._free[slot])
         for a in arrs:
-            a.record_stream(cur)
+            if a is not None:
+                a.record_stream(cur)
         return arrs
 
     def retire(self, slot: int, stream=None) -> None:
@@ -364,16 +417,17 @@ class DevicePlacer:
         ev.record(stream or torch.cuda.current_stream(self.device))
         self._free[slot] = ev
 
-    def _assemble(self, X, target, mask, *, non_blocking):
+    def _assemble(self, X, target, mask, *, non_blocking, rows=None):
         n, D = X.shape
-        R, K, dev = self.rows or n, self.width or D, self.device
+        R, K, dev = rows or self.rows or n, self.width or D, self.device
         if n > R or D > K:
             raise ValueError(f"a chunk of {tuple(X.shape)} does not fit the "
                              f"({R}, {K}) chunk shape")
         f32 = dict(dtype=torch.float32, device=dev)
         nb = non_blocking
         if n == R and D == K and mask is not None:
-            return tuple(torch.empty(a.shape, dtype=a.dtype, device=dev)
+            return tuple(None if a is None else
+                         torch.empty(a.shape, dtype=a.dtype, device=dev)
                          .copy_(a, non_blocking=nb) for a in (X, target,
                                                                mask))
         Xd = torch.empty((R, K), **f32)
@@ -382,8 +436,10 @@ class DevicePlacer:
         else:
             Xd[:n, :D].copy_(X, non_blocking=nb)
             Xd[:n, D:].zero_()
-        td = torch.empty((R,), dtype=target.dtype, device=dev)
-        td[:n].copy_(target, non_blocking=nb)
+        td = None
+        if target is not None:
+            td = torch.empty((R,), dtype=target.dtype, device=dev)
+            td[:n].copy_(target, non_blocking=nb)
         md = torch.empty((R,), **f32)
         if mask is None:
             md[:n].fill_(1.0)
@@ -393,7 +449,8 @@ class DevicePlacer:
             Xd[:n, self.bias_col].fill_(1.0)
         if n < R:
             Xd[n:].zero_()
-            td[n:].zero_()
+            if td is not None:
+                td[n:].zero_()
             md[n:].zero_()
         return Xd, td, md
 

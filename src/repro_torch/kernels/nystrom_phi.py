@@ -210,6 +210,28 @@ def nystrom_phi(X: torch.Tensor, landmarks: torch.Tensor,
     return out
 
 
+def score_scratch(N: int, D: int, m: int, P: int, C: int,
+                  add_bias: bool, kind: str = "rbf",
+                  proj_padded: bool | None = None) -> dict:
+    """The float32 device buffers one ``nystrom_score`` call allocates,
+    name -> shape (``_featurizer_args``' scratch, the score partials and
+    the output): what the serving path's residency check reads. None of
+    them is an (N, M) phi; the cross-Gram chunk ``kc`` is (m, R).
+    ``proj_padded`` (default: P % PROJ_ALIGN != 0) adds proj's aligned
+    copy."""
+    M = P + int(add_bias)
+    chunk = _phi_chunk_rows(N, m, M, D=D)
+    rbf = kind == "rbf"
+    out = dict(sqx=(N if rbf else 0,), sql=(m if rbf else 0,),
+               kc=(m, chunk), xt=(D, chunk), lt=(D, -(-m // 4) * 4),
+               spart=(-(-M // GT) * chunk * C,), out=(N, C))
+    if proj_padded is None:
+        proj_padded = P % PROJ_ALIGN != 0
+    if proj_padded:
+        out["proj"] = (m, -(-P // PROJ_ALIGN) * PROJ_ALIGN)
+    return out
+
+
 def nystrom_score(X: torch.Tensor, landmarks: torch.Tensor,
                   proj: torch.Tensor, W: torch.Tensor,
                   mask: torch.Tensor | None = None, *, sigma: float = 1.0,

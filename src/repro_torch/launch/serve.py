@@ -1,0 +1,87 @@
+"""Serving driver, SVM mode: fit a few tenant models, export them, page
+them through a shared score cell and drive the threaded continuous-
+batching loop, then check every tenant's served scores bitwise against
+its ``decision_function``.
+
+    PYTHONPATH=src python -m repro_torch.launch.serve --mode svm \\
+        --tenants 6 --requests 200 --family nystrom
+
+Runs on ``cuda:0`` unless ``--device cpu``. The LM mode (prefill and
+greedy decode) is ROADMAP queue 1 item 13.
+"""
+from __future__ import annotations
+
+import argparse
+import time
+
+
+def main_svm(args) -> bool:
+    import numpy as np
+
+    from repro_torch.core import NystromSVM, PEMSVM, SVMConfig
+    from repro_torch.serving import ServeLoop, WeightPager
+
+    rng = np.random.default_rng(args.seed)
+    n, d = 4_000, 32
+    X = rng.normal(size=(n, d)).astype(np.float32)
+
+    pager = WeightPager(max_resident=args.resident, device=args.device)
+    oracles = {}
+    for t in range(args.tenants):
+        w = rng.normal(size=d)
+        y = np.where(X @ w > 0, 1.0, -1.0).astype(np.float32)
+        if args.family == "nystrom":
+            model = NystromSVM(
+                SVMConfig(formulation="KRN", sigma=3.0, lam=0.1,
+                          max_iters=15, min_iters=5), n_landmarks=48,
+                device=args.device)
+        else:
+            model = PEMSVM(SVMConfig(max_iters=15, min_iters=5),
+                           device=args.device)
+        model.fit(X, y)
+        name = f"tenant{t}"
+        pager.register(model.export_servable(name=name))
+        oracles[name] = model.decision_function(X[:256])
+
+    loop = ServeLoop(pager).start()
+    t0 = time.perf_counter()
+    futs = []
+    for i in range(args.requests):
+        nr = int(rng.integers(1, 97))
+        j = int(rng.integers(0, n - nr + 1))
+        futs.append(loop.submit(f"tenant{i % args.tenants}", X[j:j + nr]))
+    rows = sum(f.result(timeout=60).shape[0] for f in futs)
+    dt = time.perf_counter() - t0
+    loop.stop()
+
+    q = loop.latency_quantiles()
+    ok = all(
+        np.array_equal(pager.scorer(name).score(X[:256])[:, 0], oracle)
+        for name, oracle in oracles.items())
+    print(f"served {loop.n_requests} requests / {rows} rows in {dt:.2f}s "
+          f"({rows / dt:.0f} rows/s) over {loop.n_batches} batches")
+    print(f"latency p50={q['p50_ms']:.2f}ms p99={q['p99_ms']:.2f}ms  "
+          f"pager hits={pager.hits} misses={pager.misses} "
+          f"evictions={pager.evictions} "
+          f"resident={pager.resident_bytes}B")
+    print(f"bitwise parity vs decision_function across all tenants: {ok}")
+    return ok
+
+
+def main(argv=None) -> int:
+    ap = argparse.ArgumentParser()
+    ap.add_argument("--mode", default="svm", choices=["svm"])
+    ap.add_argument("--seed", type=int, default=0)
+    ap.add_argument("--tenants", type=int, default=4)
+    ap.add_argument("--resident", type=int, default=4)
+    ap.add_argument("--requests", type=int, default=100)
+    ap.add_argument("--family", default="linear",
+                    choices=["linear", "nystrom"])
+    ap.add_argument("--device", default=None,
+                    help="torch device (default: cuda:0)")
+    args = ap.parse_args(argv)
+    return 0 if main_svm(args) else 1
+
+
+if __name__ == "__main__":
+    raise SystemExit(main())

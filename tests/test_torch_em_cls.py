@@ -174,12 +174,21 @@ def test_objective_terms_match_reference(masked):
 @pytest.mark.parametrize("kw", [
     dict(fault=object(), driver="stream"),
     dict(fault=object()),
-    dict(decay=0.5, driver="stream"),
-    dict(window=2, driver="stream"),
+    dict(decay=0.5, driver="scan"),
+    dict(window=2, decay=0.5, driver="stream"),
 ])
 def test_unsupported_config_raises(kw):
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
-        PEMSVM(SVMConfig(**kw), device="cpu")
+    """``fault`` is not ported (item 11). ``decay`` and ``window`` are, and
+    their cases hold the reference's guards instead: stream driver only,
+    and not both."""
+    if "fault" in kw:
+        with pytest.raises(NotImplementedError,
+                           match="ROADMAP queue 1 item"):
+            PEMSVM(SVMConfig(**kw), device="cpu")
+        return
+    with pytest.raises(AssertionError,
+                       match="requires driver='stream'|pick one"):
+        SVMConfig(**kw)
 
 
 _KSHARD_FIT = """
@@ -286,11 +295,21 @@ def test_pad_features_and_k_shard_axis_configs():
 
 
 @pytest.mark.parametrize("kw", [
-    dict(resume_from="ckpt"), dict(warm_start=object()), dict(resume_step=3),
+    dict(resume_from="ckpt"), dict(warm_start=(3,)), dict(resume_step=3),
     dict(fault_hook=print), dict(epoch=3),
 ])
 def test_unsupported_fit_keyword_raises(kw):
+    """The reliability keywords are not ported (item 11). ``warm_start``
+    is: its case holds the shape check that replaces the refusal (a donor
+    of another width)."""
     X, y = tsyn.make_blobs(64, 4, seed=1)
+    if "warm_start" in kw:
+        donor = PEMSVM(SVMConfig(max_iters=3), device="cpu").fit(
+            np.ones((8, kw["warm_start"][0]), np.float32),
+            np.where(np.arange(8) % 2, 1.0, -1.0))
+        with pytest.raises(ValueError, match="warm_start weights have"):
+            PEMSVM(SVMConfig(), device="cpu").fit(X, y, warm_start=donor)
+        return
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
         PEMSVM(SVMConfig(), device="cpu").fit(X, y, **kw)
 

@@ -608,7 +608,9 @@ def test_nystrom_fit_goes_through_the_kernels(cuda):
     assert nys.LAUNCHES["nystrom_fused_stats[em_hinge]"] == steps
     assert nys.LAUNCHES["nystrom_phi"] == 0
     acc = ny.score(Xh, yh)
-    assert nys.LAUNCHES["nystrom_score"] == 1
+    # predict serves the rows in dispatches of the scorer's largest bucket
+    assert nys.LAUNCHES["nystrom_score"] == -(-len(Xh)
+                                              // ny.scorer().max_bucket)
     plain = NystromSVM(SVMConfig.from_options(
         "KRN-EM-CLS", lam=0.1, sigma=0.7, max_iters=60, backend="ref"))
     rp = plain.fit_featurized(X, y, ny._landmarks, ny._proj)

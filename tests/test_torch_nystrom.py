@@ -560,25 +560,31 @@ def test_out_of_slice_raises():
                              n_chains=2), device="cpu")
     with pytest.raises(ValueError, match="KRN"):
         NystromSVM(SVMConfig(), device="cpu")
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        NystromSVM(SVMConfig(formulation="KRN", window=2, driver="stream"),
-                   device="cpu")
+    with pytest.raises(AssertionError, match="pick one"):
+        NystromSVM(SVMConfig(formulation="KRN", window=2, decay=0.5,
+                             driver="stream"), device="cpu")
     # KRN-SVR is in the slice now: the delegate carries the task
     svr = NystromSVM(SVMConfig(formulation="KRN", task="SVR"), device="cpu")
     assert svr.svm.config.task == "SVR" and svr.svm.config.phi_spec
     ny = NystromSVM(SVMConfig(formulation="KRN"), device="cpu")
     X, y = tsyn.make_circles(64)
-    for name, item in (("resume_from", "item 11"), ("warm_start", "item 8b")):
-        with pytest.raises(NotImplementedError, match=item):
-            ny.fit(X, y, **{name: object()})
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        ny.fit_libsvm("data.libsvm", 2)
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ny.export_servable()
-    with pytest.raises(NotImplementedError, match="item 12"):
-        ny.scorer()
+    with pytest.raises(NotImplementedError, match="item 11"):
+        ny.fit(X, y, resume_from=object())
+    # warm_start, fit_libsvm and serving are ported: a donor of another
+    # width, a missing file and an unfitted model are refused
+    donor = dataclasses.replace(ny.fit(X, y), last_sample=np.ones(
+        3, np.float32))
+    with pytest.raises(ValueError, match="warm_start weights have"):
+        ny.fit(X, y, warm_start=donor)
+    with pytest.raises(FileNotFoundError):
+        ny.fit_libsvm("/nonexistent/data.libsvm", 2)
+    fresh = NystromSVM(SVMConfig(formulation="KRN"), device="cpu")
     with pytest.raises(RuntimeError, match="fit first"):
-        ny._phi(X)
+        fresh.export_servable()
+    with pytest.raises(RuntimeError, match="fit first"):
+        fresh.scorer()
+    with pytest.raises(RuntimeError, match="fit first"):
+        fresh._phi(X)
 
 
 def test_exact_krn_and_nystrom_mlt_fit():

@@ -785,9 +785,11 @@ def test_stream_refusals():
     with pytest.raises(NotImplementedError, match="item 11"):
         PEMSVM(SVMConfig(driver="stream"), device="cpu").fit_chunks(
             lambda: iter(()), 5, resume_from="ckpt")
-    with pytest.raises(NotImplementedError, match="item 8b"):
-        PEMSVM(SVMConfig(driver="stream"), device="cpu").fit(
-            X, y, warm_start=object())
+    donor = PEMSVM(SVMConfig(driver="stream", max_iters=2),
+                   device="cpu").fit(X, y)
+    with pytest.raises(ValueError, match="warm_start.stats is None"):
+        PEMSVM(SVMConfig(driver="stream", decay=0.5), device="cpu").fit(
+            X, y, warm_start=donor)
     with pytest.raises(ValueError, match="yielded no chunks"):
         PEMSVM(SVMConfig(driver="stream"), device="cpu").fit_chunks(
             lambda: iter(()), 5)

@@ -314,8 +314,37 @@ shapes), in the order a, b, b, a.
    (within the first-order bound of the float32 statistic's measured
    error), and phase 6's 4-chain ensemble std against np.std(ddof=1) of
    the chains' margins.
+17. reliability, run after phase 16: snapshots (``SVMConfig.fault``,
+   ``core/resume.py``), kill and resume through ``runtime.faults``, each
+   resumed fit bitwise the uninterrupted one (weights, last sample,
+   objective, iterations). Phase 4's LIN-EM-CLS and phase 6's LIN-MC-CLS
+   ('fused', 'host') at scan_chunk 4, killed after iteration 8, resumed
+   from the iteration-8 snapshot, the statistic launched once for each
+   iteration run after it; the stream driver on a third of Table 5's
+   training rows (65,536-row chunks, fit_chunks, a snapshot every 4
+   chunks and every 2 iterations) killed mid-pass by kill_after_chunks
+   and resumed inside the pass, then its iteration-2 snapshot resumed
+   into the scan driver within the stream band (tests/test_torch_stream.py's
+   1e-4 of max|w|, or twice what the uninterrupted stream fit is from the
+   resident one); phase 8's KRN-EM-CLS (m = 2,048) killed at iteration 3
+   of 5 and resumed on its own featurizer (nystrom_phi, fused_estep and
+   syrk_tri twice, rbf_gram never; decision values bitwise); a
+   FleetController with in-process hosts on phase 4's fit (a kill, a
+   StragglerError) recovering bitwise; a FleetController over
+   SubprocessHost processes, started first in a thread: its first child
+   hangs and is SIGTERMed by the watchdog, its second fits phase 4's model
+   with the port alone (phase 4's bands). Printed, not gated: a
+   snapshot's cost (device-to-host copy and blocking commit) at K = 501
+   and for the MLT (10, 785) state, and phase 4's fit with a snapshot at
+   every host sync against the fit without (host syncs gated equal to
+   phase 4's, weights bitwise), each beside nvidia-smi's name and power
+   limit.
 
-Phase 11 runs last (it holds its exact KRN fit against phase 14's) and
+Phase 11 runs last (it holds its exact KRN fit against phase 14's), kills
+fit 1 (2 x 2) after iteration 8 and resumes it on 4 x 1 within fit 1's
+bands against one device (rank 0 alone writing snapshots), drops shard 3
+from a 4 x 1 fit at an injected 4 s step (report_slow_shard,
+on_straggler='drop'; the trace the full fit's through iteration 8), and
 also fits phase 12's LIN-EM-MLT on the 2 x 2 mesh (pad_features=2, K =
 786, 40,000 training rows, 8 iterations; the window variant 10 times a
 step; objective trace within 2e-2 and accuracy within 0.01 of the
@@ -1253,6 +1282,7 @@ def phase_main_path(dev, n=300_000, n_train=250_000, k=500):
     mem = torch.cuda.max_memory_allocated()
     acc = svm.score(Xte, yte)
     SERVE_MODELS["LIN-EM-CLS (phase 4)"] = (svm, Xte, Xtr, ytr)
+    RELIABILITY["phase4"] = res
     steps = min(cfg.max_iters, -(-res.n_iters // cfg.scan_chunk)
                 * cfg.scan_chunk)
     say(f"  kernels fit: {secs:.3f} s, {res.n_iters} iterations "
@@ -4087,6 +4117,8 @@ def phase_stream(dev):
     lam = lam_from_C(1e-5) * n / T5_N
     cfg = SVMConfig(lam=lam, max_iters=T5_ITERS, min_iters=T5_ITERS)
     K = T5_K + 1
+    third = len(Xtr) // 3
+    RELIABILITY["t5"] = (Xtr[:third].copy(), ytr[:third].copy(), lam)
     _fit(dataclasses.replace(cfg, max_iters=1, min_iters=1), dev,
          Xtr[:8192], ytr[:8192])       # warm-up at K = 801
     transfer_rates(dev, Xtr)
@@ -4831,10 +4863,111 @@ def _rank_main(rank, world, init, outdir, featurizer_path):
                                            landmarks=feat[0], proj=feat[1])
                 return ny
         records.append(_mesh_fit(name, make, X, y, Xte, yte, cfg))
+    records.append(_rank_reliability(dev, meshes, outdir))
     torch.distributed.barrier()
     np.save(Path(outdir) / f"rank{rank}.npy", np.array(records, object),
             allow_pickle=True)
     torch.distributed.destroy_process_group()
+
+
+def _rank_reliability(dev, meshes, outdir):
+    """Phase 11's reliability fits on this rank: fit 1 (2 x 2, the
+    k-sharded statistic) killed after iteration 8, resumed on 4 x 1 from
+    its iteration-8 snapshot; the same 4 x 1 fit uninterrupted, and with
+    ``report_slow_shard(3)`` and ``on_straggler='drop'`` while the fault
+    hook holds iteration 8 for 4 s (the ranks agree on the verdict; from
+    iteration 9 shard 3 is out of every reduction). Counts each rank's
+    checkpoint writes."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.core import PEMSVM
+    from repro_torch.runtime import FaultPolicy, faults
+    name, shape, kind, cfg1, _ = mesh_specs(None)[0]
+    X, y, Xte, yte, _ = _mesh_data(kind, None)
+    cfg = dataclasses.replace(cfg1, scan_chunk=KILL_CHUNKS)
+    flat = dataclasses.replace(cfg, k_shard_axis=None)
+    m22, m41 = meshes[shape], meshes[(4, 1)]
+    pol = FaultPolicy(ckpt_dir=str(Path(outdir) / "ckpt"),
+                      ckpt_every=KILL_CHUNKS, keep_k=10)
+    saves = [0]
+    save = Checkpointer.save
+
+    def counted(self, *a, **k):
+        saves[0] += 1
+        return save(self, *a, **k)
+
+    Checkpointer.save = counted
+    try:
+        try:
+            PEMSVM(dataclasses.replace(cfg, fault=pol), device=dev,
+                   mesh=m22).fit(X, y, fault_hook=faults.kill_at_iteration(8))
+            raise RuntimeError("phase 11: the kill did not fire")
+        except faults.SimulatedPreemption:
+            pass
+        svm = PEMSVM(dataclasses.replace(flat, fault=pol), device=dev,
+                     mesh=m41)
+        res, counts, secs = _timed(lambda: svm.fit(
+            X, y, resume_from=pol.ckpt_dir, resume_step=8_000_000))
+        full = PEMSVM(flat, device=dev, mesh=m41).fit(X, y)
+        m = PEMSVM(dataclasses.replace(flat, fault=FaultPolicy(
+            on_straggler="drop", straggler_threshold=8.0,
+            straggler_warmup=1)), device=dev, mesh=m41)
+        m.report_slow_shard(3)
+        drop, _, drop_secs = _timed(lambda: m.fit(
+            X, y, fault_hook=faults.delay_iterations([8], 4.0)))
+    finally:
+        Checkpointer.save = save
+    return dict(resumed_at=res.resumed_at, weights=res.weights,
+                objective=res.objective, n_iters=res.n_iters,
+                converged=res.converged, metric=svm.score(Xte, yte),
+                counts=counts, secs=secs, saves=saves[0],
+                full_w=full.weights, full_obj=full.objective,
+                drop_w=drop.weights, drop_obj=drop.objective,
+                drop_secs=drop_secs,
+                drop_events=[e["it"] for e in drop.straggler_events])
+
+
+def mesh_reliability(recs, one):
+    """Phase 11's reliability gates over the ranks' records
+    (``_rank_reliability``): every rank bitwise equal; fit 1 killed on
+    2 x 2 and resumed on 4 x 1 within fit 1's bands against one device
+    (``one``), ``fused_stats`` once a step of the resume; rank 0 alone
+    wrote snapshots; the straggler drop at iteration 8 on every rank, the
+    trace the full fit's through iteration 8 and not after."""
+    r0 = recs[0]
+    for r in recs[1:]:
+        check(all(np.array_equal(r[k], r0[k]) for k in (
+            "weights", "objective", "full_w", "drop_w", "drop_obj",
+            "drop_events")), "phase 11 reliability: the ranks differ")
+    steps = _scan_steps(r0["n_iters"], r0["resumed_at"], KILL_CHUNKS, 100)
+    orel = trace_rel(r0["objective"], one["objective"])
+    wrel = _rel(r0["weights"], one["weights"])
+    launched = [r["counts"]["fused_stats"] for r in recs]
+    say(f"  fit 1 killed on 2 x 2 after iteration 8, resumed on 4 x 1 at "
+        f"{r0['resumed_at']}: {r0['secs']:.3f} s, {r0['n_iters']} "
+        f"iterations (one device {one['n_iters']}), objective rel "
+        f"{orel:.3e} (<= 2e-2), weights rel {wrel:.3e} (<= 5e-2), accuracy "
+        f"{r0['metric']:.4f} (one device {one['metric']:.4f}, <= 0.01), "
+        f"fused_stats a rank {launched} ({steps} steps after the resume); "
+        f"snapshots written a rank {[r['saves'] for r in recs]}")
+    check(r0["resumed_at"] == 8 and r0["converged"]
+          and abs(r0["n_iters"] - one["n_iters"]) <= 3 and orel <= 2e-2
+          and wrel <= 5e-2 and abs(r0["metric"] - one["metric"]) <= 0.01,
+          "the 2 x 2 snapshot resumed on 4 x 1 left fit 1's bands")
+    check(all(n == steps for n in launched), "the 4 x 1 resume's fused_stats "
+          f"launches {launched}, want {steps} a rank")
+    check(r0["saves"] > 0 and all(r["saves"] == 0 for r in recs[1:]),
+          "a rank other than 0 wrote snapshots")
+    k = 8
+    same8 = r0["drop_obj"][:k] == r0["full_obj"][:k]
+    after = not np.array_equal(r0["drop_w"], r0["full_w"])
+    say(f"  report_slow_shard(3), on_straggler='drop', iteration 8 held 4 s: "
+        f"straggler events {r0['drop_events']} on every rank, "
+        f"{r0['drop_secs']:.3f} s; trace equal to the full 4 x 1 fit's "
+        f"through iteration 8: {same8}, weights differ after the drop: "
+        f"{after}")
+    check(r0["drop_events"] == [8] and same8 and after
+          and bool(np.all(np.isfinite(r0["drop_w"]))),
+          "the straggler drop did not take shard 3 out at iteration 9")
 
 
 def _nccl_one_rank(rank, world, init, outdir):
@@ -5026,6 +5159,7 @@ def phase_mesh(dev, krn_ref, mc_ref, exact_ref):
                     f"(<= 0.01 apart)")
                 check(frel <= 5e-2 and abs(r["metric"] - acc14) <= 0.01,
                       f"{name}: outside phase 14's bands")
+        mesh_reliability([r[-1] for r in ranks], one)
         one, on = _spawn(_nccl_one_rank, 1, "nccl")[0]
         check(np.array_equal(one["weights"], on["weights"])
               and one["objective"] == on["objective"],
@@ -5046,6 +5180,413 @@ def phase_mesh(dev, krn_ref, mc_ref, exact_ref):
         return runs
     finally:
         shutil.rmtree(tmp, ignore_errors=True)
+
+
+# ------------------------------------------------------------ reliability
+# What phase 17 takes from earlier phases: phase 4's result ("phase4") and a
+# third of Table 5's training rows with phase 15's lam ("t5").
+RELIABILITY: dict = {}
+KILL_CHUNKS = 4          # phase 17's scan_chunk and boundary cadence
+FLEET_WATCHDOG_S = 25.0  # the subprocess host's watchdog (its first
+#                          attempt never commits; the second must commit
+#                          within this after its process starts: its
+#                          whole fit took 8.5 s on the H100)
+
+
+def smi() -> str:
+    """nvidia-smi's name and power limit line, printed beside timings."""
+    return subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True, text=True,
+        timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def _same_fit(a, b) -> bool:
+    """Bitwise equal fits: weights, last sample, trace and iterations."""
+    return (np.array_equal(a.weights, b.weights)
+            and np.array_equal(a.last_sample, b.last_sample)
+            and a.objective == b.objective and a.n_iters == b.n_iters)
+
+
+def _timed(fn):
+    """(fn(), the launch counts of the call, its seconds): the counts zeroed
+    just before and read just after, the device synchronized."""
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, _counts(), time.perf_counter() - t0
+
+
+def _scan_steps(n_iters, start, chunk, max_iters):
+    """Iterations a scan fit resumed after ``start`` runs on the card: up
+    to the end of the chunk it converges in."""
+    return min(max_iters, -(-n_iters // chunk) * chunk) - start
+
+
+def kill_resume(label, make, fit, d, kill_hook, gate_counts):
+    """Phase 17's cell: ``fit(model, **kw)`` uninterrupted, then preempted
+    by ``kill_hook`` (a fault hook, or None where ``fit`` injects the fault
+    itself), then resumed from directory ``d``; the resumed fit must be
+    bitwise the uninterrupted one, and ``gate_counts(result, counts)``
+    checks its launches. Returns (uninterrupted, resumed)."""
+    from repro_torch.runtime import faults
+    ref, _, s_ref = _timed(lambda: fit(make(False)))
+    try:
+        kw = {} if kill_hook is None else dict(fault_hook=kill_hook)
+        fit(make(True), **kw)
+        check(False, f"{label}: the injected fault did not fire")
+    except faults.SimulatedPreemption:
+        pass
+    res, counts, s_res = _timed(lambda: fit(make(True), resume_from=d))
+    same = _same_fit(ref, res)
+    launched = {k: v for k, v in counts.items() if v}
+    say(f"  {label}: uninterrupted {s_ref:.3f} s, {ref.n_iters} "
+        f"iterations; resumed at {res.resumed_at} in {s_res:.3f} s, "
+        f"{res.n_checkpoints} snapshots, {res.n_host_syncs} host syncs, "
+        f"launches {launched}; bitwise the uninterrupted fit (weights, "
+        f"last sample, objective, n_iters): {same}")
+    check(same, f"{label}: the resumed fit is not bitwise the "
+          "uninterrupted one")
+    check(res.resumed_at is not None and res.resumed_at > 0,
+          f"{label}: the fit did not resume")
+    gate_counts(res, counts)
+    return ref, res
+
+
+def snapshot_costs(dev, d):
+    """The cost of one snapshot of a K = 501 state and of the MLT (10, 785)
+    state: the device-to-host copy alone, and the whole blocking save (the
+    copy, the write, the fsyncs, the commit); medians of 10."""
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.core import SVMConfig, resume
+    ck = Checkpointer(d, keep_k=2)
+    cfg = SVMConfig()
+    objs = [1.0] * 20
+    for shape in ((501,), (M_CLASSES, 785)):
+        w = torch.randn(shape, device=dev)
+        key = torch.tensor([0, 7], dtype=torch.int64, device=dev)
+        copies, saves = [], []
+        for it in range(1, 11):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            w.cpu()
+            copies.append(time.perf_counter() - t0)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            resume.save_snapshot(
+                ck, cfg, it=it, state=w, key=key,
+                samp_sum=np.zeros(shape), n_avg=0, n_small=0, objs=objs,
+                aux_hist={"objective": objs}, n_syncs=it, blocking=True)
+            saves.append(time.perf_counter() - t0)
+        say(f"  snapshot of a {shape} float32 state: device-to-host copy "
+            f"{statistics.median(copies) * 1e3:.3f} ms, blocking save "
+            f"(copy, write, fsync, commit) "
+            f"{statistics.median(saves) * 1e3:.3f} ms (median of 10; "
+            f"{smi()})")
+
+
+def checkpoint_overhead(dev, d):
+    """Phase 4's fit without ``fault`` against the same fit with a snapshot
+    at every host sync (ckpt_every = 1), in the order plain, ckpt, ckpt,
+    plain: host syncs equal to phase 4's, weights bitwise."""
+    from repro_torch.core import PEMSVM, SVMConfig, lam_from_C
+    from repro_torch.runtime import FaultPolicy
+    X, y = alpha_data()
+    Xtr, ytr = X[:250_000], y[:250_000]
+    cfg = SVMConfig.from_options("LIN-EM-CLS", lam=lam_from_C(1.0),
+                                 max_iters=100)
+    with_ckpt = dataclasses.replace(cfg, fault=FaultPolicy(ckpt_dir=d,
+                                                           ckpt_every=1))
+    runs = []
+    for c in (cfg, with_ckpt, with_ckpt, cfg):
+        res, _, secs = _timed(lambda c=c: PEMSVM(c, device=dev).fit(Xtr, ytr))
+        runs.append((res, secs))
+    p4 = RELIABILITY["phase4"]
+    (r0, a), (r1, b), (r2, c), (r3, e) = runs
+    say(f"  phase 4's fit without fault / with a snapshot every host sync "
+        f"(plain, ckpt, ckpt, plain): {a:.3f}, {b:.3f}, {c:.3f}, {e:.3f} s; "
+        f"host syncs {r0.n_host_syncs} / {r1.n_host_syncs} (phase 4: "
+        f"{p4.n_host_syncs}), {r1.n_checkpoints} snapshots ({smi()})")
+    check(r0.n_host_syncs == r1.n_host_syncs == p4.n_host_syncs,
+          "checkpoints or this tree changed the scan driver's host syncs")
+    check(all(_same_fit(r, p4) for r, _ in runs), "a fit with checkpoints "
+          "is not bitwise phase 4's")
+
+
+_FLEET_CHILD = """
+import os, sys
+import numpy as np
+if os.environ["FLEET_ATTEMPT"] == "0":
+    import time
+    time.sleep(600)            # hung: no commits, no exit
+from repro_torch.core import PEMSVM, SVMConfig, lam_from_C
+from repro_torch.runtime import FaultPolicy
+X, y = np.load({X!r}), np.load({y!r})
+cfg = SVMConfig.from_options(
+    "LIN-EM-CLS", lam=lam_from_C(1.0), max_iters=100, scan_chunk={chunk},
+    fault=FaultPolicy(ckpt_dir={ckpt!r}, ckpt_every={chunk}))
+r = PEMSVM(cfg).fit(X, y, resume_from=os.environ["FLEET_RESUME"] or None,
+                    epoch=int(os.environ["FLEET_EPOCH"]))
+bad = [m for m in sys.modules if m.split(".")[0] in ("jax", "jaxlib",
+                                                       "repro")]
+np.savez({out!r}, w=r.weights, obj=np.asarray(r.objective), it=r.n_iters,
+         bad=len(bad))
+"""
+
+
+def start_subprocess_fleet(d):
+    """A FleetController over a SubprocessHost at every level, run in a
+    thread: its first attempt's child hangs without committing and is
+    SIGTERMed by the watchdog; the second fits phase 4's model on the card
+    with the port alone. Returns (thread, box)."""
+    import threading
+    from repro_torch.runtime import (FleetController, FleetPolicy,
+                                     SubprocessHost)
+    X, y = alpha_data()
+    os.makedirs(d)
+    paths = {k: str(Path(d) / f"{k}.npy") for k in ("X", "y")}
+    np.save(paths["X"], X[:250_000])
+    np.save(paths["y"], y[:250_000])
+    out = str(Path(d) / "out.npz")
+    code = _FLEET_CHILD.format(chunk=KILL_CHUNKS, ckpt=str(Path(d) / "ckpt"),
+                               out=out, **paths)
+    fc = FleetController(
+        lambda level: SubprocessHost(code, load_result=lambda: dict(
+            np.load(out)), grace_s=5.0, poll_s=0.1),
+        str(Path(d) / "ckpt"),
+        policy=FleetPolicy(max_attempts=3, backoff_s=0.0,
+                           watchdog_s=FLEET_WATCHDOG_S, poll_s=0.1,
+                           kill_grace_s=5.0))
+    box: dict = {}
+
+    def run():
+        try:
+            box["fr"] = fc.run()
+        except Exception as e:  # noqa: BLE001 (read and gated by the caller)
+            box["error"] = e
+
+    th = threading.Thread(target=run, daemon=True, name="subprocess-fleet")
+    th.start()
+    return th, box
+
+
+def phase_reliability(dev):
+    """Phase 17: checkpoint, kill and resume on the card (see the module
+    docstring)."""
+    import shutil
+    import tempfile
+    from repro_torch.core import NystromSVM, PEMSVM, SVMConfig, lam_from_C
+    from repro_torch.runtime import (FaultPolicy, FleetController,
+                                     FleetPolicy, FleetSchedule,
+                                     StragglerError, faults)
+    tmp = Path(tempfile.mkdtemp(prefix="chip_smoke_ckpt_"))
+    dirs = iter(str(tmp / f"c{i}") for i in range(100))
+    ch = KILL_CHUNKS
+    try:
+        snapshot_costs(dev, next(dirs))
+        checkpoint_overhead(dev, next(dirs))
+        sub_dir = next(dirs)
+        sub_thread, sub_box = start_subprocess_fleet(sub_dir)
+
+        # -- phase 4's and 6's models, scan driver, killed after iteration 8
+        X, y = alpha_data()
+        Xtr, ytr, Xte, yte = X[:250_000], y[:250_000], X[250_000:], \
+            y[250_000:]
+        base = SVMConfig.from_options("LIN-EM-CLS", lam=lam_from_C(1.0),
+                                      max_iters=100, scan_chunk=ch)
+        refs = {}
+        for label, cfg, key in (
+                ("LIN-EM-CLS (phase 4)", base, "fused_stats"),
+                ("LIN-MC-CLS rng='fused' (phase 6)", dataclasses.replace(
+                    base, algorithm="MC", rng="fused"),
+                 "fused_stats[mc_hinge,seed]"),
+                ("LIN-MC-CLS rng='host' (phase 6)", dataclasses.replace(
+                    base, algorithm="MC"), "fused_stats[mc_hinge,noise]")):
+            d = next(dirs)
+            pol = FaultPolicy(ckpt_dir=d, ckpt_every=ch)
+
+            def gate(res, counts, cfg=cfg, key=key, label=label):
+                want = _scan_steps(res.n_iters, res.resumed_at, ch,
+                                   cfg.max_iters)
+                say(f"    {key} launched {counts[key]} times on the resume, "
+                    f"n_iters - resumed_at = {res.n_iters - res.resumed_at}, "
+                    f"iterations run to the end of the converging chunk "
+                    f"{want}")
+                check(res.resumed_at == 8 and counts[key] == want
+                      and all(v == 0 for k, v in counts.items()
+                              if k != key),
+                      f"{label}: resumed at {res.resumed_at}, launches "
+                      f"{counts}")
+
+            refs[label], _ = kill_resume(
+                label, lambda f, cfg=cfg, pol=pol: PEMSVM(
+                    dataclasses.replace(cfg, fault=pol) if f else cfg,
+                    device=dev),
+                lambda m, **kw: m.fit(Xtr, ytr, **kw), d,
+                faults.kill_at_iteration(8), gate)
+        ref4 = refs["LIN-EM-CLS (phase 4)"]
+
+        # -- the stream driver on a third of Table 5, killed mid-pass
+        X3, y3, lam = RELIABILITY.pop("t5")
+        rows = STREAM_CHUNKS[1]
+        n3 = len(X3)
+        n_chunks = -(-n3 // rows)
+        Xb = np.zeros((n_chunks * rows, X3.shape[1] + 1), np.float32)
+        Xb[:n3, :-1] = X3
+        Xb[:n3, -1] = 1.0
+        yb = np.zeros(n_chunks * rows, np.float32)
+        yb[:n3] = y3
+        mb = np.zeros(n_chunks * rows, np.float32)
+        mb[:n3] = 1.0
+
+        def make_chunks():
+            for i0 in range(0, len(Xb), rows):
+                yield Xb[i0:i0 + rows], yb[i0:i0 + rows], mb[i0:i0 + rows]
+
+        iters = 6
+        scfg = SVMConfig(lam=lam, driver="stream", chunk_rows=rows,
+                         max_iters=iters, min_iters=iters)
+        d = next(dirs)
+        spol = FaultPolicy(ckpt_dir=d, ckpt_every=2, ckpt_chunks=4,
+                           keep_k=50)
+        kill_at = 2 * n_chunks + 6      # 6 chunks into the third pass
+        left = (n_chunks - 4) + (iters - 3) * n_chunks
+
+        def gate_stream(res, counts):
+            check(res.resumed_at == 2 and counts["fused_stats"] == left
+                  and res.n_host_syncs == iters,
+                  f"stream: resumed at {res.resumed_at} (want 2, the third "
+                  f"pass's snapshot after 4 chunks), fused_stats "
+                  f"{counts['fused_stats']} (want {left}), host syncs "
+                  f"{res.n_host_syncs}")
+
+        def stream_fit(m, fault_hook=None, resume_from=None):
+            src = make_chunks
+            if m.config.fault is not None and resume_from is None:
+                src = faults.kill_after_chunks(make_chunks, kill_at)
+            return m.fit_chunks(src, Xb.shape[1], resume_from=resume_from)
+
+        say(f"  a third of Table 5: {n3:,} x {X3.shape[1] + 1} in "
+            f"{n_chunks} chunks of {rows:,} rows, {iters} iterations, a "
+            f"snapshot every 4 chunks and every 2 iterations; killed after "
+            f"chunk {kill_at}")
+        sref, _ = kill_resume(
+            "stream, fit_chunks", lambda f: PEMSVM(
+                dataclasses.replace(scfg, fault=spol) if f else scfg,
+                device=dev), stream_fit, d, None, gate_stream)
+        # its boundary snapshot of iteration 2, resumed into driver="scan"
+        rcfg = dataclasses.replace(scfg, driver="scan")
+        resident, _, s_res = _timed(
+            lambda: PEMSVM(rcfg, device=dev).fit(X3, y3))
+        cross, _, s_x = _timed(lambda: PEMSVM(rcfg, device=dev).fit(
+            X3, y3, resume_from=d, resume_step=2_000_000))
+        layout = _rel_max(sref.weights, resident.weights)
+        wrel = _rel_max(cross.weights, resident.weights)
+        band = max(1e-4, 2 * layout)
+        nrel = _rel(cross.weights, resident.weights)
+        say(f"  stream snapshot of iteration 2 resumed into driver='scan' "
+            f"({s_x:.3f} s; the resident fit {s_res:.3f} s): weights "
+            f"{wrel:.3e} of max|w| from the resident fit (band: "
+            f"tests/test_torch_stream.py's 1e-4, or twice the uninterrupted "
+            f"stream fit's {layout:.3e}: {band:.3e}); norm rel {nrel:.3e} "
+            f"(phase 15's stream band 5e-2)")
+        check(cross.resumed_at == 2 and wrel <= band and nrel <= 5e-2,
+              "the stream snapshot resumed into the scan driver left the "
+              "stream band")
+        del Xb, yb, mb, X3, y3
+
+        # -- phase 8's Nystrom KRN-EM-CLS, m = 2,048, killed at iteration 3
+        ncfg = SVMConfig.from_options("KRN-EM-CLS", lam=0.1,
+                                      sigma=math.sqrt(500), max_iters=5,
+                                      min_iters=5, scan_chunk=1)
+        d = next(dirs)
+        npol = FaultPolicy(ckpt_dir=d, ckpt_every=1)
+        ny_ref = NystromSVM(ncfg, n_landmarks=2048, device=dev)
+        r_ref, _, s_n = _timed(lambda: ny_ref.fit(Xtr, ytr))
+        ny = NystromSVM(dataclasses.replace(ncfg, fault=npol),
+                        n_landmarks=2048, device=dev)
+        try:
+            ny.fit(Xtr, ytr, fault_hook=faults.kill_at_iteration(3))
+            check(False, "Nystrom: the kill did not fire")
+        except faults.SimulatedPreemption:
+            pass
+        lm = ny._landmarks
+        r_ny, c_ny, s_ny = _timed(lambda: ny.fit(Xtr, ytr, resume_from=d))
+        same = _same_fit(r_ref, r_ny)
+        f_ref, f_ny = (m.decision_function(Xte[:8192]) for m in (ny_ref, ny))
+        say(f"  KRN-EM-CLS m = 2,048 (phase 8): uninterrupted {s_n:.3f} s; "
+            f"resumed at {r_ny.resumed_at} in {s_ny:.3f} s on the same "
+            f"featurizer, launches "
+            f"{ {k: v for k, v in c_ny.items() if v} }; bitwise the "
+            f"uninterrupted fit: {same}, decision values bitwise: "
+            f"{np.array_equal(f_ref, f_ny)}")
+        check(same and np.array_equal(f_ref, f_ny) and ny._landmarks is lm
+              and r_ny.resumed_at == 3, "Nystrom: the resumed fit is not "
+              "bitwise the uninterrupted one, or made a new featurizer")
+        check(all(c_ny[k] == 2 for k in ("nystrom_phi", "fused_estep",
+                                           "syrk_tri"))
+              and c_ny["rbf_gram"] == 0, f"Nystrom resume launches: {c_ny}")
+        del ny, ny_ref
+
+        # -- a FleetController with in-process hosts on phase 4's fit
+        d = next(dirs)
+        fcfg = dataclasses.replace(base, fault=FaultPolicy(ckpt_dir=d,
+                                                           ckpt_every=ch))
+
+        def make_host(level):
+            def host(ctx):
+                return PEMSVM(fcfg, device=dev).fit(
+                    Xtr, ytr, resume_from=ctx.resume_from,
+                    fault_hook=ctx.fault_hook, epoch=ctx.epoch)
+            return host
+
+        fc = FleetController(
+            make_host, d, policy=FleetPolicy(max_attempts=4, backoff_s=1e-3),
+            n_levels=2, schedule=FleetSchedule({
+                0: lambda cancel: faults.kill_at_iteration(8),
+                1: lambda cancel: faults.kill_at_iteration(
+                    16, exc=StragglerError)}))
+        fr, _, s_f = _timed(fc.run)
+        outcomes = [a.outcome for a in fr.attempts]
+        same = _same_fit(ref4, fr.result)
+        say(f"  FleetController, in-process hosts: {s_f:.3f} s, attempts "
+            f"{outcomes} at levels {[a.level for a in fr.attempts]}, epochs "
+            f"{[a.epoch for a in fr.attempts]}, resumed at "
+            f"{fr.result.resumed_at}; bitwise the uninterrupted fit: {same}")
+        check(outcomes == ["retryable", "straggler", "completed"] and same
+              and fr.result.resumed_at == 16,
+              "the fleet did not recover phase 4's fit bitwise")
+
+        # -- the SubprocessHost fleet started above
+        sub_thread.join(timeout=600)
+        check(not sub_thread.is_alive() and "fr" in sub_box,
+              f"the subprocess fleet did not finish: {sub_box}")
+        fr = sub_box["fr"]
+        outcomes = [a.outcome for a in fr.attempts]
+        res = fr.result
+        wrel = _rel(res["w"], ref4.weights)
+        same = np.array_equal(res["w"], ref4.weights)
+        say(f"  FleetController, SubprocessHost: attempts {outcomes} "
+            f"({', '.join(f'{a.seconds:.1f} s' for a in fr.attempts)}; "
+            f"watchdog {FLEET_WATCHDOG_S:.0f} s), the child's fit "
+            f"{int(res['it'])} iterations, weights {wrel:.3e} from this "
+            f"process's fit (bitwise: {same}), JAX modules in the child "
+            f"{int(res['bad'])}")
+        check(outcomes == ["watchdog", "completed"]
+              and fr.attempts[0].seconds < FLEET_WATCHDOG_S + 30
+              and int(res["bad"]) == 0 and wrel <= 5e-2
+              and abs(int(res["it"]) - ref4.n_iters) <= 3,
+              "the subprocess fleet did not SIGTERM the hung attempt and "
+              "complete the fit within phase 4's bands")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+
+
+def _rel_max(a, b):
+    a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
+    return float(np.abs(a - b).max() / np.abs(b).max())
 
 
 SOURCES = {
@@ -5167,6 +5708,9 @@ def main() -> int:
               "WeightPager on the models of phases 4, 6, 8, 13 and 14")
     for name, extra in phase_serve(dev).items():
         rows[name].update(extra)
+    stamp(t0, "== 17. reliability: snapshots, kill and resume (phases 4, 6, "
+              "8 and a third of Table 5), the fleet controller")
+    phase_reliability(dev)
     stamp(t0, "== 11. the multi-device fit: a 2 x 2 (data x k) mesh and a 4 "
               "x 1 one, four gloo ranks on cuda:0; a one-rank NCCL group")
     runs.update(phase_mesh(dev, krn_ref, mc_ref, exact_ref))

@@ -13,6 +13,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.runtime.policy import FaultPolicy
 from repro_torch.serving import ServableModel
 
 from .nystrom import NystromSVM
@@ -25,15 +26,17 @@ def config_from_reference(fields: dict) -> SVMConfig:
     """The port's SVMConfig with the same field values as the reference
     config whose ``dataclasses.asdict`` is ``fields``, the mesh fields
     (``k_shard_axis``, ``pad_features``, ``triangle_reduce``,
-    ``reduce_dtype``) included. The reference's kernel backends
-    ('interpret', 'pallas') map to the port's default (the kernels on a
-    CUDA tensor, the plain path on a CPU tensor)."""
+    ``reduce_dtype``) and the fault policy included. The reference's
+    kernel backends ('interpret', 'pallas') map to the port's default
+    (the kernels on a CUDA tensor, the plain path on a CPU tensor)."""
     unknown = sorted(set(fields) - set(_FIELDS))
     if unknown:
         raise ValueError(f"fields unknown to SVMConfig: {unknown}")
     fields = dict(fields)
     if fields.get("backend") in ("interpret", "pallas"):
         fields["backend"] = None
+    if isinstance(fields.get("fault"), dict):
+        fields["fault"] = FaultPolicy(**fields["fault"])
     return SVMConfig(**fields)
 
 

@@ -27,12 +27,12 @@ phi columns of Sigma.
 
 ``fit_libsvm`` is the out-of-core nonlinear fit: one reservoir pass over
 the file picks the landmarks (``data.reservoir_rows``), then the delegate
-streams the raw rows through ``nystrom_fused_stats``. A warm start
-(``fit(warm_start=...)``) reuses the installed featurizer, since the
-donor's phi-space weights belong to it. ``export_servable`` / ``scorer``
-serve the model through the Nystrom score cell (``serving``).
-
-Not ported yet: ``resume_from`` (ROADMAP queue 1 item 11).
+streams the raw rows through ``nystrom_fused_stats``. A resumed or
+warm-started fit (``fit(resume_from=...)``, ``fit(warm_start=...)``)
+reuses the installed featurizer, since the snapshot's or donor's
+phi-space weights belong to it; a fresh model draws the same landmarks
+from the same seed. ``export_servable`` / ``scorer`` serve the model
+through the Nystrom score cell (``serving``).
 """
 from __future__ import annotations
 
@@ -134,18 +134,18 @@ class NystromSVM:
         self.svm._phi_arrays = (self._landmarks, self._proj)
 
     def _continuing(self, fit_kw: dict) -> bool:
-        """A warm-started fit reuses the installed featurizer: new
-        landmarks would change the feature map under the donor's
-        phi-space weights."""
-        return (fit_kw.get("warm_start") is not None
+        """A resumed or warm-started fit reuses the installed featurizer:
+        new landmarks would change the feature map under the snapshot's
+        or donor's phi-space weights."""
+        return ((fit_kw.get("resume_from") is not None
+                 or fit_kw.get("warm_start") is not None)
                 and self._landmarks is not None)
 
     def fit(self, X: np.ndarray, y: np.ndarray, **fit_kw) -> FitResult:
         """Fit on host arrays; m landmarks drawn without replacement by
         ``np.random.default_rng(seed)``, as the reference draws them,
-        unless the fit continues (``warm_start``) on the installed
-        featurizer. ``fit_kw`` goes to ``PEMSVM.fit``."""
-        self._check_fit_kw(fit_kw)
+        unless the fit continues (``resume_from``, ``warm_start``) on the
+        installed featurizer. ``fit_kw`` goes to ``PEMSVM.fit``."""
         X = np.asarray(X, np.float32)
         if not self._continuing(fit_kw):
             N = X.shape[0]
@@ -160,16 +160,8 @@ class NystromSVM:
                        **fit_kw) -> FitResult:
         """Fit with a given featurizer (landmarks and K_mm^{-1/2}, e.g.
         another model's), so two fits can share one feature map."""
-        self._check_fit_kw(fit_kw)
         self._install_featurizer(landmarks, proj)
         return self.svm.fit(np.asarray(X, np.float32), y, **fit_kw)
-
-    @staticmethod
-    def _check_fit_kw(fit_kw: dict) -> None:
-        if fit_kw.get("resume_from") is not None:
-            raise NotImplementedError(
-                "fit(resume_from=...) is not ported yet: ROADMAP queue 1 "
-                "item 11 (reliability)")
 
     def fit_libsvm(self, path: str, n_features: int,
                    **fit_kw) -> FitResult:
@@ -178,9 +170,8 @@ class NystromSVM:
         ``n_landmarks`` a counting pass first, then m = ceil(sqrt(N))),
         then the delegate streams raw rows chunk by chunk and featurizes
         them on the device (with ``driver="stream"``; other drivers load
-        the file). A continuing fit (``warm_start``) reuses the installed
-        featurizer and skips the sampling pass."""
-        self._check_fit_kw(fit_kw)
+        the file). A continuing fit (``resume_from``, ``warm_start``)
+        reuses the installed featurizer and skips the sampling pass."""
         cfg = self.svm.config
         if not self._continuing(fit_kw):
             chunks = iter_libsvm(path, cfg.chunk_rows, n_features)

@@ -41,10 +41,17 @@ A fitted model exports a frozen ``serving.ServableModel``
 and serves through a device-resident ``serving.SVMScorer`` built once a
 fit (``scorer``); ``decision_function`` and ``predict`` go through it.
 
+Reliability (``config.fault``, a ``runtime.FaultPolicy``; the fit
+keywords ``resume_from``, ``resume_step``, ``fault_hook`` and ``epoch``):
+every driver commits snapshots through ``checkpoint.Checkpointer``
+(``core/resume.py``; the stream driver also inside a pass), resumes one
+bit for bit, calls the fault hook once a host sync and feeds the
+straggler monitor, as the reference's ``_FitRuntime`` does
+(``_FitRuntime`` here). The snapshots are the reference's files, so
+either package resumes the other's.
+
 ``SVMConfig`` carries every field of the reference, so a reference config
-converts field for field (``core/convert.py``); the options this port
-does not carry yet raise ``NotImplementedError`` naming the ROADMAP item
-that brings them.
+converts field for field (``core/convert.py``).
 """
 from __future__ import annotations
 
@@ -52,20 +59,25 @@ import dataclasses
 import functools
 import itertools
 import math
+import time
 from typing import Any, Callable
 
 import numpy as np
 import torch
+import torch.distributed as dist
 
+from repro_torch.checkpoint import Checkpointer
 from repro_torch.data.libsvm import iter_libsvm, load_libsvm
 from repro_torch.data.pipeline import (ChunkPrefetcher, DevicePlacer,
                                        PageLock, RetryStats, pad_features_to,
                                        padded_width, retrying_chunks,
                                        rows_to_device)
 from repro_torch.kernels import ops
-from repro_torch.runtime.policy import FaultPolicy
+from repro_torch.runtime.elastic import remesh
+from repro_torch.runtime.policy import FaultPolicy, StragglerError
+from repro_torch.runtime.straggler import StepTimeMonitor
 from . import (distributed, kernel, linear, multiclass, objective, prng,
-               stats, svr)
+               resume as resume_mod, stats, svr)
 from .linear import SVMData
 
 FORMULATIONS = ("LIN", "KRN")
@@ -209,70 +221,288 @@ class FitResult:
     stats_window: list | None = None  # window >= 1: the hard-expiry ring
     #                                 the next generation folds (this
     #                                 fit's fresh (S, b) first), numpy
+    straggler_events: list = dataclasses.field(default_factory=list)
+    #                                 the straggler monitor's events (and
+    #                                 any background checkpoint error)
+    resumed_at: int | None = None   # completed iterations restored from a
+    #                                 checkpoint (None = a fresh fit)
+    n_checkpoints: int = 0          # snapshots committed during this fit
 
 
-def _unsupported(cfg: SVMConfig) -> list[str]:
-    """What ``cfg`` sets outside this slice, each with the ROADMAP queue-1
-    item that brings it."""
-    checks = [
-        ("fault", cfg.fault is not None, "item 11 (reliability)"),
-    ]
-    return [f"{name}={getattr(cfg, name)!r} -> ROADMAP queue 1 {item}"
-            for name, bad, item in checks if bad]
+class _FitRuntime:
+    """Per-fit state beside the drivers (the reference's ``_FitRuntime``):
+    the warm start, the fault policy, the checkpointer and the restored
+    resume payload, the straggler monitor, this rank's liveness weight,
+    and the host loop's scalar state, owned here (not in loop locals) so
+    that the stream driver's mid-pass saver sees a consistent snapshot of
+    the counters and histories.
 
+    A warm start (``warm_start``, a donor ``FitResult``) begins at the
+    donor's last sample; with ``decay > 0`` the donor's effective
+    statistics (``stats``) are folded in, with ``window >= 2`` its ring
+    (``stats_window``, cut to window - 1 generations here: the hard
+    expiry). ``resume_from`` (a directory or a ``Checkpointer``;
+    ``resume_step`` pins a snapshot) instead continues a preempted fit,
+    with the donor statistics its snapshot carries (the two keywords are
+    exclusive).
 
-_FIT_KEYWORDS = {
-    "resume_from": "item 11 (reliability)",
-    "resume_step": "item 11 (reliability)",
-    "fault_hook": "item 11 (reliability)",
-    "epoch": "item 11 (reliability)",
-}
+    On a mesh every rank holds the same state after each reduction, so
+    the mesh's rank 0 alone opens a writer (the reference's single
+    writer); every rank restores, after a barrier that makes the last
+    fit's final commit visible to all of them, and the ranks agree on each
+    straggler verdict. Host numpy; every rank holds the same arrays."""
 
+    def __init__(self, svm: "PEMSVM", *, warm_start=None, live=None,
+                 resume_from=None, resume_step: int | None = None,
+                 fault_hook: Callable | None = None,
+                 epoch: int | None = None):
+        cfg = svm.config
+        self.svm = svm
+        self.policy = cfg.fault or FaultPolicy()
+        self.monitor = StepTimeMonitor.from_policy(self.policy)
+        self.hook = fault_hook
+        self.live = live
+        self.events: list = []
+        self.n_checkpoints = 0
+        self.last_saved_it = 0
+        self.resumed_at: int | None = None
+        self.midpass: dict | None = None
+        self.pending_sub = None
+        self.cur_it = 0
+        self.retry = RetryStats()
+        if resume_from is not None and warm_start is not None:
+            raise ValueError(
+                "resume_from (continue THIS fit from its checkpoint) and "
+                "warm_start (start a NEW fit from a finished model) are "
+                "mutually exclusive")
+        if resume_step is not None and resume_from is None:
+            raise ValueError("resume_step without resume_from")
+        mesh = svm.mesh is not None
+        self.checkpointing = (self.policy.checkpoints_enabled
+                              or resume_from is not None)
+        writer = not (self.checkpointing and mesh) or svm._whole().index == 0
+        # ``epoch`` is the attempt's fence token: the writer advances the
+        # shared FENCE at open and every commit re-checks it.
+        self.ckpt = (Checkpointer(self.policy.ckpt_dir,
+                                  keep_k=self.policy.keep_k, epoch=epoch)
+                     if self.policy.checkpoints_enabled and writer
+                     else None)
+        self.payload: dict | None = None
+        if resume_from is not None:
+            if mesh:
+                dist.barrier(group=svm._whole().group)
+            src = (resume_from if isinstance(resume_from, Checkpointer)
+                   else Checkpointer(str(resume_from),
+                                     keep_k=self.policy.keep_k,
+                                     epoch=(epoch if self.ckpt is None
+                                            and writer else None)))
+            self.payload = resume_mod.load_snapshot(src, resume_step)
+            resume_mod.check_compatible(self.payload, cfg)
+            self.resumed_at = int(self.payload["it"])
+            if self.ckpt is None and writer:
+                # keep committing to the directory resumed from, so a
+                # chain of preemptions never loses progress
+                self.ckpt = src
 
-class _WarmStart:
-    """The warm-start part of the reference's ``_FitRuntime``: a new fit
-    starts from the donor ``FitResult``'s last sample; with ``decay > 0``
-    the donor's effective statistics (``stats``) are folded in, with
-    ``window >= 2`` its ring (``stats_window``, cut to window - 1
-    generations here: the hard expiry). Host numpy; every rank of a mesh
-    places the same arrays."""
-
-    def __init__(self, cfg: SVMConfig, warm_start):
-        self.state: np.ndarray | None = None
+        self.warm_state: np.ndarray | None = None
         self.prev_stats: dict | None = None
         self.window_entries: list = []
-        if warm_start is None:
-            return
-        self.state = np.asarray(warm_start.last_sample, np.float32)
-        if cfg.decay > 0.0:
-            if warm_start.stats is None:
-                raise ValueError(
-                    "decay > 0 folds the previous fit's statistics into "
-                    "the new one, but warm_start.stats is None; the donor "
-                    "fit must itself run driver='stream' with decay > 0 "
-                    "(which fills FitResult.stats)")
-            self.prev_stats = {k: np.asarray(v)
-                               for k, v in warm_start.stats.items()}
-        if cfg.window >= 2:
-            if warm_start.stats_window is None:
-                raise ValueError(
-                    "window >= 2 keeps the previous generations' fresh "
-                    "statistics, but warm_start.stats_window is None; the "
-                    "donor fit must itself run driver='stream' with "
-                    "window >= 1 (which fills FitResult.stats_window)")
-            self.window_entries = [
-                {k: np.asarray(v) for k, v in e.items()}
-                for e in warm_start.stats_window][: cfg.window - 1]
+        if warm_start is not None:
+            self.warm_state = np.asarray(warm_start.last_sample, np.float32)
+            if cfg.decay > 0.0:
+                if warm_start.stats is None:
+                    raise ValueError(
+                        "decay > 0 folds the previous fit's statistics "
+                        "into the new one, but warm_start.stats is None; "
+                        "the donor fit must itself run driver='stream' "
+                        "with decay > 0 (which fills FitResult.stats)")
+                self.prev_stats = {k: np.asarray(v)
+                                   for k, v in warm_start.stats.items()}
+            if cfg.window >= 2:
+                if warm_start.stats_window is None:
+                    raise ValueError(
+                        "window >= 2 keeps the previous generations' fresh "
+                        "statistics, but warm_start.stats_window is None; "
+                        "the donor fit must itself run driver='stream' "
+                        "with window >= 1 (which fills "
+                        "FitResult.stats_window)")
+                self.window_entries = [
+                    {k: np.asarray(v) for k, v in e.items()}
+                    for e in warm_start.stats_window][: cfg.window - 1]
+        if self.payload is not None and self.payload.get("prev_stats"):
+            self.prev_stats = self.payload["prev_stats"]
+        if self.payload is not None and self.payload.get("window_stats"):
+            self.window_entries = self.payload["window_stats"]
 
-    def place(self, state0: torch.Tensor) -> torch.Tensor:
-        """The fit's first state: the donor's last sample, or state0."""
-        if self.state is None:
-            return state0
-        if self.state.shape != tuple(state0.shape):
-            raise ValueError(
-                f"warm_start weights have shape {self.state.shape}, this "
-                f"fit expects {tuple(state0.shape)}")
-        return torch.from_numpy(self.state.copy()).to(state0.device)
+    # ---------------------------------------------------- host loop state
+    def init_loop(self, state0: torch.Tensor) -> torch.Tensor:
+        """Restore or initialise the loop state; returns the first state on
+        the fit's device. A restored state is placed through
+        ``runtime.elastic.remesh``, so a snapshot written on one mesh
+        layout resumes on whatever mesh this PEMSVM holds; the restored
+        key chain goes to the device for MC (EM fits draw nothing and
+        keep no device key: their chain, which a snapshot records as the
+        reference does, is walked on the host, ``key_after``)."""
+        cfg = self.svm.config
+        dev = self.svm.device
+        p = self.payload
+        sub = None
+        if p is not None:
+            restored = np.asarray(p["state"], np.float32)
+            if restored.shape != tuple(state0.shape):
+                raise ValueError(
+                    f"checkpoint state has shape {restored.shape}, this "
+                    f"fit expects {tuple(state0.shape)}; the same data "
+                    "set and featurization are required to resume")
+            key = resume_mod.key_tensor(p["key"])
+            self.it0 = int(p["it"])
+            self.aux_hist = {k: [float(x) for x in v]
+                             for k, v in p["aux"].items()}
+            self.aux_hist["objective"] = [float(v) for v in p["objs"]]
+            self.n_avg = int(p["n_avg"])
+            self.n_small = int(p["n_small"])
+            # the saved sum itself, until the first new sample: bitwise
+            # the uninterrupted fit's mean * n_avg
+            self.samp = np.array(p["samp_sum"], np.float64)
+            self.mean_w = self.samp / self.n_avg if self.n_avg > 0 else None
+            state = remesh(restored, dev)
+            if p["in_pass"]:
+                sub = resume_mod.key_tensor(p["sub"])
+                self.midpass = {
+                    "totals": remesh(p["totals"], dev),
+                    "skip": int(p["chunk_idx"]),
+                    "row0": int(p["row0"]),
+                }
+        else:
+            key = prng.PRNGKey(cfg.seed)
+            self.it0 = 0
+            self.aux_hist = {}
+            self.n_avg = 0
+            self.n_small = 0
+            self.samp = None
+            self.mean_w = None
+            state = state0
+            if self.warm_state is not None:
+                if self.warm_state.shape != tuple(state0.shape):
+                    raise ValueError(
+                        f"warm_start weights have shape "
+                        f"{self.warm_state.shape}, this fit expects "
+                        f"{tuple(state0.shape)}")
+                state = remesh(self.warm_state, dev)
+        # the host chain: (splits so far, key, the last split's subkey)
+        self._chain = (self.it0 + (sub is not None), key, sub)
+        mc = cfg.algorithm == "MC"
+        self.key = key.to(dev) if mc else None
+        self.pending_sub = sub.to(dev) if mc and sub is not None else None
+        self.last_saved_it = self.it0
+        return state
+
+    def key_after(self, n: int, sub: bool = False):
+        """The chain's key after ``n`` splits (``sub``: the n-th split's
+        subkey), for a snapshot: an MC fit's live device key (the driver
+        keeps it at ``n``), or for EM the reference's chain walked on the
+        host from the last one asked for."""
+        if self.key is not None:
+            return self.key
+        k_n, key, last = self._chain
+        while k_n < n:
+            pair = prng.split(key)
+            key, last = pair[0], pair[1]
+            k_n += 1
+        self._chain = (k_n, key, last)
+        return last if sub else key
+
+    # -------------------------------------------------------- checkpoints
+    def samp_sum_of(self, shape) -> np.ndarray:
+        """The float64 MC sample sum, mean * n_avg (the restored sum until
+        the first new sample)."""
+        if self.samp is not None:
+            return self.samp.copy()
+        if self.mean_w is not None:
+            return np.asarray(self.mean_w, np.float64) * self.n_avg
+        return np.zeros(tuple(shape), np.float64)
+
+    def boundary_due(self, it: int) -> bool:
+        return (self.ckpt is not None
+                and it - self.last_saved_it >= self.policy.ckpt_every)
+
+    def save_snapshot(self, it: int, state, key, *, converged: bool = False,
+                      samp_sum=None, n_syncs: int | None = None,
+                      sub=None, totals: dict | None = None,
+                      chunk_idx: int = 0, row0: int = 0,
+                      blocking: bool = False) -> None:
+        if self.ckpt is None:
+            return
+        objs = self.aux_hist.get("objective", [])
+        resume_mod.save_snapshot(
+            self.ckpt, self.svm.config, it=it, state=state, key=key,
+            samp_sum=(self.samp_sum_of(state.shape) if samp_sum is None
+                      else samp_sum),
+            n_avg=self.n_avg, n_small=self.n_small, objs=objs,
+            aux_hist=self.aux_hist,
+            n_syncs=len(objs) if n_syncs is None else n_syncs,
+            converged=converged, prev_stats=self.prev_stats,
+            window_stats=self.window_entries or None, sub=sub,
+            totals=totals, chunk_idx=chunk_idx, row0=row0,
+            blocking=blocking)
+        self.n_checkpoints += 1
+        if totals is None:
+            self.last_saved_it = it
+
+    def finish(self) -> None:
+        """After the final blocking save: on a mesh every rank waits for
+        rank 0's commit, so any rank may resume from it at once."""
+        if self.checkpointing and self.svm.mesh is not None:
+            dist.barrier(group=self.svm._whole().group)
+
+    def flush(self) -> None:
+        """Drain the background writer at fit exit, normal or unwinding
+        (preemption, straggler): once fit returns or raises, every
+        enqueued snapshot is committed. A write failure is recorded as an
+        event, not raised (it must not mask the exception being unwound;
+        the directory stays at the previous commit)."""
+        if self.ckpt is None:
+            return
+        try:
+            self.ckpt.wait()
+        except Exception as e:  # noqa: BLE001
+            self.events.append({"checkpoint_error": repr(e)})
+
+    # ---------------------------------------------------------- straggler
+    def observe(self, it: int, seconds: float) -> None:
+        """Feed the step time to the monitor and react to a straggler
+        verdict per ``on_straggler``. On a mesh with a fault policy the
+        ranks agree on the verdict (any rank's), so a raise or a drop
+        happens on every rank at the same step."""
+        flag = self.monitor.observe(it, seconds)
+        svm = self.svm
+        if svm.mesh is not None and svm.config.fault is not None:
+            t = torch.tensor([float(flag)], device=svm.device)
+            dist.all_reduce(t, op=dist.ReduceOp.MAX, group=svm._whole().group)
+            flag = bool(t.item())
+        if not flag:
+            return
+        self.events.append({"it": it, "seconds": float(seconds),
+                            "ema": float(self.monitor.ema)})
+        pol = self.policy
+        if pol.on_straggler == "raise":
+            raise StragglerError(
+                f"iteration {it} took {seconds:.4f}s > "
+                f"{pol.straggler_threshold} x EMA "
+                f"{self.monitor.ema:.4f}s")
+        if pol.on_straggler == "drop":
+            self.drop_shards(svm._suspect_shards)
+            svm._suspect_shards.clear()
+
+    def drop_shards(self, idxs) -> None:
+        """Zero the liveness weight of this rank's shard if it is among
+        ``idxs``: its statistics drop out and every reduction
+        renormalizes (``stats.preduce``). The steps hold this tensor, so
+        the next step reduces without the shard."""
+        if self.live is None or not idxs:
+            return
+        if self.svm._shard_index() in {int(i) for i in idxs}:
+            self.live.fill_(0.0)
 
 
 def _check_krn(cfg: SVMConfig) -> None:
@@ -295,18 +525,6 @@ def _check_krn(cfg: SVMConfig) -> None:
             "driver='stream' cannot use the exact N x N Gram statistic "
             "(not row-chunk-additive); use NystromSVM, whose phi-space "
             "route streams raw rows")
-
-
-def _check_fit_keywords(kw: dict) -> None:
-    """Refuse the reference's elastic fit keywords, naming the ROADMAP
-    item that brings each."""
-    for name, value in kw.items():
-        if name not in _FIT_KEYWORDS:
-            raise TypeError(f"fit() got an unexpected keyword {name!r}")
-        if value is not None:
-            raise NotImplementedError(
-                f"fit({name}=...) is not ported yet: ROADMAP queue 1 "
-                f"{_FIT_KEYWORDS[name]}")
 
 
 def _device(device) -> torch.device:
@@ -336,9 +554,10 @@ class PEMSVM:
                  data_axes=None):
         if config.formulation == "KRN":
             _check_krn(config)
-        bad = _unsupported(config)
-        if bad:
-            raise NotImplementedError("not ported yet: " + "; ".join(bad))
+        if config.fault is not None and not isinstance(config.fault,
+                                                       FaultPolicy):
+            raise TypeError("config.fault must be a runtime.FaultPolicy, "
+                            f"got {type(config.fault).__name__}")
         self.config = config
         self.device = _device(device)
         self.mesh = mesh
@@ -382,6 +601,27 @@ class PEMSVM:
         # ensemble's uncertainty columns in export_servable.
         self._chain_weights: np.ndarray | None = None
         self._scorer_cache: tuple | None = None
+        # data-shard indices a health probe has flagged; consumed by the
+        # fault policy's on_straggler='drop' reaction
+        self._suspect_shards: set[int] = set()
+
+    def report_slow_shard(self, *shard_idx: int) -> None:
+        """Name data-shard indices as straggler suspects. With
+        ``FaultPolicy(on_straggler='drop')`` the next straggler event
+        zeroes their liveness weight: their statistics drop out and every
+        reduction renormalizes (``stats.preduce``). On a deployment a
+        per-host health probe feeds this; in tests the fault harness
+        does. Every rank of a mesh names the same shards."""
+        self._suspect_shards.update(int(i) for i in shard_idx)
+
+    def _shard_index(self) -> int:
+        """This rank's data shard (0 without a mesh)."""
+        return 0 if self._axes is None else self._axes.index
+
+    def _whole(self) -> distributed.MeshAxes:
+        """Every axis of the mesh: the group the ranks agree over, index 0
+        the single writer of snapshots."""
+        return distributed.axes_of(self.mesh, self.mesh.mesh_dim_names)
 
     def _phi(self):
         """The featurizer arrays as device tensors (None in X-space)."""
@@ -396,30 +636,55 @@ class PEMSVM:
             self.device) for a in self._phi_arrays)
 
     # ------------------------------------------------------------- fitting
-    def fit(self, X: np.ndarray, y: np.ndarray, *, live=None,
-            warm_start: FitResult | None = None, **kw) -> FitResult:
+    def fit(self, X: np.ndarray, y: np.ndarray, *, resume_from=None,
+            resume_step: int | None = None,
+            warm_start: FitResult | None = None, live=None,
+            fault_hook: Callable | None = None,
+            epoch: int | None = None) -> FitResult:
         """Fit on host arrays X (N, D) and labels y in {+-1} (CLS), integer
-        class ids in [0, num_classes) (MLT) or real targets (SVR).
-        ``live`` (mesh only) is the initial liveness weight
-        of each data shard, shape (num_shards,): a shard at 0 drops out of
-        every reduction and the sums renormalize (``stats.preduce``).
-        ``warm_start`` (a previous ``FitResult``) starts a new fit from its
-        last sample; with ``config.decay > 0`` or ``config.window >= 2``
-        (stream driver) its statistics are folded in (``_fit_stream``).
-        The other elastic keywords of the reference (``resume_from``,
-        ``resume_step``, ``fault_hook``, ``epoch``) are not ported yet.
-        With ``driver="stream"`` the arrays are page-locked for the fit and
-        stream through the device in chunks (``_fit_stream_arrays``)."""
-        _check_fit_keywords(kw)
+        class ids in [0, num_classes) (MLT) or real targets (SVR). With
+        ``driver="stream"`` the arrays are page-locked for the fit and
+        stream through the device in chunks (``_fit_stream_arrays``).
+
+        The keyword group is the reference's elastic surface.
+        ``resume_from`` (a directory or a ``Checkpointer``) continues a
+        preempted fit from its last committed snapshot (``resume_step``
+        pins one) on whatever driver and mesh THIS model holds: snapshots
+        hold logical host tensors (``core/resume.py``), and either
+        package's snapshots resume in the other. ``warm_start`` (a
+        previous ``FitResult``) starts a NEW fit from its last sample;
+        with ``config.decay > 0`` or ``config.window >= 2`` (stream
+        driver) its statistics are folded in (``_fit_stream``). ``live``
+        (mesh only) is the initial liveness weight of each data shard,
+        shape (num_shards,): a shard at 0 drops out of every reduction and
+        the sums renormalize (``stats.preduce``). ``fault_hook(it)`` is
+        called once a host sync with the completed iterations (the fault
+        injectors of ``runtime.faults``). ``epoch`` is the attempt's fence
+        token under several controllers (``runtime.controller``): a
+        superseded attempt's commits are rejected."""
         cfg = self.config
-        warm = _WarmStart(cfg, warm_start)
         live = self._live(live)
-        X = np.ascontiguousarray(X, np.float32)
-        self._n_features = X.shape[1]
-        target = self._targets(np.asarray(y))
-        if cfg.driver == "stream":
-            return self._fit_stream_arrays(X, target, warm)
-        N = X.shape[0]
+        rt = _FitRuntime(self, warm_start=warm_start, live=live,
+                         resume_from=resume_from, resume_step=resume_step,
+                         fault_hook=fault_hook, epoch=epoch)
+        try:
+            X = np.ascontiguousarray(X, np.float32)
+            self._n_features = X.shape[1]
+            target = self._targets(np.asarray(y))
+            if cfg.driver == "stream":
+                return self._fit_stream_arrays(X, target, rt)
+            N = X.shape[0]
+            step, data, state = self._resident_step(X, target, live)
+            if cfg.driver == "loop":
+                return self._fit_loop(data, state, step, N, rt)
+            return self._fit_scan(data, state, step, N, rt)
+        finally:
+            rt.flush()
+
+    def _resident_step(self, X: np.ndarray, target: np.ndarray, live):
+        """(step, data, state0) of a resident fit: the statistic matrix
+        (or the exact KRN Gram) on the device and the step over it."""
+        cfg = self.config
         if cfg.formulation == "KRN":
             data, gram, state = self._prepare_krn(X, target)
 
@@ -429,38 +694,26 @@ class PEMSVM:
                     eps=cfg.eps, jitter=cfg.jitter, backend=cfg.backend,
                     axes=self._axes, triangle=cfg.triangle_reduce,
                     reduce_dtype=cfg.reduce_dtype, live=live)
+            return step, data, state
+        phi = self._phi()
+        data, state = self._prepare(X, target, phi)
+        common = dict(mode=cfg.algorithm, lam=cfg.lam, eps=cfg.eps,
+                      jitter=cfg.jitter, backend=cfg.backend,
+                      rng=cfg.rng, chain0=cfg.chain0, phi=phi,
+                      phi_spec=cfg.phi_spec, axes=self._axes,
+                      triangle=cfg.triangle_reduce,
+                      k_shard_axis=self._k_axis,
+                      reduce_dtype=cfg.reduce_dtype, live=live)
+        if cfg.task == "MLT":
+            step = functools.partial(multiclass.mlt_step,
+                                     num_classes=cfg.num_classes, **common)
+        elif cfg.task == "SVR":
+            step = functools.partial(svr.svr_step, eps_ins=cfg.eps_ins,
+                                     n_chains=cfg.n_chains, **common)
         else:
-            phi = self._phi()
-            data, state = self._prepare(X, target, phi)
-            common = dict(mode=cfg.algorithm, lam=cfg.lam, eps=cfg.eps,
-                          jitter=cfg.jitter, backend=cfg.backend,
-                          rng=cfg.rng, chain0=cfg.chain0, phi=phi,
-                          phi_spec=cfg.phi_spec, axes=self._axes,
-                          triangle=cfg.triangle_reduce,
-                          k_shard_axis=self._k_axis,
-                          reduce_dtype=cfg.reduce_dtype, live=live)
-            if cfg.task == "MLT":
-                step = functools.partial(multiclass.mlt_step,
-                                         num_classes=cfg.num_classes,
-                                         **common)
-            elif cfg.task == "SVR":
-                step = functools.partial(svr.svr_step, eps_ins=cfg.eps_ins,
-                                         n_chains=cfg.n_chains, **common)
-            else:
-                step = functools.partial(linear.cls_step,
-                                         n_chains=cfg.n_chains, **common)
-        state = warm.place(state)
-        key = self._key()
-        if cfg.driver == "loop":
-            return self._fit_loop(data, state, key, step, N)
-        return self._fit_scan(data, state, key, step, N)
-
-    def _key(self) -> torch.Tensor | None:
-        """The reference's key chain starts at PRNGKey(seed), one split an
-        iteration; an EM step draws nothing, so EM fits have no key."""
-        if self.config.algorithm != "MC":
-            return None
-        return prng.PRNGKey(self.config.seed, self.device)
+            step = functools.partial(linear.cls_step,
+                                     n_chains=cfg.n_chains, **common)
+        return step, data, state
 
     def _width(self, n_features: int) -> int:
         """The statistic matrix's width for raw rows ``n_features`` wide:
@@ -499,9 +752,8 @@ class PEMSVM:
         i = 0 if self._axes is None else self._axes.index
         return torch.tensor(vec[i], dtype=torch.float32, device=self.device)
 
-    def _fit_scan(self, data: SVMData, state: torch.Tensor,
-                  key: torch.Tensor | None, step: Callable,
-                  N: int) -> FitResult:
+    def _fit_scan(self, data: SVMData, state: torch.Tensor, step: Callable,
+                  N: int, rt: _FitRuntime) -> FitResult:
         """Chunked on-device driver (reference ``_fit_scan`` and
         ``_chunk_runner``).
 
@@ -516,23 +768,40 @@ class PEMSVM:
         scan_chunk). The chunk sums are combined in float64 on the host.
         The trace is truncated at the converged iteration, which makes
         the trace and the last sample equal to the loop driver's.
+
+        Reliability: a resume restores the whole carry from a boundary
+        snapshot (state, key, the float64 sample sum, the sample count,
+        the stopping counter, the previous objective, the sync count).
+        With checkpoints on, the key's words and the stopping counter ride
+        the chunk's one transfer, and the state too when a snapshot is
+        due, so snapshots add no host sync; the fault hook and the
+        straggler monitor run once a transfer, and the fit ends with a
+        blocking snapshot.
         """
         cfg = self.config
         dev = self.device
         is_mc = cfg.algorithm == "MC"
+        state = rt.init_loop(state)
+        key = rt.key
+        keys = self._aux_keys
+        aux_hist = rt.aux_hist
+        for k in keys:
+            aux_hist.setdefault(k, [])
+        objs = aux_hist["objective"]
         tol_n = torch.tensor(cfg.tol * N, dtype=torch.float32, device=dev)
-        prev_obj = torch.tensor(math.inf, dtype=torch.float32, device=dev)
-        n_small = torch.zeros((), dtype=torch.int32, device=dev)
-        n_avg = torch.zeros((), dtype=torch.int32, device=dev)
+        prev_obj = torch.tensor(objs[-1] if objs else math.inf,
+                                dtype=torch.float32, device=dev)
+        n_small = torch.tensor(rt.n_small, dtype=torch.int32, device=dev)
+        n_avg = torch.tensor(rt.n_avg, dtype=torch.int32, device=dev)
         done = torch.zeros((), dtype=torch.bool, device=dev)
         it_done = torch.zeros((), dtype=torch.int32, device=dev)
-        samp_total = np.zeros(tuple(state.shape), np.float64)
-        keys = self._aux_keys
-        aux_hist: dict = {k: [] for k in keys}
-        n_syncs = 0
-        it0 = 0
+        samp_total = rt.samp_sum_of(state.shape)
+        n_syncs = int(rt.payload["n_syncs"]) if rt.payload else 0
+        it0 = rt.it0
         converged = False
+        count, done_at, key_words = rt.n_avg, 0, None
         while it0 < cfg.max_iters:
+            t0 = time.perf_counter()
             chunk = min(cfg.scan_chunk, cfg.max_iters - it0)
             samp = torch.zeros_like(state)
             trace = []
@@ -559,95 +828,136 @@ class PEMSVM:
                 done = done | conv_now
                 trace.append(torch.stack([aux[k] for k in keys]))
             # The single per-chunk host sync: trace, sample sum and flags
-            # in one copy.
-            flat = torch.cat([torch.stack(trace).to(torch.float64).ravel(),
-                              samp.to(torch.float64).ravel(),
-                              done.to(torch.float64)[None],
-                              it_done.to(torch.float64)[None],
-                              n_avg.to(torch.float64)[None]]).cpu().numpy()
+            # (with checkpoints on, the stopping counter, the key and, when
+            # a snapshot is due, the state) in one copy.
+            extra = []
+            due = rt.boundary_due(it0 + chunk)
+            if rt.ckpt is not None:
+                extra = [n_small] + ([key] if is_mc else [])
+                extra += [state] if due else []
+            tr, s_np, done_np, at_np, avg_np, *more = _one_copy(
+                torch.stack(trace), samp, done, it_done, n_avg, *extra)
             n_syncs += 1
-            n_aux = chunk * len(keys)
-            aux_np = flat[:n_aux].reshape(chunk, len(keys))
-            samp_total += flat[n_aux:-3].reshape(samp_total.shape)
-            converged = bool(flat[-3])
-            valid = (int(flat[-2]) - it0) if converged else chunk
+            samp_total += s_np
+            converged = bool(done_np)
+            done_at = int(at_np)
+            count = int(avg_np)
+            valid = (done_at - it0) if converged else chunk
             for j, k in enumerate(keys):
-                aux_hist[k].extend(float(v) for v in aux_np[:valid, j])
+                aux_hist[k].extend(float(v) for v in tr[:valid, j])
             it0 += chunk
+            done_its = done_at if converged else it0
+            rt.cur_it = done_its
+            if rt.ckpt is not None:
+                rt.n_avg, rt.n_small = count, int(more[0])
+                key_words = more[1] if is_mc else None
+                if not converged and due:
+                    rt.save_snapshot(
+                        done_its, more[-1],
+                        key_words if is_mc else rt.key_after(it0),
+                        samp_sum=samp_total, n_syncs=n_syncs)
+            if rt.hook is not None:
+                rt.hook(done_its)
+            rt.observe(done_its, time.perf_counter() - t0)
             if converged:
                 break
-        n_iters = int(flat[-2]) if converged else it0
+        n_iters = done_at if converged else it0
         last = state.cpu().numpy().astype(np.float32)
-        count = int(flat[-1])
         weights = ((samp_total / count).astype(np.float32) if count > 0
                    else last)
+        if rt.ckpt is not None and n_iters > rt.last_saved_it:
+            rt.save_snapshot(n_iters, last, key_words if key_words is not None
+                             else rt.key_after(it0), converged=converged,
+                             samp_sum=samp_total, n_syncs=n_syncs,
+                             blocking=True)
+        rt.finish()
         return self._finish(weights, last, aux_hist, n_iters, converged,
-                            n_syncs)
+                            n_syncs, rt)
 
     def _fit_host_loop(self, iterate: Callable, state0: torch.Tensor,
-                       key: torch.Tensor | None,
+                       rt: _FitRuntime,
                        host_aux: Callable | None = None) -> FitResult:
-        """Host-loop tail of the reference's loop driver: key chain, trace
-        bookkeeping, the MC posterior average (a float64 running mean
-        after ``burnin``) and the Sec 5.5 stopping rule, one host sync per
-        iteration. ``iterate(sub_key, state) -> (state, scalars,
-        n_valid)`` with ``scalars`` a dict of 0-d device tensors: the aux
-        keys, or whatever ``host_aux`` maps (on the host, after the one
-        transfer) to ``(aux, n_valid)`` when ``n_valid`` is None."""
+        """Host-loop tail of the reference's loop and stream drivers: key
+        chain, trace bookkeeping, the MC posterior average (a float64
+        running mean after ``burnin``) and the Sec 5.5 stopping rule, one
+        host sync per iteration. ``iterate(sub_key, state) -> (state,
+        scalars, n_valid)`` with ``scalars`` a dict of 0-d device tensors:
+        the aux keys, or whatever ``host_aux`` maps (on the host, after the
+        one transfer) to ``(aux, n_valid)`` when ``n_valid`` is None.
+
+        The loop scalars live on ``rt``, which restores them from a
+        snapshot (``init_loop``). Per iteration, as the reference: the
+        subkey (a mid-pass resume takes the saved subkey instead of
+        splitting), the iteration, histories, average and stopping
+        counter, the boundary snapshot (the state joins the iteration's
+        transfer when one is due), the fault hook, the straggler monitor,
+        then the convergence test; the fit ends with a blocking
+        snapshot."""
         cfg = self.config
         is_mc = cfg.algorithm == "MC"
-        state = state0
+        state = rt.init_loop(state0)
         keys = self._aux_keys
-        aux_hist: dict = {k: [] for k in keys}
+        aux_hist = rt.aux_hist
+        for k in keys:
+            aux_hist.setdefault(k, [])
         objs = aux_hist["objective"]
         converged = False
-        n_small = 0
-        n_avg = 0
-        mean_w = None
-        it = 0
-        for it in range(1, cfg.max_iters + 1):
-            key, sub = _next_key(key)
+        it = rt.it0
+        for it in range(rt.it0 + 1, cfg.max_iters + 1):
+            t0 = time.perf_counter()
+            if rt.pending_sub is not None:
+                sub, rt.pending_sub = rt.pending_sub, None
+            else:
+                rt.key, sub = _next_key(rt.key)
+            rt.cur_it = it
             state, scalars, n_valid = iterate(sub, state)
             names = keys if host_aux is None else tuple(scalars)
             average = is_mc and it > cfg.burnin
-            parts = [torch.stack([scalars[k] for k in names])]
-            if average:
-                parts.append(state.ravel())
-            vals = torch.cat([p.to(torch.float64) for p in parts]
-                             ).cpu().numpy()
-            aux = {k: float(v) for k, v in zip(names, vals[:len(names)])}
+            due = rt.boundary_due(it)
+            vals, *w = _one_copy(torch.stack([scalars[k] for k in names]),
+                                 *([state] if average or due else []))
+            aux = {k: float(v) for k, v in zip(names, vals)}
             if host_aux is not None:
                 aux, n_valid = host_aux(aux)
             for k in keys:
                 aux_hist[k].append(aux[k])
             if average:
-                w_np = vals[len(names):].reshape(tuple(state.shape))
-                mean_w = w_np if mean_w is None else (
-                    mean_w * n_avg + w_np) / (n_avg + 1)
-                n_avg += 1
+                rt.mean_w = w[0] if rt.mean_w is None else (
+                    rt.samp_sum_of(w[0].shape) + w[0]) / (rt.n_avg + 1)
+                rt.n_avg += 1
+                rt.samp = None
             if (len(objs) >= 2
                     and abs(objs[-1] - objs[-2]) <= cfg.tol * n_valid):
-                n_small += 1
+                rt.n_small += 1
             else:
-                n_small = 0
-            if it >= cfg.min_iters and n_small >= cfg.patience:
-                if not is_mc or n_avg >= 1:
+                rt.n_small = 0
+            if due:
+                rt.save_snapshot(it, w[0], rt.key_after(it))
+            if rt.hook is not None:
+                rt.hook(it)
+            rt.observe(it, time.perf_counter() - t0)
+            if it >= cfg.min_iters and rt.n_small >= cfg.patience:
+                if not is_mc or rt.n_avg >= 1:
                     converged = True
                     break
         last = state.cpu().numpy().astype(np.float32)
-        weights = mean_w.astype(np.float32) if mean_w is not None else last
+        if rt.ckpt is not None and it > rt.last_saved_it:
+            rt.save_snapshot(it, last, rt.key_after(it), converged=converged,
+                             blocking=True)
+        rt.finish()
+        weights = (rt.mean_w.astype(np.float32) if rt.mean_w is not None
+                   else last)
         return self._finish(weights, last, aux_hist, it, converged,
-                            len(objs))
+                            len(objs), rt)
 
-    def _fit_loop(self, data: SVMData, state: torch.Tensor,
-                  key: torch.Tensor | None, step: Callable,
-                  N: int) -> FitResult:
+    def _fit_loop(self, data: SVMData, state: torch.Tensor, step: Callable,
+                  N: int, rt: _FitRuntime) -> FitResult:
         """Per-iteration driver: the semantic oracle for the scan driver."""
         def iterate(sub, state):
             state, aux = step(data, state, sub)
             return state, aux, N
 
-        return self._fit_host_loop(iterate, state, key)
+        return self._fit_host_loop(iterate, state, rt)
 
     # ------------------------------------------------------- the stream
     def fit_libsvm(self, path: str, n_features: int, rank: int = 0,
@@ -657,7 +967,8 @@ class PEMSVM:
         through the prefetcher) and the data set is never resident on the
         host or the device; other drivers load it and defer to ``fit``.
         ``rank``/``world`` stripe the lines per host (paper Sec 5.6).
-        ``fit_kw`` goes to ``fit`` / ``fit_chunks`` (``warm_start``)."""
+        ``fit_kw`` goes to ``fit`` / ``fit_chunks``: the elastic keywords
+        (``resume_from``, ``warm_start``, ``fault_hook``, ...)."""
         cfg = self.config
         if cfg.driver != "stream":
             X, y = load_libsvm(path, n_features, rank=rank, world=world)
@@ -686,23 +997,32 @@ class PEMSVM:
                                **fit_kw)
 
     def fit_chunks(self, make_chunks: Callable, K: int, *,
-                   warm_start: FitResult | None = None, **kw) -> FitResult:
+                   resume_from=None, resume_step: int | None = None,
+                   warm_start: FitResult | None = None,
+                   fault_hook: Callable | None = None,
+                   epoch: int | None = None) -> FitResult:
         """Out-of-core fit over a restartable chunk source: ``make_chunks()``
         returns a fresh iterator of host ``(X, target, mask)`` blocks of one
         shape, their width already final (bias column appended, features
         padded; raw rows in phi-space), and ``K`` is the weight vector's
         width. The chunks reach the device through a pinned staging ring
-        (``data.pipeline.DevicePlacer``); a failing source is retried per
-        the default ``FaultPolicy``. ``warm_start`` as in ``fit``; the
-        other elastic keywords of the reference are refused as there."""
+        (``data.pipeline.DevicePlacer``). This is the seam the fault
+        injectors wrap (``runtime.faults.kill_after_chunks``, ...): loader
+        retries, mid-pass snapshots and the resume's skip compose around
+        the factory per ``config.fault``; the keywords as in ``fit``."""
         cfg = self.config
         if cfg.driver != "stream":
             raise ValueError(
                 f"fit_chunks is the stream driver's entry point; "
                 f"config.driver is {cfg.driver!r}")
-        _check_fit_keywords(kw)
-        return self._fit_stream(make_chunks, K, DevicePlacer(self.device),
-                                _WarmStart(cfg, warm_start))
+        rt = _FitRuntime(self, warm_start=warm_start,
+                         resume_from=resume_from, resume_step=resume_step,
+                         fault_hook=fault_hook, epoch=epoch)
+        try:
+            return self._fit_stream(make_chunks, K,
+                                    DevicePlacer(self.device), rt)
+        finally:
+            rt.flush()
 
     def _stream_target(self, y: np.ndarray, mask: np.ndarray) -> np.ndarray:
         """One chunk's targets, cast and checked on its valid rows as
@@ -713,7 +1033,7 @@ class PEMSVM:
                           else np.float32)
 
     def _fit_stream_arrays(self, X: np.ndarray, target: np.ndarray,
-                           warm: _WarmStart) -> FitResult:
+                           rt: _FitRuntime) -> FitResult:
         """``driver="stream"`` on in-memory arrays: chunk views of X, which
         is page-locked in place for the fit (``PageLock``), so that each
         chunk is copied to the device with no host copy, and of the
@@ -736,15 +1056,14 @@ class PEMSVM:
 
         K = self._state_width(D)
         if not cuda:
-            return self._fit_stream(make_chunks, K, placer, warm)
+            return self._fit_stream(make_chunks, K, placer, rt)
         target = torch.from_numpy(target).pin_memory().numpy()
         with PageLock(self.device, X):
-            return self._fit_stream(make_chunks, K, placer, warm)
+            return self._fit_stream(make_chunks, K, placer, rt)
 
     def _fit_stream(self, make_chunks: Callable, K: int, placer,
-                    warm: _WarmStart) -> FitResult:
-        """The out-of-core driver (reference ``_fit_stream``, without its
-        checkpoint branch: ROADMAP item 11).
+                    rt: _FitRuntime) -> FitResult:
+        """The out-of-core driver (reference ``_fit_stream``).
 
         Each iteration sweeps the chunks through the prefetcher, sums the
         per-chunk statistic dicts on the device in chunk order
@@ -754,6 +1073,16 @@ class PEMSVM:
         carried across the chunks. Nothing in a sweep waits for the
         device: the scalars stay device tensors until the iteration's one
         transfer (``_fit_host_loop``), so ``n_host_syncs == n_iters``.
+
+        The chunk source is wrapped in ``retrying_chunks`` per the fault
+        policy (a flaky loader restarts past the chunks already folded).
+        With ``ckpt_chunks > 0`` a MID-PASS snapshot commits every n
+        chunks: the pre-iteration state, the iteration's subkey and the
+        partial totals, copied to the host only then, with the chunk
+        cursor and ``row0``; a resume skips the folded chunks (``source``),
+        starts ``totals`` and ``row0`` from the snapshot and finishes the
+        same pass, bit for bit. MLT snapshots at iteration boundaries only
+        (a class sweep's cursor would also need the class).
 
         A warm start begins at the donor's last sample. With
         ``config.decay > 0`` the M-step takes fresh + decay * the donor's
@@ -779,18 +1108,16 @@ class PEMSVM:
                                  device=dev)
         else:
             state0 = linear.init_weight(K, dev, cfg.n_chains)
-        state0 = warm.place(state0)
-        pol = FaultPolicy()
-        retry = RetryStats()
+        pol = rt.policy
         peak = 0
 
         def on_device(d):
             return {k: torch.from_numpy(np.ascontiguousarray(v)).to(dev)
                     for k, v in d.items()}
 
-        prev = None if warm.prev_stats is None else on_device(warm.prev_stats)
+        prev = None if rt.prev_stats is None else on_device(rt.prev_stats)
         win = (stats.StatsWindow(cfg.window,
-                                 [on_device(e) for e in warm.window_entries])
+                                 [on_device(e) for e in rt.window_entries])
                if cfg.window >= 1 else None)
         keep = cfg.decay > 0.0 or win is not None
         held: dict = {}          # the last M-step's effective and fresh stats
@@ -810,27 +1137,34 @@ class PEMSVM:
             it = make_chunks()
             return itertools.islice(it, skip, None) if skip else it
 
-        def sweep(fn):
-            """One pass: the chunks' contributions summed on the device."""
+        def sweep(fn, skip0=0, totals=None, row0=0, saver=None):
+            """One pass: the chunks' contributions summed on the device.
+            ``skip0`` / ``totals`` / ``row0`` continue a partly swept pass
+            (a mid-pass resume); ``saver`` commits the partial totals
+            every ``ckpt_chunks`` chunks."""
             nonlocal peak
-            src = retrying_chunks(source, retries=pol.loader_retries,
+            src = retrying_chunks(lambda done: source(skip0 + done),
+                                  retries=pol.loader_retries,
                                   backoff=pol.loader_backoff,
                                   jitter=pol.loader_jitter, seed=cfg.seed,
-                                  stats=retry)
+                                  stats=rt.retry)
             pf = ChunkPrefetcher(src, depth=cfg.prefetch, place=placer)
-            totals = None
-            row0 = 0
+            consumed = skip0
             for chunk in pf:
                 data = SVMData(*chunk)
                 part = fn(data, row0)
                 totals = part if totals is None else _add_stats(totals, part)
                 row0 += data.X.shape[0]
+                consumed += 1
+                if saver is not None and consumed % pol.ckpt_chunks == 0:
+                    saver(totals, consumed, row0)
             if totals is None:
                 raise ValueError("stream source yielded no chunks")
             peak = max(peak, pf.max_resident_bytes)
             return totals
 
         def iterate(sub, state):
+            midpass, rt.midpass = rt.midpass, None
             if is_mlt:
                 fresh, eff = [], []
                 for y in range(cfg.num_classes):
@@ -847,7 +1181,24 @@ class PEMSVM:
                 return state, {"objective": fns["obj_total"](state,
                                                               t["loss"]),
                                "mask_sum": t["mask_sum"]}, None
-            t = sweep(lambda d, r0: fns["chunk"](d, state, sub, r0))
+
+            def saver(totals, consumed, row0):
+                # the pre-iteration state, this iteration's subkey and the
+                # partial totals: a resume replays the rest of THIS pass
+                it = rt.cur_it
+                rt.save_snapshot(
+                    it - 1, state, rt.key_after(it),
+                    sub=sub if sub is not None else rt.key_after(it, True),
+                    totals=totals, chunk_idx=consumed, row0=row0)
+
+            body = lambda d, r0: fns["chunk"](d, state, sub, r0)  # noqa: E731
+            sv = (saver if rt.ckpt is not None and pol.ckpt_chunks > 0
+                  else None)
+            if midpass is not None:
+                t = sweep(body, midpass["skip"], midpass["totals"],
+                          midpass["row0"], sv)
+            else:
+                t = sweep(body, saver=sv)
             S, b = fold(t["S"], t["b"])
             if keep:
                 held["fresh"] = {"S": t["S"], "b": t["b"]}
@@ -868,20 +1219,20 @@ class PEMSVM:
                 aux["n_sv"] = h["n_sv"]
             return aux, h["mask_sum"]
 
-        result = self._fit_host_loop(iterate, state0, self._key(), host_aux)
+        result = self._fit_host_loop(iterate, state0, rt, host_aux)
         result.peak_input_bytes = int(peak)
-        result.loader_retries = retry.retries
-        result.loader_backoff_s = retry.backoff_s
+        result.loader_retries = rt.retry.retries
+        result.loader_backoff_s = rt.retry.backoff_s
         if held:
             result.stats = {k: v.cpu().numpy()
                             for k, v in held["eff"].items()}
             if win is not None:
                 result.stats_window = stats.StatsWindow(
-                    cfg.window, warm.window_entries).advance(held["fresh"])
+                    cfg.window, rt.window_entries).advance(held["fresh"])
         return result
 
     def _finish(self, weights, last, aux_hist, n_iters, converged,
-                n_syncs) -> FitResult:
+                n_syncs, rt: _FitRuntime) -> FitResult:
         """The FitResult, with the reference's multichain post-processing
         (``_finalize_chains``): a (C, K) fit state is the per-chain
         posterior means, exposed as ``chain_weights``; ``weights`` is
@@ -890,7 +1241,10 @@ class PEMSVM:
         res = FitResult(weights=weights, last_sample=last,
                         objective=list(aux_hist["objective"]),
                         aux_history=aux_hist, n_iters=n_iters,
-                        converged=converged, n_host_syncs=n_syncs)
+                        converged=converged, n_host_syncs=n_syncs,
+                        straggler_events=rt.events,
+                        resumed_at=rt.resumed_at,
+                        n_checkpoints=rt.n_checkpoints)
         if self.config.n_chains > 1:
             cw = np.asarray(weights, np.float32)
             res.chain_weights = cw
@@ -1239,6 +1593,20 @@ def _stream_fns(cfg: SVMConfig, phi) -> dict:
         return w_new, objective.l2_reg(w_new, cfg.lam) + loss_sum
 
     return dict(chunk=chunk, mstep=mstep)
+
+
+def _one_copy(*tensors: torch.Tensor) -> list:
+    """The tensors copied to the host in one transfer, as float64 numpy
+    arrays of their shapes (float32 values, counts and uint32 key words are
+    exact in float64)."""
+    flat = torch.cat([t.to(torch.float64).ravel() for t in tensors]
+                     ).cpu().numpy()
+    out, i = [], 0
+    for t in tensors:
+        n = t.numel()
+        out.append(flat[i:i + n].reshape(tuple(t.shape)))
+        i += n
+    return out
 
 
 def _next_key(key: torch.Tensor | None):

@@ -1,19 +1,37 @@
 """FaultPolicy: the reliability settings a fit carries, the port's copy of
-``repro/runtime/policy.py`` (the dataclass and its defaults only).
+``repro/runtime/policy.py``.
 
-The stream driver reads the loader-retry fields: a default policy retries
-a failing chunk source ``loader_retries = 3`` times with exponential
-backoff (``data.pipeline.retrying_chunks``), so every stream fit runs
-through the retry wrapper even with ``SVMConfig.fault`` left at None.
-The checkpoint and straggler fields keep the reference's names and
-defaults; the code that reads them (and ``SVMConfig.fault`` itself) is
-ROADMAP queue 1 item 11.
+The policy rides on ``SVMConfig.fault`` (frozen, so the config stays
+hashable) and tells the drivers how to react:
+
+  * checkpoint cadence: a boundary snapshot every ``ckpt_every``
+    iterations, and with the stream driver also every ``ckpt_chunks``
+    chunks inside a pass, through ``repro_torch.checkpoint.Checkpointer``
+    (``core/resume.py``); snapshots hold O(K^2) statistics, never O(N)
+    data;
+  * loader retry with exponential backoff
+    (``data.pipeline.retrying_chunks``): a default policy retries a
+    failing chunk source ``loader_retries = 3`` times, so every stream fit
+    runs through the retry wrapper even with ``SVMConfig.fault`` at None;
+  * straggler detection (``runtime.straggler.StepTimeMonitor``) and the
+    reaction ``on_straggler``: ``"record"`` events into the FitResult,
+    ``"drop"`` the shards ``PEMSVM.report_slow_shard`` named out of the
+    live-weighted reduction (``stats.preduce``), or ``"raise"`` a
+    ``StragglerError`` for an outer controller to resume from the last
+    checkpoint (``runtime.controller``).
 """
 from __future__ import annotations
 
 import dataclasses
 
 ON_STRAGGLER = ("record", "drop", "raise")
+
+
+class StragglerError(RuntimeError):
+    """Raised by the drivers when ``on_straggler="raise"`` and a step
+    exceeds the monitor's threshold: the signal for an outer controller to
+    stop the fit and resume it from the last committed checkpoint on a
+    healthy mesh (``PEMSVM.fit(..., resume_from=...)``)."""
 
 
 @dataclasses.dataclass(frozen=True)
@@ -24,6 +42,7 @@ class FaultPolicy:
     ckpt_dir: str | None = None     # directory for snapshots (None = off)
     ckpt_every: int = 10            # iterations between boundary snapshots
     ckpt_chunks: int = 0            # stream: also snapshot every n chunks
+    #                                 mid-pass (0 = boundary-only)
     keep_k: int = 3                 # committed checkpoints retained on disk
     loader_retries: int = 3         # consecutive loader failures tolerated
     loader_backoff: float = 0.05    # base seconds; doubles per retry
@@ -42,3 +61,7 @@ class FaultPolicy:
         assert self.loader_jitter >= 0.0, self.loader_jitter
         assert self.straggler_threshold > 1.0, self.straggler_threshold
         assert self.on_straggler in ON_STRAGGLER, self.on_straggler
+
+    @property
+    def checkpoints_enabled(self) -> bool:
+        return self.ckpt_dir is not None

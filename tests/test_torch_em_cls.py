@@ -178,12 +178,11 @@ def test_objective_terms_match_reference(masked):
     dict(window=2, decay=0.5, driver="stream"),
 ])
 def test_unsupported_config_raises(kw):
-    """``fault`` is not ported (item 11). ``decay`` and ``window`` are, and
-    their cases hold the reference's guards instead: stream driver only,
-    and not both."""
+    """``fault`` must be a ``runtime.FaultPolicy`` (the reference fails
+    later, on the object's missing fields); ``decay`` and ``window`` hold
+    the reference's guards: stream driver only, and not both."""
     if "fault" in kw:
-        with pytest.raises(NotImplementedError,
-                           match="ROADMAP queue 1 item"):
+        with pytest.raises(TypeError, match="FaultPolicy"):
             PEMSVM(SVMConfig(**kw), device="cpu")
         return
     with pytest.raises(AssertionError,
@@ -296,22 +295,40 @@ def test_pad_features_and_k_shard_axis_configs():
 
 @pytest.mark.parametrize("kw", [
     dict(resume_from="ckpt"), dict(warm_start=(3,)), dict(resume_step=3),
-    dict(fault_hook=print), dict(epoch=3),
+    dict(fault_hook="kill at 2"), dict(epoch=3),
 ])
-def test_unsupported_fit_keyword_raises(kw):
-    """The reliability keywords are not ported (item 11). ``warm_start``
-    is: its case holds the shape check that replaces the refusal (a donor
-    of another width)."""
+def test_unsupported_fit_keyword_raises(kw, tmp_path):
+    """The elastic keywords' guards, as the reference's: a donor of
+    another width (``warm_start``), ``resume_from`` with ``warm_start``,
+    ``resume_step`` without ``resume_from``, a ``fault_hook`` that
+    preempts, and an ``epoch`` below the directory's fence."""
+    from repro_torch.checkpoint import advance_fence
+    from repro_torch.runtime import FaultPolicy, faults
     X, y = tsyn.make_blobs(64, 4, seed=1)
+    donor = PEMSVM(SVMConfig(max_iters=3), device="cpu").fit(
+        np.ones((8, 3), np.float32), np.where(np.arange(8) % 2, 1.0, -1.0))
     if "warm_start" in kw:
-        donor = PEMSVM(SVMConfig(max_iters=3), device="cpu").fit(
-            np.ones((8, kw["warm_start"][0]), np.float32),
-            np.where(np.arange(8) % 2, 1.0, -1.0))
         with pytest.raises(ValueError, match="warm_start weights have"):
             PEMSVM(SVMConfig(), device="cpu").fit(X, y, warm_start=donor)
         return
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1 item"):
-        PEMSVM(SVMConfig(), device="cpu").fit(X, y, **kw)
+    if "resume_from" in kw:
+        with pytest.raises(ValueError, match="mutually exclusive"):
+            PEMSVM(SVMConfig(), device="cpu").fit(X, y, warm_start=donor,
+                                                  **kw)
+        return
+    if "resume_step" in kw:
+        with pytest.raises(ValueError, match="without resume_from"):
+            PEMSVM(SVMConfig(), device="cpu").fit(X, y, **kw)
+        return
+    if "fault_hook" in kw:
+        with pytest.raises(faults.SimulatedPreemption):
+            PEMSVM(SVMConfig(), device="cpu").fit(
+                X, y, fault_hook=faults.kill_at_iteration(2))
+        return
+    advance_fence(str(tmp_path), 5)
+    cfg = SVMConfig(fault=FaultPolicy(ckpt_dir=str(tmp_path)))
+    with pytest.raises(RuntimeError, match="superseded"):
+        PEMSVM(cfg, device="cpu").fit(X, y, **kw)
 
 
 def test_live_needs_a_mesh():

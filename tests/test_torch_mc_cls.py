@@ -198,16 +198,16 @@ def test_chain_c_is_the_single_chain_at_chain0_c():
 # ------------------------------------------------------- not ported yet
 @pytest.mark.parametrize("kw,item", [
     (dict(decay=0.5, driver="loop"), "requires driver='stream'"),
-    (dict(fault=object()), "item 11"),
+    (dict(fault=object()), "FaultPolicy"),
 ])
 def test_out_of_slice_options_raise(kw, item):
-    """``fault`` is not ported (item 11); ``decay`` is, and its case holds
-    the reference's guard instead (stream driver only)."""
-    if not item.startswith("item"):
+    """``decay`` holds the reference's guard (stream driver only);
+    ``fault`` must be a ``runtime.FaultPolicy``."""
+    if item != "FaultPolicy":
         with pytest.raises(AssertionError, match=item):
             SVMConfig(**{"algorithm": "MC", **kw})
         return
-    with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(TypeError, match=item):
         PEMSVM(SVMConfig(**{"algorithm": "MC", **kw}), device="cpu")
 
 

@@ -568,8 +568,8 @@ def test_out_of_slice_raises():
     assert svr.svm.config.task == "SVR" and svr.svm.config.phi_spec
     ny = NystromSVM(SVMConfig(formulation="KRN"), device="cpu")
     X, y = tsyn.make_circles(64)
-    with pytest.raises(NotImplementedError, match="item 11"):
-        ny.fit(X, y, resume_from=object())
+    with pytest.raises(ValueError, match="resume_step without resume_from"):
+        ny.fit(X, y, resume_step=3)
     # warm_start, fit_libsvm and serving are ported: a donor of another
     # width, a missing file and an unfitted model are refused
     donor = dataclasses.replace(ny.fit(X, y), last_sample=np.ones(

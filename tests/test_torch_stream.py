@@ -782,9 +782,9 @@ def test_stream_refusals():
         svm.fit(X, y)
     with pytest.raises(ValueError, match="stream driver's entry point"):
         PEMSVM(SVMConfig(), device="cpu").fit_chunks(lambda: iter(()), 5)
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(ValueError, match="resume_step without resume_from"):
         PEMSVM(SVMConfig(driver="stream"), device="cpu").fit_chunks(
-            lambda: iter(()), 5, resume_from="ckpt")
+            lambda: iter(()), 5, resume_step=3)
     donor = PEMSVM(SVMConfig(driver="stream", max_iters=2),
                    device="cpu").fit(X, y)
     with pytest.raises(ValueError, match="warm_start.stats is None"):

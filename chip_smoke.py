@@ -340,6 +340,44 @@ shapes), in the order a, b, b, a.
    phase 4's, weights bitwise), each beside nvidia-smi's name and power
    limit.
 
+18. the LM serving path and MaxMarginHead, run after phase 17 (ROADMAP
+   item 13a). (a) smollm-135m at full size (30 layers, d 576, 9 / 3
+   heads of 64, d_ff 1,536, vocab 49,152, tied embeddings, bfloat16
+   compute, float32 master weights from Model.init(0): 134,515,008
+   parameters, gated): 8 prompts of 512 tokens from make_lm_tokens,
+   cache_len 576; prefill (median of 3) and tokens/s, 32 decode steps
+   (median ms a step, tokens/s), generate(64 greedy steps) twice, bitwise
+   equal; peak MiB; a torch.profiler window of 8 decode steps (the
+   device's busy share). Gates: finite logits; teacher forcing, decode of
+   token 512 after prefill(512) against logits_seq at 512, within 3e-2 of
+   max|ref|; the bfloat16 logits_seq within 3e-2 of a float32 model's on
+   the same weights; 2 layers at full width in float32 (2 x 64 tokens) on
+   the card against the port's CPU forward within 1e-4. (b) MaxMarginHead
+   on it: 16,384 documents of 128 tokens with the token-range signal of
+   examples/lm_feature_svm.py scaled to the vocabulary (class +1 draws
+   from [0, 3V/8), class -1 from [5V/8, V)), 12,288 to train, 4,096 held
+   out; LIN-EM-CLS lam 0.1, max_iters 60 through head.fit (fused_stats
+   at K = 577 once a step, nothing else) and through the plain path on
+   the features head.fit extracted; the held-out features timed
+   (documents/s): after 2 iterations weights within 1e-3 of max|w|; at
+   convergence (finite) iterations within 3, held-out accuracy within
+   0.01, weights within 5e-2. (c) the same head on granite-3-2b at full
+   width (d 2,048, 32 / 8 heads, d_ff 8,192, vocab 49,155) with 4 of its
+   40 layers, 8,192 documents (6,144 to train): K = 2,049, fused_estep
+   and syrk_tri once a step each, fused_stats never. At N / K = 3 a
+   tenth of the rows sit at the hinge (1/gamma up to 1e6) and the plain
+   fit moves 31 % under a one-ulp move of its features, so a float64 fit
+   is the witness: launches, two iterations and iterations against the
+   plain fit as in (b), iterations within 3 of the float64 fit's too,
+   the kernel fit's weights no further from the float64 fit's than the
+   plain fit's, held-out accuracy within 0.01 of the float64 fit's.
+   Then the kernels on each head's own inputs (X with its bias column,
+   rho = beta = y, the fitted weights): fused_stats at 12,288 x 577,
+   fused_estep and syrk_tri at 6,144 x 2,049, each against its plain
+   version in float64, timed beside it, its bound and (syrk_tri)
+   torch.einsum; nested rows smollm_head and granite_head of the kernels
+   line. Every time printed beside nvidia-smi's name and power limit.
+
 Phase 11 runs last (it holds its exact KRN fit against phase 14's), kills
 fit 1 (2 x 2) after iteration 8 and resumes it on 4 x 1 within fit 1's
 bands against one device (rank 0 alone writing snapshots), drops shard 3
@@ -5584,6 +5622,391 @@ def phase_reliability(dev):
         shutil.rmtree(tmp, ignore_errors=True)
 
 
+# ---------------------------------------------------------------- phase 18
+LM_ARCH, WIDE_ARCH = "smollm-135m", "granite-3-2b"
+LM_PARAMS = 134_515_008  # smollm-135m's ModelConfig.num_params()
+LM_BATCH, LM_PROMPT, LM_CACHE, LM_STEPS = 8, 512, 576, 64
+LM_TIMED_STEPS = 32     # decode steps timed one by one
+LM_BF16_BAND = 3e-2     # bfloat16 against float32, and teacher forcing in
+#                         bfloat16: max|d| / max|ref| (tests/test_torch_lm)
+LM_F32_BAND = 1e-4      # the card's float32 forward against the CPU's
+LM_CPU_LAYERS = 2       # layers of the full-width card-against-CPU check
+HEAD_TOKENS = 128       # tokens a document
+HEAD_DOCS, HEAD_TRAIN = 16_384, 12_288      # smollm's head: all, training
+WIDE_DOCS, WIDE_TRAIN = 8_192, 6_144        # granite's head (4 layers)
+WIDE_LAYERS = 4
+HEAD_W_BAND = 5e-2      # kernel against plain weights (relative 2-norm)
+HEAD_W2_BAND = 1e-3     # the same after 2 iterations, of max|w|
+
+
+def lm_rel(got, want) -> float:
+    """max |got - want| / max |want|."""
+    got, want = got.double(), want.double()
+    return ((got - want).abs().max() / want.abs().max()).item()
+
+
+def lm_docs(vocab, n, seed=0):
+    """n documents of HEAD_TOKENS tokens with a token-range signal
+    (examples/lm_feature_svm.py, scaled to the vocabulary): class +1 draws
+    its tokens from [0, 3V/8), class -1 from [5V/8, V)."""
+    rng = np.random.default_rng(seed)
+    cls = rng.random(n) > 0.5
+    toks = np.where(cls[:, None],
+                    rng.integers(0, 3 * vocab // 8, (n, HEAD_TOKENS)),
+                    rng.integers(5 * vocab // 8, vocab, (n, HEAD_TOKENS)))
+    return toks.astype(np.int32), np.where(cls, 1.0, -1.0)
+
+
+def lm_serve(dev, cfg):
+    """Phase 18 (a): smollm-135m at full size, served. Returns the model."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data import make_lm_tokens
+    from repro_torch.models import build_model
+    from repro_torch.serving import (generate, make_decode_step,
+                                     make_prefill_step)
+    model = build_model(cfg, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.init(0)
+    torch.cuda.synchronize()
+    n = model.num_params()
+    say(f"  {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.head_dim}, d_ff "
+        f"{cfg.d_ff}, vocab {cfg.vocab}, tied {cfg.tie_embeddings}, "
+        f"{cfg.dtype} compute; {n:,} float32 parameters drawn from seed 0 "
+        f"on the card in {time.perf_counter() - t0:.2f} s")
+    check(n == LM_PARAMS == cfg.num_params(),
+          f"{n} parameters, not {LM_PARAMS}")
+    stream = make_lm_tokens(LM_BATCH * (LM_PROMPT + 1), cfg.vocab, seed=1
+                            ).reshape(LM_BATCH, LM_PROMPT + 1)
+    prompts = {"tokens": stream[:, :LM_PROMPT]}
+    prefill = make_prefill_step(model, LM_CACHE)
+    decode = make_decode_step(model)
+    prefill(prompts)                                   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pre = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        tok, caches = prefill(prompts)
+        torch.cuda.synchronize()
+        pre.append(time.perf_counter() - t0)
+    logits, _ = model.prefill(prompts, LM_CACHE)
+    check(bool(torch.isfinite(logits.float()).all()),
+          "prefill logits not finite")
+    steps = []
+    for i in range(LM_TIMED_STEPS):
+        t0 = time.perf_counter()
+        tok, lg, caches = decode(tok[:, None], LM_PROMPT + i, caches)
+        torch.cuda.synchronize()
+        steps.append(time.perf_counter() - t0)
+    check(bool(torch.isfinite(lg.float()).all()), "decode logits not finite")
+    t0 = time.perf_counter()
+    a = generate(model, prompts, steps=LM_STEPS, cache_len=LM_CACHE)
+    gen_s = time.perf_counter() - t0
+    b = generate(model, prompts, steps=LM_STEPS, cache_len=LM_CACHE)
+    peak = torch.cuda.max_memory_allocated()
+    check(tuple(a.shape) == (LM_BATCH, LM_STEPS) and torch.equal(a, b),
+          "two greedy generate calls differ")
+    p_s, d_s = statistics.median(pre), statistics.median(steps)
+    say(f"  serve {LM_BATCH} x {LM_PROMPT} prompts, cache {LM_CACHE} "
+        f"({smi()}): prefill {p_s * 1e3:.2f} ms median of 3 "
+        f"({LM_BATCH * LM_PROMPT / p_s:.0f} tokens/s); decode "
+        f"{d_s * 1e3:.3f} ms a step, median of {LM_TIMED_STEPS} "
+        f"({LM_BATCH / d_s:.0f} tokens/s); generate({LM_STEPS} greedy "
+        f"steps) {gen_s:.3f} s wall ({LM_BATCH * LM_STEPS / gen_s:.0f} "
+        f"tokens/s), bitwise equal twice; peak {peak / 2**20:.0f} MiB")
+    tok, caches = prefill(prompts)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for i in range(8):
+            tok, _, caches = decode(tok[:, None], LM_PROMPT + i, caches)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    say_profile(prof, secs, 6, f"profile of 8 decode steps (under the "
+                f"profiler): {secs * 1e3:.1f} ms wall")
+    del caches
+
+    # teacher forcing and bfloat16 against float32 on the same weights
+    full = model.logits_seq({"tokens": stream})
+    _, caches = model.prefill(prompts, LM_CACHE)
+    lg, _ = model.decode(stream[:, LM_PROMPT:], LM_PROMPT, caches)
+    tf = lm_rel(lg[:, 0], full[:, LM_PROMPT])
+    del caches
+    m32 = build_model(dataclasses.replace(cfg, dtype="float32"), dev)
+    m32.load_params(model.params)
+    f32 = m32.logits_seq({"tokens": stream})
+    b16 = lm_rel(full, f32)
+    agree = (full.argmax(-1) == f32.argmax(-1)).double().mean().item()
+    say(f"  teacher forcing: decode(token {LM_PROMPT}) after prefill "
+        f"against logits_seq at {LM_PROMPT}: {tf:.3e} of max|ref| (<= "
+        f"{LM_BF16_BAND}); bfloat16 logits_seq against float32 on the same "
+        f"weights: {b16:.3e} (<= {LM_BF16_BAND}), argmax equal at {agree:.4f}"
+        f" of {LM_BATCH * (LM_PROMPT + 1)} positions")
+    check(tf <= LM_BF16_BAND, "teacher forcing outside its band")
+    check(b16 <= LM_BF16_BAND, "bfloat16 forward outside its band")
+    del m32, f32, full
+
+    # LM_CPU_LAYERS layers at full width in float32: card against CPU
+    c2 = dataclasses.replace(cfg, n_layers=LM_CPU_LAYERS, dtype="float32")
+    card = build_model(c2, dev)
+    card.init(0)
+    cpu = build_model(c2, "cpu")
+    cpu.load_params(card.params)
+    batch = {"tokens": stream[:2, :64]}
+    hd = lm_rel(card.hidden_seq(batch).cpu(), cpu.hidden_seq(batch))
+    ld = lm_rel(card.logits_seq(batch).cpu(), cpu.logits_seq(batch))
+    say(f"  {LM_CPU_LAYERS} layers at full width, float32, 2 x 64 tokens: "
+        f"the card against the CPU: hidden {hd:.3e}, logits {ld:.3e} of "
+        f"max|CPU| (<= {LM_F32_BAND})")
+    check(hd <= LM_F32_BAND and ld <= LM_F32_BAND,
+          "the card's float32 forward is outside the CPU band")
+    return model
+
+
+def fit64(cfg, dev, X, y):
+    """The float64 witness of a LIN-EM-CLS fit: the plain step
+    (``linear.cls_step``, backend "ref") on float64 operands under the
+    solver's stopping rule. Returns (weights with the bias, iterations,
+    the objective trace)."""
+    from repro_torch.core import linear
+    A = torch.from_numpy(np.hstack([X, np.ones((len(X), 1), X.dtype)])
+                         ).to(dev, torch.float64)
+    yt = torch.from_numpy(np.asarray(y, np.float64)).to(dev)
+    data = linear.SVMData(A, yt, torch.ones_like(yt))
+    w = torch.zeros(A.shape[1], dtype=torch.float64, device=dev)
+    objs, small = [], 0
+    for it in range(1, cfg.max_iters + 1):
+        w, aux = linear.cls_step(data, w, mode="EM", lam=cfg.lam,
+                                 eps=cfg.eps, jitter=cfg.jitter,
+                                 backend="ref")
+        objs.append(float(aux["objective"]))
+        small = (small + 1 if len(objs) >= 2 and abs(objs[-1] - objs[-2])
+                 <= cfg.tol * len(X) else 0)
+        if it >= cfg.min_iters and small >= cfg.patience:
+            break
+    return w.cpu().numpy(), it, objs
+
+
+def lm_head(label, model, n_docs, n_train, dev, kernels, witness=False):
+    """Phase 18 (b), (c): MaxMarginHead over ``model``'s mean-pooled
+    features, LIN-EM-CLS lam 0.1, max_iters 60, through the kernels
+    ``kernels`` (each once a step, nothing else) and through the plain
+    path on the same features: after 2 iterations within HEAD_W2_BAND of
+    max|w|, at convergence iterations within 3. Without ``witness`` the
+    weights are within HEAD_W_BAND and the held-out accuracy within 0.01
+    of the plain fit's. With it (granite's N / K = 3, where the plain
+    fit's weights move 31 % under a one-ulp move of its features) a
+    float64 fit is the witness: iterations within 3 of it too, weights no
+    further from it than the plain fit's, accuracy within 0.01 of it.
+    Returns (features, labels, the kernel fit, the counts)."""
+    from repro_torch.core import MaxMarginHead, SVMConfig, mean_pool
+    toks, y = lm_docs(model.cfg.vocab, n_docs)
+    ttr, ytr, tte, yte = toks[:n_train], y[:n_train], toks[n_train:], \
+        y[n_train:]
+    seen = []           # the features head.fit extracts, for the plain fit
+
+    def feature_fn(t):
+        f = mean_pool(model.hidden_seq({"tokens": t}).float())
+        seen.append(f)
+        return f
+
+    cfg = SVMConfig(lam=0.1, max_iters=60)
+    head = MaxMarginHead(cfg, feature_fn, device=dev)
+    head.extract(ttr[:head.feature_batch])             # warm-up
+    seen.clear()
+    _zero_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    res = head.fit(ttr, ytr)
+    torch.cuda.synchronize()
+    head_s = time.perf_counter() - t0
+    counts = _counts()
+    Xtr = torch.cat(seen).cpu().numpy()
+    seen.clear()
+    check(Xtr.shape == (n_train, model.cfg.d_model)
+          and bool(np.isfinite(Xtr).all()), f"{label}: bad features")
+    t0 = time.perf_counter()
+    Xte = head.extract(tte)
+    ext_s = time.perf_counter() - t0
+    acc = head.svm.score(Xte, yte)
+    steps = min(cfg.max_iters, -(-res.n_iters // cfg.scan_chunk)
+                * cfg.scan_chunk)
+    _, _, fit_s = _fit(cfg, dev, Xtr, ytr)
+    ref_cfg = dataclasses.replace(cfg, backend="ref")
+    plain, rp, psecs = _fit(ref_cfg, dev, Xtr, ytr)
+    pacc = plain.score(Xte, yte)
+    _, rq, _ = _fit(ref_cfg, dev, np.nextafter(Xtr, np.float32(np.inf)), ytr)
+    wrel, spread = _rel(res.weights, rp.weights), _rel(rq.weights,
+                                                       rp.weights)
+    # two iterations, before float32 EM has amplified last bits: kernel
+    # against plain at HEAD_W2_BAND of max|w| (tests/test_torch_head.py)
+    short = dataclasses.replace(cfg, max_iters=2, min_iters=2)
+    _, r2, _ = _fit(short, dev, Xtr, ytr)
+    _, r2p, _ = _fit(dataclasses.replace(short, backend="ref"), dev, Xtr,
+                     ytr)
+    w2 = _rel_max(r2.weights, r2p.weights)
+    say(f"  {label} ({smi()}): features of the {len(tte):,} held-out "
+        f"documents x {HEAD_TOKENS} tokens in {ext_s * 1e3:.1f} ms "
+        f"({len(tte) / ext_s:.0f} documents/s); head.fit on {n_train:,} "
+        f"{head_s:.3f} s (extraction and fit); the "
+        f"fit alone {fit_s:.3f} s, {res.n_iters} iterations ({steps} steps, "
+        f"{fit_s / steps * 1e3:.2f} ms a step), K = {Xtr.shape[1] + 1}, "
+        f"held-out accuracy {acc:.4f}; launches {counts}")
+    say(f"  {label} plain fit: {psecs:.3f} s, {rp.n_iters} iterations, "
+        f"accuracy {pacc:.4f}; weights {wrel:.3e} from the kernel fit "
+        f"(the plain fit's own distance from its features moved one ulp: "
+        f"{spread:.3e}, {rq.n_iters} iterations); after 2 iterations "
+        f"{w2:.3e} of max|w| (<= {HEAD_W2_BAND})")
+    check(all(counts[k] == steps for k in kernels),
+          f"{label}: {kernels} not launched once for each of {steps} steps")
+    check(all(v == 0 for k, v in counts.items() if k not in kernels),
+          f"{label}: another kernel launched: {counts}")
+    check(r2.n_iters == r2p.n_iters == 2 and w2 <= HEAD_W2_BAND,
+          f"{label}: two-iteration weights {w2:.3e} of max|w| from the "
+          f"plain fit's")
+    check(res.converged and bool(np.all(np.isfinite(res.weights))),
+          f"{label}: the kernel fit did not converge to finite weights")
+    check(abs(res.n_iters - rp.n_iters) <= 3,
+          f"{label}: iterations {res.n_iters} against {rp.n_iters}")
+    if not witness:
+        check(wrel <= HEAD_W_BAND, f"{label}: weights outside the band")
+        check(abs(acc - pacc) <= 0.01, f"{label}: accuracy {acc} against "
+              f"{pacc}")
+        return Xtr, ytr, res, counts
+    t0 = time.perf_counter()
+    w64, it64, _ = fit64(cfg, dev, Xtr, ytr)
+    s64 = time.perf_counter() - t0
+    acc64 = float(np.mean(np.where(
+        np.hstack([Xte, np.ones((len(Xte), 1), Xte.dtype)]) @ w64 >= 0,
+        1.0, -1.0) == yte))
+    k64, p64 = _rel(res.weights, w64), _rel(rp.weights, w64)
+    say(f"  {label} float64 witness: {it64} iterations ({s64:.2f} s), "
+        f"accuracy {acc64:.4f}; weights from it: the kernel fit {k64:.3e}, "
+        f"the plain fit {p64:.3e}, its one-ulp twin "
+        f"{_rel(rq.weights, w64):.3e}")
+    check(abs(res.n_iters - it64) <= 3,
+          f"{label}: iterations {res.n_iters} against float64's {it64}")
+    check(k64 <= p64, f"{label}: the kernel fit's weights {k64:.3e} from "
+          f"float64's, the plain fit's {p64:.3e}")
+    check(abs(acc - acc64) <= 0.01,
+          f"{label}: accuracy {acc} against float64's {acc64}")
+    return Xtr, ytr, res, counts
+
+
+def head_operands(dev, X, y, w):
+    """The statistic's operands at the head's last step: X with its bias
+    column, rho = beta = y (LIN-EM-CLS), the fitted weights."""
+    Xb = torch.from_numpy(np.hstack([X, np.ones((len(X), 1), np.float32)])
+                          ).to(dev)
+    yt = torch.from_numpy(np.asarray(y, np.float32)).to(dev)
+    return Xb, yt, yt.clone(), torch.from_numpy(w.astype(np.float32)).to(dev)
+
+
+def head_stats_row(dev, X, y, w, launches):
+    """fused_stats on the smollm head's own inputs against its plain
+    version (float64), then timed; its kernels row."""
+    from repro_torch.kernels import fused_stats, ref
+    Xb, rho, beta, wv = head_operands(dev, X, y, w)
+    n, k = Xb.shape
+    m, g, b, S = twice(lambda: fused_stats.fused_stats(Xb, rho, beta, wv,
+                                                       eps=EPS))
+    want = ref.fused_stats(Xb.double(), rho.double(), beta.double(),
+                           wv.double(), None, EPS)
+    name = f"fused_stats {n}x{k} (smollm head)"
+    err = rows_close(name + " margin", m, want[0])
+    gamma_close(name, g, m, want[1], want[0])
+    b64, S64 = stats64(Xb, rho, beta, None, g)
+    err = max(err, max_close(name + " b", b, b64),
+              max_close(name + " Sigma", S, S64))
+    ms = time_ms(lambda: fused_stats.fused_stats(Xb, rho, beta, wv, eps=EPS))
+    plain = time_ms(lambda: ref.fused_stats(Xb, rho, beta, wv, None, EPS))
+    b_ms, by = bound(n * k * (k + 1) + 4 * n * k,
+                     4 * (n * k + 2 * n + k + 2 * n + k + k * k))
+    row = dict(shape=[n, k], max_abs_err=err, ms=ms, plain_ms=plain,
+               bound_ms=b_ms, bound_by=by, library_ms=None,
+               launches=launches)
+    say(f"  ok {name}: bitwise repeatable, max |d| {err:.3e}; kernel "
+        f"{ms:.3f} ms, plain {plain:.3f} ms, bound {b_ms:.3f} ms ({by}), "
+        f"{launches} launches in the fit ({smi()})")
+    return row
+
+
+def head_wide_rows(dev, X, y, w, launches):
+    """fused_estep and syrk_tri on the granite head's own inputs against
+    their plain versions (float64), then timed; their kernels rows."""
+    from repro_torch.kernels import fused_estep, ref, syrk
+    Xb, rho, beta, wv = head_operands(dev, X, y, w)
+    n, k = Xb.shape
+    name = f"fused_estep {n}x{k} (granite head)"
+    m, g, b = twice(lambda: fused_estep.fused_estep(Xb, rho, beta, wv,
+                                                    eps=EPS))
+    want = ref.fused_estep(Xb.double(), rho.double(), beta.double(),
+                           wv.double(), EPS)
+    err_e = rows_close(name + " margin", m, want[0])
+    gamma_close(name, g, m, want[1], want[0])
+    err_e = max(err_e, max_close(name + " b", b,
+                                 stats64(Xb, rho, beta, None, g)[0]))
+    wt = 1.0 / g
+    (S,) = twice(lambda: syrk.syrk_tri(Xb, wt))
+    err_s = max_close(f"syrk_tri {n}x{k} (granite head)", S,
+                      ref.syrk_tri(Xb.double(), wt.double()))
+    ms = time_ms(lambda: fused_estep.fused_estep(Xb, rho, beta, wv, eps=EPS))
+    plain = time_ms(lambda: ref.fused_estep(Xb, rho, beta, wv, EPS))
+    b_ms, by = bound(4 * n * k, 4 * (n * k + 2 * n + k + 2 * n + k))
+    estep = dict(shape=[n, k], max_abs_err=err_e, ms=ms, plain_ms=plain,
+                 bound_ms=b_ms, bound_by=by, library_ms=None,
+                 launches=launches["fused_estep"])
+    srow = dict(time_gram("syrk_tri", syrk.syrk_tri, Xb, wt, err_s),
+                launches=launches["syrk_tri"])
+    for kname, row in (("fused_estep", estep), ("syrk_tri", srow)):
+        lib = row["library_ms"]
+        say(f"  ok {kname} {row['shape']} (granite head): max |d| "
+            f"{row['max_abs_err']:.3e}; kernel {row['ms']:.3f} ms, plain "
+            f"{row['plain_ms']:.3f} ms, library "
+            f"{'none' if lib is None else f'{lib:.3f} ms'}, bound "
+            f"{row['bound_ms']:.3f} ms ({row['bound_by']}), "
+            f"{row['launches']} launches in the fit ({smi()})")
+    return estep, srow
+
+
+def phase_lm(dev):
+    """Phase 18: the LM serving path and MaxMarginHead (see the module
+    docstring). Returns the kernels' extra rows by name."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model
+    model = lm_serve(dev, get_config(LM_ARCH))
+    Xtr, ytr, res, counts = lm_head(
+        f"(b) the head on {LM_ARCH}", model, HEAD_DOCS, HEAD_TRAIN, dev,
+        ("fused_stats",))
+    rows = {"fused_stats": {"smollm_head": head_stats_row(
+        dev, Xtr, ytr, res.weights, counts["fused_stats"])}}
+    del model, Xtr
+    torch.cuda.empty_cache()
+    wide_cfg = dataclasses.replace(get_config(WIDE_ARCH),
+                                   n_layers=WIDE_LAYERS)
+    wide = build_model(wide_cfg, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    wide.init(0)
+    torch.cuda.synchronize()
+    say(f"  {WIDE_ARCH} at full width, {WIDE_LAYERS} of its 40 layers: "
+        f"{wide.num_params():,} parameters drawn on the card in "
+        f"{time.perf_counter() - t0:.2f} s")
+    Xtr, ytr, res, counts = lm_head(
+        f"(c) the head on {WIDE_ARCH}", wide, WIDE_DOCS, WIDE_TRAIN, dev,
+        ("fused_estep", "syrk_tri"), witness=True)
+    estep, srow = head_wide_rows(dev, Xtr, ytr, res.weights, counts)
+    rows["fused_estep"] = {"granite_head": estep}
+    rows["syrk_tri"] = {"granite_head": srow}
+    del wide
+    torch.cuda.empty_cache()
+    return rows
+
+
 def _rel_max(a, b):
     a, b = np.asarray(a, np.float64), np.asarray(b, np.float64)
     return float(np.abs(a - b).max() / np.abs(b).max())
@@ -5711,6 +6134,12 @@ def main() -> int:
     stamp(t0, "== 17. reliability: snapshots, kill and resume (phases 4, 6, "
               "8 and a third of Table 5), the fleet controller")
     phase_reliability(dev)
+    stamp(t0, "== 18. the LM serving path: smollm-135m at full size "
+              "(prefill, 64 decode steps, generate), MaxMarginHead on it "
+              "(fused_stats) and on granite-3-2b's width (fused_estep, "
+              "syrk_tri)")
+    for name, extra in phase_lm(dev).items():
+        rows[name].update(extra)
     stamp(t0, "== 11. the multi-device fit: a 2 x 2 (data x k) mesh and a 4 "
               "x 1 one, four gloo ranks on cuda:0; a one-rank NCCL group")
     runs.update(phase_mesh(dev, krn_ref, mc_ref, exact_ref))

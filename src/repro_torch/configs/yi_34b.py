@@ -1,0 +1,12 @@
+"""Yi-34B: dense llama-architecture GQA [arXiv:2403.04652; hf]."""
+from .base import ModelConfig, register
+
+
+@register("yi-34b")
+def config() -> ModelConfig:
+    return ModelConfig(
+        name="yi-34b", family="dense",
+        n_layers=60, d_model=7168, n_heads=56, n_kv_heads=8, head_dim=128,
+        d_ff=20480, vocab=64000, rope_theta=5e6,
+        source="arXiv:2403.04652; hf",
+    )

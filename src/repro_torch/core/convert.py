@@ -1,10 +1,11 @@
-"""Carry configs, fitted weights, servable models and warm-start donors
-across from the JAX package.
+"""Carry configs, fitted weights, servable models, warm-start donors and
+language-model weights across from the JAX package.
 
 Every function takes plain Python and numpy values, never objects of
 ``repro``, so this module imports nothing of it: a caller passes
 ``dataclasses.asdict(reference_config)``, ``FitResult.weights``, the
-fields of a reference ``ServableModel`` or of a reference ``FitResult``.
+fields of a reference ``ServableModel`` or of a reference ``FitResult``,
+or a model's parameters flattened to {leaf path: numpy array}.
 """
 from __future__ import annotations
 
@@ -13,6 +14,8 @@ import dataclasses
 import numpy as np
 import torch
 
+from repro_torch.configs import ModelConfig
+from repro_torch.models import Model, build_model
 from repro_torch.runtime.policy import FaultPolicy
 from repro_torch.serving import ServableModel
 
@@ -144,3 +147,26 @@ def fit_result_from_reference(last_sample: np.ndarray,
             k: np.array(v) for k, v in stats.items()},
         stats_window=None if stats_window is None else [
             {k: np.array(v) for k, v in e.items()} for e in stats_window])
+
+
+def lm_params_from_reference(cfg_fields: dict, flat: dict, device=None,
+                             **model_kw) -> Model:
+    """The port's model of the reference config whose
+    ``dataclasses.asdict`` is ``cfg_fields``, holding the reference's
+    parameters ``flat``: {leaf path: numpy array}, each path as the
+    reference's ``tree_flatten_with_path`` names it, joined by "/"
+    ("embed/table", "layers/pos0/attn/wq", ...; the port's checkpoint
+    flattener names them so). The stacked layout is the reference's, so
+    the weights carry across leaf by leaf."""
+    fields = {k: tuple(v) if isinstance(v, list) else v
+              for k, v in cfg_fields.items()}
+    model = build_model(ModelConfig(**fields), device, **model_kw)
+    tree: dict = {}
+    for path, value in flat.items():
+        *parents, leaf = path.split("/")
+        node = tree
+        for p in parents:
+            node = node.setdefault(p, {})
+        node[leaf] = torch.from_numpy(np.array(value, np.float32))
+    model.load_params(tree)
+    return model

@@ -12,7 +12,11 @@ jax 0.5), so a port fit walks the same key chain as the reference:
   * ``random_bits(key, shape)`` at flat index i = x0 ^ x1 of
     threefry2x32(key, (i >> 32, i & 0xFFFFFFFF));
   * ``uniform`` sets the top 23 bits as the mantissa of a float in [1, 2)
-    and subtracts 1; ``normal`` = sqrt(2) * erf_inv(uniform(-1 + ulp, 1)).
+    and subtracts 1; ``normal`` = sqrt(2) * erf_inv(uniform(-1 + ulp, 1));
+  * ``truncated_normal`` = sqrt(2) * erf_inv(uniform(erf(lo / sqrt(2)),
+    erf(hi / sqrt(2)))), clipped inside (lo, hi) (the LM initializers);
+  * ``categorical`` = argmax(logits + gumbel), gumbel = -log(-log(
+    uniform(tiny, 1))) (the LM sampler).
 
 Key words and uniforms are exact. ``erf_inv`` evaluates XLA's float32
 polynomial (``ErfInv32``: w = -log1p(-x^2), two degree-8 Horner branches
@@ -121,3 +125,32 @@ def normal(key: torch.Tensor, shape: tuple = ()) -> torch.Tensor:
     """float32 standard normals, (..., *shape) for a (..., 2) key."""
     u = uniform(key, shape, _LO, 1.0)
     return _SQRT2 * erf_inv(u)
+
+
+def truncated_normal(key: torch.Tensor, lower: float, upper: float,
+                     shape: tuple) -> torch.Tensor:
+    """float32 normals truncated to (lower, upper), drawn as
+    ``jax.random.truncated_normal`` draws them: uniforms between the
+    float32 erf of the bounds over sqrt(2), mapped through sqrt(2)
+    erf_inv, clipped to the next floats inside the bounds."""
+    lo = torch.tensor(lower, dtype=torch.float32)
+    hi = torch.tensor(upper, dtype=torch.float32)
+    a = torch.erf(lo / _SQRT2).item()
+    b = torch.erf(hi / _SQRT2).item()
+    out = _SQRT2 * erf_inv(uniform(key, shape, a, b))
+    inf = torch.tensor(float("inf"))
+    return out.clamp(torch.nextafter(lo, inf).item(),
+                     torch.nextafter(hi, -inf).item())
+
+
+def gumbel(key: torch.Tensor, shape: tuple) -> torch.Tensor:
+    """float32 standard Gumbel draws, ``jax.random.gumbel``'s 'low' mode."""
+    tiny = float(np.finfo(np.float32).tiny)
+    return -torch.log(-torch.log(uniform(key, shape, tiny, 1.0)))
+
+
+def categorical(key: torch.Tensor, logits: torch.Tensor) -> torch.Tensor:
+    """One draw a row from softmax(logits) over the last axis, by the
+    Gumbel-max trick as ``jax.random.categorical`` (replace=True) draws
+    it; int64 indices of logits' leading shape."""
+    return torch.argmax(gumbel(key, tuple(logits.shape)) + logits, dim=-1)

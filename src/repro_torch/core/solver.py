@@ -527,12 +527,12 @@ def _check_krn(cfg: SVMConfig) -> None:
             "route streams raw rows")
 
 
-def _device(device) -> torch.device:
+def _device(device, who: str = "PEMSVM") -> torch.device:
     if device is not None:
         return torch.device(device)
     if not torch.cuda.is_available():
         raise RuntimeError(
-            "PEMSVM runs on the GPU by default and no CUDA device is "
+            f"{who} runs on the GPU by default and no CUDA device is "
             "visible; pass device='cpu' to run the plain PyTorch path on "
             "the CPU")
     return torch.device("cuda", torch.cuda.current_device())

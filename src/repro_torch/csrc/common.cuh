@@ -92,6 +92,25 @@ __device__ __forceinline__ void store_tile(float* __restrict__ dst,
   }
 }
 
+// dst += the (BK x BK) tile, row-major (store_tile's layout): a tile
+// pass's running sum of its row blocks (gram_pipe.cuh's FLUSH_STAGES).
+__device__ __forceinline__ void add_tile(float* __restrict__ dst,
+                                         float acc[8][8]) {
+  const int tx = threadIdx.x % 16, ty = threadIdx.x / 16;
+#pragma unroll
+  for (int p = 0; p < 8; ++p) {
+    const int ai = (p < 4 ? 0 : 64) + ty * 4 + (p & 3);
+    float4* lo = reinterpret_cast<float4*>(dst + (int64_t)ai * BK + tx * 4);
+    float4* hi = reinterpret_cast<float4*>(dst + (int64_t)ai * BK + 64 +
+                                           tx * 4);
+    const float4 a = *lo, b = *hi;
+    *lo = make_float4(a.x + acc[p][0], a.y + acc[p][1], a.z + acc[p][2],
+                      a.w + acc[p][3]);
+    *hi = make_float4(b.x + acc[p][4], b.y + acc[p][5], b.z + acc[p][6],
+                      b.w + acc[p][7]);
+  }
+}
+
 // out[c] (K x K) = sum over S splits of the tile partials
 // part[S][T][C][BK][BK] of chain c, in split order: a thread an element of
 // lower tile t = blockIdx.y of chain c = blockIdx.z, reading the S

@@ -24,10 +24,20 @@
 // and the arrived stage s + 1 is prepared in shared memory (its i-block
 // scaled by w, or converted from bf16). One __syncthreads a stage. The
 // FMAs read the next row's fragments while they run (mma_stage).
-// The preparation rounds each product fl(x w) once, and every element of
-// the tile is one FMA chain over the split's rows in order, so the bits
-// depend only on the split plan: every caller of the engine on one plan
-// gives the bits of the staged pass it replaced.
+// The preparation rounds each product fl(x w) once. In Sigma's tiles
+// (gram_tiles, stat_tiles) a split of more than ONE_CHAIN_STAGES stages
+// (1,024 rows) sums in two levels: every element is one FMA chain over a
+// block of FLUSH_STAGES stages (256 rows) from 0, and the blocks join a
+// running sum at the tile's partial in row order. A single chain over a
+// 3,072-row split erred 3.6x cuBLAS's product in the 2-norm and, at the
+// granite head's hinge weights (1/gamma up to 1e6), pushed P's smallest
+// eigenvalue below 0 where float64 and cuBLAS kept it at 7-9
+// (chip_head_numerics.py); 256-row blocks err under half of cuBLAS's there,
+// for a few per cent more time (PERF.md section 6). A shorter split stays
+// one chain and keeps its bits: within 1.5x of cuBLAS's error there
+// (tests/test_torch_kernels_gpu.py holds both). The bits depend only on
+// the split plan, so every caller of gram_tiles and stat_tiles on one
+// plan gives the same bits.
 //
 // How a stage is copied, by the row alignment (the wrapper picks it):
 // - CopyF32<4>: fp32 with K % 4 == 0 and X 16-byte aligned: one 16-byte
@@ -396,8 +406,8 @@ struct CopyPair {
 // acc[p][q] += A[r][ai(p)] * B[r][bj(q)] over the stage's BN rows in
 // order. Thread (tx, ty) owns A rows 4ty..4ty+3 and 64+4ty..64+4ty+3 and
 // the same pattern of B columns in tx (common.cuh's store_tile layout), so
-// every element is one FMA chain over the rows. The next row's fragments
-// are read while this row's FMAs run.
+// every element is one FMA chain over the stage's rows. The next row's
+// fragments are read while this row's FMAs run.
 __device__ __forceinline__ void frag(float a[8], float b[8], const float* Ar,
                                      const float* Br, int tx, int ty) {
   const float4 a0 = *reinterpret_cast<const float4*>(Ar + ty * 4);
@@ -452,23 +462,36 @@ __device__ __forceinline__ float b_stage(const Copy& cp, const Operands& o,
   return bacc;
 }
 
+// Stages a row block of Sigma's tiles sums over before the block joins the
+// running sum (the header): a chain of 256 rows, then one add a block; a
+// split of at most ONE_CHAIN_STAGES stages is one chain.
+constexpr int FLUSH_STAGES = 8;
+constexpr int ONE_CHAIN_STAGES = 32;
+
 // The accumulator's destination in gram_tiles and stat_tiles: the tile,
-// row-major, at dst (a per-split partial).
+// row-major, at dst (a per-split partial): the first block is stored,
+// each later one added.
 struct StoreTile {
   float* dst;
   __device__ __forceinline__ void operator()(float (&acc)[8][8]) const {
     store_tile(dst, acc);
   }
+  __device__ __forceinline__ void add(float (&acc)[8][8]) const {
+    add_tile(dst, acc);
+  }
 };
 
 // One CTA: tile (bi, bj) over rows [r_begin, r_end), the accumulator
 // handed to ``epi`` (StoreTile: the partial); and b's block as bmode
-// says (b_stage), returned (0 with bmode 0). The
+// says (b_stage), returned (0 with bmode 0). With FLUSH > 0, on a split
+// of more than ONE_CHAIN_STAGES stages, the accumulator goes to ``epi``
+// every FLUSH stages (first ``epi(acc)``, then ``epi.add(acc)``) and
+// restarts from 0. The
 // stage s sits in slot s % SLOTS of the copy ring (CopyF32: 3 slots, so
 // the stage being copied, prepared and multiplied never share one;
 // CopyBf16: 2 raw and 2 operand slots, as it copies two stages ahead but
 // prepares into its own ring; CopyPair: 3 slots, nothing prepared).
-template <class Copy, class Epi>
+template <int FLUSH = 0, class Copy, class Epi>
 __device__ __forceinline__ float tile_pass(Copy& cp, const Tile& t,
                                            int64_t r_begin, const Epi& epi,
                                            int bmode = 0) {
@@ -508,6 +531,24 @@ __device__ __forceinline__ float tile_pass(Copy& cp, const Tile& t,
     if (bmode != 0 && threadIdx.x < BK)
       bacc = b_stage(cp, o, t, r_begin + (int64_t)st * BN, bmode, bacc);
     if (busy) mma_stage(acc, o.A, o.B);
+    if constexpr (FLUSH > 0) {
+      if (nst > ONE_CHAIN_STAGES && (st + 1) % FLUSH == 0 && st + 1 < nst) {
+        if (st + 1 == FLUSH)
+          epi(acc);
+        else
+          epi.add(acc);
+#pragma unroll
+        for (int p = 0; p < 8; ++p)
+#pragma unroll
+          for (int q = 0; q < 8; ++q) acc[p][q] = 0.f;
+      }
+    }
+  }
+  if constexpr (FLUSH > 0) {
+    if (nst > ONE_CHAIN_STAGES) {
+      epi.add(acc);
+      return bacc;
+    }
   }
   epi(acc);
   return bacc;
@@ -535,8 +576,8 @@ __global__ void __launch_bounds__(TILE_THREADS, 2)
   const Tile t{N, min64(N, r_begin + rows_per_split), K, bi * BK, bj * BK,
                bi == bj};
   Copy cp(X, w, smem);
-  tile_pass(cp, t, r_begin,
-            StoreTile{part + ((int64_t)s * ntiles + tt) * BK * BK});
+  tile_pass<FLUSH_STAGES>(
+      cp, t, r_begin, StoreTile{part + ((int64_t)s * ntiles + tt) * BK * BK});
 }
 
 // Launch gram_tiles for X of dtype T (float or bf16) on copy path Copy,
@@ -635,7 +676,7 @@ __global__ void __launch_bounds__(TILE_THREADS, 2)
   const Tile t{a.N, min64(a.N, r_begin + a.rows_per_split), a.K, bi * BK,
                bj * BK, bi == bj};
   Copy cp(X, a.wgt + (int64_t)c * a.N, smem, a.coef + (int64_t)c * a.N);
-  const float bacc = tile_pass(
+  const float bacc = tile_pass<FLUSH_STAGES>(
       cp, t, r_begin,
       StoreTile{a.part + ((s * a.ntiles + tt) * a.C + c) * BK * BK}, bmode);
   if (bmode != 0 && threadIdx.x < BK)

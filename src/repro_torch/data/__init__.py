@@ -6,5 +6,5 @@ from .pipeline import (ChunkPrefetcher, DevicePlacer, PageLock,  # noqa: F401
                        RetryStats, pad_features_to, reservoir_rows,
                        retrying_chunks, rows_to_device)
 from .synthetic import (make_alpha_like, make_blobs,  # noqa: F401
-                        make_circles, make_dna_like, make_mnist8m_like,
-                        make_year_like)
+                        make_circles, make_dna_like, make_lm_tokens,
+                        make_mnist8m_like, make_year_like)

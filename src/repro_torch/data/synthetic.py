@@ -8,7 +8,8 @@ that give arrays bitwise equal to the reference's for the same arguments.
 regression set YearPredictionMSD (515,345 x 90); ``make_blobs`` is the
 quickstart problem; ``make_circles`` is the kernel (KRN) problem, two
 rings no line separates; ``make_mnist8m_like`` the shape of its Table 8
-multiclass set mnist8m (10 classes, 784 pixel features).
+multiclass set mnist8m (10 classes, 784 pixel features);
+``make_lm_tokens`` is the token stream of the LM examples.
 """
 from __future__ import annotations
 
@@ -86,3 +87,19 @@ def make_circles(n: int = 400, seed: int = 0):
     X = np.stack([r * np.cos(th), r * np.sin(th)], 1).astype(np.float32)
     y = np.concatenate([np.ones(n // 2), -np.ones(n - n // 2)])
     return X, y.astype(np.float32)
+
+
+def make_lm_tokens(n_tokens: int, vocab: int, seed: int = 0,
+                   motif_len: int = 16, n_motifs: int = 64) -> np.ndarray:
+    """Synthetic token stream: Zipfian unigrams + repeated motifs so a
+    language model has learnable structure (loss decreases)."""
+    rng = np.random.default_rng(seed)
+    ranks = np.arange(1, vocab + 1, dtype=np.float64)
+    probs = (1.0 / ranks); probs /= probs.sum()
+    stream = rng.choice(vocab, size=n_tokens, p=probs).astype(np.int32)
+    motifs = rng.choice(vocab, size=(n_motifs, motif_len), p=probs)
+    n_insert = n_tokens // (motif_len * 4)
+    pos = rng.integers(0, max(1, n_tokens - motif_len), size=n_insert)
+    for p in pos:
+        stream[p:p + motif_len] = motifs[rng.integers(0, n_motifs)]
+    return stream

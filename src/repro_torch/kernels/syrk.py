@@ -21,12 +21,15 @@ the grid is (row split) x (lower-triangle 128 x 128 tile). Each CTA of
 stages of its two column blocks stream through a three-slot cp.async ring
 in shared memory, two stages ahead of the FMAs; the arrived stage's
 i-block is scaled by w in place, and a diagonal tile copies its one block
-once. It writes the tile as a per-split partial, and ``tri_finalize``
+once. Each element is one FMA chain of the once-rounded x w over the
+split's rows, or on a split of more than 1,024 rows over each block of
+256 rows, the blocks joining a running sum at the tile's per-split
+partial in row order (a single chain over a 3,072-row split was 3.6x
+less accurate than cuBLAS, enough to make P indefinite at the hinge
+weights of a max-margin head: ``chip_head_numerics.py``). ``tri_finalize``
 (csrc/common.cuh) sums the partials in split order and mirrors the upper
-triangle: deterministic, no atomics, and each sequential fp32 sum is at
-most 4096 rows long. Each element is one FMA chain over the split's rows
-of the once-rounded x w, so the bits depend only on the split plan (those
-of the staged tile pass the port ran before, on the same plan).
+triangle: deterministic, no atomics, the bits depending only on the split
+plan.
 Computing only the lower tiles halves the flops of the dense product.
 """
 from __future__ import annotations

@@ -1,18 +1,70 @@
-"""Serving driver, SVM mode: fit a few tenant models, export them, page
-them through a shared score cell and drive the threaded continuous-
-batching loop, then check every tenant's served scores bitwise against
-its ``decision_function``.
+"""Serving drivers.
+
+LM mode (default): build a dense decoder from its config (``--preset
+tiny`` is the reference's reduction, ``full`` the published widths),
+draw its weights from ``--seed``, prefill a batch of prompts made by
+``make_lm_tokens`` and decode ``--steps`` tokens, greedily or at
+``--temp``:
+
+    PYTHONPATH=src python -m repro_torch.launch.serve \\
+        --arch smollm-135m --preset tiny --batch 4 --prompt-len 32 --steps 16
+
+SVM mode: fit a few tenant models, export them, page them through a
+shared score cell and drive the threaded continuous-batching loop, then
+check every tenant's served scores bitwise against its
+``decision_function``:
 
     PYTHONPATH=src python -m repro_torch.launch.serve --mode svm \\
         --tenants 6 --requests 200 --family nystrom
 
-Runs on ``cuda:0`` unless ``--device cpu``. The LM mode (prefill and
-greedy decode) is ROADMAP queue 1 item 13.
+Runs on ``cuda:0`` unless ``--device cpu``.
 """
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import time
+
+
+def tiny(cfg):
+    """The reference's tiny reduction of a dense config."""
+    return dataclasses.replace(
+        cfg, n_layers=cfg.layer_period * 2, d_model=128, n_heads=4,
+        n_kv_heads=2 if cfg.n_kv_heads < cfg.n_heads else 4, head_dim=32,
+        d_ff=256 if cfg.d_ff else 0, vocab=2048)
+
+
+def main_lm(args) -> bool:
+    import torch
+
+    from repro_torch.configs import get_config
+    from repro_torch.data import make_lm_tokens
+    from repro_torch.models import build_model
+    from repro_torch.serving import generate
+
+    cfg = get_config(args.arch)
+    if args.preset == "tiny":
+        cfg = tiny(cfg)
+    model = build_model(cfg, args.device, q_chunk=min(512, args.prompt_len),
+                        kv_chunk=min(512, args.prompt_len))
+    model.init(args.seed)
+    tokens = make_lm_tokens(args.batch * args.prompt_len, cfg.vocab,
+                            seed=args.seed + 1).reshape(args.batch,
+                                                        args.prompt_len)
+    sync = (torch.cuda.synchronize if model.device.type == "cuda"
+            else lambda: None)
+    sync()
+    t0 = time.perf_counter()
+    out = generate(model, {"tokens": tokens}, steps=args.steps,
+                   cache_len=args.prompt_len + args.steps, temp=args.temp,
+                   seed=args.seed)
+    dt = time.perf_counter() - t0
+    print(f"{cfg.name} ({args.preset}, {model.num_params():,} parameters) "
+          f"on {model.device}")
+    print(f"generated {tuple(out.shape)} tokens in {dt:.2f}s "
+          f"({args.batch * args.steps / dt:.1f} tok/s)")
+    print("first sequences:", out[:2].tolist())
+    return tuple(out.shape) == (args.batch, args.steps)
 
 
 def main_svm(args) -> bool:
@@ -70,7 +122,13 @@ def main_svm(args) -> bool:
 
 def main(argv=None) -> int:
     ap = argparse.ArgumentParser()
-    ap.add_argument("--mode", default="svm", choices=["svm"])
+    ap.add_argument("--mode", default="lm", choices=["lm", "svm"])
+    ap.add_argument("--arch", default="smollm-135m")
+    ap.add_argument("--preset", default="tiny", choices=["tiny", "full"])
+    ap.add_argument("--batch", type=int, default=4)
+    ap.add_argument("--prompt-len", type=int, default=32)
+    ap.add_argument("--steps", type=int, default=16)
+    ap.add_argument("--temp", type=float, default=0.0)
     ap.add_argument("--seed", type=int, default=0)
     ap.add_argument("--tenants", type=int, default=4)
     ap.add_argument("--resident", type=int, default=4)
@@ -80,7 +138,8 @@ def main(argv=None) -> int:
     ap.add_argument("--device", default=None,
                     help="torch device (default: cuda:0)")
     args = ap.parse_args(argv)
-    return 0 if main_svm(args) else 1
+    ok = main_lm(args) if args.mode == "lm" else main_svm(args)
+    return 0 if ok else 1
 
 
 if __name__ == "__main__":

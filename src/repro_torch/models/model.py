@@ -1,0 +1,199 @@
+"""Model facade (``repro/models/model.py`` for the dense family).
+
+  build_model(cfg, device=None, **kw)  ->  Model with
+    .init(seed_or_key)                params (float32 master), installed
+    .load_params(tree)                install a parameter tree
+    .hidden_seq(batch)                (B, S, D) final hidden
+    .logits_seq(batch)                (B, S, V)
+    .prefill(batch, cache_len)        (last-token logits (B, V), caches)
+    .decode(tokens, pos, caches)      ((B, 1, V) logits, caches)
+    .init_cache(batch, cache_len, dtype)
+
+The model holds its parameters (an ``nn.Module`` whose submodules follow
+the reference's tree: ``weights.layers.pos0.attn.wq``), so the methods
+take no ``params`` argument. ``batch`` is a dict with the reference's key
+``tokens`` (B, S) ints, a numpy array or a tensor. Decode writes the new
+cache row in place and returns the same cache tensors; ``pos`` is a
+Python int.
+
+The compute dtype is ``cfg.dtype`` (bfloat16 for the assigned configs).
+The reference casts each float32 weight to it at each use; the model
+keeps one cast copy (``compute_params``), made when the weights are
+installed: the same bits, without reading the float32 weights and
+writing a fresh copy on every step. Norm scales stay float32.
+
+Runs on ``cuda:0`` unless the caller passes ``device``; with no card and
+no ``device`` it raises. The families other than ``dense`` (MoE, MLA,
+the Mamba hybrid, xLSTM, VLM, audio) are ROADMAP item 13c.
+"""
+from __future__ import annotations
+
+from typing import Any
+
+import torch
+from torch import nn
+
+from repro_torch.checkpoint.checkpointer import _tree_flatten_with_names
+from repro_torch.core import prng
+from repro_torch.core.solver import _device
+
+from . import transformer as tfm
+from .common import compute_dtype
+
+_UNPORTED = "ROADMAP item 13c"
+
+
+def _module(tree: dict) -> nn.Module:
+    m = nn.Module()
+    for k, v in tree.items():
+        if isinstance(v, dict):
+            m.add_module(k, _module(v))
+        else:
+            m.register_parameter(k, nn.Parameter(v, requires_grad=False))
+    return m
+
+
+def _tree(m: nn.Module) -> dict:
+    out: dict[str, Any] = dict(m.named_parameters(recurse=False))
+    out.update({k: _tree(c) for k, c in m.named_children()})
+    return out
+
+
+def _flat(tree: dict) -> dict:
+    """{leaf path: leaf}, paths as the reference's flattener names them."""
+    names, leaves, _ = _tree_flatten_with_names(tree)
+    return dict(zip(names, leaves))
+
+
+def _cast(tree: dict, dtype: torch.dtype) -> dict:
+    """The tree in the compute dtype, norm scales left float32."""
+    return {k: (_cast(v, dtype) if isinstance(v, dict)
+                else v.detach() if "norm" in k else v.detach().to(dtype))
+            for k, v in tree.items()}
+
+
+def param_shapes(cfg) -> dict:
+    """{leaf path: shape} of the decoder's parameters, named as the
+    reference's ``tree_flatten_with_path`` joined by "/" (drawn on the
+    meta device: shapes only)."""
+    tree = tfm.init_decoder(prng.PRNGKey(0, device="meta"), cfg)
+    return {k: tuple(v.shape) for k, v in _flat(tree).items()}
+
+
+class Model(nn.Module):
+    def __init__(self, cfg, device=None, *, q_chunk: int = 1024,
+                 kv_chunk: int = 1024, skip_masked_blocks: bool = False):
+        super().__init__()
+        if cfg.family != "dense":
+            raise NotImplementedError(
+                f"{cfg.name!r} is of the {cfg.family!r} family; the port has "
+                f"the dense GQA decoder, the others are {_UNPORTED}")
+        self.cfg = cfg
+        self.device = _device(device, "the model")
+        self.q_chunk, self.kv_chunk = q_chunk, kv_chunk
+        self.skip_masked_blocks = skip_masked_blocks
+        self.weights: nn.Module | None = None
+        self._compute: dict | None = None
+        # float32 products stay float32 (TF32 keeps ~3 decimal digits);
+        # both flags are process-wide in PyTorch.
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+
+    # ------------------------------------------------------------- params
+    def init(self, seed_or_key=0) -> dict:
+        """Draw the reference's parameters for this seed (an int) or key
+        (a (2,) key of ``core.prng``), install them and return them."""
+        if isinstance(seed_or_key, int):
+            key = prng.PRNGKey(seed_or_key, device=self.device)
+        else:
+            key = seed_or_key.to(self.device)
+        self.load_params(tfm.init_decoder(key, self.cfg))
+        return self.params
+
+    def load_params(self, tree: dict) -> None:
+        """Install a parameter tree (the reference's structure, float32)."""
+        want, got = param_shapes(self.cfg), _flat(tree)
+        if set(want) != set(got):
+            missing, extra = set(want) - set(got), set(got) - set(want)
+            raise ValueError(f"parameter names differ: missing "
+                             f"{sorted(missing)}, unexpected {sorted(extra)}")
+        bad = [k for k in want if tuple(got[k].shape) != want[k]]
+        if bad:
+            raise ValueError(f"parameter shapes differ at {bad}")
+
+        def place(t):
+            if isinstance(t, dict):
+                return {k: place(v) for k, v in t.items()}
+            return torch.as_tensor(t).to(self.device, torch.float32)
+        self.weights = _module(place(tree))
+        self._compute = _cast(self.params, compute_dtype(self.cfg))
+
+    @property
+    def params(self) -> dict:
+        """The float32 master parameters, the reference's tree."""
+        if self.weights is None:
+            raise RuntimeError("no parameters: call init or load_params")
+        return _tree(self.weights)
+
+    @property
+    def compute_params(self) -> dict:
+        """The parameters in the compute dtype (norm scales float32)."""
+        if self._compute is None:
+            raise RuntimeError("no parameters: call init or load_params")
+        return self._compute
+
+    def num_params(self) -> int:
+        return sum(p.numel() for p in self.parameters())
+
+    # ------------------------------------------------------------- embed
+    def _embed_in(self, batch, dtype):
+        tokens = torch.as_tensor(batch["tokens"]).to(self.device, torch.long)
+        h = tfm.embed_tokens(self.cfg, self.compute_params, tokens, dtype)
+        B, S = tokens.shape
+        positions = torch.arange(S, device=self.device).expand(B, S)
+        return h, positions
+
+    def _chunks(self) -> dict:
+        return dict(q_chunk=self.q_chunk, kv_chunk=self.kv_chunk,
+                    skip_masked_blocks=self.skip_masked_blocks)
+
+    # ---------------------------------------------------------- sequence
+    def hidden_seq(self, batch) -> torch.Tensor:
+        h, positions = self._embed_in(batch, compute_dtype(self.cfg))
+        return tfm.forward_seq(self.cfg, self.compute_params, h, positions,
+                               **self._chunks())
+
+    def unembed(self) -> torch.Tensor:
+        return tfm.unembed_matrix(self.cfg, self.params)
+
+    def _unembed_c(self) -> torch.Tensor:
+        return tfm.unembed_matrix(self.cfg, self.compute_params)
+
+    def logits_seq(self, batch) -> torch.Tensor:
+        h = self.hidden_seq(batch)
+        return h @ self._unembed_c().T
+
+    # ------------------------------------------------------------ serving
+    def init_cache(self, batch: int, cache_len: int, dtype=torch.bfloat16):
+        return tfm.init_cache(self.cfg, batch, cache_len, dtype, self.device)
+
+    def prefill(self, batch, cache_len: int):
+        h, positions = self._embed_in(batch, compute_dtype(self.cfg))
+        h, caches = tfm.forward_prefill(self.cfg, self.compute_params, h,
+                                        positions, cache_len,
+                                        **self._chunks())
+        logits = h[:, -1, :] @ self._unembed_c().T
+        return logits, caches
+
+    def decode(self, tokens, pos: int, caches):
+        """tokens: (B, 1) ints; pos: the index the tokens take."""
+        tokens = torch.as_tensor(tokens).to(self.device, torch.long)
+        h = tfm.embed_tokens(self.cfg, self.compute_params, tokens,
+                             compute_dtype(self.cfg))
+        h, caches = tfm.forward_decode(self.cfg, self.compute_params, h,
+                                       int(pos), caches)
+        return h @ self._unembed_c().T, caches
+
+
+def build_model(cfg, device=None, **kw) -> Model:
+    return Model(cfg, device, **kw)

@@ -42,7 +42,8 @@ _IMPORT = re.compile(
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in
     [*PORT.rglob("*.py"), ROOT / "chip_smoke.py",
-     ROOT / "chip_nystrom_numerics.py"]))
+     ROOT / "chip_nystrom_numerics.py", ROOT / "chip_head_numerics.py",
+     ROOT / "chip_krn_numerics.py", ROOT / "chip_decode_sync.py"]))
 def test_source_names_no_jax_or_repro_import(path):
     text = (ROOT / path).read_text()
     assert not _IMPORT.search(text), _IMPORT.search(text).group(0)

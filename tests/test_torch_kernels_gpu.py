@@ -187,6 +187,33 @@ def test_syrk_kernel(cuda, n, k, dtype, offset):
     _close_max(got, ref.syrk_tri(X.double(), wt.double()))
 
 
+@pytest.mark.parametrize("n", [6144, 1800])
+@pytest.mark.parametrize("kernel", ["syrk_tri", "weighted_gram"])
+def test_gram_at_hinge_weights_as_accurate_as_cublas(cuda, kernel, n):
+    """The max-margin head's regime: a quarter of the rows at the hinge
+    weigh 1/gamma up to 1e6. The kernel's Sigma is as close to float64 in
+    the 2-norm as the plain version's cuBLAS products (4,096-row splits),
+    within 1.5x: a single FMA chain over a 3,072-row split was 3.6x
+    further and made P indefinite (chip_head_numerics.py). At 6,144 rows
+    the splits sum 256-row blocks (0.46x); at 1,800 they are one chain of
+    at most 1,024 rows."""
+    g = np.random.default_rng(7)
+    k = 2049
+    X = g.normal(size=(n, k)) + g.normal(0.0, 0.05, size=k)
+    hinge = g.random(n) < 0.25
+    wt = np.where(hinge, 10.0 ** g.uniform(4, 6, n), g.uniform(0.5, 2, n))
+    X = torch.from_numpy(X.astype(np.float32)).to(cuda)
+    wt = torch.from_numpy(wt.astype(np.float32)).to(cuda)
+    got = getattr(ops, kernel)(X, wt)
+    plain = ref.weighted_gram(X, wt)
+    S64 = ref.weighted_gram(X.double(), wt.double())
+    err, perr = (torch.linalg.matrix_norm(S.double() - S64, ord=2).item()
+                 for S in (got, plain))
+    print(f"{kernel} {n}x{k} at hinge weights: |S - S64|_2 {err:.4e}, "
+          f"cuBLAS {perr:.4e}")
+    assert err <= 1.5 * perr, (err, perr)
+
+
 def test_wrappers_reject_bad_operands(cuda):
     X, rho, beta, w, _ = _problem(64, 8, torch.float32, cuda)
     with pytest.raises(TypeError):

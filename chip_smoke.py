@@ -378,6 +378,40 @@ shapes), in the order a, b, b, a.
    torch.einsum; nested rows smollm_head and granite_head of the kernels
    line. Every time printed beside nvidia-smi's name and power limit.
 
+19. LM training and the MoE family, run after phase 18 (ROADMAP items
+   13b and 13c's first family). (a) smollm-135m at full size, weights
+   from init(0), trained through the trainer's loop
+   (repro_torch.launch.train.train) on make_lm_tokens: 20 steps of 16 x
+   1,024 tokens, loss chunks 512, q / kv chunks 1,024, remat on, AdamW lr
+   1e-3, warmup 10, cosine to 20 (steps cut from 40 for time; the loss
+   has fallen from 10.9 to 7.8 by step 10). Gates: every loss finite, the mean of
+   the last 5 below the first. Printed: ms a step (median), tokens/s,
+   peak MiB, the model FLOP share 6 x params x tokens / step time / 989
+   TFLOP/s, the device's busy share over 2 profiled steps. Then one
+   float32 step with 2 layers at full width (2 x 256 tokens) on the card
+   against the same step on the CPU: loss and every gradient leaf within
+   1e-4 (of max|g|), the parameters after the update with rtol 1e-3 and
+   atol 1.5 x 2 lr (tests/test_torch_train.py's bands). (b) kill and
+   resume: 10 steps of 4 x 1,024 uninterrupted against 5, a snapshot
+   through the port's Checkpointer, a fresh model and state restored from
+   it, the batcher sought, and 5 more: every parameter and AdamW leaf
+   bitwise equal; a snapshot's copy and commit ms. (c) granite-moe-1b-
+   a400m at full size (24 layers, d 1,024, 32 experts top-8 of d_ff 512,
+   vocab 49,155; init(0), parameter count gated): 8 prompts of 512 tokens,
+   cache 576, prefill (median of 3), 32 decode steps, generate(64) twice
+   bitwise equal, the share of assignments dropped at the config's
+   capacity factor 1.25 in prefill and decode; at a factor that drops
+   nothing (32) teacher forcing and the bfloat16 logits_seq against a
+   float32 model's, each twice: every run routing for itself (printed,
+   with the share of routings that differ: a bfloat16 rounding flips a
+   top-8 choice at a near-tie) and with the reference run's expert ids
+   held (within 3e-2 of max|ref|, gated); then 12 train steps of 8 x
+   1,024 (cut from 20 for time; losses finite and falling as in (a); ms
+   a step, peak MiB, the dropped share, 2 profiled steps). The path runs
+   no kernel of the port: every launch
+   count stays 0, gated. Every time beside nvidia-smi's name and power
+   limit.
+
 Phase 11 runs last (it holds its exact KRN fit against phase 14's), kills
 fit 1 (2 x 2) after iteration 8 and resumes it on 4 x 1 within fit 1's
 bands against one device (rank 0 alone writing snapshots), drops shard 3
@@ -6012,6 +6046,440 @@ def _rel_max(a, b):
     return float(np.abs(a - b).max() / np.abs(b).max())
 
 
+# ---------------------------------------------------------------- phase 19
+TRAIN_ARCH, MOE_ARCH = "smollm-135m", "granite-moe-1b-a400m"
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 16, 1024, 20, 1e-3
+TRAIN_PROFILED = 2      # steps under the profiler (the busy share)
+RESUME_BATCH, RESUME_STEPS = 4, 10       # (b): killed after half
+MOE_BATCH, MOE_STEPS = 8, 12             # (c) training
+TRAIN_CPU_LAYERS = 2    # the float32 card-against-CPU step at full width
+TRAIN_F32_BAND = 1e-4   # loss and gradients (tests/test_torch_train.py)
+PEAK_BF16 = 989e12      # H100 SXM dense bf16 FLOP/s (the model FLOP share)
+
+
+def _train_log(*a):
+    say("   ", *a)
+
+
+def _falling(label, losses):
+    """Every loss finite and the mean of the last 5 below the first."""
+    ok = bool(np.all(np.isfinite(losses))) and \
+        float(np.mean(losses[-5:])) < losses[0]
+    check(ok, f"{label}: losses not finite and falling: {losses}")
+    return float(np.mean(losses[-5:]))
+
+
+def _step_ms(step_s):
+    """Median ms a step, the first two (warm-up) left out."""
+    return statistics.median(step_s[2:]) * 1e3
+
+
+def train_cpu_step(dev, cfg):
+    """(a)'s reduced check: one float32 train step at full width with
+    TRAIN_CPU_LAYERS layers on the card against the same step on the
+    CPU: loss within TRAIN_F32_BAND relative, every gradient leaf within
+    TRAIN_F32_BAND of max|g|, the parameters after the update with rtol
+    1e-3 and atol 1.5 x 2 lr."""
+    from repro_torch.checkpoint.checkpointer import (
+        _tree_flatten_with_names, _tree_unflatten)
+    from repro_torch.models import build_model
+    from repro_torch.training import (AdamWConfig, init_state,
+                                      make_loss_fn, make_train_step)
+    c2 = dataclasses.replace(cfg, n_layers=TRAIN_CPU_LAYERS, dtype="float32")
+    card = build_model(c2, dev, q_chunk=256, kv_chunk=256)
+    card.init(0)
+    cpu = build_model(c2, "cpu", q_chunk=256, kv_chunk=256)
+    cpu.load_params(card.params)
+    g = np.random.default_rng(3)
+    batch = {"tokens": g.integers(0, c2.vocab, (2, 256)).astype(np.int32),
+             "labels": g.integers(0, c2.vocab, (2, 256)).astype(np.int32)}
+
+    def vg(m):
+        names, leaves, td = _tree_flatten_with_names(m.params)
+        xs = [p.detach().requires_grad_(True) for p in leaves]
+        loss = make_loss_fn(m, loss_chunk=256)(_tree_unflatten(td, xs),
+                                               batch)
+        return loss.detach().cpu(), [x.cpu() for x in
+                                     torch.autograd.grad(loss, xs)], names
+    lg, gg, names = vg(card)
+    lc, gc, _ = vg(cpu)
+    dl = abs(lg.item() - lc.item()) / abs(lc.item())
+    dg = max(lm_rel(a, b) for a, b in zip(gg, gc))
+    opt = AdamWConfig(lr=TRAIN_LR, warmup_steps=1, total_steps=10)
+    sg, _ = make_train_step(card, opt, loss_chunk=256)(
+        {"params": card.params, "opt": init_state(card.params)}, batch)
+    sc, _ = make_train_step(cpu, opt, loss_chunk=256)(
+        {"params": cpu.params, "opt": init_state(cpu.params)}, batch)
+    worst = 0.0
+    for a, b in zip(_tree_flatten_with_names(sg["params"])[1],
+                    _tree_flatten_with_names(sc["params"])[1]):
+        a, b = a.double().cpu(), b.double()
+        excess = ((a - b).abs() - (1e-3 * b.abs() + 1.5 * 2 * TRAIN_LR))
+        worst = max(worst, excess.max().item())
+    say(f"  float32 step, {TRAIN_CPU_LAYERS} layers at full width, 2 x 256 "
+        f"tokens, the card against the CPU: loss {dl:.3e} (<= "
+        f"{TRAIN_F32_BAND}), gradients {dg:.3e} of max|g| over "
+        f"{len(names)} leaves (<= {TRAIN_F32_BAND}), parameters after the "
+        f"update {'within' if worst <= 0 else 'outside'} rtol 1e-3, atol "
+        f"{1.5 * 2 * TRAIN_LR:g}")
+    check(dl <= TRAIN_F32_BAND and dg <= TRAIN_F32_BAND and worst <= 0,
+          "the card's float32 train step is outside the CPU bands")
+
+
+def train_profile(dev, model, state, batch_size, seq):
+    """The device's busy share over TRAIN_PROFILED train steps (after one
+    unprofiled step) and its time by kernel."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data import make_lm_tokens
+    from repro_torch.training import AdamWConfig, make_train_step
+    step = make_train_step(model, AdamWConfig(lr=TRAIN_LR, warmup_steps=10,
+                                              total_steps=TRAIN_STEPS),
+                           loss_chunk=512)
+    toks = make_lm_tokens(batch_size * (seq + 1), model.cfg.vocab, seed=9
+                          ).reshape(batch_size, seq + 1)
+    batch = {"tokens": torch.from_numpy(toks[:, :-1].copy()).to(dev),
+             "labels": torch.from_numpy(toks[:, 1:].copy()).to(dev)}
+    state, _ = step(state, batch)                   # warm-up
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        for _ in range(TRAIN_PROFILED):
+            state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    say_profile(prof, secs, 8, f"profile of {TRAIN_PROFILED} train steps "
+                f"(under the profiler): {secs * 1e3:.1f} ms wall")
+    return state
+
+
+def lm_train(dev, cfg):
+    """Phase 19 (a): smollm-135m at full size trained through the
+    trainer's loop (``launch.train.train``)."""
+    from repro_torch.launch.train import train
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = train(cfg, steps=TRAIN_STEPS, batch=TRAIN_BATCH, seq=TRAIN_SEQ,
+                lr=TRAIN_LR, device=dev, log=_train_log)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses, model = out["losses"], out["model"]
+    n = model.num_params()
+    check(n == LM_PARAMS, f"{n} parameters, not {LM_PARAMS}")
+    last5 = _falling(f"(a) {cfg.name}", losses)
+    ms = _step_ms(out["step_s"])
+    tokens = TRAIN_BATCH * TRAIN_SEQ
+    mfu = 6 * n * tokens / (ms / 1e3) / PEAK_BF16
+    say(f"  (a) {cfg.name} trained {TRAIN_STEPS} steps of {TRAIN_BATCH} x "
+        f"{TRAIN_SEQ} tokens (remat, loss chunks 512, q / kv chunks 1,024, "
+        f"AdamW lr {TRAIN_LR}, warmup 10) in {wall:.1f} s ({smi()}): "
+        f"{ms:.1f} ms a step (median), {tokens / (ms / 1e3):.0f} tokens/s, "
+        f"model FLOP share {mfu:.4f} of {PEAK_BF16 / 1e12:.0f} TFLOP/s "
+        f"(6 x {n:,} x {tokens} / step), peak {peak / 2**20:.0f} MiB; "
+        f"loss {losses[0]:.4f} -> {losses[-1]:.4f} (mean of the last 5 "
+        f"{last5:.4f}); monitor {out['monitor']}")
+    train_profile(dev, model, out["state"], TRAIN_BATCH, TRAIN_SEQ)
+    del out, model
+    torch.cuda.empty_cache()
+    train_cpu_step(dev, cfg)
+
+
+def lm_resume(dev, cfg):
+    """Phase 19 (b): RESUME_STEPS steps uninterrupted against half of
+    them, a snapshot, a fresh model and state restored from it (the
+    batcher sought to the snapshot's step) and the other half: the
+    parameters and AdamW state bitwise equal. Then a snapshot's cost."""
+    import shutil
+    import tempfile
+
+    from repro_torch.checkpoint import Checkpointer
+    from repro_torch.checkpoint.checkpointer import _tree_flatten_with_names
+    from repro_torch.launch.train import train
+    quiet = dict(steps=RESUME_STEPS, batch=RESUME_BATCH, seq=TRAIN_SEQ,
+                 lr=TRAIN_LR, device=dev, log=lambda *a: None)
+    tmp = Path(tempfile.mkdtemp(prefix="phase19_"))
+    try:
+        whole = train(cfg, **quiet)["state"]
+        half = RESUME_STEPS // 2
+        d = str(tmp / "ck")
+        train(cfg, ckpt_dir=d, ckpt_every=half, stop_at=half, **quiet)
+        check(Checkpointer(d).latest_step() == half,
+              "(b) no snapshot at the kill")
+        out = train(cfg, ckpt_dir=d, ckpt_every=half, **quiet)
+        a, b = (_tree_flatten_with_names(whole),
+                _tree_flatten_with_names(out["state"]))
+        same = a[0] == b[0] and all(
+            x.device == dev and torch.equal(x, y)
+            for x, y in zip(a[1], b[1]))
+        nbytes = sum(x.numel() * x.element_size() for x in a[1])
+        ck = Checkpointer(str(tmp / "cost"))
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        ck.save(RESUME_STEPS, out["state"])
+        copy = time.perf_counter() - t0
+        ck.wait()
+        commit = time.perf_counter() - t0
+        say(f"  (b) {RESUME_STEPS} steps of {RESUME_BATCH} x {TRAIN_SEQ} "
+            f"uninterrupted against {half}, a snapshot, a fresh model "
+            f"restored at step {out['start_step']} and {len(out['losses'])} "
+            f"more: {len(a[0])} leaves (parameters, m, v, step) bitwise "
+            f"equal {same}; a snapshot of {nbytes / 2**20:.0f} MiB: copy "
+            f"{copy * 1e3:.1f} ms, commit {commit * 1e3:.1f} ms ({smi()})")
+        check(same and out["start_step"] == half,
+              "(b) the resumed run is not bitwise the uninterrupted run")
+    finally:
+        shutil.rmtree(tmp, ignore_errors=True)
+    torch.cuda.empty_cache()
+
+
+class RouteLog:
+    """Records the MoE's kept share (``mlp._slots``) of the calls made
+    inside the block; ``share()`` the dropped share over them."""
+
+    def __enter__(self):
+        from repro_torch.models import mlp
+        self.mlp, self.orig = mlp, mlp._slots
+        self.kept = []
+        self.total = 0
+
+        def slots(eidx, e0, E_loc, C):
+            out = self.orig(eidx, e0, E_loc, C)
+            self.kept.append(out[0].sum())
+            self.total += out[0].numel()
+            return out
+        mlp._slots = slots
+        return self
+
+    def __exit__(self, *a):
+        self.mlp._slots = self.orig
+        return False
+
+    def dropped(self) -> float:
+        if not self.kept:
+            return float("nan")
+        return 1.0 - torch.stack(self.kept).sum().item() / self.total
+
+
+def moe_serve(dev, cfg):
+    """Phase 19 (c), serving: granite-moe-1b-a400m at full size."""
+    from repro_torch.data import make_lm_tokens
+    from repro_torch.models import build_model, mlp
+    from repro_torch.serving import (generate, make_decode_step,
+                                     make_prefill_step)
+    model = build_model(cfg, dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.init(0)
+    torch.cuda.synchronize()
+    n = model.num_params()
+    say(f"  {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
+        f"{cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.head_dim}, "
+        f"{cfg.n_experts} experts top-{cfg.top_k} of d_ff {cfg.moe_d_ff}, "
+        f"capacity factor {cfg.moe_capacity_factor}, vocab {cfg.vocab}, "
+        f"tied {cfg.tie_embeddings}; {n:,} float32 parameters drawn from "
+        f"seed 0 on the card in {time.perf_counter() - t0:.2f} s")
+    check(n == cfg.num_params(), f"{n} parameters, not {cfg.num_params()}")
+    stream = make_lm_tokens(LM_BATCH * (LM_PROMPT + 1), cfg.vocab, seed=1
+                            ).reshape(LM_BATCH, LM_PROMPT + 1)
+    prompts = {"tokens": stream[:, :LM_PROMPT]}
+    prefill = make_prefill_step(model, LM_CACHE)
+    decode = make_decode_step(model)
+    prefill(prompts)                                   # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    pre = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        with RouteLog() as rp:
+            tok, caches = prefill(prompts)
+        torch.cuda.synchronize()
+        pre.append(time.perf_counter() - t0)
+    steps = []
+    with RouteLog() as rd:
+        for i in range(LM_TIMED_STEPS):
+            t0 = time.perf_counter()
+            tok, lg, caches = decode(tok[:, None], LM_PROMPT + i, caches)
+            torch.cuda.synchronize()
+            steps.append(time.perf_counter() - t0)
+    check(bool(torch.isfinite(lg.float()).all()), "decode logits not finite")
+    del caches
+    a = generate(model, prompts, steps=LM_STEPS, cache_len=LM_CACHE)
+    b = generate(model, prompts, steps=LM_STEPS, cache_len=LM_CACHE)
+    peak = torch.cuda.max_memory_allocated()
+    check(tuple(a.shape) == (LM_BATCH, LM_STEPS) and torch.equal(a, b),
+          "two greedy generate calls differ")
+    p_s, d_s = statistics.median(pre), statistics.median(steps)
+    say(f"  (c) serve {LM_BATCH} x {LM_PROMPT} prompts, cache {LM_CACHE} "
+        f"({smi()}): prefill {p_s * 1e3:.2f} ms median of 3 "
+        f"({LM_BATCH * LM_PROMPT / p_s:.0f} tokens/s); decode "
+        f"{d_s * 1e3:.3f} ms a step, median of {LM_TIMED_STEPS} "
+        f"({LM_BATCH / d_s:.0f} tokens/s); generate({LM_STEPS}) bitwise "
+        f"equal twice; peak {peak / 2**20:.0f} MiB; dropped at the "
+        f"factor {cfg.moe_capacity_factor}: prefill "
+        f"{rp.dropped():.4f} of the assignments (C = "
+        f"{mlp.capacity(cfg, LM_BATCH * LM_PROMPT)}), decode "
+        f"{rd.dropped():.4f} (C = {mlp.capacity(cfg, LM_BATCH)})")
+    return model, stream
+
+
+class RouteTape:
+    """Records the expert ids of each ``mlp._route`` call inside the
+    block (``replay=None``), or replays a record: each call then takes
+    the ids ``replay(i, ids)`` gives for call i (ids the record's), with
+    gates from this model's own float32 router probabilities at those
+    ids, renormalised as ``_route`` does. Holding the routes equal leaves
+    only the arithmetic's difference between two runs."""
+
+    def __init__(self, replay=None, record=None):
+        self.replay, self.record = replay, record
+        self.ids = []
+
+    def __enter__(self):
+        from repro_torch.models import mlp
+        self.mlp, self.orig = mlp, mlp._route
+
+        def route(x2d, router_w, top_k):
+            if self.replay is None:
+                gates, eidx = self.orig(x2d, router_w, top_k)
+                self.ids.append(eidx)
+                return gates, eidx
+            eidx = self.replay(len(self.ids), self.record[len(self.ids)])
+            self.ids.append(eidx)
+            probs = torch.softmax(x2d.float() @ router_w.float(), dim=-1)
+            gates = torch.gather(probs, 1, eidx.long())
+            return (gates / gates.sum(-1, keepdim=True).clamp_min(1e-9),
+                    eidx)
+        mlp._route = route
+        return self
+
+    def __exit__(self, *a):
+        self.mlp._route = self.orig
+        return False
+
+
+def route_flips(a, b) -> float:
+    """The share of (layer, token) routings whose expert sets differ."""
+    diff = sum(int((x.sort(-1).values != y.sort(-1).values).any(-1).sum())
+               for x, y in zip(a, b))
+    return diff / sum(x.shape[0] for x in a)
+
+
+def moe_bands(dev, model, stream):
+    """(c)'s bands at a capacity factor that drops nothing (E: every
+    expert has a slot for every assignment): teacher forcing (decode of
+    token LM_PROMPT after prefill against logits_seq there) and the
+    bfloat16 logits_seq against a float32 model's on the same weights.
+    A bfloat16 rounding flips a top-8 choice wherever the 8th and 9th
+    router probabilities nearly tie, and a flip moves that token's
+    output by about a gate's share of an expert's (PERF.md section 6), so
+    each pair is compared twice: with each run routing for itself
+    (printed, with the share of routings that differ) and with the
+    reference run's routes held (RouteTape; within LM_BF16_BAND of
+    max|ref|, gated)."""
+    from repro_torch.models import build_model
+    cfg = dataclasses.replace(model.cfg,
+                              moe_capacity_factor=float(model.cfg.n_experts))
+    B, S = LM_BATCH, LM_PROMPT + 1
+    nd = build_model(cfg, dev)
+    nd.use_params(model.params)
+    prompts = {"tokens": stream[:, :LM_PROMPT]}
+    with RouteLog() as r, RouteTape() as full_routes:
+        full = nd.logits_seq({"tokens": stream})
+
+    def teacher(replay):
+        tapes = []
+        with RouteTape((lambda i, ids: ids.reshape(B, S, -1)[
+                :, :LM_PROMPT].reshape(B * LM_PROMPT, -1)) if replay
+                else None, full_routes.ids) as t:
+            _, caches = nd.prefill(prompts, LM_CACHE)
+        tapes.append(t)
+        with RouteTape((lambda i, ids: ids.reshape(B, S, -1)[
+                :, LM_PROMPT]) if replay else None, full_routes.ids) as t:
+            lg, _ = nd.decode(stream[:, LM_PROMPT:], LM_PROMPT, caches)
+        tapes.append(t)
+        return lm_rel(lg[:, 0], full[:, LM_PROMPT]), tapes
+    tf_free, (pre_t, dec_t) = teacher(False)
+    at_prompt = [ids.reshape(B, S, -1)[:, LM_PROMPT] for ids in
+                 full_routes.ids]
+    tf_flips = route_flips(dec_t.ids, at_prompt)
+    tf, _ = teacher(True)
+    m32 = build_model(dataclasses.replace(cfg, dtype="float32"), dev)
+    m32.use_params(model.params)
+    with RouteTape() as r32:
+        f32 = m32.logits_seq({"tokens": stream})
+    b16_free = lm_rel(full, f32)
+    flips = route_flips(full_routes.ids, r32.ids)
+    agree = (full.argmax(-1) == f32.argmax(-1)).double().mean().item()
+    with RouteTape(lambda i, ids: ids, r32.ids):
+        held = nd.logits_seq({"tokens": stream})
+    b16 = lm_rel(held, f32)
+    say(f"  (c) at the factor {cfg.moe_capacity_factor:g} (dropped "
+        f"{r.dropped():.4f}): teacher forcing, each run routing for "
+        f"itself, {tf_free:.3e} of max|ref| ({tf_flips:.4f} of the "
+        f"decoded token's routings differ from logits_seq's); with "
+        f"logits_seq's routes held {tf:.3e} (<= {LM_BF16_BAND}); bfloat16 "
+        f"logits_seq against float32 on the same weights, each routing "
+        f"for itself, {b16_free:.3e} ({flips:.4f} of the {B * S} x "
+        f"{cfg.n_layers} routings differ; argmax equal at {agree:.4f} of "
+        f"{B * S} positions); with float32's routes held {b16:.3e} (<= "
+        f"{LM_BF16_BAND})")
+    check(tf <= LM_BF16_BAND, "(c) teacher forcing outside its band")
+    check(b16 <= LM_BF16_BAND, "(c) bfloat16 forward outside its band")
+    del nd, m32, full, f32, held
+
+
+def moe_train(dev, cfg):
+    """Phase 19 (c), training: MOE_STEPS steps of MOE_BATCH x TRAIN_SEQ."""
+    from repro_torch.launch.train import train
+    from repro_torch.models import mlp
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    with RouteLog() as r:
+        out = train(cfg, steps=MOE_STEPS, batch=MOE_BATCH, seq=TRAIN_SEQ,
+                    lr=TRAIN_LR, device=dev, log=_train_log)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses = out["losses"]
+    last5 = _falling(f"(c) {cfg.name}", losses)
+    ms = _step_ms(out["step_s"])
+    n = out["model"].num_params()
+    state_b = 16 * n
+    say(f"  (c) {cfg.name} trained {MOE_STEPS} steps of {MOE_BATCH} x "
+        f"{TRAIN_SEQ} tokens in {wall:.1f} s ({smi()}): {ms:.1f} ms a step "
+        f"(median), {MOE_BATCH * TRAIN_SEQ / (ms / 1e3):.0f} tokens/s; "
+        f"peak {peak / 2**20:.0f} MiB (parameters, gradients, m and v: "
+        f"{state_b / 2**20:.0f} MiB); dropped at the factor "
+        f"{cfg.moe_capacity_factor}: {r.dropped():.4f} of the assignments "
+        f"(C = {mlp.capacity(cfg, MOE_BATCH * TRAIN_SEQ)}); loss "
+        f"{losses[0]:.4f} -> {losses[-1]:.4f} (mean of the last 5 "
+        f"{last5:.4f}); monitor {out['monitor']}")
+    train_profile(dev, out["model"], out["state"], MOE_BATCH, TRAIN_SEQ)
+    del out
+    torch.cuda.empty_cache()
+
+
+def phase_train(dev):
+    """Phase 19: LM training and the MoE family (see the module
+    docstring). The path runs no kernel of the port: every count stays
+    0."""
+    from repro_torch.configs import get_config
+    _zero_counts()
+    cfg = get_config(TRAIN_ARCH)
+    lm_train(dev, cfg)
+    lm_resume(dev, cfg)
+    moe = get_config(MOE_ARCH)
+    model, stream = moe_serve(dev, moe)
+    moe_bands(dev, model, stream)
+    del model
+    torch.cuda.empty_cache()
+    moe_train(dev, moe)
+    c = _counts()
+    check(all(v == 0 for v in c.values()), f"phase 19 launched {c}")
+
+
 SOURCES = {
     "fused_stats": ("src/repro_torch/csrc/fused_stats.cu",
                     "src/repro/kernels/fused_stats.py:155"),
@@ -6140,6 +6608,10 @@ def main() -> int:
               "syrk_tri)")
     for name, extra in phase_lm(dev).items():
         rows[name].update(extra)
+    stamp(t0, "== 19. LM training: smollm-135m at full size trained and "
+              "killed and resumed; granite-moe-1b-a400m at full size served "
+              "and trained")
+    phase_train(dev)
     stamp(t0, "== 11. the multi-device fit: a 2 x 2 (data x k) mesh and a 4 "
               "x 1 one, four gloo ranks on cuda:0; a one-rank NCCL group")
     runs.update(phase_mesh(dev, krn_ref, mc_ref, exact_ref))

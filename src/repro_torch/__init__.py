@@ -26,6 +26,10 @@ Ported so far:
 * one device, or a ``torch.distributed`` DeviceMesh (data-parallel, or
   2-D with ``k_shard_axis``);
 * the slice of ``jax.random`` the samplers need (``core/prng.py``);
+* the LM substrate (``models/``, ``training/``, ``serving/``): the dense
+  and MoE GQA decoders served (prefill, KV-cache decode, sampling) and
+  trained (AdamW, chunked cross-entropy, remat, micro-batching;
+  ``launch/train.py``), and ``MaxMarginHead`` over their features;
 * all eight kernels of the reference, hand-written in CUDA for sm_90a
   (``csrc/``): ``fused_stats`` (em_hinge, mc_hinge, em_svr, mc_svr; noise
   operands or the in-kernel counter RNG; multichain; column windows),

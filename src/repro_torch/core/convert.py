@@ -5,7 +5,8 @@ Every function takes plain Python and numpy values, never objects of
 ``repro``, so this module imports nothing of it: a caller passes
 ``dataclasses.asdict(reference_config)``, ``FitResult.weights``, the
 fields of a reference ``ServableModel`` or of a reference ``FitResult``,
-or a model's parameters flattened to {leaf path: numpy array}.
+or a model's parameters (or a train state) flattened to {leaf path: numpy
+array}.
 """
 from __future__ import annotations
 
@@ -161,12 +162,56 @@ def lm_params_from_reference(cfg_fields: dict, flat: dict, device=None,
     fields = {k: tuple(v) if isinstance(v, list) else v
               for k, v in cfg_fields.items()}
     model = build_model(ModelConfig(**fields), device, **model_kw)
+    model.load_params(_nest({k: np.array(v, np.float32)
+                             for k, v in flat.items()}))
+    return model
+
+
+def _nest(flat: dict) -> dict:
+    """{"a/b/c": array} -> {"a": {"b": {"c": tensor}}}."""
     tree: dict = {}
     for path, value in flat.items():
         *parents, leaf = path.split("/")
         node = tree
         for p in parents:
             node = node.setdefault(p, {})
-        node[leaf] = torch.from_numpy(np.array(value, np.float32))
-    model.load_params(tree)
-    return model
+        node[leaf] = torch.from_numpy(np.asarray(value))
+    return tree
+
+
+def train_state_from_reference(cfg_fields: dict, flat: dict, device=None,
+                               **model_kw) -> tuple[Model, dict]:
+    """The port's model and train state ``{"params", "opt": {"m", "v",
+    "step"}}`` from a reference train state flattened to {leaf path: numpy
+    array} ("params/embed/table", "opt/m/embed/table", ..., "opt/step",
+    as the checkpoint flattener names them). The model holds the
+    parameters; the state's parameters are its tensors."""
+    groups: dict = {"params": {}, "opt/m": {}, "opt/v": {}}
+    step = None
+    for path, value in flat.items():
+        if path == "opt/step":
+            step = torch.tensor(np.asarray(value), dtype=torch.int32)
+            continue
+        head = next((g for g in groups if path.startswith(g + "/")), None)
+        if head is None:
+            raise ValueError(f"{path!r} is not a leaf of a train state "
+                             "(params/..., opt/m/..., opt/v/..., opt/step)")
+        groups[head][path[len(head) + 1:]] = np.array(value, np.float32)
+    if step is None:
+        raise ValueError("the train state has no opt/step")
+    model = lm_params_from_reference(cfg_fields, groups["params"], device,
+                                     **model_kw)
+    moments = {}
+    for g in ("opt/m", "opt/v"):
+        if set(groups[g]) != set(groups["params"]):
+            raise ValueError(f"{g} and params name different leaves")
+        moments[g[-1]] = _to(_nest(groups[g]), model.device)
+    return model, {"params": model.params,
+                   "opt": {"m": moments["m"], "v": moments["v"],
+                           "step": step.to(model.device)}}
+
+
+def _to(tree, device):
+    if isinstance(tree, dict):
+        return {k: _to(v, device) for k, v in tree.items()}
+    return tree.to(device)

@@ -38,10 +38,21 @@ constexpr float MU_MAX = 0x1.7d784p+26f;      // float32(1e8)
 constexpr float INV_MU_MAX = 0x1.5798eep-27f;  // float32(1e-8)
 constexpr float F32_TINY = 0x1p-126f;          // finfo(float32).tiny
 
+// max / min as jnp.maximum / jnp.minimum take them: NaN in either operand
+// gives NaN. fmaxf / fminf return the other operand instead, which would
+// turn a NaN margin into gamma = eps. For operands that are not NaN these
+// are fmaxf / fminf, bit for bit.
+__device__ __forceinline__ float max_nan(float a, float b) {
+  return isnan(a) ? a : isnan(b) ? b : fmaxf(a, b);
+}
+__device__ __forceinline__ float min_nan(float a, float b) {
+  return isnan(a) ? a : isnan(b) ? b : fminf(a, b);
+}
+
 // em_hinge: gamma = max(eps, |rho - m|) (paper Eq. 9 and the Sec 5.7.3
 // clamp).
 __device__ __forceinline__ float em_gamma(float rho, float m, float eps) {
-  return fmaxf(fabsf(__fsub_rn(rho, m)), eps);
+  return max_nan(fabsf(__fsub_rn(rho, m)), eps);
 }
 
 // Michael-Schucany-Haas IG(mu, 1) transform of (nu, u).
@@ -53,7 +64,7 @@ __device__ __forceinline__ float ig_transform(float mu, float nu, float u) {
   const float d = __fadd_rn(__fmul_rn(__fmul_rn(4.0f, mu), y),
                             __fmul_rn(muy, muy));
   float x = __fsub_rn(a, __fmul_rn(h, __fsqrt_rn(d)));
-  x = fmaxf(x, F32_TINY);  // the sqrt may overshoot mu by an ulp
+  x = max_nan(x, F32_TINY);  // the sqrt may overshoot mu by an ulp
   const float accept = __fdiv_rn(mu, __fadd_rn(mu, x));
   return u <= accept ? x : __fdiv_rn(__fmul_rn(mu, mu), x);
 }
@@ -63,9 +74,10 @@ __device__ __forceinline__ float ig_transform(float mu, float nu, float u) {
 __device__ __forceinline__ float ig_gamma(float residual, float nu, float u,
                                           float eps) {
   const float r = fabsf(residual);
-  const float mu = fminf(__fdiv_rn(1.0f, fmaxf(r, INV_MU_MAX)), MU_MAX);
+  const float mu =
+      min_nan(__fdiv_rn(1.0f, max_nan(r, INV_MU_MAX)), MU_MAX);
   const float inv_gamma = ig_transform(mu, nu, u);
-  return fmaxf(__fdiv_rn(1.0f, fmaxf(inv_gamma, INV_MU_MAX)), eps);
+  return max_nan(__fdiv_rn(1.0f, max_nan(inv_gamma, INV_MU_MAX)), eps);
 }
 
 // mc_hinge: the Gibbs draw on the residual rho - m.
@@ -117,8 +129,8 @@ __device__ __forceinline__ void row_epilogue(float rho, float m,
   const float res = __fsub_rn(rho, m);
   const float lo = __fsub_rn(res, eps_ins), hi = __fadd_rn(res, eps_ins);
   if (EPI == EM_SVR) {
-    g = fmaxf(fabsf(lo), eps);
-    o = fmaxf(fabsf(hi), eps);
+    g = max_nan(fabsf(lo), eps);
+    o = max_nan(fabsf(hi), eps);
   } else {
     g = ig_gamma(lo, nu[0], u[0], eps);
     o = ig_gamma(hi, nu[1], u[1], eps);

@@ -29,6 +29,7 @@
 // partial a CTA; sum_partials adds those in CTA order. No atomics, so b is
 // repeatable run to run.
 #include "common.cuh"
+#include "epilogues.cuh"
 
 namespace rt {
 
@@ -156,7 +157,7 @@ __global__ void __launch_bounds__(ESTEP_THREADS, 3)
       load_seg<T, VEC16>(x, X + row * (int64_t)K, K, lane);
       const float rh = __ldg(rho + row), bt = __ldg(beta + row);
       const float m = warp_sum(seg_dot<false>(x, ws, K, lane, 0.f));
-      const float g = fmaxf(fabsf(rh - m), eps);
+      const float g = max_nan(fabsf(rh - m), eps);
       const float cf = rh / g + bt;
       if (lane == 0) {
         margin[row] = m;
@@ -179,7 +180,7 @@ __global__ void __launch_bounds__(ESTEP_THREADS, 3)
     }
     const float m = warp_sum(s);
     const float rh = __ldg(rho + row);
-    const float g = fmaxf(fabsf(rh - m), eps);
+    const float g = max_nan(fabsf(rh - m), eps);
     if (lane == 0) {
       margin[row] = m;
       gamma[row] = g;

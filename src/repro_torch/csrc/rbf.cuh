@@ -46,6 +46,7 @@
 // of the row-major form.
 #pragma once
 
+#include "epilogues.cuh"
 #include "gram_pipe.cuh"
 
 namespace rt {
@@ -87,7 +88,7 @@ static inline void launch_row_sqnorm(const T* X, int64_t N, int D, float* sq,
 __device__ __forceinline__ float rbf_value(float sq1, float sq2, float dot,
                                            float inv_two_sigma_sq) {
   const float d2 =
-      fmaxf(__fadd_rn(__fsub_rn(sq1, __fmul_rn(2.0f, dot)), sq2), 0.0f);
+      max_nan(__fadd_rn(__fsub_rn(sq1, __fmul_rn(2.0f, dot)), sq2), 0.0f);
   return expf(__fmul_rn(-d2, inv_two_sigma_sq));
 }
 

@@ -13,7 +13,8 @@ waits on the copy's event; no host synchronize is involved.
 ``rows_to_device`` is the same path for the resident fit's set-up, and
 the serving cells place each request bucket the same way.
 ``reservoir_rows`` draws Nystrom landmarks from a chunk source in one
-pass. (``ShardedBatcher``, the LM token batcher, is ROADMAP item 13.)
+pass. ``ShardedBatcher`` is the LM trainer's token batcher on one device;
+its mesh placement is ROADMAP item 13d.
 """
 from __future__ import annotations
 
@@ -487,3 +488,96 @@ def rows_to_device(X: np.ndarray, out: torch.Tensor,
             out[r0:r0 + src.shape[0], :D].copy_(src, non_blocking=True)
         placer.retire(j % 2, placer.stream)
     cur.wait_stream(placer.stream)
+
+
+class ShardedBatcher:
+    """Iterates (tokens, targets) batches from a token stream (the
+    reference's ``ShardedBatcher`` on one device).
+
+    Targets are next-token shifted. The windows of ``seq_len + 1`` tokens
+    are visited in ``np.random.default_rng(seed).permutation`` order, so
+    every batch is the reference's integer for integer. State is the step
+    counter; ``seek`` restores the position after a restart, also in the
+    middle of an iteration: the prefetch worker tags every queued batch
+    with a generation counter, ``seek`` bumps it, and batches prefetched
+    before it are dropped (the worker restarts from the new step). The
+    worker builds each batch as int32 host arrays, page-locked when the
+    device is a card; the consumer copies them to ``device`` (a
+    non-blocking copy on the current stream). ``mesh`` placement is
+    ROADMAP item 13d."""
+
+    def __init__(self, stream: np.ndarray, batch: int, seq_len: int,
+                 mesh=None, prefetch: int = 2, seed: int = 0, device=None):
+        if mesh is not None:
+            raise NotImplementedError(
+                "ShardedBatcher on a mesh is ROADMAP item 13d (the LM on a "
+                "mesh); the port places batches on one device")
+        self.stream = stream
+        self.batch, self.seq_len = batch, seq_len
+        self.prefetch = prefetch
+        self.device = torch.device("cpu" if device is None else device)
+        self.step = 0
+        self._gen = 0
+        n_windows = (len(stream) - 1) // seq_len
+        self.n_windows = n_windows
+        self.rng = np.random.default_rng(seed)
+        self._order = self.rng.permutation(n_windows)
+
+    def seek(self, step: int) -> None:
+        # Order matters: the worker re-reads ``step`` only after it
+        # observes the generation bump.
+        self.step = step
+        self._gen += 1
+
+    def _host_batch(self, step: int):
+        idx = [self._order[(step * self.batch + i) % self.n_windows]
+               for i in range(self.batch)]
+        toks = np.stack([self.stream[j * self.seq_len:
+                                     j * self.seq_len + self.seq_len + 1]
+                         for j in idx])
+        return toks[:, :-1].astype(np.int32), toks[:, 1:].astype(np.int32)
+
+    def _stage(self, arrs):
+        out = tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in arrs)
+        if self.device.type == "cuda":
+            out = tuple(t.pin_memory() for t in out)
+        return out
+
+    def _place(self, staged):
+        return tuple(t.to(self.device, non_blocking=True) for t in staged)
+
+    def __iter__(self) -> Iterator:
+        q: queue.Queue = queue.Queue(maxsize=self.prefetch)
+        stop = threading.Event()
+
+        def worker():
+            gen = -1
+            s = 0
+            while not stop.is_set():
+                if gen != self._gen:
+                    gen = self._gen
+                    s = self.step
+                item = (gen, s, self._stage(self._host_batch(s)))
+                placed = False
+                while not stop.is_set() and gen == self._gen:
+                    try:
+                        q.put(item, timeout=0.2)
+                        placed = True
+                        break
+                    except queue.Full:
+                        continue
+                if placed:
+                    s += 1
+
+        t = threading.Thread(target=worker, daemon=True)
+        t.start()
+        try:
+            while True:
+                gen, s, arrs = q.get()
+                if gen != self._gen:
+                    continue  # stale: prefetched before the last seek()
+                self.step = s + 1
+                yield self._place(arrs)
+        finally:
+            stop.set()
+            t.join(timeout=1.0)

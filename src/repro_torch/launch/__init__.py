@@ -1,1 +1,1 @@
-"""Command-line drivers of the port (``serve.py``)."""
+"""Command-line drivers of the port (``serve.py``, ``train.py``)."""

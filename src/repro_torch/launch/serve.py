@@ -1,7 +1,8 @@
 """Serving drivers.
 
-LM mode (default): build a dense decoder from its config (``--preset
-tiny`` is the reference's reduction, ``full`` the published widths),
+LM mode (default): build a dense or MoE decoder from its config
+(``--preset tiny`` is the reference's reduction, ``full`` the published
+widths),
 draw its weights from ``--seed``, prefill a batch of prompts made by
 ``make_lm_tokens`` and decode ``--steps`` tokens, greedily or at
 ``--temp``:
@@ -22,16 +23,7 @@ Runs on ``cuda:0`` unless ``--device cpu``.
 from __future__ import annotations
 
 import argparse
-import dataclasses
 import time
-
-
-def tiny(cfg):
-    """The reference's tiny reduction of a dense config."""
-    return dataclasses.replace(
-        cfg, n_layers=cfg.layer_period * 2, d_model=128, n_heads=4,
-        n_kv_heads=2 if cfg.n_kv_heads < cfg.n_heads else 4, head_dim=32,
-        d_ff=256 if cfg.d_ff else 0, vocab=2048)
 
 
 def main_lm(args) -> bool:
@@ -42,9 +34,9 @@ def main_lm(args) -> bool:
     from repro_torch.models import build_model
     from repro_torch.serving import generate
 
-    cfg = get_config(args.arch)
-    if args.preset == "tiny":
-        cfg = tiny(cfg)
+    from .train import preset
+
+    cfg = preset(get_config(args.arch), args.preset)
     model = build_model(cfg, args.device, q_chunk=min(512, args.prompt_len),
                         kv_chunk=min(512, args.prompt_len))
     model.init(args.seed)

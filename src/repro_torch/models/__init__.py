@@ -1,3 +1,4 @@
-"""Model zoo: the dense GQA decoder behind the reference's facade
-(``build_model`` / ``Model``). The other families are ROADMAP item 13c."""
+"""Model zoo: the dense and MoE GQA decoders behind the reference's
+facade (``build_model`` / ``Model``). The other families are ROADMAP
+item 13c."""
 from .model import Model, build_model  # noqa: F401

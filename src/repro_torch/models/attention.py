@@ -11,6 +11,11 @@ dtype before the PV product, which also sums in float32. Decode forms its
 scores in the operand dtype and casts them up after, as the reference
 does.
 
+In training each (q, kv) block is checkpointed (non-reentrant), as the
+reference wraps its block in ``jax.checkpoint``: the backward pass
+recomputes the block's scores and probabilities instead of keeping every
+block's, and the q chunks' outputs are joined with ``torch.cat``.
+
 GQA layout: q is grouped as (B, S, KVH, G, dh), so no repeated K/V is
 materialized. Mesh islands (sequence-parallel attention, the decode
 island) are ROADMAP item 13d.
@@ -18,6 +23,7 @@ island) are ROADMAP item 13d.
 from __future__ import annotations
 
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from . import rotary
 from .common import dense_init, split_keys
@@ -28,6 +34,23 @@ _NEG_INF = -1e30
 # --------------------------------------------------------------------------
 # blockwise attention core
 # --------------------------------------------------------------------------
+def _block(m_run, l_run, acc, qb, kb, vb, q_pos, kv_pos, scale: float,
+           v_dtype: torch.dtype):
+    """One (q, kv) block of the online softmax: the running (m, l, acc)
+    after it. ``q_pos`` / ``kv_pos`` are None without the causal mask."""
+    s = torch.einsum("bqhgd,bkhd->bhgqk", qb, kb) * scale
+    if q_pos is not None:
+        s = torch.where(q_pos[:, None] >= kv_pos[None, :], s, _NEG_INF)
+    m_new = torch.maximum(m_run, s.amax(dim=-1))
+    p = torch.exp(s - m_new[..., None])
+    corr = torch.exp(m_run - m_new)
+    l_run = l_run * corr + p.sum(dim=-1)
+    # the reference rounds p to the value dtype before the product
+    p = p.to(v_dtype).float()
+    acc = acc * corr[..., None] + torch.einsum("bhgqk,bkhd->bhgqd", p, vb)
+    return m_new, l_run, acc
+
+
 def blockwise_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
                    causal: bool = True, q_offset: int = 0,
                    q_chunk: int = 1024, kv_chunk: int = 1024,
@@ -48,11 +71,13 @@ def blockwise_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
     nq, nkv = Sq // qc, Skv // kvc
     scale = dh ** -0.5
     dev = q.device
+    remat = torch.is_grad_enabled() and any(
+        t.requires_grad for t in (q, k, v))
 
     qf = q.float().reshape(B, Sq, KVH, G, dh)
     kf = k.float()
     vf = v.float()
-    out = torch.empty(B, Sq, KVH, G, dv, dtype=torch.float32, device=dev)
+    outs = []
     for iq in range(nq):
         qb = qf[:, iq * qc:(iq + 1) * qc]          # (B, qc, KVH, G, dh)
         q_pos = q_offset + iq * qc + torch.arange(qc, device=dev)
@@ -64,24 +89,17 @@ def blockwise_attn(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, *,
             if (causal and skip_masked_blocks
                     and ikv * kvc > q_offset + iq * qc + qc - 1):
                 continue
-            kb = kf[:, ikv * kvc:(ikv + 1) * kvc]  # (B, kvc, KVH, dh)
-            s = torch.einsum("bqhgd,bkhd->bhgqk", qb, kb) * scale
-            if causal:
-                kv_pos = ikv * kvc + torch.arange(kvc, device=dev)
-                mask = q_pos[:, None] >= kv_pos[None, :]
-                s = torch.where(mask, s, _NEG_INF)
-            m_new = torch.maximum(m_run, s.amax(dim=-1))
-            p = torch.exp(s - m_new[..., None])
-            corr = torch.exp(m_run - m_new)
-            l_run = l_run * corr + p.sum(dim=-1)
-            # the reference rounds p to the value dtype before the product
-            p = p.to(v.dtype).float()
-            vb = vf[:, ikv * kvc:(ikv + 1) * kvc]
-            acc = acc * corr[..., None] + torch.einsum(
-                "bhgqk,bkhd->bhgqd", p, vb)
-            m_run = m_new
+            kv_pos = ikv * kvc + torch.arange(kvc, device=dev)
+            args = (m_run, l_run, acc, qb, kf[:, ikv * kvc:(ikv + 1) * kvc],
+                    vf[:, ikv * kvc:(ikv + 1) * kvc],
+                    q_pos if causal else None, kv_pos if causal else None,
+                    scale, v.dtype)
+            m_run, l_run, acc = (checkpoint(_block, *args,
+                                            use_reentrant=False)
+                                 if remat else _block(*args))
         o = acc / l_run.clamp_min(1e-30)[..., None]  # (B, KVH, G, qc, dv)
-        out[:, iq * qc:(iq + 1) * qc] = o.permute(0, 3, 1, 2, 4)
+        outs.append(o.permute(0, 3, 1, 2, 4))
+    out = outs[0] if nq == 1 else torch.cat(outs, dim=1)
     return out.reshape(B, Sq, H, dv).to(q.dtype)
 
 

@@ -1,9 +1,12 @@
-"""Model facade (``repro/models/model.py`` for the dense family).
+"""Model facade (``repro/models/model.py`` for the dense and MoE
+families).
 
   build_model(cfg, device=None, **kw)  ->  Model with
     .init(seed_or_key)                params (float32 master), installed
-    .load_params(tree)                install a parameter tree
-    .hidden_seq(batch)                (B, S, D) final hidden
+    .load_params(tree)                install a parameter tree (a copy)
+    .use_params(tree)                 adopt a tree's tensors (no copy)
+    .hidden_seq(batch, params=, remat=)  (B, S, D) final hidden
+    .unembed(params=)                 the (V, D) output matrix
     .logits_seq(batch)                (B, S, V)
     .prefill(batch, cache_len)        (last-token logits (B, V), caches)
     .decode(tokens, pos, caches)      ((B, 1, V) logits, caches)
@@ -17,17 +20,24 @@ cache row in place and returns the same cache tensors; ``pos`` is a
 Python int.
 
 The compute dtype is ``cfg.dtype`` (bfloat16 for the assigned configs).
-The reference casts each float32 weight to it at each use; the model
-keeps one cast copy (``compute_params``), made when the weights are
-installed: the same bits, without reading the float32 weights and
-writing a fresh copy on every step. Norm scales stay float32.
+The reference casts each float32 weight to it at each use. Serving
+(``prefill``, ``decode``, ``hidden_seq`` without ``params``) uses one
+cast copy (``compute_params``), made on first use after the weights
+change: the same bits, without reading the float32 weights and writing a
+fresh copy on every step. Norm scales and the MoE router stay float32.
+Training passes the float32 masters as ``params``: ``hidden_seq`` then
+casts them inside the autograd graph at each period, as the reference
+does, so the gradients land on the float32 leaves (``training/``); an
+optimizer update installs its new tensors with ``use_params``, which
+drops the cast copy.
 
 Runs on ``cuda:0`` unless the caller passes ``device``; with no card and
-no ``device`` it raises. The families other than ``dense`` (MoE, MLA,
-the Mamba hybrid, xLSTM, VLM, audio) are ROADMAP item 13c.
+no ``device`` it raises. The families other than ``dense`` and ``moe``
+(MLA, the Mamba hybrid, xLSTM, VLM, audio) are ROADMAP item 13c.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
@@ -65,33 +75,45 @@ def _flat(tree: dict) -> dict:
     return dict(zip(names, leaves))
 
 
-def _cast(tree: dict, dtype: torch.dtype) -> dict:
-    """The tree in the compute dtype, norm scales left float32."""
-    return {k: (_cast(v, dtype) if isinstance(v, dict)
-                else v.detach() if "norm" in k else v.detach().to(dtype))
+def _detached(tree: dict) -> dict:
+    return {k: _detached(v) if isinstance(v, dict) else v.detach()
             for k, v in tree.items()}
 
 
 def param_shapes(cfg) -> dict:
     """{leaf path: shape} of the decoder's parameters, named as the
     reference's ``tree_flatten_with_path`` joined by "/" (drawn on the
-    meta device: shapes only)."""
+    meta device: shapes only; a few seconds at full size, so kept a
+    config)."""
+    return dict(_param_shapes(cfg))
+
+
+@functools.lru_cache(maxsize=None)
+def _param_shapes(cfg) -> dict:
     tree = tfm.init_decoder(prng.PRNGKey(0, device="meta"), cfg)
     return {k: tuple(v.shape) for k, v in _flat(tree).items()}
 
 
 class Model(nn.Module):
     def __init__(self, cfg, device=None, *, q_chunk: int = 1024,
-                 kv_chunk: int = 1024, skip_masked_blocks: bool = False):
+                 kv_chunk: int = 1024, skip_masked_blocks: bool = False,
+                 remat_policy: str = "nothing"):
         super().__init__()
-        if cfg.family != "dense":
+        if cfg.family not in ("dense", "moe"):
             raise NotImplementedError(
                 f"{cfg.name!r} is of the {cfg.family!r} family; the port has "
-                f"the dense GQA decoder, the others are {_UNPORTED}")
+                f"the dense and MoE GQA decoders, the others are "
+                f"{_UNPORTED}")
+        for j in range(cfg.layer_period):
+            tfm.block_ffn(cfg, j)      # raises for an unported block kind
+        if remat_policy not in tfm.REMAT_POLICIES:
+            raise ValueError(f"remat_policy {remat_policy!r} is not one of "
+                             f"{tfm.REMAT_POLICIES}")
         self.cfg = cfg
         self.device = _device(device, "the model")
         self.q_chunk, self.kv_chunk = q_chunk, kv_chunk
         self.skip_masked_blocks = skip_masked_blocks
+        self.remat_policy = remat_policy
         self.weights: nn.Module | None = None
         self._compute: dict | None = None
         # float32 products stay float32 (TF32 keeps ~3 decimal digits);
@@ -125,8 +147,14 @@ class Model(nn.Module):
             if isinstance(t, dict):
                 return {k: place(v) for k, v in t.items()}
             return torch.as_tensor(t).to(self.device, torch.float32)
-        self.weights = _module(place(tree))
-        self._compute = _cast(self.params, compute_dtype(self.cfg))
+        self.use_params(place(tree))
+
+    def use_params(self, tree: dict) -> None:
+        """Adopt the tensors of a parameter tree (float32, on the model's
+        device, the reference's structure) as the model's parameters,
+        without a copy; the cast copy is made again on its next use."""
+        self.weights = _module(tree)
+        self._compute = None
 
     @property
     def params(self) -> dict:
@@ -137,18 +165,21 @@ class Model(nn.Module):
 
     @property
     def compute_params(self) -> dict:
-        """The parameters in the compute dtype (norm scales float32)."""
+        """The parameters in the compute dtype (norm scales and the router
+        float32)."""
         if self._compute is None:
-            raise RuntimeError("no parameters: call init or load_params")
+            self._compute = tfm.cast_tree(_detached(self.params),
+                                          compute_dtype(self.cfg))
         return self._compute
 
     def num_params(self) -> int:
         return sum(p.numel() for p in self.parameters())
 
     # ------------------------------------------------------------- embed
-    def _embed_in(self, batch, dtype):
+    def _embed_in(self, batch, dtype, params=None):
         tokens = torch.as_tensor(batch["tokens"]).to(self.device, torch.long)
-        h = tfm.embed_tokens(self.cfg, self.compute_params, tokens, dtype)
+        h = tfm.embed_tokens(self.cfg, self.compute_params if params is None
+                             else params, tokens, dtype)
         B, S = tokens.shape
         positions = torch.arange(S, device=self.device).expand(B, S)
         return h, positions
@@ -158,13 +189,25 @@ class Model(nn.Module):
                     skip_masked_blocks=self.skip_masked_blocks)
 
     # ---------------------------------------------------------- sequence
-    def hidden_seq(self, batch) -> torch.Tensor:
-        h, positions = self._embed_in(batch, compute_dtype(self.cfg))
-        return tfm.forward_seq(self.cfg, self.compute_params, h, positions,
+    def hidden_seq(self, batch, *, params: dict | None = None,
+                   remat: bool = False) -> torch.Tensor:
+        """The final hidden states. Without ``params`` the model's own
+        weights (the cast copy); with ``params`` (float32 masters, the
+        reference's tree) the training forward: cast inside the graph,
+        each period checkpointed under ``remat`` by ``remat_policy``."""
+        dtype = compute_dtype(self.cfg)
+        h, positions = self._embed_in(batch, dtype, params)
+        if params is None:
+            return tfm.forward_seq(self.cfg, self.compute_params, h,
+                                   positions, **self._chunks())
+        return tfm.forward_seq(self.cfg, params, h, positions, remat=remat,
+                               remat_policy=self.remat_policy, cast=dtype,
                                **self._chunks())
 
-    def unembed(self) -> torch.Tensor:
-        return tfm.unembed_matrix(self.cfg, self.params)
+    def unembed(self, params: dict | None = None) -> torch.Tensor:
+        """The float32 (V, D) output matrix (the tied table where tied)."""
+        return tfm.unembed_matrix(self.cfg, self.params if params is None
+                                  else params)
 
     def _unembed_c(self) -> torch.Tensor:
         return tfm.unembed_matrix(self.cfg, self.compute_params)

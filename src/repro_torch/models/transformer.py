@@ -1,28 +1,40 @@
-"""The decoder stack of the dense family (``repro/models/transformer.py``
-in PyTorch).
+"""The decoder stack of the dense and MoE families
+(``repro/models/transformer.py`` in PyTorch).
 
 Parameters are stacked over periods as in the reference: every leaf under
 ``params["layers"]["pos{j}"]`` has a leading (n_layers / period) axis, so
-the reference's tree carries across leaf by leaf. A dense model's period
-is one layer; the stack runs as a Python loop in which layer i takes
-``leaf[i]`` of each leaf (a view). Caches are stacked the same way and
-decode writes each layer's new row in place.
+the reference's tree carries across leaf by leaf. The stack runs as a
+Python loop over periods, each taking its slice of every stacked leaf
+(``torch.unbind``, whose backward stacks the slices' gradients). Caches
+are stacked the same way and decode writes each layer's new row in place.
 
-The apply functions take the parameter tree in the compute dtype (the
-reference casts each weight with ``.astype(x.dtype)`` at each use; the
-model keeps that copy once, ``Model.compute_params``), norm scales in
-float32. The other block kinds (MLA, MoE, Mamba, xLSTM) are ROADMAP item
-13c.
+The apply functions take the parameter tree in the compute dtype, norm
+scales and the MoE router in float32. Serving hands them the model's cast
+copy (``Model.compute_params``); training hands ``forward_seq`` the
+float32 masters with ``cast=dtype``, and each period casts its slice
+inside the autograd graph, as the reference casts with ``.astype`` at each
+use, so the gradients land on the float32 leaves. ``remat=True``
+recomputes each period in the backward pass (``torch.utils.checkpoint``,
+non-reentrant); ``remat_policy="dots"`` keeps the outputs of the matrix
+products (selective activation checkpointing), as the reference's
+``checkpoint_dots``. The other block kinds (MLA, Mamba, xLSTM) are ROADMAP
+item 13c.
 """
 from __future__ import annotations
 
+import functools
 from typing import Any
 
 import torch
+import torch.nn.functional as F
+from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
+                                    create_selective_checkpoint_contexts)
 
 from . import attention as attn
 from . import mlp
 from .common import embed_init, rms_norm, split_keys
+
+_PORTED = (("gqa", "swiglu"), ("gqa", "moe"))
 
 
 # --------------------------------------------------------------- structure
@@ -36,23 +48,43 @@ def block_kind(cfg, j: int) -> tuple[str, str | None]:
     return mixer, ffn
 
 
-def _dense_only(cfg, j: int) -> None:
-    if block_kind(cfg, j) != ("gqa", "swiglu"):
+def block_ffn(cfg, j: int) -> str:
+    """The block's FFN kind; raises for the block kinds not ported."""
+    kind = block_kind(cfg, j)
+    if kind not in _PORTED:
         raise NotImplementedError(
-            f"block {block_kind(cfg, j)} of {cfg.name!r} is not ported; the "
-            "port has the dense GQA decoder (ROADMAP item 13c)")
+            f"block {kind} of {cfg.name!r} is not ported; the port has the "
+            "GQA decoder with a SwiGLU or MoE FFN (ROADMAP item 13c)")
+    return kind[1]
 
 
 def init_block(key, cfg, j: int) -> dict:
-    _dense_only(cfg, j)
+    ffn = block_ffn(cfg, j)
     ks = split_keys(key, 2)
     dev = key.device
-    return {
-        "norm1": torch.ones(cfg.d_model, device=dev),
-        "attn": attn.init_gqa(ks[0], cfg),
-        "norm2": torch.ones(cfg.d_model, device=dev),
-        "ffn": mlp.init_swiglu(ks[1], cfg.d_model, cfg.d_ff, cfg.n_layers),
-    }
+    p = {"norm1": torch.ones(cfg.d_model, device=dev),
+         "attn": attn.init_gqa(ks[0], cfg),
+         "norm2": torch.ones(cfg.d_model, device=dev)}
+    if ffn == "moe":
+        p["moe"] = mlp.init_moe(ks[1], cfg)
+    else:
+        p["ffn"] = mlp.init_swiglu(ks[1], cfg.d_model, cfg.d_ff,
+                                   cfg.n_layers)
+    return p
+
+
+def _keeps_float32(name: str) -> bool:
+    """Leaves the apply functions read in float32: norm scales and the
+    MoE router (the reference routes in float32)."""
+    return "norm" in name or name == "router"
+
+
+def cast_tree(tree: dict, dtype: torch.dtype) -> dict:
+    """The tree in the compute dtype, norm scales and the router left
+    float32; differentiable (the model's serving copy detaches first)."""
+    return {k: (cast_tree(v, dtype) if isinstance(v, dict)
+                else v if _keeps_float32(k) else v.to(dtype))
+            for k, v in tree.items()}
 
 
 def _stack(trees: list) -> Any:
@@ -61,12 +93,12 @@ def _stack(trees: list) -> Any:
     return torch.stack(trees)
 
 
-def _index(tree, i: int) -> Any:
+def _unstack(tree, n: int) -> list:
+    """The n slices of a tree stacked on its leading axis."""
     if isinstance(tree, dict):
-        return {k: _index(v, i) for k, v in tree.items()}
-    if isinstance(tree, tuple):
-        return tuple(_index(v, i) for v in tree)
-    return tree[i]
+        parts = {k: _unstack(v, n) for k, v in tree.items()}
+        return [{k: parts[k][i] for k in tree} for i in range(n)]
+    return list(torch.unbind(tree))
 
 
 def init_decoder(key, cfg, *, with_embed: bool = True) -> dict:
@@ -95,7 +127,7 @@ def init_decoder(key, cfg, *, with_embed: bool = True) -> dict:
 # ------------------------------------------------------------------ caches
 def init_block_cache(cfg, j: int, batch: int, cache_len: int, dtype,
                      device=None):
-    _dense_only(cfg, j)
+    block_ffn(cfg, j)
     kv = (batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
     return (torch.zeros(kv, dtype=dtype, device=device),
             torch.zeros(kv, dtype=dtype, device=device))
@@ -116,15 +148,21 @@ def init_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16,
 
 
 # ------------------------------------------------------------- block apply
+def _ffn(cfg, p, hn):
+    """The block's FFN: the MoE where the block has one, else SwiGLU."""
+    if "moe" in p:
+        return mlp.moe_apply(cfg, p["moe"], hn)
+    return mlp.swiglu(p["ffn"], hn)
+
+
 def apply_block_seq(cfg, p, j: int, h, positions, *, q_chunk, kv_chunk,
                     skip_masked_blocks=False):
-    """A dense block (the only kind ``init_block`` makes)."""
     hn = rms_norm(h, p["norm1"], cfg.norm_eps)
     h = h + attn.gqa_train(cfg, p["attn"], hn, positions, q_chunk=q_chunk,
                            kv_chunk=kv_chunk,
                            skip_masked_blocks=skip_masked_blocks)
     hn = rms_norm(h, p["norm2"], cfg.norm_eps)
-    return h + mlp.swiglu(p["ffn"], hn)
+    return h + _ffn(cfg, p, hn)
 
 
 def apply_block_prefill(cfg, p, j, h, positions, cache_len, *, q_chunk,
@@ -136,7 +174,7 @@ def apply_block_prefill(cfg, p, j, h, positions, cache_len, *, q_chunk,
                                   skip_masked_blocks=skip_masked_blocks)
     h = h + mix
     hn = rms_norm(h, p["norm2"], cfg.norm_eps)
-    return h + mlp.swiglu(p["ffn"], hn), cache
+    return h + _ffn(cfg, p, hn), cache
 
 
 def apply_block_decode(cfg, p, j, h, pos: int, cache):
@@ -144,14 +182,16 @@ def apply_block_decode(cfg, p, j, h, pos: int, cache):
     mix, cache = attn.gqa_decode(cfg, p["attn"], hn, pos, cache)
     h = h + mix
     hn = rms_norm(h, p["norm2"], cfg.norm_eps)
-    return h + mlp.swiglu(p["ffn"], hn), cache
+    return h + _ffn(cfg, p, hn), cache
 
 
 # ----------------------------------------------------------------- forward
 def embed_tokens(cfg, params, tokens, dtype):
     # gather first, cast after: avoids materializing a casted copy of the
-    # full (V, D) table per step
-    return params["embed"]["table"][tokens].to(dtype)
+    # full (V, D) table per step. ``F.embedding``'s backward on the card
+    # sorts the ids and sums each row's gradients in a fixed order (no
+    # atomics), so a train step's table gradient is repeatable bit for bit.
+    return F.embedding(tokens, params["embed"]["table"]).to(dtype)
 
 
 def unembed_matrix(cfg, params):
@@ -161,25 +201,60 @@ def unembed_matrix(cfg, params):
 
 def _periods(cfg, params):
     """Each period's parameters: layer i's slice of every stacked leaf."""
-    return [_index(params["layers"], i)
-            for i in range(cfg.n_layers // cfg.layer_period)]
+    return _unstack(params["layers"], cfg.n_layers // cfg.layer_period)
+
+
+# aten ops whose outputs the 'dots' policy keeps: the matrix products
+# (``@`` and ``einsum`` reach these).
+_DOTS = (torch.ops.aten.mm.default, torch.ops.aten.bmm.default,
+         torch.ops.aten.addmm.default, torch.ops.aten.baddbmm.default)
+
+
+def _save_dots(ctx, op, *args, **kwargs):
+    return (CheckpointPolicy.MUST_SAVE if op in _DOTS
+            else CheckpointPolicy.PREFER_RECOMPUTE)
+
+
+REMAT_POLICIES = ("nothing", "dots")
 
 
 def forward_seq(cfg, params, h, positions, *, q_chunk: int = 1024,
-                kv_chunk: int = 1024, skip_masked_blocks: bool = False):
-    """Body of full-sequence passes: h (B, S, D) -> final hidden."""
-    for period_params in _periods(cfg, params):
+                kv_chunk: int = 1024, skip_masked_blocks: bool = False,
+                remat: bool = False, remat_policy: str = "nothing",
+                cast: torch.dtype | None = None):
+    """Body of full-sequence passes: h (B, S, D) -> final hidden.
+
+    ``cast``: the layers' parameters are float32 masters, cast to this
+    dtype inside each period. ``remat``: checkpoint each period (when
+    autograd records), keeping what ``remat_policy`` names: 'nothing'
+    (the period's input only) or 'dots' (also the products' outputs)."""
+    if remat_policy not in REMAT_POLICIES:
+        raise ValueError(f"remat_policy {remat_policy!r} is not one of "
+                         f"{REMAT_POLICIES}")
+
+    def period(h, pp):
+        if cast is not None:
+            pp = cast_tree(pp, cast)
         for j in range(cfg.layer_period):
-            h = apply_block_seq(cfg, period_params[f"pos{j}"], j, h,
-                                positions, q_chunk=q_chunk,
-                                kv_chunk=kv_chunk,
+            h = apply_block_seq(cfg, pp[f"pos{j}"], j, h, positions,
+                                q_chunk=q_chunk, kv_chunk=kv_chunk,
                                 skip_masked_blocks=skip_masked_blocks)
+        return h
+
+    kw = {}
+    if remat_policy == "dots":
+        kw["context_fn"] = functools.partial(
+            create_selective_checkpoint_contexts, _save_dots)
+    remat = remat and torch.is_grad_enabled()
+    for pp in _periods(cfg, params):
+        h = (checkpoint(period, h, pp, use_reentrant=False, **kw) if remat
+             else period(h, pp))
     return rms_norm(h, params["final_norm"], cfg.norm_eps)
 
 
 def forward_prefill(cfg, params, h, positions, cache_len, *, q_chunk=1024,
                     kv_chunk=1024, skip_masked_blocks=False):
-    per = {f"pos{j}": [] for j in range(cfg.layer_period)}
+    per: dict = {f"pos{j}": [] for j in range(cfg.layer_period)}
     for period_params in _periods(cfg, params):
         for j in range(cfg.layer_period):
             h, cache = apply_block_prefill(

@@ -1,0 +1,139 @@
+"""The train step: chunked cross-entropy, AdamW, remat, micro-batching
+(``repro/training/train_step.py`` in PyTorch).
+
+Chunked loss: the final hidden states go through the unembedding a
+sequence chunk at a time; each chunk's (B, C, V) logits are float32, give
+their loss contribution and are dropped, and the backward pass recomputes
+them (``torch.utils.checkpoint``, non-reentrant), so the full (B, S, V)
+logits never exist.
+
+``make_train_step`` returns ``train_step(state, batch) -> (state,
+metrics)`` over ``state = {"params", "opt"}``, the reference's tree. The
+gradients are taken with respect to the float32 masters (the forward
+casts them inside the graph, ``Model.hidden_seq(params=...)``); the
+update is ``optimizer.apply_updates``, and the new parameters are
+installed in the model (``Model.use_params``), so its serving methods see
+them. The step is repeatable bit for bit on the card: no sum in its
+backward depends on the order of atomic adds (the embedding's gradient
+sorts the token ids and sums each row in a fixed order; the MoE's adds
+each assignment's gradient to a row of its own, and only exact zeros
+collide; see ``models/transformer.py`` and ``models/mlp.py``).
+"""
+from __future__ import annotations
+
+from typing import Callable
+
+import torch
+from torch.utils.checkpoint import checkpoint
+
+from repro_torch.checkpoint.checkpointer import (_tree_flatten_with_names,
+                                                 _tree_unflatten)
+
+from . import optimizer as opt
+
+
+def _chunk_loss(h, w, lab, z_loss: float):
+    logits = (h @ w.T).float()                           # (B, c, V)
+    lse = torch.logsumexp(logits, dim=-1)
+    gold = torch.gather(logits, -1, lab[..., None])[..., 0]
+    loss = torch.sum(lse - gold)
+    if z_loss:
+        loss = loss + z_loss * torch.sum(torch.square(lse))
+    return loss
+
+
+def chunked_softmax_xent(hidden: torch.Tensor, unembed: torch.Tensor,
+                         labels: torch.Tensor, *, chunk: int = 512,
+                         z_loss: float = 0.0) -> torch.Tensor:
+    """Mean next-token cross-entropy. hidden: (B, S, D); unembed: (V, D);
+    labels: (B, S) ints. Chunks add up in order, in float32."""
+    B, S, D = hidden.shape
+    c = min(chunk, S)
+    if S % c:
+        raise ValueError(f"sequence {S} is not a multiple of the loss "
+                         f"chunk {c}")
+    w = unembed.to(hidden.dtype)
+    labels = labels.to(hidden.device, torch.long)
+    remat = torch.is_grad_enabled() and (hidden.requires_grad
+                                         or w.requires_grad)
+    total = torch.zeros((), dtype=torch.float32, device=hidden.device)
+    for i in range(S // c):
+        args = (hidden[:, i * c:(i + 1) * c], w, labels[:, i * c:(i + 1) * c],
+                z_loss)
+        total = total + (checkpoint(_chunk_loss, *args, use_reentrant=False)
+                         if remat else _chunk_loss(*args))
+    return total / (B * S)
+
+
+def make_loss_fn(model, *, remat: bool = True, loss_chunk: int = 512,
+                 z_loss: float = 0.0) -> Callable:
+    def loss_fn(params, batch):
+        hidden = model.hidden_seq(batch, params=params, remat=remat)
+        return chunked_softmax_xent(hidden, model.unembed(params),
+                                    torch.as_tensor(batch["labels"]),
+                                    chunk=loss_chunk, z_loss=z_loss)
+    return loss_fn
+
+
+def init_train_state(model, key) -> dict:
+    """Draws the model's parameters (``Model.init``) and zero AdamW
+    state."""
+    params = model.init(key)
+    return {"params": params, "opt": opt.init_state(params)}
+
+
+def _split(x, microbatches: int) -> list:
+    x = torch.as_tensor(x)
+    B = x.shape[0]
+    if B % microbatches:
+        raise ValueError(f"batch {B} does not split into {microbatches} "
+                         "microbatches")
+    return list(torch.split(x, B // microbatches))
+
+
+def make_train_step(model, opt_cfg: opt.AdamWConfig, *, remat: bool = True,
+                    loss_chunk: int = 512, z_loss: float = 0.0,
+                    microbatches: int = 1) -> Callable:
+    """(state, batch) -> (state, metrics); ``batch`` holds "tokens" and
+    "labels", (B, S) ints. ``microbatches > 1`` accumulates gradients:
+    the batch splits on axis 0, each part's float32 gradients are summed
+    and the sums scaled by 1 / microbatches, as the loss."""
+    loss_fn = make_loss_fn(model, remat=remat, loss_chunk=loss_chunk,
+                           z_loss=z_loss)
+
+    def value_and_grad(leaves, treedef, batch):
+        xs = [p.detach().requires_grad_(True) for p in leaves]
+        with torch.enable_grad():
+            loss = loss_fn(_tree_unflatten(treedef, xs), batch)
+            gs = torch.autograd.grad(loss, xs, allow_unused=True)
+        return loss.detach(), [torch.zeros_like(x) if g is None else g
+                               for x, g in zip(xs, gs)]
+
+    def grads_of(params, batch):
+        _, leaves, treedef = _tree_flatten_with_names(params)
+        if microbatches == 1:
+            loss, gs = value_and_grad(leaves, treedef, batch)
+            return loss, _tree_unflatten(treedef, gs)
+        parts = {k: _split(v, microbatches) for k, v in batch.items()}
+        loss_sum = torch.zeros((), dtype=torch.float32,
+                               device=leaves[0].device)
+        g_sum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)
+                 for p in leaves]
+        for i in range(microbatches):
+            loss, gs = value_and_grad(leaves, treedef,
+                                      {k: v[i] for k, v in parts.items()})
+            loss_sum = loss_sum + loss
+            g_sum = [a + b.float() for a, b in zip(g_sum, gs)]
+        inv = 1.0 / microbatches
+        return loss_sum * inv, _tree_unflatten(treedef,
+                                               [g * inv for g in g_sum])
+
+    def train_step(state, batch):
+        loss, grads = grads_of(state["params"], batch)
+        params, opt_state, metrics = opt.apply_updates(
+            opt_cfg, state["params"], grads, state["opt"])
+        model.use_params(params)
+        return ({"params": model.params, "opt": opt_state},
+                dict(metrics, loss=loss))
+
+    return train_step

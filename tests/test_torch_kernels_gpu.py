@@ -998,3 +998,133 @@ def test_cross_gram_row_major(cuda, shape, dtypes, route, monkeypatch):
     want = ref.rbf_gram(X.double(), L.double(), 0.9)
     assert torch.all((got.double() - want).abs() <= 1e-5 * want.abs() + 1e-7)
     assert torch.equal(_bits(got), _bits(other))
+
+
+# ------------------------------------------------------------- NaN rows
+# The clamps keep NaN as jnp.maximum / jnp.minimum do (max_nan / min_nan in
+# csrc/epilogues.cuh): a row whose target or margin is NaN gives NaN in
+# gamma (omega), and so in b and Sigma, where the plain version on the
+# same inputs has NaN; the kernel's other rows keep the bits they have
+# without the NaN rows. Rows 5 (masked) and 700 (not masked) take a NaN
+# target ("target") or a NaN in one feature, so a NaN margin ("row").
+NAN_ROWS = (5, 700)
+NAN_CASES = ("target", "row")
+
+
+def _with_nan(X, rho, case):
+    X, rho = X.clone(), rho.clone()
+    for r in NAN_ROWS:
+        if case == "target":
+            rho[r] = float("nan")
+        else:
+            X[r, 3] = float("nan")
+    return X, rho
+
+
+def _nan_like(got, want):
+    """NaN exactly where the plain version has NaN."""
+    for g, w in zip(got, want):
+        assert torch.equal(torch.isnan(g), torch.isnan(w))
+
+
+def _rows_kept(got, base, rows=NAN_ROWS):
+    keep = torch.ones(got.shape[0], dtype=torch.bool, device=got.device)
+    keep[list(rows)] = False
+    assert torch.equal(got[keep], base[keep])
+
+
+FUSED_NAN = ["em_hinge", "mc_hinge,noise", "mc_hinge,seed", "em_svr",
+             "mc_svr,noise", "mc_svr,seed"]
+
+
+@pytest.mark.parametrize("case", NAN_CASES)
+@pytest.mark.parametrize("var", FUSED_NAN)
+def test_fused_stats_nan_rows(cuda, var, case):
+    X, rho, beta, w, wm = _problem(1037, 29, torch.float32, cuda)
+    wm[NAN_ROWS[0]], wm[NAN_ROWS[1]] = 0.0, 1.0
+    epi, _, source = var.partition(",")
+    svr = epi.endswith("svr")
+    if svr:
+        rho = _svr_targets(X.double() @ w.double(), None)
+    seed = rng.pack_seed(prng.fold_in(prng.PRNGKey(5), 2), 3, 1).to(cuda)
+    noise = ref.seed_noise(seed, X.shape[0], 1, epi) if source else None
+    kw = (dict(noise=noise) if source == "noise" else
+          dict(seed=seed) if source == "seed" else {})
+    opts = dict(epilogue=epi, eps=1e-6, eps_ins=EPS_INS if svr else 0.0)
+    base = fused_stats.fused_stats(X, rho, beta, w, wm, **kw, **opts)
+    Xn, rn = _with_nan(X, rho, case)
+    got = fused_stats.fused_stats(Xn, rn, beta, w, wm, **kw, **opts)
+    want = ref.fused_stats(Xn, rn, beta, w, wm, 1e-6, epi, eps_ins=opts[
+        "eps_ins"], **kw)
+    torch.cuda.synchronize()
+    _nan_like(got, want)
+    rows = list(NAN_ROWS)
+    assert torch.isnan(got[0][rows]).all() == (case == "row")
+    for aug in got[1:-2]:              # gamma (, omega)
+        assert torch.isnan(aug[rows]).all()
+    for g, b in zip(got[:-2], base[:-2]):
+        _rows_kept(g, b)
+    assert torch.isnan(got[-2]).all() and torch.isnan(got[-1]).all()
+
+
+@pytest.mark.parametrize("case", NAN_CASES)
+@pytest.mark.parametrize("k", [29, 2300])
+def test_fused_estep_nan_rows(cuda, k, case):
+    X, rho, beta, w, _ = _problem(1037, k, torch.float32, cuda)
+    base = fused_estep.fused_estep(X, rho, beta, w, eps=1e-6)
+    Xn, rn = _with_nan(X, rho, case)
+    got = fused_estep.fused_estep(Xn, rn, beta, w, eps=1e-6)
+    want = ref.fused_estep(Xn, rn, beta, w, 1e-6)
+    torch.cuda.synchronize()
+    _nan_like(got, want)
+    assert torch.isnan(got[1][list(NAN_ROWS)]).all()
+    for g, b in zip(got[:2], base[:2]):
+        _rows_kept(g, b)
+    assert torch.isnan(got[2]).all()
+
+
+@pytest.mark.parametrize("case", NAN_CASES)
+@pytest.mark.parametrize("var", NYS_MC + NYS_SVR)
+def test_nystrom_fused_stats_nan_rows(cuda, var, case):
+    X, L, P, mask, _ = _nys(1037, 7, 45, 13, torch.float32, cuda)
+    mask[NAN_ROWS[0]], mask[NAN_ROWS[1]] = 0.0, 1.0
+    n, M = X.shape[0], L.shape[0] + 1
+    g = torch.Generator(device=cuda).manual_seed(3)
+    w = torch.randn(M, generator=g, device=cuda) / math.sqrt(M)
+    y = torch.where(torch.rand(n, generator=g, device=cuda) < 0.5, -1.0,
+                    1.0)
+    epi, _, source = var.partition(",")
+    svr = epi.endswith("svr")
+    seed = rng.pack_seed(prng.fold_in(prng.PRNGKey(5), 2), 3, 0).to(cuda)
+    kw = (dict(noise=ref.seed_noise(seed, n, 1, epi)) if source == "noise"
+          else dict(seed=seed) if source == "seed" else {})
+    beta = torch.zeros_like(y) if svr else y
+    opts = dict(sigma=1.3, kind="rbf", add_bias=True, epilogue=epi,
+                eps=1e-6, eps_ins=EPS_INS if svr else 0.0)
+    base = nys.nystrom_fused_stats(X, L, P, y, beta, w, mask, **kw, **opts)
+    Xn, yn = _with_nan(X, y, case)
+    got = nys.nystrom_fused_stats(Xn, L, P, yn, beta, w, mask, **kw, **opts)
+    want = ref.nystrom_fused_stats(Xn, L, P, yn, beta, w, mask, 1.3, "rbf",
+                                   True, 1e-6, epi, eps_ins=opts["eps_ins"],
+                                   **kw)
+    torch.cuda.synchronize()
+    _nan_like(got, want)
+    for t, b in zip(got[:-2], base[:-2]):
+        _rows_kept(t, b)
+    assert torch.isnan(got[1][list(NAN_ROWS)]).all()
+    assert torch.isnan(got[-2]).all() and torch.isnan(got[-1]).all()
+
+
+@pytest.mark.parametrize("route", ["engine", "direct"])
+def test_rbf_gram_nan_rows(cuda, route, monkeypatch):
+    """A NaN feature gives a NaN kernel row, as the plain version's
+    max(d2, 0) keeps it; the other rows keep their bits."""
+    X, L = _cross_inputs(1037, 7, 45, torch.float32, cuda)
+    _routes(monkeypatch, route)
+    base = rbfk.rbf_gram(X, L, sigma=0.9)
+    Xn, _ = _with_nan(X, torch.zeros(X.shape[0], device=cuda), "row")
+    got = rbfk.rbf_gram(Xn, L, sigma=0.9)
+    torch.cuda.synchronize()
+    _nan_like((got,), (ref.rbf_gram(Xn, L, 0.9),))
+    assert torch.isnan(got[list(NAN_ROWS)]).all()
+    _rows_kept(got, base)

@@ -401,16 +401,50 @@ shapes), in the order a, b, b, a.
    cache 576, prefill (median of 3), 32 decode steps, generate(64) twice
    bitwise equal, the share of assignments dropped at the config's
    capacity factor 1.25 in prefill and decode; at a factor that drops
-   nothing (32) teacher forcing and the bfloat16 logits_seq against a
-   float32 model's, each twice: every run routing for itself (printed,
-   with the share of routings that differ: a bfloat16 rounding flips a
-   top-8 choice at a near-tie) and with the reference run's expert ids
-   held (within 3e-2 of max|ref|, gated); then 12 train steps of 8 x
+   nothing (E / k: a slot an expert for every token) teacher forcing in
+   bfloat16 and float32 and the bfloat16 logits_seq against a float32
+   model's, each twice: every run routing for itself (printed, with the
+   share of routings that differ: a bfloat16 rounding flips a top-8
+   choice at a near-tie) and with the reference run's expert ids held
+   (within 3e-2 of max|ref|, gated; phase 20's serve_timed and
+   family_bands); then 12 train steps of 8 x
    1,024 (cut from 20 for time; losses finite and falling as in (a); ms
    a step, peak MiB, the dropped share, 2 profiled steps). The path runs
    no kernel of the port: every launch
    count stays 0, gated. Every time beside nvidia-smi's name and power
    limit.
+
+20. MLA, the Mamba hybrid and xLSTM, run after phase 19 (ROADMAP item
+   13c parts 1-3; about 200 s). Weights from init(0), nothing
+   downloaded. (a) xlstm-350m at full size (24 layers, d 1,024, sLSTM at
+   l % 6 = 5; 506,086,560 parameters by its init, gated): 8 prompts of
+   512 tokens, cache 576, prefill (median of 3), 32 decode steps timed,
+   generate(64) twice bitwise equal; teacher forcing in float32 within
+   3e-2 of max|ref| (in bfloat16 printed, with the bfloat16 logits_seq
+   against a float32 model's on the same weights: xLSTM's bfloat16 stack
+   is 0.07 from its float32 at one period in both packages, so neither
+   is gated); one full-width period (6 layers) in float32 on the card
+   against the CPU within 1e-4; MaxMarginHead on its mean-pooled
+   features (K = 1,025: fused_stats once a step; 1,024 documents a
+   feature batch) against the plain fit as phase 18 (b) holds smollm's,
+   then fused_stats on the head's inputs (nested row xlstm_head); 4
+   train steps of 8 x 1,024 (10 cut to 4 for time: 13 s a step) through
+   launch.train.train with remat (losses finite, the mean of the last 3
+   below the first; ms a step, tokens/s, the model FLOP share, peak MiB)
+   and one profiled step (the busy share; sLSTM runs a loop over time).
+   (b) deepseek-v2-236b at full width, 2 of its 60 layers (MLA, 160
+   experts top-6, 2 shared): served as (a), its latent cache's bytes a
+   token beside K and V's; teacher forcing (the absorbed decode against
+   the expanded sequence) in bfloat16 and float32 and bfloat16 against
+   float32 on 2 of the prompts (memory) at a capacity factor that drops
+   nothing, each run routing for itself (printed) and with one run's
+   routes held (RouteTape; within 3e-2, gated). (c) jamba-v0.1-52b at
+   full width, one period (8 of 32 layers: 7 Mamba, 1 attention, 4
+   MoE): served from its float32
+   masters, each block cast at its use (cast_at_use: masters and a cast
+   copy would not fit with the activations), and held as (b). Outside
+   the head no kernel of the port launches (gated). Every time beside
+   nvidia-smi's name and power limit.
 
 Phase 11 runs last (it holds its exact KRN fit against phase 14's), kills
 fit 1 (2 x 2) after iteration 8 and resumes it on 4 x 1 within fit 1's
@@ -438,6 +472,7 @@ The line before the last is {"kernels": [...]}; the last is
 """
 import dataclasses
 import functools
+import gc
 import json
 import math
 import os
@@ -1497,6 +1532,26 @@ def say_profile(prof, secs, top, head):
     say(f"  {head}, device busy {busy:.1f} ms ({busy / (secs * 1e3):.3f} "
         f"of the wall time) in {sum(r[1] for r in rows)} device "
         f"activities; by self device time:")
+    for ms, count, name in rows[:top]:
+        say(f"    {ms:9.3f} ms {count:6d}x  {name[:90]}")
+
+
+def say_device_events(prof, secs, top, head):
+    """``say_profile`` from the trace's device activities themselves,
+    without ``key_averages`` (which takes minutes over the ~430,000
+    activities of an xLSTM train step)."""
+    from torch.autograd import DeviceType
+    by_name: dict = {}
+    for e in prof.profiler.kineto_results.events():
+        if e.device_type() != DeviceType.CPU:
+            ms, n = by_name.get(e.name(), (0.0, 0))
+            by_name[e.name()] = (ms + e.duration_ns() / 1e6, n + 1)
+    rows = sorted(((ms, n, name) for name, (ms, n) in by_name.items()),
+                  reverse=True)
+    busy = sum(r[0] for r in rows)
+    say(f"  {head}, device busy {busy:.1f} ms ({busy / (secs * 1e3):.3f} "
+        f"of the wall time) in {sum(r[1] for r in rows)} device "
+        f"activities; by device time:")
     for ms, count, name in rows[:top]:
         say(f"    {ms:9.3f} ms {count:6d}x  {name[:90]}")
 
@@ -5825,7 +5880,8 @@ def fit64(cfg, dev, X, y):
     return w.cpu().numpy(), it, objs
 
 
-def lm_head(label, model, n_docs, n_train, dev, kernels, witness=False):
+def lm_head(label, model, n_docs, n_train, dev, kernels, witness=False,
+            feature_batch=256):
     """Phase 18 (b), (c): MaxMarginHead over ``model``'s mean-pooled
     features, LIN-EM-CLS lam 0.1, max_iters 60, through the kernels
     ``kernels`` (each once a step, nothing else) and through the plain
@@ -5849,7 +5905,8 @@ def lm_head(label, model, n_docs, n_train, dev, kernels, witness=False):
         return f
 
     cfg = SVMConfig(lam=0.1, max_iters=60)
-    head = MaxMarginHead(cfg, feature_fn, device=dev)
+    head = MaxMarginHead(cfg, feature_fn, feature_batch=feature_batch,
+                         device=dev)
     head.extract(ttr[:head.feature_batch])             # warm-up
     seen.clear()
     _zero_counts()
@@ -5940,9 +5997,9 @@ def head_operands(dev, X, y, w):
     return Xb, yt, yt.clone(), torch.from_numpy(w.astype(np.float32)).to(dev)
 
 
-def head_stats_row(dev, X, y, w, launches):
-    """fused_stats on the smollm head's own inputs against its plain
-    version (float64), then timed; its kernels row."""
+def head_stats_row(dev, X, y, w, launches, head="smollm head"):
+    """fused_stats on a head's own inputs (``head`` names it) against
+    its plain version (float64), then timed; its kernels row."""
     from repro_torch.kernels import fused_stats, ref
     Xb, rho, beta, wv = head_operands(dev, X, y, w)
     n, k = Xb.shape
@@ -5950,7 +6007,7 @@ def head_stats_row(dev, X, y, w, launches):
                                                        eps=EPS))
     want = ref.fused_stats(Xb.double(), rho.double(), beta.double(),
                            wv.double(), None, EPS)
-    name = f"fused_stats {n}x{k} (smollm head)"
+    name = f"fused_stats {n}x{k} ({head})"
     err = rows_close(name + " margin", m, want[0])
     gamma_close(name, g, m, want[1], want[0])
     b64, S64 = stats64(Xb, rho, beta, None, g)
@@ -6262,68 +6319,6 @@ class RouteLog:
         return 1.0 - torch.stack(self.kept).sum().item() / self.total
 
 
-def moe_serve(dev, cfg):
-    """Phase 19 (c), serving: granite-moe-1b-a400m at full size."""
-    from repro_torch.data import make_lm_tokens
-    from repro_torch.models import build_model, mlp
-    from repro_torch.serving import (generate, make_decode_step,
-                                     make_prefill_step)
-    model = build_model(cfg, dev)
-    torch.cuda.synchronize()
-    t0 = time.perf_counter()
-    model.init(0)
-    torch.cuda.synchronize()
-    n = model.num_params()
-    say(f"  {cfg.name}: {cfg.n_layers} layers, d {cfg.d_model}, "
-        f"{cfg.n_heads} / {cfg.n_kv_heads} heads of {cfg.head_dim}, "
-        f"{cfg.n_experts} experts top-{cfg.top_k} of d_ff {cfg.moe_d_ff}, "
-        f"capacity factor {cfg.moe_capacity_factor}, vocab {cfg.vocab}, "
-        f"tied {cfg.tie_embeddings}; {n:,} float32 parameters drawn from "
-        f"seed 0 on the card in {time.perf_counter() - t0:.2f} s")
-    check(n == cfg.num_params(), f"{n} parameters, not {cfg.num_params()}")
-    stream = make_lm_tokens(LM_BATCH * (LM_PROMPT + 1), cfg.vocab, seed=1
-                            ).reshape(LM_BATCH, LM_PROMPT + 1)
-    prompts = {"tokens": stream[:, :LM_PROMPT]}
-    prefill = make_prefill_step(model, LM_CACHE)
-    decode = make_decode_step(model)
-    prefill(prompts)                                   # warm-up
-    torch.cuda.synchronize()
-    torch.cuda.reset_peak_memory_stats()
-    pre = []
-    for _ in range(3):
-        t0 = time.perf_counter()
-        with RouteLog() as rp:
-            tok, caches = prefill(prompts)
-        torch.cuda.synchronize()
-        pre.append(time.perf_counter() - t0)
-    steps = []
-    with RouteLog() as rd:
-        for i in range(LM_TIMED_STEPS):
-            t0 = time.perf_counter()
-            tok, lg, caches = decode(tok[:, None], LM_PROMPT + i, caches)
-            torch.cuda.synchronize()
-            steps.append(time.perf_counter() - t0)
-    check(bool(torch.isfinite(lg.float()).all()), "decode logits not finite")
-    del caches
-    a = generate(model, prompts, steps=LM_STEPS, cache_len=LM_CACHE)
-    b = generate(model, prompts, steps=LM_STEPS, cache_len=LM_CACHE)
-    peak = torch.cuda.max_memory_allocated()
-    check(tuple(a.shape) == (LM_BATCH, LM_STEPS) and torch.equal(a, b),
-          "two greedy generate calls differ")
-    p_s, d_s = statistics.median(pre), statistics.median(steps)
-    say(f"  (c) serve {LM_BATCH} x {LM_PROMPT} prompts, cache {LM_CACHE} "
-        f"({smi()}): prefill {p_s * 1e3:.2f} ms median of 3 "
-        f"({LM_BATCH * LM_PROMPT / p_s:.0f} tokens/s); decode "
-        f"{d_s * 1e3:.3f} ms a step, median of {LM_TIMED_STEPS} "
-        f"({LM_BATCH / d_s:.0f} tokens/s); generate({LM_STEPS}) bitwise "
-        f"equal twice; peak {peak / 2**20:.0f} MiB; dropped at the "
-        f"factor {cfg.moe_capacity_factor}: prefill "
-        f"{rp.dropped():.4f} of the assignments (C = "
-        f"{mlp.capacity(cfg, LM_BATCH * LM_PROMPT)}), decode "
-        f"{rd.dropped():.4f} (C = {mlp.capacity(cfg, LM_BATCH)})")
-    return model, stream
-
-
 class RouteTape:
     """Records the expert ids of each ``mlp._route`` call inside the
     block (``replay=None``), or replays a record: each call then takes
@@ -6364,70 +6359,6 @@ def route_flips(a, b) -> float:
     diff = sum(int((x.sort(-1).values != y.sort(-1).values).any(-1).sum())
                for x, y in zip(a, b))
     return diff / sum(x.shape[0] for x in a)
-
-
-def moe_bands(dev, model, stream):
-    """(c)'s bands at a capacity factor that drops nothing (E: every
-    expert has a slot for every assignment): teacher forcing (decode of
-    token LM_PROMPT after prefill against logits_seq there) and the
-    bfloat16 logits_seq against a float32 model's on the same weights.
-    A bfloat16 rounding flips a top-8 choice wherever the 8th and 9th
-    router probabilities nearly tie, and a flip moves that token's
-    output by about a gate's share of an expert's (PERF.md section 6), so
-    each pair is compared twice: with each run routing for itself
-    (printed, with the share of routings that differ) and with the
-    reference run's routes held (RouteTape; within LM_BF16_BAND of
-    max|ref|, gated)."""
-    from repro_torch.models import build_model
-    cfg = dataclasses.replace(model.cfg,
-                              moe_capacity_factor=float(model.cfg.n_experts))
-    B, S = LM_BATCH, LM_PROMPT + 1
-    nd = build_model(cfg, dev)
-    nd.use_params(model.params)
-    prompts = {"tokens": stream[:, :LM_PROMPT]}
-    with RouteLog() as r, RouteTape() as full_routes:
-        full = nd.logits_seq({"tokens": stream})
-
-    def teacher(replay):
-        tapes = []
-        with RouteTape((lambda i, ids: ids.reshape(B, S, -1)[
-                :, :LM_PROMPT].reshape(B * LM_PROMPT, -1)) if replay
-                else None, full_routes.ids) as t:
-            _, caches = nd.prefill(prompts, LM_CACHE)
-        tapes.append(t)
-        with RouteTape((lambda i, ids: ids.reshape(B, S, -1)[
-                :, LM_PROMPT]) if replay else None, full_routes.ids) as t:
-            lg, _ = nd.decode(stream[:, LM_PROMPT:], LM_PROMPT, caches)
-        tapes.append(t)
-        return lm_rel(lg[:, 0], full[:, LM_PROMPT]), tapes
-    tf_free, (pre_t, dec_t) = teacher(False)
-    at_prompt = [ids.reshape(B, S, -1)[:, LM_PROMPT] for ids in
-                 full_routes.ids]
-    tf_flips = route_flips(dec_t.ids, at_prompt)
-    tf, _ = teacher(True)
-    m32 = build_model(dataclasses.replace(cfg, dtype="float32"), dev)
-    m32.use_params(model.params)
-    with RouteTape() as r32:
-        f32 = m32.logits_seq({"tokens": stream})
-    b16_free = lm_rel(full, f32)
-    flips = route_flips(full_routes.ids, r32.ids)
-    agree = (full.argmax(-1) == f32.argmax(-1)).double().mean().item()
-    with RouteTape(lambda i, ids: ids, r32.ids):
-        held = nd.logits_seq({"tokens": stream})
-    b16 = lm_rel(held, f32)
-    say(f"  (c) at the factor {cfg.moe_capacity_factor:g} (dropped "
-        f"{r.dropped():.4f}): teacher forcing, each run routing for "
-        f"itself, {tf_free:.3e} of max|ref| ({tf_flips:.4f} of the "
-        f"decoded token's routings differ from logits_seq's); with "
-        f"logits_seq's routes held {tf:.3e} (<= {LM_BF16_BAND}); bfloat16 "
-        f"logits_seq against float32 on the same weights, each routing "
-        f"for itself, {b16_free:.3e} ({flips:.4f} of the {B * S} x "
-        f"{cfg.n_layers} routings differ; argmax equal at {agree:.4f} of "
-        f"{B * S} positions); with float32's routes held {b16:.3e} (<= "
-        f"{LM_BF16_BAND})")
-    check(tf <= LM_BF16_BAND, "(c) teacher forcing outside its band")
-    check(b16 <= LM_BF16_BAND, "(c) bfloat16 forward outside its band")
-    del nd, m32, full, f32, held
 
 
 def moe_train(dev, cfg):
@@ -6471,13 +6402,334 @@ def phase_train(dev):
     lm_train(dev, cfg)
     lm_resume(dev, cfg)
     moe = get_config(MOE_ARCH)
-    model, stream = moe_serve(dev, moe)
-    moe_bands(dev, model, stream)
+    label = f"(c) {moe.name}"
+    model, n = _family_model(dev, moe, f"{label}: {moe.n_experts} experts "
+                             f"top-{moe.top_k} of d_ff {moe.moe_d_ff}")
+    check(n == moe.num_params(), f"{n} parameters, not {moe.num_params()}")
+    stream = serve_timed(dev, model, label)
+    family_bands(dev, model, stream, LM_BATCH, label)
     del model
     torch.cuda.empty_cache()
     moe_train(dev, moe)
     c = _counts()
     check(all(v == 0 for v in c.values()), f"phase 19 launched {c}")
+
+
+# ---------------------------------------------------------------- phase 20
+XL_ARCH, MLA_ARCH, HYB_ARCH = "xlstm-350m", "deepseek-v2-236b", \
+    "jamba-v0.1-52b"
+XL_PARAMS = 506_086_560  # xlstm-350m's init draws these (jax.eval_shape of
+#                          the reference's init); num_params() says
+#                          312,787,968
+XL_TRAIN_BATCH, XL_TRAIN_STEPS = 8, 4   # the 10 asked cut to 4 for time:
+#                                         13.1 s a step (sLSTM's launches)
+XL_FEATURE_BATCH = 1024  # documents a feature batch: sLSTM's launches are
+#                          per batch, not per document
+XL_CPU_LAYERS = 6       # one full-width period (5 mLSTM + 1 sLSTM)
+MLA_LAYERS = 2          # deepseek-v2-236b's layers run (of 60)
+BAND_BATCH = 2          # prompts of the MoE models' band checks (memory)
+
+
+def serve_timed(dev, model, label):
+    """The serving run of phases 19 (c) and 20: LM_BATCH prompts of
+    LM_PROMPT tokens (make_lm_tokens, seed 1), cache LM_CACHE, prefill
+    (median of 3 after a warm-up), LM_TIMED_STEPS decode steps timed one
+    by one, generate(LM_STEPS) greedy twice and bitwise equal. Returns
+    the token stream (LM_BATCH, LM_PROMPT + 1)."""
+    from repro_torch.checkpoint.checkpointer import _tree_flatten_with_names
+    from repro_torch.data import make_lm_tokens
+    from repro_torch.serving import (generate, make_decode_step,
+                                     make_prefill_step)
+    cfg = model.cfg
+    stream = make_lm_tokens(LM_BATCH * (LM_PROMPT + 1), cfg.vocab, seed=1
+                            ).reshape(LM_BATCH, LM_PROMPT + 1)
+    prompts = {"tokens": stream[:, :LM_PROMPT]}
+    prefill = make_prefill_step(model, LM_CACHE)
+    decode = make_decode_step(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prefill(prompts)                                   # warm-up
+    torch.cuda.synchronize()
+    pre = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        with RouteLog() as rp:
+            tok, caches = prefill(prompts)
+        torch.cuda.synchronize()
+        pre.append(time.perf_counter() - t0)
+    steps = []
+    with RouteLog() as rd:
+        for i in range(LM_TIMED_STEPS):
+            t0 = time.perf_counter()
+            tok, lg, caches = decode(tok[:, None], LM_PROMPT + i, caches)
+            torch.cuda.synchronize()
+            steps.append(time.perf_counter() - t0)
+    check(bool(torch.isfinite(lg.float()).all()),
+          f"{label}: decode logits not finite")
+    cache_b = sum(x.numel() * x.element_size() for x in
+                  _tree_flatten_with_names(caches)[1])
+    del caches
+    a = generate(model, prompts, steps=LM_STEPS, cache_len=LM_CACHE)
+    b = generate(model, prompts, steps=LM_STEPS, cache_len=LM_CACHE)
+    peak = torch.cuda.max_memory_allocated()
+    check(tuple(a.shape) == (LM_BATCH, LM_STEPS) and torch.equal(a, b),
+          f"{label}: two greedy generate calls differ")
+    p_s, d_s = statistics.median(pre), statistics.median(steps)
+    drops = (f"; dropped at the factor {cfg.moe_capacity_factor}: prefill "
+             f"{rp.dropped():.4f}, decode {rd.dropped():.4f} of the "
+             f"assignments" if cfg.n_experts else "")
+    say(f"  {label} serve {LM_BATCH} x {LM_PROMPT} prompts, cache "
+        f"{LM_CACHE} ({smi()}): prefill {p_s * 1e3:.2f} ms median of 3 "
+        f"({LM_BATCH * LM_PROMPT / p_s:.0f} tokens/s); decode "
+        f"{d_s * 1e3:.3f} ms a step, median of {LM_TIMED_STEPS} "
+        f"({LM_BATCH / d_s:.0f} tokens/s); generate({LM_STEPS}) bitwise "
+        f"equal twice; caches {cache_b / 2**20:.1f} MiB; peak "
+        f"{peak / 2**20:.0f} MiB{drops}")
+    return stream
+
+
+def family_bands(dev, model, stream, batch, label, gate_bf16=True):
+    """Teacher forcing (decode of token LM_PROMPT after prefill against
+    logits_seq there) in bfloat16 and in float32, and the bfloat16
+    logits_seq against a float32 model's on the same weights, on the
+    first ``batch`` sequences, each within LM_BF16_BAND of max|ref|
+    (gated; the two bfloat16 figures only with ``gate_bf16``: xLSTM's
+    bfloat16 stack misses that band in both packages, ROADMAP section 3,
+    so its teacher forcing is gated in float32). An MoE runs at a
+    capacity factor that drops nothing (E / k: a slot an expert for every
+    token), and
+    each pair is compared twice: with each run routing for itself
+    (printed, with the share of routings that differ) and with one run's
+    expert ids held (RouteTape; gated). The helper models serve from the
+    masters (``cast_at_use``): no second cast copy."""
+    from repro_torch.models import build_model
+    cfg = model.cfg
+    moe = bool(cfg.n_experts)
+    if moe:
+        cfg = dataclasses.replace(
+            cfg, moe_capacity_factor=cfg.n_experts / cfg.top_k + 1e-3)
+    B, S = batch, LM_PROMPT + 1
+    seq = {"tokens": stream[:B]}
+    prompts = {"tokens": stream[:B, :LM_PROMPT]}
+
+    def teacher(m, full, ids, replay):
+        with RouteTape((lambda i, x: x.reshape(B, S, -1)[
+                :, :LM_PROMPT].reshape(B * LM_PROMPT, -1)) if replay
+                else None, ids):
+            _, caches = m.prefill(prompts, LM_CACHE)
+        with RouteTape((lambda i, x: x.reshape(B, S, -1)[:, LM_PROMPT])
+                       if replay else None, ids) as t:
+            lg, _ = m.decode(stream[:B, LM_PROMPT:], LM_PROMPT, caches)
+        return lm_rel(lg[:, 0], full[:, LM_PROMPT]), t
+
+    nd = build_model(cfg, dev, cast_at_use=True)
+    nd.use_params(model.params)
+    with RouteLog() as r, RouteTape() as full_routes:
+        full = nd.logits_seq(seq)
+    tf_free, dec_t = teacher(nd, full, full_routes.ids, False)
+    tf = teacher(nd, full, full_routes.ids, True)[0] if moe else tf_free
+    m32 = build_model(dataclasses.replace(cfg, dtype="float32"), dev,
+                      cast_at_use=True)
+    m32.use_params(model.params)
+    with RouteTape() as r32:
+        f32 = m32.logits_seq(seq)
+    tf32 = teacher(m32, f32, r32.ids, moe)[0]
+    b16_free = lm_rel(full, f32)
+    agree = (full.argmax(-1) == f32.argmax(-1)).double().mean().item()
+    b16 = b16_free
+    held = ", routes held" if moe else ""
+    if moe:
+        with RouteTape(lambda i, ids: ids, r32.ids):
+            b16 = lm_rel(nd.logits_seq(seq), f32)
+        at_prompt = [ids.reshape(B, S, -1)[:, LM_PROMPT] for ids in
+                     full_routes.ids]
+        say(f"  {label} at the factor {cfg.moe_capacity_factor:g} (dropped "
+            f"{r.dropped():.4f}), {B} x {S} tokens: teacher forcing, each "
+            f"run routing for itself, {tf_free:.3e} of max|ref| "
+            f"({route_flips(dec_t.ids, at_prompt):.4f} of the decoded "
+            f"token's routings differ); bfloat16 against float32, each "
+            f"routing for itself, {b16_free:.3e} "
+            f"({route_flips(full_routes.ids, r32.ids):.4f} of the "
+            f"routings differ)")
+    bound = f" (<= {LM_BF16_BAND})" if gate_bf16 else " (not gated)"
+    say(f"  {label} {B} x {S} tokens: teacher forcing in float32 "
+        f"{tf32:.3e} of max|ref| (<= {LM_BF16_BAND}{held}), in bfloat16 "
+        f"{tf:.3e}{bound}{held}; bfloat16 logits_seq against float32 on "
+        f"the same weights {b16:.3e}{bound}{held}, argmax equal at "
+        f"{agree:.4f} of {B * S} positions")
+    check(tf32 <= LM_BF16_BAND,
+          f"{label}: float32 teacher forcing outside its band")
+    if gate_bf16:
+        check(tf <= LM_BF16_BAND, f"{label}: teacher forcing outside its "
+              f"band")
+        check(b16 <= LM_BF16_BAND,
+              f"{label}: bfloat16 forward outside its band")
+    del nd, m32, full, f32
+
+
+def _release(label):
+    """Frees what a model left (cycles included) and says what stays."""
+    gc.collect()
+    torch.cuda.empty_cache()
+    say(f"  after {label}: {torch.cuda.memory_allocated() / 2**20:.0f} MiB "
+        f"still allocated")
+
+
+def _family_model(dev, cfg, label, **kw):
+    from repro_torch.models import build_model
+    model = build_model(cfg, dev, **kw)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    model.init(0)
+    torch.cuda.synchronize()
+    n = model.num_params()
+    say(f"  {label}: {cfg.n_layers} layers, d {cfg.d_model}, vocab "
+        f"{cfg.vocab}, {cfg.dtype} compute; {n:,} float32 parameters drawn "
+        f"from seed 0 on the card in {time.perf_counter() - t0:.2f} s")
+    return model, n
+
+
+def xl_cpu_forward(dev, cfg):
+    """XL_CPU_LAYERS layers of xlstm-350m at full width in float32: the
+    card's hidden states and logits against the CPU's within LM_F32_BAND
+    of max|CPU|."""
+    from repro_torch.data import make_lm_tokens
+    from repro_torch.models import build_model
+    c = dataclasses.replace(cfg, n_layers=XL_CPU_LAYERS, dtype="float32")
+    card = build_model(c, dev)
+    card.init(0)
+    cpu = build_model(c, "cpu")
+    cpu.load_params(card.params)
+    batch = {"tokens": make_lm_tokens(2 * 64, c.vocab, seed=3
+                                      ).reshape(2, 64)}
+    hd = lm_rel(card.hidden_seq(batch).cpu(), cpu.hidden_seq(batch))
+    ld = lm_rel(card.logits_seq(batch).cpu(), cpu.logits_seq(batch))
+    say(f"  {XL_CPU_LAYERS} layers (one period) at full width, float32, 2 x "
+        f"64 tokens: the card against the CPU: hidden {hd:.3e}, logits "
+        f"{ld:.3e} of max|CPU| (<= {LM_F32_BAND})")
+    check(hd <= LM_F32_BAND and ld <= LM_F32_BAND,
+          "xlstm: the card's float32 forward is outside the CPU band")
+
+
+def xl_train(dev, cfg):
+    """(a) training: XL_TRAIN_STEPS steps of XL_TRAIN_BATCH x TRAIN_SEQ
+    through ``launch.train.train`` (remat); every loss finite and the
+    mean of the last 3 below the first; then one profiled step (the
+    device's busy share: sLSTM's per-token launches)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data import make_lm_tokens
+    from repro_torch.launch.train import train
+    from repro_torch.training import AdamWConfig, make_train_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = train(cfg, steps=XL_TRAIN_STEPS, batch=XL_TRAIN_BATCH,
+                seq=TRAIN_SEQ, lr=TRAIN_LR, device=dev, log=_train_log)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses, model = out["losses"], out["model"]
+    n = model.num_params()
+    ok = bool(np.all(np.isfinite(losses))) and \
+        float(np.mean(losses[-3:])) < losses[0]
+    check(ok, f"(a) {cfg.name}: losses not finite and falling: {losses}")
+    ms = _step_ms(out["step_s"])
+    tokens = XL_TRAIN_BATCH * TRAIN_SEQ
+    mfu = 6 * n * tokens / (ms / 1e3) / PEAK_BF16
+    say(f"  (a) {cfg.name} trained {XL_TRAIN_STEPS} steps of "
+        f"{XL_TRAIN_BATCH} x {TRAIN_SEQ} tokens (remat, AdamW lr "
+        f"{TRAIN_LR}) in {wall:.1f} s ({smi()}): {ms:.1f} ms a step "
+        f"(median), {tokens / (ms / 1e3):.0f} tokens/s, model FLOP share "
+        f"{mfu:.4f} of {PEAK_BF16 / 1e12:.0f} TFLOP/s (6 x {n:,} x {tokens} "
+        f"/ step), peak {peak / 2**20:.0f} MiB; loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} (mean of the last 3 "
+        f"{float(np.mean(losses[-3:])):.4f})")
+    step = make_train_step(model, AdamWConfig(lr=TRAIN_LR, warmup_steps=10,
+                                              total_steps=XL_TRAIN_STEPS),
+                           loss_chunk=512)
+    toks = make_lm_tokens(XL_TRAIN_BATCH * (TRAIN_SEQ + 1), cfg.vocab,
+                          seed=9).reshape(XL_TRAIN_BATCH, TRAIN_SEQ + 1)
+    batch = {"tokens": torch.from_numpy(toks[:, :-1].copy()).to(dev),
+             "labels": torch.from_numpy(toks[:, 1:].copy()).to(dev)}
+    state = out["state"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    t1 = time.perf_counter()
+    say_device_events(prof, secs, 8, f"(a) profile of 1 train step (under "
+                      f"the profiler): {secs * 1e3:.1f} ms wall")
+    say(f"  (a) the profile's {time.perf_counter() - t1:.1f} s of reading")
+    del out, model, state, prof, step
+    _release(f"(a) {cfg.name}'s training")
+
+
+def phase_families(dev):
+    """Phase 20: MLA, the Mamba hybrid and xLSTM (see the module
+    docstring). Returns the kernels' extra rows by name."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import param_shapes
+    _zero_counts()
+    t0 = time.perf_counter()
+    # (a) xlstm-350m at full size
+    cfg = get_config(XL_ARCH)
+    model, n = _family_model(dev, cfg, f"(a) {XL_ARCH}")
+    check(n == XL_PARAMS, f"{n} parameters, not {XL_PARAMS}")
+    stream = serve_timed(dev, model, f"(a) {XL_ARCH}")
+    family_bands(dev, model, stream, LM_BATCH, f"(a) {XL_ARCH}",
+                 gate_bf16=False)
+    xl_cpu_forward(dev, cfg)
+    c = _counts()
+    check(all(v == 0 for v in c.values()), f"phase 20 launched {c}")
+    Xtr, ytr, res, counts = lm_head(
+        f"(a) the head on {XL_ARCH}", model, HEAD_DOCS, HEAD_TRAIN, dev,
+        ("fused_stats",), feature_batch=XL_FEATURE_BATCH)
+    rows = {"fused_stats": {"xlstm_head": head_stats_row(
+        dev, Xtr, ytr, res.weights, counts["fused_stats"], "xlstm head")}}
+    del model, Xtr
+    _release(f"(a) {XL_ARCH}'s serving and head")
+    _zero_counts()
+    t1 = time.perf_counter()
+    xl_train(dev, cfg)
+    say(f"  (a) took {time.perf_counter() - t0:.1f} s (serving, bands and "
+        f"the head {t1 - t0:.1f} s)")
+    t0 = time.perf_counter()
+    # (b) deepseek-v2-236b at full width, MLA_LAYERS layers
+    cfg = dataclasses.replace(get_config(MLA_ARCH), n_layers=MLA_LAYERS)
+    label = f"(b) {MLA_ARCH} ({MLA_LAYERS} of 60 layers)"
+    model, n = _family_model(dev, cfg, label)
+    check(n == sum(int(np.prod(s)) for s in param_shapes(cfg).values()),
+          f"{label}: {n} parameters")
+    stream = serve_timed(dev, model, label)
+    lat = (cfg.kv_lora_rank + cfg.qk_rope_dim) * 2
+    gqa = cfg.n_heads * (cfg.qk_nope_dim + cfg.qk_rope_dim
+                         + cfg.v_head_dim) * 2
+    say(f"  {label} cache a token a layer in bfloat16: the latent "
+        f"{lat:,} B (kv_lora {cfg.kv_lora_rank} + rope "
+        f"{cfg.qk_rope_dim}), against {gqa:,} B for K and V of its "
+        f"{cfg.n_heads} heads ({gqa / lat:.1f}x)")
+    family_bands(dev, model, stream, BAND_BATCH, label)
+    del model
+    _release(label)
+    say(f"  (b) took {time.perf_counter() - t0:.1f} s")
+    t0 = time.perf_counter()
+    # (c) jamba-v0.1-52b at full width, one period, from the masters
+    full = get_config(HYB_ARCH)
+    cfg = dataclasses.replace(full, n_layers=full.layer_period)
+    label = f"(c) {HYB_ARCH} (one period, {cfg.n_layers} of 32 layers)"
+    model, n = _family_model(dev, cfg, label, cast_at_use=True)
+    check(n == sum(int(np.prod(s)) for s in param_shapes(cfg).values()),
+          f"{label}: {n} parameters")
+    stream = serve_timed(dev, model, label)
+    family_bands(dev, model, stream, BAND_BATCH, label)
+    del model
+    _release(label)
+    say(f"  (c) took {time.perf_counter() - t0:.1f} s")
+    c = _counts()
+    check(all(v == 0 for v in c.values()), f"phase 20 launched {c}")
+    return rows
 
 
 SOURCES = {
@@ -6612,6 +6864,12 @@ def main() -> int:
               "killed and resumed; granite-moe-1b-a400m at full size served "
               "and trained")
     phase_train(dev)
+    stamp(t0, "== 20. MLA, the Mamba hybrid and xLSTM: xlstm-350m at full "
+              "size served, trained and under MaxMarginHead (fused_stats); "
+              "deepseek-v2-236b (2 layers) and jamba-v0.1-52b (one period) "
+              "at full width served")
+    for name, extra in phase_families(dev).items():
+        rows[name].update(extra)
     stamp(t0, "== 11. the multi-device fit: a 2 x 2 (data x k) mesh and a 4 "
               "x 1 one, four gloo ranks on cuda:0; a one-rank NCCL group")
     runs.update(phase_mesh(dev, krn_ref, mc_ref, exact_ref))

@@ -18,6 +18,9 @@ jax 0.5), so a port fit walks the same key chain as the reference:
   * ``categorical`` = argmax(logits + gumbel), gumbel = -log(-log(
     uniform(tiny, 1))) (the LM sampler).
 
+On the meta device every draw is shape-only: a key or bits tensor of the
+right shape, with no hash evaluated (``models.model.param_shapes``).
+
 Key words and uniforms are exact. ``erf_inv`` evaluates XLA's float32
 polynomial (``ErfInv32``: w = -log1p(-x^2), two degree-8 Horner branches
 split at w < 5), not ``torch.erfinv``, which is up to 64 ulp away from
@@ -66,6 +69,8 @@ def _hash(key: torch.Tensor, c0, c1) -> torch.Tensor:
     shape = k0.shape
     c0 = _words(c0, key.device)
     c1 = _words(c1, key.device)
+    if key.is_meta:
+        return key.new_empty(shape + c1.shape + (2,))
     k0 = k0.reshape(shape + (1,) * c1.dim())
     k1 = k1.reshape(shape + (1,) * c1.dim())
     x0, x1 = threefry2x32(k0, k1, c0, c1)
@@ -85,24 +90,36 @@ def fold_in(key: torch.Tensor, data) -> torch.Tensor:
     return _hash(key, torch.zeros_like(d), d)
 
 
+def _bits(key: torch.Tensor, start: int, count: int) -> torch.Tensor:
+    """(..., count) int64 uint32 words at flat indices [start, start +
+    count)."""
+    i = torch.arange(start, start + count, dtype=torch.int64,
+                     device=key.device)
+    words = _hash(key, i >> 32, i & MASK)
+    return words[..., 0] ^ words[..., 1]
+
+
 def random_bits(key: torch.Tensor, shape: tuple) -> torch.Tensor:
     """(..., *shape) int64 tensor of uint32 words."""
+    if key.is_meta:
+        return key.new_empty(key.shape[:-1] + tuple(shape))
     n = int(np.prod(shape, dtype=np.int64))
-    i = torch.arange(n, dtype=torch.int64, device=key.device)
-    words = _hash(key, i >> 32, i & MASK)
-    bits = words[..., 0] ^ words[..., 1]
-    return bits.reshape(key.shape[:-1] + tuple(shape))
+    return _bits(key, 0, n).reshape(key.shape[:-1] + tuple(shape))
 
 
-def uniform(key: torch.Tensor, shape: tuple = (), minval: float = 0.0,
-            maxval: float = 1.0) -> torch.Tensor:
-    """float32 uniforms in [minval, maxval)."""
-    bits = random_bits(key, shape)
+def _uniform(bits: torch.Tensor, minval: float, maxval: float
+             ) -> torch.Tensor:
     mant = ((bits >> 9) | 0x3F800000).to(torch.int32)
     floats = mant.view(torch.float32) - 1.0
     lo, hi = np.float32(minval), np.float32(maxval)
     span = float(hi - lo)
     return torch.clamp_min(floats * span + float(lo), float(lo))
+
+
+def uniform(key: torch.Tensor, shape: tuple = (), minval: float = 0.0,
+            maxval: float = 1.0) -> torch.Tensor:
+    """float32 uniforms in [minval, maxval)."""
+    return _uniform(random_bits(key, shape), minval, maxval)
 
 
 def erf_inv(x: torch.Tensor) -> torch.Tensor:
@@ -127,17 +144,44 @@ def normal(key: torch.Tensor, shape: tuple = ()) -> torch.Tensor:
     return _SQRT2 * erf_inv(u)
 
 
+# Elements a truncated-normal draw makes at once: it bounds the draw's
+# int64 and float64 temporaries (a (160, 5120, 1536) expert stack would
+# need tens of GB of them at once); the values do not depend on it.
+_DRAW_CHUNK = 1 << 26
+
+
 def truncated_normal(key: torch.Tensor, lower: float, upper: float,
                      shape: tuple) -> torch.Tensor:
     """float32 normals truncated to (lower, upper), drawn as
     ``jax.random.truncated_normal`` draws them: uniforms between the
     float32 erf of the bounds over sqrt(2), mapped through sqrt(2)
-    erf_inv, clipped to the next floats inside the bounds."""
+    erf_inv, clipped to the next floats inside the bounds. Past
+    ``_DRAW_CHUNK`` elements, made in parts (groups of a batch of keys,
+    else ranges of the flat index)."""
+    shape = tuple(shape)
+    n = int(np.prod(shape, dtype=np.int64))
+    if key.is_meta or n * (key.numel() // 2) <= _DRAW_CHUNK:
+        return _truncated(random_bits(key, shape), lower, upper)
+    if key.dim() > 1:
+        flat = key.reshape(-1, 2)
+        g = _DRAW_CHUNK // n
+        parts = ([truncated_normal(k, lower, upper, shape)[None]
+                  for k in flat] if g == 0 else
+                 [truncated_normal(flat[i:i + g], lower, upper, shape)
+                  for i in range(0, len(flat), g)])
+        return torch.cat(parts).reshape(key.shape[:-1] + shape)
+    parts = [_truncated(_bits(key, s, min(_DRAW_CHUNK, n - s)), lower,
+                        upper) for s in range(0, n, _DRAW_CHUNK)]
+    return torch.cat(parts).reshape(shape)
+
+
+def _truncated(bits: torch.Tensor, lower: float, upper: float
+               ) -> torch.Tensor:
     lo = torch.tensor(lower, dtype=torch.float32)
     hi = torch.tensor(upper, dtype=torch.float32)
     a = torch.erf(lo / _SQRT2).item()
     b = torch.erf(hi / _SQRT2).item()
-    out = _SQRT2 * erf_inv(uniform(key, shape, a, b))
+    out = _SQRT2 * erf_inv(_uniform(bits, a, b))
     inf = torch.tensor(float("inf"))
     return out.clamp(torch.nextafter(lo, inf).item(),
                      torch.nextafter(hi, -inf).item())

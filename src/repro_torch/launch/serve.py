@@ -1,9 +1,9 @@
 """Serving drivers.
 
-LM mode (default): build a dense or MoE decoder from its config
-(``--preset tiny`` is the reference's reduction, ``full`` the published
-widths),
-draw its weights from ``--seed``, prefill a batch of prompts made by
+LM mode (default): build a decoder-only model (dense, MoE, MLA, the
+Mamba hybrid, xLSTM) from its config (``--preset tiny`` is the
+reference's reduction, ``full`` the published widths), draw its
+weights from ``--seed``, prefill a batch of prompts made by
 ``make_lm_tokens`` and decode ``--steps`` tokens, greedily or at
 ``--temp``:
 

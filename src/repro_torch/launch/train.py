@@ -1,7 +1,7 @@
 """End-to-end LM training driver (``repro/launch/train.py`` in
 PyTorch).
 
-Trains a registered architecture (``--arch``; the dense and MoE families)
+Trains a registered architecture (``--arch``; the decoder-only families)
 at a scale preset (``--preset tiny|small|full``) on a synthetic token
 stream (``make_lm_tokens``), through the port's substrate: the token
 batcher (``data.ShardedBatcher``), AdamW with chunked cross-entropy,

@@ -1,4 +1,4 @@
-"""Model zoo: the dense and MoE GQA decoders behind the reference's
-facade (``build_model`` / ``Model``). The other families are ROADMAP
-item 13c."""
+"""Model zoo: the decoder-only families (dense, MoE, MLA, the Jamba
+hybrid, xLSTM) behind the reference's facade (``build_model`` /
+``Model``). The VLM and the encoder-decoder are ROADMAP item 13c."""
 from .model import Model, build_model  # noqa: F401

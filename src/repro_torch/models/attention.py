@@ -1,5 +1,6 @@
-"""GQA attention (``repro/models/attention.py``'s dense part in PyTorch):
-the blockwise (flash-style) train/prefill path and the cached decode path.
+"""Attention (``repro/models/attention.py`` in PyTorch): GQA with the
+blockwise (flash-style) train/prefill path and the cached decode path, and
+DeepSeek-V2's MLA (latent KV) with the absorbed decode.
 
 The train/prefill path runs the reference's online softmax over
 (q_chunk, kv_chunk) blocks with float32 running (m, l, acc), so live
@@ -17,7 +18,9 @@ recomputes the block's scores and probabilities instead of keeping every
 block's, and the q chunks' outputs are joined with ``torch.cat``.
 
 GQA layout: q is grouped as (B, S, KVH, G, dh), so no repeated K/V is
-materialized. Mesh islands (sequence-parallel attention, the decode
+materialized. MLA's q and k are qk_nope + qk_rope wide and its v
+v_head_dim wide; the blockwise core scales by q's width and keeps v's.
+Mesh islands (sequence-parallel attention, the decode
 island) are ROADMAP item 13d.
 """
 from __future__ import annotations
@@ -26,7 +29,7 @@ import torch
 from torch.utils.checkpoint import checkpoint
 
 from . import rotary
-from .common import dense_init, split_keys
+from .common import dense_init, rms_norm, split_keys
 
 _NEG_INF = -1e30
 
@@ -211,3 +214,116 @@ def gqa_decode(cfg, p, x, pos: int, cache):
     v_cache[:, pos] = v_new[:, 0].to(v_cache.dtype)
     o = decode_attn(q, k_cache, v_cache, pos + 1)
     return gqa_out(cfg, p, o), (k_cache, v_cache)
+
+
+# --------------------------------------------------------------------------
+# MLA (DeepSeek-V2): latent KV compression, absorbed decode
+# --------------------------------------------------------------------------
+def init_mla(key, cfg) -> dict:
+    D, H = cfg.d_model, cfg.n_heads
+    r, qr_ = cfg.kv_lora_rank, cfg.q_lora_rank
+    dn, dr, dv = cfg.qk_nope_dim, cfg.qk_rope_dim, cfg.v_head_dim
+    ks = split_keys(key, 6)
+    dev = key.device
+    p = {
+        "wkv_a": dense_init(ks[0], D, r + dr),          # -> [ckv, k_rope]
+        "kv_norm": torch.ones(r, device=dev),
+        "wkv_b": dense_init(ks[1], r, H * (dn + dv)),   # latent -> k_nope,v
+        "wo": dense_init(ks[2], H * dv, D,
+                         scale=1.0 / (2 * cfg.n_layers) ** 0.5),
+    }
+    if qr_:
+        p["wq_a"] = dense_init(ks[3], D, qr_)
+        p["q_norm"] = torch.ones(qr_, device=dev)
+        p["wq_b"] = dense_init(ks[4], qr_, H * (dn + dr))
+    else:
+        p["wq"] = dense_init(ks[5], D, H * (dn + dr))
+    return p
+
+
+def _mla_q(cfg, p, x, positions):
+    B, S, _ = x.shape
+    H, dn, dr = cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim
+    if cfg.q_lora_rank:
+        q = rms_norm(x @ p["wq_a"], p["q_norm"], cfg.norm_eps) @ p["wq_b"]
+    else:
+        q = x @ p["wq"]
+    q = q.reshape(B, S, H, dn + dr)
+    q_nope, q_rope = q[..., :dn], q[..., dn:]
+    return q_nope, rotary.apply_rope(q_rope, positions, cfg.rope_theta)
+
+
+def _mla_latent(cfg, p, x, positions):
+    """ckv (B, S, r) normalized latent + rotated shared k_rope (B, S, 1,
+    dr)."""
+    r = cfg.kv_lora_rank
+    kv = x @ p["wkv_a"]
+    ckv = rms_norm(kv[..., :r], p["kv_norm"], cfg.norm_eps)
+    k_rope = rotary.apply_rope(kv[..., r:][:, :, None, :], positions,
+                               cfg.rope_theta)
+    return ckv, k_rope
+
+
+def mla_train(cfg, p, x, positions, *, q_chunk=1024, kv_chunk=1024,
+              skip_masked_blocks=False):
+    """Training / prefill: the latent expanded to full per-head K / V;
+    k_rope is shared by the heads."""
+    B, S, _ = x.shape
+    H, dn, dr, dv = (cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                     cfg.v_head_dim)
+    q_nope, q_rope = _mla_q(cfg, p, x, positions)
+    ckv, k_rope = _mla_latent(cfg, p, x, positions)
+    kv = (ckv @ p["wkv_b"]).reshape(B, S, H, dn + dv)
+    k_nope, v = kv[..., :dn], kv[..., dn:]
+    q = torch.cat([q_nope, q_rope], -1)
+    k = torch.cat([k_nope, k_rope.expand(B, S, H, dr)], -1)
+    o = blockwise_attn(q, k, v, q_chunk=q_chunk, kv_chunk=kv_chunk,
+                       skip_masked_blocks=skip_masked_blocks)
+    return o.reshape(B, S, H * dv) @ p["wo"]
+
+
+def mla_prefill(cfg, p, x, positions, cache_len, **kw):
+    """Returns (out, (ckv_cache, k_rope_cache)): the *latent* cache,
+    kv_lora_rank + qk_rope_dim values a token instead of H (dn + dv),
+    zero-padded to cache_len."""
+    out = mla_train(cfg, p, x, positions, **kw)
+    ckv, k_rope = _mla_latent(cfg, p, x, positions)
+    pad = cache_len - x.shape[1]
+    k_rope = k_rope[:, :, 0, :]
+    if pad > 0:
+        ckv = torch.nn.functional.pad(ckv, (0, 0, 0, pad))
+        k_rope = torch.nn.functional.pad(k_rope, (0, 0, 0, pad))
+    return out, (ckv, k_rope)
+
+
+def mla_decode(cfg, p, x, pos: int, cache):
+    """Absorbed decode (the deployment path of arXiv:2405.04434): scores
+    and context are taken against the latent cache directly; W_UK folds
+    into the query and W_UV into the output. Row ``pos`` of both caches
+    is written in place."""
+    B = x.shape[0]
+    H, dn, dr, dv = (cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
+                     cfg.v_head_dim)
+    r = cfg.kv_lora_rank
+    positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
+    q_nope, q_rope = _mla_q(cfg, p, x, positions)        # (B,1,H,dn/dr)
+    ckv_new, k_rope_new = _mla_latent(cfg, p, x, positions)
+    ckv_cache, k_rope_cache = cache                      # (B,S,r), (B,S,dr)
+    ckv_cache[:, pos] = ckv_new[:, 0].to(ckv_cache.dtype)
+    k_rope_cache[:, pos] = k_rope_new[:, 0, 0].to(k_rope_cache.dtype)
+
+    wkv_b = p["wkv_b"].reshape(r, H, dn + dv)
+    w_uk, w_uv = wkv_b[..., :dn], wkv_b[..., dn:]        # (r,H,dn),(r,H,dv)
+    # absorb W_UK into q: (B,1,H,dn) x (r,H,dn) -> (B,H,r)
+    q_lat = torch.einsum("bqhd,rhd->bhr", q_nope, w_uk)
+    s = torch.einsum("bhr,bkr->bhk", q_lat, ckv_cache).float()
+    s = s + torch.einsum("bqhd,bkd->bhk", q_rope, k_rope_cache).float()
+    s = s * (dn + dr) ** -0.5
+    S = ckv_cache.shape[1]
+    # a Python int stays on the host: no copy, so no stream sync
+    mask = torch.arange(S, device=x.device) < pos + 1
+    s = torch.where(mask, s, _NEG_INF)
+    pweights = torch.softmax(s, dim=-1)
+    ctx_lat = torch.einsum("bhk,bkr->bhr", pweights.to(x.dtype), ckv_cache)
+    o = torch.einsum("bhr,rhd->bhd", ctx_lat, w_uv)
+    return o.reshape(B, 1, H * dv) @ p["wo"], (ckv_cache, k_rope_cache)

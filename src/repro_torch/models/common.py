@@ -45,5 +45,12 @@ def embed_init(key: torch.Tensor, vocab: int, dim: int) -> torch.Tensor:
     return prng.truncated_normal(key, -2.0, 2.0, (vocab, dim)) * 0.02
 
 
+def chunk_len(S: int, chunk: int) -> int:
+    """The chunk a sequence pass of S steps takes: ``chunk`` (at most S),
+    or S itself where ``chunk`` does not divide it (odd test shapes)."""
+    c = min(chunk, S)
+    return S if S % c else c
+
+
 def split_keys(key: torch.Tensor, n: int) -> list[torch.Tensor]:
     return list(prng.split(key, n))

@@ -1,5 +1,5 @@
-"""Model facade (``repro/models/model.py`` for the dense and MoE
-families).
+"""Model facade (``repro/models/model.py`` for the decoder-only
+families: dense, MoE, MLA, the Jamba hybrid and xLSTM).
 
   build_model(cfg, device=None, **kw)  ->  Model with
     .init(seed_or_key)                params (float32 master), installed
@@ -24,16 +24,20 @@ The reference casts each float32 weight to it at each use. Serving
 (``prefill``, ``decode``, ``hidden_seq`` without ``params``) uses one
 cast copy (``compute_params``), made on first use after the weights
 change: the same bits, without reading the float32 weights and writing a
-fresh copy on every step. Norm scales and the MoE router stay float32.
+fresh copy on every step. The leaves the reference reads in float32 stay
+float32 (``transformer._keeps_float32``). A model whose float32 masters
+and a cast copy do not fit on the card together takes
+``cast_at_use=True``: serving then casts each block's masters at its use
+and holds no copy.
 Training passes the float32 masters as ``params``: ``hidden_seq`` then
-casts them inside the autograd graph at each period, as the reference
+casts them inside the autograd graph at each block, as the reference
 does, so the gradients land on the float32 leaves (``training/``); an
 optimizer update installs its new tensors with ``use_params``, which
 drops the cast copy.
 
 Runs on ``cuda:0`` unless the caller passes ``device``; with no card and
-no ``device`` it raises. The families other than ``dense`` and ``moe``
-(MLA, the Mamba hybrid, xLSTM, VLM, audio) are ROADMAP item 13c.
+no ``device`` it raises. The VLM (M-RoPE) and the encoder-decoder
+(audio) families are ROADMAP item 13c.
 """
 from __future__ import annotations
 
@@ -96,23 +100,25 @@ def _param_shapes(cfg) -> dict:
 
 class Model(nn.Module):
     def __init__(self, cfg, device=None, *, q_chunk: int = 1024,
-                 kv_chunk: int = 1024, skip_masked_blocks: bool = False,
-                 remat_policy: str = "nothing"):
+                 kv_chunk: int = 1024, ssm_chunk: int = 256,
+                 skip_masked_blocks: bool = False,
+                 remat_policy: str = "nothing", cast_at_use: bool = False):
         super().__init__()
-        if cfg.family not in ("dense", "moe"):
+        if cfg.family not in ("dense", "moe", "hybrid", "ssm"):
             raise NotImplementedError(
                 f"{cfg.name!r} is of the {cfg.family!r} family; the port has "
-                f"the dense and MoE GQA decoders, the others are "
+                f"the decoder-only families (dense, MoE, MLA, the Mamba "
+                f"hybrid, xLSTM), the VLM and the encoder-decoder are "
                 f"{_UNPORTED}")
-        for j in range(cfg.layer_period):
-            tfm.block_ffn(cfg, j)      # raises for an unported block kind
         if remat_policy not in tfm.REMAT_POLICIES:
             raise ValueError(f"remat_policy {remat_policy!r} is not one of "
                              f"{tfm.REMAT_POLICIES}")
         self.cfg = cfg
         self.device = _device(device, "the model")
         self.q_chunk, self.kv_chunk = q_chunk, kv_chunk
+        self.ssm_chunk = ssm_chunk
         self.skip_masked_blocks = skip_masked_blocks
+        self.cast_at_use = cast_at_use
         self.remat_policy = remat_policy
         self.weights: nn.Module | None = None
         self._compute: dict | None = None
@@ -165,8 +171,10 @@ class Model(nn.Module):
 
     @property
     def compute_params(self) -> dict:
-        """The parameters in the compute dtype (norm scales and the router
-        float32)."""
+        """The parameters in the compute dtype (the float32 leaves left
+        float32); under ``cast_at_use`` the float32 masters themselves."""
+        if self.cast_at_use:
+            return self.params
         if self._compute is None:
             self._compute = tfm.cast_tree(_detached(self.params),
                                           compute_dtype(self.cfg))
@@ -186,7 +194,13 @@ class Model(nn.Module):
 
     def _chunks(self) -> dict:
         return dict(q_chunk=self.q_chunk, kv_chunk=self.kv_chunk,
+                    ssm_chunk=self.ssm_chunk,
                     skip_masked_blocks=self.skip_masked_blocks)
+
+    def _serve_cast(self):
+        """The cast serving applies at each block's use (None: the
+        weights are the cast copy already)."""
+        return compute_dtype(self.cfg) if self.cast_at_use else None
 
     # ---------------------------------------------------------- sequence
     def hidden_seq(self, batch, *, params: dict | None = None,
@@ -199,7 +213,8 @@ class Model(nn.Module):
         h, positions = self._embed_in(batch, dtype, params)
         if params is None:
             return tfm.forward_seq(self.cfg, self.compute_params, h,
-                                   positions, **self._chunks())
+                                   positions, cast=self._serve_cast(),
+                                   **self._chunks())
         return tfm.forward_seq(self.cfg, params, h, positions, remat=remat,
                                remat_policy=self.remat_policy, cast=dtype,
                                **self._chunks())
@@ -210,7 +225,8 @@ class Model(nn.Module):
                                   else params)
 
     def _unembed_c(self) -> torch.Tensor:
-        return tfm.unembed_matrix(self.cfg, self.compute_params)
+        return tfm.unembed_matrix(self.cfg, self.compute_params).to(
+            compute_dtype(self.cfg))
 
     def logits_seq(self, batch) -> torch.Tensor:
         h = self.hidden_seq(batch)
@@ -224,6 +240,7 @@ class Model(nn.Module):
         h, positions = self._embed_in(batch, compute_dtype(self.cfg))
         h, caches = tfm.forward_prefill(self.cfg, self.compute_params, h,
                                         positions, cache_len,
+                                        cast=self._serve_cast(),
                                         **self._chunks())
         logits = h[:, -1, :] @ self._unembed_c().T
         return logits, caches
@@ -234,7 +251,8 @@ class Model(nn.Module):
         h = tfm.embed_tokens(self.cfg, self.compute_params, tokens,
                              compute_dtype(self.cfg))
         h, caches = tfm.forward_decode(self.cfg, self.compute_params, h,
-                                       int(pos), caches)
+                                       int(pos), caches,
+                                       cast=self._serve_cast())
         return h @ self._unembed_c().T, caches
 
 

@@ -1,24 +1,32 @@
-"""The decoder stack of the dense and MoE families
-(``repro/models/transformer.py`` in PyTorch).
+"""The decoder stack of the dense, MoE, MLA, Jamba-hybrid and xLSTM
+families (``repro/models/transformer.py`` in PyTorch).
 
-Parameters are stacked over periods as in the reference: every leaf under
-``params["layers"]["pos{j}"]`` has a leading (n_layers / period) axis, so
-the reference's tree carries across leaf by leaf. The stack runs as a
-Python loop over periods, each taking its slice of every stacked leaf
-(``torch.unbind``, whose backward stacks the slices' gradients). Caches
-are stacked the same way and decode writes each layer's new row in place.
+Layers are grouped into periods (``cfg.layer_period``): within a period
+the block kinds may differ (Jamba: 7 Mamba + 1 attention; xLSTM: 5 mLSTM +
+1 sLSTM), across periods they repeat. Parameters are stacked over periods
+as in the reference: every leaf under ``params["layers"]["pos{j}"]`` has a
+leading (n_layers / period) axis, so the reference's tree carries across
+leaf by leaf. The stack runs as a Python loop over periods, each taking
+its slice of every stacked leaf (``torch.unbind``, whose backward stacks
+the slices' gradients). Caches are stacked the same way: the attention
+caches (GQA's K / V, MLA's latent) have each new row written in place by
+decode, and the recurrent states (Mamba's h and conv window, mLSTM's C, n,
+m, sLSTM's c, n, h, m) are replaced in place by each step's new state.
 
-The apply functions take the parameter tree in the compute dtype, norm
-scales and the MoE router in float32. Serving hands them the model's cast
-copy (``Model.compute_params``); training hands ``forward_seq`` the
-float32 masters with ``cast=dtype``, and each period casts its slice
-inside the autograd graph, as the reference casts with ``.astype`` at each
-use, so the gradients land on the float32 leaves. ``remat=True``
+The apply functions take the parameter tree in the compute dtype, with
+the leaves the reference reads in float32 left float32
+(``_keeps_float32``). Serving hands them the model's cast copy
+(``Model.compute_params``); training hands ``forward_seq`` the float32
+masters with ``cast=dtype``, and each block's slice is cast at its use
+inside the autograd graph, as the reference casts with ``.astype`` at
+each use, so the gradients land on the float32 leaves. ``remat=True``
 recomputes each period in the backward pass (``torch.utils.checkpoint``,
-non-reentrant); ``remat_policy="dots"`` keeps the outputs of the matrix
-products (selective activation checkpointing), as the reference's
-``checkpoint_dots``. The other block kinds (MLA, Mamba, xLSTM) are ROADMAP
-item 13c.
+non-reentrant);
+``remat_policy="dots"`` keeps the outputs of the matrix products
+(selective activation checkpointing), as the reference's
+``checkpoint_dots``. Mamba and mLSTM checkpoint each chunk whenever
+autograd records through their input, as the reference does whatever
+``remat`` is.
 """
 from __future__ import annotations
 
@@ -31,10 +39,10 @@ from torch.utils.checkpoint import (CheckpointPolicy, checkpoint,
                                     create_selective_checkpoint_contexts)
 
 from . import attention as attn
+from . import mamba as mb
 from . import mlp
+from . import xlstm as xl
 from .common import embed_init, rms_norm, split_keys
-
-_PORTED = (("gqa", "swiglu"), ("gqa", "moe"))
 
 
 # --------------------------------------------------------------- structure
@@ -48,35 +56,45 @@ def block_kind(cfg, j: int) -> tuple[str, str | None]:
     return mixer, ffn
 
 
-def block_ffn(cfg, j: int) -> str:
-    """The block's FFN kind; raises for the block kinds not ported."""
-    kind = block_kind(cfg, j)
-    if kind not in _PORTED:
-        raise NotImplementedError(
-            f"block {kind} of {cfg.name!r} is not ported; the port has the "
-            "GQA decoder with a SwiGLU or MoE FFN (ROADMAP item 13c)")
-    return kind[1]
-
-
 def init_block(key, cfg, j: int) -> dict:
-    ffn = block_ffn(cfg, j)
+    mixer, ffn = block_kind(cfg, j)
     ks = split_keys(key, 2)
     dev = key.device
-    p = {"norm1": torch.ones(cfg.d_model, device=dev),
-         "attn": attn.init_gqa(ks[0], cfg),
-         "norm2": torch.ones(cfg.d_model, device=dev)}
-    if ffn == "moe":
-        p["moe"] = mlp.init_moe(ks[1], cfg)
+    p: dict[str, Any] = {"norm1": torch.ones(cfg.d_model, device=dev)}
+    if mixer == "gqa":
+        p["attn"] = attn.init_gqa(ks[0], cfg)
+    elif mixer == "mla":
+        p["attn"] = attn.init_mla(ks[0], cfg)
+    elif mixer == "mamba":
+        p["mamba"] = mb.init_mamba(ks[0], cfg)
+    elif mixer == "mlstm":
+        p["mlstm"] = xl.init_mlstm(ks[0], cfg)
     else:
-        p["ffn"] = mlp.init_swiglu(ks[1], cfg.d_model, cfg.d_ff,
-                                   cfg.n_layers)
+        p["slstm"] = xl.init_slstm(ks[0], cfg)
+    if ffn is not None:
+        p["norm2"] = torch.ones(cfg.d_model, device=dev)
+        if ffn == "moe":
+            p["moe"] = mlp.init_moe(ks[1], cfg)
+        else:
+            p["ffn"] = mlp.init_swiglu(ks[1], cfg.d_model, cfg.d_ff,
+                                       cfg.n_layers)
     return p
 
 
+# Leaves some apply function reads in float32 (``.astype(jnp.float32)`` of
+# the float32 master in the reference): a copy cast to bfloat16 and back
+# would not be the master. The MoE router; Mamba's A and, in decode, its
+# conv and skip; mLSTM's gate bias; sLSTM's recurrent weights and gate
+# bias. Where the reference casts one of them to the compute dtype, the
+# apply function casts it at that use.
+_FLOAT32_LEAVES = frozenset(("router", "a_log", "conv_w", "conv_bias",
+                             "d_skip", "b_if", "r_gates", "b_gates"))
+
+
 def _keeps_float32(name: str) -> bool:
-    """Leaves the apply functions read in float32: norm scales and the
-    MoE router (the reference routes in float32)."""
-    return "norm" in name or name == "router"
+    """Leaves the apply functions read in float32: norm scales (cast at
+    their use where the reference casts them) and ``_FLOAT32_LEAVES``."""
+    return "norm" in name or name in _FLOAT32_LEAVES
 
 
 def cast_tree(tree: dict, dtype: torch.dtype) -> dict:
@@ -88,9 +106,12 @@ def cast_tree(tree: dict, dtype: torch.dtype) -> dict:
 
 
 def _stack(trees: list) -> Any:
+    """The trees stacked leaf by leaf on a new leading axis. Each leaf is
+    taken out of its tree as it is stacked, so no more than one leaf is
+    held twice; one tree's leaves become views."""
     if isinstance(trees[0], dict):
-        return {k: _stack([t[k] for t in trees]) for k in trees[0]}
-    return torch.stack(trees)
+        return {k: _stack([t.pop(k) for t in trees]) for k in list(trees[0])}
+    return trees[0][None] if len(trees) == 1 else torch.stack(trees)
 
 
 def _unstack(tree, n: int) -> list:
@@ -127,62 +148,112 @@ def init_decoder(key, cfg, *, with_embed: bool = True) -> dict:
 # ------------------------------------------------------------------ caches
 def init_block_cache(cfg, j: int, batch: int, cache_len: int, dtype,
                      device=None):
-    block_ffn(cfg, j)
-    kv = (batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
-    return (torch.zeros(kv, dtype=dtype, device=device),
-            torch.zeros(kv, dtype=dtype, device=device))
+    mixer, _ = block_kind(cfg, j)
+    z = functools.partial(torch.zeros, dtype=dtype, device=device)
+    if mixer == "gqa":
+        kv = (batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
+        return (z(kv), z(kv))
+    if mixer == "mla":
+        return (z((batch, cache_len, cfg.kv_lora_rank)),
+                z((batch, cache_len, cfg.qk_rope_dim)))
+    if mixer == "mamba":
+        return mb.mamba_init_state(cfg, batch, dtype, device)
+    if mixer == "mlstm":
+        return xl.mlstm_init_state(cfg, batch, device)
+    return xl.slstm_init_state(cfg, batch, device)
+
+
+def _tree_map(fn, *trees):
+    """``fn`` over the leaves of caches: tuples and dicts of tensors."""
+    t = trees[0]
+    if isinstance(t, dict):
+        return {k: _tree_map(fn, *(u[k] for u in trees)) for k in t}
+    if isinstance(t, tuple):
+        return tuple(_tree_map(fn, *u) for u in zip(*trees))
+    return fn(*trees)
 
 
 def init_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16,
                device=None) -> dict:
-    """{"pos{j}": (k, v)}, each (n_periods, B, cache_len, KVH, dh): real
-    zeros, not a broadcast view, since decode writes rows in place."""
+    """{"pos{j}": the block's cache}, every leaf with a leading
+    n_periods axis: real zeros (or ones), not a broadcast view, since
+    decode writes in place."""
     period = cfg.layer_period
     n_periods = cfg.n_layers // period
-    caches = {}
-    for j in range(period):
-        one = init_block_cache(cfg, j, batch, cache_len, dtype, device)
-        caches[f"pos{j}"] = tuple(
-            x[None].repeat((n_periods,) + (1,) * x.dim()) for x in one)
-    return caches
+    return {f"pos{j}": _tree_map(
+        lambda x: x[None].repeat((n_periods,) + (1,) * x.dim()),
+        init_block_cache(cfg, j, batch, cache_len, dtype, device))
+        for j in range(period)}
 
 
 # ------------------------------------------------------------- block apply
-def _ffn(cfg, p, hn):
-    """The block's FFN: the MoE where the block has one, else SwiGLU."""
+def _ffn(cfg, p, h):
+    """The block's FFN on the residual h (none for xLSTM's blocks)."""
+    if "norm2" not in p:
+        return h
+    hn = rms_norm(h, p["norm2"], cfg.norm_eps)
     if "moe" in p:
-        return mlp.moe_apply(cfg, p["moe"], hn)
-    return mlp.swiglu(p["ffn"], hn)
+        return h + mlp.moe_apply(cfg, p["moe"], hn)
+    return h + mlp.swiglu(p["ffn"], hn)
 
 
 def apply_block_seq(cfg, p, j: int, h, positions, *, q_chunk, kv_chunk,
-                    skip_masked_blocks=False):
+                    ssm_chunk=256, skip_masked_blocks=False):
+    mixer, _ = block_kind(cfg, j)
     hn = rms_norm(h, p["norm1"], cfg.norm_eps)
-    h = h + attn.gqa_train(cfg, p["attn"], hn, positions, q_chunk=q_chunk,
-                           kv_chunk=kv_chunk,
-                           skip_masked_blocks=skip_masked_blocks)
-    hn = rms_norm(h, p["norm2"], cfg.norm_eps)
-    return h + _ffn(cfg, p, hn)
+    if mixer == "gqa":
+        mix = attn.gqa_train(cfg, p["attn"], hn, positions, q_chunk=q_chunk,
+                             kv_chunk=kv_chunk,
+                             skip_masked_blocks=skip_masked_blocks)
+    elif mixer == "mla":
+        mix = attn.mla_train(cfg, p["attn"], hn, positions, q_chunk=q_chunk,
+                             kv_chunk=kv_chunk,
+                             skip_masked_blocks=skip_masked_blocks)
+    elif mixer == "mamba":
+        mix = mb.mamba_seq(cfg, p["mamba"], hn, chunk=ssm_chunk)
+    elif mixer == "mlstm":
+        mix = xl.mlstm_seq(cfg, p["mlstm"], hn, chunk=ssm_chunk)
+    else:
+        mix = xl.slstm_seq(cfg, p["slstm"], hn)
+    return _ffn(cfg, p, h + mix)
 
 
 def apply_block_prefill(cfg, p, j, h, positions, cache_len, *, q_chunk,
-                        kv_chunk, skip_masked_blocks=False):
+                        kv_chunk, ssm_chunk=256, skip_masked_blocks=False):
     """Like seq but also returns the cache for serving."""
+    mixer, _ = block_kind(cfg, j)
     hn = rms_norm(h, p["norm1"], cfg.norm_eps)
-    mix, cache = attn.gqa_prefill(cfg, p["attn"], hn, positions, cache_len,
-                                  q_chunk=q_chunk, kv_chunk=kv_chunk,
-                                  skip_masked_blocks=skip_masked_blocks)
-    h = h + mix
-    hn = rms_norm(h, p["norm2"], cfg.norm_eps)
-    return h + _ffn(cfg, p, hn), cache
+    kw = dict(q_chunk=q_chunk, kv_chunk=kv_chunk,
+              skip_masked_blocks=skip_masked_blocks)
+    if mixer == "gqa":
+        mix, cache = attn.gqa_prefill(cfg, p["attn"], hn, positions,
+                                      cache_len, **kw)
+    elif mixer == "mla":
+        mix, cache = attn.mla_prefill(cfg, p["attn"], hn, positions,
+                                      cache_len, **kw)
+    elif mixer == "mamba":
+        mix, cache = mb.mamba_prefill(cfg, p["mamba"], hn, ssm_chunk)
+    elif mixer == "mlstm":
+        mix, cache = xl.mlstm_prefill(cfg, p["mlstm"], hn, ssm_chunk)
+    else:
+        mix, cache = xl.slstm_prefill(cfg, p["slstm"], hn)
+    return _ffn(cfg, p, h + mix), cache
 
 
 def apply_block_decode(cfg, p, j, h, pos: int, cache):
+    mixer, _ = block_kind(cfg, j)
     hn = rms_norm(h, p["norm1"], cfg.norm_eps)
-    mix, cache = attn.gqa_decode(cfg, p["attn"], hn, pos, cache)
-    h = h + mix
-    hn = rms_norm(h, p["norm2"], cfg.norm_eps)
-    return h + _ffn(cfg, p, hn), cache
+    if mixer == "gqa":
+        mix, cache = attn.gqa_decode(cfg, p["attn"], hn, pos, cache)
+    elif mixer == "mla":
+        mix, cache = attn.mla_decode(cfg, p["attn"], hn, pos, cache)
+    elif mixer == "mamba":
+        mix, cache = mb.mamba_decode(cfg, p["mamba"], hn, cache)
+    elif mixer == "mlstm":
+        mix, cache = xl.mlstm_decode(cfg, p["mlstm"], hn, cache)
+    else:
+        mix, cache = xl.slstm_decode(cfg, p["slstm"], hn, cache)
+    return _ffn(cfg, p, h + mix), cache
 
 
 # ----------------------------------------------------------------- forward
@@ -218,26 +289,34 @@ def _save_dots(ctx, op, *args, **kwargs):
 REMAT_POLICIES = ("nothing", "dots")
 
 
+def _block_params(pp, j: int, cast):
+    """Block j's slice of a period, cast to ``cast`` (when given) here, at
+    its use: no cast copy of more than one block is held at a time."""
+    p = pp[f"pos{j}"]
+    return p if cast is None else cast_tree(p, cast)
+
+
 def forward_seq(cfg, params, h, positions, *, q_chunk: int = 1024,
-                kv_chunk: int = 1024, skip_masked_blocks: bool = False,
-                remat: bool = False, remat_policy: str = "nothing",
+                kv_chunk: int = 1024, ssm_chunk: int = 256,
+                skip_masked_blocks: bool = False, remat: bool = False,
+                remat_policy: str = "nothing",
                 cast: torch.dtype | None = None):
     """Body of full-sequence passes: h (B, S, D) -> final hidden.
 
-    ``cast``: the layers' parameters are float32 masters, cast to this
-    dtype inside each period. ``remat``: checkpoint each period (when
-    autograd records), keeping what ``remat_policy`` names: 'nothing'
-    (the period's input only) or 'dots' (also the products' outputs)."""
+    ``cast``: the layers' parameters are float32 masters, each block's
+    cast to this dtype at its use (inside the autograd graph when it
+    records). ``remat``: checkpoint each period (when autograd records),
+    keeping what ``remat_policy`` names: 'nothing' (the period's input
+    only) or 'dots' (also the products' outputs)."""
     if remat_policy not in REMAT_POLICIES:
         raise ValueError(f"remat_policy {remat_policy!r} is not one of "
                          f"{REMAT_POLICIES}")
 
     def period(h, pp):
-        if cast is not None:
-            pp = cast_tree(pp, cast)
         for j in range(cfg.layer_period):
-            h = apply_block_seq(cfg, pp[f"pos{j}"], j, h, positions,
-                                q_chunk=q_chunk, kv_chunk=kv_chunk,
+            h = apply_block_seq(cfg, _block_params(pp, j, cast), j, h,
+                                positions, q_chunk=q_chunk,
+                                kv_chunk=kv_chunk, ssm_chunk=ssm_chunk,
                                 skip_masked_blocks=skip_masked_blocks)
         return h
 
@@ -253,27 +332,43 @@ def forward_seq(cfg, params, h, positions, *, q_chunk: int = 1024,
 
 
 def forward_prefill(cfg, params, h, positions, cache_len, *, q_chunk=1024,
-                    kv_chunk=1024, skip_masked_blocks=False):
+                    kv_chunk=1024, ssm_chunk=256, skip_masked_blocks=False,
+                    cast: torch.dtype | None = None):
     per: dict = {f"pos{j}": [] for j in range(cfg.layer_period)}
-    for period_params in _periods(cfg, params):
+    for pp in _periods(cfg, params):
         for j in range(cfg.layer_period):
             h, cache = apply_block_prefill(
-                cfg, period_params[f"pos{j}"], j, h, positions, cache_len,
-                q_chunk=q_chunk, kv_chunk=kv_chunk,
+                cfg, _block_params(pp, j, cast), j, h, positions, cache_len,
+                q_chunk=q_chunk, kv_chunk=kv_chunk, ssm_chunk=ssm_chunk,
                 skip_masked_blocks=skip_masked_blocks)
             per[f"pos{j}"].append(cache)
-    caches = {name: (torch.stack([c[0] for c in cs]),
-                     torch.stack([c[1] for c in cs]))
+    caches = {name: _tree_map(lambda *xs: torch.stack(xs), *cs)
               for name, cs in per.items()}
     return rms_norm(h, params["final_norm"], cfg.norm_eps), caches
 
 
-def forward_decode(cfg, params, h, pos: int, caches):
-    """One token through the stack; each layer's cache row ``pos`` is
-    written in place, and ``caches`` is returned."""
-    for i, period_params in enumerate(_periods(cfg, params)):
+def _write(dst, src) -> None:
+    """The new cache or state ``src`` into its stacked slot ``dst``; the
+    attention caches are already written in place (src is dst)."""
+    if isinstance(dst, dict):
+        for k in dst:
+            _write(dst[k], src[k])
+    elif isinstance(dst, tuple):
+        for d, s in zip(dst, src):
+            _write(d, s)
+    elif src is not dst:
+        dst.copy_(src)
+
+
+def forward_decode(cfg, params, h, pos: int, caches,
+                   cast: torch.dtype | None = None):
+    """One token through the stack. Each layer's cache is updated in
+    place (row ``pos`` of an attention cache, the whole state of a
+    recurrent block), and ``caches`` is returned."""
+    for i, pp in enumerate(_periods(cfg, params)):
         for j in range(cfg.layer_period):
-            k, v = caches[f"pos{j}"]
-            h, _ = apply_block_decode(cfg, period_params[f"pos{j}"], j, h,
-                                      pos, (k[i], v[i]))
+            mine = _tree_map(lambda x: x[i], caches[f"pos{j}"])
+            h, new = apply_block_decode(cfg, _block_params(pp, j, cast), j,
+                                        h, pos, mine)
+            _write(mine, new)
     return rms_norm(h, params["final_norm"], cfg.norm_eps), caches

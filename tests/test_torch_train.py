@@ -524,5 +524,5 @@ def test_train_cli_refusals(flags, match):
     with pytest.raises(NotImplementedError, match=match):
         train_cli.main(["--device", "cpu", *flags])
     with pytest.raises(NotImplementedError, match="13c"):
-        train_cli.main(["--arch", "jamba-v0.1-52b", "--device", "cpu",
+        train_cli.main(["--arch", "whisper-small", "--device", "cpu",
                         "--steps", "1"])

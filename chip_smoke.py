@@ -428,7 +428,8 @@ shapes), in the order a, b, b, a.
    features (K = 1,025: fused_stats once a step; 1,024 documents a
    feature batch) against the plain fit as phase 18 (b) holds smollm's,
    then fused_stats on the head's inputs (nested row xlstm_head); 4
-   train steps of 8 x 1,024 (10 cut to 4 for time: 13 s a step) through
+   train steps of 8 x 512 (10 cut to 4 and 1,024 tokens to 512 for time:
+   sLSTM's loop runs a step a token, 9-16 s a step at 1,024) through
    launch.train.train with remat (losses finite, the mean of the last 3
    below the first; ms a step, tokens/s, the model FLOP share, peak MiB)
    and one profiled step (the busy share; sLSTM runs a loop over time).
@@ -445,6 +446,38 @@ shapes), in the order a, b, b, a.
    copy would not fit with the activations), and held as (b). Outside
    the head no kernel of the port launches (gated). Every time beside
    nvidia-smi's name and power limit.
+21. The encoder-decoder and the VLM (budget about 150 s). (a)
+   whisper-small at full size (12 + 12 layers, d 768, 12 heads of 64,
+   d_ff 3,072, vocab 51,865, 1,500 encoder frames; 270,902,016
+   parameters by its init, gated: num_params() says 239,212,032): 8
+   clips of frames drawn on the card from a seed, 8 prompts of 128
+   tokens, cache 192, prefill (encoder included; median of 3), 32 decode
+   steps timed, generate(64) twice bitwise equal; teacher forcing and the
+   bfloat16 logits_seq against a float32 model's within 3e-2 (gated);
+   one encoder and one decoder layer in float32 on the card against the
+   CPU within 1e-4; 6 train steps of 8 x 256 tokens through
+   launch.train.train with remat (zero frames, as the reference's
+   trainer feeds them; losses finite, the mean of the last 3 below the
+   first) and one profiled step. (b) MaxMarginHead over whisper's
+   mean-pooled encoder output (K = 769: fused_stats's 4-byte-copy path)
+   on 8,192 clips (6,144 to train), each clip's frames drawn on the card
+   batch by batch: standard normal, the clip's own offset on every frame,
+   and a class shift along one direction drawn from the seed; at jitter
+   1e-5 (LayerNorm'd features have rank K - 1 with the bias column and
+   fit NaN at the default; the default's outcome printed); held against
+   the plain fit as phase 18 (b), then fused_stats on the head's inputs
+   (nested row whisper_head). (c) qwen2-vl-72b at full width, 4 of 80
+   layers (about 6.0 B parameters): 8 prompts of 512 positions in
+   Qwen2-VL's layout (64 text tokens, a 16 x 16 grid of patch
+   embeddings at t fixed, 192 text tokens resuming at the grid's largest
+   position + 1; text embeddings are rows of the embed table, patches
+   drawn at its scale), prefill, 32 greedy decode steps twice bitwise
+   equal; M-RoPE with t = h = w bitwise RoPE (the rotation, and the
+   model's hidden states against its RoPE twin's); teacher forcing
+   across the image block (the decoded token at its cache index on all
+   three streams) in bfloat16 and float32 and bfloat16 against float32
+   on 2 of the prompts, within 3e-2 (gated). Outside the head no kernel
+   of the port launches (gated).
 
 Phase 11 runs last (it holds its exact KRN fit against phase 14's), kills
 fit 1 (2 x 2) after iteration 8 and resumes it on 4 x 1 within fit 1's
@@ -5881,7 +5914,8 @@ def fit64(cfg, dev, X, y):
 
 
 def lm_head(label, model, n_docs, n_train, dev, kernels, witness=False,
-            feature_batch=256):
+            feature_batch=256, docs=None, pool=None,
+            unit=f"documents x {HEAD_TOKENS} tokens", jitter=None):
     """Phase 18 (b), (c): MaxMarginHead over ``model``'s mean-pooled
     features, LIN-EM-CLS lam 0.1, max_iters 60, through the kernels
     ``kernels`` (each once a step, nothing else) and through the plain
@@ -5892,19 +5926,24 @@ def lm_head(label, model, n_docs, n_train, dev, kernels, witness=False,
     fit's weights move 31 % under a one-ulp move of its features) a
     float64 fit is the witness: iterations within 3 of it too, weights no
     further from it than the plain fit's, accuracy within 0.01 of it.
+    ``docs`` (inputs, labels) and ``pool`` (a batch of inputs on the card
+    -> (B, D) features) replace the token documents and the mean pool of
+    ``hidden_seq`` (phase 21's audio clips); ``unit`` names an input;
+    ``jitter`` the fits' relative ridge (None: SVMConfig's default).
     Returns (features, labels, the kernel fit, the counts)."""
     from repro_torch.core import MaxMarginHead, SVMConfig, mean_pool
-    toks, y = lm_docs(model.cfg.vocab, n_docs)
+    toks, y = lm_docs(model.cfg.vocab, n_docs) if docs is None else docs
     ttr, ytr, tte, yte = toks[:n_train], y[:n_train], toks[n_train:], \
         y[n_train:]
     seen = []           # the features head.fit extracts, for the plain fit
 
     def feature_fn(t):
-        f = mean_pool(model.hidden_seq({"tokens": t}).float())
+        f = (mean_pool(model.hidden_seq({"tokens": t}).float())
+             if pool is None else pool(t))
         seen.append(f)
         return f
 
-    cfg = SVMConfig(lam=0.1, max_iters=60)
+    cfg = SVMConfig(lam=0.1, max_iters=60, jitter=jitter)
     head = MaxMarginHead(cfg, feature_fn, feature_batch=feature_batch,
                          device=dev)
     head.extract(ttr[:head.feature_batch])             # warm-up
@@ -5941,8 +5980,8 @@ def lm_head(label, model, n_docs, n_train, dev, kernels, witness=False,
                      ytr)
     w2 = _rel_max(r2.weights, r2p.weights)
     say(f"  {label} ({smi()}): features of the {len(tte):,} held-out "
-        f"documents x {HEAD_TOKENS} tokens in {ext_s * 1e3:.1f} ms "
-        f"({len(tte) / ext_s:.0f} documents/s); head.fit on {n_train:,} "
+        f"{unit} in {ext_s * 1e3:.1f} ms ({len(tte) / ext_s:.0f} "
+        f"{unit.split()[0]}/s); head.fit on {n_train:,} "
         f"{head_s:.3f} s (extraction and fit); the "
         f"fit alone {fit_s:.3f} s, {res.n_iters} iterations ({steps} steps, "
         f"{fit_s / steps * 1e3:.2f} ms a step), K = {Xtr.shape[1] + 1}, "
@@ -6423,6 +6462,8 @@ XL_PARAMS = 506_086_560  # xlstm-350m's init draws these (jax.eval_shape of
 #                          312,787,968
 XL_TRAIN_BATCH, XL_TRAIN_STEPS = 8, 4   # the 10 asked cut to 4 for time:
 #                                         13.1 s a step (sLSTM's launches)
+XL_TRAIN_SEQ = 512      # 1,024 cut to 512 for time (the script's limit):
+#                         sLSTM launches a loop step a token
 XL_FEATURE_BATCH = 1024  # documents a feature batch: sLSTM's launches are
 #                          per batch, not per document
 XL_CPU_LAYERS = 6       # one full-width period (5 mLSTM + 1 sLSTM)
@@ -6430,22 +6471,25 @@ MLA_LAYERS = 2          # deepseek-v2-236b's layers run (of 60)
 BAND_BATCH = 2          # prompts of the MoE models' band checks (memory)
 
 
-def serve_timed(dev, model, label):
-    """The serving run of phases 19 (c) and 20: LM_BATCH prompts of
-    LM_PROMPT tokens (make_lm_tokens, seed 1), cache LM_CACHE, prefill
-    (median of 3 after a warm-up), LM_TIMED_STEPS decode steps timed one
-    by one, generate(LM_STEPS) greedy twice and bitwise equal. Returns
-    the token stream (LM_BATCH, LM_PROMPT + 1)."""
+def serve_timed(dev, model, label, prompt=LM_PROMPT, cache=LM_CACHE,
+                extra=None):
+    """The serving run of phases 19 (c), 20 and 21 (a): LM_BATCH prompts
+    of ``prompt`` tokens (make_lm_tokens, seed 1) with the batch entries
+    ``extra`` (whisper's frames), cache ``cache``, prefill (median of 3
+    after a warm-up), LM_TIMED_STEPS decode steps timed one by one,
+    generate(cache - prompt) greedy twice and bitwise equal. Returns the
+    token stream (LM_BATCH, prompt + 1)."""
     from repro_torch.checkpoint.checkpointer import _tree_flatten_with_names
     from repro_torch.data import make_lm_tokens
     from repro_torch.serving import (generate, make_decode_step,
                                      make_prefill_step)
     cfg = model.cfg
-    stream = make_lm_tokens(LM_BATCH * (LM_PROMPT + 1), cfg.vocab, seed=1
-                            ).reshape(LM_BATCH, LM_PROMPT + 1)
-    prompts = {"tokens": stream[:, :LM_PROMPT]}
-    prefill = make_prefill_step(model, LM_CACHE)
+    stream = make_lm_tokens(LM_BATCH * (prompt + 1), cfg.vocab, seed=1
+                            ).reshape(LM_BATCH, prompt + 1)
+    prompts = {"tokens": stream[:, :prompt], **(extra or {})}
+    prefill = make_prefill_step(model, cache)
     decode = make_decode_step(model)
+    gen_steps = cache - prompt
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
     prefill(prompts)                                   # warm-up
@@ -6461,7 +6505,7 @@ def serve_timed(dev, model, label):
     with RouteLog() as rd:
         for i in range(LM_TIMED_STEPS):
             t0 = time.perf_counter()
-            tok, lg, caches = decode(tok[:, None], LM_PROMPT + i, caches)
+            tok, lg, caches = decode(tok[:, None], prompt + i, caches)
             torch.cuda.synchronize()
             steps.append(time.perf_counter() - t0)
     check(bool(torch.isfinite(lg.float()).all()),
@@ -6469,26 +6513,27 @@ def serve_timed(dev, model, label):
     cache_b = sum(x.numel() * x.element_size() for x in
                   _tree_flatten_with_names(caches)[1])
     del caches
-    a = generate(model, prompts, steps=LM_STEPS, cache_len=LM_CACHE)
-    b = generate(model, prompts, steps=LM_STEPS, cache_len=LM_CACHE)
+    a = generate(model, prompts, steps=gen_steps, cache_len=cache)
+    b = generate(model, prompts, steps=gen_steps, cache_len=cache)
     peak = torch.cuda.max_memory_allocated()
-    check(tuple(a.shape) == (LM_BATCH, LM_STEPS) and torch.equal(a, b),
+    check(tuple(a.shape) == (LM_BATCH, gen_steps) and torch.equal(a, b),
           f"{label}: two greedy generate calls differ")
     p_s, d_s = statistics.median(pre), statistics.median(steps)
     drops = (f"; dropped at the factor {cfg.moe_capacity_factor}: prefill "
              f"{rp.dropped():.4f}, decode {rd.dropped():.4f} of the "
              f"assignments" if cfg.n_experts else "")
-    say(f"  {label} serve {LM_BATCH} x {LM_PROMPT} prompts, cache "
-        f"{LM_CACHE} ({smi()}): prefill {p_s * 1e3:.2f} ms median of 3 "
-        f"({LM_BATCH * LM_PROMPT / p_s:.0f} tokens/s); decode "
+    say(f"  {label} serve {LM_BATCH} x {prompt} prompts, cache "
+        f"{cache} ({smi()}): prefill {p_s * 1e3:.2f} ms median of 3 "
+        f"({LM_BATCH * prompt / p_s:.0f} tokens/s); decode "
         f"{d_s * 1e3:.3f} ms a step, median of {LM_TIMED_STEPS} "
-        f"({LM_BATCH / d_s:.0f} tokens/s); generate({LM_STEPS}) bitwise "
+        f"({LM_BATCH / d_s:.0f} tokens/s); generate({gen_steps}) bitwise "
         f"equal twice; caches {cache_b / 2**20:.1f} MiB; peak "
         f"{peak / 2**20:.0f} MiB{drops}")
     return stream
 
 
-def family_bands(dev, model, stream, batch, label, gate_bf16=True):
+def family_bands(dev, model, stream, batch, label, gate_bf16=True,
+                 prompt=LM_PROMPT, cache=LM_CACHE, extra=None):
     """Teacher forcing (decode of token LM_PROMPT after prefill against
     logits_seq there) in bfloat16 and in float32, and the bfloat16
     logits_seq against a float32 model's on the same weights, on the
@@ -6501,26 +6546,28 @@ def family_bands(dev, model, stream, batch, label, gate_bf16=True):
     each pair is compared twice: with each run routing for itself
     (printed, with the share of routings that differ) and with one run's
     expert ids held (RouteTape; gated). The helper models serve from the
-    masters (``cast_at_use``): no second cast copy."""
+    masters (``cast_at_use``): no second cast copy. ``prompt``, ``cache``
+    and the batch entries ``extra`` as ``serve_timed``'s."""
     from repro_torch.models import build_model
     cfg = model.cfg
     moe = bool(cfg.n_experts)
     if moe:
         cfg = dataclasses.replace(
             cfg, moe_capacity_factor=cfg.n_experts / cfg.top_k + 1e-3)
-    B, S = batch, LM_PROMPT + 1
-    seq = {"tokens": stream[:B]}
-    prompts = {"tokens": stream[:B, :LM_PROMPT]}
+    B, S = batch, prompt + 1
+    more = {k: v[:B] for k, v in (extra or {}).items()}
+    seq = {"tokens": stream[:B], **more}
+    prompts = {"tokens": stream[:B, :prompt], **more}
 
     def teacher(m, full, ids, replay):
         with RouteTape((lambda i, x: x.reshape(B, S, -1)[
-                :, :LM_PROMPT].reshape(B * LM_PROMPT, -1)) if replay
+                :, :prompt].reshape(B * prompt, -1)) if replay
                 else None, ids):
-            _, caches = m.prefill(prompts, LM_CACHE)
-        with RouteTape((lambda i, x: x.reshape(B, S, -1)[:, LM_PROMPT])
+            _, caches = m.prefill(prompts, cache)
+        with RouteTape((lambda i, x: x.reshape(B, S, -1)[:, prompt])
                        if replay else None, ids) as t:
-            lg, _ = m.decode(stream[:B, LM_PROMPT:], LM_PROMPT, caches)
-        return lm_rel(lg[:, 0], full[:, LM_PROMPT]), t
+            lg, _ = m.decode(stream[:B, prompt:], prompt, caches)
+        return lm_rel(lg[:, 0], full[:, prompt]), t
 
     nd = build_model(cfg, dev, cast_at_use=True)
     nd.use_params(model.params)
@@ -6541,7 +6588,7 @@ def family_bands(dev, model, stream, batch, label, gate_bf16=True):
     if moe:
         with RouteTape(lambda i, ids: ids, r32.ids):
             b16 = lm_rel(nd.logits_seq(seq), f32)
-        at_prompt = [ids.reshape(B, S, -1)[:, LM_PROMPT] for ids in
+        at_prompt = [ids.reshape(B, S, -1)[:, prompt] for ids in
                      full_routes.ids]
         say(f"  {label} at the factor {cfg.moe_capacity_factor:g} (dropped "
             f"{r.dropped():.4f}), {B} x {S} tokens: teacher forcing, each "
@@ -6612,7 +6659,7 @@ def xl_cpu_forward(dev, cfg):
 
 
 def xl_train(dev, cfg):
-    """(a) training: XL_TRAIN_STEPS steps of XL_TRAIN_BATCH x TRAIN_SEQ
+    """(a) training: XL_TRAIN_STEPS steps of XL_TRAIN_BATCH x XL_TRAIN_SEQ
     through ``launch.train.train`` (remat); every loss finite and the
     mean of the last 3 below the first; then one profiled step (the
     device's busy share: sLSTM's per-token launches)."""
@@ -6625,7 +6672,7 @@ def xl_train(dev, cfg):
     torch.cuda.reset_peak_memory_stats()
     t0 = time.perf_counter()
     out = train(cfg, steps=XL_TRAIN_STEPS, batch=XL_TRAIN_BATCH,
-                seq=TRAIN_SEQ, lr=TRAIN_LR, device=dev, log=_train_log)
+                seq=XL_TRAIN_SEQ, lr=TRAIN_LR, device=dev, log=_train_log)
     wall = time.perf_counter() - t0
     peak = torch.cuda.max_memory_allocated()
     losses, model = out["losses"], out["model"]
@@ -6634,10 +6681,10 @@ def xl_train(dev, cfg):
         float(np.mean(losses[-3:])) < losses[0]
     check(ok, f"(a) {cfg.name}: losses not finite and falling: {losses}")
     ms = _step_ms(out["step_s"])
-    tokens = XL_TRAIN_BATCH * TRAIN_SEQ
+    tokens = XL_TRAIN_BATCH * XL_TRAIN_SEQ
     mfu = 6 * n * tokens / (ms / 1e3) / PEAK_BF16
     say(f"  (a) {cfg.name} trained {XL_TRAIN_STEPS} steps of "
-        f"{XL_TRAIN_BATCH} x {TRAIN_SEQ} tokens (remat, AdamW lr "
+        f"{XL_TRAIN_BATCH} x {XL_TRAIN_SEQ} tokens (remat, AdamW lr "
         f"{TRAIN_LR}) in {wall:.1f} s ({smi()}): {ms:.1f} ms a step "
         f"(median), {tokens / (ms / 1e3):.0f} tokens/s, model FLOP share "
         f"{mfu:.4f} of {PEAK_BF16 / 1e12:.0f} TFLOP/s (6 x {n:,} x {tokens} "
@@ -6647,8 +6694,8 @@ def xl_train(dev, cfg):
     step = make_train_step(model, AdamWConfig(lr=TRAIN_LR, warmup_steps=10,
                                               total_steps=XL_TRAIN_STEPS),
                            loss_chunk=512)
-    toks = make_lm_tokens(XL_TRAIN_BATCH * (TRAIN_SEQ + 1), cfg.vocab,
-                          seed=9).reshape(XL_TRAIN_BATCH, TRAIN_SEQ + 1)
+    toks = make_lm_tokens(XL_TRAIN_BATCH * (XL_TRAIN_SEQ + 1), cfg.vocab,
+                          seed=9).reshape(XL_TRAIN_BATCH, XL_TRAIN_SEQ + 1)
     batch = {"tokens": torch.from_numpy(toks[:, :-1].copy()).to(dev),
              "labels": torch.from_numpy(toks[:, 1:].copy()).to(dev)}
     state = out["state"]
@@ -6730,6 +6777,357 @@ def phase_families(dev):
     c = _counts()
     check(all(v == 0 for v in c.values()), f"phase 20 launched {c}")
     return rows
+
+
+# ---------------------------------------------------------------- phase 21
+ED_ARCH, VLM_ARCH = "whisper-small", "qwen2-vl-72b"
+ED_PARAMS = 270_902_016  # whisper-small's init draws these (jax.eval_shape of
+#                          the reference's init, the 40,960-row pos_table
+#                          included); num_params() says 239,212,032
+ED_PROMPT, ED_CACHE = 128, 192          # 8 prompts of 128 tokens, 64 steps
+ED_TRAIN_BATCH, ED_TRAIN_SEQ, ED_TRAIN_STEPS = 8, 256, 6
+ED_CLIPS, ED_TRAIN_CLIPS = 8_192, 6_144  # the head: N / K = 8 at K = 769
+ED_FEATURE_BATCH = 32   # clips a feature batch: the encoder's one 1,500-row
+#                         attention chunk holds 32 x 12 x 1,500^2 fp32 scores
+CLIP_STD, CLIP_SHIFT = 0.5, 0.64  # each clip's own offset (on every frame)
+#                                   and the class shift along one direction
+ED_HEAD_JITTER = 1e-5   # the head's relative ridge: every frame of the
+#   encoder output is LayerNorm'd, so the pooled features with the bias
+#   column have rank K - 1; P's null direction then holds lam alone, below
+#   float32 Sigma's rounding once hinge rows weigh 1/eps, and the default
+#   1e-7 fits NaN in both packages (ROADMAP section 3)
+VLM_LAYERS = 4          # qwen2-vl-72b's layers run (of 80)
+VLM_TEXT0, VLM_GRID, VLM_TEXT1 = 64, 16, 192   # 64 + 16^2 + 192 = 512
+
+
+def card_frames(dev, n, cfg, seed):
+    """n clips of stub frame embeddings (n, enc_seq, d) in the compute
+    dtype, standard normal, drawn on the card from ``seed``."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    f = torch.randn((n, cfg.enc_seq, cfg.d_model), generator=g, device=dev)
+    return f.to(getattr(torch, cfg.dtype))
+
+
+def ed_cpu_forward(dev, cfg):
+    """One encoder and one decoder layer of whisper-small at full width in
+    float32: the card's hidden states and logits against the CPU's within
+    LM_F32_BAND of max|CPU|."""
+    from repro_torch.data import make_lm_tokens
+    from repro_torch.models import build_model
+    c = dataclasses.replace(cfg, n_enc_layers=1, n_layers=1,
+                            dtype="float32")
+    card = build_model(c, dev)
+    card.init(0)
+    cpu = build_model(c, "cpu")
+    cpu.load_params(card.params)
+    batch = {"tokens": make_lm_tokens(2 * 64, c.vocab, seed=3
+                                      ).reshape(2, 64),
+             "frames": card_frames(dev, 2, c, 3).cpu()}
+    hd = lm_rel(card.hidden_seq(batch).cpu(), cpu.hidden_seq(batch))
+    ld = lm_rel(card.logits_seq(batch).cpu(), cpu.logits_seq(batch))
+    say(f"  (a) one encoder and one decoder layer at full width, float32, "
+        f"2 clips of {c.enc_seq} frames and 2 x 64 tokens: the card "
+        f"against the CPU: hidden {hd:.3e}, logits {ld:.3e} of max|CPU| "
+        f"(<= {LM_F32_BAND})")
+    check(hd <= LM_F32_BAND and ld <= LM_F32_BAND,
+          "whisper: the card's float32 forward is outside the CPU band")
+
+
+def ed_train(dev, cfg):
+    """(a) training: ED_TRAIN_STEPS steps of ED_TRAIN_BATCH x ED_TRAIN_SEQ
+    tokens through ``launch.train.train`` (remat; zero frames, as the
+    reference's trainer feeds them); every loss finite and the mean of
+    the last 3 below the first; then one profiled step."""
+    from torch.profiler import ProfilerActivity, profile
+
+    from repro_torch.data import make_lm_tokens
+    from repro_torch.launch.train import train
+    from repro_torch.training import AdamWConfig, make_train_step
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = train(cfg, steps=ED_TRAIN_STEPS, batch=ED_TRAIN_BATCH,
+                seq=ED_TRAIN_SEQ, lr=TRAIN_LR, device=dev, log=_train_log)
+    wall = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated()
+    losses, model = out["losses"], out["model"]
+    n = model.num_params()
+    check(bool(np.all(np.isfinite(losses)))
+          and float(np.mean(losses[-3:])) < losses[0],
+          f"(a) {cfg.name}: losses not finite and falling: {losses}")
+    ms = _step_ms(out["step_s"])
+    tokens = ED_TRAIN_BATCH * ED_TRAIN_SEQ
+    say(f"  (a) {cfg.name} trained {ED_TRAIN_STEPS} steps of "
+        f"{ED_TRAIN_BATCH} x {ED_TRAIN_SEQ} tokens and {ED_TRAIN_BATCH} x "
+        f"{cfg.enc_seq} frames (remat, AdamW lr {TRAIN_LR}) in {wall:.1f} s "
+        f"({smi()}): {ms:.1f} ms a step (median), {tokens / (ms / 1e3):.0f} "
+        f"tokens/s, peak {peak / 2**20:.0f} MiB; loss {losses[0]:.4f} -> "
+        f"{losses[-1]:.4f} (mean of the last 3 "
+        f"{float(np.mean(losses[-3:])):.4f})")
+    step = make_train_step(model, AdamWConfig(lr=TRAIN_LR, warmup_steps=10,
+                                              total_steps=ED_TRAIN_STEPS),
+                           loss_chunk=min(512, ED_TRAIN_SEQ))
+    toks = make_lm_tokens(ED_TRAIN_BATCH * (ED_TRAIN_SEQ + 1), cfg.vocab,
+                          seed=9).reshape(ED_TRAIN_BATCH, ED_TRAIN_SEQ + 1)
+    batch = {"tokens": torch.from_numpy(toks[:, :-1].copy()).to(dev),
+             "labels": torch.from_numpy(toks[:, 1:].copy()).to(dev),
+             "frames": torch.zeros((ED_TRAIN_BATCH, cfg.enc_seq,
+                                    cfg.d_model), device=dev)}
+    state = out["state"]
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        state, _ = step(state, batch)
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+    say_device_events(prof, secs, 8, f"(a) profile of 1 train step (under "
+                      f"the profiler): {secs * 1e3:.1f} ms wall")
+    del out, model, state, prof, step
+    _release(f"(a) {cfg.name}'s training")
+
+
+def ed_head(dev, model):
+    """(b) MaxMarginHead over whisper's mean-pooled encoder output (K =
+    769): ED_CLIPS clips, ED_TRAIN_CLIPS to train, each clip's frames
+    drawn on the card batch by batch (never held on the host): standard
+    normal, plus the clip's own offset (CLIP_STD, on every frame), plus
+    CLIP_SHIFT x its class along one unit direction drawn from the seed.
+    Held as phase 18 (b) holds smollm's head; then fused_stats on the
+    head's own inputs. Returns the kernels row."""
+    from repro_torch.core import SVMConfig, mean_pool
+    from repro_torch.models import encdec
+    cfg = model.cfg
+    rng = np.random.default_rng(21)
+    y = np.where(rng.random(ED_CLIPS) > 0.5, 1.0, -1.0)
+    u = rng.normal(size=cfg.d_model)
+    u = torch.from_numpy(u / np.linalg.norm(u)).float().to(dev)
+    y_dev = torch.from_numpy(y).float().to(dev)
+    ids = np.arange(ED_CLIPS, dtype=np.int64)
+
+    def pool(t):
+        g = torch.Generator(device=dev).manual_seed(1_000 + int(t[0]))
+        shape = (len(t), cfg.enc_seq, cfg.d_model)
+        f = torch.randn(shape, generator=g, device=dev)
+        f += CLIP_STD * torch.randn((len(t), 1, cfg.d_model), generator=g,
+                                    device=dev)
+        f += CLIP_SHIFT * y_dev[t][:, None, None] * u
+        memory = encdec.encode(cfg, model.compute_params,
+                               f.to(getattr(torch, cfg.dtype)))
+        return mean_pool(memory.float())
+
+    label = f"(b) the head on {ED_ARCH}'s encoder"
+    Xtr, ytr, res, counts = lm_head(
+        label, model, ED_CLIPS, ED_TRAIN_CLIPS, dev, ("fused_stats",),
+        feature_batch=ED_FEATURE_BATCH, docs=(ids, y), pool=pool,
+        unit=f"clips x {cfg.enc_seq} frames", jitter=ED_HEAD_JITTER)
+    sums = np.abs(Xtr.sum(1)).max()
+    _, r, _ = _fit(SVMConfig(lam=0.1, max_iters=60), dev, Xtr, ytr)
+    say(f"  {label}: max |row sum| of the pooled features {sums:.3e} (each "
+        f"frame's LayerNorm output sums to 0); at SVMConfig's default "
+        f"jitter the kernel fit gives {r.n_iters} iterations, weights "
+        f"finite: {bool(np.all(np.isfinite(r.weights)))}; at "
+        f"{ED_HEAD_JITTER:g}: {res.n_iters}")
+    return head_stats_row(dev, Xtr, ytr, res.weights, counts["fused_stats"],
+                          "whisper head")
+
+
+def vlm_layout():
+    """(3, 512) M-RoPE positions in Qwen2-VL's layout: VLM_TEXT0 text
+    tokens (t = h = w), a VLM_GRID x VLM_GRID grid of merged patches (t
+    fixed at the text's next position, h and w over the grid), then
+    VLM_TEXT1 text tokens resuming at the grid's largest position + 1;
+    and the grid's mask."""
+    t0 = np.arange(VLM_TEXT0)
+    gi, gj = np.divmod(np.arange(VLM_GRID ** 2), VLM_GRID)
+    img = np.stack([np.full(VLM_GRID ** 2, VLM_TEXT0), VLM_TEXT0 + gi,
+                    VLM_TEXT0 + gj])
+    t1 = int(img.max()) + 1 + np.arange(VLM_TEXT1)
+    pos = np.concatenate([np.stack([t0] * 3), img, np.stack([t1] * 3)], 1)
+    mask = np.zeros(pos.shape[1], bool)
+    mask[VLM_TEXT0:VLM_TEXT0 + VLM_GRID ** 2] = True
+    return pos, mask
+
+
+def vlm_prompts(dev, model, stream):
+    """The VLM's prompts for the token stream (B, 513): embeddings of the
+    first 512 (rows of the float32 embed table; the grid's entries patch
+    embeddings drawn from the seed at the table's scale) and their
+    positions; and the full 513-position batch, the last token at its
+    cache index 512 on all three streams (the reference's decode
+    position)."""
+    pos, mask = vlm_layout()
+    B, P = stream.shape[0], pos.shape[1]
+    table = model.params["embed"]["table"]
+    emb = table[torch.from_numpy(stream).to(dev, torch.long)]
+    g = torch.Generator(device=dev).manual_seed(7)
+    emb[:, :P][:, torch.from_numpy(mask).to(dev)] = table.std() * torch.randn(
+        (B, int(mask.sum()), table.shape[1]), generator=g, device=dev)
+    full_pos = np.concatenate([pos, np.full((3, 1), P)], axis=1)
+
+    def positions(p, n):
+        return torch.from_numpy(p).to(dev)[:, None].expand(3, n, -1)
+    prompts = {"embeds": emb[:, :P], "positions": positions(pos, B)}
+    full = {"embeds": emb, "positions": positions(full_pos, B)}
+    return prompts, full
+
+
+def vlm_serve(dev, model, label):
+    """(c) serving: LM_BATCH prompts of 512 positions, cache LM_CACHE;
+    prefill (median of 3 after a warm-up), LM_TIMED_STEPS greedy decode
+    steps timed one by one (each token at its cache index), run twice
+    and bitwise equal. Returns the token stream (LM_BATCH, 513)."""
+    from repro_torch.data import make_lm_tokens
+    from repro_torch.serving import make_decode_step, make_prefill_step
+    cfg = model.cfg
+    P = VLM_TEXT0 + VLM_GRID ** 2 + VLM_TEXT1
+    stream = make_lm_tokens(LM_BATCH * (P + 1), cfg.vocab, seed=1
+                            ).reshape(LM_BATCH, P + 1)
+    prompts, _ = vlm_prompts(dev, model, stream)
+    prefill = make_prefill_step(model, LM_CACHE)
+    decode = make_decode_step(model)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    prefill(prompts)                                   # warm-up
+    torch.cuda.synchronize()
+    pre = []
+    for _ in range(3):
+        t0 = time.perf_counter()
+        tok0, caches = prefill(prompts)
+        torch.cuda.synchronize()
+        pre.append(time.perf_counter() - t0)
+    runs = []
+    for _ in range(2):
+        tok, caches = prefill(prompts)
+        toks, steps = [tok], []
+        for i in range(LM_TIMED_STEPS):
+            t0 = time.perf_counter()
+            tok, lg, caches = decode(tok[:, None], P + i, caches)
+            torch.cuda.synchronize()
+            steps.append(time.perf_counter() - t0)
+            toks.append(tok)
+        runs.append(torch.stack(toks, 1))
+        check(bool(torch.isfinite(lg.float()).all()),
+              f"{label}: decode logits not finite")
+        del caches
+    peak = torch.cuda.max_memory_allocated()
+    check(torch.equal(runs[0], runs[1]),
+          f"{label}: two greedy decode runs differ")
+    p_s, d_s = statistics.median(pre), statistics.median(steps)
+    say(f"  {label} serve {LM_BATCH} x {P} positions ({VLM_TEXT0} text, a "
+        f"{VLM_GRID} x {VLM_GRID} patch grid, {VLM_TEXT1} text), cache "
+        f"{LM_CACHE} ({smi()}): prefill {p_s * 1e3:.2f} ms median of 3 "
+        f"({LM_BATCH * P / p_s:.0f} tokens/s); decode {d_s * 1e3:.3f} ms a "
+        f"step, median of {LM_TIMED_STEPS} ({LM_BATCH / d_s:.0f} tokens/s); "
+        f"{LM_TIMED_STEPS} greedy steps bitwise equal twice; peak "
+        f"{peak / 2**20:.0f} MiB")
+    return stream
+
+
+def vlm_bands(dev, model, stream, label):
+    """(c) held: M-RoPE with equal streams against RoPE on the card,
+    bitwise (the rotation at q's shape, and the model on text positions
+    against its RoPE twin fed the same tokens); teacher forcing across
+    the image block (prefill of 512 positions, decode of token 512 at
+    cache index 512 against the full 513-position sequence) in bfloat16
+    and in float32, and the bfloat16 logits_seq against a float32 model's
+    on the same weights, on BAND_BATCH prompts, within LM_BF16_BAND."""
+    from repro_torch.models import build_model, rotary
+    cfg = model.cfg
+    B, P = BAND_BATCH, stream.shape[1] - 1
+    g = torch.Generator(device=dev).manual_seed(5)
+    q = torch.randn((LM_BATCH, P, cfg.n_heads, cfg.head_dim), generator=g,
+                    device=dev).to(torch.bfloat16)
+    pos = torch.arange(P, device=dev).expand(LM_BATCH, P)
+    op = torch.equal(rotary.apply_rope(q, pos, cfg.rope_theta),
+                     rotary.apply_mrope(q, pos.expand(3, LM_BATCH, P),
+                                        cfg.rope_theta, cfg.mrope_sections))
+    toks = torch.from_numpy(stream[:B, :P]).to(dev, torch.long)
+    text = {"embeds": model.params["embed"]["table"][toks],
+            "positions": pos[:B].expand(3, B, P)}
+    twin = build_model(dataclasses.replace(cfg, family="dense", mrope=False),
+                       dev, cast_at_use=True)
+    twin.use_params(model.params)
+    whole = torch.equal(model.hidden_seq(text),
+                        twin.hidden_seq({"tokens": toks}))
+    del twin
+    say(f"  {label} M-RoPE with t = h = w against RoPE: the rotation at "
+        f"({LM_BATCH}, {P}, {cfg.n_heads}, {cfg.head_dim}) bf16 bitwise "
+        f"equal: {op}; the model's hidden states on {B} x {P} text "
+        f"positions against its RoPE twin's on the tokens bitwise equal: "
+        f"{whole}")
+    check(op and whole, f"{label}: M-RoPE with equal streams is not RoPE")
+    prompts, full = vlm_prompts(dev, model, stream[:B])
+    m32 = build_model(dataclasses.replace(cfg, dtype="float32"), dev,
+                      cast_at_use=True)
+    m32.use_params(model.params)
+    out = {}
+    for name, m in (("bfloat16", model), ("float32", m32)):
+        lg_full = m.logits_seq(full)
+        _, caches = m.prefill(prompts, LM_CACHE)
+        lg, _ = m.decode(stream[:B, P:], P, caches)
+        out[name] = (lm_rel(lg[:, 0], lg_full[:, P]), lg_full)
+        del caches
+    b16 = lm_rel(out["bfloat16"][1], out["float32"][1])
+    agree = (out["bfloat16"][1].argmax(-1) == out["float32"][1].argmax(-1)
+             ).double().mean().item()
+    say(f"  {label} {B} x {P + 1} positions: teacher forcing across the "
+        f"image block (token {P} decoded at cache index {P}, its three "
+        f"streams {P}) in bfloat16 {out['bfloat16'][0]:.3e}, in float32 "
+        f"{out['float32'][0]:.3e} of max|ref| (<= {LM_BF16_BAND}); bfloat16 "
+        f"logits_seq against float32 on the same weights {b16:.3e} (<= "
+        f"{LM_BF16_BAND}), argmax equal at {agree:.4f} of {B * (P + 1)} "
+        f"positions")
+    check(max(out["bfloat16"][0], out["float32"][0], b16) <= LM_BF16_BAND,
+          f"{label}: teacher forcing or bfloat16 outside its band")
+    del m32, out
+
+
+def phase_encdec(dev):
+    """Phase 21: the encoder-decoder and the VLM (see the module
+    docstring); budget about 150 s. Returns the kernels' extra rows."""
+    from repro_torch.configs import get_config
+    from repro_torch.models.model import param_shapes
+    _zero_counts()
+    t0 = time.perf_counter()
+    # (a) whisper-small at full size
+    cfg = get_config(ED_ARCH)
+    label = f"(a) {ED_ARCH}"
+    model, n = _family_model(dev, cfg, f"{label} (+ {cfg.n_enc_layers} "
+                             f"encoder layers of {cfg.enc_seq} frames)")
+    check(n == ED_PARAMS == sum(int(np.prod(s)) for s in
+                                param_shapes(cfg).values()),
+          f"{n} parameters, not {ED_PARAMS}")
+    frames = {"frames": card_frames(dev, LM_BATCH, cfg, 11)}
+    stream = serve_timed(dev, model, label, ED_PROMPT, ED_CACHE, frames)
+    family_bands(dev, model, stream, LM_BATCH, label, prompt=ED_PROMPT,
+                 cache=ED_CACHE, extra=frames)
+    ed_cpu_forward(dev, cfg)
+    c = _counts()
+    check(all(v == 0 for v in c.values()), f"phase 21 launched {c}")
+    t1 = time.perf_counter()
+    row = ed_head(dev, model)
+    del model, frames
+    _release(f"{label}'s serving and head")
+    _zero_counts()
+    t2 = time.perf_counter()
+    ed_train(dev, cfg)
+    say(f"  (a) and (b) took {time.perf_counter() - t0:.1f} s (serving and "
+        f"bands {t1 - t0:.1f} s, the head {t2 - t1:.1f} s)")
+    t0 = time.perf_counter()
+    # (c) qwen2-vl-72b at full width, VLM_LAYERS layers
+    cfg = dataclasses.replace(get_config(VLM_ARCH), n_layers=VLM_LAYERS)
+    label = f"(c) {VLM_ARCH} ({VLM_LAYERS} of 80 layers)"
+    model, n = _family_model(dev, cfg, label)
+    check(n == sum(int(np.prod(s)) for s in param_shapes(cfg).values()),
+          f"{label}: {n} parameters")
+    stream = vlm_serve(dev, model, label)
+    vlm_bands(dev, model, stream, label)
+    del model
+    _release(label)
+    say(f"  (c) took {time.perf_counter() - t0:.1f} s")
+    c = _counts()
+    check(all(v == 0 for v in c.values()), f"phase 21 launched {c}")
+    return {"fused_stats": {"whisper_head": row}}
 
 
 SOURCES = {
@@ -6869,6 +7267,12 @@ def main() -> int:
               "deepseek-v2-236b (2 layers) and jamba-v0.1-52b (one period) "
               "at full width served")
     for name, extra in phase_families(dev).items():
+        rows[name].update(extra)
+    stamp(t0, "== 21. the encoder-decoder and the VLM: whisper-small at full "
+              "size served, held, under MaxMarginHead on its encoder "
+              "(fused_stats) and trained; qwen2-vl-72b (4 layers) at full "
+              "width served with M-RoPE and held")
+    for name, extra in phase_encdec(dev).items():
         rows[name].update(extra)
     stamp(t0, "== 11. the multi-device fit: a 2 x 2 (data x k) mesh and a 4 "
               "x 1 one, four gloo ranks on cuda:0; a one-rank NCCL group")

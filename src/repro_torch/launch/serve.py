@@ -1,11 +1,12 @@
 """Serving drivers.
 
-LM mode (default): build a decoder-only model (dense, MoE, MLA, the
-Mamba hybrid, xLSTM) from its config (``--preset tiny`` is the
-reference's reduction, ``full`` the published widths), draw its
-weights from ``--seed``, prefill a batch of prompts made by
-``make_lm_tokens`` and decode ``--steps`` tokens, greedily or at
-``--temp``:
+LM mode (default): build a model (dense, MoE, MLA, the Mamba hybrid,
+xLSTM, or the encoder-decoder, fed zero frames as the reference's demo
+feeds them; the VLM is refused, as ``launch.train`` says) from its
+config (``--preset tiny`` is the reference's reduction, ``full`` the
+published widths), draw its weights from ``--seed``, prefill a batch of
+prompts made by ``make_lm_tokens`` and decode ``--steps`` tokens,
+greedily or at ``--temp``:
 
     PYTHONPATH=src python -m repro_torch.launch.serve \\
         --arch smollm-135m --preset tiny --batch 4 --prompt-len 32 --steps 16
@@ -34,20 +35,25 @@ def main_lm(args) -> bool:
     from repro_torch.models import build_model
     from repro_torch.serving import generate
 
-    from .train import preset
+    from .train import preset, refuse_vlm
 
     cfg = preset(get_config(args.arch), args.preset)
+    refuse_vlm(cfg, "serving demo")
     model = build_model(cfg, args.device, q_chunk=min(512, args.prompt_len),
                         kv_chunk=min(512, args.prompt_len))
     model.init(args.seed)
     tokens = make_lm_tokens(args.batch * args.prompt_len, cfg.vocab,
                             seed=args.seed + 1).reshape(args.batch,
                                                         args.prompt_len)
+    batch = {"tokens": tokens}
+    if cfg.enc_dec:
+        batch["frames"] = torch.zeros((args.batch, cfg.enc_seq, cfg.d_model),
+                                      device=model.device)
     sync = (torch.cuda.synchronize if model.device.type == "cuda"
             else lambda: None)
     sync()
     t0 = time.perf_counter()
-    out = generate(model, {"tokens": tokens}, steps=args.steps,
+    out = generate(model, batch, steps=args.steps,
                    cache_len=args.prompt_len + args.steps, temp=args.temp,
                    seed=args.seed)
     dt = time.perf_counter() - t0

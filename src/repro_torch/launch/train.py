@@ -1,8 +1,9 @@
 """End-to-end LM training driver (``repro/launch/train.py`` in
 PyTorch).
 
-Trains a registered architecture (``--arch``; the decoder-only families)
-at a scale preset (``--preset tiny|small|full``) on a synthetic token
+Trains a registered architecture (``--arch``: the decoder-only families
+and the encoder-decoder, fed zero frames as the reference's trainer feeds
+them) at a scale preset (``--preset tiny|small|full``) on a synthetic token
 stream (``make_lm_tokens``), through the port's substrate: the token
 batcher (``data.ShardedBatcher``), AdamW with chunked cross-entropy,
 remat and optional micro-batching (``training/``), checkpointing with
@@ -17,6 +18,9 @@ The last line printed is a JSON object with ``first_loss``,
 Runs on ``cuda:0`` unless ``--device cpu``. ``--mesh`` other than
 ``none`` and ``--multi-pod`` are the LM on a mesh (ROADMAP item 13d);
 ``--host-devices`` forces JAX host devices and has no counterpart here.
+The VLM is refused: the reference's trainer feeds only tokens, and its
+model then raises ``KeyError: 'embeds'`` (train it through
+``training.make_train_step`` with an ``embeds`` / ``positions`` batch).
 """
 from __future__ import annotations
 
@@ -26,6 +30,18 @@ import json
 import time
 
 _MESH = "ROADMAP item 13d (the LM on a mesh)"
+
+
+def refuse_vlm(cfg, launcher: str) -> None:
+    """The launchers feed token batches; the VLM's batch is ``embeds`` and
+    ``positions``, which the reference's launchers do not make either."""
+    if cfg.family == "vlm":
+        raise NotImplementedError(
+            f"{cfg.name!r} (the VLM) takes an 'embeds' / 'positions' batch; "
+            f"the {launcher} feeds tokens only, as the reference's does, "
+            f"whose model then raises KeyError: 'embeds'. Drive "
+            f"Model.prefill / decode or training.make_train_step with such "
+            f"a batch instead")
 
 
 def preset(cfg, name: str):
@@ -78,6 +94,7 @@ def train(cfg, *, steps: int, batch: int, seq: int, lr: float = 1e-3,
     {"losses", "step_s", "monitor", "state", "model", "start_step"}."""
     import torch
 
+    refuse_vlm(cfg, "trainer")
     from repro_torch.checkpoint import Checkpointer
     from repro_torch.data import ShardedBatcher, make_lm_tokens
     from repro_torch.models import build_model
@@ -114,12 +131,17 @@ def train(cfg, *, steps: int, batch: int, seq: int, lr: float = 1e-3,
             else lambda: None)
 
     it = iter(batcher)
+    extra = {}
+    if cfg.enc_dec:         # the reference's trainer: zero frames a step
+        extra["frames"] = torch.zeros((batch, cfg.enc_seq, cfg.d_model),
+                                      device=model.device)
     losses, step_s = [], []
     end = steps if stop_at is None else min(steps, stop_at)
     for step in range(start_step, end):
         tokens, labels = next(it)
         t0 = time.perf_counter()
-        state, metrics = step_fn(state, {"tokens": tokens, "labels": labels})
+        state, metrics = step_fn(state, {"tokens": tokens, "labels": labels,
+                                         **extra})
         loss = float(metrics["loss"])
         sync()
         dt = time.perf_counter() - t0

@@ -20,8 +20,10 @@ block's, and the q chunks' outputs are joined with ``torch.cat``.
 GQA layout: q is grouped as (B, S, KVH, G, dh), so no repeated K/V is
 materialized. MLA's q and k are qk_nope + qk_rope wide and its v
 v_head_dim wide; the blockwise core scales by q's width and keeps v's.
-Mesh islands (sequence-parallel attention, the decode
-island) are ROADMAP item 13d.
+GQA takes ``rope`` (False under the encoder-decoder's learned
+positions) and ``causal`` (False in its encoder), and rotates by M-RoPE's
+three streams where ``cfg.mrope``. Mesh islands (sequence-parallel
+attention, the decode island) are ROADMAP item 13d.
 """
 from __future__ import annotations
 
@@ -150,9 +152,11 @@ def init_gqa(key, cfg) -> dict:
     return p
 
 
-def gqa_qkv(cfg, p, x, positions):
-    """Project + rotate. x: (B, S, D); positions: (B, S); ``p`` holds the
-    weights in x's dtype."""
+def gqa_qkv(cfg, p, x, positions, *, rope: bool = True):
+    """Project + rotate. x: (B, S, D); positions: (B, S), or (3, B, S)
+    streams under M-RoPE (``cfg.mrope``); ``rope=False`` (the
+    encoder-decoder's learned positions) leaves q and k unrotated. ``p``
+    holds the weights in x's dtype."""
     B, S, _ = x.shape
     H, KVH, dh = cfg.n_heads, cfg.n_kv_heads, cfg.head_dim
     q = x @ p["wq"]
@@ -165,8 +169,14 @@ def gqa_qkv(cfg, p, x, positions):
     q = q.reshape(B, S, H, dh)
     k = k.reshape(B, S, KVH, dh)
     v = v.reshape(B, S, KVH, dh)
-    q = rotary.apply_rope(q, positions, cfg.rope_theta)
-    k = rotary.apply_rope(k, positions, cfg.rope_theta)
+    if rope and cfg.mrope:
+        q = rotary.apply_mrope(q, positions, cfg.rope_theta,
+                               cfg.mrope_sections)
+        k = rotary.apply_mrope(k, positions, cfg.rope_theta,
+                               cfg.mrope_sections)
+    elif rope:
+        q = rotary.apply_rope(q, positions, cfg.rope_theta)
+        k = rotary.apply_rope(k, positions, cfg.rope_theta)
     return q, k, v
 
 
@@ -179,9 +189,9 @@ def gqa_out(cfg, p, attn_out):
 
 
 def gqa_train(cfg, p, x, positions, *, q_chunk=1024, kv_chunk=1024,
-              skip_masked_blocks=False):
-    q, k, v = gqa_qkv(cfg, p, x, positions)
-    o = blockwise_attn(q, k, v, q_chunk=q_chunk,
+              skip_masked_blocks=False, rope=True, causal=True):
+    q, k, v = gqa_qkv(cfg, p, x, positions, rope=rope)
+    o = blockwise_attn(q, k, v, causal=causal, q_chunk=q_chunk,
                        kv_chunk=kv_chunk,
                        skip_masked_blocks=skip_masked_blocks)
     return gqa_out(cfg, p, o)
@@ -201,14 +211,17 @@ def gqa_prefill(cfg, p, x, positions, cache_len, *, q_chunk=1024,
     return gqa_out(cfg, p, o), (k, v)
 
 
-def gqa_decode(cfg, p, x, pos: int, cache):
-    """One-token step. x: (B, 1, D); pos: the current index; cache:
-    (k, v) each (B, S_max, KVH, dh). Row ``pos`` of the cache is written
-    in place (the reference's dynamic_update_slice); returns (out,
-    cache)."""
+def gqa_decode(cfg, p, x, pos: int, cache, *, rope: bool = True):
+    """One-token step. x: (B, 1, D); pos: the current index, which is
+    also the token's position (on all three streams under M-RoPE, as in
+    the reference); cache: (k, v) each (B, S_max, KVH, dh). Row ``pos``
+    of the cache is written in place (the reference's
+    dynamic_update_slice); returns (out, cache)."""
     B = x.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
-    q, k_new, v_new = gqa_qkv(cfg, p, x, positions)
+    if cfg.mrope:
+        positions = positions.expand(3, B, 1)
+    q, k_new, v_new = gqa_qkv(cfg, p, x, positions, rope=rope)
     k_cache, v_cache = cache
     k_cache[:, pos] = k_new[:, 0].to(k_cache.dtype)
     v_cache[:, pos] = v_new[:, 0].to(v_cache.dtype)

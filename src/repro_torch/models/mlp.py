@@ -8,8 +8,10 @@ in the reference. The kept assignments are gathered into an (E, C, D)
 buffer, the three expert products run as batched matmuls, and the outputs
 are scattered back weighted by the renormalised gates. The expert
 products stay plain PyTorch, as the reference computes them in plain XLA.
-The GELU MLP waits for its family, and the MoE's ``shard_map`` island for
-the LM on a mesh (ROADMAP items 13c and 13d).
+The GELU MLP (the encoder-decoder's, with biases) uses the tanh
+approximation, as ``jax.nn.gelu`` does by default (``torch``'s default is
+the erf form). The MoE's ``shard_map`` island waits for the LM on a mesh
+(ROADMAP item 13d).
 """
 from __future__ import annotations
 
@@ -37,6 +39,32 @@ def swiglu(p: dict, x):
     g = F.silu(x @ p["w_gate"])
     u = x @ p["w_up"]
     return (g * u) @ p["w_down"]
+
+
+def init_gelu_mlp(key, d_model: int, d_ff: int, n_layers: int,
+                  use_bias: bool = True) -> dict:
+    ks = split_keys(key, 2)
+    p = {
+        "w_up": dense_init(ks[0], d_model, d_ff),
+        "w_down": dense_init(ks[1], d_ff, d_model,
+                             scale=1.0 / (2 * n_layers) ** 0.5),
+    }
+    if use_bias:
+        dev = key.device
+        p.update(b_up=torch.zeros(d_ff, device=dev),
+                 b_down=torch.zeros(d_model, device=dev))
+    return p
+
+
+def gelu_mlp(p: dict, x):
+    """``p`` holds the weights and biases in x's dtype."""
+    h = x @ p["w_up"]
+    if "b_up" in p:
+        h = h + p["b_up"]
+    out = F.gelu(h, approximate="tanh") @ p["w_down"]
+    if "b_down" in p:
+        out = out + p["b_down"]
+    return out
 
 
 # --------------------------------------------------------------------- MoE

@@ -1,5 +1,6 @@
-"""Model facade (``repro/models/model.py`` for the decoder-only
-families: dense, MoE, MLA, the Jamba hybrid and xLSTM).
+"""Model facade (``repro/models/model.py``): one API over every assigned
+family: dense, MoE, MLA, the Jamba hybrid, xLSTM, the VLM (M-RoPE) and
+the encoder-decoder (whisper).
 
   build_model(cfg, device=None, **kw)  ->  Model with
     .init(seed_or_key)                params (float32 master), installed
@@ -14,10 +15,17 @@ families: dense, MoE, MLA, the Jamba hybrid and xLSTM).
 
 The model holds its parameters (an ``nn.Module`` whose submodules follow
 the reference's tree: ``weights.layers.pos0.attn.wq``), so the methods
-take no ``params`` argument. ``batch`` is a dict with the reference's key
-``tokens`` (B, S) ints, a numpy array or a tensor. Decode writes the new
-cache row in place and returns the same cache tensors; ``pos`` is a
-Python int.
+take no ``params`` argument. ``batch`` is a dict with the reference's
+keys, numpy arrays or tensors:
+
+  dense / moe / hybrid / ssm : tokens (B, S) ints
+  vlm                        : embeds (B, S, D) + positions (3, B, S) ints
+  audio (enc-dec)            : frames (B, enc_seq, D) + tokens (B, S) ints
+
+Decode embeds text tokens in every family; it writes the new cache row
+in place and returns the same cache tensors; ``pos`` is a Python int,
+the token's cache index, which is also its position (on all three M-RoPE
+streams, as in the reference).
 
 The compute dtype is ``cfg.dtype`` (bfloat16 for the assigned configs).
 The reference casts each float32 weight to it at each use. Serving
@@ -25,7 +33,8 @@ The reference casts each float32 weight to it at each use. Serving
 cast copy (``compute_params``), made on first use after the weights
 change: the same bits, without reading the float32 weights and writing a
 fresh copy on every step. The leaves the reference reads in float32 stay
-float32 (``transformer._keeps_float32``). A model whose float32 masters
+float32 (``transformer.cast_tree``: norm scales, LayerNorms' scales and
+biases, ``_FLOAT32_LEAVES``). A model whose float32 masters
 and a cast copy do not fit on the card together takes
 ``cast_at_use=True``: serving then casts each block's masters at its use
 and holds no copy.
@@ -36,8 +45,7 @@ optimizer update installs its new tensors with ``use_params``, which
 drops the cast copy.
 
 Runs on ``cuda:0`` unless the caller passes ``device``; with no card and
-no ``device`` it raises. The VLM (M-RoPE) and the encoder-decoder
-(audio) families are ROADMAP item 13c.
+no ``device`` it raises.
 """
 from __future__ import annotations
 
@@ -51,10 +59,9 @@ from repro_torch.checkpoint.checkpointer import _tree_flatten_with_names
 from repro_torch.core import prng
 from repro_torch.core.solver import _device
 
+from . import encdec
 from . import transformer as tfm
 from .common import compute_dtype
-
-_UNPORTED = "ROADMAP item 13c"
 
 
 def _module(tree: dict) -> nn.Module:
@@ -84,8 +91,14 @@ def _detached(tree: dict) -> dict:
             for k, v in tree.items()}
 
 
+def _init_tree(key, cfg) -> dict:
+    if cfg.enc_dec:
+        return encdec.init_encdec(key, cfg)
+    return tfm.init_decoder(key, cfg)
+
+
 def param_shapes(cfg) -> dict:
-    """{leaf path: shape} of the decoder's parameters, named as the
+    """{leaf path: shape} of the model's parameters, named as the
     reference's ``tree_flatten_with_path`` joined by "/" (drawn on the
     meta device: shapes only; a few seconds at full size, so kept a
     config)."""
@@ -94,7 +107,7 @@ def param_shapes(cfg) -> dict:
 
 @functools.lru_cache(maxsize=None)
 def _param_shapes(cfg) -> dict:
-    tree = tfm.init_decoder(prng.PRNGKey(0, device="meta"), cfg)
+    tree = _init_tree(prng.PRNGKey(0, device="meta"), cfg)
     return {k: tuple(v.shape) for k, v in _flat(tree).items()}
 
 
@@ -104,12 +117,6 @@ class Model(nn.Module):
                  skip_masked_blocks: bool = False,
                  remat_policy: str = "nothing", cast_at_use: bool = False):
         super().__init__()
-        if cfg.family not in ("dense", "moe", "hybrid", "ssm"):
-            raise NotImplementedError(
-                f"{cfg.name!r} is of the {cfg.family!r} family; the port has "
-                f"the decoder-only families (dense, MoE, MLA, the Mamba "
-                f"hybrid, xLSTM), the VLM and the encoder-decoder are "
-                f"{_UNPORTED}")
         if remat_policy not in tfm.REMAT_POLICIES:
             raise ValueError(f"remat_policy {remat_policy!r} is not one of "
                              f"{tfm.REMAT_POLICIES}")
@@ -135,7 +142,7 @@ class Model(nn.Module):
             key = prng.PRNGKey(seed_or_key, device=self.device)
         else:
             key = seed_or_key.to(self.device)
-        self.load_params(tfm.init_decoder(key, self.cfg))
+        self.load_params(_init_tree(key, self.cfg))
         return self.params
 
     def load_params(self, tree: dict) -> None:
@@ -184,13 +191,32 @@ class Model(nn.Module):
         return sum(p.numel() for p in self.parameters())
 
     # ------------------------------------------------------------- embed
+    def _params(self, params):
+        return self.compute_params if params is None else params
+
     def _embed_in(self, batch, dtype, params=None):
-        tokens = torch.as_tensor(batch["tokens"]).to(self.device, torch.long)
-        h = tfm.embed_tokens(self.cfg, self.compute_params if params is None
-                             else params, tokens, dtype)
-        B, S = tokens.shape
+        """The input states and their positions: the VLM's ``embeds`` and
+        (3, B, S) ``positions``, else the embedded ``tokens`` and
+        0 .. S - 1."""
+        if self.cfg.family == "vlm":
+            h = torch.as_tensor(batch["embeds"]).to(self.device).to(dtype)
+            positions = torch.as_tensor(batch["positions"]).to(
+                self.device, torch.long)
+            return h, positions
+        h = self._embed_tokens(batch["tokens"], dtype, params)
+        B, S = h.shape[:2]
         positions = torch.arange(S, device=self.device).expand(B, S)
         return h, positions
+
+    def _embed_tokens(self, tokens, dtype, params=None):
+        tokens = torch.as_tensor(tokens).to(self.device, torch.long)
+        return tfm.embed_tokens(self.cfg, self._params(params), tokens, dtype)
+
+    def _memory(self, batch, dtype, params, cast):
+        """The encoder's output for the batch's ``frames``."""
+        frames = torch.as_tensor(batch["frames"]).to(self.device).to(dtype)
+        return encdec.encode(self.cfg, self._params(params), frames,
+                             cast=cast)
 
     def _chunks(self) -> dict:
         return dict(q_chunk=self.q_chunk, kv_chunk=self.kv_chunk,
@@ -208,15 +234,24 @@ class Model(nn.Module):
         """The final hidden states. Without ``params`` the model's own
         weights (the cast copy); with ``params`` (float32 masters, the
         reference's tree) the training forward: cast inside the graph,
-        each period checkpointed under ``remat`` by ``remat_policy``."""
+        each period (each decoder block of the encoder-decoder)
+        checkpointed under ``remat`` by ``remat_policy`` (the
+        encoder-decoder's by 'nothing', as the reference's)."""
         dtype = compute_dtype(self.cfg)
+        cast = self._serve_cast() if params is None else dtype
+        if self.cfg.enc_dec:
+            memory = self._memory(batch, dtype, params, cast)
+            tok = self._embed_tokens(batch["tokens"], dtype, params)
+            return encdec.decode_seq(self.cfg, self._params(params), tok,
+                                     memory, remat=remat and params is not None,
+                                     q_chunk=self.q_chunk,
+                                     kv_chunk=self.kv_chunk, cast=cast)
         h, positions = self._embed_in(batch, dtype, params)
         if params is None:
             return tfm.forward_seq(self.cfg, self.compute_params, h,
-                                   positions, cast=self._serve_cast(),
-                                   **self._chunks())
+                                   positions, cast=cast, **self._chunks())
         return tfm.forward_seq(self.cfg, params, h, positions, remat=remat,
-                               remat_policy=self.remat_policy, cast=dtype,
+                               remat_policy=self.remat_policy, cast=cast,
                                **self._chunks())
 
     def unembed(self, params: dict | None = None) -> torch.Tensor:
@@ -234,25 +269,34 @@ class Model(nn.Module):
 
     # ------------------------------------------------------------ serving
     def init_cache(self, batch: int, cache_len: int, dtype=torch.bfloat16):
+        if self.cfg.enc_dec:
+            return encdec.init_dec_cache(self.cfg, batch, cache_len, dtype,
+                                         self.device)
         return tfm.init_cache(self.cfg, batch, cache_len, dtype, self.device)
 
     def prefill(self, batch, cache_len: int):
-        h, positions = self._embed_in(batch, compute_dtype(self.cfg))
-        h, caches = tfm.forward_prefill(self.cfg, self.compute_params, h,
-                                        positions, cache_len,
-                                        cast=self._serve_cast(),
-                                        **self._chunks())
+        dtype, cast = compute_dtype(self.cfg), self._serve_cast()
+        if self.cfg.enc_dec:
+            memory = self._memory(batch, dtype, None, cast)
+            tok = self._embed_tokens(batch["tokens"], dtype)
+            h, caches = encdec.prefill(self.cfg, self.compute_params, tok,
+                                       memory, cache_len,
+                                       q_chunk=self.q_chunk,
+                                       kv_chunk=self.kv_chunk, cast=cast)
+        else:
+            h, positions = self._embed_in(batch, dtype)
+            h, caches = tfm.forward_prefill(self.cfg, self.compute_params,
+                                            h, positions, cache_len,
+                                            cast=cast, **self._chunks())
         logits = h[:, -1, :] @ self._unembed_c().T
         return logits, caches
 
     def decode(self, tokens, pos: int, caches):
         """tokens: (B, 1) ints; pos: the index the tokens take."""
-        tokens = torch.as_tensor(tokens).to(self.device, torch.long)
-        h = tfm.embed_tokens(self.cfg, self.compute_params, tokens,
-                             compute_dtype(self.cfg))
-        h, caches = tfm.forward_decode(self.cfg, self.compute_params, h,
-                                       int(pos), caches,
-                                       cast=self._serve_cast())
+        h = self._embed_tokens(tokens, compute_dtype(self.cfg))
+        step = encdec.decode_step if self.cfg.enc_dec else tfm.forward_decode
+        h, caches = step(self.cfg, self.compute_params, h, int(pos), caches,
+                         cast=self._serve_cast())
         return h @ self._unembed_c().T, caches
 
 

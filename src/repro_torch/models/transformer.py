@@ -1,5 +1,6 @@
-"""The decoder stack of the dense, MoE, MLA, Jamba-hybrid and xLSTM
-families (``repro/models/transformer.py`` in PyTorch).
+"""The decoder stack of the dense, MoE, MLA, Jamba-hybrid, xLSTM and VLM
+families (``repro/models/transformer.py`` in PyTorch); the VLM's blocks
+are GQA blocks whose positions are M-RoPE's (3, B, S) streams.
 
 Layers are grouped into periods (``cfg.layer_period``): within a period
 the block kinds may differ (Jamba: 7 Mamba + 1 attention; xLSTM: 5 mLSTM +
@@ -97,10 +98,20 @@ def _keeps_float32(name: str) -> bool:
     return "norm" in name or name in _FLOAT32_LEAVES
 
 
+def _is_layer_norm(v) -> bool:
+    """A LayerNorm's parameters ({"scale", "bias"}: the encoder-decoder's
+    ``norm1``, ``norm_x``, ``enc_final``, ...). ``layer_norm`` reads both
+    in float32, and their own keys do not say "norm", so the rule goes by
+    the subtree."""
+    return isinstance(v, dict) and set(v) == {"scale", "bias"}
+
+
 def cast_tree(tree: dict, dtype: torch.dtype) -> dict:
-    """The tree in the compute dtype, norm scales and the router left
-    float32; differentiable (the model's serving copy detaches first)."""
-    return {k: (cast_tree(v, dtype) if isinstance(v, dict)
+    """The tree in the compute dtype, norm scales, LayerNorms' scales and
+    biases and ``_FLOAT32_LEAVES`` left float32; differentiable (the
+    model's serving copy detaches first)."""
+    return {k: (v if _is_layer_norm(v) else cast_tree(v, dtype)
+                if isinstance(v, dict)
                 else v if _keeps_float32(k) else v.to(dtype))
             for k, v in tree.items()}
 

@@ -82,22 +82,34 @@ def init_train_state(model, key) -> dict:
     return {"params": params, "opt": opt.init_state(params)}
 
 
-def _split(x, microbatches: int) -> list:
+# batch entries whose batch axis is not the first: M-RoPE's (3, B, S)
+# position streams. Keyed by name: the reference's shape test
+# (``x.shape[0] == 3``) would also take a batch of three rows for them.
+_BATCH_AXIS = {"positions": 1}
+
+
+def _split(name: str, x, microbatches: int) -> list:
+    """The batch entry ``name`` cut into ``microbatches`` equal parts
+    along its batch axis."""
     x = torch.as_tensor(x)
-    B = x.shape[0]
+    axis = _BATCH_AXIS.get(name, 0)
+    B = x.shape[axis]
     if B % microbatches:
         raise ValueError(f"batch {B} does not split into {microbatches} "
                          "microbatches")
-    return list(torch.split(x, B // microbatches))
+    return list(torch.split(x, B // microbatches, dim=axis))
 
 
 def make_train_step(model, opt_cfg: opt.AdamWConfig, *, remat: bool = True,
                     loss_chunk: int = 512, z_loss: float = 0.0,
                     microbatches: int = 1) -> Callable:
-    """(state, batch) -> (state, metrics); ``batch`` holds "tokens" and
-    "labels", (B, S) ints. ``microbatches > 1`` accumulates gradients:
-    the batch splits on axis 0, each part's float32 gradients are summed
-    and the sums scaled by 1 / microbatches, as the loss."""
+    """(state, batch) -> (state, metrics); ``batch`` holds the model's
+    inputs ("tokens"; the VLM's "embeds" and "positions"; the
+    encoder-decoder's "frames" and "tokens") and "labels", (B, S) ints.
+    ``microbatches > 1`` accumulates gradients: the batch splits on its
+    batch axis (axis 1 of "positions", axis 0 of the rest), each part's
+    float32 gradients are summed and the sums scaled by 1 /
+    microbatches, as the loss."""
     loss_fn = make_loss_fn(model, remat=remat, loss_chunk=loss_chunk,
                            z_loss=z_loss)
 
@@ -114,7 +126,7 @@ def make_train_step(model, opt_cfg: opt.AdamWConfig, *, remat: bool = True,
         if microbatches == 1:
             loss, gs = value_and_grad(leaves, treedef, batch)
             return loss, _tree_unflatten(treedef, gs)
-        parts = {k: _split(v, microbatches) for k, v in batch.items()}
+        parts = {k: _split(k, v, microbatches) for k, v in batch.items()}
         loss_sum = torch.zeros((), dtype=torch.float32,
                                device=leaves[0].device)
         g_sum = [torch.zeros(p.shape, dtype=torch.float32, device=p.device)

@@ -385,7 +385,8 @@ def run_ranks(code: str, outdir: Path, world: int = 4,
               timeout: float = 600.0) -> list:
     """Run ``code`` as ``world`` gloo ranks (argv: rank, world, the file
     store, ``outdir``); if one fails, stop the others. Returns each rank's
-    rank{r}.npz."""
+    rank{r}.npz. A failure reports the ranks that failed on their own
+    before those stopped after them."""
     env = dict(os.environ, OMP_NUM_THREADS="1",
                PYTHONPATH=SRC + os.pathsep + os.environ.get("PYTHONPATH", ""))
     init = outdir / "store"
@@ -394,16 +395,18 @@ def run_ranks(code: str, outdir: Path, world: int = 4,
          str(init), str(outdir)], env=env, stdout=subprocess.PIPE,
         stderr=subprocess.STDOUT, text=True) for r in range(world)]
     deadline = time.monotonic() + timeout
+    failed: list = []
     while any(p.poll() is None for p in procs):
-        failed = any(p.poll() not in (None, 0) for p in procs)
+        failed = [r for r, p in enumerate(procs) if p.poll() not in (None, 0)]
         if failed or time.monotonic() > deadline:
             for p in procs:
                 p.kill()
             break
         time.sleep(0.1)
     logs = [p.communicate()[0] for p in procs]
-    for r, (p, log) in enumerate(zip(procs, logs)):
-        assert p.returncode == 0, f"rank {r} (rc {p.returncode}):\n{log}"
+    for r in failed + [r for r in range(world) if r not in failed]:
+        assert procs[r].returncode == 0, \
+            f"rank {r} (rc {procs[r].returncode}):\n{logs[r]}"
     return [dict(np.load(outdir / f"rank{r}.npz")) for r in range(world)]
 
 

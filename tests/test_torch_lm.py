@@ -387,14 +387,6 @@ def test_make_lm_tokens_bitwise():
 
 
 # -------------------------------------------------------------- refusals
-@pytest.mark.parametrize("arch", ["qwen2-vl-72b", "whisper-small"])
-def test_unported_families_raise(arch):
-    cfg = configs.get_config(arch)
-    assert cfg.family in ("vlm", "audio")
-    with pytest.raises(NotImplementedError, match="13c"):
-        build_model(cfg, device="cpu")
-
-
 def test_entry_points_need_a_card_or_cpu(monkeypatch):
     monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
     cfg = reduce_cfg(configs.get_config("smollm-135m"))

@@ -1,10 +1,13 @@
-"""Checks shared by the per-family comparisons of the port's decoder
+"""Checks shared by the per-family comparisons of the port's models
 against the JAX package on the CPU (tests/test_torch_mla.py,
-test_torch_mamba.py, test_torch_xlstm.py). Each test file states its
-bands; these helpers take them as arguments.
+test_torch_mamba.py, test_torch_xlstm.py, test_torch_vlm.py,
+test_torch_encdec.py). Each test file states its bands; these helpers
+take them as arguments.
 
 Every check runs a reduced config (``conftest.reduce_cfg``) with
-``q_chunk = kv_chunk = 16`` and ``ssm_chunk = 8`` on numpy-seeded tokens.
+``q_chunk = kv_chunk = 16`` and ``ssm_chunk = 8`` on numpy-seeded inputs:
+tokens, or a family's batch (``batch_fn(vocab, seed, n)``: the VLM's
+embeds and positions, the encoder-decoder's frames and tokens).
 """
 import dataclasses
 import functools
@@ -258,7 +261,7 @@ class RefRoutes:
         return False
 
 
-def check_blocks_bfloat16(arch, band, seed=2, **kw):
+def check_blocks_bfloat16(arch, band, seed=2, prefill_batch=None, **kw):
     """bfloat16, block by block: the reference runs prefill of S tokens
     and two decode steps eagerly, recording each block's call (its
     float32 parameter slice, input, cache) and result, and each MoE's
@@ -267,7 +270,9 @@ def check_blocks_bfloat16(arch, band, seed=2, **kw):
     ids (a last-bit difference in the float32 router flips a top-k
     choice at a near-tie), gives the output and the cache or state within
     ``band`` of max|ref|. Then the final norm and logits from the
-    reference's last hidden state. Returns the largest distance."""
+    reference's last hidden state. ``prefill_batch`` (numpy) replaces the
+    prompt's tokens (the VLM's embeds and positions); each block takes
+    the positions the reference's did. Returns the largest distance."""
     from repro_torch.models import transformer as tfm
     rm, rp, pm = pair(arch, "bfloat16", seed=seed, **kw)
     cfg = pm.cfg
@@ -275,16 +280,19 @@ def check_blocks_bfloat16(arch, band, seed=2, **kw):
     toks = tokens(cfg.vocab, (B, S + 2), seed=seed)
     with jax.disable_jit(), _Record("apply_block_prefill") as pre, \
             _Record("apply_block_decode") as dec, RefRoutes() as routes:
-        lr, cr = rm.prefill(rp, {"tokens": jnp.asarray(toks[:, :S])}, S + 8)
+        prompt = ({"tokens": toks[:, :S]} if prefill_batch is None
+                  else prefill_batch)
+        lr, cr = rm.prefill(rp, {k: jnp.asarray(v) for k, v in
+                                 prompt.items()}, S + 8)
         for i in range(2):
             rm.decode(rp, jnp.asarray(toks[:, S + i:S + i + 1]),
                       jnp.int32(S + i), cr)
     assert len(pre.calls) == cfg.n_layers == len(dec.calls) // 2
-    positions = torch.arange(S).expand(B, S)
     worst = 0.0
     with RouteTape(lambda i: routes.ids[i]) as tape:
         for (a, (h_r, c_r)) in pre.calls:
-            _, _, p, j, h = a[:5]
+            _, _, p, j, h, positions = a[:6]
+            positions = torch.from_numpy(np.array(positions)).long()
             h_p, c_p = tfm.apply_block_prefill(
                 cfg, tfm.cast_tree(_torch_tree(p), bf), j,
                 _torch_tree(h, bf), positions, S + 8, q_chunk=16,
@@ -384,10 +392,11 @@ def _batch(vocab, seed, n=4):
             "labels": g.integers(0, vocab, (n, S)).astype(np.int32)}
 
 
-def check_train_step(arch, band, lr=1e-3):
+def check_train_step(arch, band, lr=1e-3, batch_fn=None):
     """Two AdamW steps in float32 against the reference's: losses within
     ``band`` relative, parameters with rtol 1e-3 and atol 1.5 x 2 lr
     (tests/test_training.py)."""
+    batch_fn = batch_fn or _batch
     _, rp, pm = pair(arch, seed=4)
     okw = dict(lr=lr, warmup_steps=1, total_steps=10)
     rstate = {"params": rp, "opt": r_init_state(rp)}
@@ -395,7 +404,7 @@ def check_train_step(arch, band, lr=1e-3):
     rstep = _reference_step(arch, lr)
     pstep = make_train_step(pm, AdamWConfig(**okw), loss_chunk=16)
     for i in range(2):
-        batch = _batch(pm.cfg.vocab, seed=8 + i)
+        batch = batch_fn(pm.cfg.vocab, seed=8 + i)
         rstate, rmet = rstep(rstate, {k: jnp.asarray(v)
                                       for k, v in batch.items()})
         pstate, pmet = pstep(pstate, batch)
@@ -409,11 +418,42 @@ def check_train_step(arch, band, lr=1e-3):
     return sorted(want)
 
 
-def check_remat_bitwise(arch, **kw):
+def check_grads(arch, band, batch, seed=4, zero=()):
+    """The loss and every gradient leaf of one float32 batch against the
+    reference's (``jax.value_and_grad`` of its loss), each leaf within
+    ``band`` of its own max|ref| (a leaf the batch does not reach, as the
+    VLM's embed table, zero in both). The leaves named in ``zero`` have
+    an exactly zero gradient whose rounding noise both packages hold
+    within ``band`` of the largest gradient of the tree. Returns {leaf:
+    distance}."""
+    from repro.training.train_step import make_loss_fn as r_loss_fn
+    rm, rp, pm = pair(arch, seed=seed)
+    loss_r, g_r = jax.value_and_grad(r_loss_fn(rm, loss_chunk=16))(
+        rp, {k: jnp.asarray(v) for k, v in batch.items()})
+    names, leaves, td = _tree_flatten_with_names(pm.params)
+    xs = [p.detach().requires_grad_(True) for p in leaves]
+    loss = make_loss_fn(pm, loss_chunk=16)(_tree_unflatten(td, xs), batch)
+    grads = torch.autograd.grad(loss, xs, allow_unused=True)
+    assert abs(loss.item() - float(loss_r)) <= band * abs(float(loss_r))
+    want, out = flat_np(g_r), {}
+    assert sorted(want) == sorted(names)
+    top = max(float(np.abs(w).max()) for w in want.values())
+    for n, x, g in zip(names, xs, grads):
+        g = torch.zeros_like(x) if g is None else g
+        if n in zero:
+            out[n] = max(float(g.abs().max()), float(np.abs(want[n]).max())
+                         ) / top
+            assert out[n] <= band, (n, out[n])
+        else:
+            out[n] = _close(g, want[n], band, n)
+    return out
+
+
+def check_remat_bitwise(arch, batch_fn=None, **kw):
     """The loss and every gradient leaf equal bit for bit with remat off,
     'nothing' and 'dots'."""
     cfg = reduce_cfg(configs.get_config(arch), dtype="float32", **kw)
-    batch = _batch(cfg.vocab, seed=2, n=2)
+    batch = (batch_fn or _batch)(cfg.vocab, seed=2, n=2)
     out = []
     for remat, policy in ((False, "nothing"), (True, "nothing"),
                           (True, "dots")):
@@ -430,16 +470,17 @@ def check_remat_bitwise(arch, **kw):
     assert all(bool(torch.isfinite(g).all()) for g in out[0][1])
 
 
-def check_snapshot_crossing(arch, tmp_path, lr=1e-3):
+def check_snapshot_crossing(arch, tmp_path, lr=1e-3, batch_fn=None):
     """A reference train state saved by its Checkpointer is restored by
     the port's bitwise (and by ``train_state_from_reference``); a port
     state one step on is restored by the reference's bitwise."""
+    batch_fn = batch_fn or _batch
     _, rp, pm = pair(arch, seed=4)
     okw = dict(lr=lr, warmup_steps=1, total_steps=10)
     rstate = {"params": rp, "opt": r_init_state(rp)}
     rstate, _ = _reference_step(arch, lr)(
         rstate, {k: jnp.asarray(v) for k, v in
-                 _batch(pm.cfg.vocab, seed=20).items()})
+                 batch_fn(pm.cfg.vocab, seed=20).items()})
     RefCheckpointer(str(tmp_path / "ref")).save(1, rstate, blocking=True)
     got = Checkpointer(str(tmp_path / "ref")).restore(
         init_train_state(build_model(pm.cfg, "cpu", **CHUNKS), 0),
@@ -455,7 +496,7 @@ def check_snapshot_crossing(arch, tmp_path, lr=1e-3):
     assert all(torch.equal(a, b) for a, b in zip(
         _tree_flatten_with_names(conv)[1], leaves))
     conv, _ = make_train_step(model, AdamWConfig(**okw), loss_chunk=16)(
-        conv, _batch(pm.cfg.vocab, seed=21))
+        conv, batch_fn(pm.cfg.vocab, seed=21))
     Checkpointer(str(tmp_path / "port")).save(2, conv, blocking=True)
     back = flat_np(RefCheckpointer(str(tmp_path / "port")).restore(rstate))
     mine = {n: x.numpy() for n, x in zip(

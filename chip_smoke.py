@@ -249,9 +249,9 @@ shapes), in the order a, b, b, a.
    in-memory rows, one pass each through the prefetcher (a pinned staging
    ring, the page-locked array; GB/s), and the host work of a 4,096-row
    chunk, each part alone (placing it; the chunk body). LIN-EM-CLS for a
-   fixed 20
-   iterations, resident (scan) and streamed from the arrays at chunk_rows
-   4,096 and 65,536: each fit's time, ms a pass, set-up, copy rate,
+   fixed 20 iterations, resident (scan) and streamed from the arrays at
+   chunk_rows 65,536, and for 3 iterations at 4,096 rows against a
+   resident fit of 3: each fit's time, ms a pass, set-up, copy rate,
    peak_input_bytes, max_memory_allocated, host syncs, launches and held-
    out accuracy; gates: the first pass's (S, b) within 1e-4 max|S| of the
    resident first statistic, objective trace within 2e-2, weights within
@@ -260,14 +260,15 @@ shapes), in the order a, b, b, a.
    iteration, fused_stats once a chunk a pass; a torch.profiler breakdown
    of a 3-iteration stream fit (copies and kernels against the wall; at
    most one device-to-host copy an iteration); prefetch 1, 2, 4 and 2
-   again bitwise equal. LIN-MC-CLS rng 'fused', 5 iterations, streamed
-   against resident: the first gamma_mean within 1e-6. Phase 5's 131,072 x
-   2,048 for 3 iterations (fused_estep and syrk_tri once a chunk);
-   LIN-EM-SVR on phase 9's split (10 iterations) and LIN-EM-MLT on phase
-   12's (5 iterations, class scores within 5e-2), KRN-EM-MLT on phase 13's
-   featurizer (2 iterations, nystrom_phi once a chunk a pass), each
-   streamed against resident. KRN-EM-CLS through NystromSVM on phase 7's
-   rings (m = 1,000, 10 iterations) at 4,096 (its own featurizer, bitwise
+   again bitwise equal (2 iterations each). LIN-MC-CLS rng 'fused', 3
+   iterations, streamed against resident: the first gamma_mean within
+   1e-6. Phase 5's 131,072 x 2,048 for 3 iterations (fused_estep and
+   syrk_tri once a chunk); LIN-EM-SVR on phase 9's split (10 iterations)
+   and LIN-EM-MLT on phase 12's (2 iterations, class scores within 5e-2),
+   KRN-EM-MLT on phase 13's featurizer (2 iterations, nystrom_phi once a
+   chunk a pass), each streamed against resident. KRN-EM-CLS through
+   NystromSVM on phase 7's rings (m = 1,000, 3 iterations) at 4,096 (its
+   own featurizer, bitwise
    the resident fit's), 62,500 and 65,536 rows: accuracy within 0.01, the
    masked tail (65,536) within 1e-4 of the divisible chunking (62,500);
    rbf_gram once a fit, nystrom_score once a predict dispatch. fused_stats
@@ -281,7 +282,7 @@ shapes), in the order a, b, b, a.
    folds exactly fresh + 0.5 x the donor's (S, b)). The
    file path: make_dna_like(20,000, 200) saved as libsvm text with comment
    and blank lines, fit_libsvm streamed against the resident fit of the
-   same rows (12 iterations, weights within 1e-3) beside the parse rate;
+   same rows (4 iterations, weights within 1e-3) beside the parse rate;
    NystromSVM.fit_libsvm on the same file with 200 reservoir landmarks
    (bitwise the host reservoir's rows) within the Nystrom bands of the
    resident fit on its featurizer;
@@ -291,6 +292,15 @@ shapes), in the order a, b, b, a.
    it (host concatenation, host padding, pageable copies) and as this
    tree builds it (pinned staging, bias and padding on the card), timed
    in the order host, card, card, host and held bitwise equal.
+   The stream fits that repeated another fit's gates were cut to make room
+   for phase 22, every gate kept (seconds of the H100 run before the cut):
+   the 4,096-row Table 5 fit from 20 iterations to 3 (28.0 s to about 4),
+   the MC pair from 5 iterations to 3 (8.9 s stream), the MLT pair from 5
+   to 2 (6.2 s stream), the rings' four KRN fits from 10 to 3 (6.3 s at
+   4,096 rows), the file path's fits from 12 to 4 (12.5 s stream),
+   NystromSVM.fit_libsvm from 4 to 2 (5.6 s), the window and decay
+   generations from 8 iterations to 4, the profiled 4,096-row fit from 3
+   to 2 (5.5 s) and the prefetch repeats from 3 iterations to 2.
 
 16. serving, run after phase 15: the models of phases 4 (LIN-EM-CLS, K =
    501), 8 (KRN-EM-CLS, m = 2,048), 13 (KRN-EM-MLT, m = 400, C = 10) and
@@ -460,7 +470,9 @@ shapes), in the order a, b, b, a.
    trainer feeds them; losses finite, the mean of the last 3 below the
    first) and one profiled step. (b) MaxMarginHead over whisper's
    mean-pooled encoder output (K = 769: fused_stats's 4-byte-copy path)
-   on 8,192 clips (6,144 to train), each clip's frames drawn on the card
+   on 7,168 clips (6,144 to train; 2,048 held out before, 1,024 now, to
+   make room for phase 22: ~10 s of the H100's 104 clips/s), each clip's
+   frames drawn on the card
    batch by batch: standard normal, the clip's own offset on every frame,
    and a class shift along one direction drawn from the seed; at jitter
    1e-5 (LayerNorm'd features have rank K - 1 with the bias column and
@@ -498,6 +510,19 @@ well regime; nystrom_score with C = 10 at 40,000 x 784, m = 400;
 fused_estep and syrk_tri on Table 7's Gram rows (1,795 rings padded to
 1,800, the pad mask in syrk_tri's weights: the padded rows and columns of
 Sigma exactly 0); rbf_gram at (1,800 x 2)^2.
+
+22. The LM on a mesh (after phase 11; budget about 180 s with the ranks'
+   start-up): four gloo ranks on cuda:0 as a 2 x 2 ('data', 'model') mesh
+   (phase 11's ``_spawn``), each rank holding its blocks of the parameters
+   and AdamW state and nothing whole, against one-device yardsticks in
+   this process:
+   smollm-135m (a float32 step with 2 layers at full width, then 4
+   bfloat16 steps at full size through launch.train.train(mesh=) with
+   the bytes a rank holds gated at 0.3 of one device's), granite-moe-
+   1b-a400m at full size served in float32 (E / k against one device,
+   1.25 against one device on each data shard) and MaxMarginHead over
+   'data' (fused_stats once a step on every rank; nested row mesh_head).
+   See ``phase_lm_mesh``.
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
@@ -3672,6 +3697,8 @@ T5_N, T5_K, T5_TEST = 2_500_000, 800, 10_000  # Table 5, full=True
 T5_CUT_N = 1_000_000    # N when the host has less than T5_HOST_GB free
 T5_HOST_GB = 64
 T5_ITERS = 20
+T5_SHORT = 3            # the 4,096-row fit's iterations, against a resident
+#                         fit of as many (its gates are the 65,536-row fit's)
 STREAM_CHUNKS = (4096, 65_536)
 
 
@@ -4040,7 +4067,8 @@ def chunk_kernel_rows(dev, Xtr, n_pass, rings):
     return out
 
 
-WARM_ITERS = 8          # iterations a warm-started generation
+WARM_ITERS = 4          # iterations a warm-started generation (8 before,
+#                         cut for time: the fold gates hold at any count)
 
 
 def warm_generations(dev, cfg, Xtr, ytr, Xte, yte):
@@ -4150,7 +4178,8 @@ def wide_chunk_rows(dev, Xw, yw, rows):
     return {"fused_estep": estep, "syrk_tri": srow}
 
 
-LIBSVM_ITERS = 4        # NystromSVM.fit_libsvm's iterations (a pass each)
+LIBSVM_ITERS = 2        # NystromSVM.fit_libsvm's iterations (a pass each;
+#                         4 before, cut for time)
 
 
 def nystrom_fit_libsvm(dev, path, Xd, yd, m=200):
@@ -4293,9 +4322,15 @@ def phase_stream(dev):
                                        eps=cfg.eps)
     del data
     torch.cuda.empty_cache()
+    short = dataclasses.replace(cfg, max_iters=T5_SHORT, min_iters=T5_SHORT)
+    _, res_short, rf_short = stream_fit(
+        f"resident (scan) fit, {T5_SHORT} iterations", short, dev, Xtr, ytr,
+        Xte, yte)
     fits = {}
     for rows in STREAM_CHUNKS:
-        scfg = dataclasses.replace(cfg, driver="stream", chunk_rows=rows)
+        base, res_b, rf_b = ((short, res_short, rf_short)
+                             if rows == STREAM_CHUNKS[0] else (cfg, res, rf))
+        scfg = dataclasses.replace(base, driver="stream", chunk_rows=rows)
         with FirstStats() as first:
             svm, r, f = stream_fit(f"stream fit, chunk_rows {rows:,}", scfg,
                                    dev, Xtr, ytr, Xte, yte)
@@ -4306,9 +4341,9 @@ def phase_stream(dev):
             f"S {srel:.3e}, b {brel:.3e} of max|S| (<= 1e-4)")
         check(srel <= 1e-4 and brel <= 1e-4, "the stream fit's first "
               "statistic is not the resident one")
-        stream_gates(f"stream {rows:,} vs resident", scfg, r, res, K,
+        stream_gates(f"stream {rows:,} vs resident", scfg, r, res_b, K,
                      len(Xtr))
-        check(abs(f["metric"] - rf["metric"]) <= 0.01, "stream accuracy "
+        check(abs(f["metric"] - rf_b["metric"]) <= 0.01, "stream accuracy "
               "outside 0.01 of the resident fit's")
         check(f["counts"]["fused_stats"] == r.n_iters * -(-len(Xtr) // rows),
               f"fused_stats launched {f['counts']['fused_stats']} times")
@@ -4321,23 +4356,23 @@ def phase_stream(dev):
           "the resident bytes")
     runs["fused_stats"] = fits[STREAM_CHUNKS[0]][2]["counts"]
     del fits, res_svm
-    profile_stream("the 4,096-row stream fit (3 iterations)",
-                   dataclasses.replace(cfg, driver="stream", max_iters=3,
-                                       min_iters=3), dev, Xtr, ytr)
+    profile_stream("the 4,096-row stream fit (2 iterations)",
+                   dataclasses.replace(cfg, driver="stream", max_iters=2,
+                                       min_iters=2), dev, Xtr, ytr)
     # -- bitwise: prefetch depths and repeats (page-locked arrays)
     sub = slice(0, 500_000)
     ws = []
     for pf in (1, 2, 4, 2):
         scfg = dataclasses.replace(cfg, driver="stream", prefetch=pf,
-                                   max_iters=3, min_iters=3)
+                                   max_iters=2, min_iters=2)
         ws.append(PEMSVM(scfg, device=dev).fit(Xtr[sub], ytr[sub]).weights)
     same = all(np.array_equal(w, ws[0]) for w in ws[1:])
-    say(f"  prefetch 1, 2, 4 and 2 again (500,000 rows, 3 iterations): "
+    say(f"  prefetch 1, 2, 4 and 2 again (500,000 rows, 2 iterations): "
         f"weights bitwise equal {same}")
     check(same, "stream weights differ across prefetch depths or runs")
-    # -- LIN-MC-CLS rng 'fused', 5 iterations
-    mc = dataclasses.replace(cfg, algorithm="MC", rng="fused", max_iters=5,
-                             min_iters=5, burnin=2)
+    # -- LIN-MC-CLS rng 'fused', 3 iterations
+    mc = dataclasses.replace(cfg, algorithm="MC", rng="fused", max_iters=3,
+                             min_iters=3, burnin=2)
     _, rmc, fmc = stream_fit("MC resident fit, rng='fused'", mc, dev, Xtr,
                              ytr, Xte, yte)
     _, smc, fsm = stream_fit("MC stream fit, rng='fused'", dataclasses.replace(
@@ -4380,10 +4415,10 @@ def phase_stream(dev):
     check(abs(fsy["metric"] - fry["metric"]) <= 0.01, "EM-SVR stream RMSE "
           "outside 0.01 of the resident fit's")
     runs["fused_stats[em_svr]"] = fsy["counts"]
-    # -- LIN-EM-MLT (phase 12's Table 8 split), 5 iterations
+    # -- LIN-EM-MLT (phase 12's Table 8 split), 2 iterations
     data = mnist_split()
     Xm, lm, Xmt, lmt = data
-    mcfg = t8_cfg("LIN-EM-MLT", max_iters=5, min_iters=5)
+    mcfg = t8_cfg("LIN-EM-MLT", max_iters=2, min_iters=2)
     rsvm, rm, _ = stream_fit("EM-MLT resident fit", mcfg, dev, Xm, lm, Xmt,
                              lmt)
     ssvm, sm, fsm2 = stream_fit(
@@ -4394,7 +4429,8 @@ def phase_stream(dev):
         f"(<= 5e-2), weights rel {_rel(sm.weights, rm.weights):.3e} "
         f"(printed), objective rel {trace_rel(sm.objective, rm.objective):.3e}")
     check(frel <= 5e-2, "EM-MLT stream class scores outside 5e-2")
-    check(fsm2["counts"]["fused_stats"] == 5 * M_CLASSES * -(-len(Xm) // 4096),
+    check(fsm2["counts"]["fused_stats"]
+          == mcfg.max_iters * M_CLASSES * -(-len(Xm) // 4096),
           f"EM-MLT stream: fused_stats launched {fsm2['counts']}")
     # -- KRN-EM-MLT through NystromSVM (phase 13's m = 400), 2 iterations:
     # nystrom_phi on every chunk of every pass
@@ -4422,7 +4458,7 @@ def phase_stream(dev):
     Xr, yr = circles_data(1_000_000)
     Xrt, yrt = circles_data(100_000, 1)
     ncfg = SVMConfig.from_options("KRN-EM-CLS", lam=0.1, sigma=0.7,
-                                  max_iters=10, min_iters=10)
+                                  max_iters=3, min_iters=3)
     resident = NystromSVM(ncfg, n_landmarks=1000, device=dev)
     rr = resident.fit(Xr, yr)
     racc = resident.score(Xrt, yrt)
@@ -4504,9 +4540,9 @@ def phase_stream(dev):
     t0 = time.perf_counter()
     parsed = sum(int(mc.sum()) for _, _, mc in iter_libsvm(path, 4096, 200))
     parse_s = time.perf_counter() - t0
-    # the reference test's eps and iterations
+    # the reference test's eps; 4 iterations (the test's 12 cut for time)
     dcfg = SVMConfig(lam=lam_from_C(1e-5) * 20_000 / T5_N, eps=1e-2,
-                     max_iters=12, min_iters=12)
+                     max_iters=4, min_iters=4)
     _, rd, _ = stream_fit("file rows, resident fit", dcfg, dev, Xd, yd)
     _, sd, fd = stream_fit(
         "fit_libsvm stream", dataclasses.replace(dcfg, driver="stream"), dev,
@@ -6786,7 +6822,8 @@ ED_PARAMS = 270_902_016  # whisper-small's init draws these (jax.eval_shape of
 #                          included); num_params() says 239,212,032
 ED_PROMPT, ED_CACHE = 128, 192          # 8 prompts of 128 tokens, 64 steps
 ED_TRAIN_BATCH, ED_TRAIN_SEQ, ED_TRAIN_STEPS = 8, 256, 6
-ED_CLIPS, ED_TRAIN_CLIPS = 8_192, 6_144  # the head: N / K = 8 at K = 769
+ED_CLIPS, ED_TRAIN_CLIPS = 7_168, 6_144  # the head: N / K = 8 at K = 769;
+#                         1,024 held out (2,048 before, cut for time: ~10 s)
 ED_FEATURE_BATCH = 32   # clips a feature batch: the encoder's one 1,500-row
 #                         attention chunk holds 32 x 12 x 1,500^2 fp32 scores
 CLIP_STD, CLIP_SHIFT = 0.5, 0.64  # each clip's own offset (on every frame)
@@ -7130,6 +7167,487 @@ def phase_encdec(dev):
     return {"fused_stats": {"whisper_head": row}}
 
 
+# ---------------------------------------------------------------- phase 22
+MESH22 = (2, 2)                     # ('data', 'model'): four gloo ranks
+M22_STEP_BATCH, M22_STEP_SEQ = 4, 256        # (a) the float32 step
+M22_TRAIN_BATCH, M22_TRAIN_SEQ, M22_TRAIN_STEPS = 8, 1024, 4   # (a) bf16
+M22_PROMPTS, M22_PROMPT, M22_CACHE = 8, 512, 576    # (b)
+# (b)'s decode steps at E / k and at 1.25: every step gathers each block
+# of the float32 serving copy through gloo (3.2 s a step on the H100), so
+# 8 and 4, not 16 and 16 (the whole script's time limit)
+M22_DECODE, M22_DECODE_CAP = 8, 4
+M22_HEAD_DOCS, M22_HEAD_TRAIN = 7_168, 6_144   # (c): N / K = 10.6
+M22_FEAT_BAND = 3e-2    # (c) bfloat16 features against one device's (the
+#                         LM tests' bfloat16 band)
+M22_BYTES_BAND = 0.3    # a rank's parameter and AdamW bytes of one device's
+M22_LOGIT_BAND = 1e-4   # (b) logits against one device, of max|ref|
+
+
+def _sync(dev):
+    if dev.type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _m22_free(dev):
+    """A rank frees what a model left (cycles included), quietly."""
+    gc.collect()
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+
+def _m22_step_cfg():
+    from repro_torch.configs import get_config
+    return dataclasses.replace(get_config(TRAIN_ARCH),
+                               n_layers=TRAIN_CPU_LAYERS, dtype="float32")
+
+
+def _m22_moe_cfg():
+    from repro_torch.configs import get_config
+    cfg = dataclasses.replace(get_config(MOE_ARCH), dtype="float32")
+    return dataclasses.replace(
+        cfg, moe_capacity_factor=cfg.n_experts / cfg.top_k)
+
+
+def _m22_step_batch(cfg):
+    g = np.random.default_rng(22)
+    shape = (M22_STEP_BATCH, M22_STEP_SEQ)
+    return {"tokens": g.integers(0, cfg.vocab, shape).astype(np.int32),
+            "labels": g.integers(0, cfg.vocab, shape).astype(np.int32)}
+
+
+def _m22_prompts(cfg):
+    g = np.random.default_rng(23)
+    return (g.integers(0, cfg.vocab, (M22_PROMPTS, M22_PROMPT)
+                       ).astype(np.int32),
+            g.integers(0, cfg.vocab, (M22_PROMPTS, M22_DECODE)
+                       ).astype(np.int32))
+
+
+def _m22_grads(model, batch):
+    """(loss share, the gradient tree): on a mesh this rank's share and
+    its blocks' gradients (summed over the mesh by the gathers'
+    backward)."""
+    from repro_torch.checkpoint.checkpointer import (
+        _tree_flatten_with_names, _tree_unflatten)
+    from repro_torch.training import make_loss_fn
+    _, leaves, td = _tree_flatten_with_names(model.params)
+    xs = [p.detach().requires_grad_(True) for p in leaves]
+    loss = make_loss_fn(model, loss_chunk=M22_STEP_SEQ)(
+        _tree_unflatten(td, xs), batch)
+    return loss.detach(), _tree_unflatten(td, list(
+        torch.autograd.grad(loss, xs)))
+
+
+def _m22_serve(dev, model, prompts, dec):
+    """Prefill and M22_DECODE decode steps on fixed tokens: (prefill
+    logits, the decode logits stacked (steps, B, V)) on the host, and the
+    ms of each."""
+    _sync(dev)
+    t0 = time.perf_counter()
+    lg, caches = model.prefill({"tokens": prompts}, M22_CACHE)
+    _sync(dev)
+    t1 = time.perf_counter()
+    outs = []
+    for i in range(dec.shape[1]):
+        d, caches = model.decode(dec[:, i:i + 1], prompts.shape[1] + i,
+                                 caches)
+        outs.append(d[:, 0].float().cpu())
+    _sync(dev)
+    t2 = time.perf_counter()
+    return (lg.float().cpu(), torch.stack(outs), (t1 - t0) * 1e3,
+            (t2 - t1) * 1e3 / dec.shape[1])
+
+
+def _m22_param_bytes(model, state) -> int:
+    from repro_torch.checkpoint.checkpointer import _tree_flatten_with_names
+    leaves = (_tree_flatten_with_names(state["params"])[1]
+              + _tree_flatten_with_names(state["opt"]["m"])[1]
+              + _tree_flatten_with_names(state["opt"]["v"])[1])
+    return sum(x.numel() * x.element_size() for x in leaves)
+
+
+def _m22_one_bytes(cfg) -> int:
+    """One device's parameter and AdamW bytes: three float32 copies."""
+    from repro_torch.models.model import param_shapes
+    return 3 * 4 * sum(int(np.prod(s)) for s in param_shapes(cfg).values())
+
+
+def _lm_mesh_rank(rank, world, init, outdir):
+    """One of phase 22's four gloo ranks on the card, its record written
+    to ``outdir`` (the large arrays from rank 0 only)."""
+    dev = _rank_setup(rank, world, init, "gloo")
+    from repro_torch.checkpoint.checkpointer import _tree_flatten_with_names
+    from repro_torch.configs import get_config
+    from repro_torch.core import PEMSVM, MaxMarginHead, SVMConfig, mean_pool
+    from repro_torch.launch.mesh import make_host_mesh
+    from repro_torch.launch.specs import make_ctx
+    from repro_torch.launch.train import train
+    from repro_torch.models import build_model
+    from repro_torch.training import AdamWConfig, init_state, make_train_step
+    mesh = make_host_mesh(MESH22, device=dev.type)
+    ctx = make_ctx(mesh)
+    rec = {"rank": rank}
+    big = rank == 0
+    clock = [time.perf_counter()]
+
+    def lap(part):
+        _sync(dev)
+        now = time.perf_counter()
+        rec[f"secs_{part}"] = now - clock[0]
+        clock[0] = now
+
+    # (a) one float32 step, 2 layers at full width
+    cfg = _m22_step_cfg()
+    m = build_model(cfg, ctx, dev, q_chunk=256, kv_chunk=256)
+    m.init(0)
+    placed = m.place(_m22_step_batch(cfg))
+    share, g = _m22_grads(m, placed)
+    full_g = m.full(g)
+    state = {"params": m.params, "opt": init_state(m.params)}
+    st, met = make_train_step(m, AdamWConfig(
+        lr=TRAIN_LR, warmup_steps=1, total_steps=10),
+        loss_chunk=M22_STEP_SEQ)(state, placed)
+    rec["step_loss"], rec["step_gnorm"] = float(met["loss"]), float(
+        met["grad_norm"])
+    rec["step_share"] = float(share)
+    rec["step_bytes"] = _m22_param_bytes(m, st) / _m22_one_bytes(cfg)
+    new = m.full(st["params"])          # a collective: every rank gathers
+    if big:
+        rec["step_grads"] = [x.cpu().numpy() for x in
+                             _tree_flatten_with_names(full_g)[1]]
+        rec["step_new"] = [x.cpu().numpy() for x in
+                           _tree_flatten_with_names(new)[1]]
+    del m, g, full_g, state, st, new
+    _m22_free(dev)
+    lap("a_step")
+
+    # (a) bf16 steps of the full config through the trainer, with remat
+    tcfg = get_config(TRAIN_ARCH)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    run = train(tcfg, steps=M22_TRAIN_STEPS, batch=M22_TRAIN_BATCH,
+                seq=M22_TRAIN_SEQ, lr=TRAIN_LR, device=dev, mesh=mesh,
+                log=(_train_log if big else (lambda *a: None)))
+    rec["train_losses"] = list(run["losses"])
+    rec["train_step_s"] = list(run["step_s"])
+    rec["train_peak_mib"] = (torch.cuda.max_memory_allocated(dev) / 2 ** 20
+                             if dev.type == "cuda" else 0.0)
+    rec["train_bytes"] = (_m22_param_bytes(run["model"], run["state"])
+                          / _m22_one_bytes(tcfg))
+    del run
+    _m22_free(dev)
+    lap("a_train")
+
+    # (b) granite-moe served, float32: E / k (no drops), then 1.25
+    mcfg = _m22_moe_cfg()
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    mm = build_model(mcfg, ctx, dev)
+    mm.init(0)
+    prompts, dec = _m22_prompts(mcfg)
+    for tag, f, n in (("nodrop", mcfg.moe_capacity_factor, M22_DECODE),
+                      ("cap", get_config(MOE_ARCH).moe_capacity_factor,
+                       M22_DECODE_CAP)):
+        mm.cfg = dataclasses.replace(mcfg, moe_capacity_factor=f)
+        lg, dl, pre_ms, dec_ms = _m22_serve(dev, mm, prompts, dec[:, :n])
+        rec[f"{tag}_ms"] = (pre_ms, dec_ms)
+        rec[f"{tag}_sum"] = float(lg.double().sum() + dl.double().sum())
+        if big:
+            rec[f"{tag}_prefill"], rec[f"{tag}_decode"] = lg.numpy(), \
+                dl.numpy()
+    # what serving holds: the blocks and the serving copy's blocks (in
+    # float32 the same storage), against one device's float32 weights
+    held = {x.untyped_storage().data_ptr(): x.untyped_storage().nbytes()
+            for t in (mm.params, mm.compute_params)
+            for x in _tree_flatten_with_names(t)[1]}
+    rec["moe_bytes"] = sum(held.values()) / (_m22_one_bytes(mcfg) / 3)
+    rec["moe_peak_mib"] = (torch.cuda.max_memory_allocated(dev) / 2 ** 20
+                           if dev.type == "cuda" else 0.0)
+    del mm
+    _m22_free(dev)
+    lap("b")
+
+    # (c) MaxMarginHead on the mesh model's features, PEMSVM on 'data'
+    m = build_model(tcfg, ctx, dev)
+    m.init(0)
+    toks, y = lm_docs(tcfg.vocab, M22_HEAD_DOCS)
+
+    def feature_fn(t):
+        return mean_pool(m.hidden_seq({"tokens": t}).float())
+
+    scfg = SVMConfig(lam=0.1, max_iters=60)
+    head = MaxMarginHead(scfg, feature_fn, mesh=mesh, data_axes=("data",),
+                         device=dev, feature_batch=256)
+    _sync(dev)
+    t0 = time.perf_counter()
+    X = head.extract(toks)
+    _sync(dev)
+    rec["head_extract_s"] = time.perf_counter() - t0
+    _zero_counts()
+    t0 = time.perf_counter()
+    res = head.svm.fit(X[:M22_HEAD_TRAIN], y[:M22_HEAD_TRAIN])
+    _sync(dev)
+    rec["head_fit_s"] = time.perf_counter() - t0
+    rec["head_counts"] = _counts()
+    rec["head_w"], rec["head_it"] = res.weights, res.n_iters
+    rec["head_acc"] = head.svm.score(X[M22_HEAD_TRAIN:], y[M22_HEAD_TRAIN:])
+    two = PEMSVM(dataclasses.replace(scfg, max_iters=2, min_iters=2),
+                 device=dev, mesh=mesh, data_axes=("data",)).fit(
+        X[:M22_HEAD_TRAIN], y[:M22_HEAD_TRAIN])
+    rec["head_w2"] = two.weights
+    rec["head_steps"] = min(scfg.max_iters, -(-res.n_iters // scfg.scan_chunk)
+                            * scfg.scan_chunk)
+    if big:
+        rec["head_X"] = X
+    lap("c")
+    torch.distributed.barrier()
+    np.save(Path(outdir) / f"lm{rank}.npy", np.array([rec], object),
+            allow_pickle=True)
+    torch.distributed.destroy_process_group()
+
+
+def _m22_one_serve(dev, cfg, prompts, dec):
+    """(b)'s yardsticks on one device: at E / k the whole batch; at the
+    config's factor each data shard's prompts alone (the mesh's per-shard
+    capacity), with the assignments dropped counted (prefill)."""
+    from repro_torch.configs import get_config
+    from repro_torch.models import build_model, mlp
+    one = build_model(cfg, dev)
+    one.init(0)
+    out = {"nodrop": _m22_one_run(dev, one, prompts, dec)}
+    dec = dec[:, :M22_DECODE_CAP]
+    one.cfg = dataclasses.replace(
+        cfg, moe_capacity_factor=get_config(MOE_ARCH).moe_capacity_factor)
+    per = M22_PROMPTS // MESH22[0]
+    shards, drops = [], []
+    orig = mlp._slots
+
+    def counted(eidx, e0, E_loc, C):
+        keep, e, p = orig(eidx, e0, E_loc, C)
+        if eidx.shape[0] > per:           # prefill (decode: one a prompt)
+            drops.append((int(eidx.numel()), int(keep.sum())))
+        return keep, e, p
+    mlp._slots = counted
+    try:
+        for d in range(MESH22[0]):
+            sl = slice(d * per, (d + 1) * per)
+            shards.append(_m22_one_run(dev, one, prompts[sl], dec[sl]))
+    finally:
+        mlp._slots = orig
+    out["cap"] = tuple(torch.cat([s[i] for s in shards], dim=i)
+                       for i in (0, 1))
+    out["drops"] = drops
+    del one
+    _release("phase 22 (b) one device")
+    return out
+
+
+def _m22_one_run(dev, model, prompts, dec):
+    lg, dl, _, _ = _m22_serve(dev, model, prompts, dec)
+    return lg, dl
+
+
+def phase_lm_mesh(dev):
+    """Phase 22: the LM on a mesh. Four gloo ranks on cuda:0, a 2 x 2
+    ('data', 'model') mesh through phase 11's ``_spawn`` harness; the
+    one-device yardsticks run in this process on the same card. Budget
+    about 180 s with the ranks' start-up.
+
+    (a) smollm-135m (9 heads, which do not divide 'model': the
+        sequence-parallel island): one float32 step with 2 layers at full
+        width, 4 x 256 tokens, against the same step on one device
+        (phase 19's bands: loss and every gradient leaf within 1e-4 of
+        max|g|, parameters after the update rtol 1e-3); then 4 bfloat16
+        steps of 8 x 1,024 tokens at full size through
+        ``launch.train.train(mesh=)`` with remat: losses finite and
+        falling; ms a step, tokens/s, each rank's peak MiB, its parameter
+        and AdamW bytes against one device's (<= 0.3, gated, as after the
+        float32 step);
+    (b) granite-moe-1b-a400m at full size, float32, served (32 experts
+        over 2 model ranks; vocabulary 49,155, so the table is sharded on
+        D): 8 prompts of 512 tokens, cache 576, prefill and decode steps
+        on fixed tokens (8 at E / k, 4 at 1.25: serving holds its cast
+        copy as blocks and gathers each block at its use, so a float32
+        decode step moves the model through gloo). At the factor E / k,
+        which drops nothing, the logits within 1e-4 of max|ref| of one
+        device's; at the config's 1.25 within 1e-4 of one device run on
+        each data shard's 4 prompts alone (the reference's per-shard
+        capacity); the shares dropped printed; the bytes a rank holds
+        (its blocks and the serving copy's) gated at 0.3 of one device's
+        weights;
+    (c) MaxMarginHead on smollm-135m at full size on the mesh (bfloat16,
+        ``init(0)``: phase 18 (b)'s backbone, K = 577), 7,168 token-range
+        documents (6,144 to train, half phase 18 (b)'s: the mesh's
+        features come at a quarter of one device's rate), PEMSVM over the
+        mesh's 'data' axis: the features within 3e-2 of max|ref| of one
+        device's (the LM tests' bfloat16 band); fused_stats launched once
+        a step on every rank and nothing else; the weights against a
+        one-device kernel fit on the same features within phase 18 (b)'s
+        bands (2 iterations within 1e-3 of max|w|; at convergence
+        iterations within 3, weights within 5e-2, accuracy within 0.01);
+        then fused_stats on the head's own inputs (the kernels row's
+        nested ``mesh_head`` entry).
+
+    No fallback: a rank's failure fails the script. Returns {kernel name:
+    nested rows}."""
+    from repro_torch.checkpoint.checkpointer import _tree_flatten_with_names
+    from repro_torch.core import MaxMarginHead, PEMSVM, SVMConfig, mean_pool
+    from repro_torch.models import build_model
+    from repro_torch.training import AdamWConfig, init_state, make_train_step
+    label = f"({smi()})"
+    # (a)'s float32 step on one device
+    cfg = _m22_step_cfg()
+    one = build_model(cfg, dev, q_chunk=256, kv_chunk=256)
+    one.init(0)
+    batch = _m22_step_batch(cfg)
+    l1, g1 = _m22_grads(one, batch)
+    names, g1, _ = _tree_flatten_with_names(g1)
+    g1 = [x.cpu() for x in g1]
+    st1, met1 = make_train_step(one, AdamWConfig(
+        lr=TRAIN_LR, warmup_steps=1, total_steps=10),
+        loss_chunk=M22_STEP_SEQ)({"params": one.params,
+                                  "opt": init_state(one.params)}, batch)
+    new1 = [x.cpu() for x in _tree_flatten_with_names(st1["params"])[1]]
+    del st1, one
+    # (c)'s one-device features: phase 18 (b)'s model, the same init
+    from repro_torch.configs import get_config
+    one = build_model(get_config(TRAIN_ARCH), dev)
+    one.init(0)
+    toks, y = lm_docs(one.cfg.vocab, M22_HEAD_DOCS)
+    fone = MaxMarginHead(SVMConfig(lam=0.1), lambda t: mean_pool(
+        one.hidden_seq({"tokens": t}).float()), device=dev,
+        feature_batch=256).extract(toks)
+    del one
+    _release("phase 22 one device (a), (c)")
+    # (b)'s yardsticks
+    mcfg = _m22_moe_cfg()
+    prompts, dec = _m22_prompts(mcfg)
+    t0 = time.perf_counter()
+    ys = _m22_one_serve(dev, mcfg, prompts, dec)
+    say(f"  one-device yardsticks {label}: {time.perf_counter() - t0:.1f} s "
+        "for (b)")
+    t0 = time.perf_counter()
+    ranks = [r[0] for r in _spawn(_lm_mesh_rank, 4, "lm")]
+    say(f"  4 gloo ranks on {dev} (2 x 2 data x model): "
+        f"{time.perf_counter() - t0:.1f} s with start-up {label}")
+    r0 = ranks[0]
+    say("  rank 0's parts: " + ", ".join(
+        f"{k[5:]} {v:.1f} s" for k, v in r0.items() if k.startswith("secs_")))
+    for r in ranks[1:]:
+        for k in ("step_loss", "step_gnorm", "train_losses", "nodrop_sum",
+                  "cap_sum", "head_it"):
+            check(r[k] == r0[k], f"phase 22: rank {r['rank']}'s {k} is not "
+                  f"rank 0's: {r[k]} against {r0[k]}")
+        check(np.array_equal(r["head_w"], r0["head_w"]),
+              "phase 22: the ranks' head weights differ")
+
+    # (a) the float32 step
+    dl = abs(r0["step_loss"] - float(l1)) / abs(float(l1))
+    shares = sum(r["step_share"] for r in ranks)
+    dg = max(_rel_max(a, b.numpy()) for a, b in zip(r0["step_grads"], g1))
+    dn = abs(r0["step_gnorm"] - float(met1["grad_norm"])) / float(
+        met1["grad_norm"])
+    worst = max(float((np.abs(a.astype(np.float64) - b.double().numpy())
+                       - (1e-3 * np.abs(b.double().numpy())
+                          + 1.5 * 2 * TRAIN_LR)).max())
+                for a, b in zip(r0["step_new"], new1))
+    say(f"  (a) float32 step, {TRAIN_CPU_LAYERS} layers at full width, "
+        f"{M22_STEP_BATCH} x {M22_STEP_SEQ} tokens, the mesh against one "
+        f"device: loss {dl:.3e} (<= {TRAIN_F32_BAND}; the ranks' shares "
+        f"sum to {shares:.6f}, one device {float(l1):.6f}), gradients "
+        f"{dg:.3e} of max|g| over {len(names)} leaves (<= "
+        f"{TRAIN_F32_BAND}), grad_norm {dn:.3e}, parameters after the "
+        f"update {'within' if worst <= 0 else 'outside'} rtol 1e-3; a "
+        f"rank's parameter and AdamW bytes "
+        f"{max(r['step_bytes'] for r in ranks):.4f} of one device's")
+    check(dl <= TRAIN_F32_BAND and dg <= TRAIN_F32_BAND and worst <= 0
+          and abs(shares - float(l1)) <= TRAIN_F32_BAND * abs(float(l1)),
+          "phase 22 (a): the mesh's float32 step is outside the bands")
+    check(all(r["step_bytes"] <= M22_BYTES_BAND for r in ranks),
+          "phase 22 (a): a rank holds more than 0.3 of one device's bytes")
+    # (a) the bf16 steps
+    losses = r0["train_losses"]
+    step_ms = statistics.median(r0["train_step_s"][1:]) * 1e3
+    toks_s = M22_TRAIN_BATCH * M22_TRAIN_SEQ / (step_ms / 1e3)
+    say(f"  (a) {TRAIN_ARCH} at full size on the mesh, bfloat16, "
+        f"{M22_TRAIN_STEPS} steps of {M22_TRAIN_BATCH} x {M22_TRAIN_SEQ} "
+        f"tokens with remat {label}: losses "
+        f"{[round(x, 4) for x in losses]}, {step_ms:.1f} ms a step (median "
+        f"past the first), {toks_s:.0f} tokens/s; peak MiB by rank "
+        f"{[round(r['train_peak_mib']) for r in ranks]}; parameter and "
+        f"AdamW bytes by rank {[round(r['train_bytes'], 4) for r in ranks]}"
+        f" of one device's (<= {M22_BYTES_BAND}); not judged: four ranks "
+        "share one card through gloo")
+    check(bool(np.all(np.isfinite(losses))) and losses[-1] < losses[0],
+          f"phase 22 (a): losses not finite and falling: {losses}")
+    check(all(r["train_bytes"] <= M22_BYTES_BAND for r in ranks),
+          "phase 22 (a): a rank's training state is more than 0.3 of one "
+          "device's")
+    # (b) granite-moe served
+    ep, ed = lm_rel(torch.from_numpy(r0["nodrop_prefill"]), ys["nodrop"][0]), \
+        lm_rel(torch.from_numpy(r0["nodrop_decode"]), ys["nodrop"][1])
+    cp, cd = lm_rel(torch.from_numpy(r0["cap_prefill"]), ys["cap"][0]), \
+        lm_rel(torch.from_numpy(r0["cap_decode"]), ys["cap"][1])
+    n_all = sum(a for a, _ in ys["drops"])
+    kept = sum(k for _, k in ys["drops"])
+    say(f"  (b) {MOE_ARCH} at full size on the mesh, float32 {label}: "
+        f"prefill {M22_PROMPTS} x {M22_PROMPT} {r0['nodrop_ms'][0]:.1f} ms, "
+        f"decode {r0['nodrop_ms'][1]:.1f} ms a step; at E / k = "
+        f"{mcfg.moe_capacity_factor:g} against one device: prefill logits "
+        f"{ep:.3e}, {M22_DECODE} decode steps {ed:.3e} of max|ref| (<= "
+        f"{M22_LOGIT_BAND}); at 1.25 against one device on each data "
+        f"shard's {M22_PROMPTS // MESH22[0]} prompts: {cp:.3e}, "
+        f"{M22_DECODE_CAP} decode steps {cd:.3e}; "
+        f"the shards drop {1 - kept / n_all:.4f} of their prefill "
+        f"assignments ({n_all - kept:,} of {n_all:,} over the layers); a "
+        f"rank holds {max(r['moe_bytes'] for r in ranks):.4f} of one "
+        f"device's weight bytes (its blocks and the serving copy's, <= "
+        f"{M22_BYTES_BAND}); peak MiB by rank "
+        f"{[round(r['moe_peak_mib']) for r in ranks]}")
+    check(max(ep, ed, cp, cd) <= M22_LOGIT_BAND,
+          "phase 22 (b): the mesh's logits are outside 1e-4 of one device's")
+    check(all(r["moe_bytes"] <= M22_BYTES_BAND for r in ranks),
+          "phase 22 (b): serving holds more than 0.3 of one device's weight "
+          "bytes on a rank")
+    # (c) the head
+    fr = _rel_max(r0["head_X"], fone)
+    Xtr, ytr = r0["head_X"][:M22_HEAD_TRAIN], y[:M22_HEAD_TRAIN]
+    Xte, yte = r0["head_X"][M22_HEAD_TRAIN:], y[M22_HEAD_TRAIN:]
+    scfg = SVMConfig(lam=0.1, max_iters=60)
+    svm1, r1, _ = _fit(scfg, dev, Xtr, ytr)
+    _, r12, _ = _fit(dataclasses.replace(scfg, max_iters=2, min_iters=2),
+                     dev, Xtr, ytr)
+    acc1 = svm1.score(Xte, yte)
+    w2 = _rel_max(r0["head_w2"], r12.weights)
+    wrel = _rel(r0["head_w"], r1.weights)
+    steps = r0["head_steps"]
+    counts = [r["head_counts"] for r in ranks]
+    say(f"  (c) MaxMarginHead on the mesh model {label}: features of "
+        f"{M22_HEAD_DOCS:,} documents in {r0['head_extract_s']:.2f} s, "
+        f"{fr:.3e} of max|ref| from one device's (<= {M22_FEAT_BAND}); the "
+        f"fit over "
+        f"'data' {r0['head_fit_s']:.3f} s, {r0['head_it']} iterations "
+        f"(one device {r1.n_iters}), accuracy {r0['head_acc']:.4f} (one "
+        f"device {acc1:.4f}); weights {wrel:.3e} (<= {HEAD_W_BAND}), after "
+        f"2 iterations {w2:.3e} of max|w| (<= {HEAD_W2_BAND}); fused_stats "
+        f"launches by rank {[c['fused_stats'] for c in counts]} for "
+        f"{steps} steps")
+    check(fr <= M22_FEAT_BAND, "phase 22 (c): the mesh's features are "
+          f"outside {M22_FEAT_BAND} of one device's")
+    check(all(c["fused_stats"] == steps and all(
+        v == 0 for k, v in c.items() if k != "fused_stats") for c in counts),
+        f"phase 22 (c): fused_stats not launched once a step on every rank "
+        f"alone: {counts}")
+    check(w2 <= HEAD_W2_BAND and wrel <= HEAD_W_BAND
+          and abs(r0["head_it"] - r1.n_iters) <= 3
+          and abs(r0["head_acc"] - acc1) <= 0.01,
+          "phase 22 (c): the mesh head is outside phase 18 (b)'s bands")
+    row = head_stats_row(dev, Xtr, ytr, r0["head_w"],
+                         [c["fused_stats"] for c in counts],
+                         "smollm head on the 2 x 2 mesh")
+    return {"fused_stats": {"mesh_head": row}}
+
+
 SOURCES = {
     "fused_stats": ("src/repro_torch/csrc/fused_stats.cu",
                     "src/repro/kernels/fused_stats.py:155"),
@@ -7277,6 +7795,11 @@ def main() -> int:
     stamp(t0, "== 11. the multi-device fit: a 2 x 2 (data x k) mesh and a 4 "
               "x 1 one, four gloo ranks on cuda:0; a one-rank NCCL group")
     runs.update(phase_mesh(dev, krn_ref, mc_ref, exact_ref))
+    stamp(t0, "== 22. the LM on a mesh: four gloo ranks on cuda:0 (2 x 2 "
+              "data x model): smollm-135m trained, granite-moe-1b-a400m "
+              "served, MaxMarginHead over 'data' (fused_stats)")
+    for name, extra in phase_lm_mesh(dev).items():
+        rows[name].update(extra)
     runs["weighted_gram"] = (gram_counts, 0, 0)
     say(f"== done in {time.perf_counter() - t0:.1f} s")
     kernels = []

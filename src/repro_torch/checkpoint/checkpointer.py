@@ -472,19 +472,22 @@ class Checkpointer:
         rec = self.latest_record()
         return rec[1] if rec else None
 
-    def _read_record(self, epoch: int, step: int) -> tuple[dict, dict]:
+    def _read_record(self, epoch: int, step: int, mmap: bool = False
+                     ) -> tuple[dict, dict]:
         """Load + VALIDATE one committed snapshot: the manifest must
         parse and every leaf array must load with the manifest's
         shape/dtype. Raises on any corruption (truncated npy, torn
         manifest, missing file — including a directory a competitor's
         GC deleted between listing and load) — the fallback loop below
-        turns that into skip-and-warn."""
+        turns that into skip-and-warn. ``mmap``: the arrays are mapped
+        read-only, not read (a truncated file still fails to map)."""
         final = os.path.join(self.dir, self._name(step, epoch))
         with open(os.path.join(final, "manifest.json")) as f:
             manifest = json.load(f)
         arrays: dict[str, np.ndarray] = {}
         for e in manifest["leaves"]:
-            a = np.load(os.path.join(final, "arrays", f"{e['idx']}.npy"))
+            a = np.load(os.path.join(final, "arrays", f"{e['idx']}.npy"),
+                        mmap_mode="r" if mmap else None)
             if (list(a.shape) != list(e["shape"])
                     or str(a.dtype) != e["dtype"]):
                 raise ValueError(
@@ -504,7 +507,8 @@ class Checkpointer:
                 f"no committed checkpoint for step {step} in {self.dir}")
         return max(epochs), step
 
-    def _load_valid(self, step: int | None) -> tuple[int, dict, dict]:
+    def _load_valid(self, step: int | None, mmap: bool = False
+                    ) -> tuple[int, dict, dict]:
         """Resolve ``step`` to a VALID snapshot. An explicit step is
         loaded strictly (corruption raises — the caller pinned it). With
         ``step=None``, committed records are tried newest-first in
@@ -514,14 +518,14 @@ class Checkpointer:
         racing this read) never poisons the whole resume directory."""
         if step is not None:
             epoch, step = self._resolve_pin(step)
-            arrays, manifest = self._read_record(epoch, step)
+            arrays, manifest = self._read_record(epoch, step, mmap)
             return step, arrays, manifest
         records = self.all_records()
         if not records:
             raise FileNotFoundError(f"no committed checkpoint in {self.dir}")
         for e, s in reversed(records):
             try:
-                arrays, manifest = self._read_record(e, s)
+                arrays, manifest = self._read_record(e, s, mmap)
                 return s, arrays, manifest
             except Exception as exc:  # noqa: BLE001 — corrupt: try older
                 warnings.warn(
@@ -543,12 +547,15 @@ class Checkpointer:
         return step
 
     def restore(self, tree_like: Any, step: int | None = None,
-                device=None) -> Any:
+                device=None, place=None) -> Any:
         """Restore into the structure of ``tree_like`` as tensors on
         ``device`` (the CPU when None). Checkpoints hold logical host
         arrays, so the mesh that wrote one need not be the mesh that
-        restores it: this is the elastic-remesh path."""
-        step, arrays, manifest = self._load_valid(step)
+        restores it: this is the elastic-remesh path. ``place(name,
+        array)``: the tensor to keep of each leaf (a mesh rank's block),
+        the arrays then memory-mapped, so a leaf is read only as far as
+        ``place`` reads it."""
+        step, arrays, manifest = self._load_valid(step, place is not None)
         names, leaves, treedef = _tree_flatten_with_names(tree_like)
         by_name = {e["name"]: e for e in manifest["leaves"]}
         out = []
@@ -571,7 +578,8 @@ class Checkpointer:
                     "elastic remesh changes SHARDING, never shape; a "
                     "shape change means a different dataset, "
                     "featurization, or model was used)")
-            out.append(torch.from_numpy(a).to(device))
+            out.append(torch.from_numpy(a).to(device) if place is None
+                       else place(n, a))
         return _tree_unflatten(treedef, out)
 
     def restore_named(self, step: int | None = None

@@ -13,8 +13,10 @@ waits on the copy's event; no host synchronize is involved.
 ``rows_to_device`` is the same path for the resident fit's set-up, and
 the serving cells place each request bucket the same way.
 ``reservoir_rows`` draws Nystrom landmarks from a chunk source in one
-pass. ``ShardedBatcher`` is the LM trainer's token batcher on one device;
-its mesh placement is ROADMAP item 13d.
+pass. ``ShardedBatcher`` is the LM trainer's token batcher, on one
+device or on a mesh: every rank builds the same host batch and keeps its
+data-parallel rows (the reference's ``_place`` under ``P(batch_axes,
+None)``), rows row-major over ``batch_axes``.
 """
 from __future__ import annotations
 
@@ -492,7 +494,7 @@ def rows_to_device(X: np.ndarray, out: torch.Tensor,
 
 class ShardedBatcher:
     """Iterates (tokens, targets) batches from a token stream (the
-    reference's ``ShardedBatcher`` on one device).
+    reference's ``ShardedBatcher``).
 
     Targets are next-token shifted. The windows of ``seq_len + 1`` tokens
     are visited in ``np.random.default_rng(seed).permutation`` order, so
@@ -503,17 +505,31 @@ class ShardedBatcher:
     before it are dropped (the worker restarts from the new step). The
     worker builds each batch as int32 host arrays, page-locked when the
     device is a card; the consumer copies them to ``device`` (a
-    non-blocking copy on the current stream). ``mesh`` placement is
-    ROADMAP item 13d."""
+    non-blocking copy on the current stream). On a ``mesh`` (a
+    ``DeviceMesh`` with named axes) each rank yields its block of the
+    batch's rows over ``batch_axes`` (the batch must divide over them, as
+    the reference's placement must), the rest of the host batch dropped
+    before the copy; ``device`` then defaults to the mesh's device type
+    (the current card)."""
 
     def __init__(self, stream: np.ndarray, batch: int, seq_len: int,
-                 mesh=None, prefetch: int = 2, seed: int = 0, device=None):
-        if mesh is not None:
-            raise NotImplementedError(
-                "ShardedBatcher on a mesh is ROADMAP item 13d (the LM on a "
-                "mesh); the port places batches on one device")
+                 mesh=None, batch_axes=("data",), prefetch: int = 2,
+                 seed: int = 0, device=None):
         self.stream = stream
         self.batch, self.seq_len = batch, seq_len
+        self.mesh, self.batch_axes = mesh, tuple(batch_axes)
+        self._rows = slice(0, batch)
+        if mesh is not None:
+            from repro_torch.core.distributed import check_mesh
+            from repro_torch.sharding.layout import index
+            check_mesh(mesh)
+            i, n = index(mesh, self.batch_axes)
+            if batch % n:
+                raise ValueError(f"a batch of {batch} does not divide over "
+                                 f"{self.batch_axes} ({n} shards)")
+            self._rows = slice(i * (batch // n), (i + 1) * (batch // n))
+            if device is None:
+                device = mesh.device_type
         self.prefetch = prefetch
         self.device = torch.device("cpu" if device is None else device)
         self.step = 0
@@ -538,7 +554,8 @@ class ShardedBatcher:
         return toks[:, :-1].astype(np.int32), toks[:, 1:].astype(np.int32)
 
     def _stage(self, arrs):
-        out = tuple(torch.from_numpy(np.ascontiguousarray(a)) for a in arrs)
+        out = tuple(torch.from_numpy(np.ascontiguousarray(a[self._rows]))
+                    for a in arrs)
         if self.device.type == "cuda":
             out = tuple(t.pin_memory() for t in out)
         return out

@@ -22,13 +22,29 @@ materialized. MLA's q and k are qk_nope + qk_rope wide and its v
 v_head_dim wide; the blockwise core scales by q's width and keeps v's.
 GQA takes ``rope`` (False under the encoder-decoder's learned
 positions) and ``causal`` (False in its encoder), and rotates by M-RoPE's
-three streams where ``cfg.mrope``. Mesh islands (sequence-parallel
-attention, the decode island) are ROADMAP item 13d.
+three streams where ``cfg.mrope``.
+
+On a mesh (``rows``: this rank's layout, ``sharding/layout.py``) the
+reference's two islands are written out. ``seq_parallel_attention``: each
+rank's queries are its own rows of the sequence (over 'model'), run
+against K / V gathered over 'model', with ``q_offset`` fixing causality.
+The port takes this form whether or not ``seq_parallel_attn`` is set: the
+reference's GSPMD computes the same function without it. Prefill keeps
+each rank's cache shard by cache position (``cache_shard``), not the rows
+it computed. ``decode_attn_island``: the GQA cache is held batch over the
+data-parallel axes and sequence over 'model' (over (data, model) when the
+batch does not divide, the 2-D context-parallel form); each rank writes
+the new row only when ``pos`` falls in its shard, and the partial
+softmaxes combine with a max and two sums over the sequence's axes.
+MLA's latent cache is held as the reference's ``mla_decode`` pins it,
+batch over DP and sequence over 'model', and combined the same way.
 """
 from __future__ import annotations
 
 import torch
 from torch.utils.checkpoint import checkpoint
+
+from repro_torch.sharding import layout as lo
 
 from . import rotary
 from .common import dense_init, rms_norm, split_keys
@@ -132,6 +148,102 @@ def decode_attn(q: torch.Tensor, k_cache: torch.Tensor,
     return out.reshape(B, 1, H, dh).to(q.dtype)
 
 
+def seq_parallel_attention(rows, q, k, v, *, causal=True, q_chunk=1024,
+                           kv_chunk=1024, skip_masked_blocks=False):
+    """The sequence-parallel island. q, k, v: this rank's rows (B_l, S_l,
+    ...); K / V are gathered over 'model' and the local queries run
+    against them from offset ``rows.s0``. Plain blockwise attention off
+    the mesh or when the sequence does not divide."""
+    if rows is None or not rows.s_split:
+        return blockwise_attn(q, k, v, causal=causal, q_chunk=q_chunk,
+                              kv_chunk=kv_chunk,
+                              skip_masked_blocks=skip_masked_blocks)
+    k, v = _gather_kv(rows, k, v)
+    return blockwise_attn(q, k, v, causal=causal, q_offset=rows.s0,
+                          q_chunk=min(q_chunk, rows.S_l), kv_chunk=kv_chunk,
+                          skip_masked_blocks=skip_masked_blocks)
+
+
+def _gather_kv(rows, k, v):
+    """K and V gathered over 'model' in one collective."""
+    kv = rows.gather_seq(torch.cat([k, v], dim=-1))
+    return kv[..., :k.shape[-1]], kv[..., k.shape[-1]:]
+
+
+def cache_seq_axes(rows, cache_len: int, *, two_d: bool = True) -> tuple:
+    """The axes a decode cache's sequence is split over: 'model' when the
+    batch divides DP, else (data, model) (``two_d``; the GQA island's
+    context-parallel form); none when that does not divide ``cache_len``
+    or off the mesh."""
+    if rows is None:
+        return ()
+    lay = rows.lay
+    axes = lay.tp if rows.b_split or not two_d else lay.cp
+    if not axes or cache_len % lay.size(axes):
+        return ()
+    return axes
+
+
+def cache_shard(rows, x, cache_len: int, seq_axes) -> torch.Tensor:
+    """This rank's shard of a prefill cache: ``x`` (B_l, S, ...) whole
+    over the sequence, zero-padded to ``cache_len`` and cut to the
+    positions ``seq_axes`` give this rank."""
+    pad = cache_len - x.shape[1]
+    if pad > 0:
+        x = torch.nn.functional.pad(x, (0, 0) * (x.dim() - 2) + (0, pad))
+    if seq_axes:
+        n = cache_len // rows.lay.size(seq_axes)
+        x = x.narrow(1, rows.lay.index(seq_axes) * n, n)
+    return x
+
+
+def _combine(lay, seq_axes, m_loc, l_loc, o_loc):
+    """Partial softmaxes (max, sum, weighted values) over the sequence
+    shards: one max, then the two sums in one collective."""
+    axes = lay.axes(seq_axes)
+    m = lo.pmax(m_loc, axes)
+    corr = torch.exp(m_loc - m)
+    lo_ = lo.psum(torch.cat([(l_loc * corr)[..., None],
+                             o_loc * corr[..., None]], dim=-1), axes)
+    return lo_[..., 1:] / lo_[..., :1].clamp_min(1e-30)
+
+
+def _write_row(cache, new, pos: int, start: int) -> None:
+    """Row ``pos`` of a cache shard starting at ``start``, if it is
+    there."""
+    rel = pos - start
+    if 0 <= rel < cache.shape[1]:
+        cache[:, rel] = new.to(cache.dtype)
+
+
+def decode_attn_island(rows, seq_axes, q, k_cache, v_cache, pos: int,
+                       k_new, v_new):
+    """Cached decode over a cache whose sequence is split over
+    ``seq_axes``. q / k_new / v_new: (B_l, 1, H | KVH, dh); caches:
+    this rank's shard (B_l, S_loc, KVH, dh), written in place. Returns
+    the attention output (B_l, 1, H, dh)."""
+    if not seq_axes:
+        k_cache[:, pos] = k_new[:, 0].to(k_cache.dtype)
+        v_cache[:, pos] = v_new[:, 0].to(v_cache.dtype)
+        return decode_attn(q, k_cache, v_cache, pos + 1)
+    lay = rows.lay
+    B, S_loc, KVH, _ = k_cache.shape
+    H, dh = q.shape[2], q.shape[3]
+    start = lay.index(seq_axes) * S_loc
+    _write_row(k_cache, k_new[:, 0], pos, start)
+    _write_row(v_cache, v_new[:, 0], pos, start)
+    qr = q.reshape(B, KVH, H // KVH, dh)
+    s = torch.einsum("bhgd,bkhd->bhgk", qr, k_cache).float() * dh ** -0.5
+    valid = (start + torch.arange(S_loc, device=q.device)) <= pos
+    s = torch.where(valid, s, _NEG_INF)
+    m_loc = s.amax(dim=-1)
+    p = torch.exp(s - m_loc[..., None])
+    o_loc = torch.einsum("bhgk,bkhd->bhgd", p.to(v_cache.dtype),
+                         v_cache).float()
+    o = _combine(lay, seq_axes, m_loc, p.sum(dim=-1), o_loc)
+    return o.to(q.dtype).reshape(B, 1, H, dh)
+
+
 # --------------------------------------------------------------------------
 # GQA attention block
 # --------------------------------------------------------------------------
@@ -189,43 +301,46 @@ def gqa_out(cfg, p, attn_out):
 
 
 def gqa_train(cfg, p, x, positions, *, q_chunk=1024, kv_chunk=1024,
-              skip_masked_blocks=False, rope=True, causal=True):
+              skip_masked_blocks=False, rope=True, causal=True, rows=None):
     q, k, v = gqa_qkv(cfg, p, x, positions, rope=rope)
-    o = blockwise_attn(q, k, v, causal=causal, q_chunk=q_chunk,
-                       kv_chunk=kv_chunk,
-                       skip_masked_blocks=skip_masked_blocks)
+    o = seq_parallel_attention(rows, q, k, v, causal=causal,
+                               q_chunk=q_chunk, kv_chunk=kv_chunk,
+                               skip_masked_blocks=skip_masked_blocks)
     return gqa_out(cfg, p, o)
 
 
 def gqa_prefill(cfg, p, x, positions, cache_len, *, q_chunk=1024,
-                kv_chunk=1024, skip_masked_blocks=False):
+                kv_chunk=1024, skip_masked_blocks=False, rope=True,
+                rows=None):
     """Returns (out, (k_cache, v_cache)): caches zero-padded to
-    cache_len."""
-    q, k, v = gqa_qkv(cfg, p, x, positions)
-    o = blockwise_attn(q, k, v, q_chunk=q_chunk, kv_chunk=kv_chunk,
-                       skip_masked_blocks=skip_masked_blocks)
-    pad = cache_len - x.shape[1]
-    if pad > 0:
-        k = torch.nn.functional.pad(k, (0, 0, 0, 0, 0, pad))
-        v = torch.nn.functional.pad(v, (0, 0, 0, 0, 0, pad))
-    return gqa_out(cfg, p, o), (k, v)
+    cache_len (on a mesh: this rank's shard of them)."""
+    q, k, v = gqa_qkv(cfg, p, x, positions, rope=rope)
+    o = seq_parallel_attention(rows, q, k, v, q_chunk=q_chunk,
+                               kv_chunk=kv_chunk,
+                               skip_masked_blocks=skip_masked_blocks)
+    if rows is not None and rows.s_split:
+        k, v = _gather_kv(rows, k, v)
+    axes = cache_seq_axes(rows, cache_len)
+    return gqa_out(cfg, p, o), (cache_shard(rows, k, cache_len, axes),
+                                cache_shard(rows, v, cache_len, axes))
 
 
-def gqa_decode(cfg, p, x, pos: int, cache, *, rope: bool = True):
+def gqa_decode(cfg, p, x, pos: int, cache, *, rope: bool = True,
+               rows=None, cache_len: int = 0):
     """One-token step. x: (B, 1, D); pos: the current index, which is
     also the token's position (on all three streams under M-RoPE, as in
     the reference); cache: (k, v) each (B, S_max, KVH, dh). Row ``pos``
     of the cache is written in place (the reference's
-    dynamic_update_slice); returns (out, cache)."""
+    dynamic_update_slice); returns (out, cache). On a mesh the cache is
+    this rank's shard of a ``cache_len`` cache (``decode_attn_island``)."""
     B = x.shape[0]
     positions = torch.full((B, 1), pos, dtype=torch.int32, device=x.device)
     if cfg.mrope:
         positions = positions.expand(3, B, 1)
     q, k_new, v_new = gqa_qkv(cfg, p, x, positions, rope=rope)
     k_cache, v_cache = cache
-    k_cache[:, pos] = k_new[:, 0].to(k_cache.dtype)
-    v_cache[:, pos] = v_new[:, 0].to(v_cache.dtype)
-    o = decode_attn(q, k_cache, v_cache, pos + 1)
+    o = decode_attn_island(rows, cache_seq_axes(rows, cache_len), q,
+                           k_cache, v_cache, pos, k_new, v_new)
     return gqa_out(cfg, p, o), (k_cache, v_cache)
 
 
@@ -277,43 +392,65 @@ def _mla_latent(cfg, p, x, positions):
     return ckv, k_rope
 
 
-def mla_train(cfg, p, x, positions, *, q_chunk=1024, kv_chunk=1024,
-              skip_masked_blocks=False):
-    """Training / prefill: the latent expanded to full per-head K / V;
-    k_rope is shared by the heads."""
+def _mla_attend(cfg, p, x, positions, rows, *, q_chunk, kv_chunk,
+                skip_masked_blocks):
+    """(out, ckv, k_rope): the attention over the latent expanded to full
+    per-head K / V (k_rope shared by the heads), and the latent whole
+    over the sequence. On a mesh the latent, the narrowest thing, is
+    what is gathered over 'model'; the local queries start at
+    ``rows.s0``."""
     B, S, _ = x.shape
     H, dn, dr, dv = (cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
                      cfg.v_head_dim)
     q_nope, q_rope = _mla_q(cfg, p, x, positions)
     ckv, k_rope = _mla_latent(cfg, p, x, positions)
-    kv = (ckv @ p["wkv_b"]).reshape(B, S, H, dn + dv)
+    off = 0
+    if rows is not None and rows.s_split:
+        r = ckv.shape[-1]
+        lat = rows.gather_seq(torch.cat([ckv, k_rope[:, :, 0]], dim=-1))
+        ckv, k_rope = lat[..., :r], lat[..., None, r:]
+        off, q_chunk = rows.s0, min(q_chunk, rows.S_l)
+    Skv = ckv.shape[1]
+    kv = (ckv @ p["wkv_b"]).reshape(B, Skv, H, dn + dv)
     k_nope, v = kv[..., :dn], kv[..., dn:]
     q = torch.cat([q_nope, q_rope], -1)
-    k = torch.cat([k_nope, k_rope.expand(B, S, H, dr)], -1)
-    o = blockwise_attn(q, k, v, q_chunk=q_chunk, kv_chunk=kv_chunk,
+    k = torch.cat([k_nope, k_rope.expand(B, Skv, H, dr)], -1)
+    o = blockwise_attn(q, k, v, q_offset=off, q_chunk=q_chunk,
+                       kv_chunk=kv_chunk,
                        skip_masked_blocks=skip_masked_blocks)
-    return o.reshape(B, S, H * dv) @ p["wo"]
+    return o.reshape(B, S, H * dv) @ p["wo"], ckv, k_rope
 
 
-def mla_prefill(cfg, p, x, positions, cache_len, **kw):
+def mla_train(cfg, p, x, positions, *, q_chunk=1024, kv_chunk=1024,
+              skip_masked_blocks=False, rows=None):
+    """Training / prefill: the latent expanded to full per-head K / V;
+    k_rope is shared by the heads."""
+    return _mla_attend(cfg, p, x, positions, rows, q_chunk=q_chunk,
+                       kv_chunk=kv_chunk,
+                       skip_masked_blocks=skip_masked_blocks)[0]
+
+
+def mla_prefill(cfg, p, x, positions, cache_len, *, q_chunk=1024,
+                kv_chunk=1024, skip_masked_blocks=False, rows=None):
     """Returns (out, (ckv_cache, k_rope_cache)): the *latent* cache,
     kv_lora_rank + qk_rope_dim values a token instead of H (dn + dv),
-    zero-padded to cache_len."""
-    out = mla_train(cfg, p, x, positions, **kw)
-    ckv, k_rope = _mla_latent(cfg, p, x, positions)
-    pad = cache_len - x.shape[1]
-    k_rope = k_rope[:, :, 0, :]
-    if pad > 0:
-        ckv = torch.nn.functional.pad(ckv, (0, 0, 0, pad))
-        k_rope = torch.nn.functional.pad(k_rope, (0, 0, 0, pad))
-    return out, (ckv, k_rope)
+    zero-padded to cache_len (on a mesh: this rank's shard)."""
+    out, ckv, k_rope = _mla_attend(cfg, p, x, positions, rows,
+                                   q_chunk=q_chunk, kv_chunk=kv_chunk,
+                                   skip_masked_blocks=skip_masked_blocks)
+    axes = cache_seq_axes(rows, cache_len, two_d=False)
+    return out, (cache_shard(rows, ckv, cache_len, axes),
+                 cache_shard(rows, k_rope[:, :, 0, :], cache_len, axes))
 
 
-def mla_decode(cfg, p, x, pos: int, cache):
+def mla_decode(cfg, p, x, pos: int, cache, *, rows=None,
+               cache_len: int = 0):
     """Absorbed decode (the deployment path of arXiv:2405.04434): scores
     and context are taken against the latent cache directly; W_UK folds
     into the query and W_UV into the output. Row ``pos`` of both caches
-    is written in place."""
+    is written in place. On a mesh the caches are this rank's shards
+    (batch over DP, sequence over 'model') and the partial softmaxes
+    combine over 'model'."""
     B = x.shape[0]
     H, dn, dr, dv = (cfg.n_heads, cfg.qk_nope_dim, cfg.qk_rope_dim,
                      cfg.v_head_dim)
@@ -322,8 +459,11 @@ def mla_decode(cfg, p, x, pos: int, cache):
     q_nope, q_rope = _mla_q(cfg, p, x, positions)        # (B,1,H,dn/dr)
     ckv_new, k_rope_new = _mla_latent(cfg, p, x, positions)
     ckv_cache, k_rope_cache = cache                      # (B,S,r), (B,S,dr)
-    ckv_cache[:, pos] = ckv_new[:, 0].to(ckv_cache.dtype)
-    k_rope_cache[:, pos] = k_rope_new[:, 0, 0].to(k_rope_cache.dtype)
+    axes = cache_seq_axes(rows, cache_len, two_d=False)
+    S = ckv_cache.shape[1]
+    start = rows.lay.index(axes) * S if axes else 0
+    _write_row(ckv_cache, ckv_new[:, 0], pos, start)
+    _write_row(k_rope_cache, k_rope_new[:, 0, 0], pos, start)
 
     wkv_b = p["wkv_b"].reshape(r, H, dn + dv)
     w_uk, w_uv = wkv_b[..., :dn], wkv_b[..., dn:]        # (r,H,dn),(r,H,dv)
@@ -332,11 +472,18 @@ def mla_decode(cfg, p, x, pos: int, cache):
     s = torch.einsum("bhr,bkr->bhk", q_lat, ckv_cache).float()
     s = s + torch.einsum("bqhd,bkd->bhk", q_rope, k_rope_cache).float()
     s = s * (dn + dr) ** -0.5
-    S = ckv_cache.shape[1]
     # a Python int stays on the host: no copy, so no stream sync
-    mask = torch.arange(S, device=x.device) < pos + 1
+    mask = start + torch.arange(S, device=x.device) < pos + 1
     s = torch.where(mask, s, _NEG_INF)
-    pweights = torch.softmax(s, dim=-1)
-    ctx_lat = torch.einsum("bhk,bkr->bhr", pweights.to(x.dtype), ckv_cache)
+    if axes:
+        m_loc = s.amax(dim=-1)
+        pw = torch.exp(s - m_loc[..., None])
+        part = torch.einsum("bhk,bkr->bhr", pw.to(x.dtype), ckv_cache)
+        ctx_lat = _combine(rows.lay, axes, m_loc, pw.sum(dim=-1),
+                           part.float()).to(x.dtype)
+    else:
+        pweights = torch.softmax(s, dim=-1)
+        ctx_lat = torch.einsum("bhk,bkr->bhr", pweights.to(x.dtype),
+                               ckv_cache)
     o = torch.einsum("bhr,rhd->bhd", ctx_lat, w_uv)
     return o.reshape(B, 1, H * dv) @ p["wo"], (ckv_cache, k_rope_cache)

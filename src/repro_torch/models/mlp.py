@@ -10,8 +10,19 @@ are scattered back weighted by the renormalised gates. The expert
 products stay plain PyTorch, as the reference computes them in plain XLA.
 The GELU MLP (the encoder-decoder's, with biases) uses the tanh
 approximation, as ``jax.nn.gelu`` does by default (``torch``'s default is
-the erf form). The MoE's ``shard_map`` island waits for the LM on a mesh
-(ROADMAP item 13d).
+the erf form).
+
+On a mesh (``rows``, ``sharding/layout.py``) ``moe_apply`` runs the
+reference's island where it applies (E divides 'model' and the batch
+divides DP, ``mlp.py``'s condition): each model rank takes its E / tp
+experts (e0 = model index x E_loc, the expert stacks' blocks over
+'model'), routes all of its data shard's tokens (gathered over 'model'),
+with the capacity computed from those T tokens, and the outputs sum over
+'model'; each rank keeps its own rows. So a data shard drops what it
+would drop alone: on a mesh the MoE is per-data-shard capacity, not the
+one-device MoE spread over ranks. Otherwise the local path runs on the
+whole batch (gathered over every split axis), as GSPMD runs the
+reference's.
 """
 from __future__ import annotations
 
@@ -19,6 +30,7 @@ import torch
 import torch.nn.functional as F
 
 from repro_torch.core import prng
+from repro_torch.sharding import layout as lo
 
 from .common import dense_init, split_keys
 
@@ -156,16 +168,56 @@ def _expert_pass(xt, gates, eidx, wg, wu, wd, e0: int, E_loc: int, C: int):
     return (got * gate[:, None]).reshape(T, K, D).sum(dim=1)
 
 
-def moe_apply(cfg, p: dict, x, *, capacity_factor: float | None = None):
-    """x: (B, S, D) -> (B, S, D). ``p`` holds the expert weights in x's
-    dtype and the router in float32."""
+def _local(cfg, p, x, e0: int, E_loc: int, capacity_factor):
+    """Route x's tokens, run experts [e0, e0 + E_loc), with the capacity
+    of x's own T tokens."""
     B, S, D = x.shape
     T = B * S
     xt = x.reshape(T, D)
     gates, eidx = _route(xt, p["router"], cfg.top_k)
     C = capacity(cfg, T, capacity_factor)
-    y = _expert_pass(xt, gates, eidx, p["moe_gate"], p["moe_up"],
-                     p["moe_down"], 0, cfg.n_experts, C).reshape(B, S, D)
+    w = [p[k] if p[k].shape[0] == E_loc else p[k][e0:e0 + E_loc]
+         for k in ("moe_gate", "moe_up", "moe_down")]
+    return _expert_pass(xt, gates, eidx, *w, e0, E_loc, C).reshape(B, S, D)
+
+
+# The expert stacks: on a mesh the block's gather leaves them to
+# ``moe_apply``, which gathers them as its path needs.
+EXPERT_STACKS = ("moe_gate", "moe_up", "moe_down")
+
+
+def moe_island(rows, n_experts: int) -> bool:
+    """The reference's island condition: E divides 'model' and the batch
+    divides DP."""
+    lay = rows.lay
+    return bool(lay.tp) and rows.b_split and \
+        n_experts % lay.size(lay.tp) == 0
+
+
+def moe_apply(cfg, p: dict, x, *, capacity_factor: float | None = None,
+              rows=None, path: str = "moe"):
+    """x: (B, S, D) -> (B, S, D). ``p`` holds the expert weights in x's
+    dtype and the router in float32. On a mesh x is this rank's rows and
+    the expert stacks (``EXPERT_STACKS``) are whole or, when they arrive
+    as blocks (``rows.gather_params``; ``path``: the tree path of ``p``),
+    gathered here: under the island over every axis but 'model' (this
+    rank's E / tp experts), else whole."""
+    E = cfg.n_experts
+    if rows is None:
+        y = _local(cfg, p, x, 0, E, capacity_factor)
+    elif moe_island(rows, E):
+        lay = rows.lay
+        p = dict(p, **{k: rows.param(p[k], f"{path}/{k}", keep=lay.tp)
+                       for k in EXPERT_STACKS})
+        E_loc = E // lay.size(lay.tp)
+        part = _local(cfg, p, rows.gather_seq(x), lay.index(lay.tp) * E_loc,
+                      E_loc, capacity_factor)
+        y = rows.own_seq(lo.psum(part, lay.axes(lay.tp)))
+    else:
+        p = dict(p, **{k: rows.param(p[k], f"{path}/{k}")
+                       for k in EXPERT_STACKS})
+        y = rows.own_rows(_local(cfg, p, rows.gather_rows(x), 0, E,
+                                 capacity_factor))
     if cfg.n_shared_experts:
         y = y + swiglu(p["shared"], x)
     return y

@@ -28,6 +28,21 @@ non-reentrant);
 ``checkpoint_dots``. Mamba and mLSTM checkpoint each chunk whenever
 autograd records through their input, as the reference does whatever
 ``remat`` is.
+
+On a mesh (``rows``: this rank's layout, ``sharding/layout.py``) the
+activations between blocks are this rank's rows: the batch over the
+data-parallel axes and the sequence over 'model' where each divides (the
+reference's ``shard_batch`` at every block edge, here kept by every
+block). Norms, projections, the MLP and the loss run on those rows. Each
+block's parameters arrive as this rank's blocks and are cast, then
+gathered, at their use (``Rows.params``), inside the checkpointed period
+when it records. Attention is the sequence-parallel island; Mamba's conv
+and scan, mLSTM and sLSTM gather their block input over 'model', run on
+the whole sequence and keep their own rows; the MoE runs its island.
+Decode caches: GQA's and MLA's by ``attention.cache_seq_axes``; the
+recurrent states batch over DP and whole over 'model' (the reference's
+decode does not constrain them), so every model rank steps the same
+state.
 """
 from __future__ import annotations
 
@@ -133,7 +148,26 @@ def _unstack(tree, n: int) -> list:
     return list(torch.unbind(tree))
 
 
-def init_decoder(key, cfg, *, with_embed: bool = True) -> dict:
+def _whole(path: str, x, *, stacked: bool = False):
+    return x
+
+
+def keep_tree(tree: dict, prefix: str, keep, stacked: bool = True) -> dict:
+    """``keep(path, leaf, stacked=)`` of each leaf of a tree at ``prefix``
+    (``stacked``: one layer's tree, each leaf the layer's part of the
+    stacked leaf ``path``), the tree emptied as it goes."""
+    return {k: keep_tree(v, f"{prefix}/{k}", keep, stacked)
+            if isinstance(v, dict)
+            else keep(f"{prefix}/{k}", v, stacked=stacked)
+            for k, v in ((k, tree.pop(k)) for k in list(tree))}
+
+
+def init_decoder(key, cfg, *, with_embed: bool = True,
+                 keep=_whole) -> dict:
+    """The reference's parameters for this key. ``keep(path, leaf,
+    stacked=)`` maps each leaf as it is drawn, one layer at a time, to
+    what the tree holds (a mesh rank's block: ``Layout.keep``), so no
+    more than one layer is held whole."""
     period = cfg.layer_period
     n_periods = cfg.n_layers // period
     if cfg.n_layers % period:
@@ -142,25 +176,34 @@ def init_decoder(key, cfg, *, with_embed: bool = True) -> dict:
     keys = split_keys(key, 3 + cfg.n_layers)
     params: dict[str, Any] = {}
     if with_embed:
-        params["embed"] = {"table": embed_init(keys[0], cfg.vocab,
-                                               cfg.d_model)}
+        params["embed"] = {"table": keep(
+            "embed/table", embed_init(keys[0], cfg.vocab, cfg.d_model))}
         if not cfg.tie_embeddings:
-            params["unembed"] = embed_init(keys[1], cfg.vocab, cfg.d_model)
+            params["unembed"] = keep("unembed", embed_init(
+                keys[1], cfg.vocab, cfg.d_model))
     layers: dict[str, Any] = {}
     for j in range(period):
-        layers[f"pos{j}"] = _stack([init_block(keys[3 + i * period + j],
-                                               cfg, j)
-                                    for i in range(n_periods)])
+        layers[f"pos{j}"] = _stack([
+            keep_tree(init_block(keys[3 + i * period + j], cfg, j),
+                      f"layers/pos{j}", keep) for i in range(n_periods)])
     params["layers"] = layers
-    params["final_norm"] = torch.ones(cfg.d_model, device=key.device)
+    params["final_norm"] = keep("final_norm", torch.ones(cfg.d_model,
+                                                         device=key.device))
     return params
 
 
 # ------------------------------------------------------------------ caches
 def init_block_cache(cfg, j: int, batch: int, cache_len: int, dtype,
-                     device=None):
+                     device=None, rows=None):
+    """Block j's zero cache; on a mesh this rank's shard (``rows``: the
+    batch's layout; the attention caches' sequence by
+    ``attention.cache_seq_axes``)."""
     mixer, _ = block_kind(cfg, j)
     z = functools.partial(torch.zeros, dtype=dtype, device=device)
+    if rows is not None:
+        batch = rows.B_l
+        axes = attn.cache_seq_axes(rows, cache_len, two_d=mixer == "gqa")
+        cache_len //= rows.lay.size(axes) if axes else 1
     if mixer == "gqa":
         kv = (batch, cache_len, cfg.n_kv_heads, cfg.head_dim)
         return (z(kv), z(kv))
@@ -185,7 +228,7 @@ def _tree_map(fn, *trees):
 
 
 def init_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16,
-               device=None) -> dict:
+               device=None, rows=None) -> dict:
     """{"pos{j}": the block's cache}, every leaf with a leading
     n_periods axis: real zeros (or ones), not a broadcast view, since
     decode writes in place."""
@@ -193,49 +236,68 @@ def init_cache(cfg, batch: int, cache_len: int, dtype=torch.bfloat16,
     n_periods = cfg.n_layers // period
     return {f"pos{j}": _tree_map(
         lambda x: x[None].repeat((n_periods,) + (1,) * x.dim()),
-        init_block_cache(cfg, j, batch, cache_len, dtype, device))
+        init_block_cache(cfg, j, batch, cache_len, dtype, device, rows))
         for j in range(period)}
 
 
 # ------------------------------------------------------------- block apply
-def _ffn(cfg, p, h):
+def _ffn(cfg, p, h, rows=None, j: int = 0):
     """The block's FFN on the residual h (none for xLSTM's blocks)."""
     if "norm2" not in p:
         return h
     hn = rms_norm(h, p["norm2"], cfg.norm_eps)
     if "moe" in p:
-        return h + mlp.moe_apply(cfg, p["moe"], hn)
+        return h + mlp.moe_apply(cfg, p["moe"], hn, rows=rows,
+                                 path=f"layers/pos{j}/moe")
     return h + mlp.swiglu(p["ffn"], hn)
 
 
+def _whole_seq(rows, fn, hn):
+    """A sequence mixer that needs the whole sequence: its input gathered
+    over 'model', its output cut back to this rank's rows (its state, if
+    it returns one, kept whole)."""
+    if rows is None:
+        return fn(hn)
+    out = fn(rows.gather_seq(hn))
+    if isinstance(out, tuple):
+        return (rows.own_seq(out[0]),) + out[1:]
+    return rows.own_seq(out)
+
+
 def apply_block_seq(cfg, p, j: int, h, positions, *, q_chunk, kv_chunk,
-                    ssm_chunk=256, skip_masked_blocks=False):
+                    ssm_chunk=256, skip_masked_blocks=False, rows=None):
     mixer, _ = block_kind(cfg, j)
     hn = rms_norm(h, p["norm1"], cfg.norm_eps)
     if mixer == "gqa":
         mix = attn.gqa_train(cfg, p["attn"], hn, positions, q_chunk=q_chunk,
                              kv_chunk=kv_chunk,
-                             skip_masked_blocks=skip_masked_blocks)
+                             skip_masked_blocks=skip_masked_blocks,
+                             rows=rows)
     elif mixer == "mla":
         mix = attn.mla_train(cfg, p["attn"], hn, positions, q_chunk=q_chunk,
                              kv_chunk=kv_chunk,
-                             skip_masked_blocks=skip_masked_blocks)
+                             skip_masked_blocks=skip_masked_blocks,
+                             rows=rows)
     elif mixer == "mamba":
-        mix = mb.mamba_seq(cfg, p["mamba"], hn, chunk=ssm_chunk)
+        mix = _whole_seq(rows, lambda x: mb.mamba_seq(
+            cfg, p["mamba"], x, chunk=ssm_chunk), hn)
     elif mixer == "mlstm":
-        mix = xl.mlstm_seq(cfg, p["mlstm"], hn, chunk=ssm_chunk)
+        mix = _whole_seq(rows, lambda x: xl.mlstm_seq(
+            cfg, p["mlstm"], x, chunk=ssm_chunk), hn)
     else:
-        mix = xl.slstm_seq(cfg, p["slstm"], hn)
-    return _ffn(cfg, p, h + mix)
+        mix = _whole_seq(rows, lambda x: xl.slstm_seq(cfg, p["slstm"], x),
+                         hn)
+    return _ffn(cfg, p, h + mix, rows, j)
 
 
 def apply_block_prefill(cfg, p, j, h, positions, cache_len, *, q_chunk,
-                        kv_chunk, ssm_chunk=256, skip_masked_blocks=False):
+                        kv_chunk, ssm_chunk=256, skip_masked_blocks=False,
+                        rows=None):
     """Like seq but also returns the cache for serving."""
     mixer, _ = block_kind(cfg, j)
     hn = rms_norm(h, p["norm1"], cfg.norm_eps)
     kw = dict(q_chunk=q_chunk, kv_chunk=kv_chunk,
-              skip_masked_blocks=skip_masked_blocks)
+              skip_masked_blocks=skip_masked_blocks, rows=rows)
     if mixer == "gqa":
         mix, cache = attn.gqa_prefill(cfg, p["attn"], hn, positions,
                                       cache_len, **kw)
@@ -243,28 +305,34 @@ def apply_block_prefill(cfg, p, j, h, positions, cache_len, *, q_chunk,
         mix, cache = attn.mla_prefill(cfg, p["attn"], hn, positions,
                                       cache_len, **kw)
     elif mixer == "mamba":
-        mix, cache = mb.mamba_prefill(cfg, p["mamba"], hn, ssm_chunk)
+        mix, cache = _whole_seq(rows, lambda x: mb.mamba_prefill(
+            cfg, p["mamba"], x, ssm_chunk), hn)
     elif mixer == "mlstm":
-        mix, cache = xl.mlstm_prefill(cfg, p["mlstm"], hn, ssm_chunk)
+        mix, cache = _whole_seq(rows, lambda x: xl.mlstm_prefill(
+            cfg, p["mlstm"], x, ssm_chunk), hn)
     else:
-        mix, cache = xl.slstm_prefill(cfg, p["slstm"], hn)
-    return _ffn(cfg, p, h + mix), cache
+        mix, cache = _whole_seq(rows, lambda x: xl.slstm_prefill(
+            cfg, p["slstm"], x), hn)
+    return _ffn(cfg, p, h + mix, rows, j), cache
 
 
-def apply_block_decode(cfg, p, j, h, pos: int, cache):
+def apply_block_decode(cfg, p, j, h, pos: int, cache, rows=None,
+                       cache_len: int = 0):
     mixer, _ = block_kind(cfg, j)
     hn = rms_norm(h, p["norm1"], cfg.norm_eps)
     if mixer == "gqa":
-        mix, cache = attn.gqa_decode(cfg, p["attn"], hn, pos, cache)
+        mix, cache = attn.gqa_decode(cfg, p["attn"], hn, pos, cache,
+                                     rows=rows, cache_len=cache_len)
     elif mixer == "mla":
-        mix, cache = attn.mla_decode(cfg, p["attn"], hn, pos, cache)
+        mix, cache = attn.mla_decode(cfg, p["attn"], hn, pos, cache,
+                                     rows=rows, cache_len=cache_len)
     elif mixer == "mamba":
         mix, cache = mb.mamba_decode(cfg, p["mamba"], hn, cache)
     elif mixer == "mlstm":
         mix, cache = xl.mlstm_decode(cfg, p["mlstm"], hn, cache)
     else:
         mix, cache = xl.slstm_decode(cfg, p["slstm"], hn, cache)
-    return _ffn(cfg, p, h + mix), cache
+    return _ffn(cfg, p, h + mix, rows, j), cache
 
 
 # ----------------------------------------------------------------- forward
@@ -300,19 +368,31 @@ def _save_dots(ctx, op, *args, **kwargs):
 REMAT_POLICIES = ("nothing", "dots")
 
 
-def _block_params(pp, j: int, cast):
+def _block_params(pp, j: int, cast, rows=None):
     """Block j's slice of a period, cast to ``cast`` (when given) here, at
-    its use: no cast copy of more than one block is held at a time."""
+    its use: no cast copy of more than one block is held at a time. On a
+    mesh the cast blocks are then gathered (``Rows.params``)."""
     p = pp[f"pos{j}"]
-    return p if cast is None else cast_tree(p, cast)
+    p = p if cast is None else cast_tree(p, cast)
+    if rows is None:
+        return p
+    return rows.params(p, f"layers/pos{j}",
+                       skip=[f"moe/{k}" for k in mlp.EXPERT_STACKS])
+
+
+def final_norm(cfg, params, h, rows=None):
+    w = params["final_norm"]
+    return rms_norm(h, w if rows is None else rows.leaf(w, "final_norm"),
+                    cfg.norm_eps)
 
 
 def forward_seq(cfg, params, h, positions, *, q_chunk: int = 1024,
                 kv_chunk: int = 1024, ssm_chunk: int = 256,
                 skip_masked_blocks: bool = False, remat: bool = False,
                 remat_policy: str = "nothing",
-                cast: torch.dtype | None = None):
-    """Body of full-sequence passes: h (B, S, D) -> final hidden.
+                cast: torch.dtype | None = None, rows=None):
+    """Body of full-sequence passes: h (B, S, D) -> final hidden (on a
+    mesh: this rank's rows of both).
 
     ``cast``: the layers' parameters are float32 masters, each block's
     cast to this dtype at its use (inside the autograd graph when it
@@ -325,10 +405,11 @@ def forward_seq(cfg, params, h, positions, *, q_chunk: int = 1024,
 
     def period(h, pp):
         for j in range(cfg.layer_period):
-            h = apply_block_seq(cfg, _block_params(pp, j, cast), j, h,
+            h = apply_block_seq(cfg, _block_params(pp, j, cast, rows), j, h,
                                 positions, q_chunk=q_chunk,
                                 kv_chunk=kv_chunk, ssm_chunk=ssm_chunk,
-                                skip_masked_blocks=skip_masked_blocks)
+                                skip_masked_blocks=skip_masked_blocks,
+                                rows=rows)
         return h
 
     kw = {}
@@ -339,23 +420,24 @@ def forward_seq(cfg, params, h, positions, *, q_chunk: int = 1024,
     for pp in _periods(cfg, params):
         h = (checkpoint(period, h, pp, use_reentrant=False, **kw) if remat
              else period(h, pp))
-    return rms_norm(h, params["final_norm"], cfg.norm_eps)
+    return final_norm(cfg, params, h, rows)
 
 
 def forward_prefill(cfg, params, h, positions, cache_len, *, q_chunk=1024,
                     kv_chunk=1024, ssm_chunk=256, skip_masked_blocks=False,
-                    cast: torch.dtype | None = None):
+                    cast: torch.dtype | None = None, rows=None):
     per: dict = {f"pos{j}": [] for j in range(cfg.layer_period)}
     for pp in _periods(cfg, params):
         for j in range(cfg.layer_period):
             h, cache = apply_block_prefill(
-                cfg, _block_params(pp, j, cast), j, h, positions, cache_len,
-                q_chunk=q_chunk, kv_chunk=kv_chunk, ssm_chunk=ssm_chunk,
-                skip_masked_blocks=skip_masked_blocks)
+                cfg, _block_params(pp, j, cast, rows), j, h, positions,
+                cache_len, q_chunk=q_chunk, kv_chunk=kv_chunk,
+                ssm_chunk=ssm_chunk, skip_masked_blocks=skip_masked_blocks,
+                rows=rows)
             per[f"pos{j}"].append(cache)
     caches = {name: _tree_map(lambda *xs: torch.stack(xs), *cs)
               for name, cs in per.items()}
-    return rms_norm(h, params["final_norm"], cfg.norm_eps), caches
+    return final_norm(cfg, params, h, rows), caches
 
 
 def _write(dst, src) -> None:
@@ -372,14 +454,16 @@ def _write(dst, src) -> None:
 
 
 def forward_decode(cfg, params, h, pos: int, caches,
-                   cast: torch.dtype | None = None):
+                   cast: torch.dtype | None = None, rows=None,
+                   cache_len: int = 0):
     """One token through the stack. Each layer's cache is updated in
     place (row ``pos`` of an attention cache, the whole state of a
-    recurrent block), and ``caches`` is returned."""
+    recurrent block), and ``caches`` is returned. On a mesh the caches
+    are this rank's shards of ``cache_len`` caches."""
     for i, pp in enumerate(_periods(cfg, params)):
         for j in range(cfg.layer_period):
             mine = _tree_map(lambda x: x[i], caches[f"pos{j}"])
-            h, new = apply_block_decode(cfg, _block_params(pp, j, cast), j,
-                                        h, pos, mine)
+            h, new = apply_block_decode(cfg, _block_params(pp, j, cast, rows),
+                                        j, h, pos, mine, rows, cache_len)
             _write(mine, new)
-    return rms_norm(h, params["final_norm"], cfg.norm_eps), caches
+    return final_norm(cfg, params, h, rows), caches

@@ -11,6 +11,12 @@ in float32 arrays. The state is ``{"m", "v", "step"}`` with the
 parameters' tree and an int32 step, so a snapshot carries across
 packages leaf for leaf. Trees are nested dicts of tensors; leaves are
 visited in the reference's order (sorted keys).
+
+On a mesh the trees are this rank's blocks, so m and v shard as the
+parameters do (ZeRO); the update is elementwise and needs no collective
+but the clip's global norm, which ``apply_updates`` takes as ``sumsq``
+(``sharding.layout.Layout.global_sumsq``: each element counted once over
+the mesh).
 """
 from __future__ import annotations
 
@@ -69,11 +75,13 @@ def global_norm(tree) -> torch.Tensor:
                           for x in leaves))
 
 
-def apply_updates(cfg: AdamWConfig, params, grads, state):
+def apply_updates(cfg: AdamWConfig, params, grads, state, *, sumsq=None):
     """Returns (new_params, new_state, metrics); the inputs are left as
-    they are."""
+    they are. ``sumsq``: the gradients' sum of squares as a function of
+    their tree, for trees sharded over a mesh (the local sum by
+    default)."""
     step = state["step"]
-    gnorm = global_norm(grads)
+    gnorm = global_norm(grads) if sumsq is None else torch.sqrt(sumsq(grads))
     scale = torch.clamp_max(cfg.clip_norm / torch.clamp_min(gnorm, 1e-12),
                             1.0)
     lr = schedule(cfg, step).to(gnorm.device)

@@ -18,6 +18,17 @@ backward depends on the order of atomic adds (the embedding's gradient
 sorts the token ids and sums each row in a fixed order; the MoE's adds
 each assignment's gradient to a row of its own, and only exact zeros
 collide; see ``models/transformer.py`` and ``models/mlp.py``).
+
+On a mesh (a model built with a ``ShardingCtx``) the state is this
+rank's blocks (parameters, m, v) and the batch this rank's data-parallel
+rows, as ``data.ShardedBatcher(mesh=)`` places them (``Model.place``
+cuts them from a global batch). Each rank's loss is the sum over its own
+rows divided by the global token count (and by the number of ranks that
+hold the same rows, where a dim does not divide), so the losses add up
+over the mesh to the mean; the backward pass of each gather at use sums
+the gradients over the mesh, so each rank ends with the whole gradient
+of its blocks. The clip uses the global norm, each element counted once
+(``Layout.global_sumsq``). Micro-batches cut this rank's rows.
 """
 from __future__ import annotations
 
@@ -28,6 +39,8 @@ from torch.utils.checkpoint import checkpoint
 
 from repro_torch.checkpoint.checkpointer import (_tree_flatten_with_names,
                                                  _tree_unflatten)
+
+from repro_torch.sharding import layout as lo
 
 from . import optimizer as opt
 
@@ -47,6 +60,16 @@ def chunked_softmax_xent(hidden: torch.Tensor, unembed: torch.Tensor,
                          z_loss: float = 0.0) -> torch.Tensor:
     """Mean next-token cross-entropy. hidden: (B, S, D); unembed: (V, D);
     labels: (B, S) ints. Chunks add up in order, in float32."""
+    B, S, _ = hidden.shape
+    return chunked_xent_sum(hidden, unembed, labels, chunk=chunk,
+                            z_loss=z_loss) / (B * S)
+
+
+def chunked_xent_sum(hidden: torch.Tensor, unembed: torch.Tensor,
+                     labels: torch.Tensor, *, chunk: int = 512,
+                     z_loss: float = 0.0) -> torch.Tensor:
+    """The cross-entropy summed over the tokens (``chunked_softmax_xent``
+    before its mean)."""
     B, S, D = hidden.shape
     c = min(chunk, S)
     if S % c:
@@ -62,16 +85,26 @@ def chunked_softmax_xent(hidden: torch.Tensor, unembed: torch.Tensor,
                 z_loss)
         total = total + (checkpoint(_chunk_loss, *args, use_reentrant=False)
                          if remat else _chunk_loss(*args))
-    return total / (B * S)
+    return total
 
 
 def make_loss_fn(model, *, remat: bool = True, loss_chunk: int = 512,
                  z_loss: float = 0.0) -> Callable:
+    """(params, batch) -> loss. On a mesh: this rank's share of the mean
+    (the shares add up over the mesh to it); the batch is this rank's
+    data-parallel rows."""
     def loss_fn(params, batch):
-        hidden = model.hidden_seq(batch, params=params, remat=remat)
-        return chunked_softmax_xent(hidden, model.unembed(params),
-                                    torch.as_tensor(batch["labels"]),
-                                    chunk=loss_chunk, z_loss=z_loss)
+        if model.layout is None:
+            hidden = model.hidden_seq(batch, params=params, remat=remat)
+            return chunked_softmax_xent(hidden, model.unembed(params),
+                                        torch.as_tensor(batch["labels"]),
+                                        chunk=loss_chunk, z_loss=z_loss)
+        hidden, rows = model.hidden_rows(batch, params=params, remat=remat,
+                                         placed=True)
+        labels = model._own(batch["labels"], rows, True)
+        total = chunked_xent_sum(hidden, model.unembed(params, hidden.dtype),
+                                 labels, chunk=loss_chunk, z_loss=z_loss)
+        return total / (rows.B * rows.S * rows.replicas)
     return loss_fn
 
 
@@ -113,13 +146,18 @@ def make_train_step(model, opt_cfg: opt.AdamWConfig, *, remat: bool = True,
     loss_fn = make_loss_fn(model, remat=remat, loss_chunk=loss_chunk,
                            z_loss=z_loss)
 
+    lay = model.layout
+
     def value_and_grad(leaves, treedef, batch):
         xs = [p.detach().requires_grad_(True) for p in leaves]
         with torch.enable_grad():
             loss = loss_fn(_tree_unflatten(treedef, xs), batch)
             gs = torch.autograd.grad(loss, xs, allow_unused=True)
-        return loss.detach(), [torch.zeros_like(x) if g is None else g
-                               for x, g in zip(xs, gs)]
+        loss = loss.detach()
+        if lay is not None:       # the shares summed: the mean everywhere
+            loss = lo.psum(loss, lay.axes(lay.all))
+        return loss, [torch.zeros_like(x) if g is None else g
+                      for x, g in zip(xs, gs)]
 
     def grads_of(params, batch):
         _, leaves, treedef = _tree_flatten_with_names(params)
@@ -143,7 +181,8 @@ def make_train_step(model, opt_cfg: opt.AdamWConfig, *, remat: bool = True,
     def train_step(state, batch):
         loss, grads = grads_of(state["params"], batch)
         params, opt_state, metrics = opt.apply_updates(
-            opt_cfg, state["params"], grads, state["opt"])
+            opt_cfg, state["params"], grads, state["opt"],
+            sumsq=None if lay is None else lay.global_sumsq)
         model.use_params(params)
         return ({"params": model.params, "opt": opt_state},
                 dict(metrics, loss=loss))

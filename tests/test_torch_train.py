@@ -405,7 +405,9 @@ def test_sharded_batcher_matches_reference_with_seek():
     fresh.seek(44)
     np.testing.assert_array_equal(next(iter(fresh))[0].numpy(),
                                   np.asarray(next(ri)[0]))
-    with pytest.raises(NotImplementedError, match="13d"):
+    # a mesh is a DeviceMesh with named axes (tests/test_torch_mesh.py
+    # places batches on one)
+    with pytest.raises(TypeError, match="DeviceMesh"):
         ShardedBatcher(stream, 4, 16, mesh=object())
 
 
@@ -517,11 +519,18 @@ def test_train_cli_tiny(capsys, tmp_path):
         == 2
 
 
-@pytest.mark.parametrize("flags,match", [
-    (["--mesh", "2x2"], "13d"), (["--multi-pod"], "13d"),
-    (["--host-devices", "8"], "no counterpart")])
-def test_train_cli_refusals(flags, match):
-    with pytest.raises(NotImplementedError, match=match):
+@pytest.mark.parametrize("flags,exc,match", [
+    # a mesh needs its ranks: one process a rank in a process group
+    # (tests/test_torch_mesh.py trains on four); the ids are the ones
+    # these cases had when the CLI refused a mesh outright
+    pytest.param(["--mesh", "2x2"], RuntimeError, "process group",
+                 id="flags0-13d"),
+    pytest.param(["--mesh", "production", "--multi-pod"], RuntimeError,
+                 "process group", id="flags1-13d"),
+    pytest.param(["--host-devices", "8"], NotImplementedError,
+                 "no counterpart", id="flags2-no counterpart")])
+def test_train_cli_refusals(flags, exc, match):
+    with pytest.raises(exc, match=match):
         train_cli.main(["--device", "cpu", *flags])
     # the VLM's batch is embeddings; the trainer feeds tokens, as the
     # reference's does (whose model then raises KeyError: 'embeds')

@@ -523,6 +523,19 @@ Sigma exactly 0); rbf_gram at (1,800 x 2)^2.
    1.25 against one device on each data shard) and MaxMarginHead over
    'data' (fused_stats once a step on every rank; nested row mesh_head).
    See ``phase_lm_mesh``.
+23. The baselines, the PEMSVM cells, the dry run and the examples (after
+   22; budget 90 s): (a) ``dcd_sweep`` against its plain version at
+   4,096 x 801, 2 epochs (w within 1e-5 of max|w|, two calls bitwise
+   equal) and at K = 58,345 (w in global memory), then Table 5's protocol
+   on 250,000 rows of make_dna_like (3 epochs, C = 2 / lam; one launch),
+   Pegasos (8,000 steps of 512) on the same split and the parity
+   LIN-EM-CLS >= max(Pegasos, DCD) - 0.02; (b) one iteration of each
+   ``launch.svm_cell.SVM_SHAPES`` cell at one card's share (alpha, year
+   and mnist8m whole, dna a 4-way data share of 6,400,000 x 800), drawn
+   on the card, through the kernels (fused_stats once a step, M a step
+   for MLT) and the plain path, with ms an iteration, peak MiB and the
+   bound; (c) three dry-run cells on the meta device in a process of
+   their own; (d) ``examples/torch_quickstart.py`` on the card.
 
 The line before the last is {"kernels": [...]}; the last is
 {"ok": true, "device": {...}}.
@@ -680,11 +693,16 @@ def twice(fn):
 
 
 # ---------------------------------------------------------------- phases
-def phase_device():
-    card = subprocess.run(
+def card_line() -> str:
+    """The card's name and power limit as nvidia-smi gives them."""
+    return subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
          "--format=csv,noheader"], capture_output=True, text=True,
         timeout=60, check=True).stdout.strip().splitlines()[0]
+
+
+def phase_device():
+    card = card_line()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
     say("card (nvidia-smi name, power.limit):")
@@ -6180,10 +6198,12 @@ def _rel_max(a, b):
 
 # ---------------------------------------------------------------- phase 19
 TRAIN_ARCH, MOE_ARCH = "smollm-135m", "granite-moe-1b-a400m"
-TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 16, 1024, 20, 1e-3
+TRAIN_BATCH, TRAIN_SEQ, TRAIN_STEPS, TRAIN_LR = 16, 1024, 12, 1e-3  # 20
+#                         steps until the script's time ran short
 TRAIN_PROFILED = 2      # steps under the profiler (the busy share)
 RESUME_BATCH, RESUME_STEPS = 4, 10       # (b): killed after half
-MOE_BATCH, MOE_STEPS = 8, 12             # (c) training
+MOE_BATCH, MOE_STEPS = 8, 8              # (c) training (12 until the
+#                                          script's time ran short)
 TRAIN_CPU_LAYERS = 2    # the float32 card-against-CPU step at full width
 TRAIN_F32_BAND = 1e-4   # loss and gradients (tests/test_torch_train.py)
 PEAK_BF16 = 989e12      # H100 SXM dense bf16 FLOP/s (the model FLOP share)
@@ -6496,7 +6516,7 @@ XL_ARCH, MLA_ARCH, HYB_ARCH = "xlstm-350m", "deepseek-v2-236b", \
 XL_PARAMS = 506_086_560  # xlstm-350m's init draws these (jax.eval_shape of
 #                          the reference's init); num_params() says
 #                          312,787,968
-XL_TRAIN_BATCH, XL_TRAIN_STEPS = 8, 4   # the 10 asked cut to 4 for time:
+XL_TRAIN_BATCH, XL_TRAIN_STEPS = 8, 3   # the 10 asked cut to 3 for time:
 #                                         13.1 s a step (sLSTM's launches)
 XL_TRAIN_SEQ = 512      # 1,024 cut to 512 for time (the script's limit):
 #                         sLSTM launches a loop step a token
@@ -7170,12 +7190,14 @@ def phase_encdec(dev):
 # ---------------------------------------------------------------- phase 22
 MESH22 = (2, 2)                     # ('data', 'model'): four gloo ranks
 M22_STEP_BATCH, M22_STEP_SEQ = 4, 256        # (a) the float32 step
-M22_TRAIN_BATCH, M22_TRAIN_SEQ, M22_TRAIN_STEPS = 8, 1024, 4   # (a) bf16
+M22_TRAIN_BATCH, M22_TRAIN_SEQ, M22_TRAIN_STEPS = 8, 1024, 2   # (a) bf16:
+#                         4 steps until the script's time ran short
 M22_PROMPTS, M22_PROMPT, M22_CACHE = 8, 512, 576    # (b)
 # (b)'s decode steps at E / k and at 1.25: every step gathers each block
-# of the float32 serving copy through gloo (3.2 s a step on the H100), so
-# 8 and 4, not 16 and 16 (the whole script's time limit)
-M22_DECODE, M22_DECODE_CAP = 8, 4
+# of the float32 serving copy through gloo (3.2-4.4 s a step on the H100),
+# so 2 and 1, not 16 and 16 (the whole script's time limit; 8 and 4 until
+# phase 23 came, then 4 and 2 until its checks grew)
+M22_DECODE, M22_DECODE_CAP = 2, 1
 M22_HEAD_DOCS, M22_HEAD_TRAIN = 7_168, 6_144   # (c): N / K = 10.6
 M22_FEAT_BAND = 3e-2    # (c) bfloat16 features against one device's (the
 #                         LM tests' bfloat16 band)
@@ -7466,7 +7488,7 @@ def phase_lm_mesh(dev):
     (b) granite-moe-1b-a400m at full size, float32, served (32 experts
         over 2 model ranks; vocabulary 49,155, so the table is sharded on
         D): 8 prompts of 512 tokens, cache 576, prefill and decode steps
-        on fixed tokens (8 at E / k, 4 at 1.25: serving holds its cast
+        on fixed tokens (4 at E / k, 2 at 1.25: serving holds its cast
         copy as blocks and gathers each block at its use, so a float32
         decode step moves the model through gloo). At the factor E / k,
         which drops nothing, the logits within 1e-4 of max|ref| of one
@@ -7648,6 +7670,475 @@ def phase_lm_mesh(dev):
     return {"fused_stats": {"mesh_head": row}}
 
 
+# ------------------------------------------------------------- phase 23
+def dcd_problem(dev, n, k, epochs, seed=0):
+    """(X, y, qdiag, order) of a DCD sweep: standard normal rows with a
+    ones column last, planted labels, the reference's permutations."""
+    from repro_torch.baselines.dcd import permutations
+    g = torch.Generator(device=dev).manual_seed(seed)
+    X = torch.randn((n, k), generator=g, device=dev)
+    X[:, -1] = 1.0
+    y = torch.where(X[:, 0] + torch.randn(n, generator=g, device=dev) > 0,
+                    1.0, -1.0)
+    order = torch.from_numpy(permutations(seed, n, epochs)).to(dev)
+    return X, y, torch.sum(X * X, dim=1), order
+
+
+def phase_baselines(dev, dcd_nk=(4096, 801), n5=250_000):
+    """23 (a): DCD's sweep kernel against its plain version (4,096 x 801,
+    2 epochs; K past shared memory through the global-w variant), Table
+    5's protocol at 250,000 rows (make_dna_like, 3 epochs, C = 2 / lam),
+    Pegasos on the same split, and the paper's parity claim."""
+    from repro_torch.baselines import DCDSVM, PegasosSVM
+    from repro_torch.core import PEMSVM, SVMConfig, lam_from_C
+    from repro_torch.data import make_dna_like
+    from repro_torch.kernels import dcd, ref
+    card = card_line()
+    say(f"  card: {card}")
+    (n, k), epochs, C = dcd_nk, 2, 0.5
+    X, y, q, order = dcd_problem(dev, n, k, epochs)
+    w1, a1 = dcd.dcd_sweep(X, y, q, order, C)
+    w2, a2 = dcd.dcd_sweep(X, y, q, order, C)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()          # the plain loop is host-bound
+    wp, ap_ = ref.dcd_sweep(X, y, q, order, C)
+    torch.cuda.synchronize()
+    plain = (time.perf_counter() - t0) * 1e3
+    check(torch.equal(w1, w2) and torch.equal(a1, a2),
+          "dcd_sweep: two calls differ")
+    err = float((w1 - wp).abs().max())
+    scale = float(wp.abs().max())
+    check(err <= REL * scale, f"dcd_sweep {n} x {k}: max |dw| {err:.3e} > "
+          f"{REL} x max|w| {scale:.3e}")
+    check(float((a1 - ap_).abs().max()) <= REL * C, "dcd_sweep: alpha")
+    steps = n * epochs
+    ms = time_ms(lambda: dcd.dcd_sweep(X, y, q, order, C), reps=5)
+    # bytes: X, y, qdiag, order, alpha and w once each. X (13.1 MB here)
+    # stays in the 50 MB L2 across epochs, so it is read from HBM once
+    # (Table 5's 769 MB below is read again each epoch).
+    b_ms, by = bound(4 * steps * k, 4 * (n * k + 4 * n + steps + k))
+    say(f"  ok dcd_sweep {n} x {k}, {epochs} epochs: max |dw| {err:.3e} "
+        f"(max|w| {scale:.3e}), bitwise repeatable; kernel {ms:.3f} ms "
+        f"({ms * 1e3 / steps:.3f} us a coordinate), plain {plain:.1f} ms, "
+        f"bound {b_ms:.4f} ms ({by})")
+    row = dict(shape=[n, k, epochs], max_abs_err=err, ms=ms, plain_ms=plain,
+               bound_ms=b_ms, bound_by=by, library_ms=None)
+    del X, y, q, order
+
+    kw = dcd.SMEM_W_FLOATS + 1001         # odd, past shared memory
+    X, y, q, order = dcd_problem(dev, 48, kw, 1, seed=1)
+    wg, _ = dcd.dcd_sweep(X, y, q, order, C)
+    wp, _ = ref.dcd_sweep(X, y, q, order, C)
+    torch.cuda.synchronize()
+    err_g = float((wg - wp).abs().max())
+    check(err_g <= REL * float(wp.abs().max()),
+          f"dcd_sweep K = {kw} (w in global memory): max |dw| {err_g:.3e}")
+    say(f"  ok dcd_sweep 48 x {kw} (w in global memory): max |dw| "
+        f"{err_g:.3e}")
+    del X, y, q, order
+
+    # Table 5's protocol (benchmarks/table5_dna.py) at 250,000 rows
+    lam = lam_from_C(1e-5) * n5 / 2_500_000
+    Xd, yd = make_dna_like(n5, 800)
+    n_te = min(10_000, n5 // 5)
+    Xtr, ytr, Xte, yte = Xd[:-n_te], yd[:-n_te], Xd[-n_te:], yd[-n_te:]
+    del Xd, yd
+    dcd.LAUNCHES = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    a_ev, b_ev = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+    model = DCDSVM(C=2.0 / lam, n_epochs=3, device=dev)
+    orig = dcd.dcd_sweep
+
+    def timed(*args):
+        a_ev.record()
+        out = orig(*args)
+        b_ev.record()
+        return out
+    patched(lambda: model.fit(Xtr, ytr), dcd, "dcd_sweep", timed)()
+    torch.cuda.synchronize()
+    fit_s = time.perf_counter() - t0
+    launches = dcd.LAUNCHES
+    check(launches == 1, f"DCDSVM.fit launched dcd_sweep {launches} times")
+    sweep_ms = a_ev.elapsed_time(b_ev)
+    coords = 3 * len(Xtr)
+    t5_bound, t5_by = bound(4 * coords * 801, 4 * (coords * 801 + 4 * coords))
+    acc_dcd = model.score(Xte, yte)
+    say(f"  Table 5 protocol, {len(Xtr):,} x 801 (make_dna_like), 3 epochs, "
+        f"C = 2 / lam = {2.0 / lam:.4g}: sweep {sweep_ms:.1f} ms (CUDA "
+        f"events), {sweep_ms * 1e3 / coords:.3f} us a coordinate, bound "
+        f"{t5_bound:.3f} ms ({t5_by}: rows x K x 4 B / 3.35 TB/s); fit "
+        f"{fit_s:.2f} s; test acc {acc_dcd:.4f} [{card}]")
+    row.update(table5=dict(shape=[len(Xtr), 801, 3], ms=sweep_ms,
+                           us_per_coordinate=sweep_ms * 1e3 / coords,
+                           bound_ms=t5_bound, fit_s=fit_s))
+
+    t0 = time.perf_counter()
+    peg = PegasosSVM(lam=lam / (2 * len(Xtr)), n_steps=8_000,
+                     batch_size=512, device=dev).fit(Xtr, ytr)
+    torch.cuda.synchronize()
+    peg_s = time.perf_counter() - t0
+    acc_peg = peg.score(Xte, yte)
+    t0 = time.perf_counter()
+    ours = PEMSVM(SVMConfig(lam=lam, max_iters=100), device=dev)
+    res = ours.fit(Xtr, ytr)
+    torch.cuda.synchronize()
+    ours_s = time.perf_counter() - t0
+    acc = ours.score(Xte, yte)
+    say(f"  Pegasos 8,000 steps x 512: {peg_s:.2f} s, test acc "
+        f"{acc_peg:.4f}; LIN-EM-CLS {ours_s:.2f} s ({res.n_iters} "
+        f"iterations), test acc {acc:.4f} [{card}]")
+    check(acc >= max(acc_peg, acc_dcd) - 0.02,
+          f"parity: LIN-EM-CLS {acc:.4f} < max(Pegasos {acc_peg:.4f}, DCD "
+          f"{acc_dcd:.4f}) - 0.02")
+    return row, launches
+
+
+# (LAUNCHES key of fused_stats, band of the new w against the plain path
+# after two EM steps: about 5x the readings on an H100, 1.99e-5 (alpha),
+# 8.48e-4 (year) and 5.18e-4 (dna); None for MLT, whose MC step
+# is held against 3x the plain path's key 7 vs key 8 spread, as phase 12
+# holds its MC fits).
+CELL_CHECKS = {"svm_alpha": ("em_hinge", 1e-4),
+               "svm_year": ("em_svr", 5e-3),
+               "svm_mnist8m": ("mc_hinge,noise", None),
+               "svm_dna": ("em_hinge", 3e-3)}
+CHUNK64 = 1 << 18       # rows a float64 chunk of the cells' statistic
+
+
+def cell_data(dev, spec, rows):
+    """One card's share of a cell, drawn on the card from a seeded
+    generator: standard normal X, targets from a planted weight."""
+    g = torch.Generator(device=dev).manual_seed(23)
+    K = spec["K"]
+    X = torch.randn((rows, K), generator=g, device=dev)
+    W = torch.randn((spec.get("M", 1), K), generator=g, device=dev)
+    s = X @ W.T / math.sqrt(K)
+    noise = 0.3 * torch.randn((rows, 1), generator=g, device=dev)
+    if spec["task"] == "MLT":
+        target = torch.argmax(s + noise, dim=1).to(torch.int32)
+    elif spec["task"] == "SVR":
+        target = (s + noise)[:, 0]
+    else:
+        target = torch.where(s[:, 0] + noise[:, 0] > 0, 1.0, -1.0)
+    del s, noise, W
+    return X, target
+
+
+def margin64(X, w):
+    """X @ w in float64, CHUNK64 rows at a time."""
+    return torch.cat([X[i:i + CHUNK64].double() @ w.double()
+                      for i in range(0, X.shape[0], CHUNK64)])
+
+
+def gram64(X, wt, coef):
+    """(X^T coef, X^T diag(wt) X) in float64, CHUNK64 rows at a time."""
+    K = X.shape[1]
+    b = torch.zeros(K, dtype=torch.float64, device=X.device)
+    S = torch.zeros((K, K), dtype=torch.float64, device=X.device)
+    for i in range(0, X.shape[0], CHUNK64):
+        Xc = X[i:i + CHUNK64].double()
+        b += Xc.T @ coef[i:i + CHUNK64]
+        S += (Xc * wt[i:i + CHUNK64, None]).T @ Xc
+    return b, S
+
+
+def ig_accept(residual, nu, u):
+    """The IG draw's accept test u <= mu / (mu + x) per row, with mu and x
+    as kernels/epilogues.py's ig_gamma_from_noise forms them: True where
+    the draw keeps x, False where it takes mu^2 / x."""
+    from repro_torch.kernels import epilogues, rng
+    cap = epilogues._MU_MAX
+    r = residual.abs().float()
+    mu = torch.clamp_max(1.0 / torch.clamp_min(r, 1.0 / cap), cap)
+    y = nu * nu
+    muy = mu * y
+    x = mu + mu * muy / 2.0 - (mu / 2.0) * rng.sqrt_rn(4.0 * mu * y
+                                                        + muy * muy)
+    x = torch.clamp_min(x, torch.finfo(torch.float32).tiny)
+    return u <= mu / (mu + x)
+
+
+def cell_statistic(dev, name, task, X, target, w):
+    """The cell's fused_stats call alone at its shape, on w (a state after
+    one step, so rows sit at the hinge): the kernel's margin against
+    float64, its gamma (and omega) against the epilogue on the float64
+    margin (EM) or against the plain epilogue on its own margin with the
+    same noise (MC), and its b and Sigma against float64 from its own
+    gamma. MC also counts the rows whose IG draw takes the other branch
+    from the plain path's float32 margin and from the float64 one. The
+    kernel's b and Sigma are also set beside the plain path's (printed).
+    -> (epilogue, rho, beta, the call's keywords, report dict)."""
+    from repro_torch.kernels import epilogues, ops
+    epi = {"SVR": "em_svr", "MLT": "mc_hinge"}.get(task, "em_hinge")
+    rho = torch.where(target == 0, 1.0, -1.0) if task == "MLT" else target
+    beta = torch.zeros_like(rho) if epi == "em_svr" else rho
+    kw = dict(eps_ins=1e-3) if epi == "em_svr" else {}
+    if epi == "mc_hinge":
+        g = torch.Generator(device=dev).manual_seed(5)
+        kw = dict(noise=(torch.randn(len(rho), generator=g, device=dev),
+                         torch.rand(len(rho), generator=g, device=dev)))
+    out = ops.fused_stats(X, rho, beta, w, epilogue=epi, eps=EPS, **kw)
+    pout = ops.fused_stats(X, rho, beta, w, epilogue=epi, eps=EPS,
+                           backend="ref", **kw)
+    m, aug, b, S = out[0], out[1:-2], out[-2], out[-1]
+    m64 = margin64(X, w)
+    err = rows_close(f"{name} margin", m, m64)
+    rho64, beta64 = rho.double(), beta.double()
+    rep = {}
+    if epi == "mc_hinge":
+        nu, u = kw["noise"]
+        (g_plain,), _, _ = epilogues.apply_epilogue(epi, m, rho, beta,
+                                                    kw["noise"], EPS)
+        rep["gamma_bitwise"] = gamma_band(f"{name} gamma", aug[0], g_plain)
+        acc = ig_accept(rho - m, nu, u)
+        rep["branch_flips_plain"] = int(
+            (acc != ig_accept(rho - pout[0], nu, u)).sum())
+        rep["branch_flips_f64"] = int(
+            (acc != ig_accept((rho64 - m64).float(), nu, u)).sum())
+    else:
+        ref_aug, _, _ = epilogues.apply_epilogue(
+            epi, m64, rho64, beta64, None, EPS, kw.get("eps_ins", 0.0))
+        for a, ra in zip(aug, ref_aug):
+            gamma_close(f"{name} gamma", a, m, ra, m64)
+    a64 = [a.double() for a in aug]
+    off = torch.zeros_like(m, dtype=torch.bool)
+    for a, pa in zip(a64, pout[1:-2]):
+        off |= (a - pa.double()).abs() > 1e-3 * pa.double()
+    rep["gamma_off_plain"] = int(off.sum())
+    if epi == "em_svr":
+        e = kw["eps_ins"]
+        wt = 1.0 / a64[0] + 1.0 / a64[1]
+        coef = (rho64 - e) / a64[0] + (rho64 + e) / a64[1]
+    else:
+        wt, coef = 1.0 / a64[0], rho64 / a64[0] + beta64
+    b64, S64 = gram64(X, wt, coef)
+    err = max(err, max_close(f"{name} b", b, b64),
+              max_close(f"{name} Sigma", S, S64))
+    rep["max_abs_err"] = err
+    for key, got, want in (("b_vs_f64", b, b64), ("sigma_vs_f64", S, S64),
+                           ("b_vs_plain", b, pout[-2]),
+                           ("sigma_vs_plain", S, pout[-1])):
+        rep[key] = float((got.double() - want).abs().max()
+                         / want.abs().max())
+    # How far the two statistics' posterior means (P = I + Sigma, the
+    # cell's lam = 1) lie apart, solved in float64, and P's condition
+    # number: what the step's solve does to the statistics' difference.
+    eye = torch.eye(S.shape[0], dtype=torch.float64, device=dev)
+    P_k, P_p = S.double() + eye, pout[-1].double() + eye
+    mu_p = torch.linalg.solve(P_p, pout[-2].double())
+    mu_k = torch.linalg.solve(P_k, b.double())
+    rep["mu_vs_plain"] = float((mu_k - mu_p).abs().max() / mu_p.abs().max())
+    rep["cond"] = float(torch.linalg.cond(P_p))
+    del out, pout, m64, b64, S64, wt, coef, a64
+    return epi, rho, beta, kw, rep
+
+
+def phase_svm_cells(dev):
+    """23 (b): one iteration of each SVM_SHAPES cell at one card's share
+    (dna a 4-way data share), through the kernels and through the plain
+    path (EM cells: two steps within the cell's band; MLT's MC step within
+    3x the plain path's seed spread), and the cell's statistic alone held
+    against float64 (``cell_statistic``); fused_stats launched once a step
+    (M a step for MLT)."""
+    from repro_torch.core.linear import SVMData
+    from repro_torch.core.prng import PRNGKey
+    from repro_torch.kernels import fused_stats, ops
+    from repro_torch.launch.svm_cell import SVM_SHAPES, build_svm_cell
+    card = card_line()
+    say(f"  card: {card}")
+    out = {}
+    for name in ("svm_alpha", "svm_year", "svm_mnist8m", "svm_dna"):
+        spec = SVM_SHAPES[name]
+        shards = 4 if name == "svm_dna" else 1
+        key_name, band = CELL_CHECKS[name]
+        kern = build_svm_cell("pemsvm", name, None, {"shards": shards})
+        plain = build_svm_cell("pemsvm", name, None,
+                               {"shards": shards, "backend": "ref"})
+        rows, K = kern.structs[0].X.shape
+        M = spec.get("M", 1)
+        X, target = cell_data(dev, spec, rows)
+        data = SVMData(X, target, torch.ones(rows, device=dev))
+        state0 = torch.zeros(kern.structs[1].shape, device=dev)
+        key = PRNGKey(7, device=dev)
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        fused_stats.zero_launches()
+        times, states = [], [state0]
+        for _ in range(2):
+            t0 = time.perf_counter()
+            states.append(kern.step(data, states[-1], key)[0])
+            torch.cuda.synchronize()
+            times.append((time.perf_counter() - t0) * 1e3)
+        launches = fused_stats.LAUNCHES[key_name]
+        check(launches == 2 * M and sum(fused_stats.LAUNCHES.values())
+              == 2 * M, f"{name}: fused_stats launches "
+              f"{dict(fused_stats.LAUNCHES)}, want {2 * M} of {key_name}")
+        peak = torch.cuda.max_memory_allocated() / 2 ** 20
+        check(bool(torch.isfinite(states[-1]).all()),
+              f"{name}: the kernel path's w is not finite")
+
+        def apart(a, b):
+            return float((a - b).abs().max() / b.abs().max())
+        if band is not None:      # EM: two steps on the same key
+            pstate = state0
+            for _ in range(2):
+                pstate = plain.step(data, pstate, key)[0]
+            rel = apart(states[2], pstate)
+            check(rel <= band, f"{name}: kernel and plain w {rel:.3e} apart "
+                  f"after 2 steps > {band}")
+            held = f"w vs plain path {rel:.3e} after 2 steps (band {band})"
+        else:                     # MC: one step against the seed spread
+            pstate = plain.step(data, state0, key)[0]
+            p8 = plain.step(data, state0, PRNGKey(8, device=dev))[0]
+            rel, band = apart(states[1], pstate), 3 * apart(p8, pstate)
+            check(rel <= band, f"{name}: the MC step's W {rel:.3e} from the "
+                  f"plain path's > 3x its key 7 vs 8 spread ({band:.3e})")
+            per_class = [apart(states[1][c], pstate[c]) for c in range(M)]
+            held = (f"MC step's W vs plain path {rel:.3e} (<= 3x the plain "
+                    f"key 7 vs 8 spread, {band / 3:.3e}; class by class in "
+                    f"the sweep's order "
+                    f"{', '.join(f'{r:.1e}' for r in per_class)})")
+            del p8
+        torch.cuda.synchronize()
+        flop = M * (rows * K * (K + 1) + 6 * rows * K + K ** 3 / 3)
+        b_ms, by = bound(flop, 4 * (rows * K + 3 * rows) + 4 * M * K * K)
+        # the statistic alone at this shape: held, then timed
+        w = (states[1] if M == 1 else states[1][0]).contiguous()
+        epi, rho, beta, extra, rep = cell_statistic(dev, name, spec["task"],
+                                                    X, target, w)
+        k_ms = time_ms(lambda: ops.fused_stats(X, rho, beta, w, epilogue=epi,
+                                               eps=EPS, **extra), reps=3)
+        p_ms = time_ms(lambda: ops.fused_stats(X, rho, beta, w, epilogue=epi,
+                                               eps=EPS, backend="ref",
+                                               **extra), reps=1, warmup=1)
+        s_ms, s_by = bound(rows * K * (K + 1) + 4 * rows * K,
+                           4 * (rows * K + 3 * rows + K + K * K))
+        flips = "" if epi != "mc_hinge" else (
+            f", gamma {rep['gamma_bitwise']:.5f} bitwise the plain epilogue "
+            f"on its margin; IG branch flips {rep['branch_flips_plain']:,} "
+            f"against the plain path's float32 margin, "
+            f"{rep['branch_flips_f64']:,} against float64")
+        say(f"  ok {name} {rows:,} x {K}{f' M={M}' if M > 1 else ''} "
+            f"({'a 4-way data share' if shards > 1 else 'whole'}): {held}; "
+            f"{times[-1]:.1f} ms an iteration (first {times[0]:.1f}), peak "
+            f"{peak:.0f} MiB, bound {b_ms:.2f} ms ({by}); fused_stats[{epi}] "
+            f"against float64 from its own gamma: b {rep['b_vs_f64']:.3e}, "
+            f"Sigma {rep['sigma_vs_f64']:.3e} of max|ref|{flips}; against "
+            f"the plain path's: {rep['gamma_off_plain']:,} rows' gamma "
+            f"more than 1e-3 apart, b {rep['b_vs_plain']:.3e}, Sigma "
+            f"{rep['sigma_vs_plain']:.3e}, float64 posterior mean "
+            f"{rep['mu_vs_plain']:.3e} of max|plain| (cond(I + Sigma) "
+            f"{rep['cond']:.3e}); {k_ms:.2f} ms, plain {p_ms:.1f} ms, bound "
+            f"{s_ms:.2f} ms ({s_by}); launches {launches} [{card}]")
+        out[name] = dict(shape=[rows, K, M], iteration_ms=times[-1],
+                         peak_mib=peak, bound_ms=b_ms, rel_w=rel, band=band,
+                         fused_stats_ms=k_ms, plain_ms=p_ms,
+                         stat_bound_ms=s_ms, launches=launches, **rep)
+        del X, target, data, states, pstate, rho, beta, w, extra
+        gc.collect()
+        torch.cuda.empty_cache()
+    return out
+
+
+_DRYRUN = """
+import json, os, sys, threading
+sys.path.insert(0, sys.argv[1])
+PAGE_KIB = os.sysconf("SC_PAGE_SIZE") // 1024
+
+
+def rss_kib():       # this process's resident set now
+    with open("/proc/self/statm") as f:
+        return int(f.read().split()[1]) * PAGE_KIB
+
+
+import torch
+base = rss_kib()
+peak = [base]
+stop = threading.Event()
+
+
+def sample():        # the peak by sampling every 5 ms (ru_maxrss keeps the
+    while not stop.is_set():      # launching process's peak across exec)
+        peak[0] = max(peak[0], rss_kib())
+        stop.wait(0.005)
+
+
+sampler = threading.Thread(target=sample, daemon=True)
+sampler.start()
+from repro_torch.launch.dryrun import run_cell
+out = []
+for arch, shape, multi in (("smollm-135m", "train_4k", False),
+                           ("smollm-135m", "decode_32k", False),
+                           ("pemsvm", "svm_dna", True)):
+    rec = run_cell(arch, shape, multi)
+    rec.pop("traceback", None)
+    out.append(rec)
+stop.set()
+sampler.join()
+print(json.dumps({"cells": out, "rss_kib": max(peak[0], rss_kib()),
+                  "base_kib": base}))
+"""
+
+
+def start_dryrun():
+    """23 (c)'s process, started ahead of (a) and (b) so that its CPU work
+    on the meta device overlaps their work on the card."""
+    return time.perf_counter(), subprocess.Popen(
+        [sys.executable, "-c", _DRYRUN, str(ROOT / "src")],
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def phase_dryrun(started):
+    """23 (c): three dry-run cells on the meta device in a process of
+    their own (``start_dryrun``): terms, a rank's argument bytes,
+    useful_flops_ratio, and the process's peak RSS."""
+    t0, proc = started
+    try:
+        out, err = proc.communicate(timeout=300)
+    finally:
+        proc.kill()
+    check(proc.returncode == 0, f"dry run failed: {err[-2000:]}")
+    rec = json.loads(out.strip().splitlines()[-1])
+    for c in rec["cells"]:
+        check(c["ok"], f"dry run {c['arch']} {c['shape']}: {c.get('error')}")
+        t = c["terms"]
+        say(f"  ok {c['arch']} {c['shape']} {c['mesh']}: compute "
+            f"{t['compute_s']:.4g} s, memory {t['memory_s']:.4g} s, "
+            f"collective {t['collective_s']:.4g} s (dominant "
+            f"{t['dominant']}); argument bytes a rank "
+            f"{c['memory']['argument_bytes']:,}; useful_flops_ratio "
+            f"{c['useful_flops_ratio']:.4f}; collectives "
+            f"{c['collectives_per_device']['n_ops']} ops, "
+            f"{c['collectives_per_device']['total']:,} B; counted in "
+            f"{c['run_s']} s")
+    say(f"  dry run process peak RSS {rec['rss_kib'] / 2 ** 10:.0f} MiB, "
+        f"sampled every 5 ms ({rec['base_kib'] / 2 ** 10:.0f} MiB after "
+        f"import torch); "
+        f"{time.perf_counter() - t0:.1f} s with start-up, beside (a) and "
+        f"(b)")
+
+
+def phase_examples():
+    """23 (d): examples/torch_quickstart.py on the card, as a user runs
+    it: converged, test accuracy >= 0.95."""
+    t0 = time.perf_counter()
+    res = subprocess.run([sys.executable,
+                          str(ROOT / "examples" / "torch_quickstart.py")],
+                         capture_output=True, text=True, timeout=300,
+                         cwd=ROOT)
+    check(res.returncode == 0, f"torch_quickstart: {res.stderr[-2000:]}")
+    out = res.stdout
+    acc = float(re.search(r"test accuracy : ([\d.]+)", out).group(1))
+    check("device        : cuda" in out, f"torch_quickstart: {out}")
+    check("converged     : True" in out and acc >= 0.95,
+          f"torch_quickstart: {out}")
+    for line in out.strip().splitlines():
+        say(f"  | {line}")
+    say(f"  ok torch_quickstart on the card: test accuracy {acc:.4f}; "
+        f"{time.perf_counter() - t0:.1f} s with start-up")
+
+
 SOURCES = {
     "fused_stats": ("src/repro_torch/csrc/fused_stats.cu",
                     "src/repro/kernels/fused_stats.py:155"),
@@ -7684,6 +8175,8 @@ SOURCES = {
     **{name: ("src/repro_torch/csrc/nystrom_phi.cu",
               "src/repro/kernels/nystrom_phi.py:283")
        for name in NYS_WIN_VARIANTS},
+    "dcd_sweep": ("src/repro_torch/csrc/dcd.cu",
+                  "src/repro/baselines/dcd.py:58"),
 }
 
 
@@ -7800,6 +8293,21 @@ def main() -> int:
               "served, MaxMarginHead over 'data' (fused_stats)")
     for name, extra in phase_lm_mesh(dev).items():
         rows[name].update(extra)
+    stamp(t0, "== 23. the baselines (DCD's sweep kernel, Table 5's protocol "
+              "at 250,000 rows, Pegasos), the PEMSVM cells at one card's "
+              "share, the dry run on the meta device, torch_quickstart")
+    t23 = time.perf_counter()
+    dryrun = start_dryrun()
+    try:
+        rows["dcd_sweep"], dcd_launches = phase_baselines(dev)
+        runs["dcd_sweep"] = ({"dcd_sweep": dcd_launches}, 0, 0)
+        rows["fused_stats"]["cells"] = phase_svm_cells(dev)
+    except BaseException:
+        dryrun[1].kill()
+        raise
+    phase_dryrun(dryrun)
+    phase_examples()
+    say(f"  phase 23 in {time.perf_counter() - t23:.1f} s (budget 90 s)")
     runs["weighted_gram"] = (gram_counts, 0, 0)
     say(f"== done in {time.perf_counter() - t0:.1f} s")
     kernels = []

@@ -34,7 +34,12 @@ Ported so far:
   (``csrc/``): ``fused_stats`` (em_hinge, mc_hinge, em_svr, mc_svr; noise
   operands or the in-kernel counter RNG; multichain; column windows),
   ``fused_estep``, ``syrk_tri``, ``weighted_gram``, ``rbf_gram``,
-  ``nystrom_phi``, ``nystrom_score`` and ``nystrom_fused_stats``.
+  ``nystrom_phi``, ``nystrom_score`` and ``nystrom_fused_stats``;
+* the paper's baselines (``baselines/``: Pegasos, and DCD with its sweep
+  one CUDA launch, ``csrc/dcd.cu``), the PEMSVM cells of Table 3
+  (``launch/svm_cell.py``), and the dry run of every cell on the meta
+  device with its flops, bytes and collectives counted
+  (``launch/{cost,dryrun,sweep}.py``).
 
 ROADMAP.md lists what is still to come.
 """

@@ -15,6 +15,15 @@ reductions are collectives over process groups:
   * ``axes_of``: the role of ``shard_wrap``. A reduction over several mesh
     axes goes through one process group that spans them (``MeshAxes``),
     made once per (mesh, axes) and shared.
+  * ``all_reduce``, ``all_gather``, ``gather``: every collective of the
+    port, over a ``MeshAxes``.
+  * on an ``AbstractMesh`` (``sharding/rules.py``: axis names and sizes,
+    no ranks) ``axes_of`` gives the axes of the mesh's first rank, whose
+    ``group`` is the mesh's ``CollectiveTally``: the three collectives
+    then run nothing, record their kind, the bytes this rank sends and
+    the count, and return their result's shape on the meta device (the
+    dry run, ``launch/dryrun.py``, where the reference reads the compiled
+    HLO's collectives).
 
 The failure-tolerant reduction (the reference's ``live_weighted_psum``)
 is ``stats.preduce(x, axes, live)``, which the steps call directly.
@@ -32,6 +41,7 @@ import gc
 from typing import Sequence
 
 import numpy as np
+import torch
 import torch.distributed as dist
 
 
@@ -46,6 +56,87 @@ class MeshAxes:
     size: int
     index: int
     ranks: tuple[int, ...]
+
+
+class CollectiveTally:
+    """Collectives counted in place of being run (the group of every
+    ``MeshAxes`` of an ``AbstractMesh``): by kind, the payload bytes one
+    rank sends and the number of calls. Kinds as the reference's HLO
+    names them ("all-gather", "all-reduce"), and "gather" (gloo's gather
+    to one rank, the snapshot path)."""
+
+    def __init__(self):
+        self.bytes: dict[str, int] = {}
+        self.ops: dict[str, int] = {}
+
+    def record(self, kind: str, x) -> None:
+        """Count one ``kind`` collective whose operand on this rank is
+        ``x`` (a meta tensor: a real one on an abstract mesh would have
+        no other ranks to meet)."""
+        if not x.is_meta:
+            raise ValueError("an abstract mesh counts collectives of meta "
+                             f"tensors; got one on {x.device}")
+        self.bytes[kind] = self.bytes.get(kind, 0) + x.numel() * \
+            x.element_size()
+        self.ops[kind] = self.ops.get(kind, 0) + 1
+
+    def summary(self) -> dict:
+        """{"total": bytes, "n_ops": calls, kind: bytes, ...}."""
+        return {"total": sum(self.bytes.values()),
+                "n_ops": sum(self.ops.values()), **self.bytes}
+
+
+def _tally(axes) -> CollectiveTally | None:
+    """The tally that takes ``axes``' collectives (an abstract mesh's),
+    or None where they run."""
+    return axes.group if isinstance(axes.group, CollectiveTally) else None
+
+
+def all_reduce(x: torch.Tensor, axes: MeshAxes,
+               op=dist.ReduceOp.SUM) -> torch.Tensor:
+    """``x`` reduced by ``op`` over ``axes``, into a new tensor."""
+    tally = _tally(axes)
+    if tally is not None:
+        tally.record("all-reduce", x)
+        return torch.empty_like(x)
+    out = x.contiguous().clone()
+    dist.all_reduce(out, op=op, group=axes.group)
+    return out
+
+
+def all_gather(x: torch.Tensor, axes: MeshAxes, dim: int) -> torch.Tensor:
+    """The blocks of ``x`` over ``axes`` side by side along ``dim``, in the
+    axes' index order."""
+    tally = _tally(axes)
+    if tally is not None:
+        tally.record("all-gather", x)
+        shape = list(x.shape)
+        shape[dim] *= axes.size
+        return x.new_empty(shape)
+    x = x.contiguous()
+    parts = [torch.empty_like(x) for _ in range(axes.size)]
+    dist.all_gather(parts, x, group=axes.group)
+    # all_gather fills in group-rank order; the blocks go in index order
+    return torch.cat([parts[dist.get_group_rank(axes.group, r)]
+                      for r in axes.ranks], dim=dim)
+
+
+def gather(x: torch.Tensor, axes: MeshAxes) -> list | None:
+    """Every rank's ``x`` over ``axes`` on the axes' first rank, in index
+    order (None on the others); through host memory where the group is
+    gloo's, which gathers host tensors."""
+    tally = _tally(axes)
+    if tally is not None:
+        tally.record("gather", x)
+        return [torch.empty_like(x) for _ in range(axes.size)]
+    if dist.get_backend(axes.group) == "gloo":
+        x = x.cpu()
+    me = axes.index == 0
+    parts = [torch.empty_like(x) for _ in range(axes.size)] if me else None
+    dist.gather(x.contiguous(), parts, dst=axes.ranks[0], group=axes.group)
+    if not me:
+        return None
+    return [parts[dist.get_group_rank(axes.group, r)] for r in axes.ranks]
 
 
 # (id(mesh), names) -> (mesh, MeshAxes); the mesh is kept alive so that
@@ -66,8 +157,11 @@ def _release_groups() -> None:
 
 
 def check_mesh(mesh) -> None:
-    """Raise unless ``mesh`` is a DeviceMesh with named axes."""
+    """Raise unless ``mesh`` is a DeviceMesh with named axes, or an
+    ``AbstractMesh``."""
     from torch.distributed.device_mesh import DeviceMesh
+    if getattr(mesh, "tally", None) is not None:
+        return
     if not isinstance(mesh, DeviceMesh):
         raise TypeError("mesh must be a torch.distributed.device_mesh."
                         f"DeviceMesh, got {type(mesh).__name__}")
@@ -81,18 +175,36 @@ def data_axes_of(mesh, model_axes: Sequence[str] = ()) -> tuple[str, ...]:
     return tuple(a for a in mesh.mesh_dim_names if a not in model_axes)
 
 
+def mesh_sizes(mesh) -> dict:
+    """{axis name: size} of a ``DeviceMesh`` or an ``AbstractMesh``."""
+    if getattr(mesh, "tally", None) is not None:
+        return dict(zip(mesh.axis_names, mesh.shape_tuple))
+    return {a: int(mesh.size(i))
+            for i, a in enumerate(mesh.mesh_dim_names)}
+
+
 def num_shards(mesh, axes: Sequence[str]) -> int:
-    return int(np.prod([mesh.size(mesh.mesh_dim_names.index(a))
-                        for a in axes], dtype=np.int64))
+    sizes = mesh_sizes(mesh)
+    return int(np.prod([sizes[a] for a in axes], dtype=np.int64))
 
 
 def axes_of(mesh, names: Sequence[str]) -> MeshAxes:
     """The ``MeshAxes`` of ``names`` on this rank. The first call for a
     (mesh, names) pair creates one process group for every combination of
     the other axes' coordinates, on every rank in the same order (as
-    ``new_group`` requires), and keeps this rank's."""
+    ``new_group`` requires), and keeps this rank's. On an abstract mesh:
+    the first rank's axes, counted by the mesh's tally."""
     check_mesh(mesh)
     names = tuple(names)
+    tally = getattr(mesh, "tally", None)
+    if tally is not None:
+        sizes = mesh_sizes(mesh)
+        for a in names:
+            if a not in sizes:
+                raise ValueError(f"{a!r} is not an axis of the mesh "
+                                 f"{mesh.axis_names}")
+        n = int(np.prod([sizes[a] for a in names], dtype=np.int64))
+        return MeshAxes(names, tally, n, 0, tuple(range(n)))
     key = (id(mesh), names)
     if key in _AXES:
         return _AXES[key][1]

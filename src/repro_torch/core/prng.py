@@ -107,6 +107,57 @@ def random_bits(key: torch.Tensor, shape: tuple) -> torch.Tensor:
     return _bits(key, 0, n).reshape(key.shape[:-1] + tuple(shape))
 
 
+# (min, max) of the 32-bit integer dtypes ``randint`` draws.
+_INT32_RANGE = {torch.int32: (-2 ** 31, 2 ** 31 - 1),
+                torch.uint32: (0, 2 ** 32 - 1)}
+
+
+def _mulmod32(a: torch.Tensor, b) -> torch.Tensor:
+    """a * b mod 2^32 for words a, b in [0, 2^32), without an int64
+    product that could overflow: a's two 16-bit halves go separately."""
+    hi = ((a >> 16) * b) & MASK
+    return ((hi << 16) + (a & 0xFFFF) * b) & MASK
+
+
+def _rem32(a, span: int):
+    """Unsigned a % span; XLA's unsigned remainder by 0 is a itself."""
+    return a if span == 0 else a % span
+
+
+def randint(key: torch.Tensor, shape: tuple, minval: int, maxval: int,
+            dtype: torch.dtype = torch.int32) -> torch.Tensor:
+    """Integers in [minval, maxval) as ``jax.random.randint`` draws them
+    (32-bit dtypes): two draws of 32 bits from the key's split halves,
+    the higher taken mod span times 2^32 mod span plus the lower mod span,
+    all mod span, in uint32 arithmetic. ``minval`` and ``maxval`` are
+    Python ints, clipped to the dtype's range as the reference clips
+    them. A batch of keys (..., 2) gives (..., *shape)."""
+    if dtype not in _INT32_RANGE:
+        raise TypeError(f"randint draws int32 or uint32, got {dtype}")
+    lo_d, hi_d = _INT32_RANGE[dtype]
+    minval, maxval = int(minval), int(maxval)
+    out_of_range = maxval > hi_d
+    lo_v = min(max(minval, lo_d), hi_d)
+    hi_v = min(max(maxval, lo_d), hi_d)
+    span = (hi_v - lo_v) & MASK
+    if hi_v <= lo_v:
+        span = 1
+    elif out_of_range:
+        span = (span + 1) & MASK
+    k = split(key, 2)
+    higher = random_bits(k[..., 0, :], shape)
+    lower = random_bits(k[..., 1, :], shape)
+    if key.is_meta:
+        return higher.to(dtype)
+    mult = _rem32((_rem32(2 ** 16, span) ** 2) & MASK, span)
+    offset = _rem32((_mulmod32(_rem32(higher, span), mult)
+                     + _rem32(lower, span)) & MASK, span)
+    words = (offset + (lo_v & MASK)) & MASK
+    if dtype == torch.int32:
+        return (words - ((words >> 31) << 32)).to(torch.int32)
+    return words.to(torch.uint32)
+
+
 def _uniform(bits: torch.Tensor, minval: float, maxval: float
              ) -> torch.Tensor:
     mant = ((bits >> 9) | 0x3F800000).to(torch.int32)

@@ -477,9 +477,10 @@ class _FitRuntime:
         flag = self.monitor.observe(it, seconds)
         svm = self.svm
         if svm.mesh is not None and svm.config.fault is not None:
-            t = torch.tensor([float(flag)], device=svm.device)
-            dist.all_reduce(t, op=dist.ReduceOp.MAX, group=svm._whole().group)
-            flag = bool(t.item())
+            t = distributed.all_reduce(
+                torch.tensor([float(flag)], device=svm.device),
+                svm._whole(), dist.ReduceOp.MAX)
+            flag = flag if t.is_meta else bool(t.item())
         if not flag:
             return
         self.events.append({"it": it, "seconds": float(seconds),

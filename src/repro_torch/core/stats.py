@@ -22,8 +22,8 @@ import itertools
 
 import numpy as np
 import torch
-import torch.distributed as dist
 
+from . import distributed as cdist
 from . import prng
 
 
@@ -67,13 +67,9 @@ def preduce(x: torch.Tensor, axes=None, live=None) -> torch.Tensor:
     if axes is None:
         return x
     if live is None:
-        out = x.clone()
-        dist.all_reduce(out, group=axes.group)
-        return out
-    num = live.to(x.dtype) * x
-    dist.all_reduce(num, group=axes.group)
-    den = live.to(torch.float32).clone()
-    dist.all_reduce(den, group=axes.group)
+        return cdist.all_reduce(x, axes)
+    num = cdist.all_reduce(live.to(x.dtype) * x, axes)
+    den = cdist.all_reduce(live.to(torch.float32), axes)
     scale = axes.size / torch.clamp_min(den, 1.0)
     return num * scale.to(num.dtype)
 
@@ -145,12 +141,7 @@ def reduce_kshard(S_blk: torch.Tensor, b: torch.Tensor, axes,
         fused = (preduce(fused, axes, live) if dt is None else
                  preduce(fused.to(dt), axes, live).to(torch.float32))
     S_blk, b = fused[:K * blk].reshape(K, blk), fused[K * blk:]
-    parts = [torch.empty_like(S_blk) for _ in range(k_shard_axis.size)]
-    group = k_shard_axis.group
-    dist.all_gather(parts, S_blk.contiguous(), group=group)
-    # all_gather fills in group-rank order; the blocks go in k order.
-    return torch.cat([parts[dist.get_group_rank(group, r)]
-                      for r in k_shard_axis.ranks], dim=1), b
+    return cdist.all_gather(S_blk, k_shard_axis, 1), b
 
 
 def posterior_params(S: torch.Tensor, b: torch.Tensor, lam: float,

@@ -182,3 +182,25 @@ def nystrom_fused_stats(X: torch.Tensor, landmarks: torch.Tensor,
     return fused_stats(phi, rho, beta, wvec, mask, eps, epilogue,
                        noise=noise, seed=seed, eps_ins=eps_ins,
                        col_window=col_window)
+
+
+def dcd_sweep(X: torch.Tensor, y: torch.Tensor, qdiag: torch.Tensor,
+              order: torch.Tensor, C: float):
+    """(w (K,), alpha (N,)): dual coordinate descent over the rows
+    ``order`` names, in order, from w = 0 and alpha = 0, as the
+    reference's ``lax.scan`` steps (``repro/baselines/dcd.py``):
+    G = y_i (x_i . w) - 1, a = clip(alpha_i - G / max(q_ii, 1e-12), 0, C),
+    w += (a - alpha_i) y_i x_i. ``torch.clamp`` and ``torch.maximum`` pass
+    NaN as ``jnp.clip`` and ``jnp.maximum`` do."""
+    Xf = _acc(X)
+    yf, qf = _acc(y), _acc(qdiag)
+    w = torch.zeros(X.shape[1], dtype=Xf.dtype, device=X.device)
+    alpha = torch.zeros(X.shape[0], dtype=Xf.dtype, device=X.device)
+    floor = torch.tensor(1e-12, dtype=Xf.dtype, device=X.device)
+    for i in order.tolist():
+        xi, yi, ai = Xf[i], yf[i], alpha[i].clone()
+        G = yi * (xi @ w) - 1.0
+        a_new = torch.clamp(ai - G / torch.maximum(qf[i], floor), 0.0, C)
+        w = w + ((a_new - ai) * yi) * xi
+        alpha[i] = a_new
+    return w, alpha

@@ -4,8 +4,8 @@ shape) cell (``repro/launch/specs.py`` in PyTorch).
 Each builder returns (struct tree, spec tree): ``Struct(shape, dtype)``
 leaves in the reference's tree, and spec tuples in the positions of its
 ``PartitionSpec`` (``sharding/rules.py``). Nothing is allocated: shapes
-come from the meta device. The dry run over these cells stays with the
-reference (ROADMAP item 14).
+come from the meta device. ``launch/dryrun.py`` runs a rank of each cell
+over them.
 """
 from __future__ import annotations
 

@@ -85,22 +85,13 @@ def block(mesh, x, spec: Sequence):
 def _all_gather(x: torch.Tensor, axes, dim: int) -> torch.Tensor:
     """The blocks of ``x`` over ``axes`` (a ``MeshAxes``) side by side
     along ``dim``, in the axes' index order."""
-    if axes.size == 1:
-        return x
-    x = x.contiguous()
-    parts = [torch.empty_like(x) for _ in range(axes.size)]
-    dist.all_gather(parts, x, group=axes.group)
-    # all_gather fills in group-rank order; the blocks go in index order
-    return torch.cat([parts[dist.get_group_rank(axes.group, r)]
-                      for r in axes.ranks], dim=dim)
+    return x if axes.size == 1 else cdist.all_gather(x, axes, dim)
 
 
 def _all_reduce(x: torch.Tensor, axes, op=dist.ReduceOp.SUM):
     if axes is None or axes.size == 1:
         return x
-    x = x.contiguous().clone()
-    dist.all_reduce(x, op=op, group=axes.group)
-    return x
+    return cdist.all_reduce(x, axes, op)
 
 
 def _own(x: torch.Tensor, plan) -> torch.Tensor:
@@ -140,6 +131,9 @@ class _GatherLeaves(torch.autograd.Function):
         world = lay.axes(lay.all)
         flat = torch.cat([b.reshape(-1) for b in blocks])
         parts = _all_gather(flat, world, 0).view(world.size, -1)
+        if parts.is_meta:          # shapes only: no blocks to assemble
+            return tuple(b.new_empty(lay.full_shape(b.shape, spec))
+                         for b, spec in zip(blocks, specs))
         outs = []
         off = 0
         for b, spec in zip(blocks, specs):
@@ -329,9 +323,7 @@ class Layout:
         calls it. Leaves without a path in the specs (an optimizer's
         step) are taken from the first rank as they are."""
         world = self.axes(self.all)
-        first = world.ranks[0]
-        me = dist.get_rank() == first
-        on_host = dist.get_backend(world.group) == "gloo"
+        me = world.index == 0
         out = {}
         for k, v in tree.items():
             path = f"{prefix}/{k}" if prefix else k
@@ -342,24 +334,21 @@ class Layout:
             if not any(_names(e) for e in spec):
                 out[k] = v.detach().cpu() if me else None
                 continue
-            x = v.detach().contiguous()
-            x = x.cpu() if on_host else x
-            parts = [torch.empty_like(x) for _ in range(world.size)] \
-                if me else None
-            dist.gather(x, parts, dst=first, group=world.group)
-            if not me:
+            x = v.detach()
+            parts = cdist.gather(x, world)
+            if parts is None:
                 out[k] = None
                 continue
             full = torch.empty(self.full_shape(x.shape, spec),
                                dtype=x.dtype)
-            for r, g in enumerate(world.ranks):
+            for r, part in enumerate(parts):
                 slot = full
                 for d, e in enumerate(spec):
                     if _names(e):
                         n = x.shape[d]
                         slot = slot.narrow(
                             d, self.index_of(r, _names(e)) * n, n)
-                slot.copy_(parts[dist.get_group_rank(world.group, g)])
+                slot.copy_(part)
             out[k] = full
             del parts
         return out if me else None

@@ -29,25 +29,30 @@ from typing import Sequence
 
 import numpy as np
 
+from repro_torch.core.distributed import CollectiveTally, mesh_sizes
+
 
 @dataclasses.dataclass(frozen=True)
 class AbstractMesh:
     """Axis names and sizes without ranks (the reference's
-    ``jax.sharding.AbstractMesh``): what the spec rules read."""
+    ``jax.sharding.AbstractMesh``): what the spec rules read. The port
+    also runs on it, on the meta device, as the mesh's first rank: its
+    collectives run nothing and are counted in ``tally``
+    (``core.distributed.axes_of``; the dry run)."""
     shape_tuple: tuple[int, ...]
     axis_names: tuple[str, ...]
+    tally: CollectiveTally = dataclasses.field(
+        default_factory=CollectiveTally, compare=False, repr=False)
+
+    device_type = "meta"
 
     @property
     def mesh_dim_names(self) -> tuple[str, ...]:
         return self.axis_names
 
-
-def mesh_sizes(mesh) -> dict:
-    """{axis name: size} of a ``DeviceMesh`` or an ``AbstractMesh``."""
-    if isinstance(mesh, AbstractMesh):
-        return dict(zip(mesh.axis_names, mesh.shape_tuple))
-    names = mesh.mesh_dim_names
-    return {a: int(mesh.size(i)) for i, a in enumerate(names)}
+    def get_coordinate(self) -> list[int]:
+        """The coordinates of the rank the mesh stands for: the first."""
+        return [0] * len(self.axis_names)
 
 
 @dataclasses.dataclass(frozen=True)

@@ -1,6 +1,7 @@
 """The port stands alone: importing every module of ``repro_torch`` pulls
 in no JAX and nothing of the JAX package, and no port source (nor the
-chip scripts at the root) names them in an import."""
+chip scripts at the root, nor the port's examples ``examples/torch_*.py``)
+names them in an import."""
 import os
 import re
 import subprocess
@@ -41,7 +42,8 @@ _IMPORT = re.compile(
 
 @pytest.mark.parametrize("path", sorted(
     str(p.relative_to(ROOT)) for p in
-    [*PORT.rglob("*.py"), ROOT / "chip_smoke.py",
+    [*PORT.rglob("*.py"), *(ROOT / "examples").glob("torch_*.py"),
+     ROOT / "chip_smoke.py",
      ROOT / "chip_nystrom_numerics.py", ROOT / "chip_head_numerics.py",
      ROOT / "chip_krn_numerics.py", ROOT / "chip_decode_sync.py"]))
 def test_source_names_no_jax_or_repro_import(path):

@@ -525,11 +525,15 @@ Sigma exactly 0); rbf_gram at (1,800 x 2)^2.
    See ``phase_lm_mesh``.
 23. The baselines, the PEMSVM cells, the dry run and the examples (after
    22; budget 90 s): (a) ``dcd_sweep`` against its plain version at
-   4,096 x 801, 2 epochs (w within 1e-5 of max|w|, two calls bitwise
-   equal) and at K = 58,345 (w in global memory), then Table 5's protocol
-   on 250,000 rows of make_dna_like (3 epochs, C = 2 / lam; one launch),
-   Pegasos (8,000 steps of 512) on the same split and the parity
-   LIN-EM-CLS >= max(Pegasos, DCD) - 0.02; (b) one iteration of each
+   4,096 x 801, 2 epochs (w within 1e-5 of max|w|, alpha within 1e-5 of
+   C, two calls bitwise equal; timed beside the chain as a warp group of
+   four), at N = 3 and N = the ring's depth + 1 over 20 epochs, at K =
+   803 (rows off the 16-byte grid) and at K = 33,769 (w in global
+   memory), then Table 5's protocol on 250,000 rows of make_dna_like (3
+   epochs, C = 2 / lam; one launch; us a coordinate beside 4,096 x 801's;
+   test accuracy within 0.002 of 0.8467), Pegasos (8,000 steps of 512)
+   on the same split and the parity LIN-EM-CLS >= max(Pegasos, DCD) -
+   0.02; (b) one iteration of each
    ``launch.svm_cell.SVM_SHAPES`` cell at one card's share (alpha, year
    and mnist8m whole, dna a 4-way data share of 6,400,000 x 800), drawn
    on the card, through the kernels (fused_stats once a step, M a step
@@ -7684,19 +7688,14 @@ def dcd_problem(dev, n, k, epochs, seed=0):
     return X, y, torch.sum(X * X, dim=1), order
 
 
-def phase_baselines(dev, dcd_nk=(4096, 801), n5=250_000):
-    """23 (a): DCD's sweep kernel against its plain version (4,096 x 801,
-    2 epochs; K past shared memory through the global-w variant), Table
-    5's protocol at 250,000 rows (make_dna_like, 3 epochs, C = 2 / lam),
-    Pegasos on the same split, and the paper's parity claim."""
-    from repro_torch.baselines import DCDSVM, PegasosSVM
-    from repro_torch.core import PEMSVM, SVMConfig, lam_from_C
-    from repro_torch.data import make_dna_like
+DCD_T5_ACC = 0.8467     # DCD's Table 5 test accuracy on phase 23's split
+
+
+def dcd_against_plain(label, X, y, q, order, C):
+    """dcd_sweep twice (bitwise equal) against its plain version on the
+    same inputs: w within 1e-5 of max|w|, alpha within 1e-5 of C.
+    -> (max |dw|, max|w|, the plain loop's ms, the plain w)."""
     from repro_torch.kernels import dcd, ref
-    card = card_line()
-    say(f"  card: {card}")
-    (n, k), epochs, C = dcd_nk, 2, 0.5
-    X, y, q, order = dcd_problem(dev, n, k, epochs)
     w1, a1 = dcd.dcd_sweep(X, y, q, order, C)
     w2, a2 = dcd.dcd_sweep(X, y, q, order, C)
     torch.cuda.synchronize()
@@ -7705,34 +7704,78 @@ def phase_baselines(dev, dcd_nk=(4096, 801), n5=250_000):
     torch.cuda.synchronize()
     plain = (time.perf_counter() - t0) * 1e3
     check(torch.equal(w1, w2) and torch.equal(a1, a2),
-          "dcd_sweep: two calls differ")
+          f"dcd_sweep {label}: two calls differ")
     err = float((w1 - wp).abs().max())
     scale = float(wp.abs().max())
-    check(err <= REL * scale, f"dcd_sweep {n} x {k}: max |dw| {err:.3e} > "
+    check(err <= REL * scale, f"dcd_sweep {label}: max |dw| {err:.3e} > "
           f"{REL} x max|w| {scale:.3e}")
-    check(float((a1 - ap_).abs().max()) <= REL * C, "dcd_sweep: alpha")
+    check(float((a1 - ap_).abs().max()) <= REL * C,
+          f"dcd_sweep {label}: alpha")
+    return err, scale, plain, wp
+
+
+def phase_baselines(dev, dcd_nk=(4096, 801), n5=250_000):
+    """23 (a): DCD's sweep kernel against its plain version (4,096 x 801,
+    2 epochs, the one-warp chain timed beside a warp group of four; N
+    below the ring's depth over 20 epochs; K % 4 = 3; K past shared
+    memory through the global route), Table 5's protocol at 250,000 rows
+    (make_dna_like, 3 epochs, C = 2 / lam) with us a coordinate beside
+    4,096 x 801's, Pegasos on the same split, and the paper's parity
+    claim."""
+    from repro_torch.baselines import DCDSVM, PegasosSVM
+    from repro_torch.core import PEMSVM, SVMConfig, lam_from_C
+    from repro_torch.data import make_dna_like
+    from repro_torch.kernels import dcd
+    card = card_line()
+    say(f"  card: {card}")
+    (n, k), epochs, C = dcd_nk, 2, 0.5
+    X, y, q, order = dcd_problem(dev, n, k, epochs)
+    err, scale, plain, wp = dcd_against_plain(f"{n} x {k}", X, y, q, order,
+                                              C)
     steps = n * epochs
     ms = time_ms(lambda: dcd.dcd_sweep(X, y, q, order, C), reps=5)
+    # the chain as a warp group of four: one named barrier a coordinate
+    group = functools.partial(dcd.plan, warps=dcd.GROUP_WARPS)
+    wg, _ = patched(lambda: dcd.dcd_sweep(X, y, q, order, C), dcd, "plan",
+                    group)()
+    torch.cuda.synchronize()
+    err_4 = float((wg - wp).abs().max())
+    check(err_4 <= REL * scale, f"dcd_sweep {n} x {k}, four chain warps: "
+          f"max |dw| {err_4:.3e}")
+    ms_4 = patched(lambda: time_ms(lambda: dcd.dcd_sweep(X, y, q, order, C),
+                                   reps=5), dcd, "plan", group)()
     # bytes: X, y, qdiag, order, alpha and w once each. X (13.1 MB here)
     # stays in the 50 MB L2 across epochs, so it is read from HBM once
     # (Table 5's 769 MB below is read again each epoch).
     b_ms, by = bound(4 * steps * k, 4 * (n * k + 4 * n + steps + k))
+    us = ms * 1e3 / steps
     say(f"  ok dcd_sweep {n} x {k}, {epochs} epochs: max |dw| {err:.3e} "
         f"(max|w| {scale:.3e}), bitwise repeatable; kernel {ms:.3f} ms "
-        f"({ms * 1e3 / steps:.3f} us a coordinate), plain {plain:.1f} ms, "
-        f"bound {b_ms:.4f} ms ({by})")
+        f"({us:.4f} us a coordinate; the chain on four warps {ms_4:.3f} "
+        f"ms, {ms_4 * 1e3 / steps:.4f} us, max |dw| {err_4:.3e}), plain "
+        f"{plain:.1f} ms, bound {b_ms:.4f} ms ({by}) [{card}]")
     row = dict(shape=[n, k, epochs], max_abs_err=err, ms=ms, plain_ms=plain,
-               bound_ms=b_ms, bound_by=by, library_ms=None)
-    del X, y, q, order
+               bound_ms=b_ms, bound_by=by, library_ms=None,
+               us_per_coordinate=us, four_warps_ms=ms_4)
+    del X, y, q, order, wg, wp
+
+    # alpha read again within the prefetch distance of its write: N below
+    # the ring's depth, 20 epochs; a row start off the 16-byte grid
+    depth = dcd.plan(k).depth
+    for label, (nn, kk, ep) in (
+            (f"N = 3 < depth {depth}, 20 epochs", (3, k, 20)),
+            (f"N = depth + 1 = {depth + 1}, 20 epochs", (depth + 1, k, 20)),
+            ("K % 4 = 3, 512 x 803, 2 epochs", (512, 803, 2))):
+        X, y, q, order = dcd_problem(dev, nn, kk, ep, seed=nn)
+        e, sc, _, _ = dcd_against_plain(label, X, y, q, order, 2.0)
+        say(f"  ok dcd_sweep {label}: max |dw| {e:.3e} (max|w| {sc:.3e}), "
+            f"bitwise repeatable")
+        del X, y, q, order
 
     kw = dcd.SMEM_W_FLOATS + 1001         # odd, past shared memory
     X, y, q, order = dcd_problem(dev, 48, kw, 1, seed=1)
-    wg, _ = dcd.dcd_sweep(X, y, q, order, C)
-    wp, _ = ref.dcd_sweep(X, y, q, order, C)
-    torch.cuda.synchronize()
-    err_g = float((wg - wp).abs().max())
-    check(err_g <= REL * float(wp.abs().max()),
-          f"dcd_sweep K = {kw} (w in global memory): max |dw| {err_g:.3e}")
+    err_g, _, _, _ = dcd_against_plain(f"K = {kw} (w in global memory)",
+                                       X, y, q, order, C)
     say(f"  ok dcd_sweep 48 x {kw} (w in global memory): max |dw| "
         f"{err_g:.3e}")
     del X, y, q, order
@@ -7764,14 +7807,19 @@ def phase_baselines(dev, dcd_nk=(4096, 801), n5=250_000):
     coords = 3 * len(Xtr)
     t5_bound, t5_by = bound(4 * coords * 801, 4 * (coords * 801 + 4 * coords))
     acc_dcd = model.score(Xte, yte)
+    us5 = sweep_ms * 1e3 / coords
     say(f"  Table 5 protocol, {len(Xtr):,} x 801 (make_dna_like), 3 epochs, "
         f"C = 2 / lam = {2.0 / lam:.4g}: sweep {sweep_ms:.1f} ms (CUDA "
-        f"events), {sweep_ms * 1e3 / coords:.3f} us a coordinate, bound "
-        f"{t5_bound:.3f} ms ({t5_by}: rows x K x 4 B / 3.35 TB/s); fit "
-        f"{fit_s:.2f} s; test acc {acc_dcd:.4f} [{card}]")
+        f"events), {us5:.4f} us a coordinate ({us5 / us:.3f}x {n:,} x "
+        f"{k}'s {us:.4f}, X in L2), bound {t5_bound:.3f} ms ({t5_by}: rows "
+        f"x K x 4 B / 3.35 TB/s); fit {fit_s:.2f} s; test acc "
+        f"{acc_dcd:.4f} [{card}]")
+    check(abs(acc_dcd - DCD_T5_ACC) <= 0.002,
+          f"DCD's Table 5 test accuracy {acc_dcd:.4f} is not within 0.002 "
+          f"of {DCD_T5_ACC}")
     row.update(table5=dict(shape=[len(Xtr), 801, 3], ms=sweep_ms,
-                           us_per_coordinate=sweep_ms * 1e3 / coords,
-                           bound_ms=t5_bound, fit_s=fit_s))
+                           us_per_coordinate=us5, l2_ratio=us5 / us,
+                           bound_ms=t5_bound, fit_s=fit_s, acc=acc_dcd))
 
     t0 = time.perf_counter()
     peg = PegasosSVM(lam=lam / (2 * len(Xtr)), n_steps=8_000,

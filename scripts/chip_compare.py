@@ -1,7 +1,7 @@
 #!/usr/bin/env python3
 """Compare this checkout's kernels with another checkout's, on the card.
 
-    python3 scripts/chip_compare.py OTHER [--sass]
+    python3 scripts/chip_compare.py OTHER [--sass] [--only dcd_sweep]
 
 OTHER is the root of another checkout of the repository, for example the
 parent commit unpacked with ``git archive`` into a directory that
@@ -29,15 +29,22 @@ of its own:
    (em_hinge for the statistic) at the cross-Gram's depths D = 1, 2, 3,
    31, 32, 33, 90 and 500, both kinds, float32 and bfloat16 X, over
    several chunks; and rbf_gram for each pair of operand types at those
-   depths too;
+   depths too; and dcd_sweep on chip_smoke.py's DCD problems at 4,096 x
+   801 (2 epochs), Table 5's 240,000 x 801 (3 epochs) and 2,048 rows at
+   K = 4,097 and 33,769 (1 epoch: the shared and the global route), with
+   w's and alpha's distance from OTHER's printed (max |dw| / max|w|, max
+   |dalpha| / C);
 2. times: chip_smoke.py's phase 3 kernel rows, projection rows and
    cross-Gram stage rows (this file's chip_smoke.py on each tree's
-   package) in the order OTHER, this, this, OTHER, one line of kernel ms
+   package), and dcd_sweep's ms and us a coordinate at the shapes
+   above, in the order OTHER, this, this, OTHER, one line of kernel ms
    (and the projection's and the cross-Gram's torch.mm ms) for each run;
 3. with --sass: the SASS of every kernel source in both trees, function
    by function (names compared without the copy policies' default
    template argument, NV = 1, without cross_tiles' row-major layout
    argument, and without the path hash of anonymous namespaces).
+
+With ``--only dcd_sweep`` steps 1 and 2 run dcd_sweep's part alone.
 """
 import itertools
 import json
@@ -271,7 +278,53 @@ def bits(tree, out, feats):
     torch.save(res, out)
 
 
-def times(tree):
+# rows, K, epochs: Table 5's width with X in L2 and not; the shared and
+# the global route of dcd.plan
+DCD_SHAPES = ((4096, 801, 2), (240_000, 801, 3), (2048, 4097, 1),
+              (2048, 33_769, 1))
+DCD_C = 0.5
+
+
+def dcd_runs(each):
+    """``each(label, sweep, steps)`` for dcd_sweep of the imported package
+    on chip_smoke.py's DCD problem at each of DCD_SHAPES."""
+    import torch
+    import chip_smoke
+    from repro_torch.kernels import dcd
+    chip_smoke.torch = torch
+    dev = torch.device("cuda", 0)
+    for n, k, epochs in DCD_SHAPES:
+        X, y, q, order = chip_smoke.dcd_problem(dev, n, k, epochs)
+        each(f"dcd_sweep {n}x{k}x{epochs}",
+             lambda: dcd.dcd_sweep(X, y, q, order, DCD_C), n * epochs)
+        del X, y, q, order
+
+
+def dcd_bits(tree, out):
+    """dcd_sweep's w and alpha at DCD_SHAPES, saved to ``out``."""
+    _worker_env(tree)
+    import torch
+    res = {}
+
+    def each(label, sweep, steps):
+        w, alpha = sweep()
+        res[f"{label} w"], res[f"{label} alpha"] = w.cpu(), alpha.cpu()
+    dcd_runs(each)
+    torch.save(res, out)
+
+
+def dcd_times(line):
+    """dcd_sweep's ms and us a coordinate at DCD_SHAPES into ``line``."""
+    import chip_smoke
+
+    def each(label, sweep, steps):
+        ms = chip_smoke.time_ms(sweep, reps=3)
+        line[label] = round(ms, 4)
+        line[f"{label} us a coordinate"] = round(ms * 1e3 / steps, 4)
+    dcd_runs(each)
+
+
+def times(tree, only=None):
     """chip_smoke.py's phase 3 rows on ``tree``'s package, as JSON."""
     _worker_env(tree)
     import torch
@@ -279,16 +332,19 @@ def times(tree):
     chip_smoke.torch = torch
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
-    rows = chip_smoke.phase_kernels(dev)
-    rows.update(chip_smoke.phase_svr_kernels(dev)[0])
-    rows.update(chip_smoke.phase_nystrom_kernels(dev))
-    rows.update(chip_smoke.phase_window_kernels(dev))
-    line = {k: round(v["ms"], 4) for k, v in rows.items()}
-    line.update({f"{k} torch.mm": round(v["library_ms"], 4)
-                 for k, v in rows.items()
-                 if k.startswith(("projection[", "cross["))})
-    line["fused_estep[phase 8]"] = round(rows["fused_estep"]["phase8"]["ms"],
-                                         4)
+    line = {}
+    if only is None:
+        rows = chip_smoke.phase_kernels(dev)
+        rows.update(chip_smoke.phase_svr_kernels(dev)[0])
+        rows.update(chip_smoke.phase_nystrom_kernels(dev))
+        rows.update(chip_smoke.phase_window_kernels(dev))
+        line = {k: round(v["ms"], 4) for k, v in rows.items()}
+        line.update({f"{k} torch.mm": round(v["library_ms"], 4)
+                     for k, v in rows.items()
+                     if k.startswith(("projection[", "cross["))})
+        line["fused_estep[phase 8]"] = round(
+            rows["fused_estep"]["phase8"]["ms"], 4)
+    dcd_times(line)
     print("TIMES " + json.dumps(line), flush=True)
 
 
@@ -361,6 +417,12 @@ def compare_bits(a, b, label):
                 (x[k].double() - y[k].double()).abs().max()
                 / x[k].double().abs().max().clamp_min(1e-30)).item())
             g["differ"].append(k)
+    for k in [k for k in x if k.startswith("dcd_sweep")]:
+        d = (x[k].double() - y[k].double()).abs().max().item()
+        v = (x[k].double().abs().max().item() if k.endswith(" w")
+             else DCD_C)
+        print(f"distance, {label}: {k}: max |d| {d:.3e}, max |d| / "
+              f"{'max|v|' if k.endswith(' w') else 'C'} {d / v:.3e}")
     for k in [k for k in x if k.startswith("fused_estep")]:
         d = (x[k].double() - y[k].double()).abs()
         v = x[k].double().abs()
@@ -379,21 +441,33 @@ def compare_bits(a, b, label):
 def main():
     if len(sys.argv) > 2 and sys.argv[1] == "--worker":
         step, tree, *rest = sys.argv[2:]
-        {"featurizers": featurizers, "bits": bits, "times": times,
-         "sass": sass}[step](tree, *rest)
+        {"featurizers": featurizers, "bits": bits, "dcd_bits": dcd_bits,
+         "times": times, "sass": sass}[step](tree, *rest)
         return
     other = str(Path(sys.argv[1]).resolve())
+    only = None
+    if "--only" in sys.argv:
+        only = sys.argv[sys.argv.index("--only") + 1]
+        if only != "dcd_sweep":
+            raise SystemExit(f"--only takes dcd_sweep, not {only}")
     (ROOT / "build").mkdir(exist_ok=True)
     with tempfile.TemporaryDirectory(dir=ROOT / "build") as tmp:
         t = Path(tmp)
-        feats = str(t / "feats.pt")
-        _run("--worker", "featurizers", str(ROOT), feats)
-        _run("--worker", "bits", other, str(t / "other.pt"), feats)
-        _run("--worker", "bits", str(ROOT), str(t / "this.pt"), feats)
-        compare_bits(t / "other.pt", t / "this.pt", "this tree against OTHER")
+        if only is None:
+            feats = str(t / "feats.pt")
+            _run("--worker", "featurizers", str(ROOT), feats)
+            _run("--worker", "bits", other, str(t / "other.pt"), feats)
+            _run("--worker", "bits", str(ROOT), str(t / "this.pt"), feats)
+            compare_bits(t / "other.pt", t / "this.pt",
+                         "this tree against OTHER")
+        _run("--worker", "dcd_bits", other, str(t / "other_dcd.pt"))
+        _run("--worker", "dcd_bits", str(ROOT), str(t / "this_dcd.pt"))
+        compare_bits(t / "other_dcd.pt", t / "this_dcd.pt",
+                     "this tree against OTHER")
         for tree, label in ((other, "OTHER"), (str(ROOT), "this"),
                             (str(ROOT), "this"), (other, "OTHER")):
-            line = [x for x in _run("--worker", "times", tree).splitlines()
+            line = [x for x in _run("--worker", "times", tree,
+                                    *([only] if only else [])).splitlines()
                     if x.startswith("TIMES ")][-1]
             print(f"times, {label}: {line[6:]}", flush=True)
         if "--sass" in sys.argv:

@@ -37,7 +37,8 @@ _c_void_p, _c_int, _c_int64, _c_float = (ctypes.c_void_p, ctypes.c_int,
                                         ctypes.c_int64, ctypes.c_float)
 _SIGNATURES = {
     "rt_dcd_sweep": [_c_int, _c_void_p, *[_c_void_p] * 4, _c_int64,
-                     _c_float, _c_int, _c_void_p, _c_void_p, _c_int],
+                     _c_float, _c_int, _c_void_p, _c_void_p,
+                     *[_c_int] * 5],
     "rt_syrk_tri": [_c_int, _c_void_p, _c_void_p, _c_int, _c_void_p,
                     _c_void_p, _c_void_p, _c_int64, _c_int, _c_int, _c_int,
                     _c_int64],

@@ -10,6 +10,14 @@ This file imports no JAX. Tolerance: w within 1e-5 of max|w| of the plain
 version on the same inputs (the two differ only in the order each
 coordinate's dot product is summed), alpha within 1e-5 of C; two calls
 bitwise equal (one CTA, a fixed reduction order).
+
+Beyond the shapes of the Table 5 path: each side of every route boundary
+of ``dcd.plan`` (registers on one warp and on four, w in shared memory,
+in global memory) and of a lane bucket, K % 4 = 1, 2 and 3 (rows off the
+16-byte grid), N below, at and above the ring's depth and the lanes'
+32-coordinate window over many epochs (alpha read again within the
+prefetch distance of its write), and orders that name a row several
+times in a row.
 """
 import numpy as np
 import pytest
@@ -40,12 +48,9 @@ def _problem(N, K, epochs, dev, seed=0):
     return X, y, torch.sum(X * X, dim=1), order
 
 
-@pytest.mark.parametrize("N,K,epochs", [(2000, 20, 3), (1024, 801, 2),
-                                        (256, 4097, 2),
-                                        (48, dcd.SMEM_W_FLOATS + 1001, 1)])
-def test_sweep_matches_plain(cuda, N, K, epochs):
-    X, y, q, order = _problem(N, K, epochs, cuda)
-    C = 0.75
+def _check(X, y, q, order, C):
+    """Two kernel calls bitwise equal, one launch each, and both within
+    the tolerance of the plain version on the same inputs."""
     n0 = dcd.LAUNCHES
     w, alpha = dcd.dcd_sweep(X, y, q, order, C)
     w2, alpha2 = dcd.dcd_sweep(X, y, q, order, C)
@@ -60,6 +65,45 @@ def test_sweep_matches_plain(cuda, N, K, epochs):
     assert alpha.min() >= 0 and alpha.max() <= C
 
 
+@pytest.mark.parametrize("N,K,epochs", [
+    (2000, 20, 3), (1024, 801, 2), (256, 4097, 2),
+    (48, dcd.SMEM_W_FLOATS + 1001, 1),
+    # K % 4 = 2, 3 (801 is 1)
+    (600, 802, 2), (600, 803, 2),
+    # a lane bucket's edge, and each side of every route boundary
+    (600, 32, 3), (600, 33, 3),
+    (300, dcd.ONE_WARP_K, 2), (300, dcd.ONE_WARP_K + 1, 2),
+    (200, dcd.REG_K, 2), (200, dcd.REG_K + 1, 2),
+    (48, dcd.SMEM_W_FLOATS, 1), (48, dcd.SMEM_W_FLOATS + 1, 1)])
+def test_sweep_matches_plain(cuda, N, K, epochs):
+    _check(*_problem(N, K, epochs, cuda), 0.75)
+
+
+@pytest.mark.parametrize("K", [801, dcd.ONE_WARP_K + 3, dcd.REG_K + 1])
+@pytest.mark.parametrize("n,of_depth", [(3, False), (-1, True), (0, True),
+                                        (1, True), (31, False), (32, False),
+                                        (33, False), (64, False),
+                                        (65, False)])
+def test_small_n_many_epochs(cuda, K, n, of_depth):
+    """N around the ring's depth D (N = D + n where ``of_depth``) and the
+    32-coordinate window: each row comes back every N coordinates, inside
+    the distance the kernel reads rows and alpha ahead."""
+    D = dcd.plan(K).depth
+    N = D + n if of_depth else n
+    _check(*_problem(N, K, 20 if N <= D + 1 else 6, cuda, seed=N), 2.0)
+
+
+@pytest.mark.parametrize("K", [803, dcd.ONE_WARP_K + 2, dcd.REG_K + 3])
+def test_rows_named_again_in_a_row(cuda, K):
+    """An order (any int32 order is accepted) that names one row several
+    times in a row, across the window's 32-coordinate blocks."""
+    X, y, q, _ = _problem(40, K, 1, cuda, seed=7)
+    g = np.random.default_rng(7)
+    rows = g.integers(0, 40, size=300)
+    order = np.repeat(rows, g.integers(1, 6, size=300))[:700]
+    _check(X, y, q, torch.from_numpy(order.astype(np.int32)).to(cuda), 1.5)
+
+
 def test_nan_row_gives_nan_as_plain(cuda):
     X, y, q, order = _problem(200, 33, 1, cuda)
     X[17, 5] = float("nan")
@@ -71,3 +115,13 @@ def test_nan_row_gives_nan_as_plain(cuda):
     assert torch.equal(torch.isnan(w.cpu()), torch.isnan(want_w))
     assert torch.isnan(w).any()
     assert torch.equal(torch.isnan(alpha.cpu()), torch.isnan(want_a))
+
+
+@pytest.mark.parametrize("bad", [-1, 40])
+def test_order_outside_the_rows_raises(cuda, bad):
+    X, y, q, order = _problem(40, 33, 1, cuda)
+    order[7] = bad
+    n0 = dcd.LAUNCHES
+    with pytest.raises(ValueError, match="order names rows"):
+        dcd.dcd_sweep(X, y, q, order, 1.0)
+    assert dcd.LAUNCHES == n0
